@@ -20,13 +20,22 @@ Phases (one line each, prefixed ``[n name]``):
                  InferenceEngine(batch_slots=4, rollout_steps=2), >=16
                  streamed Taylor-Green requests, each bitwise equal to the
                  engine's offline batch-1 reference
-Launch counters are zeroed just before phase 3 and read right after the
-phase-4 stream: every kernel must have launched on that path.  The two
-lines before the last are a JSON record of the kernels and the card's
-nvidia-smi name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0);
-without a CUDA device the script exits 1 before printing any result.
+  5 profile      where one served forward's time goes, on the engine's own
+                 graph and params: CUDA-event times per stage, device busy
+                 share and the top kernels under torch.profiler, and the
+                 engine's host work per request and rollout step
+The script drives two main paths, and reads each one's launch counters on
+its own: zeroed just before the R=4 packed-neighbor forward of phase 3 and
+read right after it (the halo kernels' path), and zeroed just before the
+phase-4 stream (after warm-up) and read right after it (the fused NMP
+kernel's path).  Every kernel must have launched on its path.  The two
+lines before the last are a JSON record of the kernels (``launches`` on
+the kernel's path, ``launches_by_path`` on both) and the card's nvidia-smi
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises (exit code != 0); without a CUDA device the script
+exits 1 before printing any result.
 """
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -139,20 +148,22 @@ def phase_kernels(cfg):
     H, Lp = cfg.hidden, cfg.mlp_hidden_layers
     x = torch.randn(pg.n_pad, H, generator=gen).to(dev)
     e = torch.randn(pg.e_pad, H, generator=gen).to(dev)
-    args = (x, e, edge, g["seg_perm"], g["seg_src"], g["seg_dst"], g["seg_rowptr"],
+    args = (x, e, edge, g["seg_perm"], g["seg_src"], g["seg_rowptr"],
             g["edge_mask"], g["edge_inv_mult"])
-    plain_args = args[:6] + args[7:]
     e_k, a_k = sa.fused_nmp_edge_agg(*args)
-    e_p, a_p = sa.fused_nmp_edge_agg_plain(*plain_args)
+    e_p, a_p = sa.fused_nmp_edge_agg_plain(*args)
     torch.cuda.synchronize()
     err_e, ok_e = within_band(e_k, e_p)
     err_a, ok_a = within_band(a_k, a_p)
     ms = cuda_ms(lambda: sa.fused_nmp_edge_agg(*args), iters=20)
-    plain = cuda_ms(lambda: sa.fused_nmp_edge_agg_plain(*plain_args), iters=5, warmup=1)
+    plain = cuda_ms(lambda: sa.fused_nmp_edge_agg_plain(*args), iters=5, warmup=1)
     weights = [t for l in edge["layers"] for t in l.values()] + list(edge["ln"].values())
     moved = nbytes(x, e, g["seg_perm"], g["seg_src"], g["seg_rowptr"], g["edge_mask"],
                    g["edge_inv_mult"], *weights, e_k, a_k)
-    flops = n_real * 2 * (3 * H * H + Lp * H * H)     # the dense layers' FMAs
+    # the dense layers' FMAs: per edge the x_src and e slices of layer 0 and
+    # the Lp hidden layers; the x_dst slice once per node that has edges
+    n_dst = int((g["seg_rowptr"].diff() > 0).sum())
+    flops = n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H
     b_ms, b_by = bound_ms(moved, flops)
     say("2 kernels", f"nmp_fwd H={H} Lp={Lp} E={n_real} N={pg.n_pad}: max|err| "
         f"e_new {err_e:.3g} agg {err_a:.3g} (rtol {RTOL} atol {ATOL}) | kernel "
@@ -231,6 +242,7 @@ def phase_consistency(cfg):
     from repro_torch.core.partition import (
         gather_node_features, partition_mesh, scatter_node_outputs)
     from repro_torch.core.reference import gnn_forward_stacked
+    from repro_torch.kernels import build
 
     dev = torch.device("cuda")
     params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
@@ -246,9 +258,12 @@ def phase_consistency(cfg):
         return torch.from_numpy(scatter_node_outputs(pg, y.cpu().numpy()))
 
     y1 = run((1, 1, 1), NONE, FUSED)
+    build.reset_launch_counts()
+    y4 = run(CONS_GRID, NEIGHBOR, FUSED, packed=True, sync_fn=halo_sync_stacked)
+    launches = dict(build.launch_counts)
+    say("3 consistency", f"launches on the R=4 packed neighbor forward: {launches}")
     cases = {
-        "R=4 packed neighbor (pack/unpack kernels)":
-            run(CONS_GRID, NEIGHBOR, FUSED, packed=True, sync_fn=halo_sync_stacked),
+        "R=4 packed neighbor (pack/unpack kernels)": y4,
         "R=4 a2a oracle": run(CONS_GRID, A2A, FUSED),
         "R=1 plain backend": run((1, 1, 1), NONE, XLA),
     }
@@ -261,6 +276,7 @@ def phase_consistency(cfg):
             f"(rtol {RTOL} atol {ATOL}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"consistency failed: R=1 vs {name}")
+    return launches
 
 
 def phase_serve(cfg, sem, pg, smi):
@@ -270,7 +286,6 @@ def phase_serve(cfg, sem, pg, smi):
     from repro_torch.core.graph_state import FUSED, NMPPlan
     from repro_torch.core.mesh_gen import taylor_green_velocity
     from repro_torch.kernels import build
-    from repro_torch.kernels.segment_agg import ops as sa
     from repro_torch.runtime.engine import EngineConfig, InferenceEngine
     from repro_torch.train.loop import TrainConfig, run_fingerprint
 
@@ -292,15 +307,13 @@ def phase_serve(cfg, sem, pg, smi):
     def snapshot(step):
         return taylor_green_velocity(sem.coords, t=(step * DT) % 2.0).astype(np.float32)
 
-    n_fused = build.launch_counts.get(sa.KERNEL, 0)
     with engine:
+        build.reset_launch_counts()
         t0 = time.perf_counter()
         results = dict(engine.stream(mesh_hash, snapshot, N_REQUESTS, n_producers=2))
         wall = time.perf_counter() - t0
-    launches = dict(build.launch_counts)
+        launches = dict(build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    if launches.get(sa.KERNEL, 0) <= n_fused:
-        raise RuntimeError("serving did not launch the fused NMP kernel")
     if len(results) != N_REQUESTS:
         raise RuntimeError(f"served {len(results)} of {N_REQUESTS} requests")
     for step, res in results.items():
@@ -314,13 +327,81 @@ def phase_serve(cfg, sem, pg, smi):
     st = engine.stats
     say("4 serve", f"large config on {SERVE_ELEMS} p={ORDER} ({sem.n_nodes} nodes): "
         f"{N_REQUESTS} requests, K={ROLLOUT_K}, {BATCH_SLOTS} slots, "
-        f"{st['batches']} batches: streamed == offline bitwise for all")
+        f"{st['batches']} batches: streamed == offline bitwise for all | "
+        f"launches on the stream: {launches}")
     say("4 serve", f"latency p50 {np.percentile(lat, 50):.1f} ms, p95 "
         f"{np.percentile(lat, 95):.1f} ms, {N_REQUESTS / wall:.2f} req/s | peak "
         f"device memory {peak / 2**30:.2f} GiB | host graph build {build_s:.1f} s | "
         f"{smi}")
     shutil.rmtree(ckdir, ignore_errors=True)
-    return launches
+    return engine, mesh_hash, launches
+
+
+def phase_profile(engine, mesh_hash, sem):
+    import torch
+    from repro_torch import nn
+    from repro_torch.core.consistent_mp import nmp_layer
+    from repro_torch.core.gnn import build_edge_inputs, gnn_forward
+    from repro_torch.core.graph_state import XLA
+    from repro_torch.core.mesh_gen import taylor_green_velocity
+    from repro_torch.core.partition import gather_node_features, scatter_node_outputs
+
+    entry = engine.entry(mesh_hash)
+    pg, plan, g, params = entry.pg, entry.plan, entry.gs.rank(0), engine.params
+    x_glob = taylor_green_velocity(sem.coords).astype(np.float32)
+    x = torch.from_numpy(gather_node_features(pg, x_glob)[0]).to("cuda")
+
+    def stage_ms(fn, iters=5):
+        return cuda_ms(fn, iters, warmup=1)
+
+    with torch.no_grad():
+        mask, emask = g["node_mask"][:, None], g["edge_mask"][:, None]
+        h = nn.mlp(params["node_enc"], x) * mask
+        e = nn.mlp(params["edge_enc"], build_edge_inputs(x, g)) * emask
+        t_enc = stage_ms(lambda: (nn.mlp(params["node_enc"], x) * mask,
+                                  nn.mlp(params["edge_enc"], build_edge_inputs(x, g))
+                                  * emask))
+        layer_ms = []
+        for lp in params["mp"]:
+            layer_ms.append(stage_ms(lambda: nmp_layer(lp, h, e, g, plan)))
+            h, e = nmp_layer(lp, h, e, g, plan)
+        t_dec = stage_ms(lambda: nn.mlp(params["node_dec"], h) * mask)
+        t_fwd = stage_ms(lambda: gnn_forward(params, x, g, plan))
+        xla = dataclasses.replace(plan, backend=XLA)
+        t_xla = stage_ms(lambda: gnn_forward(params, x, g, xla))
+        say("5 profile", f"one served forward ({plan.backend} backend), CUDA events: "
+            f"edge inputs + encoders {t_enc:.3f} ms | NMP layers "
+            f"{', '.join(f'{t:.3f}' for t in layer_ms)} ms | decoder {t_dec:.3f} ms"
+            f" | whole forward {t_fwd:.3f} ms ({XLA} backend {t_xla:.3f} ms)")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            gnn_forward(params, x, g, plan)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((getattr(a, "device_time_total", 0.0)
+                    or getattr(a, "cuda_time_total", 0.0), a.key)
+                   for a in prof.key_averages()
+                   if not a.key.startswith(("aten::", "cuda"))), reverse=True)
+    kern = [(t / 1e3, k) for t, k in kern if t > 0]
+    dev_ms = sum(t for t, _ in kern)
+    say("5 profile", f"under torch.profiler: wall {wall:.3f} ms, device kernel time "
+        f"{dev_ms:.3f} ms, busy share {dev_ms / wall:.3f}; top kernels: "
+        + "; ".join(f"{t:.3f} ms {k[:60]}" for t, k in kern[:6]))
+
+    t0 = time.perf_counter()
+    xs = gather_node_features(pg, x_glob)
+    t1 = time.perf_counter()
+    xd = torch.from_numpy(xs).to("cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    y = xd.cpu().numpy()
+    t3 = time.perf_counter()
+    scatter_node_outputs(pg, y)
+    t4 = time.perf_counter()
+    say("5 profile", f"engine host work per request and rollout step: gather "
+        f"{1e3 * (t1 - t0):.3f} ms, H2D {1e3 * (t2 - t1):.3f} ms, D2H "
+        f"{1e3 * (t3 - t2):.3f} ms, scatter {1e3 * (t4 - t3):.3f} ms")
 
 
 def main():
@@ -330,18 +411,27 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from repro_torch.core.gnn import GNNConfig
-    from repro_torch.kernels import build
+    from repro_torch.kernels.halo_pack import ops as hp
+    from repro_torch.kernels.segment_agg import ops as sa
 
     cfg = GNNConfig.large()
     smi = phase_device()
     sem, pg, records = phase_kernels(cfg)
-    build.reset_launch_counts()
-    phase_consistency(cfg)
-    launches = phase_serve(cfg, sem, pg, smi)
+    by_path = {"consistency_r4_packed": phase_consistency(cfg)}
+    engine, mesh_hash, by_path["serve"] = phase_serve(cfg, sem, pg, smi)
+    phase_profile(engine, mesh_hash, sem)
+    # each kernel's own path: the serving stream for the fused NMP forward,
+    # the R=4 packed-neighbor forward for the halo kernels (serving is R=1)
+    own = {sa.KERNEL: ("serve", "consistency_r4_packed"),
+           hp.PACK: ("consistency_r4_packed",), hp.UNPACK: ("consistency_r4_packed",)}
     for rec in records:
-        rec["launches"] = int(launches.get(rec["name"], 0))
-        if rec["launches"] == 0:
-            raise RuntimeError(f"kernel {rec['name']} never launched on the main path")
+        counts = {path: int(by_path[path].get(rec["name"], 0)) for path in by_path}
+        rec["launches"] = counts[own[rec["name"]][0]]
+        rec["launches_by_path"] = counts
+        for path in own[rec["name"]]:
+            if counts[path] == 0:
+                raise RuntimeError(f"kernel {rec['name']} never launched on the "
+                                   f"{path} path")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -65,12 +65,11 @@ def _agg_fused(params, x, e, graph: ShardedGraph, plan: NMPPlan):
     if "seg_perm" not in graph:
         raise ValueError(
             "backend='fused' needs the cached compact layout (seg_perm/"
-            "seg_src/seg_dst/seg_rowptr) on the graph — build it with the "
+            "seg_src/seg_rowptr) on the graph — build it with the "
             "fused plan: ShardedGraph.build(pg, coords, plan)")
     return fused_nmp_edge_agg(
         x, e, params["edge"], graph["seg_perm"], graph["seg_src"],
-        graph["seg_dst"], graph["seg_rowptr"], graph["edge_mask"],
-        graph["edge_inv_mult"])
+        graph["seg_rowptr"], graph["edge_mask"], graph["edge_inv_mult"])
 
 
 _AGGS = {XLA: _agg_xla, FUSED: _agg_fused}

@@ -12,9 +12,11 @@
 //
 // What bounds it on the H100 SXM (published peaks at its 700 W limit):
 // arithmetic.  At H=32 with 5 hidden layers an edge costs
-// 2 * (3H*H + 5*H*H) = 16,384 FLOP of fp32 FMA against ~272 bytes of edge
-// traffic (e read, e' written, x rows mostly from L2), i.e. ~60 FLOP/byte,
-// above the fp32 CUDA-core ridge of 67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte.
+// 2 * (2H*H + 5*H*H) = 14,336 FLOP of fp32 FMA (the x_dst slice of the
+// first layer, 2H*H, is paid once per node, see below) against ~272 bytes
+// of edge traffic (e read, e' written, x rows mostly from L2), i.e. ~53
+// FLOP/byte, above the fp32 CUDA-core ridge of 67 TFLOP/s / 3.35 TB/s =
+// 20 FLOP/byte.
 // The design keeps every operand of the MLP in registers and shared memory:
 //   * the weights (33.8 KB at H=32, Lp=5) sit in shared memory, loaded once
 //     per block; blocks are capped at what fits on the SMs at once and

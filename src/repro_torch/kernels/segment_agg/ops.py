@@ -103,18 +103,19 @@ def _stack_edge_mlp(params) -> Tuple[torch.Tensor, ...]:
 # plain version and wrapper
 # ---------------------------------------------------------------------------
 
-def fused_nmp_edge_agg_plain(x, e, edge_params, seg_perm, seg_src, seg_dst,
-                             edge_mask, edge_inv_mult):
-    """Plain PyTorch Eq. 4a + 4b over the compact layout.
+def fused_nmp_edge_agg_plain(x, e, edge_params, seg_perm, seg_src,
+                             seg_rowptr, edge_mask, edge_inv_mult):
+    """Plain PyTorch Eq. 4a + 4b over the compact layout, on the operands the
+    kernel takes (each slot's destination node comes from ``seg_rowptr``).
 
     Returns (e_new [E, H] == (e + MLP([x_src, x_dst, e])) * mask on the
     layout's edges and 0 elsewhere, agg [N, H] == segment sum of
     e_new * 1/d_ij over dst)."""
-    perm = seg_perm.reshape(-1).long()
-    valid = perm >= 0
-    p = perm[valid]
-    s = seg_src.reshape(-1).long()[valid]
-    d = seg_dst.reshape(-1).long()[valid]
+    n_real = int(seg_rowptr[-1])
+    p = seg_perm.reshape(-1)[:n_real].long()
+    s = seg_src.reshape(-1)[:n_real].long()
+    d = torch.repeat_interleave(torch.arange(x.shape[0], device=x.device),
+                                seg_rowptr.diff().long())
     feats = torch.cat([x[s], x[d], e[p]], dim=-1)
     en = (e[p] + nn.mlp(edge_params, feats)) * edge_mask[p][:, None]
     e_new = torch.zeros(e.shape[0], x.shape[1], dtype=x.dtype, device=x.device)
@@ -123,15 +124,16 @@ def fused_nmp_edge_agg_plain(x, e, edge_params, seg_perm, seg_src, seg_dst,
     return e_new, agg
 
 
-def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_dst,
-                       seg_rowptr, edge_mask, edge_inv_mult):
+def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
+                       edge_mask, edge_inv_mult):
     """Fused Eq. 4a + 4b (edge MLP -> 1/d_ij-weighted aggregate), forward.
 
     Args:
       x: [N_pad, H] node features; e: [E_pad, H] edge features (original
         edge order); edge_params: ``nn.mlp`` params of the edge MLP (3H in).
-      seg_perm / seg_src / seg_dst: [T, BE] compact layout
-        (``compact_gather_layout``); seg_rowptr: [N_pad + 1] slot offsets.
+      seg_perm / seg_src: [T, BE] (or flat) compact layout
+        (``compact_gather_layout``); seg_rowptr: [N_pad + 1] slot offsets,
+        which fix each slot's destination node.
       edge_mask / edge_inv_mult: [E_pad].
 
     CPU tensors run :func:`fused_nmp_edge_agg_plain`; CUDA tensors launch
@@ -146,7 +148,7 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_dst,
             f"features, expected 3*H = {3 * hid}")
     if x.device.type == "cpu":
         return fused_nmp_edge_agg_plain(x, e, edge_params, seg_perm, seg_src,
-                                        seg_dst, edge_mask, edge_inv_mult)
+                                        seg_rowptr, edge_mask, edge_inv_mult)
     if x.device.type != "cuda":
         raise ValueError(f"fused_nmp_edge_agg: unsupported device {x.device}")
     if hid not in SUPPORTED_HIDDEN:
@@ -158,8 +160,8 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_dst,
     w0, b0, wrest, brest, lng, lnb, n_hidden, has_ln = \
         _stack_edge_mlp(edge_params)
     f32, i32 = torch.float32, torch.int32
-    args = (x, e, seg_perm, seg_src, seg_rowptr, edge_mask, edge_inv_mult,
-            w0, b0, wrest, brest, lng, lnb)
+    args = (x, e, seg_perm.reshape(-1), seg_src.reshape(-1), seg_rowptr,
+            edge_mask, edge_inv_mult, w0, b0, wrest, brest, lng, lnb)
     build.require_cuda("fused_nmp_edge_agg", *args,
                        dtypes=(f32, f32, i32, i32, i32) + (f32,) * 8)
     e_new = torch.zeros(e.shape[0], hid, dtype=f32, device=x.device)

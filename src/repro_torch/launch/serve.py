@@ -6,7 +6,8 @@ of ``repro.launch.serve``.
         --batch-slots 4 --rollout-steps 2 --mp-backend fused
 
 Loads a fingerprinted checkpoint (written by ``repro``'s trainer or by
-``repro_torch.ckpt.checkpoint.save``) into a resident
+``repro_torch.ckpt.checkpoint.save``; the model config is read from its
+parameter shapes) into a resident
 :class:`repro_torch.runtime.engine.InferenceEngine`, registers the mesh,
 warms up, then streams Taylor-Green snapshots through the engine's bounded
 request queue from producer threads and reports latency percentiles and
@@ -21,10 +22,10 @@ import time
 import numpy as np
 
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph_state import NMPPlan
 from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
-from repro_torch.runtime.engine import EngineConfig, InferenceEngine
+from repro_torch.runtime.engine import (
+    EngineConfig, InferenceEngine, config_from_checkpoint)
 
 DT = 0.05
 
@@ -48,8 +49,6 @@ def main(argv=None):
                     help="NMP hot loop: plain PyTorch (xla) or the CUDA "
                          "kernel (fused)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--model", default="small", choices=["small", "large"],
-                    help="GNNConfig of the checkpoint (paper Table I)")
     ap.add_argument("--bootstrap-steps", type=int, default=20,
                     help="the reference trains this many steps when the "
                          "checkpoint is missing; training is not ported, so "
@@ -73,12 +72,13 @@ def main(argv=None):
                  "to serve")
 
     engine = InferenceEngine(
-        args.ckpt_dir, getattr(GNNConfig, args.model)(),
+        args.ckpt_dir, config_from_checkpoint(args.ckpt_dir),
         EngineConfig(batch_slots=args.batch_slots,
                      rollout_steps=args.rollout_steps,
                      max_pending=args.max_pending),
         plan=NMPPlan(backend=args.mp_backend), device=args.device)
-    print(f"[serve] params from step {engine.ckpt_step}, trained mesh "
+    print(f"[serve] {engine.cfg.name} config (N_H={engine.cfg.hidden}, "
+          f"M={engine.cfg.n_mp_layers}) from step {engine.ckpt_step}, trained mesh "
           f"{engine.fingerprint['mesh_hash']} "
           f"(n_global={engine.fingerprint['n_global']}), serving on "
           f"{args.device} with the {args.mp_backend} backend")

@@ -146,6 +146,32 @@ class _GraphEntry:
     build_s: float
 
 
+def config_from_checkpoint(ckpt_dir, step: Optional[int] = None) -> GNNConfig:
+    """The flat GNN config whose parameters a checkpoint holds, read from the
+    array shapes in its manifest (the newest committed step by default).
+    Returns ``GNNConfig.small()``/``large()`` when the shapes are theirs."""
+    manifest = ckpt.peek_manifest(ckpt_dir, step)
+    if manifest is None:
+        raise EngineError(f"no committed checkpoint under {ckpt_dir}")
+    shapes = manifest["shapes"]
+    if "params/node_enc/layers/0/w" not in shapes:
+        raise EngineError(f"checkpoint under {ckpt_dir} holds no GNN params")
+
+    def indices(prefix, pos):
+        return {k.split("/")[pos] for k in shapes if k.startswith(prefix)}
+
+    n_layers = len(indices("params/node_enc/layers/", 3))
+    enc = shapes["params/node_enc/layers/0/w"]
+    fields = dict(hidden=enc[1], n_mp_layers=len(indices("params/mp/", 2)),
+                  mlp_hidden_layers=n_layers - 1, node_in=enc[0],
+                  edge_in=shapes["params/edge_enc/layers/0/w"][0],
+                  node_out=shapes[f"params/node_dec/layers/{n_layers - 1}/w"][1])
+    for named in (GNNConfig.small(), GNNConfig.large()):
+        if all(getattr(named, k) == v for k, v in fields.items()):
+            return named
+    return GNNConfig(**fields, name="custom")
+
+
 class InferenceEngine:
     """Resident serving engine over the K-step rollout on one device.
 

@@ -57,13 +57,13 @@ def test_fused_nmp_kernel_matches_plain(cuda, hidden, layers):
     edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
     x = torch.randn(pg.n_pad, hidden, generator=gen).to(cuda)
     e = torch.randn(pg.e_pad, hidden, generator=gen).to(cuda)
-    args = (x, e, edge, g["seg_perm"], g["seg_src"], g["seg_dst"],
-            g["seg_rowptr"], g["edge_mask"], g["edge_inv_mult"])
+    args = (x, e, edge, g["seg_perm"], g["seg_src"], g["seg_rowptr"],
+            g["edge_mask"], g["edge_inv_mult"])
     n0 = build.launch_counts.get(sa.KERNEL, 0)
     e_new, agg = sa.fused_nmp_edge_agg(*args)
     torch.cuda.synchronize()
     assert build.launch_counts[sa.KERNEL] == n0 + 1
-    pe, pa = sa.fused_nmp_edge_agg_plain(*args[:6], *args[7:])
+    pe, pa = sa.fused_nmp_edge_agg_plain(*args)
     torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
     e2, a2 = sa.fused_nmp_edge_agg(*args)                # deterministic

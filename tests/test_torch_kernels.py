@@ -55,8 +55,8 @@ def _layer_case(hidden, mlp_hidden_layers):
 def _fused_args(lp, x, e, g, device):
     t = params_from_jax(lp, device)
     return (torch.from_numpy(x).to(device), torch.from_numpy(e).to(device),
-            t["edge"], g["seg_perm"], g["seg_src"], g["seg_dst"],
-            g["seg_rowptr"], g["edge_mask"], g["edge_inv_mult"])
+            t["edge"], g["seg_perm"], g["seg_src"], g["seg_rowptr"],
+            g["edge_mask"], g["edge_inv_mult"])
 
 
 @pytest.mark.parametrize("hidden,layers", [(8, 2), (32, 5)])

@@ -27,7 +27,8 @@ from repro_torch.core.partition import partition_mesh
 from repro_torch.data.pipeline import PrefetchingLoader
 from repro_torch.launch import serve as serve_cli
 from repro_torch.runtime.engine import (
-    EngineConfig, EngineError, InferenceEngine, MeshMismatchError)
+    EngineConfig, EngineError, InferenceEngine, MeshMismatchError,
+    config_from_checkpoint)
 from repro_torch.train.loop import (
     TrainConfig, mesh_fingerprint_hash, run_fingerprint)
 
@@ -165,6 +166,22 @@ def test_port_written_checkpoint_restores_in_reference(served, tmp_path):
         ckpt.restore_partial(ckdir, template, "nonexistent")
 
 
+def test_config_read_from_reference_written_checkpoint(served, tmp_path):
+    cfg = config_from_checkpoint(served["ckdir"])
+    assert (cfg.hidden, cfg.n_mp_layers, cfg.mlp_hidden_layers) == (8, 2, 2)
+    assert (cfg.node_in, cfg.edge_in, cfg.node_out) == (3, 7, 3)
+    with pytest.raises(EngineError, match="no committed"):
+        config_from_checkpoint(tmp_path / "none")
+
+
+@pytest.mark.parametrize("name", ["small", "large"])
+def test_config_read_from_port_written_checkpoint(name, tmp_path):
+    cfg = getattr(GNNConfig, name)()
+    ckpt.save(tmp_path, 0, {"params": init_gnn(torch.Generator().manual_seed(0),
+                                               cfg, device="cpu")})
+    assert config_from_checkpoint(tmp_path) == cfg
+
+
 def test_prefetching_loader_drains_then_raises():
     def fn(step):
         if step == 3:
@@ -181,7 +198,7 @@ def test_prefetching_loader_drains_then_raises():
 
 
 def test_serve_cli_serves_and_refuses_missing_checkpoint(served, tmp_path, capsys):
-    # the CLI serves the paper's small config (M=4)
+    # the CLI reads the paper's small config (M=4) from the checkpoint
     sem, cfg = served["sem"], GNNConfig.small()
     fp = run_fingerprint(sem, partition_mesh(sem, (1, 1, 1)), cfg,
                          TrainConfig(), NMPPlan())
@@ -192,6 +209,7 @@ def test_serve_cli_serves_and_refuses_missing_checkpoint(served, tmp_path, capsy
     serve_cli.main(["--ckpt-dir", str(ckdir), "--mesh", "3,3,2",
                     "--requests", "3", "--batch-slots", "2", "--device", "cpu",
                     "--mp-backend", "fused"])
-    assert "3 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "small config (N_H=8, M=4)" in out and "3 requests" in out
     with pytest.raises(SystemExit, match="cannot train"):
         serve_cli.main(["--ckpt-dir", str(tmp_path / "none"), "--device", "cpu"])
