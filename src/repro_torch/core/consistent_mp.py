@@ -14,9 +14,10 @@ Backends for the 4a+4b hot loop (``plan.backend``):
 
 * ``"xla"``   — plain PyTorch: gather + concat, edge MLP, deterministic
   sorted segment sum (``repro_torch.graph.segment``).
-* ``"fused"`` — the hand-written CUDA kernel
-  (``repro_torch.kernels.segment_agg``); needs the compact layout on the
-  graph (``ShardedGraph.build`` attaches it for a fused plan).
+* ``"fused"`` — the hand-written CUDA kernels, forward and backward
+  (``repro_torch.kernels.segment_agg``); needs the compact layout and its
+  src-sorted companion on the graph (``ShardedGraph.build`` attaches both
+  for a fused plan).
 
 Both compute the same arithmetic up to summation order.  This slice
 registers the blocking schedule; a single process runs the exchange
@@ -65,11 +66,14 @@ def _agg_fused(params, x, e, graph: ShardedGraph, plan: NMPPlan):
     if "seg_perm" not in graph:
         raise ValueError(
             "backend='fused' needs the cached compact layout (seg_perm/"
-            "seg_src/seg_rowptr) on the graph — build it with the "
-            "fused plan: ShardedGraph.build(pg, coords, plan)")
+            "seg_src/seg_rowptr/seg_src_slots/seg_src_rowptr) on the graph "
+            "— build it with the fused plan: ShardedGraph.build(pg, coords, "
+            "plan)")
     return fused_nmp_edge_agg(
         x, e, params["edge"], graph["seg_perm"], graph["seg_src"],
-        graph["seg_rowptr"], graph["edge_mask"], graph["edge_inv_mult"])
+        graph["seg_rowptr"], graph["edge_mask"], graph["edge_inv_mult"],
+        seg_src_slots=graph["seg_src_slots"],
+        seg_src_rowptr=graph["seg_src_rowptr"])
 
 
 _AGGS = {XLA: _agg_xla, FUSED: _agg_fused}

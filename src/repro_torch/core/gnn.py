@@ -19,6 +19,7 @@ import torch
 from repro_torch import nn
 from repro_torch.core.consistent_mp import init_nmp_layer, nmp_layer
 from repro_torch.core.graph_state import NMPPlan, as_graph
+from repro_torch.graph import segment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +60,7 @@ def init_gnn(gen: torch.Generator, cfg: GNNConfig, device="cuda") -> nn.Params:
 
 def build_edge_inputs(x: torch.Tensor, graph) -> torch.Tensor:
     """Paper's 7-dim edge init: relative node features ++ distance vec ++ |dist|."""
-    rel = x.index_select(0, graph["edge_dst"]) - x.index_select(0, graph["edge_src"])
+    rel = segment.gather(x, graph["edge_dst"]) - segment.gather(x, graph["edge_src"])
     return torch.cat([rel, graph["static_edge_feats"]], dim=-1)
 
 

@@ -109,10 +109,14 @@ class PartitionedGraphs:
         cache key as in the reference.
 
         Returns {perm [R, T, BE] int32 (-1 = empty slot), src [R, T, BE],
-                 dst [R, T, BE], rowptr [R, N_pad + 1] int32, n_tiles,
-                 block_n, block_e}.  ``rowptr`` (port-only) delimits each
-        node's run of dst-sorted slots — the CUDA kernel reduces every run
-        in slot order, which is what makes its aggregate deterministic.
+                 dst [R, T, BE], rowptr [R, N_pad + 1] int32,
+                 src_slots [R, T * BE] int32, src_rowptr [R, N_pad + 1]
+                 int32, n_tiles, block_n, block_e}.  The port-only keys:
+        ``rowptr`` delimits each node's run of dst-sorted slots — the CUDA
+        kernels reduce every run in slot order, which is what makes the
+        aggregate deterministic; ``src_slots[src_rowptr[n] ..
+        src_rowptr[n + 1]]`` are node n's outgoing slots (flat slot ids),
+        over which the backward kernel reduces the source-row gradients.
         """
         key = (int(block_n), int(block_e))
         cached = self._seg_layouts.get(key)
@@ -134,7 +138,13 @@ class PartitionedGraphs:
             src[r, :l["n_tiles"]] = l["src"]
             dst_t[r, :l["n_tiles"]] = l["dst"]
         rowptr = np.stack([l["rowptr"] for l in per_rank])
+        # src-sorted slot ids, zero-padded past each rank's real slots
+        src_slots = np.zeros((self.R, nt * block_e), dtype=np.int32)
+        for r, l in enumerate(per_rank):
+            src_slots[r, :l["n_edges"]] = l["src_slots"]
+        src_rowptr = np.stack([l["src_rowptr"] for l in per_rank])
         layout = dict(perm=perm, src=src, dst=dst_t, rowptr=rowptr,
+                      src_slots=src_slots, src_rowptr=src_rowptr,
                       n_tiles=nt, block_n=int(block_n), block_e=int(block_e))
         self._seg_layouts[key] = layout
         return layout
@@ -158,7 +168,8 @@ class PartitionedGraphs:
         """The dict of arrays a serve/train step consumes (leading rank axis).
 
         ``seg_layout=(block_n, block_e)`` adds the cached compact layout
-        (``seg_perm``/``seg_src``/``seg_dst`` and the port's ``seg_rowptr``);
+        (``seg_perm``/``seg_src``/``seg_dst`` and the port's ``seg_rowptr``,
+        ``seg_src_slots``, ``seg_src_rowptr``);
         ``packed=True`` adds the bucketed per-round packed halo arrays.
         """
         h = self.halo
@@ -177,6 +188,8 @@ class PartitionedGraphs:
             out["seg_src"] = layout["src"]
             out["seg_dst"] = layout["dst"]
             out["seg_rowptr"] = layout["rowptr"]
+            out["seg_src_slots"] = layout["src_slots"]
+            out["seg_src_rowptr"] = layout["src_rowptr"]
         if packed:
             out.update(self.packed_halo())
         return out

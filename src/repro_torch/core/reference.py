@@ -1,5 +1,8 @@
 """Single-device stacked-rank evaluation of the consistent GNN (port of
-``repro.core.reference``, forward, blocking schedule).
+``repro.core.reference``, blocking schedule): the stacked forward, the
+Eq. 6 loss over the stacked ranks, its parameter gradients
+(``torch.autograd.grad`` where the reference uses ``value_and_grad``) and
+the K-step rollout oracle.
 
 Runs the R-rank partitioned model on ONE device by looping ranks in python
 and emulating the halo exchange over the stacked aggregate
@@ -8,7 +11,9 @@ and emulating the halo exchange over the stacked aggregate
 the packed pack/unpack kernels under ``HaloSpec(packed=True)``).  The NMP
 hot loop goes through the same ``edge_update_aggregate`` as one rank's
 forward, so a fused plan runs the CUDA kernel here too.  This is how the
-1-rank == R-rank guarantee is checked on one card.
+1-rank == R-rank guarantee is checked on one card, for values and for
+gradients: the backward runs the fused backward kernel and, under the
+packed exchange, the pack/unpack kernels as each other's adjoint.
 """
 from __future__ import annotations
 
@@ -59,3 +64,50 @@ def gnn_forward_stacked(params: nn.Params, x: torch.Tensor, graph,
         h, e = _smooth_stacked(lp, h, e, g0, plan, sync_fn)
     return torch.stack([nn.mlp(params["node_dec"], h[r])
                         * g0["node_mask"][r][:, None] for r in range(R)])
+
+
+def consistent_loss_stacked(y: torch.Tensor, y_hat: torch.Tensor, graph,
+                            fy: int) -> torch.Tensor:
+    """Eq. 6 with the cross-rank sum taken over the stacked ranks."""
+    err2 = ((y - y_hat) ** 2).sum(dim=-1)              # [R, N_pad]
+    inv = graph["node_inv_mult"]
+    return (err2 * inv).sum() / (inv.sum() * fy)
+
+
+def loss_and_grad_stacked(params: nn.Params, x: torch.Tensor,
+                          y_hat: torch.Tensor, graph, plan: NMPPlan, fy: int,
+                          sync_fn=None):
+    """Eq. 6 loss of the stacked forward and its parameter gradients.
+
+    ``x``/``y_hat``: [R, N_pad, F].  ``sync_fn`` as in
+    :func:`gnn_forward_stacked`.  Returns (loss, y [R, N_pad, F_y], grads),
+    all detached; ``grads`` has the params' tree.
+    """
+    graph = as_graph(graph)
+
+    def f(p):
+        y = gnn_forward_stacked(p, x, graph, plan, sync_fn=sync_fn)
+        return consistent_loss_stacked(y, y_hat, graph, fy), y
+    (loss, y), grads = nn.value_and_grad(f, params, has_aux=True)
+    return loss, y, grads
+
+
+def rollout_stacked(params: nn.Params, x0: torch.Tensor, targets: torch.Tensor,
+                    graph, plan: NMPPlan, fy: int, noise=None, sync_fn=None):
+    """Single-device oracle for the K-step autoregressive rollout
+    (``repro_torch.train.rollout``): the model runs over its OWN
+    predictions, each step's Eq. 6 loss is accumulated, and optional
+    pushforward noise perturbs the step-1 input, detached.
+
+    ``x0``: [R, N_pad, F]; ``targets``: [K, R, N_pad, F].  Differentiable
+    in ``params``.  Returns (mean per-step loss, predictions [K, R, N_pad, F]).
+    """
+    graph = as_graph(graph)
+    x = x0 if noise is None else x0 + noise.detach()
+    losses, preds = [], []
+    for tgt in targets:
+        y = gnn_forward_stacked(params, x, graph, plan, sync_fn=sync_fn)
+        losses.append(consistent_loss_stacked(y, tgt, graph, fy))
+        preds.append(y)
+        x = y                                   # run over own prediction
+    return torch.stack(losses).mean(), torch.stack(preds)

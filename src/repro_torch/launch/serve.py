@@ -11,23 +11,41 @@ parameter shapes) into a resident
 :class:`repro_torch.runtime.engine.InferenceEngine`, registers the mesh,
 warms up, then streams Taylor-Green snapshots through the engine's bounded
 request queue from producer threads and reports latency percentiles and
-throughput.  Training is not ported yet, so with no checkpoint there is
-nothing to serve: ``--bootstrap-steps > 0`` exits with a message saying
-how to make one.
+throughput.  With no committed checkpoint under ``--ckpt-dir`` and
+``--bootstrap-steps N > 0``, a short one-rank training run of the paper's
+small config (``repro_torch.train.loop``) writes a fingerprinted
+checkpoint first, as the reference's ``_bootstrap`` does.
 """
 import argparse
-import sys
 import time
 
 import numpy as np
 
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph_state import NMPPlan
 from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
+from repro_torch.core.partition import partition_mesh
 from repro_torch.runtime.engine import (
     EngineConfig, InferenceEngine, config_from_checkpoint)
+from repro_torch.train.loop import TrainConfig, train_consistent_gnn
 
 DT = 0.05
+
+
+def _bootstrap(args, sem):
+    """Create a fingerprinted checkpoint via a short one-rank training run."""
+    pg = partition_mesh(sem, (1, 1, 1))
+    tcfg = TrainConfig(
+        n_steps=args.bootstrap_steps,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=max(1, args.bootstrap_steps // 2),
+        halo_mode="none",
+        log_every=max(1, args.bootstrap_steps // 4),
+        plan=NMPPlan(backend=args.mp_backend))
+    print(f"[serve] no committed checkpoint under {args.ckpt_dir}; "
+          f"bootstrapping with a {args.bootstrap_steps}-step training run")
+    train_consistent_gnn(pg, sem, GNNConfig.small(), tcfg, device=args.device)
 
 
 def main(argv=None):
@@ -50,9 +68,8 @@ def main(argv=None):
                          "kernel (fused)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--bootstrap-steps", type=int, default=20,
-                    help="the reference trains this many steps when the "
-                         "checkpoint is missing; training is not ported, so "
-                         "the port exits with instructions instead")
+                    help="train this many steps to create a checkpoint when "
+                         "--ckpt-dir has none (0 = refuse instead)")
     args = ap.parse_args(argv)
     for name in ("requests", "batch_slots", "rollout_steps", "producers",
                  "max_pending"):
@@ -62,14 +79,10 @@ def main(argv=None):
 
     sem = box_mesh(tuple(int(v) for v in args.mesh.split(",")), p=args.p)
     if not ckpt.committed_steps(args.ckpt_dir):
-        if args.bootstrap_steps > 0:
-            sys.exit(
-                f"[serve] no committed checkpoint under {args.ckpt_dir}, and "
-                "repro_torch cannot train one yet (training is a later port "
-                "slice): train with `python -m repro.launch.train "
-                f"--ckpt-dir {args.ckpt_dir}`, then serve that checkpoint")
-        ap.error(f"no committed checkpoint under {args.ckpt_dir}: nothing "
-                 "to serve")
+        if args.bootstrap_steps <= 0:
+            ap.error(f"no committed checkpoint under {args.ckpt_dir}: nothing "
+                     "to serve (--bootstrap-steps 0)")
+        _bootstrap(args, sem)
 
     engine = InferenceEngine(
         args.ckpt_dir, config_from_checkpoint(args.ckpt_dir),

@@ -5,7 +5,10 @@ over 1:1: a dense layer is ``{"w": [d_in, d_out], "b": [d_out]}``, an MLP
 is ``{"layers": [dense, ...], "ln": {"g", "b"}}``.  Modules are plain
 functions over those nested dicts of tensors; initializers draw from a
 ``torch.Generator`` on the CPU (so a seed gives the same weights on every
-device) and then move to ``device``.  fp32 only in this slice.
+device) and then move to ``device``.  fp32 only in this slice.  Parameter
+trees are handled by ``tree_leaves`` (JAX's flatten order), ``tree_map`` and
+``tree_unflatten``; ``value_and_grad`` is the counterpart of
+``jax.value_and_grad`` over them.
 """
 from __future__ import annotations
 
@@ -72,3 +75,64 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "ln" in p:
         x = layernorm(p["ln"], x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# parameter trees (nested dicts / lists of tensors)
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree) -> list:
+    """Leaves in JAX's flatten order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure filled with ``leaves`` (in :func:`tree_leaves`
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+    return build(like)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over corresponding leaves of trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf (fp32), summed leaf by leaf
+    in :func:`tree_leaves` order as ``repro.nn.global_norm``."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def value_and_grad(fn, params, *args, has_aux: bool = False):
+    """``jax.value_and_grad`` for a function of a parameter tree: returns
+    (fn(params, *args), d out / d params) with the value detached.  With
+    ``has_aux`` the function returns (scalar, aux) and only the scalar is
+    differentiated.  Gradients of leaves the value does not reach are
+    zeros."""
+    with torch.enable_grad():
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        leaves = tree_leaves(p)
+        out = fn(p, *args)
+        value = out[0] if has_aux else out
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    grads = [torch.zeros_like(l) if g is None else g
+             for g, l in zip(grads, leaves)]
+    out = tree_map(lambda t: t.detach(), list(out)) if has_aux else out.detach()
+    return out, tree_unflatten(p, grads)

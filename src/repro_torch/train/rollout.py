@@ -1,18 +1,45 @@
-"""Multi-step autoregressive rollout (port of ``repro.train.rollout``:
-``rollout_step`` and ``make_rollout_predict_fn``; the training step fns
-come with training in a later slice).
+"""Multi-step autoregressive rollout (port of ``repro.train.rollout``).
 
 ``rollout_step`` runs the consistent GNN over its own predictions for K
 steps in a python loop (the reference scans), accumulating each step's
-Eq. 6 loss against ``targets[k]``.
+Eq. 6 loss against ``targets[k]``; pushforward noise perturbs the step-1
+input, detached.  On top of it, for one device:
+
+* ``make_rollout_step_fns`` -> (``rollout_eval``, ``rollout_grad``) over
+  ``[B, 1, N_pad, F]`` inputs and ``[B, K, 1, N_pad, F]`` targets;
+* ``make_rollout_predict_fn`` — the inference rollout the serving engine
+  runs (zero targets, one batch slot at a time);
+* ``curriculum_k`` and ``make_tgv_rollout_batch_fn``, both PURE in
+  ``step`` (the deterministic-replay contract): snapshot times are
+  ``(step*batch + b)*dt`` and noise is drawn from
+  ``default_rng(seed + step*batch + b)`` on the GLOBAL node field, then
+  gathered per rank, so coincident copies get the same perturbation.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
+from repro_torch import nn
 from repro_torch.core.consistent_loss import consistent_mse
+from repro_torch.core.distributed import one_rank, one_rank_plan
 from repro_torch.core.gnn import GNNConfig, gnn_forward
 from repro_torch.core.graph_state import NMPPlan, as_graph
+from repro_torch.core.mesh_gen import SEMMesh, taylor_green_velocity
+from repro_torch.core.partition import PartitionedGraphs, gather_node_features
+
+
+def curriculum_k(stages: Sequence[int], n_steps: int, step: int) -> int:
+    """Rollout depth K for ``step`` under a staged curriculum: ``stages``
+    (e.g. ``(1, 2, 4)``) split ``n_steps`` into even stages of increasing
+    K.  Pure in ``step``."""
+    stages = tuple(stages)
+    if not stages:
+        return 1
+    stage_len = max(1, -(-n_steps // len(stages)))
+    return stages[min(step // stage_len, len(stages) - 1)]
 
 
 def rollout_step(params, x0, targets, graph, plan: NMPPlan, noise=None):
@@ -67,3 +94,72 @@ def make_rollout_predict_fn(cfg: GNNConfig, plan: NMPPlan, rollout_steps: int):
         return torch.stack(preds)[:, :, None]          # [B, K, 1, N, F]
 
     return predict
+
+
+def make_rollout_step_fns(cfg: GNNConfig, plan: NMPPlan, rollout_steps: int):
+    """(rollout_eval, rollout_grad) on one device.
+
+    ``rollout_eval(params, x0, targets, noise, graph) -> (loss, preds)``
+    with x0/noise [B, 1, N_pad, F], targets [B, K, 1, N_pad, F] and preds
+    [B, K, 1, N_pad, F]; ``rollout_grad`` returns (loss, d loss / d params)
+    instead.  ``rollout_steps`` must match the K dim of ``targets``; a graph
+    of R > 1 ranks raises (see ``repro_torch.core.distributed``).
+    """
+    del cfg  # the architecture is entirely encoded in the params tree
+    local_plan = one_rank_plan(plan)
+
+    def rollout_local(params, x0, targets, noise, graph):
+        if targets.shape[1] != rollout_steps:
+            raise ValueError(
+                f"targets carry K={targets.shape[1]} steps but the step "
+                f"fns were built for rollout_steps={rollout_steps}")
+        g = one_rank(graph)
+        tgt = targets[:, :, 0].movedim(1, 0)             # [K, B, N_pad, F]
+        loss, preds = rollout_step(params, x0[:, 0], tgt, g, local_plan,
+                                   noise=noise[:, 0])
+        return loss, preds.movedim(0, 1)[:, :, None]
+
+    @torch.no_grad()
+    def rollout_eval(params, x0, targets, noise, graph):
+        return rollout_local(params, x0, targets, noise, graph)
+
+    def rollout_grad(params, x0, targets, noise, graph):
+        (loss, _), grads = nn.value_and_grad(rollout_local, params, x0,
+                                             targets, noise, graph,
+                                             has_aux=True)
+        return loss, grads
+
+    return rollout_eval, rollout_grad
+
+
+def make_tgv_rollout_batch_fn(pg: PartitionedGraphs, mesh_sem: SEMMesh,
+                              batch: int, rollout_steps: int,
+                              dt: float = 0.05, noise_scale=0.0,
+                              seed: int = 0):
+    """Deterministic Taylor-Green rollout batches keyed by step.
+
+    Returns ``batch_fn(step) -> (x0 [B, R, N_pad, F], targets
+    [B, K, R, N_pad, F], noise [B, R, N_pad, F])`` as numpy, targets the
+    next ``rollout_steps`` snapshots of the analytic TGV trajectory.
+    ``noise_scale`` is a float or a ``step -> float`` callable.
+    """
+    def batch_fn(step: int):
+        scale = noise_scale(step) if callable(noise_scale) else noise_scale
+        x0s, tgts, noises = [], [], []
+        for b in range(batch):
+            t = (step * batch + b) * dt % 2.0
+            x0s.append(gather_node_features(
+                pg, taylor_green_velocity(mesh_sem.coords, t=t)))
+            tgts.append(np.stack([
+                gather_node_features(
+                    pg, taylor_green_velocity(mesh_sem.coords,
+                                              t=t + (k + 1) * dt))
+                for k in range(rollout_steps)]))
+            rng = np.random.default_rng(
+                np.uint64(seed) + np.uint64(step * batch + b))
+            nz = rng.normal(size=(mesh_sem.coords.shape[0],
+                                  x0s[-1].shape[-1])).astype(np.float32)
+            noises.append(scale * gather_node_features(pg, nz))
+        return (np.stack(x0s), np.stack(tgts),
+                np.stack(noises).astype(np.float32))
+    return batch_fn

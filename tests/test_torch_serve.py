@@ -211,5 +211,17 @@ def test_serve_cli_serves_and_refuses_missing_checkpoint(served, tmp_path, capsy
                     "--mp-backend", "fused"])
     out = capsys.readouterr().out
     assert "small config (N_H=8, M=4)" in out and "3 requests" in out
-    with pytest.raises(SystemExit, match="cannot train"):
-        serve_cli.main(["--ckpt-dir", str(tmp_path / "none"), "--device", "cpu"])
+    # no checkpoint and --bootstrap-steps 0: nothing to serve
+    with pytest.raises(SystemExit):
+        serve_cli.main(["--ckpt-dir", str(tmp_path / "none"), "--device", "cpu",
+                        "--bootstrap-steps", "0"])
+    assert "nothing to serve" in capsys.readouterr().err
+    # no checkpoint and --bootstrap-steps 2: train one, then serve from it
+    boot = tmp_path / "boot"
+    serve_cli.main(["--ckpt-dir", str(boot), "--mesh", "3,3,2", "--bootstrap-steps",
+                    "2", "--requests", "2", "--batch-slots", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "bootstrapping with a 2-step training run" in out
+    assert "from step 1" in out and "2 requests" in out
+    assert ckpt.committed_steps(boot) == [0, 1]
+    assert ckpt.peek_manifest(boot)["extra"]["fingerprint"]["ranks"] == 1
