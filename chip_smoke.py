@@ -5,7 +5,9 @@ holds each against its plain PyTorch version at the shapes the main paths
 give it, checks the paper's 1-rank == R-rank consistency on the card for
 values and gradients, serves the paper's large GNN (N_H=32, M=4, 5 MLP
 hidden layers) on a p=7 spectral-element box mesh through the resident
-inference engine, and trains it on that mesh through the training loop.
+inference engine, trains it on that mesh through the training loop, and
+serves and trains DLRM RM2 at full width (50,003,968 x 64 fp32 table)
+through its cell builder.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -13,8 +15,11 @@ Phases (one line each, prefixed ``[n name]``):
   1 device       nvidia-smi name / power limit, TF32 off, kernel build
   2 kernels      fused NMP forward and backward on the serving mesh's
                  edges, pack and unpack-add at the 2x2 partition's halo
-                 round widths: error vs the plain version, repeatability,
-                 CUDA-event times
+                 round widths, the embedding bag at DLRM RM2's serve_bulk
+                 lookup (fp32, H=1, the full table, whose offsets pass 2^31
+                 elements) and at fp32 H=8 and bf16 H=4: error vs the plain
+                 version, repeatability, CUDA-event times, and the
+                 embedding bag's F.embedding_bag time
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
                  (2x2 grid) under the packed neighbor exchange and the A2A
                  oracle, and fused vs the plain backend at R=1
@@ -34,10 +39,25 @@ Phases (one line each, prefixed ``[n name]``):
                  breakdown, a 3-step run repeated bitwise, 3 steps of the
                  plain backend, a 2-step K=2 rollout run on the consistency
                  mesh, and ``launch/serve.py --bootstrap-steps 2``
+  7 dlrm         DLRM RM2 at full width through
+                 ``repro_torch.configs.get_arch("dlrm-rm2")``'s
+                 ``build_cell``, weights drawn on the card from a seeded
+                 generator, TF32 off: serve_p99 (200 batches of 512 from
+                 the host; latency p50/p99 by host clock and CUDA events,
+                 H2D apart), serve_bulk (10 batches of 262,144; samples/s),
+                 retrieval_cand (1M candidates, top 100) and train_batch
+                 (5 steps of 65,536: losses, step time, forward / backward /
+                 AdamW split by CUDA events, peak memory; a 3-step run
+                 repeated from the seed bitwise, the table by a device-side
+                 checksum of its bytes); for each path the forward through
+                 the plain lookup against the kernel's (bitwise), the top
+                 device kernels under torch.profiler and the busy share
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — the R=4 packed-neighbor forward
 (phase 3), the R=4 packed-neighbor gradient run (3b), the serve stream
-after warm-up (4), the 10 training steps (6) and the K=2 rollout run (6).
+after warm-up (4), the 10 training steps (6), the K=2 rollout run (6) and
+each DLRM path (7; the embedding bag must launch exactly once per
+forward on serve_p99, serve_bulk and train_batch).
 Every kernel must have launched on the paths that use it.  The two lines
 before the last are a JSON record of the kernels (``launches`` on the
 kernel's own path, ``launches_by_path`` on all) and the card's nvidia-smi
@@ -68,6 +88,8 @@ G_RTOL, G_ATOL = 1e-3, 2e-5      # the reference's gradient band
 W_REL = 5e-4                     # weight gradients summed over every edge
 LOSS_REL = 2e-6                  # the reference's loss band
 TRAIN_STEPS, TRAIN_LR = 10, 1e-3
+# DLRM RM2 (phase 7): batches per path and the seed of weights and inputs
+P99_BATCHES, BULK_BATCHES, DLRM_TRAIN_STEPS, DLRM_SEED = 200, 10, 5, 0
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores
 # and HBM3 bandwidth
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -181,15 +203,16 @@ def phase_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd"])
+    reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd", "embedding_bag"])
     regs = {k: sorted({ln.split("Used ")[1].split(",")[0]
                        for ln in v.splitlines() if "Used " in ln})
             for k, v in reports.items()}
     say("1 device", f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a, in parallel); ptxas: {regs}")
     ptxas = {name: ptxas_summary(reports.get(name, ""), needle) for name, needle in
-             (("nmp_fwd", "nmp_fwd_kernelILi32E"), ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"))}
-    say("1 device", f"ptxas at H=32: {ptxas}")
+             (("nmp_fwd", "nmp_fwd_kernelILi32E"), ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"),
+              ("embedding_bag", "embedding_bag_kernelIfLi4E"))}
+    say("1 device", f"ptxas at H=32 (embedding bag: fp32, 16-byte loads): {ptxas}")
     return smi, ptxas
 
 
@@ -350,6 +373,65 @@ def phase_kernels(cfg, ptxas):
                             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib))
     return sem, pg, records
+
+
+def phase_embedding_bag(ptxas):
+    """The embedding bag at DLRM RM2's serve_bulk lookup on the full table,
+    and at fp32 H=8 and bf16 H=4: bitwise vs plain, repeatability, times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.graph.datasets import criteo_like
+    from repro_torch.kernels.embedding_bag import ops as eb
+
+    dev = torch.device("cuda")
+    cfg = dlrm_rm2.config()
+    V, D = sum(cfg.vocab_sizes), cfg.embed_dim
+    gen = torch.Generator(device=dev).manual_seed(7)
+    table = torch.randn(V, D, generator=gen, device=dev).mul_(0.01)
+    _, sparse, _ = criteo_like(262144, cfg, seed=DLRM_SEED)
+    bulk = torch.from_numpy(sparse.reshape(-1, cfg.multi_hot)).to(dev)
+    top_elem = int(bulk.max()) * D
+    if top_elem < 2 ** 31:
+        raise RuntimeError("the serve_bulk lookup never passes 2^31 table elements")
+    cases = [("serve_bulk fp32", table, bulk),
+             ("fp32 H=8", table,
+              torch.randint(0, V, (65536, 8), generator=gen, device=dev, dtype=torch.int32)),
+             ("bf16 H=4", table.to(torch.bfloat16),
+              torch.randint(0, V, (65536, 4), generator=gen, device=dev, dtype=torch.int32))]
+    record = None
+    for name, tab, idx in cases:
+        got, again = eb.embedding_bag(tab, idx), eb.embedding_bag(tab, idx)
+        want = eb.embedding_bag_plain(tab, idx)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise RuntimeError(f"embedding bag ({name}) != plain or not repeatable")
+        err = float((got.float() - want.float()).abs().max())
+        lib_out = F.embedding_bag(idx, tab, mode="sum")
+        lib_err = float((lib_out.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: eb.embedding_bag(tab, idx), 20)
+        plain = cuda_ms(lambda: eb.embedding_bag_plain(tab, idx), 5, warmup=1)
+        lib = cuda_ms(lambda: F.embedding_bag(idx, tab, mode="sum"), 20)
+        (B, H), s_el = idx.shape, tab.element_size()
+        # every gathered row read once, every bag written once, every index once
+        moved = B * H * D * s_el + B * D * s_el + B * H * 4
+        b_ms, b_by = bound_ms(moved, B * H * D)
+        say("2 kernels", f"embedding_bag {name} (V={V}, D={D}, {B} bags of {H}, "
+            f"{tab.dtype}): bitwise equal to plain, two launches bitwise equal"
+            + (f", largest element offset {top_elem} > 2^31" if record is None else "")
+            + f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, F.embedding_bag "
+            f"{lib:.4f} ms (max|diff| vs plain {lib_err:.3g}), bound {b_ms:.4f} ms "
+            f"({b_by}, {moved / 1e9:.3f} GB) | ptxas {ptxas['embedding_bag']}")
+        if record is None:
+            record = dict(name=eb.KERNEL, route="cuda",
+                          source="src/repro_torch/csrc/embedding_bag.cu",
+                          replaces="src/repro/kernels/embedding_bag/kernel.py:35",
+                          max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib)
+        del got, again, want, lib_out
+    del cases, table, bulk, tab, idx
+    torch.cuda.empty_cache()
+    return record
 
 
 def phase_consistency(cfg):
@@ -585,7 +667,7 @@ def phase_train(cfg, sem, pg, smi):
     from repro_torch.train.loop import (
         TrainConfig, make_tgv_batch_fn, train_consistent_gnn)
     from repro_torch.train.optimizer import (
-        AdamWConfig, adamw_update, constant_lr, init_adamw)
+        AdamWConfig, adamw_update_, constant_lr, init_adamw)
 
     start = init_gnn(torch.Generator().manual_seed(0), cfg, device="cpu")
 
@@ -633,7 +715,7 @@ def phase_train(cfg, sem, pg, smi):
 
     def step():
         loss, grads = grad_step(params, xb, xb, g)
-        adamw_update(grads, opt, params, opt_cfg)
+        adamw_update_(grads, opt, params, opt_cfg)
         return loss
 
     def grads_only():
@@ -707,6 +789,222 @@ def phase_train(cfg, sem, pg, smi):
     return launches, roll_launches
 
 
+def checksum(t):
+    """Position-weighted sum of a tensor's 32-bit words, on the device."""
+    import torch
+    words = t.detach().reshape(-1).view(torch.int32)
+    total, step = 0, 1 << 26
+    for lo in range(0, words.numel(), step):
+        w = words[lo:lo + step].to(torch.int64)
+        pos = torch.arange(lo, lo + w.numel(), device=w.device) % 65521 + 1
+        total += int((w * pos).sum())     # int64 wraps the same way every run
+    return total
+
+
+def profile_line(fn):
+    """(wall ms, device kernel ms, busy share, top kernels) of one call."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = device_kernels(prof)
+    dev_ms = sum(t for t, _ in kern)
+    return (f"under torch.profiler: wall {wall:.3f} ms, device kernel time "
+            f"{dev_ms:.3f} ms, busy share {dev_ms / wall:.3f}; top kernels: "
+            + "; ".join(f"{t:.3f} ms {k[:60]}" for t, k in kern[:6]))
+
+
+def phase_dlrm(smi):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.graph.datasets import criteo_like
+    from repro_torch.kernels import build
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.models.dlrm import _mlp_stack, dlrm_forward, dlrm_interact
+    from repro_torch.nn import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update_
+
+    rm2, family = get_arch("dlrm-rm2")
+    cfg = rm2.config()
+    F_, H, D = cfg.n_sparse, cfg.multi_hot, cfg.embed_dim
+    dev = torch.device("cuda")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if any(tf32):
+        raise RuntimeError(f"TF32 must be off (matmul, cuDNN): {tf32}")
+    say("7 dlrm", f"{rm2.ARCH_ID} ({family}): table {sum(cfg.vocab_sizes)} x {D} fp32, "
+        f"bot {cfg.n_dense}-{'-'.join(map(str, cfg.bot_mlp))}, top "
+        f"{cfg.n_interactions + cfg.bot_mlp[-1]}-{'-'.join(map(str, cfg.top_mlp))}, "
+        f"{F_} fields x {H}; weights from torch.Generator(cuda).manual_seed({DLRM_SEED}); "
+        f"TF32 off (matmul {tf32[0]}, cuDNN {tf32[1]}) | {smi}")
+    by_path = {}
+
+    def plain_vs_kernel(params, dense, sparse):
+        with torch.no_grad():
+            got = dlrm_forward(params, dense, sparse, cfg)
+            B = dense.shape[0]
+            emb = eb.embedding_bag_plain(params["tables"], sparse.reshape(B * F_, H))
+            same = torch.equal(got, dlrm_interact(params, dense, emb.reshape(B, F_, D), cfg))
+        if not same:
+            raise RuntimeError("DLRM forward: plain lookup != kernel lookup")
+        return "forward through the plain lookup == kernel lookup bitwise"
+
+    def expect_launches(path, n):
+        launches = dict(build.launch_counts)
+        by_path[path] = launches
+        if launches.get(eb.KERNEL, 0) != n:
+            raise RuntimeError(f"{path}: embedding_bag launched "
+                               f"{launches.get(eb.KERNEL, 0)} times, expected {n}")
+        return launches
+
+    # --- serve_p99: batches of 512 from the host ---
+    step, (params, dense, sparse), meta = rm2.build_cell("serve_p99", dev, DLRM_SEED)
+    B = meta["batch"]
+    host = [torch.from_numpy(a) for a in criteo_like(B * P99_BATCHES, cfg, DLRM_SEED + 1)[:2]]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for i in range(5):
+        step(params, host[0][:B].to(dev), host[1][:B].to(dev))
+    torch.cuda.synchronize()
+    wall, h2d, fwd = [], [], []
+    build.reset_launch_counts()
+    for i in range(P99_BATCHES):
+        t0 = time.perf_counter()
+        ev[0].record()
+        d, s = (h[i * B:(i + 1) * B].to(dev) for h in host)
+        ev[1].record()
+        out = step(params, d, s)
+        ev[2].record()
+        ev[2].synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        h2d.append(ev[0].elapsed_time(ev[1]))
+        fwd.append(ev[1].elapsed_time(ev[2]))
+        if i == 0 and (out.shape != (B, 1) or not bool(torch.isfinite(out).all())):
+            raise RuntimeError(f"serve_p99: bad logits {tuple(out.shape)}")
+    launches = expect_launches("dlrm_serve_p99", P99_BATCHES)
+    pct = lambda a, q: float(np.percentile(a, q))  # noqa: E731
+    say("7 dlrm", f"serve_p99: {P99_BATCHES} batches of {B}: latency per batch host "
+        f"wall p50 {pct(wall, 50):.3f} ms p99 {pct(wall, 99):.3f} ms | forward by CUDA "
+        f"events p50 {pct(fwd, 50):.3f} ms p99 {pct(fwd, 99):.3f} ms | H2D p50 "
+        f"{pct(h2d, 50):.3f} ms p99 {pct(h2d, 99):.3f} ms | launches {launches} | {smi}")
+    say("7 dlrm", f"serve_p99: {plain_vs_kernel(params, d, s)} | "
+        + profile_line(lambda: step(params, d, s)))
+    del step, params, dense, sparse, host, d, s, out
+    torch.cuda.empty_cache()
+
+    # --- serve_bulk: batches of 262,144 ---
+    step, (params, dense, sparse), meta = rm2.build_cell("serve_bulk", dev, DLRM_SEED)
+    B = meta["batch"]
+    hosts = [[torch.from_numpy(a) for a in criteo_like(B, cfg, DLRM_SEED + k)[:2]]
+             for k in (1, 2)]
+    step(params, dense, sparse)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(BULK_BATCHES):
+        out = step(params, *(h.to(dev) for h in hosts[i % 2]))
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = expect_launches("dlrm_serve_bulk", BULK_BATCHES)
+    if out.shape != (B, 1) or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"serve_bulk: bad logits {tuple(out.shape)}")
+    fwd_ms = cuda_ms(lambda: step(params, dense, sparse), 5, warmup=1)
+    say("7 dlrm", f"serve_bulk: {BULK_BATCHES} batches of {B} with H2D: "
+        f"{BULK_BATCHES * B / wall_s:.0f} samples/s by host clock "
+        f"({ev[0].elapsed_time(ev[1]) / BULK_BATCHES:.3f} ms per batch by CUDA events) "
+        f"| device-resident batch {fwd_ms:.3f} ms = {B / fwd_ms * 1e3:.0f} samples/s "
+        f"({meta['model_flops'] / fwd_ms / 1e9:.1f} TFLOP/s of MLP + interaction) | "
+        f"launches {launches} | {smi}")
+    say("7 dlrm", f"serve_bulk: {plain_vs_kernel(params, dense, sparse)} | "
+        + profile_line(lambda: step(params, dense, sparse)))
+    del step, params, dense, sparse, hosts, out
+    torch.cuda.empty_cache()
+
+    # --- retrieval_cand: one query against 1M candidates ---
+    step, args, meta = rm2.build_cell("retrieval_cand", dev, DLRM_SEED)
+    build.reset_launch_counts()
+    vals, ids = step(*args)
+    torch.cuda.synchronize()
+    launches = expect_launches("dlrm_retrieval", 0)
+    user = _mlp_stack(args[0]["bot"], args[1])
+    scores = args[3] @ user[0]
+    if vals.shape != (100,) or not bool(torch.isfinite(vals).all()) \
+            or not torch.equal(scores[ids], vals) or bool((vals[:-1] < vals[1:]).any()) \
+            or float(vals[-1]) < float(torch.kthvalue(scores.cpu(), scores.numel() - 99)[0]):
+        raise RuntimeError("retrieval_cand: top-100 is not the top 100 of the scores")
+    r_ms = cuda_ms(lambda: step(*args), 20)
+    say("7 dlrm", f"retrieval_cand: {args[3].shape[0]} candidates -> top 100 (sorted, "
+        f"== the top of a recomputed score vector) in {r_ms:.4f} ms by CUDA events | "
+        f"launches {launches} (no lookup on this path) | "
+        + profile_line(lambda: step(*args)))
+    del step, args, vals, ids, scores, user
+    torch.cuda.empty_cache()
+
+    # --- train_batch: 5 steps, then where one step's time goes ---
+    torch.cuda.reset_peak_memory_stats()
+    step, args, meta = rm2.build_cell("train_batch", dev, DLRM_SEED)
+    state, dense, sparse, labels = args
+    B = meta["batch"]
+    build.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(DLRM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*args)[1]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = expect_launches("dlrm_train", DLRM_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"train_batch losses not finite: {losses}")
+    say("7 dlrm", f"train_batch: {DLRM_TRAIN_STEPS} steps of {B}, AdamW in place in "
+        f"row chunks: losses " + ", ".join(f"{v:.6g}" for v in losses)
+        + f" | step time median after step 0 {np.median(step_ms[1:]):.1f} ms (step 0 "
+        f"{step_ms[0]:.1f}) | peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB) | launches {launches} | {smi}")
+    params, opt_cfg = state["params"], AdamWConfig()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    with torch.enable_grad():
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = rm2.bce_loss(p, dense, sparse, labels, cfg)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+    ev[2].record()
+    adamw_update_(tree_unflatten(p, grads), state["opt"], params, opt_cfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    del p, loss, grads
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    say("7 dlrm", f"train_batch, one step by CUDA events: forward + loss {split[0]:.3f} ms "
+        f"| backward {split[1]:.3f} ms | AdamW (norm, clip, chunked update) "
+        f"{split[2]:.3f} ms")
+    say("7 dlrm", f"train_batch: {plain_vs_kernel(params, dense, sparse)} | one step "
+        + profile_line(lambda: step(*args)))
+    del step, args, state, dense, sparse, labels, params
+    torch.cuda.empty_cache()
+
+    # --- a 3-step run repeated from the same seed: bitwise ---
+    runs = []
+    for _ in range(2):
+        step, args, _ = rm2.build_cell("train_batch", dev, DLRM_SEED)
+        run_losses = [float(step(*args)[1]) for _ in range(3)]
+        leaves = tree_leaves(args[0]["params"])
+        runs.append((run_losses, [checksum(t) for t in leaves]))
+        del step, args, leaves
+        torch.cuda.empty_cache()
+    same = runs[0] == runs[1]
+    say("7 dlrm", f"train_batch: 3 steps twice from seed {DLRM_SEED}: losses "
+        + ", ".join(repr(v) for v in runs[0][0]) + " vs "
+        + ", ".join(repr(v) for v in runs[1][0])
+        + f"; every parameter's device checksum equal: {runs[0][1] == runs[1][1]}")
+    if not same:
+        raise RuntimeError("DLRM training is not bitwise repeatable")
+    return by_path
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -714,26 +1012,32 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from repro_torch.core.gnn import GNNConfig
+    from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.halo_pack import ops as hp
     from repro_torch.kernels.segment_agg import ops as sa
 
     cfg = GNNConfig.large()
     smi, ptxas = phase_device()
     sem, pg, records = phase_kernels(cfg, ptxas)
+    records.append(phase_embedding_bag(ptxas))
     by_path = {"consistency_r4_packed": phase_consistency(cfg),
                "grad_r4_packed": phase_grad_consistency(cfg)}
     engine, mesh_hash, by_path["serve"] = phase_serve(cfg, sem, pg, smi)
     phase_profile(engine, mesh_hash, sem)
     del engine
     by_path["train"], by_path["rollout_k2"] = phase_train(cfg, sem, pg, smi)
+    torch.cuda.empty_cache()
+    by_path.update(phase_dlrm(smi))
     # each kernel's own path first, then every other path that must use it:
     # training for the fused NMP pair, the R=4 packed-neighbor gradient run
-    # for the halo kernels (training and serving are R=1)
+    # for the halo kernels (training and serving are R=1), serve_bulk for
+    # the embedding bag (phase 7 checks its exact counts on every path)
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
                        "rollout_k2"),
            sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2"),
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed"),
-           hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed")}
+           hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed"),
+           eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train")}
     for rec in records:
         counts = {path: int(by_path[path].get(rec["name"], 0)) for path in by_path}
         rec["launches"] = counts[own[rec["name"]][0]]

@@ -93,15 +93,17 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(like, leaves):
     """``like``'s structure filled with ``leaves`` (in :func:`tree_leaves`
     order)."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [build(v) for v in t]
-        return next(it)
-    return build(like)
+
+def _unflatten(t, it):
+    # module-level, not a self-referencing closure: that closure's cycle
+    # kept ``leaves`` (a whole gradient tree) alive until the next cyclic GC
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return [_unflatten(v, it) for v in t]
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):

@@ -43,7 +43,7 @@ from repro_torch.core.mesh_gen import SEMMesh, taylor_green_velocity
 from repro_torch.core.partition import PartitionedGraphs, gather_node_features
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.train.optimizer import (
-    AdamWConfig, adamw_update, constant_lr, init_adamw)
+    AdamWConfig, adamw_update_, constant_lr, init_adamw)
 from repro_torch.train.rollout import (
     curriculum_k, make_rollout_step_fns, make_tgv_rollout_batch_fn)
 
@@ -172,7 +172,7 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device):
     opt_cfg = AdamWConfig(schedule=constant_lr(tcfg.lr), weight_decay=0.0)
 
     def update(params, opt_state, grads):
-        return adamw_update(grads, opt_state, params, opt_cfg)
+        return adamw_update_(grads, opt_state, params, opt_cfg)
 
     stages = tuple(tcfg.rollout_curriculum)
     if stages or tcfg.rollout_steps > 1:

@@ -13,9 +13,15 @@ order than the plain version: rtol 1e-4 / atol 1e-5 (the reference's own
 forward band).  Its backward: node and edge gradients rtol 1e-3 / atol
 2e-5 (the reference's gradient band); the weight gradients are sums over
 every edge, so they are held to a relative L2 norm of 5e-4.  Pack and
-unpack-add are pure data movement: bitwise, values and gradients.  Every
+unpack-add are pure data movement: bitwise, values and gradients.  The
+embedding bag sums in the plain version's order and type: bitwise.  Every
 kernel, and a training step through them, is bitwise repeatable.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +36,9 @@ from repro_torch.core.reference import gnn_forward_stacked
 from repro_torch.nn import tree_leaves
 from repro_torch.train.loop import TrainConfig, train_consistent_gnn
 from repro_torch.graph.segment import segment_sum
+from repro_torch.configs import dlrm_rm2
 from repro_torch.kernels import build
+from repro_torch.kernels.embedding_bag import ops as eb
 from repro_torch.kernels.halo_pack import ops as hp
 from repro_torch.kernels.segment_agg import ops as sa
 
@@ -230,3 +238,55 @@ def test_fused_training_steps_bitwise_repeatable(cuda):
     assert all(np.isfinite(runs[0]["losses"]))
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[0]["params"]),
                                                  tree_leaves(runs[1]["params"])))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 20, 13])
+@pytest.mark.parametrize("h", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_embedding_bag_kernel_bitwise_plain(cuda, dtype, h, d):
+    gen = torch.Generator().manual_seed(h * 100 + d)
+    table = torch.randn(5000, d, generator=gen).to(dtype).to(cuda)
+    idx = torch.randint(0, 5000, (777, h), generator=gen, dtype=torch.int32).to(cuda)
+    n0 = build.launch_counts.get(eb.KERNEL, 0)
+    got = eb.embedding_bag(table, idx)
+    torch.cuda.synchronize()
+    assert build.launch_counts[eb.KERNEL] == n0 + 1
+    assert got.dtype == dtype and got.shape == (777, d)
+    assert torch.equal(got, eb.embedding_bag_plain(table, idx))
+    assert torch.equal(got, eb.embedding_bag(table, idx))
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_traps_on_out_of_range_ids(cuda):
+    # a trap ends the CUDA context, so it runs in a process of its own
+    code = ("import torch\n"
+            "from repro_torch.kernels.embedding_bag import ops as eb\n"
+            "t = torch.randn(100, 64, device='cuda')\n"
+            "idx = torch.tensor([[3], [100]], dtype=torch.int32, device='cuda')\n"
+            "eb.embedding_bag(t, idx)\n"
+            "torch.cuda.synchronize()\n")
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0 and "Error" in r.stderr, r.stderr[-2000:]
+
+
+@pytest.mark.gpu
+def test_dlrm_smoke_cells_on_card(cuda):
+    cfg = dlrm_rm2.smoke_config()
+    for shape_id in ("serve_p99", "serve_bulk"):
+        step, args, _ = dlrm_rm2.build_cell(shape_id, device=cuda, cfg=cfg)
+        n0 = build.launch_counts.get(eb.KERNEL, 0)
+        logits = step(*args)
+        assert build.launch_counts[eb.KERNEL] == n0 + 1
+        assert bool(torch.isfinite(logits).all())
+    runs = []
+    for _ in range(2):
+        step, args, _ = dlrm_rm2.build_cell("train_batch", device=cuda, seed=3, cfg=cfg)
+        n0 = build.launch_counts.get(eb.KERNEL, 0)
+        losses = [float(step(*args)[1]) for _ in range(3)]
+        assert build.launch_counts[eb.KERNEL] == n0 + 3
+        runs.append((losses, tree_leaves(args[0])))
+    assert runs[0][0] == runs[1][0] and all(np.isfinite(runs[0][0]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -7,7 +7,11 @@ reference, so it is held to the band the reference holds its own fused
 backend to (rtol 1e-4 / atol 1e-5), its gradients to the reference's
 gradient band (rtol 1e-3 / atol 2e-5, ``tests/test_consistency.py``); the
 pack/unpack ops are pure data movement and must be bitwise equal, values
-and gradients.  The kernels themselves are held against these plain
+and gradients.  The embedding bag's plain version is held to
+``tests/test_kernels.py``'s ``TOL`` against the reference's interpret-mode
+kernel and its oracle, and its gradient (a sorted segment sum, where the
+reference's scatter-add may add duplicate rows in another order) to the
+same band.  The kernels themselves are held against these plain
 versions on the card in ``tests/test_torch_gpu.py``.
 """
 import numpy as np
@@ -23,6 +27,8 @@ from repro.core import box_mesh as ref_box_mesh
 from repro.core import init_gnn as ref_init_gnn
 from repro.core import partition_mesh as ref_partition_mesh
 from repro.core.consistent_mp import _agg_xla as ref_agg_xla
+from repro.kernels.embedding_bag.ops import embedding_bag as ref_embedding_bag
+from repro.kernels.embedding_bag.ref import embedding_bag_ref
 from repro.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_add_ref
 from repro.kernels.segment_agg.ops import compact_gather_layout as ref_layout
 
@@ -31,12 +37,15 @@ from repro_torch.core.graph_state import FUSED, NMPPlan, ShardedGraph
 from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import partition_mesh
 from repro_torch.kernels import build
+from repro_torch.kernels.embedding_bag import ops as eb
 from repro_torch.kernels.halo_pack import ops as hp
 from repro_torch.kernels.segment_agg import ops as sa
 from repro_torch.nn import tree_leaves
 
 RTOL, ATOL = 1e-4, 1e-5
 G_RTOL, G_ATOL = 1e-3, 2e-5        # the reference's gradient band
+# tests/test_kernels.py's TOL for the embedding bag
+EB_TOL = {jnp.float32: dict(rtol=2e-5, atol=2e-5), jnp.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
 def _layer_case(hidden, mlp_hidden_layers):
@@ -127,7 +136,58 @@ def test_cpu_wrappers_never_launch_kernels():
     hp.halo_unpack_add(T(a), T(buf), T(idx), T(mask))
     lp, xx, e, _, port_g = _layer_case(8, 2)
     sa.fused_nmp_edge_agg(*_fused_args(lp, xx, e, port_g, "cpu"))
+    table = torch.randn(10, 4, requires_grad=True)
+    eb.embedding_bag(table, torch.zeros(3, 2, dtype=torch.int32)).sum().backward()
     assert all(v == 0 for v in build.launch_counts.values())
+
+
+# ---------------------------------------------------------------------------
+# embedding bag
+# ---------------------------------------------------------------------------
+
+def _bag_case(shape, dtype, seed=1):
+    """tests/test_kernels.py's inputs: (jax table, jax idx, torch table, idx)."""
+    B, H, V, D = shape
+    rng = np.random.default_rng(seed)
+    table = jnp.asarray(rng.normal(size=(V, D)), dtype)
+    idx = jnp.asarray(rng.integers(0, V, (B, H)), jnp.int32)
+    # the same values in torch: bf16 is exact in fp32
+    t = torch.from_numpy(np.array(table, np.float32)).to(
+        torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+    return table, idx, t, torch.from_numpy(np.array(idx))
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 64, 32), (16, 1, 256, 16), (4, 8, 128, 8)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_embedding_bag_plain_matches_reference(shape, dtype):
+    table, idx, t, ti = _bag_case(shape, dtype)
+    got = eb.embedding_bag(t, ti)                 # CPU tensors: the plain version
+    assert got.dtype == t.dtype and torch.equal(got, eb.embedding_bag_plain(t, ti))
+    got = got.float().numpy()
+    for want in (ref_embedding_bag(table, idx, interpret=True),
+                 embedding_bag_ref(table, idx)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), **EB_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 64, 32), (16, 1, 256, 16), (40, 8, 24, 8)])
+def test_embedding_bag_grad_matches_jax(shape):
+    table, idx, t, ti = _bag_case(shape, jnp.float32)
+    g = np.random.default_rng(2).normal(size=(shape[0], shape[3])).astype(np.float32)
+    (want,) = jax.vjp(lambda tb: embedding_bag_ref(tb, idx), table)[1](jnp.asarray(g))
+    t.requires_grad_(True)
+    (got,) = torch.autograd.grad(eb.embedding_bag(t, ti), t, torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **EB_TOL[jnp.float32])
+
+
+def test_embedding_bag_validates_inputs():
+    t = torch.randn(10, 4)
+    with pytest.raises(ValueError, match="idx \\[B, H\\]"):
+        eb.embedding_bag(t, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="table \\[V, D\\]"):
+        eb.embedding_bag(t[0], torch.zeros(3, 1, dtype=torch.int32))
+    for bad in (10, -1):     # ids outside [0, V) raise; the kernel traps on them
+        with pytest.raises(IndexError):
+            eb.embedding_bag(t, torch.tensor([[0, bad]], dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,7 @@ from repro.train.rollout import make_tgv_rollout_batch_fn as ref_rollout_batch_f
 from repro_torch import nn
 from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.core.distributed import make_gnn_step_fns
-from repro_torch.core.gnn import GNNConfig
+from repro_torch.core.gnn import GNNConfig, init_gnn
 from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, ShardedGraph
 from repro_torch.core.halo import A2A, NEIGHBOR, NONE, halo_sync_stacked
 from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
@@ -317,6 +317,20 @@ def test_port_checkpoint_restores_in_reference(trained):
     fp = manifest["extra"]["fingerprint"]
     assert fp["ranks"] == 1 and fp["policy"]["backend"] == FUSED
     assert manifest["extra"]["losses"] == trained["hists"][FUSED]["losses"]
+
+
+def test_training_loop_updates_its_own_copy_of_the_params(case):
+    """AdamW runs in place; the caller's starting tensors stay as they were."""
+    start = init_gnn(torch.Generator().manual_seed(0), GNNConfig.small(), device="cpu")
+    before = nn.tree_map(torch.clone, start)
+    hist = train_consistent_gnn(partition_mesh(case["port_sem"], (1, 1, 1)),
+                                case["port_sem"], GNNConfig.small(),
+                                TrainConfig(n_steps=2, batch=1), params=start,
+                                device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(nn.tree_leaves(start),
+                                                 nn.tree_leaves(before)))
+    assert not all(torch.equal(a, b) for a, b in zip(nn.tree_leaves(hist["params"]),
+                                                     nn.tree_leaves(before)))
 
 
 def test_training_refuses_what_this_slice_lacks(case):
