@@ -5,9 +5,11 @@ holds each against its plain PyTorch version at the shapes the main paths
 give it, checks the paper's 1-rank == R-rank consistency on the card for
 values and gradients, serves the paper's large GNN (N_H=32, M=4, 5 MLP
 hidden layers) on a p=7 spectral-element box mesh through the resident
-inference engine, trains it on that mesh through the training loop, and
+inference engine, trains it on that mesh through the training loop,
 serves and trains DLRM RM2 at full width (50,003,968 x 64 fp32 table)
-through its cell builder.
+through its cell builder, and serves Granite-34B-code (MQA, 48:1) at full
+width, 44 of its 88 layers, through its cell builder and the greedy
+serving loop.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -19,7 +21,12 @@ Phases (one line each, prefixed ``[n name]``):
                  lookup (fp32, H=1, the full table, whose offsets pass 2^31
                  elements) and at fp32 H=8 and bf16 H=4: error vs the plain
                  version, repeatability, CUDA-event times, and the
-                 embedding bag's F.embedding_bag time
+                 embedding bag's F.embedding_bag time; flash attention at
+                 tests/test_kernels.py's FLASH_CASES in fp32 and bf16 and at
+                 one Granite prefill layer (B=1, S=32,768, 48:1 heads of 128,
+                 bf16, causal): error vs the plain version within that
+                 file's TOL, two launches bitwise equal, CUDA-event times,
+                 the bound and F.scaled_dot_product_attention's time
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
                  (2x2 grid) under the packed neighbor exchange and the A2A
                  oracle, and fused vs the plain backend at R=1
@@ -52,12 +59,25 @@ Phases (one line each, prefixed ``[n name]``):
                  checksum of its bytes); for each path the forward through
                  the plain lookup against the kernel's (bitwise), the top
                  device kernels under torch.profiler and the busy share
+  8 lm           Granite-34B-code through
+                 ``repro_torch.configs.get_arch("granite-34b")``'s
+                 ``build_cell``, 44 layers, bf16, weights drawn on the card
+                 from a seeded generator: prefill_32k (B=1, 3 prefills:
+                 ms, tokens/s, peak memory, profiler), the greedy serving
+                 loop (4 prompts of 2,048 tokens, 32 tokens each), a prompt
+                 of 4,096 tokens prefilled and decoded 8 steps against the
+                 full forward over 4,104 tokens through the plain attention
+                 (bf16: drift reported; fp32 weights and cache: within the
+                 reference's band 2e-2), and decode_32k (B=32 over a cache
+                 filled to 32,767: ms per step, tokens/s, profiler)
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — the R=4 packed-neighbor forward
 (phase 3), the R=4 packed-neighbor gradient run (3b), the serve stream
 after warm-up (4), the 10 training steps (6), the K=2 rollout run (6) and
 each DLRM path (7; the embedding bag must launch exactly once per
-forward on serve_p99, serve_bulk and train_batch).
+forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
+flash attention exactly once per layer per prefill, never in a decode
+step).
 Every kernel must have launched on the paths that use it.  The two lines
 before the last are a JSON record of the kernels (``launches`` on the
 kernel's own path, ``launches_by_path`` on all) and the card's nvidia-smi
@@ -90,9 +110,33 @@ LOSS_REL = 2e-6                  # the reference's loss band
 TRAIN_STEPS, TRAIN_LR = 10, 1e-3
 # DLRM RM2 (phase 7): batches per path and the seed of weights and inputs
 P99_BATCHES, BULK_BATCHES, DLRM_TRAIN_STEPS, DLRM_SEED = 200, 10, 5, 0
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores
-# and HBM3 bandwidth
-PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+# Granite-34B-code (phase 8): seed, prefills timed, decode steps timed,
+# the serving loop (prompts, prompt length, tokens generated) and the check
+# (prompt length, decode steps)
+LM_SEED, PREFILL_RUNS, DECODE_STEPS = 0, 3, 10
+SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_GEN = 4, 2048, 32
+CHECK_PROMPT, CHECK_STEPS = 4096, 8
+LM_BAND = 2e-2                   # the reference's band for prefill + decode
+# the served bf16 path's drift from the fp32 forward, per position, at most
+# this multiple of the bf16 forward's through the plain attention
+DRIFT_FACTOR = 2.0
+# tests/test_kernels.py:23-30's FLASH_CASES (B, S, Hq, Hkv, D, causal, window,
+# softcap; one S for queries and keys) and its TOL (:15) by dtype name
+FLASH_CASES = [(1, 128, 2, 2, 64, True, 0, None), (2, 96, 4, 2, 32, True, 0, None),
+               (1, 160, 2, 1, 64, True, 48, None), (1, 64, 2, 2, 128, False, 0, 30.0),
+               (1, 72, 1, 1, 16, True, 0, None)]
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+# the kernel's largest relative L2 error of one output row (one query of
+# one head) against the plain version, by dtype: TOL's atol is as large as
+# the outputs of late rows at S=32k, so each row is held to its own size.
+ROW_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+GRANITE_LAYER = (1, 32768, 48, 1, 128, True, 0, None)
+# the planted fault that the row check must catch at the Granite layer:
+# from FAULT_ROW on, each row loses the keys of its own diagonal tile
+FAULT_ROW, FAULT_TILE = 2048, 64
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
+# bf16 dense on tensor cores, HBM3 bandwidth
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = 67e12, 989e12, 3.35e12
 
 
 def say(phase, msg):
@@ -122,8 +166,8 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, flops):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+def bound_ms(n_bytes, flops, peak_flops=PEAK_FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -140,6 +184,12 @@ def within_band(got, want, rtol=RTOL, atol=ATOL):
 
 def rel_norm(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def row_rel_err(got, want):
+    """Largest relative L2 error of one row (last axis) of ``got``."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
 
 
 def leaf_names(tree, prefix=""):
@@ -202,8 +252,11 @@ def phase_device():
         f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in fp32 throughout, as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
-    reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd", "embedding_bag"])
+    reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd", "embedding_bag",
+                           "flash_attention"])
     regs = {k: sorted({ln.split("Used ")[1].split(",")[0]
                        for ln in v.splitlines() if "Used " in ln})
             for k, v in reports.items()}
@@ -211,8 +264,10 @@ def phase_device():
         f"(nvcc, sm_90a, in parallel); ptxas: {regs}")
     ptxas = {name: ptxas_summary(reports.get(name, ""), needle) for name, needle in
              (("nmp_fwd", "nmp_fwd_kernelILi32E"), ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"),
-              ("embedding_bag", "embedding_bag_kernelIfLi4E"))}
-    say("1 device", f"ptxas at H=32 (embedding bag: fp32, 16-byte loads): {ptxas}")
+              ("embedding_bag", "embedding_bag_kernelIfLi4E"),
+              ("flash_attention", "flash_fwd_bf16_kernelILi128E"))}
+    say("1 device", f"ptxas at H=32 (embedding bag: fp32, 16-byte loads; flash "
+        f"attention: bf16, D=128): {ptxas}")
     return smi, ptxas
 
 
@@ -430,6 +485,117 @@ def phase_embedding_bag(ptxas):
                           bound_by=b_by, library_ms=lib)
         del got, again, want, lib_out
     del cases, table, bulk, tab, idx
+    torch.cuda.empty_cache()
+    return record
+
+
+def attention_pairs(S, causal, window):
+    """(query, key) pairs that the mask keeps, one S for both."""
+    q = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S, np.int64)
+    hi = q + 1 if causal else np.full(S, S, np.int64)
+    return int((hi - lo).sum())
+
+
+def drop_diagonal_tiles(q, k, v, want, scale):
+    """The plain causal output ``want`` with a planted fault: every row
+    from FAULT_ROW on attends only to the keys before its own FAULT_TILE-key
+    diagonal tile (the fault of a kernel that skips that tile)."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    out = want.clone()
+    for t0 in range(FAULT_ROW, q.shape[1], FAULT_TILE):
+        out[:, t0:t0 + FAULT_TILE] = attention_plain(
+            q[:, t0:t0 + FAULT_TILE], k[:, :t0], v[:, :t0], scale=scale, causal=False)
+    return out
+
+
+def phase_flash_attention(ptxas):
+    """Flash attention at FLASH_CASES in fp32 and bf16 and at one Granite
+    prefill layer: error vs plain within TOL and, row by row, within
+    ROW_REL_TOL (at the Granite layer beside the reading of a planted
+    fault, which must fail it), repeatability, times, bound and
+    F.scaled_dot_product_attention's time where it computes the same
+    function (no window, no softcap)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
+    cases.append((GRANITE_LAYER, torch.bfloat16))
+    record = None
+    for (B, S, Hq, Hkv, D, causal, window, cap), dtype in cases:
+        granite = (B, S, Hq, Hkv, D, causal, window, cap) == GRANITE_LAYER
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev, dtype=dtype)
+                   for h in (Hq, Hkv, Hkv))
+        kw = dict(scale=D ** -0.5, causal=causal, window=window, softcap=cap)
+
+        def plain():
+            return fa.attention_plain(q, k, v, chunk=512 if granite else None, **kw)
+
+        got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(q, k, v, **kw)
+        want = plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        diff = (got.float() - want.float()).abs()
+        dname = str(dtype).split(".")[1]
+        rtol, atol = FLASH_TOL[dname]
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        err = float(diff.max())
+        del again, diff
+        row_err, row_tol = row_rel_err(got, want), ROW_REL_TOL[dname]
+        ok = ok and row_err <= row_tol
+        fault_note = ""
+        if granite:
+            fault = drop_diagonal_tiles(q, k, v, want, D ** -0.5)
+            fault_err = row_rel_err(fault, want)
+            fault_in_tol = bool(((fault.float() - want.float()).abs()
+                                 <= atol + rtol * want.float().abs()).all())
+            ok = ok and fault_err > row_tol
+            fault_note = (f" (planted fault, rows >= {FAULT_ROW} without their diagonal "
+                          f"{FAULT_TILE}-key tile: {fault_err:.3g}, must exceed it; within "
+                          f"the elementwise TOL: {fault_in_tol})")
+            del fault
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 5 if granite else 20)
+        plain_ms = cuda_ms(plain, 1 if granite else 5, warmup=1)
+        lib_ms, lib_note = None, "none (window or softcap)"
+        if window == 0 and cap is None:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            backend = SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16 else SDPBackend.MATH
+            with sdpa_kernel(backend):
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, scale=D ** -0.5, enable_gqa=True)
+                lib_err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+                lib_ms = cuda_ms(lib, 5 if granite else 20)
+            lib_note = f"{lib_ms:.4f} ms ({backend.name}, max|diff| vs plain {lib_err:.3g})"
+        flops = 4 * D * Hq * B * attention_pairs(S, causal, window)
+        moved = nbytes(q, k, v, got)
+        b_ms, b_by = bound_ms(moved, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                              else PEAK_FP32_FLOPS)
+        say("2 kernels", f"flash_attention {'Granite prefill layer ' if granite else ''}"
+            f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal={causal} window={window} "
+            f"softcap={cap} {dtype}: max|err| vs plain {err:.3g} (rtol {rtol} atol {atol}), "
+            f"largest row rel L2 err {row_err:.3g} (limit {row_tol}){fault_note} "
+            f"-> {'ok' if ok else 'FAIL'} | two launches bitwise equal: {same} | kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"SDPA {lib_note}, bound {b_ms:.4f} ms ({b_by}, {flops / 1e12:.3f} TFLOP, "
+            f"{moved / 1e9:.3f} GB)" + (f" | ptxas {ptxas['flash_attention']}" if granite else ""))
+        if not (ok and same):
+            raise RuntimeError(f"flash attention kernel disagrees with its plain version, is "
+                               f"not repeatable or its row check let the planted fault pass "
+                               f"at {(B, S, Hq, Hkv, D)} {dtype}")
+        if granite:
+            record = dict(name=fa.KERNEL, route="cuda",
+                          source="src/repro_torch/csrc/flash_attention.cu",
+                          replaces="src/repro/kernels/flash_attention/kernel.py:75",
+                          max_abs_err=err, max_row_rel_err=row_err,
+                          planted_fault_row_rel_err=fault_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, got, want
     torch.cuda.empty_cache()
     return record
 
@@ -1005,6 +1171,240 @@ def phase_dlrm(smi):
     return by_path
 
 
+def served_logits(params, tokens, cfg):
+    """Logits of the serving path: tokens[:, :CHECK_PROMPT] prefilled
+    through the cell's entry points, then CHECK_STEPS decode steps ->
+    ([1, CHECK_STEPS + 1, V] fp32, launches of the prefill and decode)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer.steps import make_decode_step, make_prefill_step
+
+    P = CHECK_PROMPT
+    build.reset_launch_counts()
+    last, cache = make_prefill_step(cfg, capacity=P + CHECK_STEPS)(params, tokens[:, :P])
+    decode = make_decode_step(cfg)
+    got = [last]
+    for i in range(P, P + CHECK_STEPS):
+        logits, cache = decode(params, cache, tokens[:, i:i + 1], i)
+        got.append(logits[:, 0])
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    got = torch.stack(got, 1).float()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("LM check: served logits not finite")
+    return got, launches
+
+
+def forward_logits(params, tokens, cfg, plain):
+    """Logits of one forward over all the tokens at the served positions
+    [CHECK_PROMPT - 1, ...), [1, CHECK_STEPS + 1, V] fp32; through the
+    plain attention in row chunks if ``plain``, else through the kernel."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.models.transformer import model as lm
+    kw = {}
+    if plain:
+        kw["attention"] = lambda q, k, v, scale: attention_plain(
+            q, k, v, scale=scale, causal=True, chunk=512)
+    with torch.no_grad():
+        full = lm.forward(params, tokens, cfg, **kw)
+    return full[:, CHECK_PROMPT - 1:].float()
+
+
+def per_position_rel(got, want):
+    return [float((got[:, j] - want[:, j]).norm() / want[:, j].norm())
+            for j in range(got.shape[1])]
+
+
+def band_reading(got, want):
+    """(max abs error, its ratio to the rtol = atol = LM_BAND band)."""
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff / (LM_BAND + LM_BAND * want.abs())).max())
+
+
+def upcast_(params):
+    """Every leaf of a parameter tree to fp32 in place of the tree, largest
+    leaves first so that one leaf at a time exists in both types."""
+    import torch
+    slots = []
+
+    def walk(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val)
+            else:
+                slots.append((val.numel(), tree, key))
+    walk(params)
+    for _, tree, key in sorted(slots, key=lambda t: -t[0]):
+        tree[key] = tree[key].float()
+        torch.cuda.empty_cache()
+    return params
+
+
+def phase_lm(smi):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.transformer.steps import greedy_generate
+
+    granite, family = get_arch("granite-34b")
+    dev = torch.device("cuda")
+    by_path = {}
+
+    def expect_launches(path, n):
+        launches = dict(build.launch_counts)
+        by_path[path] = launches
+        if launches.get(fa.KERNEL, 0) != n:
+            raise RuntimeError(f"{path}: flash_attention launched "
+                               f"{launches.get(fa.KERNEL, 0)} times, expected {n}")
+        return launches
+
+    # --- prefill_32k: all 88 layers, B=1 ---
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, (params, tokens), meta = granite.build_cell("prefill_32k", dev, LM_SEED)
+    torch.cuda.synchronize()
+    cfg = meta["cfg"]
+    L = cfg.n_layers
+    say("8 lm", f"{granite.ARCH_ID} ({family}): d {cfg.d_model}, {cfg.n_q} query heads "
+        f"over {cfg.n_kv} KV head of dim {cfg.head_dim}, MLP {cfg.d_ff} (tanh GELU), vocab "
+        f"{cfg.vocab}, tied; prefill_32k at {L} layers ({meta['n_params'] / 1e9:.3f} B "
+        f"params, {cfg.param_dtype}), drawn on the card from seed {LM_SEED} in "
+        f"{time.perf_counter() - t0:.1f} s | cut (reference, here): {meta['reduced']} | {smi}")
+    B, S = meta["batch"], meta["seq"]
+    build.reset_launch_counts()
+    prefill_s = []
+    for _ in range(PREFILL_RUNS):
+        t0 = time.perf_counter()
+        logits, cache = step(params, tokens)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        del cache
+    launches = expect_launches("lm_prefill", PREFILL_RUNS * L)
+    if logits.shape != (B, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill_32k: bad logits {tuple(logits.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    t = float(np.median(prefill_s))
+    say("8 lm", f"prefill_32k: B={B} S={S}, {L} layers: "
+        + ", ".join(f"{1e3 * x:.1f}" for x in prefill_s)
+        + f" ms per prefill (median {1e3 * t:.1f} ms = {B * S / t:.0f} tokens/s, "
+        f"{meta['model_flops'] / t / 1e12:.1f} TFLOP/s of dense model FLOPs) | peak device "
+        f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) | launches {launches} "
+        f"({L} per prefill) | {smi}")
+    say("8 lm", "prefill_32k: one prefill " + profile_line(lambda: step(params, tokens)))
+
+    # --- the serving loop at the same depth: prefill prompts, greedy decode ---
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_PROMPTS, SERVE_PROMPT_LEN), generator=gen,
+                            device=dev)
+    greedy_generate(params, prompts[:, :64], cfg, 2)        # warm-up at a small size
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, prompts, cfg, SERVE_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = expect_launches("lm_serve", L)
+    if out.shape != (SERVE_PROMPTS, SERVE_GEN) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab:
+        raise RuntimeError(f"serving loop: bad tokens {tuple(out.shape)}")
+    say("8 lm", f"serving loop, {L} layers: {SERVE_PROMPTS} prompts of {SERVE_PROMPT_LEN} "
+        f"tokens -> {SERVE_GEN} greedy tokens each (capacity "
+        f"{SERVE_PROMPT_LEN + SERVE_GEN}) in {wall:.3f} s ({SERVE_PROMPTS * SERVE_GEN / wall:.1f}"
+        f" generated tokens/s with the prefill) | first tokens {out[0, :8].tolist()} | "
+        f"launches {launches} (one prefill)")
+    ck = torch.randint(0, cfg.vocab, (1, CHECK_PROMPT + CHECK_STEPS), generator=gen, device=dev)
+    del step, params, tokens, logits, prompts, out
+    torch.cuda.empty_cache()
+
+    # --- decode_32k: 44 layers, B=32 over a cache filled to 32,767 ---
+    torch.cuda.reset_peak_memory_stats()
+    step, (params, cache, tokens, cache_len), meta = granite.build_cell("decode_32k", dev,
+                                                                         LM_SEED)
+    cfg = meta["cfg"]
+    L = cfg.n_layers
+    B = meta["batch"]
+    step(params, cache, tokens, cache_len)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(DECODE_STEPS):
+        logits, cache = step(params, cache, tokens, cache_len)
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / DECODE_STEPS
+    launches = expect_launches("lm_decode", 0)
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"decode_32k: bad logits {tuple(logits.shape)}")
+    dev_ms = ev[0].elapsed_time(ev[1]) / DECODE_STEPS
+    moved = sum(nbytes(x) for x in (params["embed"], *params["layers"]["attn"].values(),
+                                    *params["layers"]["ffn"].values(), cache["k"], cache["v"]))
+    b_ms, b_by = bound_ms(moved, meta["model_flops"], PEAK_BF16_FLOPS)
+    say("8 lm", f"decode_32k: B={B}, {L} layers, cache_len {cache_len} of {meta['seq']}: "
+        f"{dev_ms:.3f} ms per step by CUDA events, {1e3 * wall:.3f} ms by host clock "
+        f"({B / wall:.1f} tokens/s) | bound {b_ms:.3f} ms ({b_by}: "
+        f"{moved / 1e9:.2f} GB of weights and cache) | peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) | cut (reference, here): "
+        f"{meta['reduced']} | launches {launches} | {smi}")
+    say("8 lm", "decode_32k: one step " + profile_line(lambda: step(params, cache, tokens,
+                                                                     cache_len)))
+    del step, cache, tokens, logits
+    torch.cuda.empty_cache()
+
+    # --- the check at full width and 44 layers (decode_32k's weights):
+    # prefill + decode against the full forward through the plain attention,
+    # in bf16 (the served precision) and in fp32 on the same weights upcast
+    # (bf16 values are exact in fp32), which is also the witness: each bf16
+    # path's drift from the fp32 forward ---
+    served_b, launches = served_logits(params, ck, cfg)
+    by_path["lm_check_bf16"] = launches
+    if launches.get(fa.KERNEL, 0) != L:
+        raise RuntimeError(f"LM check: flash_attention launched {launches} times, expected {L}")
+    plain_b = forward_logits(params, ck, cfg, plain=True)
+    kernel_b = forward_logits(params, ck, cfg, plain=False)
+    cfg32 = cfg.with_(param_dtype=torch.float32, cache_dtype=torch.float32)
+    params = upcast_(params)
+    torch.cuda.empty_cache()
+    want = forward_logits(params, ck, cfg32, plain=True)
+    served_32, launches = served_logits(params, ck, cfg32)
+    by_path["lm_check_fp32"] = launches
+    del params
+    torch.cuda.empty_cache()
+    err, viol = band_reading(served_b, plain_b)
+    say("8 lm", f"check, bf16 (the served precision), {L} layers: prompt {CHECK_PROMPT} "
+        f"prefilled + {CHECK_STEPS} decode steps vs the forward over "
+        f"{CHECK_PROMPT + CHECK_STEPS} tokens through the plain attention: max|err| "
+        f"{err:.4g} = {viol:.2f} x the {LM_BAND} band (reported); rel L2 per position "
+        + ", ".join(f"{r:.2e}" for r in per_position_rel(served_b, plain_b))
+        + f" | launches {by_path['lm_check_bf16']}")
+    drift = {name: per_position_rel(got, want) for name, got in
+             (("served", served_b), ("plain forward", plain_b),
+              ("kernel forward", kernel_b))}
+    ratio = max(a / b for a, b in zip(drift["served"], drift["plain forward"]))
+    witness_ok = ratio <= DRIFT_FACTOR
+    say("8 lm", "witness, rel L2 per position of each bf16 path against the fp32 forward "
+        "(plain attention) on the same weights: " + "; ".join(
+            f"{name} " + ", ".join(f"{r:.2e}" for r in rels) for name, rels in drift.items())
+        + f" | served / plain forward at most {ratio:.3f} (limit {DRIFT_FACTOR}) -> "
+        + ("ok" if witness_ok else "FAIL"))
+    err, viol = band_reading(served_32, want)
+    ok = viol <= 1.0 and launches.get(fa.KERNEL, 0) == L
+    say("8 lm", f"check, fp32 (the same weights upcast, {cfg32.n_params() * 4 / 1e9:.1f} GB), "
+        f"full width, {L} layers: max|err| {err:.4g} = {viol:.3f} x the band (rtol = atol = "
+        f"{LM_BAND}) -> {'ok' if ok else 'FAIL'}; rel L2 per position "
+        + ", ".join(f"{r:.2e}" for r in per_position_rel(served_32, want))
+        + f" | launches {launches}")
+    if not (ok and witness_ok):
+        raise RuntimeError("Granite: prefill + decode disagree with the full forward, or "
+                           "the served bf16 path drifts further than the plain one")
+    return by_path
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1013,31 +1413,49 @@ def main():
         return 1
     from repro_torch.core.gnn import GNNConfig
     from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.halo_pack import ops as hp
     from repro_torch.kernels.segment_agg import ops as sa
 
+    start = time.perf_counter()
+
+    def lap(phase):
+        say(phase, f"done at {time.perf_counter() - start:.1f} s")
+
     cfg = GNNConfig.large()
     smi, ptxas = phase_device()
+    lap("1 device")
     sem, pg, records = phase_kernels(cfg, ptxas)
     records.append(phase_embedding_bag(ptxas))
+    records.append(phase_flash_attention(ptxas))
+    lap("2 kernels")
     by_path = {"consistency_r4_packed": phase_consistency(cfg),
                "grad_r4_packed": phase_grad_consistency(cfg)}
+    lap("3b gradients")
     engine, mesh_hash, by_path["serve"] = phase_serve(cfg, sem, pg, smi)
     phase_profile(engine, mesh_hash, sem)
     del engine
+    lap("5 profile")
     by_path["train"], by_path["rollout_k2"] = phase_train(cfg, sem, pg, smi)
     torch.cuda.empty_cache()
+    lap("6 train")
     by_path.update(phase_dlrm(smi))
+    torch.cuda.empty_cache()
+    lap("7 dlrm")
+    by_path.update(phase_lm(smi))
+    lap("8 lm")
     # each kernel's own path first, then every other path that must use it:
     # training for the fused NMP pair, the R=4 packed-neighbor gradient run
     # for the halo kernels (training and serving are R=1), serve_bulk for
-    # the embedding bag (phase 7 checks its exact counts on every path)
+    # the embedding bag, the prefill for flash attention (phases 7 and 8
+    # check their exact counts on every path)
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
                        "rollout_k2"),
            sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2"),
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed"),
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed"),
-           eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train")}
+           eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
+           fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32")}
     for rec in records:
         counts = {path: int(by_path[path].get(rec["name"], 0)) for path in by_path}
         rec["launches"] = counts[own[rec["name"]][0]]

@@ -8,6 +8,7 @@ from typing import Dict
 # arch id -> (module path, family)
 ARCHS: Dict[str, tuple] = {
     "dlrm-rm2": ("repro_torch.configs.dlrm_rm2", "recsys"),
+    "granite-34b": ("repro_torch.configs.granite_34b", "lm"),
 }
 
 

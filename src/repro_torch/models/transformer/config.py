@@ -1,0 +1,41 @@
+"""Transformer configuration (port of ``repro.models.transformer.config``).
+
+The port holds the fields its ported model reads: a dense decoder with
+grouped-query attention (MQA when ``n_kv == 1``), RoPE, pre-norm RMSNorm,
+a tanh-GELU MLP (``gelu_mlp``) and tied embeddings, as Granite-34B-code
+sets them.  The reference's other knobs (MoE, MLA, sliding windows,
+softcaps, post-norms, the other MLP variants, untied embeddings, remat and
+the parallel layouts) each have one value on this path; they come with the
+configurations and the sharding that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_q: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    param_dtype: torch.dtype = torch.bfloat16
+    cache_dtype: torch.dtype = torch.bfloat16
+
+    def with_(self, **kw) -> "TransformerConfig":
+        return dataclasses.replace(self, **kw)
+
+    def n_params(self) -> int:
+        """Analytic parameter count, as the reference counts it (tied
+        embedding, attention and MLP matrices; the norms left out)."""
+        d = self.d_model
+        attn = d * self.n_q * self.head_dim * 2 + d * self.n_kv * self.head_dim * 2
+        return self.vocab * d + self.n_layers * (attn + 2 * d * self.d_ff)

@@ -14,7 +14,12 @@ forward band).  Its backward: node and edge gradients rtol 1e-3 / atol
 2e-5 (the reference's gradient band); the weight gradients are sums over
 every edge, so they are held to a relative L2 norm of 5e-4.  Pack and
 unpack-add are pure data movement: bitwise, values and gradients.  The
-embedding bag sums in the plain version's order and type: bitwise.  Every
+embedding bag sums in the plain version's order and type: bitwise.  Flash
+attention runs its online softmax over key tiles where the plain version
+takes one softmax: ``tests/test_kernels.py``'s ``TOL`` (fp32 rtol / atol
+2e-5, bf16 2e-2), and at a long sequence, whose late rows are smaller than
+that atol, each row's relative L2 error within 1e-2; Granite's smoke cells hold prefill + decode to the full
+forward in fp32 at the reference's forward band.  Every
 kernel, and a training step through them, is bitwise repeatable.
 """
 import os
@@ -36,9 +41,12 @@ from repro_torch.core.reference import gnn_forward_stacked
 from repro_torch.nn import tree_leaves
 from repro_torch.train.loop import TrainConfig, train_consistent_gnn
 from repro_torch.graph.segment import segment_sum
-from repro_torch.configs import dlrm_rm2
+from repro_torch.configs import dlrm_rm2, granite_34b
 from repro_torch.kernels import build
 from repro_torch.kernels.embedding_bag import ops as eb
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.models.transformer import attention as lm_attention
+from repro_torch.models.transformer import model as lm
 from repro_torch.kernels.halo_pack import ops as hp
 from repro_torch.kernels.segment_agg import ops as sa
 
@@ -290,3 +298,122 @@ def test_dlrm_smoke_cells_on_card(cuda):
         runs.append((losses, tree_leaves(args[0])))
     assert runs[0][0] == runs[1][0] and all(np.isfinite(runs[0][0]))
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # B, S, Hq, Hkv, D, causal, window, softcap
+    (1, 128, 2, 2, 64, True, 0, None), (2, 96, 4, 2, 32, True, 0, None),
+    (1, 160, 2, 1, 64, True, 48, None), (1, 64, 2, 2, 128, False, 0, 30.0),
+    (1, 72, 1, 1, 16, True, 0, None), (2, 300, 48, 1, 128, True, 0, None),
+    (1, 200, 8, 1, 128, False, 70, 20.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
+    B, S, Hq, Hkv, D, causal, window, cap = case
+    gen = torch.Generator().manual_seed(S + Hq)
+    q, k, v = (torch.randn(B, S, h, D, generator=gen).to(dtype).to(cuda)
+               for h in (Hq, Hkv, Hkv))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, softcap=cap)
+    n0 = build.launch_counts.get(fa.KERNEL, 0)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[fa.KERNEL] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got, fa.attention_plain(q, k, v, **kw), **FLASH_TOL[dtype])
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_rows_at_long_sequence(cuda):
+    """MQA at S=8,192 in bf16, where a late row's outputs are far smaller
+    than TOL's atol: each row within a relative L2 error of 1e-2 of the
+    plain version's (1.3 bf16 ulps at the bottom of a binade)."""
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn(1, 8192, h, 128, generator=gen).to(torch.bfloat16).to(cuda)
+               for h in (8, 1, 1))
+    got = fa.flash_attention(q, k, v, scale=128 ** -0.5).float()
+    want = fa.attention_plain(q, k, v, scale=128 ** -0.5, chunk=1024).float()
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("heads", [(8, 2), (48, 1)], ids=["gqa", "mqa"])
+def test_decode_attention_on_card_matches_cpu(cuda, dtype, heads):
+    """Decode attention's products on the card (cuBLAS, bf16 operands, fp32
+    results) equal the CPU's fp32 products of the upcast operands up to the
+    order of the sums; the cache is written in place on both.  A score
+    that differs in its last fp32 bit may round P to another bf16 value,
+    and an output that cancels to near zero then moves by many of its own
+    ulps: each row is held by its relative L2 error."""
+    (Hq, Hkv), B, cap, n = heads, 3, 320, 300
+    gen = torch.Generator().manual_seed(Hq)
+    q = torch.randn(B, Hq, 128, generator=gen).to(dtype)
+    kc, vc = (torch.randn(B, cap, Hkv, 128, generator=gen).to(dtype) for _ in range(2))
+    kn, vn = (torch.randn(B, Hkv, 128, generator=gen).to(dtype) for _ in range(2))
+    want = lm_attention.decode_attention(q, kc.clone(), vc.clone(), kn, vn, n,
+                                         scale=128 ** -0.5)
+    kcd, vcd = kc.to(cuda), vc.to(cuda)
+    got = lm_attention.decode_attention(q.to(cuda), kcd, vcd, kn.to(cuda), vn.to(cuda), n,
+                                        scale=128 ** -0.5)
+    assert got.dtype == dtype and torch.equal(kcd[:, n].cpu(), kn)
+    got, want = got.cpu().float(), want.float()
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_kernel_reads_strided_views(cuda, dtype):
+    """K and V read in place from a cache of larger capacity, Q as a slice
+    of a wider projection: the same result as contiguous copies."""
+    gen = torch.Generator().manual_seed(3)
+    cache = torch.randn(2, 2, 256, 1, 64, generator=gen).to(dtype).to(cuda)
+    qkv = torch.randn(2, 200, 10, 64, generator=gen).to(dtype).to(cuda)
+    q, k, v = qkv[:, :, :8], cache[0, :, :200], cache[1, :, :200]
+    got = fa.flash_attention(q, k, v, scale=0.125)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.125)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
+    q = torch.randn(1, 32, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_attention(q, q[:, :, :2].cpu(), q[:, :, :2], scale=1.0)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.randn(1, 32, 4, 48, device=cuda)
+        fa.flash_attention(x, x, x, scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        x = q.half()
+        fa.flash_attention(x, x, x, scale=1.0)
+    with pytest.raises(ValueError, match="strides"):
+        x = torch.randn(1, 32, 4, 128, device=cuda)[..., ::2]
+        fa.flash_attention(x, x, x, scale=1.0)
+
+
+@pytest.mark.gpu
+def test_granite_smoke_cells_on_card(cuda):
+    """Prefill through the kernel (one launch per layer) and decode steps
+    (none) agree with the full forward through the plain attention, fp32."""
+    cfg = granite_34b.smoke_config().with_(param_dtype=torch.float32,
+                                           cache_dtype=torch.float32)
+    params = lm.init_transformer(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    tok = torch.randint(0, cfg.vocab, (2, 140), device=cuda)
+    with torch.no_grad():
+        n0 = build.launch_counts.get(fa.KERNEL, 0)
+        last, cache = lm.prefill_step(params, tok[:, :130], cfg, capacity=140)
+        assert build.launch_counts[fa.KERNEL] == n0 + cfg.n_layers
+        steps = [last]
+        for i in range(130, 140):
+            logits, cache = lm.decode_step(params, cache, tok[:, i:i + 1], i, cfg)
+            steps.append(logits[:, 0])
+        assert build.launch_counts[fa.KERNEL] == n0 + cfg.n_layers
+        full = lm.forward(params, tok, cfg,
+                          attention=lambda q, k, v, scale: fa.attention_plain(
+                              q, k, v, scale=scale, causal=True))
+    torch.testing.assert_close(torch.stack(steps, 1), full[:, 129:140], rtol=1e-4, atol=1e-5)

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
 
@@ -45,3 +47,28 @@ def test_no_source_file_imports_jax_or_repro():
                 if n.split(".")[0] in ("jax", "jaxlib", "repro"):
                     offenders.append(f"{path.relative_to(SRC)}: {n}")
     assert not offenders, offenders
+
+
+LM_SLICE = ["repro_torch.configs.granite_34b", "repro_torch.configs.lm_common",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.models.transformer.attention",
+            "repro_torch.models.transformer.config",
+            "repro_torch.models.transformer.layers",
+            "repro_torch.models.transformer.model",
+            "repro_torch.models.transformer.steps"]
+
+
+@pytest.mark.parametrize("mod", LM_SLICE)
+def test_lm_slice_module_imports_alone_without_jax(mod):
+    """Each module of the LM serving slice is one that the walk above finds,
+    and imports in a fresh interpreter with neither ``jax`` nor ``repro``."""
+    assert mod in _modules()
+    code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

@@ -11,7 +11,9 @@ and gradients.  The embedding bag's plain version is held to
 ``tests/test_kernels.py``'s ``TOL`` against the reference's interpret-mode
 kernel and its oracle, and its gradient (a sorted segment sum, where the
 reference's scatter-add may add duplicate rows in another order) to the
-same band.  The kernels themselves are held against these plain
+same band.  The flash-attention plain version is held to the same
+``TOL`` against the reference's interpret-mode Pallas kernel and its oracle
+over ``FLASH_CASES`` and an MQA case.  The kernels themselves are held against these plain
 versions on the card in ``tests/test_torch_gpu.py``.
 """
 import numpy as np
@@ -28,6 +30,8 @@ from repro.core import init_gnn as ref_init_gnn
 from repro.core import partition_mesh as ref_partition_mesh
 from repro.core.consistent_mp import _agg_xla as ref_agg_xla
 from repro.kernels.embedding_bag.ops import embedding_bag as ref_embedding_bag
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.embedding_bag.ref import embedding_bag_ref
 from repro.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_add_ref
 from repro.kernels.segment_agg.ops import compact_gather_layout as ref_layout
@@ -38,14 +42,15 @@ from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import partition_mesh
 from repro_torch.kernels import build
 from repro_torch.kernels.embedding_bag import ops as eb
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.halo_pack import ops as hp
 from repro_torch.kernels.segment_agg import ops as sa
 from repro_torch.nn import tree_leaves
 
 RTOL, ATOL = 1e-4, 1e-5
 G_RTOL, G_ATOL = 1e-3, 2e-5        # the reference's gradient band
-# tests/test_kernels.py's TOL for the embedding bag
-EB_TOL = {jnp.float32: dict(rtol=2e-5, atol=2e-5), jnp.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# tests/test_kernels.py's TOL, for the embedding bag and flash attention
+TOL = {jnp.float32: dict(rtol=2e-5, atol=2e-5), jnp.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
 def _layer_case(hidden, mlp_hidden_layers):
@@ -166,7 +171,7 @@ def test_embedding_bag_plain_matches_reference(shape, dtype):
     got = got.float().numpy()
     for want in (ref_embedding_bag(table, idx, interpret=True),
                  embedding_bag_ref(table, idx)):
-        np.testing.assert_allclose(got, np.asarray(want, np.float32), **EB_TOL[dtype])
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), **TOL[dtype])
 
 
 @pytest.mark.parametrize("shape", [(8, 4, 64, 32), (16, 1, 256, 16), (40, 8, 24, 8)])
@@ -176,7 +181,7 @@ def test_embedding_bag_grad_matches_jax(shape):
     (want,) = jax.vjp(lambda tb: embedding_bag_ref(tb, idx), table)[1](jnp.asarray(g))
     t.requires_grad_(True)
     (got,) = torch.autograd.grad(eb.embedding_bag(t, ti), t, torch.from_numpy(g))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **EB_TOL[jnp.float32])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL[jnp.float32])
 
 
 def test_embedding_bag_validates_inputs():
@@ -188,6 +193,79 @@ def test_embedding_bag_validates_inputs():
     for bad in (10, -1):     # ids outside [0, V) raise; the kernel traps on them
         with pytest.raises(IndexError):
             eb.embedding_bag(t, torch.tensor([[0, bad]], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's FLASH_CASES (B, Sq, Skv, Hq, Hkv, D, causal, window,
+# softcap, bq, bk), and an MQA case (G = 8) in the layout of Granite's
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 64, True, 0, None, 32, 32),
+    (2, 96, 96, 4, 2, 32, True, 0, None, 32, 16),
+    (1, 160, 160, 2, 1, 64, True, 48, None, 32, 32),
+    (1, 64, 64, 2, 2, 128, False, 0, 30.0, 32, 32),
+    (1, 72, 72, 1, 1, 16, True, 0, None, 16, 16),
+    (1, 80, 80, 8, 1, 128, True, 0, None, 16, 16),
+]
+
+
+def _attn_case(case, dtype):
+    B, Sq, Skv, Hq, Hkv, D = case[:6]
+    rng = np.random.default_rng(0)
+    arrs = [jnp.asarray(rng.normal(size=(B, S, H, D)), dtype)
+            for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv))]
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    return arrs, [torch.from_numpy(np.array(a, np.float32)).to(tdt) for a in arrs]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_attention_plain_matches_reference(case, dtype):
+    B, Sq, Skv, Hq, Hkv, D, caus, win, cap, bq, bk = case
+    (q, k, v), (tq, tk, tv) = _attn_case(case, dtype)
+    kw = dict(scale=D ** -0.5, causal=caus, window=win, softcap=cap)
+    got = fa.flash_attention(tq, tk, tv, **kw)       # CPU tensors: the plain version
+    assert got.dtype == tq.dtype and got.shape == (B, Sq, Hq, D)
+    assert torch.equal(got, fa.attention_plain(tq, tk, tv, **kw))
+    G = Hq // Hkv
+    oracle = attention_ref(q.transpose(0, 2, 1, 3),
+                           jnp.repeat(k.transpose(0, 2, 1, 3), G, 1),
+                           jnp.repeat(v.transpose(0, 2, 1, 3), G, 1),
+                           **kw).transpose(0, 2, 1, 3)
+    for want in (ref_flash_attention(q, k, v, block_q=bq, block_k=bk, interpret=True, **kw),
+                 oracle):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   **TOL[dtype])
+
+
+def test_attention_plain_row_chunks_agree():
+    case = FLASH_CASES[2]
+    _, (tq, tk, tv) = _attn_case(case, jnp.float32)
+    kw = dict(scale=64 ** -0.5, causal=True, window=48)
+    torch.testing.assert_close(fa.attention_plain(tq, tk, tv, chunk=37, **kw),
+                               fa.attention_plain(tq, tk, tv, **kw), rtol=1e-6, atol=1e-6)
+
+
+def test_flash_attention_validates_inputs():
+    q, kv = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        fa.flash_attention(q, torch.randn(1, 8, 3, 16), torch.randn(1, 8, 3, 16), scale=1.0)
+    with pytest.raises(ValueError, match="same B, S and D"):
+        fa.flash_attention(q, kv[:, :7], kv[:, :7], scale=1.0)
+    with pytest.raises(ValueError, match="expected q"):
+        fa.flash_attention(q, kv, kv[..., :8], scale=1.0)
+    with pytest.raises(TypeError, match="differ"):
+        fa.flash_attention(q, kv.double(), kv.double(), scale=1.0)
+    with pytest.raises(ValueError, match="softcap"):
+        fa.flash_attention(q, kv, kv, scale=1.0, softcap=-1.0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_attention(q.requires_grad_(), kv, kv, scale=1.0)
+    build.reset_launch_counts()
+    with torch.no_grad():
+        fa.flash_attention(q, kv, kv, scale=1.0)
+    assert all(v == 0 for v in build.launch_counts.values())
 
 
 # ---------------------------------------------------------------------------
