@@ -26,7 +26,15 @@ Phases (one line each, prefixed ``[n name]``):
                  one Granite prefill layer (B=1, S=32,768, 48:1 heads of 128,
                  bf16, causal): error vs the plain version within that
                  file's TOL, two launches bitwise equal, CUDA-event times,
-                 the bound and F.scaled_dot_product_attention's time
+                 the bound and F.scaled_dot_product_attention's time;
+                 the dst-aligned edge MLP + aggregate (kernel 3) at full
+                 width (Fin 96, Hh = H = 32, blocks 128/256) on the serving
+                 mesh's directed edges and at kernel_bench's 8k-edge shape
+                 (E 8192, N 2048, Fin 24, H 16): kernel and plain version
+                 against edge_mlp_agg_ref within tests/test_kernels.py's
+                 bands, two launches bitwise equal, CUDA-event times, the
+                 bound, the layout's waste, bf16 feats against plain at full
+                 width, and one launch-counted call of fused_edge_mlp_agg
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
                  (2x2 grid) under the packed neighbor exchange and the A2A
                  oracle, and fused vs the plain backend at R=1
@@ -71,8 +79,9 @@ Phases (one line each, prefixed ``[n name]``):
                  reference's band 2e-2), and decode_32k (B=32 over a cache
                  filled to 32,767: ms per step, tokens/s, profiler)
 The script reads each main path's launch counters on its own: zeroed just
-before the path and read right after it — the R=4 packed-neighbor forward
-(phase 3), the R=4 packed-neighbor gradient run (3b), the serve stream
+before the path and read right after it — one full-width call of
+fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
+forward (phase 3), the R=4 packed-neighbor gradient run (3b), the serve stream
 after warm-up (4), the 10 training steps (6), the K=2 rollout run (6) and
 each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
@@ -134,6 +143,10 @@ GRANITE_LAYER = (1, 32768, 48, 1, 128, True, 0, None)
 # the planted fault that the row check must catch at the Granite layer:
 # from FAULT_ROW on, each row loses the keys of its own diagonal tile
 FAULT_ROW, FAULT_TILE = 2048, 64
+# kernel 3, the dst-aligned edge MLP + aggregate: blocks (block_n, block_e),
+# tests/test_kernels.py's bands for the op (e_new, agg) and its bf16 TOL
+MLP_AGG_BLOCKS = (128, 256)
+MLP_AGG_E_TOL, MLP_AGG_TOL, MLP_AGG_BF16_TOL = 3e-5, 1e-4, 2e-2
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # bf16 dense on tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = 67e12, 989e12, 3.35e12
@@ -256,18 +269,23 @@ def phase_device():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd", "embedding_bag",
-                           "flash_attention"])
+                           "flash_attention", "edge_mlp_agg"])
     regs = {k: sorted({ln.split("Used ")[1].split(",")[0]
                        for ln in v.splitlines() if "Used " in ln})
             for k, v in reports.items()}
     say("1 device", f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a, in parallel); ptxas: {regs}")
-    ptxas = {name: ptxas_summary(reports.get(name, ""), needle) for name, needle in
-             (("nmp_fwd", "nmp_fwd_kernelILi32E"), ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"),
-              ("embedding_bag", "embedding_bag_kernelIfLi4E"),
-              ("flash_attention", "flash_fwd_bf16_kernelILi128E"))}
+    # {key: (source, mangled-name needle)}
+    kernels = {"nmp_fwd": ("nmp_fwd", "nmp_fwd_kernelILi32E"),
+               "nmp_bwd": ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"),
+               "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
+               "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
+               "edge_mlp_agg": ("edge_mlp_agg", "edge_mlp_agg_kernelIfE"),
+               "edge_mlp_agg_bf16": ("edge_mlp_agg", "edge_mlp_agg_kernelI13__nv_bfloat16E")}
+    ptxas = {key: ptxas_summary(reports.get(src, ""), needle)
+             for key, (src, needle) in kernels.items()}
     say("1 device", f"ptxas at H=32 (embedding bag: fp32, 16-byte loads; flash "
-        f"attention: bf16, D=128): {ptxas}")
+        f"attention: bf16, D=128; edge_mlp_agg: fp32 and bf16 feats): {ptxas}")
     return smi, ptxas
 
 
@@ -428,6 +446,133 @@ def phase_kernels(cfg, ptxas):
                             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib))
     return sem, pg, records
+
+
+def phase_segment_agg(sem, ptxas):
+    """Kernel 3, the dst-aligned edge MLP + aggregate, at full width (Fin
+    96, Hh 32, H 32) on the serving mesh's directed edges and at
+    kernel_bench's segment_agg_ref_8k_edges shape (E 8192, N 2048, Fin 24,
+    H 16): the kernel's and the plain version's error against
+    edge_mlp_agg_ref, repeatability, times, bound and the layout's waste,
+    and at full width the kernel on bf16 feats against plain.  The op's own
+    path is one launch-counted call of fused_edge_mlp_agg at full width.
+    Returns (record, launch counts of that call)."""
+    import torch
+    from repro_torch.core.mesh_gen import mesh_graph_edges, undirected_to_directed
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as sa
+    from repro_torch.kernels.segment_agg.ref import edge_mlp_agg_ref
+
+    dev = torch.device("cuda")
+    bn, be = MLP_AGG_BLOCKS
+    t0 = time.perf_counter()
+    full_dst = undirected_to_directed(mesh_graph_edges(sem))[:, 1]
+    cases = [("full width", full_dst, sem.n_nodes, 96, 32, 32),
+             ("8k edges", np.random.default_rng(0).integers(0, 2048, 8192), 2048, 24, 16, 16)]
+    record = counts = None
+    for name, dst, n, fin, hh, hid in cases:
+        full = record is None
+        layout = sa.dst_aligned_layout(dst, n, bn, be)
+        host_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(17)
+        E = len(dst)
+        feats = torch.randn(E, fin, generator=gen, device=dev)
+        wgt = torch.rand(E, generator=gen, device=dev) * 0.5 + 0.5
+        mlp = (torch.randn(fin, hh, generator=gen, device=dev) * fin ** -0.5,
+               torch.randn(hh, generator=gen, device=dev) * 0.1,
+               torch.randn(hh, hid, generator=gen, device=dev) * hh ** -0.5,
+               torch.randn(hid, generator=gen, device=dev) * 0.1)
+        dst_t = torch.from_numpy(dst).to(dev)
+        perm = torch.from_numpy(layout["perm"]).to(dev)
+        dstl = torch.from_numpy(layout["dstl"]).to(dev)
+        kw = dict(n_nodes=n, block_n=bn, block_e=be)
+        want_e, want_agg = edge_mlp_agg_ref(feats, *mlp, dst_t, wgt, n)
+        op_note = ""
+        if full:
+            # the op's own path: one call through the entry point, counted
+            build.reset_launch_counts()
+            e_op, agg_op = sa.fused_edge_mlp_agg(feats, dst_t, wgt, *mlp,
+                                                 dict(layout, perm=perm, dstl=dstl), **kw)
+            torch.cuda.synchronize()
+            counts = dict(build.launch_counts)
+            err_oe, ok_oe = within_band(e_op, want_e, MLP_AGG_E_TOL, MLP_AGG_E_TOL)
+            err_oa, ok_oa = within_band(agg_op[:n], want_agg, MLP_AGG_TOL, MLP_AGG_TOL)
+            launches = counts.get(sa.KERNEL_MLP_AGG, 0)
+            op_note = (f" | fused_edge_mlp_agg vs ref: e_new {err_oe:.3g}, agg {err_oa:.3g}, "
+                       f"launches {launches}")
+            if not (ok_oe and ok_oa and launches == 1):
+                raise RuntimeError("fused_edge_mlp_agg disagrees with edge_mlp_agg_ref or "
+                                   "did not launch its kernel exactly once")
+            del e_op, agg_op
+        valid = perm >= 0
+        safe = perm.clamp(min=0)
+        tiles = (torch.where(valid[..., None], feats[safe], 0), dstl,
+                 torch.where(valid, wgt[safe], 0))
+        tkw = dict(n_node_blocks=layout["n_node_blocks"], block_n=bn, block_e=be)
+
+        def kernel(f=tiles[0]):
+            return sa.edge_mlp_agg(f, *tiles[1:], *mlp, **tkw)
+
+        def plain(f=tiles[0]):
+            return sa.edge_mlp_agg_plain(f, *tiles[1:], *mlp, **tkw)
+
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        del again
+        slot_e = want_e[safe[valid]]
+        errs, ok = {}, same
+        for label, (e_t, a_t) in (("kernel", got), ("plain", ref)):
+            err_e, ok_e = within_band(e_t[valid], slot_e, MLP_AGG_E_TOL, MLP_AGG_E_TOL)
+            err_a, ok_a = within_band(a_t.reshape(-1, hid)[:n], want_agg, MLP_AGG_TOL,
+                                      MLP_AGG_TOL)
+            errs[label] = (f"e_new {err_e:.3g} agg {err_a:.3g}", max(err_e, err_a))
+            ok = ok and ok_e and ok_a
+        del ref, slot_e
+        ms = cuda_ms(kernel, iters=20)
+        plain_ms = cuda_ms(plain, iters=5, warmup=1)
+        moved = nbytes(*tiles, *mlp, *got)
+        n_real = int(valid.sum())
+        # the real edges' MLP and their multiply-add into the aggregate
+        flops = n_real * 2 * (fin * hh + hh * hid + hid)
+        b_ms, b_by = bound_ms(moved, flops)
+        bf16_note = ""
+        if full:
+            fb = tiles[0].to(torch.bfloat16)
+            kb, kb2, pb = kernel(fb), kernel(fb), plain(fb)
+            torch.cuda.synchronize()
+            same_b = torch.equal(kb[0], kb2[0]) and torch.equal(kb[1], kb2[1])
+            err_be, ok_be = within_band(kb[0].float(), pb[0].float(), MLP_AGG_BF16_TOL,
+                                        MLP_AGG_BF16_TOL)
+            err_ba, ok_ba = within_band(kb[1], pb[1], MLP_AGG_TOL, MLP_AGG_TOL)
+            ms_b = cuda_ms(lambda: kernel(fb), iters=20)
+            b_ms_b, _ = bound_ms(nbytes(fb, *tiles[1:], *mlp, *kb), flops)
+            ok = ok and same_b and ok_be and ok_ba
+            bf16_note = (f" | bf16 feats: vs plain e_new {err_be:.3g} (band "
+                         f"{MLP_AGG_BF16_TOL}) agg {err_ba:.3g}, bitwise repeatable: {same_b}, "
+                         f"kernel {ms_b:.4f} ms, bound {b_ms_b:.4f} ms | ptxas fp32 "
+                         f"{ptxas['edge_mlp_agg']}, bf16 {ptxas['edge_mlp_agg_bf16']}")
+            del fb, kb, kb2, pb
+        say("2 kernels", f"edge_mlp_agg {name}: E={E} N={n} Fin={fin} Hh={hh} H={hid} "
+            f"blocks {bn}/{be}: {layout['n_node_blocks']} x {layout['n_edge_blocks']} x {be} "
+            f"slots, waste {layout['waste']:.4f} (host layout {host_s:.1f} s) | max|err| vs "
+            f"edge_mlp_agg_ref (e_new rtol/atol {MLP_AGG_E_TOL}, agg {MLP_AGG_TOL}): kernel "
+            f"{errs['kernel'][0]}, plain {errs['plain'][0]} | two launches bitwise equal: "
+            f"{same} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {flops / 1e9:.2f} GFLOP, {moved / 1e9:.3f} GB){op_note}{bf16_note}")
+        if not ok:
+            raise RuntimeError(f"edge_mlp_agg ({name}) disagrees with edge_mlp_agg_ref or "
+                               f"its plain version, or is not repeatable")
+        if full:
+            record = dict(name=sa.KERNEL_MLP_AGG, route="cuda",
+                          source="src/repro_torch/csrc/edge_mlp_agg.cu",
+                          replaces="src/repro/kernels/segment_agg/kernel.py:435",
+                          max_abs_err=errs["kernel"][1], ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del feats, wgt, tiles, got, want_e, want_agg, perm, dstl, dst_t
+        t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    return record, counts
 
 
 def phase_embedding_bag(ptxas):
@@ -1426,10 +1571,13 @@ def main():
     smi, ptxas = phase_device()
     lap("1 device")
     sem, pg, records = phase_kernels(cfg, ptxas)
+    seg_record, seg_counts = phase_segment_agg(sem, ptxas)
+    records.append(seg_record)
     records.append(phase_embedding_bag(ptxas))
     records.append(phase_flash_attention(ptxas))
     lap("2 kernels")
-    by_path = {"consistency_r4_packed": phase_consistency(cfg),
+    by_path = {"segment_agg_op": seg_counts,
+               "consistency_r4_packed": phase_consistency(cfg),
                "grad_r4_packed": phase_grad_consistency(cfg)}
     lap("3b gradients")
     engine, mesh_hash, by_path["serve"] = phase_serve(cfg, sem, pg, smi)
@@ -1448,14 +1596,16 @@ def main():
     # training for the fused NMP pair, the R=4 packed-neighbor gradient run
     # for the halo kernels (training and serving are R=1), serve_bulk for
     # the embedding bag, the prefill for flash attention (phases 7 and 8
-    # check their exact counts on every path)
+    # check their exact counts on every path), the op's one call for the
+    # dst-aligned edge MLP (phase 2 checks that it launched exactly once)
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
                        "rollout_k2"),
            sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2"),
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed"),
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed"),
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
-           fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32")}
+           fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
+           sa.KERNEL_MLP_AGG: ("segment_agg_op",)}
     for rec in records:
         counts = {path: int(by_path[path].get(rec["name"], 0)) for path in by_path}
         rec["launches"] = counts[own[rec["name"]][0]]

@@ -1,8 +1,8 @@
-"""Fused NMP edge-MLP + aggregation (Eq. 4a + 4b): host layout, the CUDA
-kernels' wrappers, their plain PyTorch versions and the autograd op.
+"""Fused edge-MLP + aggregation: host layouts, the CUDA kernels' wrappers,
+their plain PyTorch versions and the autograd op.
 
-Port of ``repro.kernels.segment_agg.ops`` (``compact_gather_layout`` and the
-differentiable ``fused_nmp_edge_agg``):
+Port of ``repro.kernels.segment_agg.ops``.  The NMP pair (Eq. 4a + 4b,
+``compact_gather_layout`` and the differentiable ``fused_nmp_edge_agg``):
 
 * ``compact_gather_layout`` — host numpy, equal to the reference's layout
   (edges sorted by destination, flat ``[n_tiles, block_e]`` tiles of the
@@ -20,6 +20,18 @@ differentiable ``fused_nmp_edge_agg``):
   same functions in plain PyTorch, used by the CPU tests and by
   ``chip_smoke.py`` to check the kernels on the card;
   ``fused_nmp_edge_agg_bwd`` is the backward's wrapper on its own.
+
+The legacy forward-only op over pre-gathered ``[E, Fin]`` features
+(``dst_aligned_layout`` and ``fused_edge_mlp_agg``):
+
+* ``dst_aligned_layout`` — host numpy, array-equal to the reference's
+  (per node block, the edges whose destination lies in it, padded to
+  whole edge tiles).
+* ``edge_mlp_agg`` — the tile-level wrapper: on CUDA tensors it launches
+  ``csrc/edge_mlp_agg.cu`` (or raises), on CPU tensors it runs
+  ``edge_mlp_agg_plain``, the same function in plain PyTorch.
+* ``fused_edge_mlp_agg`` — gathers the tiles through the layout, runs
+  ``edge_mlp_agg`` and puts ``e_new`` back in the original edge order.
 """
 from __future__ import annotations
 
@@ -29,8 +41,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.graph.segment import segment_sum
 from repro_torch.kernels import build
 
 KERNEL = "nmp_fwd"
@@ -43,6 +57,14 @@ _SIGNATURES_BWD = {
     "nmp_edge_mlp_agg_bwd_f32": (_P,) * 22 + (_I,) * 5 + (_P,),
 }
 SUPPORTED_HIDDEN = (8, 16, 32)
+KERNEL_MLP_AGG = "edge_mlp_agg"
+_MLP_AGG_ENTRY = {torch.float32: "edge_mlp_agg_f32", torch.bfloat16: "edge_mlp_agg_bf16"}
+# feats, dstl, weights, w1, b1, w2, b2, e_new, agg, NB, slots per node
+# block, Fin, Hh, H, block_n, stream
+_SIGNATURES_MLP_AGG = {name: (_P,) * 9 + (_I,) * 6 + (_P,)
+                       for name in _MLP_AGG_ENTRY.values()}
+#: what ``csrc/edge_mlp_agg.cu`` takes: Fin, Hh and H, block_n at most
+MLP_AGG_MAX_FIN, MLP_AGG_MAX_HIDDEN, MLP_AGG_MAX_BLOCK_N = 128, 32, 256
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +379,172 @@ def fused_nmp_edge_agg_bwd(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
                 edge_inv_mult, g_enew, g_agg)
 
 
-__all__ = ["compact_gather_layout", "fused_nmp_edge_agg",
-           "fused_nmp_edge_agg_bwd", "fused_nmp_edge_agg_bwd_plain",
-           "fused_nmp_edge_agg_plain"]
+# ---------------------------------------------------------------------------
+# legacy dst-aligned op (forward only)
+# ---------------------------------------------------------------------------
+
+def dst_aligned_layout(dst: np.ndarray, n_nodes: int, block_n: int,
+                       block_e: int) -> dict:
+    """Legacy layout of the dst-aligned op: sort edges by destination and pad
+    per node block to edge-block multiples (argsort + searchsorted).
+
+    Edges with ``dst`` outside ``[0, n_nodes)`` (e.g. padding edges
+    redirected to a sentinel) are dropped from the layout: their slots stay
+    ``-1``.
+
+    Returns {perm [NB, NE, BE] int64 (original edge id, -1 on padding),
+    dstl [NB, NE, BE] int32 (block-local dst, 0 on padding), n_node_blocks,
+    n_edge_blocks, block_n, block_e, waste (the padding's share of the
+    slots)}.
+    """
+    dst = np.asarray(dst, dtype=np.int64)
+    keep = np.nonzero((dst >= 0) & (dst < n_nodes))[0]
+    order = keep[np.argsort(dst[keep], kind="stable")]
+    dst_sorted = dst[order]
+    nb = math.ceil(max(n_nodes, 1) / block_n)
+    bounds = np.arange(nb + 1, dtype=np.int64) * block_n
+    starts = np.searchsorted(dst_sorted, bounds[:-1], side="left")
+    ends = np.searchsorted(dst_sorted, bounds[1:], side="left")
+    counts = ends - starts
+    max_count = int(counts.max()) if counts.size else 0
+    ne = max(1, math.ceil(max_count / block_e))
+    perm = np.full((nb, ne * block_e), -1, dtype=np.int64)
+    if dst_sorted.size:
+        blk = dst_sorted // block_n
+        col = np.arange(dst_sorted.size, dtype=np.int64) - starts[blk]
+        perm[blk, col] = order
+    waste = 1.0 - (dst_sorted.size / perm.size) if perm.size else 0.0
+    perm = perm.reshape(nb, ne, block_e)
+    dstl = np.where(
+        perm >= 0,
+        dst[np.clip(perm, 0, None)] - np.arange(nb)[:, None, None] * block_n,
+        0).astype(np.int32)
+    return dict(perm=perm, dstl=dstl, n_node_blocks=nb, n_edge_blocks=ne,
+                block_n=int(block_n), block_e=int(block_e), waste=waste)
+
+
+def _check_tiles(feats, dst_local, weights, w1, b1, w2, b2, n_node_blocks,
+                 block_n, block_e):
+    name = KERNEL_MLP_AGG
+    if feats.dtype not in _MLP_AGG_ENTRY:
+        raise TypeError(f"{name}: feats dtype {feats.dtype} is not float32 or bfloat16")
+    if feats.dim() != 4 or feats.shape[0] != n_node_blocks or feats.shape[2] != block_e:
+        raise ValueError(f"{name}: feats {tuple(feats.shape)} is not [NB={n_node_blocks}, "
+                         f"NE, BE={block_e}, Fin]")
+    if dst_local.shape != feats.shape[:3] or weights.shape != feats.shape[:3]:
+        raise ValueError(f"{name}: dst_local {tuple(dst_local.shape)} and weights "
+                         f"{tuple(weights.shape)} must be feats' [NB, NE, BE] "
+                         f"{tuple(feats.shape[:3])}")
+    fin, hh, hid = feats.shape[3], w1.shape[-1], w2.shape[-1]
+    if (w1.shape != (fin, hh) or b1.shape != (hh,) or w2.shape != (hh, hid)
+            or b2.shape != (hid,)):
+        raise ValueError(f"{name}: w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 "
+                         f"{tuple(w2.shape)}, b2 {tuple(b2.shape)} do not form a "
+                         f"{fin} -> Hh -> H MLP")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (feats, weights, w1, b1, w2, b2)):
+        raise RuntimeError(f"{name} is forward-only: call it under torch.no_grad()")
+
+
+def edge_mlp_agg_plain(feats, dst_local, weights, w1, b1, w2, b2, *,
+                       n_node_blocks: int, block_n: int, block_e: int):
+    """Plain PyTorch version of :func:`edge_mlp_agg`, on the same tiles:
+    the MLP in fp32, then each node block's weighted sum through the sorted,
+    deterministic ``segment_sum``.  Slots whose ``dst_local`` is outside
+    ``[0, block_n)`` add to no node (the TPU kernel's one-hot drops them)."""
+    h = F.elu(feats.float() @ w1.float() + b1.float())
+    e = h @ w2.float() + b2.float()
+    d = dst_local.long()
+    w = torch.where((d >= 0) & (d < block_n), weights.float(), 0.0)
+    ids = (torch.arange(n_node_blocks, device=feats.device)[:, None, None] * block_n
+           + d.clamp(0, block_n - 1))
+    agg = segment_sum((e * w[..., None]).reshape(-1, e.shape[-1]), ids.reshape(-1),
+                      n_node_blocks * block_n)
+    return e.to(feats.dtype), agg.view(n_node_blocks, block_n, -1)
+
+
+def edge_mlp_agg(feats, dst_local, weights, w1, b1, w2, b2, *,
+                 n_node_blocks: int, block_n: int, block_e: int):
+    """Edge MLP + weighted per-node-block aggregate over dst-aligned tiles
+    (counterpart of the reference's Pallas ``edge_mlp_agg``).
+
+    Args:
+      feats: [NB, NE, BE, Fin] pre-gathered tiles (``dst_aligned_layout``),
+        float32 or bfloat16; the arithmetic is fp32 either way.
+      dst_local: [NB, NE, BE] int32 in [0, block_n); weights: [NB, NE, BE]
+        float32 (0 = padding).
+      w1 [Fin, Hh], b1 [Hh], w2 [Hh, H], b2 [H]: float32.
+
+    CPU tensors run :func:`edge_mlp_agg_plain`; CUDA tensors launch
+    ``csrc/edge_mlp_agg.cu`` (Fin <= 128, Hh and H <= 32, block_n <= 256)
+    or raise.  Forward-only: raises when a gradient would be needed.
+
+    Returns (e_new [NB, NE, BE, H] in feats' dtype, agg [NB, block_n, H]
+    float32).
+    """
+    _check_tiles(feats, dst_local, weights, w1, b1, w2, b2, n_node_blocks, block_n,
+                 block_e)
+    if feats.device.type == "cpu":
+        return edge_mlp_agg_plain(feats, dst_local, weights, w1, b1, w2, b2,
+                                  n_node_blocks=n_node_blocks, block_n=block_n,
+                                  block_e=block_e)
+    name = KERNEL_MLP_AGG
+    if feats.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {feats.device}")
+    entry = _MLP_AGG_ENTRY[feats.dtype]
+    (nb, ne, be, fin), hh, hid = feats.shape, w1.shape[1], w2.shape[1]
+    if fin > MLP_AGG_MAX_FIN or max(hh, hid) > MLP_AGG_MAX_HIDDEN \
+            or block_n > MLP_AGG_MAX_BLOCK_N:
+        raise ValueError(f"{name}: Fin {fin}, Hh {hh}, H {hid}, block_n {block_n}; the "
+                         f"kernel takes Fin <= {MLP_AGG_MAX_FIN}, Hh and H <= "
+                         f"{MLP_AGG_MAX_HIDDEN}, block_n <= {MLP_AGG_MAX_BLOCK_N}")
+    f32 = torch.float32
+    args = (feats, dst_local, weights, w1, b1, w2, b2)
+    build.require_cuda(name, *args, dtypes=(feats.dtype, torch.int32) + (f32,) * 5)
+    e_new = torch.empty(nb, ne, be, hid, dtype=feats.dtype, device=feats.device)
+    agg = torch.empty(nb, block_n, hid, dtype=f32, device=feats.device)
+    lib = build.load(name, _SIGNATURES_MLP_AGG)
+    code = getattr(lib, entry)(*(t.data_ptr() for t in args), e_new.data_ptr(),
+                               agg.data_ptr(), nb, ne * be, fin, hh, hid, block_n,
+                               build.stream_of(feats))
+    build.check(lib, code, entry)
+    build.count_launch(name)
+    return e_new, agg
+
+
+def fused_edge_mlp_agg(feats, dst, weights, w1, b1, w2, b2, layout, *,
+                       n_nodes: int, block_n: int, block_e: int):
+    """feats [E, Fin] and weights [E] in original edge order: gathers the
+    dst-aligned tiles through ``layout["perm"]`` (padding zeroed), runs
+    :func:`edge_mlp_agg` and puts e_new back in the original edge order.
+    ``dst`` and ``n_nodes`` are the ones the layout was built from (the
+    reference's signature); the layout's arrays may be numpy or tensors.
+
+    Each kept edge fills one slot, so the un-permute is a plain assignment
+    of the valid slots: exact and deterministic.  Padding slots write
+    nothing, and edges that the layout dropped (``dst`` outside
+    ``[0, n_nodes)``) keep e_new = 0.
+
+    Returns (e_new [E, H], agg [NB * block_n, H] float32)."""
+    if (layout["block_n"], layout["block_e"]) != (block_n, block_e):
+        raise ValueError(f"layout blocks ({layout['block_n']}, {layout['block_e']}) "
+                         f"!= ({block_n}, {block_e})")
+    dev = feats.device
+    perm = torch.as_tensor(layout["perm"], device=dev)
+    valid = perm >= 0
+    safe = perm.clamp(min=0)
+    tile_feats = torch.where(valid[..., None], feats[safe], 0)
+    tile_w = torch.where(valid, weights[safe], 0).float()
+    dstl = torch.as_tensor(layout["dstl"], device=dev)
+    e_tiles, agg = edge_mlp_agg(tile_feats, dstl, tile_w, w1, b1, w2, b2,
+                                n_node_blocks=layout["n_node_blocks"],
+                                block_n=block_n, block_e=block_e)
+    e_new = e_tiles.new_zeros(feats.shape[0], e_tiles.shape[-1])
+    e_new[perm[valid]] = e_tiles[valid]
+    return e_new, agg.reshape(-1, agg.shape[-1])
+
+
+__all__ = ["KERNEL_MLP_AGG", "compact_gather_layout", "dst_aligned_layout",
+           "edge_mlp_agg", "edge_mlp_agg_plain", "fused_edge_mlp_agg",
+           "fused_nmp_edge_agg", "fused_nmp_edge_agg_bwd",
+           "fused_nmp_edge_agg_bwd_plain", "fused_nmp_edge_agg_plain"]

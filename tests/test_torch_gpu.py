@@ -19,8 +19,12 @@ attention runs its online softmax over key tiles where the plain version
 takes one softmax: ``tests/test_kernels.py``'s ``TOL`` (fp32 rtol / atol
 2e-5, bf16 2e-2), and at a long sequence, whose late rows are smaller than
 that atol, each row's relative L2 error within 1e-2; Granite's smoke cells hold prefill + decode to the full
-forward in fp32 at the reference's forward band.  Every
-kernel, and a training step through them, is bitwise repeatable.
+forward in fp32 at the reference's forward band.  The dst-aligned
+edge-MLP kernel sums its aggregate in another order than the plain
+version's sorted segment sum: e_new rtol / atol 3e-5 in fp32 and 2e-2 in
+bf16 (``tests/test_kernels.py``'s bands for the op and its ``TOL``), agg
+1e-4 in both (fp32).  Every kernel, and a training step through them, is
+bitwise repeatable.
 """
 import os
 import subprocess
@@ -417,3 +421,118 @@ def test_granite_smoke_cells_on_card(cuda):
                           attention=lambda q, k, v, scale: fa.attention_plain(
                               q, k, v, scale=scale, causal=True))
     torch.testing.assert_close(torch.stack(steps, 1), full[:, 129:140], rtol=1e-4, atol=1e-5)
+
+
+MLP_AGG_E_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
+                 torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+MLP_AGG_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _mlp_agg_case(device, n, E, fin, hh, hid, block_n, block_e, dtype, seed=0):
+    """A random graph with some edges past the last node (dropped by the
+    layout), its dst-aligned layout and the op's operands on ``device``."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n + n // 20 + 1, E)
+    layout = sa.dst_aligned_layout(dst, n, block_n, block_e)
+    T = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(dt).to(device)
+    feats = T(rng.normal(size=(E, fin)), dtype)
+    wgt = T(rng.uniform(0.5, 1.0, E))
+    mlp = (T(rng.normal(size=(fin, hh)) * 0.2), T(rng.normal(size=hh) * 0.1),
+           T(rng.normal(size=(hh, hid)) * 0.2), T(rng.normal(size=hid) * 0.1))
+    return dst, layout, feats, wgt, mlp
+
+
+def _mlp_agg_tiles(layout, feats, wgt):
+    perm = torch.from_numpy(layout["perm"]).to(feats.device)
+    valid = perm >= 0
+    tiles = torch.where(valid[..., None], feats[perm.clamp(min=0)], 0)
+    w = torch.where(valid, wgt[perm.clamp(min=0)], 0)
+    return tiles, torch.from_numpy(layout["dstl"]).to(feats.device), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # n, E, Fin, Hh, H, block_n, block_e: the CPU tests' blocks, full width
+    # with Hh != H, Fin whose rows are not 16-byte multiples (element loads)
+    (90, 400, 24, 16, 16, 16, 32), (3000, 20000, 96, 32, 32, 128, 256),
+    (700, 4000, 96, 20, 32, 128, 256), (500, 3000, 22, 32, 16, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_edge_mlp_agg_kernel_matches_plain(cuda, dtype, case):
+    n, E, fin, hh, hid, block_n, block_e = case
+    _, layout, feats, wgt, mlp = _mlp_agg_case(cuda, n, E, fin, hh, hid, block_n,
+                                               block_e, dtype)
+    tiles = _mlp_agg_tiles(layout, feats, wgt)
+    kw = dict(n_node_blocks=layout["n_node_blocks"], block_n=block_n, block_e=block_e)
+    n0 = build.launch_counts.get(sa.KERNEL_MLP_AGG, 0)
+    e_new, agg = sa.edge_mlp_agg(*tiles, *mlp, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[sa.KERNEL_MLP_AGG] == n0 + 1
+    assert e_new.dtype == dtype and e_new.shape == tiles[0].shape[:3] + (hid,)
+    assert agg.dtype == torch.float32 and agg.shape == (kw["n_node_blocks"], block_n, hid)
+    want_e, want_agg = sa.edge_mlp_agg_plain(*tiles, *mlp, **kw)
+    torch.testing.assert_close(e_new, want_e, **MLP_AGG_E_TOL[dtype])
+    torch.testing.assert_close(agg, want_agg, **MLP_AGG_TOL)
+    again = sa.edge_mlp_agg(*tiles, *mlp, **kw)
+    assert torch.equal(e_new, again[0]) and torch.equal(agg, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_edge_mlp_agg_on_card_launches_once_and_matches_cpu(cuda, dtype):
+    """The op on CUDA tensors: one launch per call, the CPU's plain result
+    within the bands, dropped edges' e_new exactly 0."""
+    dst, layout, feats, wgt, mlp = _mlp_agg_case(cuda, 2000, 12000, 96, 32, 32, 128, 256,
+                                                 dtype, seed=3)
+    kw = dict(n_nodes=2000, block_n=128, block_e=256)
+    n0 = build.launch_counts.get(sa.KERNEL_MLP_AGG, 0)
+    e_new, agg = sa.fused_edge_mlp_agg(feats, torch.from_numpy(dst).to(cuda), wgt, *mlp,
+                                       layout, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[sa.KERNEL_MLP_AGG] == n0 + 1
+    cpu = lambda t: t.cpu()
+    want_e, want_agg = sa.fused_edge_mlp_agg(cpu(feats), torch.from_numpy(dst), cpu(wgt),
+                                             *map(cpu, mlp), layout, **kw)
+    assert build.launch_counts[sa.KERNEL_MLP_AGG] == n0 + 1
+    torch.testing.assert_close(e_new.cpu(), want_e, **MLP_AGG_E_TOL[dtype])
+    torch.testing.assert_close(agg.cpu(), want_agg, **MLP_AGG_TOL)
+    dropped = torch.from_numpy(dst >= 2000).to(cuda)
+    assert int(dropped.sum()) > 0 and not bool(e_new[dropped].any())
+
+
+@pytest.mark.gpu
+def test_edge_mlp_agg_kernel_drops_out_of_range_dst_local(cuda):
+    """Slots whose dst_local lies outside [0, block_n) add to no node, in
+    the kernel as in the plain version."""
+    _, layout, feats, wgt, mlp = _mlp_agg_case(cuda, 90, 400, 24, 16, 16, 16, 32,
+                                               torch.float32)
+    f, dstl, w = _mlp_agg_tiles(layout, feats, wgt)
+    dstl = dstl.clone()
+    dstl[0, 0, :5] = torch.tensor([-1, 16, 17, 40, -7], dtype=dstl.dtype, device=cuda)
+    kw = dict(n_node_blocks=layout["n_node_blocks"], block_n=16, block_e=32)
+    e_new, agg = sa.edge_mlp_agg(f, dstl, w, *mlp, **kw)
+    want_e, want_agg = sa.edge_mlp_agg_plain(f, dstl, w, *mlp, **kw)
+    torch.testing.assert_close(e_new, want_e, **MLP_AGG_E_TOL[torch.float32])
+    torch.testing.assert_close(agg, want_agg, **MLP_AGG_TOL)
+
+
+@pytest.mark.gpu
+def test_edge_mlp_agg_kernel_raises_on_what_it_does_not_take(cuda):
+    _, layout, feats, wgt, mlp = _mlp_agg_case(cuda, 90, 400, 24, 16, 16, 16, 32,
+                                               torch.float32)
+    tiles = _mlp_agg_tiles(layout, feats, wgt)
+    kw = dict(n_node_blocks=layout["n_node_blocks"], block_n=16, block_e=32)
+    w1, b1, w2, b2 = mlp
+    with pytest.raises(ValueError, match="Hh and H <= 32"):
+        sa.edge_mlp_agg(*tiles, torch.zeros(24, 40, device=cuda),
+                        torch.zeros(40, device=cuda), torch.zeros(40, 16, device=cuda),
+                        b2, **kw)
+    with pytest.raises(ValueError, match="block_n <= 256"):
+        sa.edge_mlp_agg(*tiles, *mlp, **dict(kw, block_n=512))
+    with pytest.raises(TypeError, match="dtype"):
+        sa.edge_mlp_agg(tiles[0], tiles[1].long(), tiles[2], *mlp, **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        sa.edge_mlp_agg(*tiles, w1.double(), b1, w2, b2, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        sa.edge_mlp_agg(*tiles, w1.t().contiguous().t(), b1, w2, b2, **kw)
+    with pytest.raises(ValueError, match="on cpu|expected cuda"):
+        sa.edge_mlp_agg(*tiles, w1.cpu(), b1, w2, b2, **kw)

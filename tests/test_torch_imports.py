@@ -59,10 +59,11 @@ LM_SLICE = ["repro_torch.configs.granite_34b", "repro_torch.configs.lm_common",
             "repro_torch.models.transformer.steps"]
 
 
-@pytest.mark.parametrize("mod", LM_SLICE)
-def test_lm_slice_module_imports_alone_without_jax(mod):
-    """Each module of the LM serving slice is one that the walk above finds,
-    and imports in a fresh interpreter with neither ``jax`` nor ``repro``."""
+SEGMENT_AGG_SLICE = ["repro_torch.kernels.segment_agg.ops",
+                     "repro_torch.kernels.segment_agg.ref"]
+
+
+def _imports_alone_without_jax(mod):
     assert mod in _modules()
     code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -72,3 +73,16 @@ def test_lm_slice_module_imports_alone_without_jax(mod):
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("mod", LM_SLICE)
+def test_lm_slice_module_imports_alone_without_jax(mod):
+    """Each module of the LM serving slice is one that the walk above finds,
+    and imports in a fresh interpreter with neither ``jax`` nor ``repro``."""
+    _imports_alone_without_jax(mod)
+
+
+@pytest.mark.parametrize("mod", SEGMENT_AGG_SLICE)
+def test_segment_agg_slice_module_imports_alone_without_jax(mod):
+    """The same for the modules of the dst-aligned edge-MLP op."""
+    _imports_alone_without_jax(mod)

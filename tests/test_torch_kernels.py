@@ -143,6 +143,11 @@ def test_cpu_wrappers_never_launch_kernels():
     sa.fused_nmp_edge_agg(*_fused_args(lp, xx, e, port_g, "cpu"))
     table = torch.randn(10, 4, requires_grad=True)
     eb.embedding_bag(table, torch.zeros(3, 2, dtype=torch.int32)).sum().backward()
+    dst = np.arange(40) % 13
+    layout = sa.dst_aligned_layout(dst, 13, 8, 16)
+    sa.fused_edge_mlp_agg(torch.randn(40, 6), torch.from_numpy(dst), torch.ones(40),
+                          torch.randn(6, 5), torch.zeros(5), torch.randn(5, 4),
+                          torch.zeros(4), layout, n_nodes=13, block_n=8, block_e=16)
     assert all(v == 0 for v in build.launch_counts.values())
 
 
