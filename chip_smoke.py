@@ -8,8 +8,9 @@ hidden layers) on a p=7 spectral-element box mesh through the resident
 inference engine, trains it on that mesh through the training loop,
 serves and trains DLRM RM2 at full width (50,003,968 x 64 fp32 table)
 through its cell builder, and serves Granite-34B-code (MQA, 48:1) at full
-width, 44 of its 88 layers, through its cell builder and the greedy
-serving loop.
+width (88 layers for the prefill and the serving loop, 44 for decode and
+the full-width check) through its cell builder and the greedy serving
+loop.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -17,7 +18,8 @@ Phases (one line each, prefixed ``[n name]``):
   1 device       nvidia-smi name / power limit, TF32 off, kernel build
   2 kernels      fused NMP forward and backward on the serving mesh's
                  edges, pack and unpack-add at the 2x2 partition's halo
-                 round widths, the embedding bag at DLRM RM2's serve_bulk
+                 round widths (unpack-add's host and device time per call
+                 apart, under torch.profiler), the embedding bag at DLRM RM2's serve_bulk
                  lookup (fp32, H=1, the full table, whose offsets pass 2^31
                  elements) and at fp32 H=8 and bf16 H=4: error vs the plain
                  version, repeatability, CUDA-event times, and the
@@ -69,14 +71,18 @@ Phases (one line each, prefixed ``[n name]``):
                  device kernels under torch.profiler and the busy share
   8 lm           Granite-34B-code through
                  ``repro_torch.configs.get_arch("granite-34b")``'s
-                 ``build_cell``, 44 layers, bf16, weights drawn on the card
-                 from a seeded generator: prefill_32k (B=1, 3 prefills:
+                 ``build_cell``, bf16, weights drawn on the card from a
+                 seeded generator: prefill_32k (88 layers, B=1, 3 prefills:
                  ms, tokens/s, peak memory, profiler), the greedy serving
-                 loop (4 prompts of 2,048 tokens, 32 tokens each), a prompt
+                 loop (88 layers, 4 prompts of 2,048 tokens, 32 tokens
+                 each), at 44 layers a prompt
                  of 4,096 tokens prefilled and decoded 8 steps against the
                  full forward over 4,104 tokens through the plain attention
                  (bf16: drift reported; fp32 weights and cache: within the
-                 reference's band 2e-2), and decode_32k (B=32 over a cache
+                 reference's band 2e-2; each bf16 path's drift from the fp32
+                 forward at 2, 11 and 44 layers, and the served path's once
+                 more with torch's default bf16-reduction flag, reported),
+                 and decode_32k (B=32 over a cache
                  filled to 32,767: ms per step, tokens/s, profiler)
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — one full-width call of
@@ -129,6 +135,9 @@ LM_BAND = 2e-2                   # the reference's band for prefill + decode
 # the served bf16 path's drift from the fp32 forward, per position, at most
 # this multiple of the bf16 forward's through the plain attention
 DRIFT_FACTOR = 2.0
+# the shallower depths (first layers of the check's weights) at which the
+# witness is also reported, beside the check's own depth
+WITNESS_DEPTHS = (2, 11)
 # tests/test_kernels.py:23-30's FLASH_CASES (B, S, Hq, Hkv, D, causal, window,
 # softcap; one S for queries and keys) and its TOL (:15) by dtype name
 FLASH_CASES = [(1, 128, 2, 2, 64, True, 0, None), (2, 96, 4, 2, 32, True, 0, None),
@@ -254,6 +263,28 @@ def device_kernels(prof):
                    for a in prof.key_averages()
                    if a.device_type == DeviceType.CUDA), reverse=True)
     return [(t / 1e3, k) for t, k in kern if t > 0]
+
+
+def host_device_split(fn, iters):
+    """(host ms per call, {device op name: ms per call}) of ``fn``.  The
+    host time is the wall of ``iters`` calls enqueued back to back (the
+    loop never waits on the card); the device times are the device
+    events torch.profiler records over another ``iters`` calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return host, {name: ms / iters for ms, name in device_kernels(prof)}
 
 
 def phase_device():
@@ -428,6 +459,16 @@ def phase_kernels(cfg, ptxas):
                     # one library call on the pre-masked buffer
                     cuda_ms(lambda: torch.index_add(seed, 0, ridx, buf), 200)),
     }
+    # kernel 5's split, measured for its redesign: host time per call
+    # (wrapper, ctypes, cudaMemcpyAsync of the seed + the kernel's launch)
+    # and device time per call (the copy and the kernel) under torch.profiler
+    host_ms, dev_ops = host_device_split(
+        lambda: hp.halo_unpack_add(seed, buf, ridx, rmask), 200)
+    dev_ms = sum(dev_ops.values())
+    say("2 kernels", f"{hp.UNPACK} split at W={W}, F={F}, N={cpg.n_pad}: host "
+        f"{host_ms * 1e3:.2f} us per call (wrapper, ctypes, memcpy + kernel launches), "
+        f"device {dev_ms * 1e3:.2f} us per call under torch.profiler ("
+        + "; ".join(f"{name[:48]} {ms * 1e3:.2f} us" for name, ms in dev_ops.items()) + ")")
     moved = {hp.PACK: nbytes(idx, mask, buf, buf),   # rows gathered + buffer written
              hp.UNPACK: nbytes(seed, seed, buf, ridx, rmask)}
     for name, err in ((hp.PACK, pack_err), (hp.UNPACK, unpack_err)):
@@ -444,7 +485,9 @@ def phase_kernels(cfg, ptxas):
                                       if name == hp.PACK else
                                       "src/repro/kernels/halo_pack/kernel.py:91"),
                             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib))
+                            bound_by=b_by, library_ms=lib,
+                            **({"host_ms_per_call": host_ms, "device_ms_per_call": dev_ms}
+                               if name == hp.UNPACK else {})))
     return sem, pg, records
 
 
@@ -654,13 +697,16 @@ def drop_diagonal_tiles(q, k, v, want, scale):
     return out
 
 
-def phase_flash_attention(ptxas):
-    """Flash attention at FLASH_CASES in fp32 and bf16 and at one Granite
+def phase_flash_attention(ptxas, cases=FLASH_CASES):
+    """Flash attention at ``cases`` in fp32 and bf16 and at one Granite
     prefill layer: error vs plain within TOL and, row by row, within
     ROW_REL_TOL (at the Granite layer beside the reading of a planted
     fault, which must fail it), repeatability, times, bound and
     F.scaled_dot_product_attention's time where it computes the same
-    function (no window, no softcap)."""
+    function (no window, no softcap).  ``cases=()`` runs the Granite layer
+    alone, the way two source trees are compared on one card:
+    ``python3 -c 'import chip_smoke as c; c.phase_flash_attention(
+    c.phase_device()[1], cases=())'`` from the root of each tree."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -668,7 +714,7 @@ def phase_flash_attention(ptxas):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
-    cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
+    cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in cases]
     cases.append((GRANITE_LAYER, torch.bfloat16))
     record = None
     for (B, S, Hq, Hkv, D, causal, window, cap), dtype in cases:
@@ -738,8 +784,7 @@ def phase_flash_attention(ptxas):
                           replaces="src/repro/kernels/flash_attention/kernel.py:75",
                           max_abs_err=err, max_row_rel_err=row_err,
                           planted_fault_row_rel_err=fault_err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms)
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return record
@@ -1512,10 +1557,33 @@ def phase_lm(smi):
         raise RuntimeError(f"LM check: flash_attention launched {launches} times, expected {L}")
     plain_b = forward_logits(params, ck, cfg, plain=True)
     kernel_b = forward_logits(params, ck, cfg, plain=False)
+    # the served path once more with torch's default for the bf16 GEMMs
+    # (split-K partial sums reduced in bf16), as a fresh process serves
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        served_default, _ = served_logits(params, ck, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # the witness at shallower depths: the first n layers of the same weights
+    bf16_by_depth = {}
+    for n in WITNESS_DEPTHS:
+        cfg_n = cfg.with_(n_layers=n)
+        served_n, launches_n = served_logits(params, ck, cfg_n)
+        if launches_n.get(fa.KERNEL, 0) != n:
+            raise RuntimeError(f"LM check at {n} layers: flash_attention launched "
+                               f"{launches_n} times, expected {n}")
+        bf16_by_depth[n] = {"served": served_n,
+                            "plain forward": forward_logits(params, ck, cfg_n, plain=True),
+                            "kernel forward": forward_logits(params, ck, cfg_n, plain=False)}
+    bf16_by_depth[L] = {"served": served_b, "plain forward": plain_b,
+                        "kernel forward": kernel_b}
     cfg32 = cfg.with_(param_dtype=torch.float32, cache_dtype=torch.float32)
     params = upcast_(params)
     torch.cuda.empty_cache()
     want = forward_logits(params, ck, cfg32, plain=True)
+    want_by_depth = {n: forward_logits(params, ck, cfg32.with_(n_layers=n), plain=True)
+                     for n in WITNESS_DEPTHS}
+    want_by_depth[L] = want
     served_32, launches = served_logits(params, ck, cfg32)
     by_path["lm_check_fp32"] = launches
     del params
@@ -1537,6 +1605,24 @@ def phase_lm(smi):
             f"{name} " + ", ".join(f"{r:.2e}" for r in rels) for name, rels in drift.items())
         + f" | served / plain forward at most {ratio:.3f} (limit {DRIFT_FACTOR}) -> "
         + ("ok" if witness_ok else "FAIL"))
+    default = per_position_rel(served_default, want)
+    say("8 lm", f"witness, the served bf16 path with torch's default "
+        f"allow_bf16_reduced_precision_reduction = True, {L} layers, rel L2 per position "
+        "against the fp32 forward: " + ", ".join(f"{r:.2e}" for r in default)
+        + f" | max {max(default):.4g} beside {max(drift['served']):.4g} with the flag off, "
+        f"{max(drift['plain forward']):.4g} for the plain forward; logits bitwise equal to "
+        f"the flag-off run: {torch.equal(served_default, served_b)} (reported)")
+    by_depth = []
+    for n in sorted(bf16_by_depth):
+        rels = {name: per_position_rel(got, want_by_depth[n])
+                for name, got in bf16_by_depth[n].items()}
+        worst = max(a / b for a, b in zip(rels["served"], rels["plain forward"]))
+        by_depth.append(f"{n} layers: " + ", ".join(
+            f"{name} {max(r):.4g}" for name, r in rels.items())
+            + f" (served / plain forward at most {worst:.3f})")
+    say("8 lm", "witness by depth, largest rel L2 per position of each bf16 path against "
+        "the fp32 forward on the same first layers (reported; the limit holds at "
+        f"{L}): " + "; ".join(by_depth))
     err, viol = band_reading(served_32, want)
     ok = viol <= 1.0 and launches.get(fa.KERNEL, 0) == L
     say("8 lm", f"check, fp32 (the same weights upcast, {cfg32.n_params() * 4 / 1e9:.1f} GB), "

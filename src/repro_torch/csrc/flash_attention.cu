@@ -8,52 +8,65 @@
 // accumulator, normalised once at the end by max(l, 1e-20):
 //   s = (q . k) * scale;  s = cap * tanh(s / cap) if softcap;
 //   s = -1e30 where masked (kpos >= S, causal kpos > qpos, window
-//   qpos - kpos >= window);  out = softmax(s) @ v  in the input's type.
+//   qpos - kpos >= window);  out = softmax(s) @ v  in the input's type,
+//   with p = exp(s - m) rounded to bf16 before the PV product (the
+//   precision of the model's bf16 einsums, p.astype(v.dtype)).
 //
 // What bounds it on the H100 SXM (published peaks at its 700 W limit):
 // operations.  Granite-34B-code's prefill layer (B=1, S=32,768, 48 query
 // heads over one KV head of dim 128, causal) needs
 //   4 * D * Hq * S * (S + 1) / 2 = 13.19 TFLOP  -> 13.3 ms at 989 TFLOP/s bf16
-// against 0.82 GB of q, k, v and out (0.25 ms at 3.35 TB/s).
+// against 0.82 GB of q, k, v and out (0.25 ms at 3.35 TB/s).  Only wgmma
+// reaches the tensor cores' dense rate, and only if the products are fed
+// without stalls: the tiles arrive by TMA while the math runs, and each K/V
+// byte brought from L2 serves enough query rows.
 //
-// Design:
-// - Grid: one block per (query tile, query head, batch); a loop over the
-//   key tiles inside the block takes the place of the TPU's sequential
-//   kv grid axis, with m, l and the accumulator in registers.  The query
-//   tiles run in reverse order, so under the causal mask the longest
-//   blocks start first.
-// - GQA / MQA by index: query head h reads KV head h / (Hq / Hkv).  K and
-//   V are never repeated (the TPU wrapper's jnp.repeat would write 805 MB
-//   per layer at G = 48, S = 32k); all heads of a tile read the same
-//   16.8 MB of K and V, which stay in the 50 MB L2.  The kernel reads the
-//   [B, S, H, D] layout through strides: no transposed copies.
-// - Block skipping: the key tiles that the causal mask leaves empty (above
-//   the diagonal, as the Pallas kernel skips them) and, for window > 0, the
-//   ones below the window are never loaded.  Every row keeps its diagonal
-//   key (one S for queries and keys), so a skipped tile would have added
-//   exactly 0 and the result is the same.
-// - bf16 (the model's path): QK^T and PV on tensor cores with mma.sync
-//   m16n8k16 (bf16 operands, fp32 accumulation), P rounded to bf16 for the
-//   PV product: the precision of the model's blocked_attention (bf16
-//   einsums with preferred_element_type=float32, p.astype(v.dtype)).  Four
-//   warps, 16 query rows each (a 64-row tile); 64-key tiles of K and V
-//   double-buffered in shared memory with cp.async, read by ldmatrix (.trans
-//   for V) from rows padded by 16 bytes, which keeps ldmatrix free of bank
-//   conflicts for every head dim.  Q stays in registers.
-// - fp32 (the TPU kernel's sweep): fp32 operands, no TF32; a SIMT loop with
-//   eight lanes per query row, 32-key tiles in shared memory.
-// - Head dims 16, 32, 64 and 128 (the wrapper raises on others); ragged
-//   sequence ends are masked in the kernel (kpos < S, zero rows in shared
-//   memory), with no padding copies.
-// - The reference's finite -1e30, not -inf.  No atomics: every output row
-//   has one writer and every sum a fixed order, so two launches are
-//   bitwise equal.
+// bf16 design (the model's path), one kernel for D = 16, 32, 64, 128:
+// - Block: 128 query rows of one head (one query tile) against the key
+//   tiles that the mask leaves non-empty, 128 keys each; 384 threads in
+//   three warpgroups.  The grid is (query head, query tile, batch) with the
+//   tiles in reverse order, so under the causal mask the longest blocks are
+//   dispatched first, and the 48 heads of one tile, which read the same
+//   K/V rows of the one KV head, run side by side and share them in L2.
+// - Producer warpgroup (registers lowered to 40 by setmaxnreg): one thread
+//   loads the Q tile once and keeps a ring of kStages K/V tiles in flight
+//   with TMA (4-D tensor maps over the [B, S, H, D] strides, built on the
+//   host for each call); full / empty mbarrier pairs hand each stage to the
+//   consumers and back.  TMA writes zeros past S (the kpos < S mask stays).
+// - Two consumer warpgroups (registers raised to 232), 64 query rows each
+//   (wgmma M = 64), both on the same K/V stage: 128 query rows per K/V byte
+//   read, twice the mma.sync design's 64.
+//   S = Q K^T: wgmma m64n128k16, both operands in shared memory, K-major.
+//   Softmax in fp32 registers on the accumulator fragment, in base 2
+//   (scale * log2(e) folded into the scores, ex2.approx); the mask is
+//   evaluated only on tiles that cross the diagonal, the window edge or S.
+//   O += P V: P rounded to bf16 in registers is wgmma's A operand (the
+//   accumulator fragment of m64n128 is the A fragment of eight k16
+//   slices); V is read in place as an MN-major B operand through the
+//   descriptor's transpose bit, m64nDk16.  A warpgroup waits for its PV
+//   product only after the next tile's QK^T is queued behind it, so the
+//   tensor cores never drain between the two.
+// - Shared memory: tiles of C = min(D, 64) columns per TMA box (one
+//   swizzle span: 128, 64 or 32 bytes), swizzled by TMA exactly as the
+//   wgmma descriptors expect; D = 128 is two boxes per row.  Q 32 KB +
+//   2 x (K 32 KB + V 32 KB) = 160 KB at D = 128, with the mbarriers and
+//   the alignment slack 164,904 B requested (smem_bytes_bf16): one block
+//   per SM.
+// - No split over keys and no atomics: every output row has one writer and
+//   every sum a fixed order, so two launches are bitwise equal.  One launch
+//   per call.
 //
-// C entry points return cudaGetLastError() (or the error of the shared
-// memory attribute); they launch on the given stream and do not
-// synchronise.
+// fp32 (the TPU kernel's sweep; the model never runs it): fp32 operands, no
+// TF32; a SIMT loop with eight lanes per query row, 32-key tiles in shared
+// memory.  Head dims 16, 32, 64 and 128 (the wrapper raises on others).
+//
+// C entry points return cudaGetLastError() (or the error of the tensor map
+// encoding or of the shared memory attribute); they launch on the given
+// stream and do not synchronise.  cuTensorMapEncodeTiled is taken through
+// cudaGetDriverEntryPoint, so the library needs no -lcuda.
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -95,227 +108,401 @@ __device__ __forceinline__ float cap_score(float s, float cap) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// bf16: TMA, mbarriers, warp specialisation, wgmma
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+constexpr int kBM = 128;        // query rows per block: kConsumers warpgroups x 64
+constexpr int kBN = 128;        // keys per K/V tile
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kConsumers = 2;   // consumer warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// A [128 rows, D] bf16 tile in shared memory as TMA writes it and wgmma
+// reads it: kBoxes boxes of C columns, each [128][C] with its 16-byte
+// chunks swizzled over 8-row atoms of 8 * kRowBytes bytes.
+template <int D>
+struct Tile {
+  static constexpr int C = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / C;
+  static constexpr int kRowBytes = C * 2;
+  static constexpr int kBoxBytes = 128 * kRowBytes;
+  static constexpr int kBytes = 128 * D * 2;
+  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr uint64_t kDescLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+};
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, fp32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-constexpr int kBM = 64;       // query rows per block: 4 warps x 16
-constexpr int kBN = 64;       // keys per tile
-constexpr int kWarps = kBM / 16;
-
+// Q, the K ring, the V ring (each tile 1024-byte aligned, as the 128-byte
+// swizzle needs), then the mbarriers; 1 KB of slack aligns the base.
 template <int D>
 constexpr int smem_bytes_bf16() {
-  return (kBM + 4 * kBN) * (D + 8) * (int)sizeof(bf16);  // Q, K[2], V[2]
+  return (1 + 2 * kStages) * Tile<D>::kBytes + 8 * (1 + 2 * kStages) + 1024;
 }
 
-// Rows [0, rows) of a tile of D columns from src (row stride ld_src
-// elements) into shared memory (row stride D + 8); rows at or past
-// `valid` are zero-filled.
-template <int D, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t ld_src, int rows,
-                                          int valid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    bf16* d = dst + r * (D + 8) + c * 8;
-    if (r < valid)
-      cp_async16(d, src + r * ld_src + c * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-D tensor map (coordinates innermost first: column,
+// sequence position, head, batch) into shared memory; completion counts
+// the box's bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma wrappers.  Accumulator fragment of m64nN (per warpgroup thread,
+// warp w, lane = 4 g + c): d[4j + e] is row 16 w + g + 8 (e / 2), column
+// 8 j + 2 c + (e % 2).  The register A fragment of m64n*k16 is the same
+// layout over 16 columns: a[0] = (g, 2c..2c+1), a[1] = (g + 8, 2c..),
+// a[2] = (g, 2c + 8..), a[3] = (g + 8, 2c + 8..), two bf16 each.
+// d[0:64] (+)= A (64x16, K-major, shared) * B (128x16, K-major, shared)
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d[0:8] += A (64x16, registers) * B (16x16, MN-major, shared)
+__device__ __forceinline__ void wgmma_pv(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d[0:16] += A (64x16, registers) * B (16x32, MN-major, shared)
+__device__ __forceinline__ void wgmma_pv(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d[0:32] += A (64x16, registers) * B (16x64, MN-major, shared)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d[0:64] += A (64x16, registers) * B (16x128, MN-major, shared)
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8, THREADS = kWarps * 32, KC = D / 16, NT = kBN / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBM * LD;      // [2][kBN][LD]
-  bf16* sV = sK + 2 * kBN * LD;  // [2][kBN][LD]
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Params p) {
+  using T = Tile<D>;
+  constexpr int RB = T::kRowBytes;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + T::kBytes;            // stage s at sK + s * T::kBytes
+  const uint32_t sV = sK + kStages * T::kBytes;  // stage s at sV + s * T::kBytes
+  const uint32_t q_full = sV + kStages * T::kBytes;
+  const uint32_t full = q_full + 8;              // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kStages;     // empty[s] at empty + 8 s
 
-  const int n_qt = (p.S + kBM - 1) / kBM;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBM;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kBM;
   const int hk = h / (p.Hq / p.Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;  // mma fragment row group / column pair
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
   int t_begin, t_end;
   key_tiles(p, q0, kBM, kBN, t_begin, t_end);
 
-  load_tile<D, THREADS>(sQ, Q + (int64_t)q0 * p.q_ss, p.q_ss, kBM, p.S - q0);
-  auto load_kv = [&](int t, int buf) {
-    const int k0 = t * kBN;
-    load_tile<D, THREADS>(sK + buf * kBN * LD, K + (int64_t)k0 * p.k_ss, p.k_ss, kBN, p.S - k0);
-    load_tile<D, THREADS>(sV + buf * kBN * LD, V + (int64_t)k0 * p.v_ss, p.v_ss, kBN, p.S - k0);
-  };
-  load_kv(t_begin, 0);
-  cp_async_commit();
-
-  // this thread's two rows of the warp's 16: r0 = g, r1 = g + 8
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  unsigned qf[KC][4];
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this thread's partial sums
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int buf = (t - t_begin) & 1;
-    if (t + 1 < t_end) {
-      load_kv(t + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers * 4);  // one arrival per consumer warp
     }
-    __syncthreads();
-    if (t == t_begin) {
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        ldmatrix_x4(qf[kc], sQ + (warp * 16 + (lane % 16)) * LD + kc * 16 + (lane / 16) * 8);
-    }
-    const bf16* tK = sK + buf * kBN * LD;
-    const bf16* tV = sV + buf * kBN * LD;
-
-    // s = q k^T: 16 rows x 64 keys per warp
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        unsigned kb[4];
-        const int mat = lane / 8;
-        ldmatrix_x4(kb, tK + ((j + mat / 2) * 8 + lane % 8) * LD + kc * 16 + (mat % 2) * 8);
-        mma_bf16(s[j], qf[kc], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qf[kc], kb[2], kb[3]);
-      }
-    }
-
-    // scale, softcap, mask (only where the tile is not wholly inside)
-    const int k0 = t * kBN;
-    const bool inside = k0 + kBN <= p.S && (!p.causal || k0 + kBN - 1 <= q0) &&
-                        (p.window <= 0 || q0 + kBM - 1 - k0 < p.window);
-    float mx0 = kNeg, mx1 = kNeg;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = cap_score(s[j][e] * p.scale, p.softcap);
-        if (!inside && !key_ok(p, e < 2 ? row0 : row1, k0 + j * 8 + 2 * tq + (e & 1))) x = kNeg;
-        s[j][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    // the four threads of a row group hold one row's 64 keys
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = __expf(s[j][0] - mn0);
-      s[j][1] = __expf(s[j][1] - mn0);
-      s[j][2] = __expf(s[j][2] - mn1);
-      s[j][3] = __expf(s[j][3] - mn1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= c0;
-      o[j][1] *= c0;
-      o[j][2] *= c1;
-      o[j][3] *= c1;
-    }
-
-    // o += p v, p rounded to bf16: the s accumulators are the A fragments
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < DT; dn += 2) {
-        unsigned vb[4];
-        const int mat = lane / 8;
-        ldmatrix_x4_trans(vb, tV + (kk * 16 + (mat % 2) * 8 + lane % 8) * LD + (dn + mat / 2) * 8);
-        mma_bf16(o[dn], pa, vb[0], vb[1]);
-        mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // the next iteration's prefetch overwrites this buffer
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
-  bf16* O = static_cast<bf16*>(p.o);
-  const int64_t o_ss = (int64_t)p.Hq * D;
-  bf16* O0 = O + ((int64_t)b * p.S + row0) * o_ss + (int64_t)h * D + 2 * tq;
-  bf16* O1 = O0 + 8 * o_ss;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every TMA load ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(q_full, T::kBytes);
+      for (int c = 0; c < T::kBoxes; ++c)
+        tma_load(sQ + c * T::kBoxBytes, &tq, q_full, c * T::C, q0, h, b);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int s = i % kStages;
+        const uint32_t f = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(f, 2 * T::kBytes);
+        for (int c = 0; c < T::kBoxes; ++c) {
+          tma_load(sK + s * T::kBytes + c * T::kBoxBytes, &tk, f, c * T::C, t * kBN, hk, b);
+          tma_load(sV + s * T::kBytes + c * T::kBoxBytes, &tv, f, c * T::C, t * kBN, hk, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, tq4 = lane % 4;
+    const int qa = q0 + 64 * wg;  // this warpgroup's first row
+    const int row0 = qa + 16 * warp + g, row1 = row0 + 8;
+    const bool softcap = p.softcap > 0.f;
+    const float sl = p.scale * kLog2e;
+    const uint32_t qrows = sQ + 64 * wg * RB;
+
+    float o[D / 2], sc[64];
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    if (row0 < p.S)
-      *reinterpret_cast<unsigned*>(O0 + j * 8) = pack_bf16(o[j][0] / d0, o[j][1] / d0);
-    if (row1 < p.S)
-      *reinterpret_cast<unsigned*>(O1 + j * 8) = pack_bf16(o[j][2] / d1, o[j][3] / d1);
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // m in base 2; l: this thread's partial sums
+
+    uint32_t pa[8][4] = {};  // P of the tile whose PV product is in flight
+    mbar_wait(q_full, 0);
+    __syncwarp();
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int s = i % kStages;
+      const uint32_t tK = sK + s * T::kBytes, tV = sV + s * T::kBytes;
+      mbar_wait(full + 8 * s, (i / kStages) & 1);
+      __syncwarp();  // wgmma is .aligned: the warp converges after the spin
+
+      // S = Q K^T over D in k16 steps: box (16 kk) / C, byte column 32 kk within it
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (16 * kk / T::C) * T::kBoxBytes + (16 * kk % T::C) * 2;
+        wgmma_qk(sc, make_desc(qrows + off, 16, 8 * RB, T::kDescLayout),
+                 make_desc(tK + off, 16, 8 * RB, T::kDescLayout), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();  // S of tile i, and PV of tile i - 1
+      fence_regs(sc);
+      fence_regs(o);
+      fence_regs(pa);
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * ((i - 1) % kStages));
+      }
+
+      // scale (base 2), softcap, mask (only where the tile is not wholly inside)
+      const int k0 = t * kBN;
+      const bool inside = k0 + kBN <= p.S && (!p.causal || k0 + kBN - 1 <= qa) &&
+                          (p.window <= 0 || qa + 63 - k0 < p.window);
+      if (softcap) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) sc[e] = cap_score(sc[e] * p.scale, p.softcap) * kLog2e;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) sc[e] *= sl;
+      }
+      if (!inside) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          if (!key_ok(p, (e & 2) ? row1 : row0, k0 + 8 * (e / 4) + 2 * tq4 + (e & 1))) sc[e] = kNeg;
+      }
+      float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      // the four threads of a row group hold one row's 128 keys
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+
+      // P = exp2(s - m) in fp32 for the sums, rounded to bf16 as wgmma's A
+      // fragments: k16 slice kk is accumulator chunks 2 kk and 2 kk + 1
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float e[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) e[x] = ex2(sc[8 * kk + x] - ((x & 2) ? mn1 : mn0));
+        ps0 += (e[0] + e[1]) + (e[4] + e[5]);
+        ps1 += (e[2] + e[3]) + (e[6] + e[7]);
+        pa[kk][0] = pack_bf16(e[0], e[1]);
+        pa[kk][1] = pack_bf16(e[2], e[3]);
+        pa[kk][2] = pack_bf16(e[4], e[5]);
+        pa[kk][3] = pack_bf16(e[6], e[7]);
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+
+      // O += P V: V [keys, D] is MN-major; k16 slice kk starts at key row 16 kk,
+      // the next box of C columns is T::kBoxBytes on (LBO), the next 8 keys 8 RB (SBO)
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_pv(o, pa[kk], make_desc(tV + 16 * kk * RB, T::kBoxBytes, 8 * RB, T::kDescLayout));
+      wgmma_commit();  // waited for after the next tile's QK^T is queued
+    }
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * ((t_end - t_begin - 1) % kStages));
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+    const int64_t o_ss = (int64_t)p.Hq * D;
+    bf16* O0 = static_cast<bf16*>(p.o) + ((int64_t)b * p.S + row0) * o_ss + (int64_t)h * D + 2 * tq4;
+    bf16* O1 = O0 + 8 * o_ss;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (row0 < p.S)
+        *reinterpret_cast<uint32_t*>(O0 + j * 8) = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+      if (row1 < p.S)
+        *reinterpret_cast<uint32_t*>(O1 + j * 8) = pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+    }
   }
 }
 
@@ -426,14 +613,61 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
 // launch
 // ---------------------------------------------------------------------------
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// The 4-D tensor map of a [B, S, H, D] bf16 tensor with element strides
+// (sb, ss, sh, 1), read in boxes of [1, kBN, 1, C].  A dimension of size 1
+// is never stepped, so its stride is set to a valid one.
+template <int D>
+int encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int64_t sb, int64_t ss,
+           int64_t sh) {
+  using T = Tile<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const int64_t sizes[3] = {S, H, B}, elems[3] = {ss, sh, sb};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)(sizes[i] == 1 ? D : elems[i]) * sizeof(bf16);
+  const cuuint32_t box[4] = {(cuuint32_t)T::C, (cuuint32_t)kBN, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, T::kSwizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int D>
 int launch_bf16(const Params& p, cudaStream_t stream) {
+  static_assert(kBM == kBN, "one box height serves Q, K and V");
   constexpr int smem = smem_bytes_bf16<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.S + kBM - 1) / kBM, p.Hq, p.B);
-  flash_fwd_bf16_kernel<D><<<grid, kWarps * 32, smem, stream>>>(p);
+  const int n_qt = (p.S + kBM - 1) / kBM;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int e = encode<D>(&tq, p.q, p.B, p.S, p.Hq, p.q_sb, p.q_ss, p.q_sh);
+  if (!e) e = encode<D>(&tk, p.k, p.B, p.S, p.Hkv, p.k_sb, p.k_ss, p.k_sh);
+  if (!e) e = encode<D>(&tv, p.v, p.B, p.S, p.Hkv, p.v_sb, p.v_ss, p.v_sh);
+  if (e) return e;
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.Hq, n_qt, p.B);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 

@@ -59,7 +59,8 @@ def _launch(q, k, v, scale, causal, window, softcap):
     (B, S, Hq, D), Hkv = q.shape, k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"{KERNEL}: head dim {D} not in {HEAD_DIMS}")
-    # 16-byte loads: last dim contiguous, rows and bases 16-byte aligned
+    # TMA tensor maps (bf16) and 16-byte loads (fp32): last dim contiguous,
+    # strides and base addresses 16-byte aligned
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:

@@ -313,7 +313,15 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rto
     (1, 128, 2, 2, 64, True, 0, None), (2, 96, 4, 2, 32, True, 0, None),
     (1, 160, 2, 1, 64, True, 48, None), (1, 64, 2, 2, 128, False, 0, 30.0),
     (1, 72, 1, 1, 16, True, 0, None), (2, 300, 48, 1, 128, True, 0, None),
-    (1, 200, 8, 1, 128, False, 70, 20.0)])
+    (1, 200, 8, 1, 128, False, 70, 20.0),
+    # around the 128-row query and 128-key tiles; G = Hq / Hkv of 1, 2, 3,
+    # 8 and 48; every head dim; softcap under the causal mask; a window
+    # whose edge crosses a key tile
+    (1, 1, 2, 1, 64, True, 0, None), (1, 127, 3, 1, 128, True, 0, None),
+    (2, 128, 8, 1, 32, True, 0, None), (1, 129, 4, 4, 16, True, 0, None),
+    (1, 255, 6, 2, 64, True, 0, 50.0), (1, 257, 48, 1, 128, True, 0, None),
+    (1, 257, 2, 2, 32, False, 0, None), (1, 300, 4, 1, 64, True, 130, None),
+    (1, 300, 3, 3, 128, True, 130, 30.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
     B, S, Hq, Hkv, D, causal, window, cap = case
@@ -371,17 +379,23 @@ def test_decode_attention_on_card_matches_cpu(cuda, dtype, heads):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_flash_attention_kernel_reads_strided_views(cuda, dtype):
+def test_flash_attention_kernel_reads_strided_views(cuda, dtype, d):
     """K and V read in place from a cache of larger capacity, Q as a slice
-    of a wider projection: the same result as contiguous copies."""
+    of a wider projection: the same result as contiguous copies, one launch
+    each, within TOL of the plain version."""
     gen = torch.Generator().manual_seed(3)
-    cache = torch.randn(2, 2, 256, 1, 64, generator=gen).to(dtype).to(cuda)
-    qkv = torch.randn(2, 200, 10, 64, generator=gen).to(dtype).to(cuda)
+    cache = torch.randn(2, 2, 256, 1, d, generator=gen).to(dtype).to(cuda)
+    qkv = torch.randn(2, 200, 10, d, generator=gen).to(dtype).to(cuda)
     q, k, v = qkv[:, :, :8], cache[0, :, :200], cache[1, :, :200]
-    got = fa.flash_attention(q, k, v, scale=0.125)
-    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.125)
+    n0 = build.launch_counts.get(fa.KERNEL, 0)
+    got = fa.flash_attention(q, k, v, scale=d ** -0.5)
+    assert build.launch_counts[fa.KERNEL] == n0 + 1
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=d ** -0.5)
     assert torch.equal(got, want)
+    torch.testing.assert_close(got, fa.attention_plain(q, k, v, scale=d ** -0.5),
+                               **FLASH_TOL[dtype])
 
 
 @pytest.mark.gpu
