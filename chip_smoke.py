@@ -17,9 +17,12 @@ loop.
 Phases (one line each, prefixed ``[n name]``):
   1 device       nvidia-smi name / power limit, TF32 off, kernel build
   2 kernels      fused NMP forward and backward on the serving mesh's
-                 edges, pack and unpack-add at the 2x2 partition's halo
-                 round widths (unpack-add's host and device time per call
-                 apart, under torch.profiler), the embedding bag at DLRM RM2's serve_bulk
+                 edges (the backward also held to a float64 VJP, with its
+                 launch plan and ptxas registers), pack and unpack-add on
+                 every round and rank of the 2x2 partition (each wrapper's
+                 host time per call beside its bare C call, and its device
+                 time under torch.profiler; phase_kernels runs any of
+                 these alone), the embedding bag at DLRM RM2's serve_bulk
                  lookup (fp32, H=1, the full table, whose offsets pass 2^31
                  elements) and at fp32 H=8 and bf16 H=4: error vs the plain
                  version, repeatability, CUDA-event times, and the
@@ -121,6 +124,10 @@ N_REQUESTS, BATCH_SLOTS, ROLLOUT_K, DT = 16, 4, 2, 0.05
 RTOL, ATOL = 1e-4, 1e-5          # the reference's forward band
 G_RTOL, G_ATOL = 1e-3, 2e-5      # the reference's gradient band
 W_REL = 5e-4                     # weight gradients summed over every edge
+# nmp_bwd's rel L2 from the float64 VJP, each output, at most this multiple
+# of the plain fp32 version's (sound runs read <= 2.1x; a 3xTF32 fragment
+# carried across tiles read 70x on w0)
+F64_FACTOR = 10.0
 LOSS_REL = 2e-6                  # the reference's loss band
 TRAIN_STEPS, TRAIN_LR = 10, 1e-3
 # DLRM RM2 (phase 7): batches per path and the seed of weights and inputs
@@ -155,10 +162,15 @@ FAULT_ROW, FAULT_TILE = 2048, 64
 # kernel 3, the dst-aligned edge MLP + aggregate: blocks (block_n, block_e),
 # tests/test_kernels.py's bands for the op (e_new, agg) and its bf16 TOL
 MLP_AGG_BLOCKS = (128, 256)
+# phase 2's GNN cases (phase_kernels), each of which can run alone; the
+# readings of each host-bound halo timing, taken in turns
+GNN_CASES = ("nmp_fwd", "nmp_bwd", "halo")
+HALO_ROUNDS = 5
 MLP_AGG_E_TOL, MLP_AGG_TOL, MLP_AGG_BF16_TOL = 3e-5, 1e-4, 2e-2
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # bf16 dense on tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = 67e12, 989e12, 3.35e12
+PEAK_TF32_FLOPS = 495e12         # tensor cores, dense
 
 
 def say(phase, msg):
@@ -186,6 +198,17 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def interleaved_ms(fns, iters):
+    """{name: median over HALO_ROUNDS readings of cuda_ms(fn, iters)}, the
+    functions timed in turns (order reversed every other round), so that
+    host-bound calls are compared over the same stretch of host time."""
+    got = {k: [] for k in fns}
+    for r in range(HALO_ROUNDS):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[k].append(cuda_ms(fns[k], iters))
+    return {k: float(np.median(v)) for k, v in got.items()}
 
 
 def bound_ms(n_bytes, flops, peak_flops=PEAK_FP32_FLOPS):
@@ -265,11 +288,9 @@ def device_kernels(prof):
     return [(t / 1e3, k) for t, k in kern if t > 0]
 
 
-def host_device_split(fn, iters):
-    """(host ms per call, {device op name: ms per call}) of ``fn``.  The
-    host time is the wall of ``iters`` calls enqueued back to back (the
-    loop never waits on the card); the device times are the device
-    events torch.profiler records over another ``iters`` calls."""
+def host_ms(fn, iters):
+    """Host wall per call of ``iters`` calls of ``fn`` enqueued back to back
+    (the loop never waits on the card)."""
     import torch
     for _ in range(3):
         fn()
@@ -279,6 +300,15 @@ def host_device_split(fn, iters):
         fn()
     host = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
+    return host
+
+
+def host_device_split(fn, iters):
+    """(host ms per call, {device op name: ms per call}) of ``fn``: the host
+    time by :func:`host_ms`; the device times are the device events
+    torch.profiler records over another ``iters`` calls."""
+    import torch
+    host = host_ms(fn, iters)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
@@ -320,65 +350,45 @@ def phase_device():
     return smi, ptxas
 
 
-def phase_kernels(cfg, ptxas):
-    import torch
-    from repro_torch.core.gnn import init_gnn
-    from repro_torch.core.graph_state import FUSED, NMPPlan, ShardedGraph
-    from repro_torch.core.halo import NEIGHBOR
-    from repro_torch.core.mesh_gen import box_mesh
-    from repro_torch.core.partition import partition_mesh
-    from repro_torch.kernels.halo_pack import ops as hp
+def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights):
+    """Kernel 1 against its plain version: error, times, bound."""
     from repro_torch.kernels.segment_agg import ops as sa
-
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    sem = box_mesh(SERVE_ELEMS, p=ORDER)
-    pg = partition_mesh(sem, (1, 1, 1))
-    g = ShardedGraph.build(pg, sem.coords, NMPPlan(backend=FUSED),
-                           device=dev).rank(0)
-    n_real = int(pg.edge_mask.sum())
-    say("2 kernels", f"serving mesh {SERVE_ELEMS} p={ORDER}: {pg.n_global} nodes, "
-        f"{n_real} directed edges (host build {time.perf_counter() - t0:.1f} s)")
-    records = []
-
-    # --- fused NMP forward at the serving mesh's shapes ---
-    gen = torch.Generator().manual_seed(11)
-    edge = init_gnn(gen, cfg, device=dev)["mp"][0]["edge"]
-    H, Lp = cfg.hidden, cfg.mlp_hidden_layers
-    x = torch.randn(pg.n_pad, H, generator=gen).to(dev)
-    e = torch.randn(pg.e_pad, H, generator=gen).to(dev)
+    H = x.shape[1]
     args = (x, e, edge, g["seg_perm"], g["seg_src"], g["seg_rowptr"],
             g["edge_mask"], g["edge_inv_mult"])
     e_k, a_k = sa.fused_nmp_edge_agg(*args)
     e_p, a_p = sa.fused_nmp_edge_agg_plain(*args)
-    torch.cuda.synchronize()
     err_e, ok_e = within_band(e_k, e_p)
     err_a, ok_a = within_band(a_k, a_p)
     ms = cuda_ms(lambda: sa.fused_nmp_edge_agg(*args), iters=20)
     plain = cuda_ms(lambda: sa.fused_nmp_edge_agg_plain(*args), iters=5, warmup=1)
-    weights = [t for l in edge["layers"] for t in l.values()] + list(edge["ln"].values())
     moved = nbytes(x, e, g["seg_perm"], g["seg_src"], g["seg_rowptr"], g["edge_mask"],
                    g["edge_inv_mult"], *weights, e_k, a_k)
-    # the dense layers' FMAs: per edge the x_src and e slices of layer 0 and
-    # the Lp hidden layers; the x_dst slice once per node that has edges
-    n_dst = int((g["seg_rowptr"].diff() > 0).sum())
-    flops = n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H
     b_ms, b_by = bound_ms(moved, flops)
-    say("2 kernels", f"nmp_fwd H={H} Lp={Lp} E={n_real} N={pg.n_pad}: max|err| "
-        f"e_new {err_e:.3g} agg {err_a:.3g} (rtol {RTOL} atol {ATOL}) | kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    say("2 kernels", f"nmp_fwd H={H} Lp={len(edge['layers']) - 1} E={n_real} N={n_pad}: "
+        f"max|err| e_new {err_e:.3g} agg {err_a:.3g} (rtol {RTOL} atol {ATOL}) | "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     if not (ok_e and ok_a):
         raise RuntimeError("fused NMP kernel disagrees with its plain version")
-    records.append(dict(name=sa.KERNEL, route="cuda",
-                        source="src/repro_torch/csrc/nmp_fwd.cu",
-                        replaces="src/repro/kernels/segment_agg/kernel.py:215",
-                        max_abs_err=max(err_e, err_a), ms=ms, plain_ms=plain,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    del e_k, a_k, e_p, a_p
+    return dict(name=sa.KERNEL, route="cuda", source="src/repro_torch/csrc/nmp_fwd.cu",
+                replaces="src/repro/kernels/segment_agg/kernel.py:215",
+                max_abs_err=max(err_e, err_a), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # --- fused NMP backward at the serving mesh's shapes ---
-    g_enew = torch.randn(pg.e_pad, H, generator=gen).to(dev)
-    g_agg = torch.randn(pg.n_pad, H, generator=gen).to(dev)
+
+def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
+    """Kernel 2 against its plain version: g_x / g_e within the gradient
+    band, weight gradients by relative L2, every output's distance from the
+    float64 VJP within F64_FACTOR of plain fp32's, two launches bitwise
+    equal, times, the bound (3xTF32 on tensor cores, the kernel's
+    arithmetic; the fp32 CUDA-core one beside it), the launch as the card
+    plans it and ptxas's registers and spills."""
+    import torch
+    from repro_torch.kernels.segment_agg import ops as sa
+    H, Lp = x.shape[1], len(edge["layers"]) - 1
+    dev = x.device
+    g_enew = torch.randn(e.shape[0], H, generator=gen).to(dev)
+    g_agg = torch.randn(n_pad, H, generator=gen).to(dev)
     lay = (g["seg_perm"], g["seg_src"], g["seg_rowptr"])
     src_lay = (g["seg_src_slots"], g["seg_src_rowptr"])
     rest = (g["edge_mask"], g["edge_inv_mult"], g_enew, g_agg)
@@ -398,96 +408,189 @@ def phase_kernels(cfg, ptxas):
     err_g, ok_g = within_band(got[1], want[1], G_RTOL, G_ATOL)
     names = ("w0", "b0", "wrest", "brest", "ln_g", "ln_b")
     wrel = {n: rel_norm(a, b) for n, a, b in zip(names, got[2:], want[2:])}
-    del want
+    # both against the same VJP in float64: where the gap to plain comes from
+    f64 = lambda t: t.double()  # noqa: E731
+    edge64 = {"layers": [{k: f64(v) for k, v in l.items()} for l in edge["layers"]],
+              "ln": {k: f64(v) for k, v in edge["ln"].items()}}
+    exact = sa.fused_nmp_edge_agg_bwd_plain(
+        f64(x), f64(e), edge64, *lay, *(f64(t) for t in rest))
+    vs64 = {n: (rel_norm(a.double(), r), rel_norm(b.double(), r))
+            for n, a, b, r in zip(("g_x", "g_e") + names, got, want, exact)}
+    del want, exact
     ms = cuda_ms(bwd, iters=10, warmup=1)
     plain = cuda_ms(bwd_plain, iters=3, warmup=1)
+    _, dev_ops = host_device_split(bwd, 3)      # the kernels of one call
     moved = nbytes(x, e, *lay, *src_lay, *rest, *weights, *got)
-    # recompute, input gradients and weight gradients: 3x the forward's FMAs
-    flops = 3 * (n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H)
-    b_ms, b_by = bound_ms(moved, flops)
-    say("2 kernels", f"nmp_bwd H={H} Lp={Lp} E={n_real} N={pg.n_pad}: max|err| "
+    # recompute, input gradients and weight gradients: 3x the forward's
+    # FMAs, each three TF32 products in the kernel's 3xTF32 (the lower bound)
+    fp32_ms, fp32_by = bound_ms(moved, flops)
+    b_ms, b_by = min((fp32_ms, fp32_by), bound_ms(moved, 3 * flops, PEAK_TF32_FLOPS))
+    f64_ok = all(a <= F64_FACTOR * b for a, b in vs64.values())
+    plan = sa.bwd_launch_plan(H, Lp, g["seg_perm"].numel())
+    say("2 kernels", f"nmp_bwd H={H} Lp={Lp} E={n_real} N={n_pad}: max|err| "
         f"g_x {err_x:.3g} g_e {err_g:.3g} (rtol {G_RTOL} atol {G_ATOL}); weight "
         f"grads rel L2 " + ", ".join(f"{k} {v:.2e}" for k, v in wrel.items())
         + f" (<= {W_REL}: sums over {n_real} edges, so an elementwise atol says "
         f"nothing there) | two launches bitwise equal: {repeat} | kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
-        f"{flops / 1e9:.1f} GFLOP, {moved / 1e9:.2f} GB) | ptxas {ptxas['nmp_bwd']}")
-    if not (ok_x and ok_g and all(v <= W_REL for v in wrel.values()) and repeat):
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}: 3 x "
+        f"{flops / 1e9:.1f} GFLOP in 3xTF32 on tensor cores, {moved / 1e9:.2f} GB; "
+        f"fp32 on CUDA cores {fp32_ms:.3f} ms) | edge pass: grid {plan['grid']}, "
+        f"{plan['smem_bytes']} B shared memory per block, {plan['blocks_per_sm']} "
+        f"block(s) per SM | ptxas {ptxas['nmp_bwd']}")
+    say("2 kernels", "nmp_bwd rel L2 against the float64 VJP, kernel / plain fp32 "
+        f"(kernel <= {F64_FACTOR:g}x plain: {f64_ok}): "
+        + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in vs64.items())
+        + " | one call's device kernels under torch.profiler: "
+        + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
+    if not (ok_x and ok_g and all(v <= W_REL for v in wrel.values()) and f64_ok
+            and repeat):
         raise RuntimeError("fused NMP backward kernel disagrees with its plain "
-                           "version or is not repeatable")
-    records.append(dict(name=sa.KERNEL_BWD, route="cuda",
-                        source="src/repro_torch/csrc/nmp_bwd.cu",
-                        replaces="src/repro/kernels/segment_agg/kernel.py:357",
-                        max_abs_err=max(err_x, err_g), ms=ms, plain_ms=plain,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    del got, x, e, g, g_enew, g_agg, rest
-    torch.cuda.empty_cache()
+                           "version or the float64 VJP, or is not repeatable")
+    return dict(name=sa.KERNEL_BWD, route="cuda", source="src/repro_torch/csrc/nmp_bwd.cu",
+                replaces="src/repro/kernels/segment_agg/kernel.py:357",
+                max_abs_err=max(err_x, err_g), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, fp32_bound_ms=fp32_ms)
 
-    # --- pack / unpack-add at the 2x2 partition's round widths ---
+
+def halo_cases(F, gen):
+    """Kernels 4 and 5 on every round and rank of the 2x2 partition of the
+    consistency mesh, bitwise against the plain versions; times at the
+    widest round, each kernel's host and device time per call apart."""
+    import torch
+    from repro_torch.core.graph_state import NMPPlan, ShardedGraph
+    from repro_torch.core.halo import NEIGHBOR
+    from repro_torch.core.mesh_gen import box_mesh
+    from repro_torch.core.partition import partition_mesh
+    from repro_torch.kernels import build
+    from repro_torch.kernels.halo_pack import ops as hp
+    dev = torch.device("cuda")
     csem = box_mesh(CONS_ELEMS, p=ORDER)
     cpg = partition_mesh(csem, CONS_GRID)
     plan = NMPPlan.build(cpg, NEIGHBOR, packed=True)
     cg = ShardedGraph.build(cpg, csem.coords, plan, device=dev)
     widths = [int(cg[f"pk{k}_send_idx"].shape[1]) for k in range(len(plan.halo.perms))]
-    F = cfg.hidden
     src = torch.randn(cpg.n_pad, F, generator=gen).to(dev)
     seed = torch.randn(cpg.n_pad, F, generator=gen).to(dev)
+    wire = lambda k, side, r: cg.wire(f"pk{k}_{side}").rank(r)  # noqa: E731
     pack_err = unpack_err = 0.0
     for k in range(len(widths)):
         for r in range(cpg.R):
-            idx, mask = cg[f"pk{k}_send_idx"][r], cg[f"pk{k}_send_mask"][r]
-            got, want = hp.halo_pack(src, idx, mask), hp.halo_pack_plain(src, idx, mask)
+            swire, rwire = wire(k, "send", r), wire(k, "recv", r)
+            got, want = hp.halo_pack(src, swire), hp.halo_pack_plain(src, *swire[:2])
             if not torch.equal(got, want):
                 raise RuntimeError(f"pack kernel != plain (round {k}, rank {r})")
             pack_err = max(pack_err, float((got - want).abs().max()))
-            ridx, rmask = cg[f"pk{k}_recv_idx"][r], cg[f"pk{k}_recv_mask"][r]
-            got = hp.halo_unpack_add(seed, want, ridx, rmask)
-            ref = hp.halo_unpack_add_plain(seed, want, ridx, rmask)
+            got = hp.halo_unpack_add(seed, want, rwire)
+            ref = hp.halo_unpack_add_plain(seed, want, *rwire[:2])
             if not torch.equal(got, ref):
                 raise RuntimeError(f"unpack kernel != plain (round {k}, rank {r})")
             unpack_err = max(unpack_err, float((got - ref).abs().max()))
     kw = int(np.argmax(widths))
-    idx, mask = cg[f"pk{kw}_send_idx"][0], cg[f"pk{kw}_send_mask"][0]
-    ridx, rmask = cg[f"pk{kw}_recv_idx"][0], cg[f"pk{kw}_recv_mask"][0]
+    swire, rwire = wire(kw, "send", 0), wire(kw, "recv", 0)
+    idx, mask, _ = swire
+    ridx, rmask, rinv = rwire
     buf = hp.halo_pack_plain(src, idx, mask)
     W = widths[kw]
-    timings = {
-        hp.PACK: (cuda_ms(lambda: hp.halo_pack(src, idx, mask), 200),
-                  cuda_ms(lambda: hp.halo_pack_plain(src, idx, mask), 200), None),
-        hp.UNPACK: (cuda_ms(lambda: hp.halo_unpack_add(seed, buf, ridx, rmask), 200),
-                    cuda_ms(lambda: hp.halo_unpack_add_plain(seed, buf, ridx, rmask), 200),
-                    # one library call on the pre-masked buffer
-                    cuda_ms(lambda: torch.index_add(seed, 0, ridx, buf), 200)),
-    }
-    # kernel 5's split, measured for its redesign: host time per call
-    # (wrapper, ctypes, cudaMemcpyAsync of the seed + the kernel's launch)
-    # and device time per call (the copy and the kernel) under torch.profiler
-    host_ms, dev_ops = host_device_split(
-        lambda: hp.halo_unpack_add(seed, buf, ridx, rmask), 200)
-    dev_ms = sum(dev_ops.values())
-    say("2 kernels", f"{hp.UNPACK} split at W={W}, F={F}, N={cpg.n_pad}: host "
-        f"{host_ms * 1e3:.2f} us per call (wrapper, ctypes, memcpy + kernel launches), "
-        f"device {dev_ms * 1e3:.2f} us per call under torch.profiler ("
-        + "; ".join(f"{name[:48]} {ms * 1e3:.2f} us" for name, ms in dev_ops.items()) + ")")
-    moved = {hp.PACK: nbytes(idx, mask, buf, buf),   # rows gathered + buffer written
+    calls = {hp.PACK: lambda: hp.halo_pack(src, swire),
+             hp.UNPACK: lambda: hp.halo_unpack_add(seed, buf, rwire)}
+    # host-bound calls: kernel, plain version and library call timed in
+    # turns, the median of HALO_ROUNDS readings each
+    t = interleaved_ms({
+        "pack": calls[hp.PACK],
+        "pack plain": lambda: hp.halo_pack_plain(src, idx, mask),
+        "unpack": calls[hp.UNPACK],
+        "unpack plain": lambda: hp.halo_unpack_add_plain(seed, buf, ridx, rmask),
+        # one library call on the pre-masked buffer
+        "index_add": lambda: torch.index_add(seed, 0, ridx, buf)}, 200)
+    timings = {hp.PACK: (t["pack"], t["pack plain"], None),
+               hp.UNPACK: (t["unpack"], t["unpack plain"], t["index_add"])}
+    # each wrapper's host time per call (checks, allocation, ctypes, launch)
+    # and device time per call under torch.profiler; beside it the bare C
+    # call (ctypes and the launch) on the same pointers, without the wrapper
+    splits = {name: host_device_split(fn, 200) for name, fn in calls.items()}
+    _, pack_c, unpack_c = hp._entries()
+    stream = build.stream_of(seed)
+    out = torch.empty_like(seed)
+    pack_args = (src.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(), W, F,
+                 cpg.n_pad, stream)
+    unpack_args = (seed.data_ptr(), buf.data_ptr(), rinv.data_ptr(), rmask.data_ptr(),
+                   out.data_ptr(), cpg.n_pad, F, stream)
+    bare = {hp.PACK: host_ms(lambda: pack_c(*pack_args), 200),
+            hp.UNPACK: host_ms(lambda: unpack_c(*unpack_args), 200)}
+    # the functions' own bytes, whatever index the kernel reads: rows
+    # gathered + buffer written; seed read + out written + buffer and wire
+    moved = {hp.PACK: nbytes(idx, mask, buf, buf),
              hp.UNPACK: nbytes(seed, seed, buf, ridx, rmask)}
+    records = []
     for name, err in ((hp.PACK, pack_err), (hp.UNPACK, unpack_err)):
         ms, plain, lib = timings[name]
+        host, dev_ops = splits[name]
+        dev_ms = sum(dev_ops.values())
         b_ms, b_by = bound_ms(moved[name], 0)
         say("2 kernels", f"{name} widths {widths} (timed W={W}, F={F}, "
             f"N={cpg.n_pad}): bitwise equal to plain over all rounds and ranks | "
-            f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us"
+            f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us (medians of "
+            f"{HALO_ROUNDS} readings in turns)"
             + (f", torch.index_add {lib * 1e3:.2f} us" if lib is not None else "")
-            + f", bound {b_ms * 1e3:.3f} us ({b_by})")
+            + f", bound {b_ms * 1e3:.3f} us ({b_by}) | host {host * 1e3:.2f} us per "
+            f"call (of which the bare C call, ctypes + launch, {bare[name] * 1e3:.2f} us), "
+            f"device {dev_ms * 1e3:.2f} us per call under torch.profiler ("
+            + "; ".join(f"{n[:48]} {t * 1e3:.2f} us" for n, t in dev_ops.items()) + ")")
         records.append(dict(name=name, route="cuda",
                             source="src/repro_torch/csrc/halo_pack.cu",
                             replaces=("src/repro/kernels/halo_pack/kernel.py:44"
                                       if name == hp.PACK else
                                       "src/repro/kernels/halo_pack/kernel.py:91"),
                             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib,
-                            **({"host_ms_per_call": host_ms, "device_ms_per_call": dev_ms}
-                               if name == hp.UNPACK else {})))
+                            bound_by=b_by, library_ms=lib, host_ms_per_call=host,
+                            bare_c_call_ms=bare[name], device_ms_per_call=dev_ms))
+    return records
+
+
+def phase_kernels(ptxas, cfg=None, cases=GNN_CASES):
+    """The GNN's kernels at the shapes its main paths give them: ``cases``
+    from GNN_CASES (the fused NMP forward and backward on the serving mesh,
+    pack / unpack-add on the 2x2 partition's rounds).  A subset runs those
+    alone, the way two source trees are compared on one card: ``python3 -c
+    'import chip_smoke as c; c.phase_kernels(c.phase_device()[1],
+    cases=("nmp_bwd", "halo"))'`` from the root of each tree.  Returns
+    (serving mesh, its partition, one record per kernel run)."""
+    import torch
+    from repro_torch.core.gnn import GNNConfig, init_gnn
+    from repro_torch.core.graph_state import FUSED, NMPPlan, ShardedGraph
+    from repro_torch.core.mesh_gen import box_mesh
+    from repro_torch.core.partition import partition_mesh
+
+    cfg = cfg or GNNConfig.large()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    sem = box_mesh(SERVE_ELEMS, p=ORDER)
+    pg = partition_mesh(sem, (1, 1, 1))
+    g = ShardedGraph.build(pg, sem.coords, NMPPlan(backend=FUSED),
+                           device=dev).rank(0)
+    n_real = int(pg.edge_mask.sum())
+    say("2 kernels", f"serving mesh {SERVE_ELEMS} p={ORDER}: {pg.n_global} nodes, "
+        f"{n_real} directed edges (host build {time.perf_counter() - t0:.1f} s)")
+    records = []
+    gen = torch.Generator().manual_seed(11)
+    edge = init_gnn(gen, cfg, device=dev)["mp"][0]["edge"]
+    H, Lp = cfg.hidden, cfg.mlp_hidden_layers
+    x = torch.randn(pg.n_pad, H, generator=gen).to(dev)
+    e = torch.randn(pg.e_pad, H, generator=gen).to(dev)
+    weights = [t for l in edge["layers"] for t in l.values()] + list(edge["ln"].values())
+    # the dense layers' FMAs: per edge the x_src and e slices of layer 0 and
+    # the Lp hidden layers; the x_dst slice once per node that has edges
+    n_dst = int((g["seg_rowptr"].diff() > 0).sum())
+    fwd_flops = n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H
+    if "nmp_fwd" in cases:
+        records.append(nmp_fwd_case(x, e, edge, g, n_real, pg.n_pad, fwd_flops, weights))
+    if "nmp_bwd" in cases:
+        records.append(nmp_bwd_case(x, e, edge, g, n_real, pg.n_pad, 3 * fwd_flops,
+                                    weights, ptxas, gen))
+    del x, e, g
+    torch.cuda.empty_cache()
+    if "halo" in cases:
+        records.extend(halo_cases(cfg.hidden, gen))
     return sem, pg, records
 
 
@@ -1656,7 +1759,7 @@ def main():
     cfg = GNNConfig.large()
     smi, ptxas = phase_device()
     lap("1 device")
-    sem, pg, records = phase_kernels(cfg, ptxas)
+    sem, pg, records = phase_kernels(ptxas, cfg)
     seg_record, seg_counts = phase_segment_agg(sem, ptxas)
     records.append(seg_record)
     records.append(phase_embedding_bag(ptxas))

@@ -4,8 +4,8 @@
 * :class:`ShardedGraph` — the per-rank static arrays of one partition as a
   dict of tensors on one device, each with a leading rank axis (node/edge
   indices, masks, inverse multiplicities, halo buffers, static geometric
-  edge features, the fused kernel's compact layout); :meth:`rank` slices
-  one rank out.
+  edge features, the fused kernel's compact layout) and the packed halo
+  rounds' wires; :meth:`rank` slices one rank out.
 * :class:`NMPPlan` — a frozen execution policy: NMP backend (``xla`` |
   ``fused``), schedule, fused-layout block sizes and the
   :class:`~repro_torch.core.halo.HaloSpec`.  Layer implementations register
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.halo import AUTO, HaloSpec, halo_spec_from_plan
+from repro_torch.kernels.halo_pack.ops import HaloWire, halo_wire
 
 XLA = "xla"          # plain PyTorch ops (the name mirrors the reference)
 FUSED = "fused"      # the hand-written CUDA kernel
@@ -115,14 +116,18 @@ def registered_nmp_impls() -> Tuple[Tuple[str, str], ...]:
 class ShardedGraph:
     """Stacked per-rank static arrays of one partition, as tensors on one
     device.  ``graph[name]`` has a leading rank axis; ``graph.rank(r)``
-    returns rank r's slice (a rank-local graph)."""
+    returns rank r's slice (a rank-local graph).  ``graph.wire(name)`` is a
+    packed halo round's :class:`HaloWire` (``pk{k}_send`` / ``pk{k}_recv``:
+    ids, mask and their inverse), made once by :meth:`build`."""
 
-    __slots__ = ("arrays",)
+    __slots__ = ("arrays", "wires")
 
-    def __init__(self, arrays: Dict[str, torch.Tensor]):
+    def __init__(self, arrays: Dict[str, torch.Tensor],
+                 wires: Dict[str, HaloWire] | None = None):
         if not isinstance(arrays, dict):
             raise TypeError(f"arrays must be a dict, got {type(arrays)}")
         self.arrays = dict(arrays)
+        self.wires = dict(wires or {})
 
     def __getitem__(self, key: str) -> torch.Tensor:
         try:
@@ -144,9 +149,19 @@ class ShardedGraph:
     def device(self) -> torch.device:
         return next(iter(self.arrays.values())).device
 
+    def wire(self, name: str) -> HaloWire:
+        try:
+            return self.wires[name]
+        except KeyError:
+            raise KeyError(
+                f"ShardedGraph has no halo wire {name!r}; present: "
+                f"{sorted(self.wires)} — was the graph built with a packed "
+                "plan (ShardedGraph.build(pg, coords, plan))?") from None
+
     def rank(self, r: int) -> "ShardedGraph":
-        """Slice every array's leading rank axis."""
-        return ShardedGraph({k: v[r] for k, v in self.arrays.items()})
+        """Slice every array's (and wire's) leading rank axis."""
+        return ShardedGraph({k: v[r] for k, v in self.arrays.items()},
+                            {k: w.rank(r) for k, w in self.wires.items()})
 
     @classmethod
     def build(cls, pg, coords: np.ndarray, plan: NMPPlan | None = None,
@@ -154,11 +169,16 @@ class ShardedGraph:
         """Collect ``pg``'s static arrays plus the static geometric edge
         features from ``coords`` onto ``device``; ``plan`` decides what else
         rides along (the fused backend's compact layout, the packed halo
-        arrays)."""
+        arrays and their wires)."""
         plan = plan or NMPPlan()
-        arrays = _level_arrays(pg, coords, plan.seg_layout, plan.wants_packed)
-        return cls({k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                    for k, v in arrays.items()})
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                  for k, v in _level_arrays(pg, coords, plan.seg_layout,
+                                            plan.wants_packed).items()}
+        wires = {f"pk{k}_{side}": halo_wire(arrays[f"pk{k}_{side}_idx"],
+                                            arrays[f"pk{k}_{side}_mask"], pg.n_pad)
+                 for k in range(len(pg.halo.perms)) if f"pk{k}_send_idx" in arrays
+                 for side in ("send", "recv")}
+        return cls(arrays, wires)
 
 
 def _level_arrays(pg, coords, seg_layout, packed: bool) -> Dict[str, np.ndarray]:

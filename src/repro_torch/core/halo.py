@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.halo_pack.ops import halo_pack, halo_unpack_add
+from repro_torch.kernels.halo_pack.ops import HaloWire, halo_pack, halo_unpack_add
 
 NONE = "none"
 A2A = "a2a"
@@ -68,29 +68,28 @@ def _check_spec(spec: HaloSpec, combine: str):
         raise ValueError(f"unknown halo mode {spec.mode!r}")
 
 
-def _gather_wire(a, idx, mask, spec: HaloSpec):
+def _gather_wire(a, wire, spec: HaloSpec):
     """Pack boundary rows into one round's send buffer (Eq. 4c send side)."""
     if spec.packed:
-        return halo_pack(a, idx, mask)
-    return a.index_select(0, idx) * mask[:, None]
+        return halo_pack(a, wire)
+    return a.index_select(0, wire.idx) * wire.mask[:, None]
 
 
-def _scatter_wire(out, idx, mask, got, spec: HaloSpec):
+def _scatter_wire(out, wire, got, spec: HaloSpec):
     """Apply one round's received buffer onto the local rows (Eq. 4d)."""
     if spec.packed:
-        return halo_unpack_add(out, got, idx, mask)
-    return out.index_add(0, idx, got * mask[:, None])
+        return halo_unpack_add(out, got, wire)
+    return out.index_add(0, wire.idx, got * wire.mask[:, None])
 
 
-def _stacked_round_arrays(graph, spec: HaloSpec, k: int):
-    """Round-``k`` (send_idx, send_mask, recv_idx, recv_mask), leading rank
-    axis kept: bucketed ``pk{k}_*`` when packed, dense ``nbr_*`` slices
-    otherwise."""
+def _stacked_round_wires(graph, spec: HaloSpec, k: int):
+    """Round-``k`` (send, recv) wires, leading rank axis kept: the graph's
+    bucketed ``pk{k}_*`` wires (with their inverses) when packed, dense
+    ``nbr_*`` slices (no inverses) otherwise."""
     if spec.packed:
-        return (graph[f"pk{k}_send_idx"], graph[f"pk{k}_send_mask"],
-                graph[f"pk{k}_recv_idx"], graph[f"pk{k}_recv_mask"])
-    return (graph["nbr_send_idx"][:, k], graph["nbr_send_mask"][:, k],
-            graph["nbr_recv_idx"][:, k], graph["nbr_recv_mask"][:, k])
+        return graph.wire(f"pk{k}_send"), graph.wire(f"pk{k}_recv")
+    return tuple(HaloWire(graph[f"nbr_{side}_idx"][:, k],
+                          graph[f"nbr_{side}_mask"][:, k]) for side in ("send", "recv"))
 
 
 def halo_sync_reference(a_stacked: torch.Tensor, graph, spec: HaloSpec,
@@ -159,7 +158,7 @@ def halo_sync_stacked(a_stacked: torch.Tensor, graph, spec: HaloSpec,
     for k, perm in enumerate(spec.perms):
         if not perm:
             continue
-        sidx, smask, ridx, rmask = _stacked_round_arrays(graph, spec, k)
+        send, recv = _stacked_round_wires(graph, spec, k)
         src_of = {int(d): int(s) for (s, d) in perm}
         new_out = list(out)
         for r in range(R):
@@ -167,7 +166,7 @@ def halo_sync_stacked(a_stacked: torch.Tensor, graph, spec: HaloSpec,
             if s is None:
                 continue   # non-destination ranks receive nothing
             # gather from the ORIGINAL aggregate, scatter into the running one
-            buf = _gather_wire(a_stacked[s], sidx[s], smask[s], spec)
-            new_out[r] = _scatter_wire(out[r], ridx[r], rmask[r], buf, spec)
+            buf = _gather_wire(a_stacked[s], send.rank(s), spec)
+            new_out[r] = _scatter_wire(out[r], recv.rank(r), buf, spec)
         out = new_out
     return torch.stack(out)

@@ -12,24 +12,40 @@
 // bytes.  They do one multiply (and one add) per element moved, far below
 // the fp32 ridge of ~20 FLOP/byte, so the least time is the bytes moved
 // over 3.35 TB/s; at the wire widths of a halo round (a few hundred rows
-// of H=32 floats) they are launch-bound.
-// Design: one thread per (slot, feature) — neighbouring threads touch
+// of H=32 floats) they are launch-bound, so the host path around the launch
+// is kept short (one C call, one kernel each).
+//
+// pack: one thread per (slot, feature) — neighbouring threads touch
 // neighbouring features of one row, so each warp's loads and stores are
-// coalesced 128-byte rows at H=32.  There is no tiling or staging: the
-// TPU kernels' double-buffered row DMAs have no counterpart because the
-// gather is a plain coalesced load here.
+// coalesced 128-byte rows at H=32.
+//
+// unpack-add is one gather pass over the output rows, not a copy of the
+// seed followed by a scatter:
+//   out[r, :] = a[r, :] + buf[inv[r], :] * mask[inv[r]]   (inv[r] >= 0)
+//   out[r, :] = a[r, :]                                   (inv[r] == -1)
+// where inv is the inverse of idx over the slots with a non-zero mask
+// (built once per halo plan, with the wire that carries idx and mask:
+// kernels/halo_pack/ops.py::halo_wire; real ids are unique within a round,
+// so it is well defined).  Every output
+// element is written exactly once, by one thread, with no atomics and no
+// race; 16-byte loads and stores when F is a multiple of 4 and the rows
+// are 16-byte aligned.  A null seed
+// pointer means a zero seed (the pack's adjoint), computed as 0 + product so
+// the sums stay those of the plain version.
 //
 // Both are bitwise equal to their plain versions (x[idx] * mask and
 // a.index_add(0, idx, buf * mask)): __fmul_rn / __fadd_rn forbid the FMA
 // contraction that would round the product and the sum once instead of
-// twice.  Unpack-add skips slots whose mask is 0: the padding slots all
-// carry index 0, and parallel zero-adds to row 0 would race a real write to
-// row 0.  Real recv ids are unique within a round, so no other two threads
-// write one element.  The one value the skip changes is a -0.0 in row 0 of
-// `a`, which the plain version's 0-add turns into +0.0 (equal under
-// torch.equal).  Indices are clamped into [0, n) for memory safety, as the
-// reference's wrapper clips them.  C entry points return cudaGetLastError().
+// twice.  Slots with mask 0 (the padding slots, all index 0) add nothing;
+// the one value that changes is a -0.0 in row 0 of `a`, which the plain
+// version's 0-add turns into +0.0 (equal under torch.equal).  Pack clamps
+// its indices into [0, n) for memory safety, as the reference's wrapper
+// clips them; unpack-add reads only inv, whose entries halo_wire checked.
+// C entry points return cudaGetLastError().
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -46,19 +62,41 @@ __global__ void pack_kernel(const float* __restrict__ x, const int* __restrict__
   buf[i] = __fmul_rn(x[(size_t)r * f + c], mask[w]);
 }
 
-__global__ void unpack_add_kernel(float* __restrict__ out, const float* __restrict__ buf,
-                                  const int* __restrict__ idx,
-                                  const float* __restrict__ mask, long long total, int f,
-                                  int n) {
+__device__ __forceinline__ float madd(float s, float b, float m) {
+  return __fadd_rn(s, __fmul_rn(b, m));
+}
+
+// V floats per thread (4: one 16-byte access, 1: scalar)
+template <int V>
+__global__ void unpack_add_kernel(const float* __restrict__ a, const float* __restrict__ buf,
+                                  const int* __restrict__ inv,
+                                  const float* __restrict__ mask, float* __restrict__ out,
+                                  long long total, int fv) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const int w = (int)(i / f);
-  const float m = mask[w];
-  if (m == 0.f) return;
-  const int c = (int)(i - (long long)w * f);
-  const int r = min(max(idx[w], 0), n - 1);
-  float* o = out + (size_t)r * f + c;
-  *o = __fadd_rn(*o, __fmul_rn(buf[i], m));
+  const long long r = i / fv;
+  const int c = (int)(i - r * fv);
+  Vec s;
+  if (a != nullptr) {
+    s = reinterpret_cast<const Vec*>(a)[i];
+  } else {
+    s = Vec{};
+  }
+  const int w = inv[r];
+  if (w >= 0) {
+    const float m = mask[w];
+    const Vec b = reinterpret_cast<const Vec*>(buf)[(size_t)w * fv + c];
+    if constexpr (V == 4) {
+      s.x = madd(s.x, b.x, m);
+      s.y = madd(s.y, b.y, m);
+      s.z = madd(s.z, b.z, m);
+      s.w = madd(s.w, b.w, m);
+    } else {
+      s = madd(s, b, m);
+    }
+  }
+  reinterpret_cast<Vec*>(out)[i] = s;
 }
 
 inline int blocks_for(long long total) {
@@ -77,16 +115,25 @@ extern "C" int halo_pack_f32(const void* x, const void* idx, const void* mask, v
   return (int)cudaGetLastError();
 }
 
-extern "C" int halo_unpack_add_f32(const void* a, const void* buf, const void* idx,
-                                   const void* mask, void* out, int w, int f, int n,
+// a may be null (zero seed); inv [n] maps each output row to its slot or -1
+extern "C" int halo_unpack_add_f32(const void* a, const void* buf, const void* inv,
+                                   const void* mask, void* out, int n, int f,
                                    void* stream) {
-  cudaError_t err = cudaMemcpyAsync(out, a, sizeof(float) * (size_t)n * f,
-                                    cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)w * f;
-  if (total == 0) return (int)cudaGetLastError();
-  unpack_add_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)out, (const float*)buf, (const int*)idx, (const float*)mask, total, f, n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uintptr_t align = (uintptr_t)a | (uintptr_t)buf | (uintptr_t)out;
+  if (f % 4 == 0 && align % 16 == 0) {
+    const long long total = (long long)n * (f / 4);
+    if (total == 0) return 0;
+    unpack_add_kernel<4><<<blocks_for(total), kThreads, 0, st>>>(
+        (const float*)a, (const float*)buf, (const int*)inv, (const float*)mask,
+        (float*)out, total, f / 4);
+  } else {
+    const long long total = (long long)n * f;
+    if (total == 0) return 0;
+    unpack_add_kernel<1><<<blocks_for(total), kThreads, 0, st>>>(
+        (const float*)a, (const float*)buf, (const int*)inv, (const float*)mask,
+        (float*)out, total, f);
+  }
   return (int)cudaGetLastError();
 }
 

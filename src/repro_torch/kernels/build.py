@@ -12,7 +12,7 @@ at import: the CPU test host has no ``nvcc``); :func:`build` compiles several
 sources in parallel, one ``nvcc`` process each.
 
 Every C entry point takes device pointers (``tensor.data_ptr()``), ``int``
-sizes and the CUDA stream (``torch.cuda.current_stream().cuda_stream``),
+sizes and the CUDA stream (the current stream's raw handle, :func:`stream_of`),
 launches on that stream without synchronising, and returns
 ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
 
@@ -123,8 +123,10 @@ def check(lib: ctypes.CDLL, code: int, what: str):
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current stream on ``t``'s device (no
+    ``torch.cuda.Stream`` object is built)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(name: str, *tensors, dtypes=None):

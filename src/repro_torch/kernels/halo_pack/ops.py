@@ -1,20 +1,31 @@
 """Packed halo wire ops: the CUDA kernels' wrappers and their plain versions.
 
 Port of ``repro.kernels.halo_pack.ops`` (``halo_pack`` /
-``halo_unpack_add``), differentiable:
+``halo_unpack_add``), differentiable, over one round's :class:`HaloWire`:
 
-* ``halo_pack(x, idx, mask)``             -> ``buf = x[idx] * mask[:, None]``
-* ``halo_unpack_add(a, buf, idx, mask)``  -> ``a.index_add(0, idx, buf * mask)``
+* ``halo_pack(x, wire)``            -> ``buf = x[idx] * mask[:, None]``
+* ``halo_unpack_add(a, buf, wire)`` -> ``a.index_add(0, idx, buf * mask)``
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/halo_pack.cu``
 (or raises); on a CPU tensor it runs the plain version.  Both kernels are
 pure data movement and bitwise equal to the plain versions, which are
 bitwise equal to ``repro.kernels.halo_pack.ref`` (``tests/test_torch_kernels``).
 
+A wire carries ``idx`` and ``mask`` and, when :func:`halo_wire` built it,
+their inverse ``inv`` (``inv[r]`` is the slot with a non-zero mask that
+lands on row ``r``, -1 for rows that receive nothing), so the kernels and
+the plain versions read one object whose inverse matches its ids.
+``ShardedGraph.build`` makes each packed round's wires once per plan.  The
+unpack-add kernel is a gather through ``inv``, one pass with no seed copy;
+the pack kernel needs it only for its gradient, which is an unpack-add.
+Slots with mask 0 add nothing on the card, so a non-finite value in a
+padding slot's buffer row (``x[0] * 0``) does not reach row 0 there as it
+does in the plain version.
+
 Each op is the other's adjoint, as in the reference's custom VJPs
 (``_pack_core`` / ``_unpack_core``): d pack / d x =
-``halo_unpack_add(zeros, g, idx, mask)``, d unpack / d a = g and
-d unpack / d buf = ``halo_pack(g, idx, mask)`` — so on CUDA tensors each
+``halo_unpack_add(zeros, g, wire)``, d unpack / d a = g and
+d unpack / d buf = ``halo_pack(g, wire)`` — so on CUDA tensors each
 backward launches the other op's kernel (and counts that launch).  When no
 gradient is needed the wrappers call the op directly: these launches are
 host-bound, and the ``autograd.Function`` would add its own host cost.
@@ -22,6 +33,8 @@ host-bound, and the ``autograd.Function`` would add its own host cost.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,8 +46,48 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "halo_pack_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
-    "halo_unpack_add_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "halo_unpack_add_f32": (_P,) * 5 + (_I,) * 2 + (_P,),
 }
+_F32, _I32 = torch.float32, torch.int32
+_lib = None          # (library, pack entry, unpack-add entry) once loaded
+
+
+class HaloWire(NamedTuple):
+    """One round's wire: ``idx`` [..., W] int32 row ids, ``mask`` [..., W]
+    0/1 float32 and ``inv`` [..., N] int32, their inverse (module
+    docstring), or None: the plain versions only.  A leading rank axis is
+    kept until :meth:`rank` slices it.  Build one with :func:`halo_wire`."""
+    idx: torch.Tensor
+    mask: torch.Tensor
+    inv: Optional[torch.Tensor] = None
+
+    def rank(self, r: int) -> "HaloWire":
+        return HaloWire(self.idx[r], self.mask[r],
+                        None if self.inv is None else self.inv[r])
+
+
+def halo_wire(idx: torch.Tensor, mask: torch.Tensor, n_rows: int) -> HaloWire:
+    """The wire of ``idx`` / ``mask`` ([..., W]) with its inverse over the
+    real slots: ``inv[..., r]`` is the one slot ``w`` with
+    ``mask[..., w] != 0`` and ``idx[..., w] == r``, and -1 for rows no real
+    slot maps to ([..., n_rows] int32, on idx's device).  Built once per
+    halo plan, never per call (it reads back to the host); raises if two
+    real slots share a row or a real id lies outside ``[0, n_rows)``."""
+    if mask.shape != idx.shape:
+        raise ValueError(f"halo_wire: mask {tuple(mask.shape)} does not match "
+                         f"idx {tuple(idx.shape)}")
+    lead, w = idx.shape[:-1], idx.shape[-1]
+    flat = idx.reshape(math.prod(lead), w).long()
+    b, slot = torch.nonzero(mask.reshape(flat.shape) != 0, as_tuple=True)
+    rows = flat[b, slot]
+    if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= n_rows):
+        raise ValueError(f"halo_wire: real ids outside [0, {n_rows})")
+    key = b * n_rows + rows
+    if torch.unique(key).numel() != key.numel():
+        raise ValueError("halo_wire: two real slots share a row")
+    inv = torch.full((flat.shape[0], n_rows), -1, dtype=_I32, device=idx.device)
+    inv[b, rows] = slot.to(_I32)
+    return HaloWire(idx, mask, inv.reshape(*lead, n_rows))
 
 
 def halo_pack_plain(x, idx, mask):
@@ -47,101 +100,139 @@ def halo_unpack_add_plain(a, buf, idx, mask):
     return a.index_add(0, idx, buf * mask[:, None])
 
 
-def _check_wire(name, rows, idx, mask):
+def _check_wire(name, rows, wire):
+    idx, mask = wire.idx, wire.mask
     if rows.dim() != 2 or idx.dim() != 1 or mask.shape != idx.shape:
         raise ValueError(f"{name}: expected rows [N, F], idx [W], mask [W]; "
                          f"got {tuple(rows.shape)}, {tuple(idx.shape)}, "
                          f"{tuple(mask.shape)}")
-    if rows.device.type not in ("cpu", "cuda"):
+    if not (rows.is_cuda or rows.is_cpu):
         raise ValueError(f"{name}: unsupported device {rows.device}")
 
 
+def _entries():
+    global _lib
+    if _lib is None:
+        lib = build.load(KERNEL, _SIGNATURES)
+        _lib = (lib, lib.halo_pack_f32, lib.halo_unpack_add_f32)
+    return _lib
+
+
+def _bad_args(name, tensors, dtypes):
+    """Name the pointer argument that failed the wrapper's one-line check
+    (dtype, device index, contiguity), and raise."""
+    build.require_cuda(name, *tensors, dtypes=dtypes)
+    raise ValueError(f"{name}: arguments not on one CUDA device")
+
+
 def _pack(x, idx, mask):
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return halo_pack_plain(x, idx, mask)
-    f32 = torch.float32
-    build.require_cuda(PACK, x, idx, mask, dtypes=(f32, torch.int32, f32))
+    dev = x.get_device()
+    if not (x.dtype is _F32 and idx.dtype is _I32 and mask.dtype is _F32
+            and idx.get_device() == dev and mask.get_device() == dev
+            and x.is_contiguous() and idx.is_contiguous() and mask.is_contiguous()):
+        _bad_args(PACK, (x, idx, mask), (_F32, _I32, _F32))
     n, f = x.shape
     w = idx.shape[0]
-    buf = torch.empty(w, f, dtype=f32, device=x.device)
-    lib = build.load(KERNEL, _SIGNATURES)
-    code = lib.halo_pack_f32(x.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                             buf.data_ptr(), w, f, n, build.stream_of(x))
-    build.check(lib, code, "halo_pack_f32")
+    buf = x.new_empty((w, f))
+    lib, fn, _ = _lib or _entries()
+    code = fn(x.data_ptr(), idx.data_ptr(), mask.data_ptr(), buf.data_ptr(),
+              w, f, n, build.stream_of(x))
+    if code:
+        build.check(lib, code, "halo_pack_f32")
     build.count_launch(PACK)
     return buf
 
 
-def _unpack_add(a, buf, idx, mask):
-    if a.device.type == "cpu":
-        return halo_unpack_add_plain(a, buf, idx, mask)
-    f32 = torch.float32
-    build.require_cuda(UNPACK, a, buf, idx, mask,
-                       dtypes=(f32, f32, torch.int32, f32))
-    n, f = a.shape
-    w = idx.shape[0]
-    out = torch.empty_like(a)
-    lib = build.load(KERNEL, _SIGNATURES)
-    code = lib.halo_unpack_add_f32(a.data_ptr(), buf.data_ptr(), idx.data_ptr(),
-                                   mask.data_ptr(), out.data_ptr(), w, f, n,
-                                   build.stream_of(a))
-    build.check(lib, code, "halo_unpack_add_f32")
+def _unpack_add(a, buf, idx, mask, inv, n_rows):
+    """``a`` None is a zero seed of ``n_rows`` rows (the pack's adjoint)."""
+    if buf.is_cpu:
+        seed = buf.new_zeros((n_rows, buf.shape[1])) if a is None else a
+        return halo_unpack_add_plain(seed, buf, idx, mask)
+    if inv is None:
+        raise ValueError(
+            f"{UNPACK}: the CUDA kernel needs the wire's inv, the inverse of "
+            "idx over the slots with a non-zero mask (build it with halo_wire)")
+    if inv.shape != (n_rows,):
+        raise ValueError(f"{UNPACK}: inv {tuple(inv.shape)} is not [N] = [{n_rows}]")
+    dev = buf.get_device()
+    if not (buf.dtype is _F32 and mask.dtype is _F32 and inv.dtype is _I32
+            and mask.get_device() == dev and inv.get_device() == dev
+            and buf.is_contiguous() and mask.is_contiguous() and inv.is_contiguous()
+            and (a is None or (a.dtype is _F32 and a.get_device() == dev
+                               and a.is_contiguous()))):
+        _bad_args(UNPACK, (buf, mask, inv) + (() if a is None else (a,)),
+                  (_F32, _F32, _I32, _F32))
+    f = buf.shape[1]
+    out = buf.new_empty((n_rows, f)) if a is None else torch.empty_like(a)
+    lib, _, fn = _lib or _entries()
+    code = fn(None if a is None else a.data_ptr(), buf.data_ptr(), inv.data_ptr(),
+              mask.data_ptr(), out.data_ptr(), n_rows, f, build.stream_of(buf))
+    if code:
+        build.check(lib, code, "halo_unpack_add_f32")
     build.count_launch(UNPACK)
     return out
 
 
 class _Pack(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx, mask):
-        ctx.save_for_backward(idx, mask)
+    def forward(ctx, x, idx, mask, inv):
+        ctx.save_for_backward(idx, mask, inv)
         ctx.n_rows = x.shape[0]
         return _pack(x, idx, mask)
 
     @staticmethod
     def backward(ctx, g):
-        idx, mask = ctx.saved_tensors
-        g = g.contiguous()
-        gx = _unpack_add(g.new_zeros(ctx.n_rows, g.shape[1]), g, idx, mask)
-        return gx, None, None
+        idx, mask, inv = ctx.saved_tensors
+        gx = _unpack_add(None, g.contiguous(), idx, mask, inv, ctx.n_rows)
+        return gx, None, None, None
 
 
 class _UnpackAdd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, buf, idx, mask):
+    def forward(ctx, a, buf, idx, mask, inv):
         ctx.save_for_backward(idx, mask)
-        return _unpack_add(a, buf, idx, mask)
+        return _unpack_add(a, buf, idx, mask, inv, a.shape[0])
 
     @staticmethod
     def backward(ctx, g):
         idx, mask = ctx.saved_tensors
-        return g, _pack(g.contiguous(), idx, mask), None, None
+        return g, _pack(g.contiguous(), idx, mask), None, None, None
 
 
-def halo_pack(x: torch.Tensor, idx: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
-    """Fused masked row gather: ``buf = x[idx] * mask[:, None]``.
+def halo_pack(x: torch.Tensor, wire: HaloWire) -> torch.Tensor:
+    """Fused masked row gather: ``buf = x[wire.idx] * wire.mask[:, None]``.
 
-    x: [N, F] float32; idx: [W] int32 row ids, unique among slots with a
-    non-zero mask (true of every halo round); mask: [W] 0/1 send mask
-    (padding slots become zeros).  Returns [W, F]; differentiable in x."""
-    _check_wire(PACK, x, idx, mask)
+    x: [N, F] float32; wire: one rank's :class:`HaloWire` (idx [W] int32,
+    unique among slots with a non-zero mask; mask [W] 0/1, padding slots
+    become zeros; its inv is needed only for the gradient of a CUDA x).
+    Returns [W, F]; differentiable in x."""
+    _check_wire(PACK, x, wire)
+    idx, mask, inv = wire
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Pack.apply(x, idx, mask)
+        if x.is_cuda and inv is None:
+            raise ValueError(f"{PACK}: the gradient of a CUDA x needs the wire's "
+                             "inv, the inverse of idx (build it with halo_wire)")
+        return _Pack.apply(x, idx, mask, inv)
     return _pack(x, idx, mask)
 
 
-def halo_unpack_add(a: torch.Tensor, buf: torch.Tensor, idx: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
-    """Fused masked scatter-add: ``out = a.at[idx].add(buf * mask[:, None])``.
+def halo_unpack_add(a: torch.Tensor, buf: torch.Tensor, wire: HaloWire
+                    ) -> torch.Tensor:
+    """Fused masked scatter-add:
+    ``out = a.at[wire.idx].add(buf * wire.mask[:, None])``.
 
     a: [N, F] float32 (the combine seed, not modified); buf: [W, F] recv
-    buffer; idx: [W] int32 destination rows, unique among slots with a
-    non-zero mask (true of every halo round); mask: [W] 0/1 recv mask.
-    Returns [N, F]; differentiable in a and buf."""
-    _check_wire(UNPACK, a, idx, mask)
+    buffer; wire: one rank's :class:`HaloWire` (idx [W] int32 destination
+    rows, unique among slots with a non-zero mask; mask [W] 0/1; inv [N],
+    which the CUDA kernel gathers through).  Returns [N, F]; differentiable
+    in a and buf."""
+    _check_wire(UNPACK, a, wire)
+    idx, mask, inv = wire
     if buf.shape != (idx.shape[0], a.shape[1]):
         raise ValueError(f"{UNPACK}: buf {tuple(buf.shape)} does not match "
                          f"[W, F] = [{idx.shape[0]}, {a.shape[1]}]")
     if torch.is_grad_enabled() and (a.requires_grad or buf.requires_grad):
-        return _UnpackAdd.apply(a, buf, idx, mask)
-    return _unpack_add(a, buf, idx, mask)
+        return _UnpackAdd.apply(a, buf, idx, mask, inv)
+    return _unpack_add(a, buf, idx, mask, inv, a.shape[0])

@@ -52,11 +52,16 @@ KERNEL_BWD = "nmp_bwd"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"nmp_edge_mlp_agg_fwd_f32": (_P,) * 15 + (_I,) * 4 + (_P,)}
+_L = ctypes.c_longlong
 _SIGNATURES_BWD = {
-    "nmp_edge_mlp_agg_bwd_groups": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
-    "nmp_edge_mlp_agg_bwd_f32": (_P,) * 22 + (_I,) * 5 + (_P,),
+    "nmp_edge_mlp_agg_bwd_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    # 17 operands, gx, ge, gw, scratch g_z0 / slot_dst / partials; N, slots,
+    # H, Lp, has_ln, partial rows, stream
+    "nmp_edge_mlp_agg_bwd_f32": (_P,) * 23 + (_I, _L) + (_I,) * 4 + (_P,),
 }
 SUPPORTED_HIDDEN = (8, 16, 32)
+#: hidden layers the backward kernel's register accumulators hold
+MAX_BWD_HIDDEN = 5
 KERNEL_MLP_AGG = "edge_mlp_agg"
 _MLP_AGG_ENTRY = {torch.float32: "edge_mlp_agg_f32", torch.bfloat16: "edge_mlp_agg_bf16"}
 # feats, dstl, weights, w1, b1, w2, b2, e_new, agg, NB, slots per node
@@ -254,6 +259,17 @@ def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     return e_new, agg
 
 
+def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
+    """The backward edge pass's launch on the current card: ``grid`` (the
+    partial weight-gradient rows), ``smem_bytes`` of dynamic shared memory
+    per block and ``blocks_per_sm`` resident (occupancy API)."""
+    lib = build.load(KERNEL_BWD, _SIGNATURES_BWD)
+    plan = (ctypes.c_int * 3)()
+    code = lib.nmp_edge_mlp_agg_bwd_plan(hidden, n_hidden, n_slots, plan)
+    build.check(lib, code, "nmp_edge_mlp_agg_bwd_plan")
+    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2])
+
+
 def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
          seg_src_slots, seg_src_rowptr, edge_mask, edge_inv_mult, g_enew,
          g_agg):
@@ -276,6 +292,9 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
         raise ValueError(f"cotangents {tuple(g_enew.shape)}, {tuple(g_agg.shape)} "
                          f"do not match e_new [{e.shape[0]}, {hid}] and agg "
                          f"{tuple(x.shape)}")
+    if n_hidden > MAX_BWD_HIDDEN:
+        raise ValueError(f"fused_nmp_edge_agg_bwd: {n_hidden} hidden layers; the "
+                         f"kernel takes at most {MAX_BWD_HIDDEN}")
     f32, i32 = torch.float32, torch.int32
     g_enew, g_agg = g_enew.contiguous(), g_agg.contiguous()
     perm = seg_perm.reshape(-1)
@@ -284,9 +303,8 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     build.require_cuda("fused_nmp_edge_agg_bwd", *args,
                        dtypes=(f32, f32) + (i32,) * 5 + (f32,) * 10)
     lib = build.load(KERNEL_BWD, _SIGNATURES_BWD)
-    groups = ctypes.c_int(0)
-    code = lib.nmp_edge_mlp_agg_bwd_groups(hid, n_hidden, n, ctypes.byref(groups))
-    build.check(lib, code, "nmp_edge_mlp_agg_bwd_groups")
+    n_slots = perm.shape[0]
+    groups = bwd_launch_plan(hid, n_hidden, n_slots)["grid"]
     lp = ops[2].shape[0]
     sizes = (3 * hid * hid, hid, lp * hid * hid, lp * hid, hid, hid)
     wsize = sum(sizes)
@@ -294,12 +312,16 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     gx = torch.empty(n, hid, dtype=f32, device=dev)
     ge = torch.zeros(e.shape[0], hid, dtype=f32, device=dev)
     gw = torch.empty(wsize, dtype=f32, device=dev)
-    gxi_slot = torch.empty(perm.shape[0], hid, dtype=f32, device=dev)
-    partials = torch.empty(groups.value, wsize, dtype=f32, device=dev)
+    # scratch: each slot's layer-0 pre-activation gradient (slots x H fp32,
+    # 552 MB at the serving mesh's 4.3 M slots, H=32), each slot's
+    # destination node, and one row of partial weight gradients per block
+    gz0 = torch.empty(n_slots, hid, dtype=f32, device=dev)
+    slot_dst = torch.empty(n_slots, dtype=i32, device=dev)
+    partials = torch.empty(groups, wsize, dtype=f32, device=dev)
     code = lib.nmp_edge_mlp_agg_bwd_f32(
         *(t.data_ptr() for t in args), gx.data_ptr(), ge.data_ptr(),
-        gw.data_ptr(), gxi_slot.data_ptr(), partials.data_ptr(),
-        n, hid, n_hidden, int(has_ln), groups.value, build.stream_of(x))
+        gw.data_ptr(), gz0.data_ptr(), slot_dst.data_ptr(), partials.data_ptr(),
+        n, n_slots, hid, n_hidden, int(has_ln), groups, build.stream_of(x))
     build.check(lib, code, "nmp_edge_mlp_agg_bwd_f32")
     build.count_launch(KERNEL_BWD)
     gw0, gb0, gwr, gbr, glng, glnb = torch.split(gw, sizes)
@@ -350,8 +372,9 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
 
     CPU tensors run the plain forward and backward; CUDA tensors launch
     ``csrc/nmp_fwd.cu`` and, in the backward, ``csrc/nmp_bwd.cu`` (fp32,
-    H in {8, 16, 32}) or raise.  Tensors are saved for the backward only
-    when grad is enabled and an input requires it.
+    H in {8, 16, 32}, at most 5 hidden layers) or raise.  Tensors are
+    saved for the backward only when grad is enabled and an input requires
+    it.
 
     Returns (e_new [E_pad, H], agg [N_pad, H]).
     """

@@ -111,10 +111,70 @@ def test_halo_kernels_bitwise_plain(cuda, seed):
     idx[0] = 0                          # a real write to row 0 beside padding
     mask = np.zeros(w, np.float32)
     mask[:60] = 1.0
-    idx, mask = torch.from_numpy(idx).to(cuda), torch.from_numpy(mask).to(cuda)
-    assert torch.equal(hp.halo_pack(x, idx, mask), hp.halo_pack_plain(x, idx, mask))
-    assert torch.equal(hp.halo_unpack_add(a, buf, idx, mask),
+    wire = _wire(idx, mask, n, cuda)
+    idx, mask = wire.idx, wire.mask
+    assert torch.equal(hp.halo_pack(x, wire), hp.halo_pack_plain(x, idx, mask))
+    assert torch.equal(hp.halo_unpack_add(a, buf, wire),
                        hp.halo_unpack_add_plain(a, buf, idx, mask))
+
+
+def _wire(idx, mask, n, device):
+    return hp.halo_wire(torch.from_numpy(idx).to(device),
+                        torch.from_numpy(mask).to(device), n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["w0", "all_masked", "first_last_rows",
+                                  "neg_zero_seed", "odd_f"])
+def test_halo_unpack_add_edges_bitwise_plain(cuda, case):
+    """W = 0, a wire whose mask is all 0, recv rows 0 and N-1, a -0.0 seed
+    and a width that is not a multiple of 4 (scalar path): torch.equal to
+    the plain version, one counted launch each."""
+    rng = np.random.default_rng(7)
+    n, w, f = 97, 16, 32
+    if case == "odd_f":
+        f = 6
+    idx = rng.choice(np.arange(1, n - 1), w, replace=False).astype(np.int32)
+    mask = np.ones(w, np.float32)
+    if case == "w0":
+        idx, mask = idx[:0], mask[:0]
+    elif case == "all_masked":
+        mask[:] = 0.0
+        idx[:] = 0
+    elif case == "first_last_rows":
+        idx[0], idx[-1] = 0, n - 1
+    a = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda)
+    if case == "neg_zero_seed":
+        a = torch.full_like(a, -0.0)
+        mask[-3:] = 0.0
+        idx[-3:] = 0                    # padding slots onto row 0
+    buf = torch.from_numpy(rng.normal(size=(idx.shape[0], f)).astype(np.float32)).to(cuda)
+    wire = _wire(idx, mask, n, cuda)
+    idx, mask, inv = wire
+    n0 = build.launch_counts.get(hp.UNPACK, 0)
+    got = hp.halo_unpack_add(a, buf, wire)
+    torch.cuda.synchronize()
+    assert build.launch_counts[hp.UNPACK] == n0 + 1
+    assert torch.equal(got, hp.halo_unpack_add_plain(a, buf, idx, mask))
+    if case == "neg_zero_seed":       # rows no real slot lands on keep -0.0
+        untouched = inv < 0
+        assert torch.equal(torch.signbit(got[untouched]),
+                           torch.ones_like(got[untouched], dtype=torch.bool))
+
+
+@pytest.mark.gpu
+def test_halo_unpack_add_without_inverse_raises(cuda):
+    a = torch.zeros(8, 4, device=cuda)
+    buf = torch.zeros(2, 4, device=cuda)
+    idx = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    mask = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match="inv"):
+        hp.halo_unpack_add(a, buf, hp.HaloWire(idx, mask))
+    with pytest.raises(ValueError, match="inv"):
+        hp.halo_pack(a.clone().requires_grad_(True), hp.HaloWire(idx, mask))
+    with pytest.raises(TypeError, match="dtype"):
+        hp.halo_unpack_add(a, buf,
+                           hp.HaloWire(idx, mask, torch.zeros(8, device=cuda)))
 
 
 @pytest.mark.gpu
@@ -205,6 +265,80 @@ def test_fused_nmp_bwd_kernel_matches_plain(cuda, hidden, layers, has_ln):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _ragged_layout(rng, cuda, n=300, block_e=32):
+    """A graph whose dst-sorted slots hit every ragged case of the backward
+    kernel's 128-slot tiles: node 5's 200 slots span two tiles, node 7's
+    300 slots are all masked (a whole tile of masked rows), nodes 0..39
+    receive nothing (g_x from their src side only, or none), 17 edges point
+    past the nodes (outside the layout: g_e stays 0) and the slot count is
+    not a multiple of 128."""
+    dst = np.concatenate([np.full(200, 5), np.full(300, 7),
+                          rng.integers(40, n, 611), np.full(17, n)])
+    src = rng.integers(0, n, dst.size)
+    order = rng.permutation(dst.size)
+    src, dst = src[order], dst[order]
+    lay = sa.compact_gather_layout(src, dst, n, block_e)
+    assert lay["n_edges"] % 128 and lay["n_edges"] == 1111
+    mask = np.where(dst == 7, 0.0, 1.0).astype(np.float32)
+    mask[dst == n] = 0.0
+    deg = np.bincount(np.minimum(dst, n), minlength=n + 1)[np.minimum(dst, n)]
+    inv = (1.0 / deg).astype(np.float32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    return ((T(lay["perm"]), T(lay["src"]), T(lay["rowptr"])),
+            (T(lay["src_slots"]), T(lay["src_rowptr"])), T(mask), T(inv),
+            np.nonzero(dst == n)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,layers", [(8, 1), (16, 3), (32, 6)])
+def test_fused_nmp_bwd_kernel_ragged_tiles(cuda, hidden, layers):
+    """Nodes spanning tiles, isolated nodes, an all-masked tile, edges
+    outside the layout and a ragged last tile: within the gradient bands of
+    the plain version and bitwise equal across two launches."""
+    rng = np.random.default_rng(hidden)
+    lay, src_lay, mask, inv, outside = _ragged_layout(rng, cuda)
+    n, n_edges = 300, mask.shape[0]
+    gen = torch.Generator().manual_seed(hidden)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=layers - 1)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    for lp in edge["layers"]:
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    x, e, g_enew, g_agg = R(n, hidden), R(n_edges, hidden), R(n_edges, hidden), R(n, hidden)
+    rest = (mask, inv, g_enew, g_agg)
+    got = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest)
+    want = sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest)
+    torch.testing.assert_close(got[0], want[0], rtol=G_RTOL, atol=G_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=G_RTOL, atol=G_ATOL)
+    assert not got[1][torch.from_numpy(outside).to(cuda)].any()
+    for i, (a, b) in enumerate(zip(got[2:], want[2:])):
+        if i in (2, 3) and layers == 1:
+            assert not a.any() and not b.any()
+        else:
+            assert _rel_norm(a, b) <= W_REL, i
+    again = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_fused_nmp_bwd_plan_and_limits(cuda):
+    """The edge pass's launch as the card reports it, and what the wrapper
+    refuses: more hidden layers than the accumulators hold."""
+    plan = sa.bwd_launch_plan(32, 5, 4_315_696)
+    assert plan["smem_bytes"] == 220_672 and plan["blocks_per_sm"] >= 1
+    assert 1 <= plan["grid"] <= 132 * plan["blocks_per_sm"]
+    assert sa.bwd_launch_plan(8, 0, 10)["grid"] == 1
+    gen = torch.Generator().manual_seed(0)
+    cfg = GNNConfig(hidden=8, n_mp_layers=1, mlp_hidden_layers=6)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    rng = np.random.default_rng(0)
+    lay, src_lay, mask, inv, _ = _ragged_layout(rng, cuda)
+    z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="at most 5"):
+        sa.fused_nmp_edge_agg_bwd(z(300, 8), z(1128, 8), edge, *lay, *src_lay, mask,
+                                  inv, z(1128, 8), z(300, 8))
+
+
 @pytest.mark.gpu
 def test_halo_kernel_grads_bitwise_plain(cuda):
     rng = np.random.default_rng(3)
@@ -213,14 +347,16 @@ def test_halo_kernel_grads_bitwise_plain(cuda):
     idx[:60] = rng.choice(np.arange(n), 60, replace=False)
     mask = np.zeros(w, np.float32)
     mask[:60] = 1.0
-    idx, mask = torch.from_numpy(idx).to(cuda), torch.from_numpy(mask).to(cuda)
+    wire = _wire(idx, mask, n, cuda)
+    idx, mask = wire.idx, wire.mask
     T = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)  # noqa: E731
     x, a, buf, g_buf, g_out = T(n, f), T(n, f), T(w, f), T(w, f), T(n, f)
     counts = dict(build.launch_counts)
     xk = x.clone().requires_grad_(True)
-    (gx,) = torch.autograd.grad(hp.halo_pack(xk, idx, mask), xk, g_buf)
+    (gx,) = torch.autograd.grad(hp.halo_pack(xk, wire), xk, g_buf)
     ak, bk = a.clone().requires_grad_(True), buf.clone().requires_grad_(True)
-    ga, gb = torch.autograd.grad(hp.halo_unpack_add(ak, bk, idx, mask), (ak, bk), g_out)
+    ga, gb = torch.autograd.grad(hp.halo_unpack_add(ak, bk, wire), (ak, bk),
+                                 g_out)
     # each backward launched the other op's kernel
     assert build.launch_counts[hp.PACK] == counts.get(hp.PACK, 0) + 2
     assert build.launch_counts[hp.UNPACK] == counts.get(hp.UNPACK, 0) + 2

@@ -114,11 +114,12 @@ def _wire_case(seed=0, n=53, w=24, f=8):
 def test_halo_pack_plain_bitwise_reference(seed):
     x, a, buf, idx, mask = _wire_case(seed)
     T = torch.from_numpy
-    got = hp.halo_pack(T(x), T(idx), T(mask)).numpy()
+    wire = hp.halo_wire(T(idx), T(mask), x.shape[0])
+    got = hp.halo_pack(T(x), wire).numpy()
     want = np.asarray(halo_pack_ref(jnp.asarray(x), jnp.asarray(idx),
                                     jnp.asarray(mask)))
     assert np.array_equal(got, want)
-    got = hp.halo_unpack_add(T(a), T(buf), T(idx), T(mask)).numpy()
+    got = hp.halo_unpack_add(T(a), T(buf), wire).numpy()
     want = np.asarray(halo_unpack_add_ref(jnp.asarray(a), jnp.asarray(buf),
                                           jnp.asarray(idx), jnp.asarray(mask)))
     assert np.array_equal(got, want)
@@ -128,17 +129,18 @@ def test_halo_wrappers_validate_shapes():
     x, a, buf, idx, mask = _wire_case()
     T = torch.from_numpy
     with pytest.raises(ValueError, match="buf"):
-        hp.halo_unpack_add(T(a), T(buf[:-1]), T(idx), T(mask))
+        hp.halo_unpack_add(T(a), T(buf[:-1]), hp.HaloWire(T(idx), T(mask)))
     with pytest.raises(ValueError, match="mask"):
-        hp.halo_pack(T(x), T(idx), T(mask[:-1]))
+        hp.halo_pack(T(x), hp.HaloWire(T(idx), T(mask[:-1])))
 
 
 def test_cpu_wrappers_never_launch_kernels():
     build.reset_launch_counts()
     x, a, buf, idx, mask = _wire_case()
     T = torch.from_numpy
-    hp.halo_pack(T(x), T(idx), T(mask))
-    hp.halo_unpack_add(T(a), T(buf), T(idx), T(mask))
+    wire = hp.halo_wire(T(idx), T(mask), x.shape[0])
+    hp.halo_pack(T(x), wire)
+    hp.halo_unpack_add(T(a), T(buf), wire)
     lp, xx, e, _, port_g = _layer_case(8, 2)
     sa.fused_nmp_edge_agg(*_fused_args(lp, xx, e, port_g, "cpu"))
     table = torch.randn(10, 4, requires_grad=True)
@@ -409,9 +411,10 @@ def test_halo_grads_bitwise_reference_vjps(seed):
     ref_ga, ref_gbuf = vjp(J(g_out))
 
     xt = T(x).requires_grad_(True)
-    (gx,) = torch.autograd.grad(hp.halo_pack(xt, T(idx), T(mask)), xt, T(g_buf))
+    wire = hp.halo_wire(T(idx), T(mask), x.shape[0])
+    (gx,) = torch.autograd.grad(hp.halo_pack(xt, wire), xt, T(g_buf))
     at, bt = T(a).requires_grad_(True), T(buf).requires_grad_(True)
-    ga, gbuf = torch.autograd.grad(hp.halo_unpack_add(at, bt, T(idx), T(mask)),
+    ga, gbuf = torch.autograd.grad(hp.halo_unpack_add(at, bt, wire),
                                    (at, bt), T(g_out))
     assert np.array_equal(gx.numpy(), np.asarray(ref_gx))
     assert np.array_equal(ga.numpy(), np.asarray(ref_ga))
