@@ -17,8 +17,8 @@ loop.
 Phases (one line each, prefixed ``[n name]``):
   1 device       nvidia-smi name / power limit, TF32 off, kernel build
   2 kernels      fused NMP forward and backward on the serving mesh's
-                 edges (the backward also held to a float64 VJP, with its
-                 launch plan and ptxas registers), pack and unpack-add on
+                 edges (each also held to a float64 forward or VJP, with
+                 its launch plan and ptxas registers), pack and unpack-add on
                  every round and rank of the 2x2 partition (each wrapper's
                  host time per call beside its bare C call, and its device
                  time under torch.profiler; phase_kernels runs any of
@@ -337,7 +337,7 @@ def phase_device():
     say("1 device", f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a, in parallel); ptxas: {regs}")
     # {key: (source, mangled-name needle)}
-    kernels = {"nmp_fwd": ("nmp_fwd", "nmp_fwd_kernelILi32E"),
+    kernels = {"nmp_fwd": ("nmp_fwd", "nmp_fwd_tile_kernelILi32E"),
                "nmp_bwd": ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"),
                "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
                "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
@@ -350,30 +350,78 @@ def phase_device():
     return smi, ptxas
 
 
-def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights):
-    """Kernel 1 against its plain version: error, times, bound."""
+def double(*trees):
+    """float64 copies of tensors and of parameter trees (dicts and lists)."""
+    def f64(v):
+        if isinstance(v, dict):
+            return {k: f64(u) for k, u in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(f64(u) for u in v)
+        return v.double()
+    return [f64(t) for t in trees]
+
+
+def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas):
+    """Kernel 1 against its plain version: e' and agg within the forward
+    band, each one's distance from a float64 plain forward within
+    F64_FACTOR of plain fp32's, two launches bitwise equal, times, the bound
+    (3xTF32 on tensor cores, the kernel's arithmetic; the fp32 CUDA-core one
+    beside it), the launch as the card plans it and ptxas's registers and
+    spills."""
+    import torch
     from repro_torch.kernels.segment_agg import ops as sa
-    H = x.shape[1]
-    args = (x, e, edge, g["seg_perm"], g["seg_src"], g["seg_rowptr"],
-            g["edge_mask"], g["edge_inv_mult"])
-    e_k, a_k = sa.fused_nmp_edge_agg(*args)
-    e_p, a_p = sa.fused_nmp_edge_agg_plain(*args)
-    err_e, ok_e = within_band(e_k, e_p)
-    err_a, ok_a = within_band(a_k, a_p)
-    ms = cuda_ms(lambda: sa.fused_nmp_edge_agg(*args), iters=20)
-    plain = cuda_ms(lambda: sa.fused_nmp_edge_agg_plain(*args), iters=5, warmup=1)
-    moved = nbytes(x, e, g["seg_perm"], g["seg_src"], g["seg_rowptr"], g["edge_mask"],
-                   g["edge_inv_mult"], *weights, e_k, a_k)
-    b_ms, b_by = bound_ms(moved, flops)
-    say("2 kernels", f"nmp_fwd H={H} Lp={len(edge['layers']) - 1} E={n_real} N={n_pad}: "
-        f"max|err| e_new {err_e:.3g} agg {err_a:.3g} (rtol {RTOL} atol {ATOL}) | "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-    if not (ok_e and ok_a):
-        raise RuntimeError("fused NMP kernel disagrees with its plain version")
+    H, Lp = x.shape[1], len(edge["layers"]) - 1
+    lay = (g["seg_perm"], g["seg_src"], g["seg_rowptr"])
+    rest = (g["edge_mask"], g["edge_inv_mult"])
+
+    def fwd():
+        return sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+
+    def fwd_plain():
+        return sa.fused_nmp_edge_agg_plain(x, e, edge, *lay, *rest)
+
+    got, again = fwd(), fwd()
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = fwd_plain()
+    err_e, ok_e = within_band(got[0], want[0])
+    err_a, ok_a = within_band(got[1], want[1])
+    # both against the same forward in float64
+    exact = sa.fused_nmp_edge_agg_plain(*double(x, e, edge), *lay, *double(*rest))
+    vs64 = {n: (rel_norm(a.double(), r), rel_norm(b.double(), r))
+            for n, a, b, r in zip(("e_new", "agg"), got, want, exact)}
+    del want, exact
+    f64_ok = all(a <= F64_FACTOR * b for a, b in vs64.values())
+    ms = cuda_ms(fwd, iters=20)
+    plain = cuda_ms(fwd_plain, iters=5, warmup=1)
+    _, dev_ops = host_device_split(fwd, 3)      # the kernels of one call
+    moved = nbytes(x, e, *lay, *rest, *weights, *got)
+    # the products' FMAs, each three TF32 products in the kernel's 3xTF32
+    # (the lower bound), beside the fp32 CUDA-core bound
+    fp32_ms, fp32_by = bound_ms(moved, flops)
+    b_ms, b_by = min((fp32_ms, fp32_by), bound_ms(moved, 3 * flops, PEAK_TF32_FLOPS))
+    plan = sa.fwd_launch_plan(H, Lp, g["seg_perm"].numel())
+    say("2 kernels", f"nmp_fwd H={H} Lp={Lp} E={n_real} N={n_pad}: max|err| e_new "
+        f"{err_e:.3g} agg {err_a:.3g} (rtol {RTOL} atol {ATOL}) | two launches bitwise "
+        f"equal: {repeat} | kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}: 3 x {flops / 1e9:.1f} GFLOP in 3xTF32 on tensor cores, "
+        f"{moved / 1e9:.2f} GB; fp32 on CUDA cores {fp32_ms:.3f} ms) | edge pass: grid "
+        f"{plan['grid']}, {plan['smem_bytes']} B shared memory per block, "
+        f"{plan['blocks_per_sm']} block(s) per SM, {plan['smem_layers']} hidden layer(s) "
+        f"in shared memory, {plan['tiles']} tiles | ptxas {ptxas['nmp_fwd']}")
+    say("2 kernels", "nmp_fwd rel L2 against the float64 forward, kernel / plain fp32 "
+        f"(kernel <= {F64_FACTOR:g}x plain: {f64_ok}): "
+        + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in vs64.items())
+        + " | one call's device kernels under torch.profiler: "
+        + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
+    if not (ok_e and ok_a and f64_ok and repeat):
+        raise RuntimeError("fused NMP kernel disagrees with its plain version or the "
+                           "float64 forward, or is not repeatable")
     return dict(name=sa.KERNEL, route="cuda", source="src/repro_torch/csrc/nmp_fwd.cu",
                 replaces="src/repro/kernels/segment_agg/kernel.py:215",
                 max_abs_err=max(err_e, err_a), ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, fp32_bound_ms=fp32_ms)
 
 
 def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
@@ -409,11 +457,7 @@ def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
     names = ("w0", "b0", "wrest", "brest", "ln_g", "ln_b")
     wrel = {n: rel_norm(a, b) for n, a, b in zip(names, got[2:], want[2:])}
     # both against the same VJP in float64: where the gap to plain comes from
-    f64 = lambda t: t.double()  # noqa: E731
-    edge64 = {"layers": [{k: f64(v) for k, v in l.items()} for l in edge["layers"]],
-              "ln": {k: f64(v) for k, v in edge["ln"].items()}}
-    exact = sa.fused_nmp_edge_agg_bwd_plain(
-        f64(x), f64(e), edge64, *lay, *(f64(t) for t in rest))
+    exact = sa.fused_nmp_edge_agg_bwd_plain(*double(x, e, edge), *lay, *double(*rest))
     vs64 = {n: (rel_norm(a.double(), r), rel_norm(b.double(), r))
             for n, a, b, r in zip(("g_x", "g_e") + names, got, want, exact)}
     del want, exact
@@ -583,7 +627,8 @@ def phase_kernels(ptxas, cfg=None, cases=GNN_CASES):
     n_dst = int((g["seg_rowptr"].diff() > 0).sum())
     fwd_flops = n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H
     if "nmp_fwd" in cases:
-        records.append(nmp_fwd_case(x, e, edge, g, n_real, pg.n_pad, fwd_flops, weights))
+        records.append(nmp_fwd_case(x, e, edge, g, n_real, pg.n_pad, fwd_flops, weights,
+                                    ptxas))
     if "nmp_bwd" in cases:
         records.append(nmp_bwd_case(x, e, edge, g, n_real, pg.n_pad, 3 * fwd_flops,
                                     weights, ptxas, gen))

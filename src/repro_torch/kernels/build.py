@@ -6,10 +6,11 @@ plain C interface and loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/lib<name>_<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is never served by a stale build.  Builds happen at first use (never
-at import: the CPU test host has no ``nvcc``); :func:`build` compiles several
-sources in parallel, one ``nvcc`` process each.
+The library name carries a hash of the source, of every ``csrc/*.cuh``
+header and of the flags, so an edited source or header is never served by a
+stale build.  Builds happen at first use (never at import: the CPU test host
+has no ``nvcc``); :func:`build` compiles several sources in parallel, one
+``nvcc`` process each.
 
 Every C entry point takes device pointers (``tensor.data_ptr()``), ``int``
 sizes and the CUDA stream (the current stream's raw handle, :func:`stream_of`),
@@ -65,8 +66,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # any source may include one
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

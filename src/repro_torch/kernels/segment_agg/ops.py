@@ -51,8 +51,13 @@ KERNEL = "nmp_fwd"
 KERNEL_BWD = "nmp_bwd"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"nmp_edge_mlp_agg_fwd_f32": (_P,) * 15 + (_I,) * 4 + (_P,)}
 _L = ctypes.c_longlong
+_SIGNATURES = {
+    "nmp_edge_mlp_agg_fwd_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    # 13 operands, e_new, agg, scratch tile_lo / partials / covered; N,
+    # slots, edges, H, Lp, has_ln, stream
+    "nmp_edge_mlp_agg_fwd_f32": (_P,) * 18 + (_I, _L, _L) + (_I,) * 3 + (_P,),
+}
 _SIGNATURES_BWD = {
     "nmp_edge_mlp_agg_bwd_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
     # 17 operands, gx, ge, gw, scratch g_z0 / slot_dst / partials; N, slots,
@@ -248,15 +253,38 @@ def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
             edge_mask, edge_inv_mult, *ops)
     build.require_cuda("fused_nmp_edge_agg", *args,
                        dtypes=(f32, f32, i32, i32, i32) + (f32,) * 8)
-    e_new = torch.zeros(e.shape[0], hid, dtype=f32, device=x.device)
-    agg = torch.empty(n, hid, dtype=f32, device=x.device)
+    n_slots = args[2].shape[0]
+    tiles = fwd_launch_plan(hid, n_hidden, n_slots)["tiles"]
+    dev, n_edges = x.device, e.shape[0]
+    e_new = torch.empty(n_edges, hid, dtype=f32, device=dev)
+    agg = torch.empty(n, hid, dtype=f32, device=dev)
+    # scratch: each 128-slot tile's first owned node, its two partial rows
+    # of the nodes its edges cut, and a byte per edge that the layout holds
+    tile_lo = torch.empty(tiles + 1, dtype=i32, device=dev)
+    partials = torch.empty(tiles, 2, hid, dtype=f32, device=dev)
+    covered = torch.empty(n_edges, dtype=torch.uint8, device=dev)
     lib = build.load(KERNEL, _SIGNATURES)
     code = lib.nmp_edge_mlp_agg_fwd_f32(
         *(t.data_ptr() for t in args), e_new.data_ptr(), agg.data_ptr(),
-        n, hid, n_hidden, int(has_ln), build.stream_of(x))
+        tile_lo.data_ptr(), partials.data_ptr(), covered.data_ptr(), n, n_slots,
+        n_edges, hid, n_hidden, int(has_ln), build.stream_of(x))
     build.check(lib, code, "nmp_edge_mlp_agg_fwd_f32")
     build.count_launch(KERNEL)
     return e_new, agg
+
+
+def fwd_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
+    """The forward edge pass's launch on the current card: ``grid``,
+    ``smem_bytes`` of dynamic shared memory per block, ``blocks_per_sm``
+    resident (occupancy API), ``smem_layers`` (the hidden layers whose
+    weights sit in shared memory; the rest are read from global memory) and
+    ``tiles`` (128-slot tiles the scratch holds)."""
+    lib = build.load(KERNEL, _SIGNATURES)
+    plan = (ctypes.c_int * 5)()
+    code = lib.nmp_edge_mlp_agg_fwd_plan(hidden, n_hidden, n_slots, plan)
+    build.check(lib, code, "nmp_edge_mlp_agg_fwd_plan")
+    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
+                smem_layers=plan[3], tiles=plan[4])
 
 
 def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
@@ -371,10 +399,10 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
         CUDA backward needs it (the forward does not).
 
     CPU tensors run the plain forward and backward; CUDA tensors launch
-    ``csrc/nmp_fwd.cu`` and, in the backward, ``csrc/nmp_bwd.cu`` (fp32,
-    H in {8, 16, 32}, at most 5 hidden layers) or raise.  Tensors are
-    saved for the backward only when grad is enabled and an input requires
-    it.
+    ``csrc/nmp_fwd.cu`` (fp32, H in {8, 16, 32}, any number of hidden
+    layers) and, in the backward, ``csrc/nmp_bwd.cu`` (at most 5 hidden
+    layers) or raise.  Tensors are saved for the backward only when grad is
+    enabled and an input requires it.
 
     Returns (e_new [E_pad, H], agg [N_pad, H]).
     """

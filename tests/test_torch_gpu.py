@@ -10,7 +10,9 @@ runs on a GPU host without JAX:
 
 Tolerances: the fused NMP kernel sums the MLP and the aggregate in another
 order than the plain version: rtol 1e-4 / atol 1e-5 (the reference's own
-forward band).  Its backward: node and edge gradients rtol 1e-3 / atol
+forward band), also on a graph built to hit its tile edges
+(``tile_edge_graph``, which ``tests/test_torch_kernels.py`` holds the plain
+version to ``repro`` on).  Its backward: node and edge gradients rtol 1e-3 / atol
 2e-5 (the reference's gradient band); the weight gradients are sums over
 every edge, so they are held to a relative L2 norm of 5e-4.  Pack and
 unpack-add are pure data movement: bitwise, values and gradients.  The
@@ -96,6 +98,99 @@ def test_fused_nmp_kernel_matches_plain(cuda, hidden, layers):
     torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
     e2, a2 = sa.fused_nmp_edge_agg(*args)                # deterministic
     assert torch.equal(e_new, e2) and torch.equal(agg, a2)
+
+
+def tile_edge_graph(rng):
+    """A graph whose dst-sorted slots hit every edge of the forward kernel's
+    128-slot tiles.  In-degrees in node order: node 0 receives nothing,
+    nodes 1..16 eight edges each (tile 0 ends exactly at node 16's last
+    slot), node 17 nothing (a node of degree 0 on a tile edge), node 18 129
+    (all of tile 1 and one slot of tile 2), node 19 5, node 20 nothing,
+    node 21 300 (from tile 2 across tile 3 into tile 4), then 40 nodes of
+    0..7 and a last node of degree 0; the slot count is not a multiple of
+    128.  Edges come in random order from random sources; 11 padding edges
+    point past the nodes (dst = n, mask 0: outside the layout) and about a
+    tenth of the real edges are masked.  Numpy only, so the CPU tests can
+    hold the plain version to ``repro`` on the same graph.
+
+    Returns (src, dst, mask, inv_mult, n_nodes)."""
+    deg = np.array([0] + [8] * 16 + [0, 129, 5, 0, 300]
+                   + list(rng.integers(0, 8, 40)) + [0])
+    if deg.sum() % 128 == 0:
+        deg[-2] += 1
+    n = deg.size
+    dst = np.concatenate([np.repeat(np.arange(n), deg), np.full(11, n)])
+    src = rng.integers(0, n, dst.size)
+    order = rng.permutation(dst.size)
+    src, dst = src[order], dst[order]
+    mask = np.where(dst < n, 1.0, 0.0).astype(np.float32)
+    mask[rng.random(dst.size) < 0.1] = 0.0
+    counts = np.bincount(np.minimum(dst, n), minlength=n + 1)
+    inv = (1.0 / counts[np.minimum(dst, n)]).astype(np.float32)
+    return src.astype(np.int32), dst.astype(np.int32), mask, inv, n
+
+
+def _tile_edge_case(cuda, hidden, n_hidden, has_ln, seed):
+    rng = np.random.default_rng(seed)
+    src, dst, mask, inv, n = tile_edge_graph(rng)
+    lay = sa.compact_gather_layout(src, dst, n, 32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    gen = torch.Generator().manual_seed(seed)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=n_hidden)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    if not has_ln:
+        edge.pop("ln")
+    for lp in edge["layers"]:                  # non-trivial biases
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    x = torch.randn(n, hidden, generator=gen).to(cuda)
+    e = torch.randn(dst.size, hidden, generator=gen).to(cuda)
+    return (x, e, edge, T(lay["perm"]), T(lay["src"]), T(lay["rowptr"]), T(mask),
+            T(inv)), np.nonzero(dst == n)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("n_hidden", [0, 7])
+@pytest.mark.parametrize("hidden", [8, 16, 32])
+def test_fused_nmp_kernel_tile_edges(cuda, hidden, n_hidden, has_ln):
+    """Nodes across 2 and 3 tiles, a tile ending at a node boundary, nodes
+    of degree 0, padding edges and a ragged last tile: within the forward
+    band of the plain version, e' of edges outside the layout 0, and two
+    launches bitwise equal."""
+    args, outside = _tile_edge_case(cuda, hidden, n_hidden, has_ln, hidden + n_hidden)
+    e_new, agg = sa.fused_nmp_edge_agg(*args)
+    pe, pa = sa.fused_nmp_edge_agg_plain(*args)
+    torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
+    assert not e_new[torch.from_numpy(outside).to(cuda)].any()
+    e2, a2 = sa.fused_nmp_edge_agg(*args)
+    assert torch.equal(e_new, e2) and torch.equal(agg, a2)
+
+
+@pytest.mark.gpu
+def test_fused_nmp_kernel_weights_past_shared_memory(cuda):
+    """More hidden layers than shared memory holds: the rest are read from
+    global memory, within the same band."""
+    args, _ = _tile_edge_case(cuda, 32, 48, True, 5)
+    n_slots = args[3].numel()
+    plan = sa.fwd_launch_plan(32, 48, n_slots)
+    assert 0 < plan["smem_layers"] < 48
+    assert plan["tiles"] == -(-n_slots // 128)           # the kernel's 128-slot tiles
+    e_new, agg = sa.fused_nmp_edge_agg(*args)
+    pe, pa = sa.fused_nmp_edge_agg_plain(*args)
+    torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_fused_nmp_fwd_plan(cuda):
+    """The forward edge pass's launch as the card reports it at the serving
+    mesh's width (H=32, 5 hidden layers, 4,315,696 slots)."""
+    plan = sa.fwd_launch_plan(32, 5, 4_315_696)
+    assert plan["smem_layers"] == 5 and plan["blocks_per_sm"] >= 1
+    assert plan["tiles"] == -(-4_315_696 // 128)
+    assert 1 <= plan["grid"] <= 132 * plan["blocks_per_sm"]
+    assert sa.fwd_launch_plan(8, 0, 10)["grid"] == 1
 
 
 @pytest.mark.gpu

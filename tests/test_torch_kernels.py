@@ -47,6 +47,8 @@ from repro_torch.kernels.halo_pack import ops as hp
 from repro_torch.kernels.segment_agg import ops as sa
 from repro_torch.nn import tree_leaves
 
+from test_torch_gpu import tile_edge_graph
+
 RTOL, ATOL = 1e-4, 1e-5
 G_RTOL, G_ATOL = 1e-3, 2e-5        # the reference's gradient band
 # tests/test_kernels.py's TOL, for the embedding bag and flash attention
@@ -87,6 +89,34 @@ def test_fused_nmp_plain_matches_reference_agg(hidden, layers):
     e_new, agg = sa.fused_nmp_edge_agg(*_fused_args(lp, x, e, port_g, "cpu"))
     np.testing.assert_allclose(e_new.numpy(), np.asarray(ref_e), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(agg.numpy(), np.asarray(ref_agg), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("hidden,n_hidden", [(8, 0), (16, 7), (32, 0), (32, 7)])
+def test_fused_nmp_plain_matches_reference_on_tile_edges(hidden, n_hidden, has_ln):
+    """The graph the GPU tests build to hit the forward kernel's tile edges
+    (``tests/test_torch_gpu.py::tile_edge_graph``) through the port's CPU
+    forward and the reference's XLA aggregate on the same arrays, so the
+    plain version the card's tests trust is held to ``repro`` there.  The
+    reference's padding edges point at node 0 (mask 0), as its partitioner
+    writes them; the port's layout drops them."""
+    rng = np.random.default_rng(10 * hidden + n_hidden)
+    src, dst, mask, inv, n = tile_edge_graph(rng)
+    edge = _edge_mlp_np(rng, hidden, n_hidden, has_ln)
+    x = rng.normal(size=(n, hidden)).astype(np.float32)
+    e = rng.normal(size=(dst.size, hidden)).astype(np.float32)
+    ref_graph = {"edge_src": jnp.asarray(src), "edge_dst": jnp.asarray(np.where(dst < n, dst, 0)),
+                 "edge_mask": jnp.asarray(mask), "edge_inv_mult": jnp.asarray(inv)}
+    ref_e, ref_agg = ref_agg_xla({"edge": jax.tree.map(jnp.asarray, edge)}, jnp.asarray(x),
+                                 jnp.asarray(e), ref_graph, RefPlan())
+    lay = sa.compact_gather_layout(src, dst, n, 32)
+    T = torch.from_numpy
+    e_new, agg = sa.fused_nmp_edge_agg(
+        T(x), T(e), params_from_jax(edge, "cpu"), T(lay["perm"]), T(lay["src"]),
+        T(lay["rowptr"]), T(mask), T(inv))
+    np.testing.assert_allclose(e_new.numpy(), np.asarray(ref_e), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(agg.numpy(), np.asarray(ref_agg), rtol=RTOL, atol=ATOL)
+    assert not e_new.numpy()[dst == n].any()
 
 
 def test_fused_nmp_rejects_wrong_edge_mlp_width():
