@@ -19,10 +19,12 @@ Phases (one line each, prefixed ``[n name]``):
   2 kernels      fused NMP forward and backward on the serving mesh's
                  edges (each also held to a float64 forward or VJP, with
                  its launch plan and ptxas registers), pack and unpack-add on
-                 every round and rank of the 2x2 partition (each wrapper's
-                 host time per call beside its bare C call, and its device
-                 time under torch.profiler; phase_kernels runs any of
-                 these alone), the embedding bag at DLRM RM2's serve_bulk
+                 every round and rank of the 2x2 partition and the exchange
+                 pack (one launch for every round and rank) against the
+                 per-round packs it replaces (each wrapper's host time per
+                 call beside its bare C call, and its device time under
+                 torch.profiler; phase_kernels runs any of these alone), the
+                 embedding bag at DLRM RM2's serve_bulk
                  lookup (fp32, H=1, the full table, whose offsets pass 2^31
                  elements) and at fp32 H=8 and bf16 H=4: error vs the plain
                  version, repeatability, CUDA-event times, and the
@@ -38,13 +40,17 @@ Phases (one line each, prefixed ``[n name]``):
                  (E 8192, N 2048, Fin 24, H 16): kernel and plain version
                  against edge_mlp_agg_ref within tests/test_kernels.py's
                  bands, two launches bitwise equal, CUDA-event times, the
-                 bound, the layout's waste, bf16 feats against plain at full
-                 width, and one launch-counted call of fused_edge_mlp_agg
+                 bound, the launch plan, the layout's waste, at full width
+                 each output against a float64 forward and bf16 feats
+                 against plain (time and bound), and one launch-counted
+                 call of fused_edge_mlp_agg (phase_segment_agg runs alone)
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
                  (2x2 grid) under the packed neighbor exchange and the A2A
-                 oracle, and fused vs the plain backend at R=1
+                 oracle, and fused vs the plain backend at R=1; the R=4
+                 forward's launches checked exactly
   3b gradients   stacked loss and parameter gradients, same mesh: R=1 vs
-                 R=4 packed neighbor (fused), and fused vs plain at R=4
+                 R=4 packed neighbor (fused), and fused vs plain at R=4; the
+                 R=4 gradient run's launches checked exactly
   4 serve        fingerprinted checkpoint of seeded random large params,
                  InferenceEngine(batch_slots=4, rollout_steps=2), >=16
                  streamed Taylor-Green requests, each bitwise equal to the
@@ -90,7 +96,9 @@ Phases (one line each, prefixed ``[n name]``):
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — one full-width call of
 fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
-forward (phase 3), the R=4 packed-neighbor gradient run (3b), the serve stream
+forward (phase 3; exactly 16 fused forwards, 4 exchange packs, 48
+unpack-adds), the R=4 packed-neighbor gradient run (3b; 16 forwards, 16
+backwards, 8 packs, 96 unpack-adds), the serve stream
 after warm-up (4), the 10 training steps (6), the K=2 rollout run (6) and
 each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
@@ -124,9 +132,10 @@ N_REQUESTS, BATCH_SLOTS, ROLLOUT_K, DT = 16, 4, 2, 0.05
 RTOL, ATOL = 1e-4, 1e-5          # the reference's forward band
 G_RTOL, G_ATOL = 1e-3, 2e-5      # the reference's gradient band
 W_REL = 5e-4                     # weight gradients summed over every edge
-# nmp_bwd's rel L2 from the float64 VJP, each output, at most this multiple
-# of the plain fp32 version's (sound runs read <= 2.1x; a 3xTF32 fragment
-# carried across tiles read 70x on w0)
+# a 3xTF32 kernel's rel L2 from the float64 forward or VJP (nmp_fwd,
+# nmp_bwd, edge_mlp_agg), each output, at most this multiple of the plain
+# fp32 version's (sound runs read <= 2.1x; a 3xTF32 fragment carried across
+# tiles read 70x on nmp_bwd's w0)
 F64_FACTOR = 10.0
 LOSS_REL = 2e-6                  # the reference's loss band
 TRAIN_STEPS, TRAIN_LR = 10, 1e-3
@@ -341,12 +350,15 @@ def phase_device():
                "nmp_bwd": ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"),
                "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
                "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
-               "edge_mlp_agg": ("edge_mlp_agg", "edge_mlp_agg_kernelIfE"),
-               "edge_mlp_agg_bf16": ("edge_mlp_agg", "edge_mlp_agg_kernelI13__nv_bfloat16E")}
+               "edge_mlp_agg": ("edge_mlp_agg", "edge_mlp_agg_kernelIfLi2E"),
+               "edge_mlp_agg_bf16": ("edge_mlp_agg", "edge_mlp_agg_kernelI13__nv_bfloat16Li2E"),
+               "halo_pack": ("halo_pack", "11pack_kernelILi4E"),
+               "halo_unpack_add": ("halo_pack", "unpack_add_kernelILi4E")}
     ptxas = {key: ptxas_summary(reports.get(src, ""), needle)
              for key, (src, needle) in kernels.items()}
     say("1 device", f"ptxas at H=32 (embedding bag: fp32, 16-byte loads; flash "
-        f"attention: bf16, D=128; edge_mlp_agg: fp32 and bf16 feats): {ptxas}")
+        f"attention: bf16, D=128; edge_mlp_agg: fp32 and bf16 feats, block_n <= 128; "
+        f"halo pack and unpack-add: 16-byte accesses): {ptxas}")
     return smi, ptxas
 
 
@@ -498,8 +510,12 @@ def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
 
 def halo_cases(F, gen):
     """Kernels 4 and 5 on every round and rank of the 2x2 partition of the
-    consistency mesh, bitwise against the plain versions; times at the
-    widest round, each kernel's host and device time per call apart."""
+    consistency mesh, bitwise against the plain versions: the pack of one
+    round and the exchange pack (one launch over every round and sender,
+    through the concatenated send and recv wires), the unpack-add of one
+    round.  Times: the exchange pack against the per-round packs it
+    replaces and against plain; the unpack-add at the widest round; each
+    kernel's host and device time per call apart."""
     import torch
     from repro_torch.core.graph_state import NMPPlan, ShardedGraph
     from repro_torch.core.halo import NEIGHBOR
@@ -512,13 +528,16 @@ def halo_cases(F, gen):
     cpg = partition_mesh(csem, CONS_GRID)
     plan = NMPPlan.build(cpg, NEIGHBOR, packed=True)
     cg = ShardedGraph.build(cpg, csem.coords, plan, device=dev)
-    widths = [int(cg[f"pk{k}_send_idx"].shape[1]) for k in range(len(plan.halo.perms))]
+    R, rounds = cpg.R, range(len(plan.halo.perms))
+    widths = [int(cg[f"pk{k}_send_idx"].shape[1]) for k in rounds]
+    offsets = np.cumsum([0] + widths[:-1])
     src = torch.randn(cpg.n_pad, F, generator=gen).to(dev)
     seed = torch.randn(cpg.n_pad, F, generator=gen).to(dev)
+    stacked = torch.randn(R, cpg.n_pad, F, generator=gen).to(dev)
     wire = lambda k, side, r: cg.wire(f"pk{k}_{side}").rank(r)  # noqa: E731
     pack_err = unpack_err = 0.0
-    for k in range(len(widths)):
-        for r in range(cpg.R):
+    for k in rounds:
+        for r in range(R):
             swire, rwire = wire(k, "send", r), wire(k, "recv", r)
             got, want = hp.halo_pack(src, swire), hp.halo_pack_plain(src, *swire[:2])
             if not torch.equal(got, want):
@@ -529,24 +548,43 @@ def halo_cases(F, gen):
             if not torch.equal(got, ref):
                 raise RuntimeError(f"unpack kernel != plain (round {k}, rank {r})")
             unpack_err = max(unpack_err, float((got - ref).abs().max()))
+    # the exchange pack: every round's rows of every sender, one launch,
+    # bitwise equal to each round's plain pack of that sender
+    ex = {side: cg.wire(f"pk_{side}") for side in ("send", "recv")}
+    for side, w in ex.items():
+        got = hp._pack(stacked, w.idx, w.mask)
+        for k in rounds:
+            for r in range(R):
+                part = got[r, offsets[k]:offsets[k] + widths[k]]
+                want = hp.halo_pack_plain(stacked[r], *wire(k, side, r)[:2])
+                if not torch.equal(part, want):
+                    raise RuntimeError(f"exchange pack != plain ({side}, round {k}, "
+                                       f"rank {r})")
+                pack_err = max(pack_err, float((part - want).abs().max()))
     kw = int(np.argmax(widths))
     swire, rwire = wire(kw, "send", 0), wire(kw, "recv", 0)
     idx, mask, _ = swire
     ridx, rmask, rinv = rwire
     buf = hp.halo_pack_plain(src, idx, mask)
-    W = widths[kw]
-    calls = {hp.PACK: lambda: hp.halo_pack(src, swire),
+    W, W_ex = widths[kw], sum(widths)
+    sidx, smask, _ = ex["send"]
+    round_wires = [wire(k, "send", r) for k in rounds for r in range(R)]
+    calls = {hp.PACK: lambda: hp._pack(stacked, sidx, smask),
              hp.UNPACK: lambda: hp.halo_unpack_add(seed, buf, rwire)}
     # host-bound calls: kernel, plain version and library call timed in
     # turns, the median of HALO_ROUNDS readings each
     t = interleaved_ms({
-        "pack": calls[hp.PACK],
-        "pack plain": lambda: hp.halo_pack_plain(src, idx, mask),
+        "exchange pack": calls[hp.PACK],
+        "per-round packs": lambda: [hp.halo_pack(stacked[i % R], w)
+                                    for i, w in enumerate(round_wires)],
+        "exchange pack plain": lambda: torch.stack(
+            [hp.halo_pack_plain(stacked[r], sidx[r], smask[r]) for r in range(R)]),
+        "pack": lambda: hp.halo_pack(src, swire),
         "unpack": calls[hp.UNPACK],
         "unpack plain": lambda: hp.halo_unpack_add_plain(seed, buf, ridx, rmask),
         # one library call on the pre-masked buffer
         "index_add": lambda: torch.index_add(seed, 0, ridx, buf)}, 200)
-    timings = {hp.PACK: (t["pack"], t["pack plain"], None),
+    timings = {hp.PACK: (t["exchange pack"], t["exchange pack plain"], None),
                hp.UNPACK: (t["unpack"], t["unpack plain"], t["index_add"])}
     # each wrapper's host time per call (checks, allocation, ctypes, launch)
     # and device time per call under torch.profiler; beside it the bare C
@@ -554,40 +592,48 @@ def halo_cases(F, gen):
     splits = {name: host_device_split(fn, 200) for name, fn in calls.items()}
     _, pack_c, unpack_c = hp._entries()
     stream = build.stream_of(seed)
-    out = torch.empty_like(seed)
-    pack_args = (src.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(), W, F,
-                 cpg.n_pad, stream)
+    out = torch.empty(R, W_ex, F, device=dev)
+    pack_args = (stacked.data_ptr(), sidx.data_ptr(), smask.data_ptr(), out.data_ptr(),
+                 W_ex, F, cpg.n_pad, R, stream)
     unpack_args = (seed.data_ptr(), buf.data_ptr(), rinv.data_ptr(), rmask.data_ptr(),
                    out.data_ptr(), cpg.n_pad, F, stream)
     bare = {hp.PACK: host_ms(lambda: pack_c(*pack_args), 200),
             hp.UNPACK: host_ms(lambda: unpack_c(*unpack_args), 200)}
     # the functions' own bytes, whatever index the kernel reads: rows
-    # gathered + buffer written; seed read + out written + buffer and wire
-    moved = {hp.PACK: nbytes(idx, mask, buf, buf),
+    # gathered + buffer written (and the wire); seed read + out written +
+    # buffer and wire
+    moved = {hp.PACK: nbytes(sidx, smask, out, out),
              hp.UNPACK: nbytes(seed, seed, buf, ridx, rmask)}
+    shapes = {hp.PACK: f"the exchange: {R} senders x {len(widths)} rounds, widths {widths} "
+                       f"(W={W_ex}), F={F}, N={cpg.n_pad}",
+              hp.UNPACK: f"widths {widths} (timed W={W}, F={F}, N={cpg.n_pad})"}
     records = []
     for name, err in ((hp.PACK, pack_err), (hp.UNPACK, unpack_err)):
         ms, plain, lib = timings[name]
         host, dev_ops = splits[name]
         dev_ms = sum(dev_ops.values())
         b_ms, b_by = bound_ms(moved[name], 0)
-        say("2 kernels", f"{name} widths {widths} (timed W={W}, F={F}, "
-            f"N={cpg.n_pad}): bitwise equal to plain over all rounds and ranks | "
-            f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us (medians of "
+        extra = (f", the {len(round_wires)} per-round launches it replaces "
+                 f"{t['per-round packs'] * 1e3:.2f} us, one round's (W={W}) "
+                 f"{t['pack'] * 1e3:.2f} us" if name == hp.PACK else "")
+        say("2 kernels", f"{name} {shapes[name]}: bitwise equal to plain over all rounds "
+            f"and ranks | kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us (medians of "
             f"{HALO_ROUNDS} readings in turns)"
-            + (f", torch.index_add {lib * 1e3:.2f} us" if lib is not None else "")
+            + (f", torch.index_add {lib * 1e3:.2f} us" if lib is not None else "") + extra
             + f", bound {b_ms * 1e3:.3f} us ({b_by}) | host {host * 1e3:.2f} us per "
             f"call (of which the bare C call, ctypes + launch, {bare[name] * 1e3:.2f} us), "
             f"device {dev_ms * 1e3:.2f} us per call under torch.profiler ("
-            + "; ".join(f"{n[:48]} {t * 1e3:.2f} us" for n, t in dev_ops.items()) + ")")
-        records.append(dict(name=name, route="cuda",
-                            source="src/repro_torch/csrc/halo_pack.cu",
-                            replaces=("src/repro/kernels/halo_pack/kernel.py:44"
-                                      if name == hp.PACK else
-                                      "src/repro/kernels/halo_pack/kernel.py:91"),
-                            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib, host_ms_per_call=host,
-                            bare_c_call_ms=bare[name], device_ms_per_call=dev_ms))
+            + "; ".join(f"{n[:48]} {t_ * 1e3:.2f} us" for n, t_ in dev_ops.items()) + ")")
+        rec = dict(name=name, route="cuda", source="src/repro_torch/csrc/halo_pack.cu",
+                   replaces=("src/repro/kernels/halo_pack/kernel.py:44"
+                             if name == hp.PACK else
+                             "src/repro/kernels/halo_pack/kernel.py:91"),
+                   max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib, host_ms_per_call=host,
+                   bare_c_call_ms=bare[name], device_ms_per_call=dev_ms)
+        if name == hp.PACK:
+            rec.update(per_round_packs_ms=t["per-round packs"], one_round_ms=t["pack"])
+        records.append(rec)
     return records
 
 
@@ -644,12 +690,17 @@ def phase_segment_agg(sem, ptxas):
     96, Hh 32, H 32) on the serving mesh's directed edges and at
     kernel_bench's segment_agg_ref_8k_edges shape (E 8192, N 2048, Fin 24,
     H 16): the kernel's and the plain version's error against
-    edge_mlp_agg_ref, repeatability, times, bound and the layout's waste,
-    and at full width the kernel on bf16 feats against plain.  The op's own
-    path is one launch-counted call of fused_edge_mlp_agg at full width.
-    Returns (record, launch counts of that call)."""
+    edge_mlp_agg_ref, repeatability, times, bound, the launch plan and the
+    layout's waste; at full width each output's distance from a float64
+    forward against plain fp32's, and the kernel on bf16 feats against
+    plain (time and bound too).  The op's own path is one launch-counted
+    call of fused_edge_mlp_agg at full width.  Runs alone, the way two
+    source trees are compared on one card: ``python3 -c 'import chip_smoke
+    as c; c.phase_segment_agg(None, c.phase_device()[1])'`` (None: the
+    serving mesh).  Returns (record, launch counts of that call)."""
     import torch
-    from repro_torch.core.mesh_gen import mesh_graph_edges, undirected_to_directed
+    from repro_torch.core.mesh_gen import (
+        box_mesh, mesh_graph_edges, undirected_to_directed)
     from repro_torch.kernels import build
     from repro_torch.kernels.segment_agg import ops as sa
     from repro_torch.kernels.segment_agg.ref import edge_mlp_agg_ref
@@ -657,6 +708,7 @@ def phase_segment_agg(sem, ptxas):
     dev = torch.device("cuda")
     bn, be = MLP_AGG_BLOCKS
     t0 = time.perf_counter()
+    sem = sem or box_mesh(SERVE_ELEMS, p=ORDER)
     full_dst = undirected_to_directed(mesh_graph_edges(sem))[:, 1]
     cases = [("full width", full_dst, sem.n_nodes, 96, 32, 32),
              ("8k edges", np.random.default_rng(0).integers(0, 2048, 8192), 2048, 24, 16, 16)]
@@ -712,22 +764,39 @@ def phase_segment_agg(sem, ptxas):
         same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         del again
         slot_e = want_e[safe[valid]]
-        errs, ok = {}, same
+        errs, checks = {}, {"two launches bitwise equal": same}
         for label, (e_t, a_t) in (("kernel", got), ("plain", ref)):
             err_e, ok_e = within_band(e_t[valid], slot_e, MLP_AGG_E_TOL, MLP_AGG_E_TOL)
             err_a, ok_a = within_band(a_t.reshape(-1, hid)[:n], want_agg, MLP_AGG_TOL,
                                       MLP_AGG_TOL)
             errs[label] = (f"e_new {err_e:.3g} agg {err_a:.3g}", max(err_e, err_a))
-            ok = ok and ok_e and ok_a
+            checks[f"{label} vs edge_mlp_agg_ref"] = ok_e and ok_a
+        f64_note = ""
+        if full:
+            # kernel and plain fp32 against the same forward in float64
+            exact = sa.edge_mlp_agg_plain(tiles[0].double(), tiles[1], tiles[2].double(),
+                                          *(t.double() for t in mlp), **tkw)
+            vs64 = {k: (rel_norm(a.double(), x), rel_norm(b.double(), x))
+                    for k, a, b, x in zip(("e_new", "agg"), got, ref, exact)}
+            del exact
+            f64_ok = all(a <= F64_FACTOR * b for a, b in vs64.values())
+            checks["float64 distance"] = f64_ok
+            f64_note = (f" | rel L2 against the float64 forward, kernel / plain fp32 (kernel "
+                        f"<= {F64_FACTOR:g}x plain: {f64_ok}): "
+                        + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in vs64.items()))
         del ref, slot_e
         ms = cuda_ms(kernel, iters=20)
         plain_ms = cuda_ms(plain, iters=5, warmup=1)
         moved = nbytes(*tiles, *mlp, *got)
         n_real = int(valid.sum())
-        # the real edges' MLP and their multiply-add into the aggregate
+        # the real edges' MLP and their multiply-add into the aggregate; the
+        # least time is the lower of fp32 on the CUDA cores and 3xTF32 (each
+        # product three TF32 products) on the tensor cores
         flops = n_real * 2 * (fin * hh + hh * hid + hid)
-        b_ms, b_by = bound_ms(moved, flops)
-        bf16_note = ""
+        fp32_ms, fp32_by = bound_ms(moved, flops)
+        b_ms, b_by = min((fp32_ms, fp32_by), bound_ms(moved, 3 * flops, PEAK_TF32_FLOPS))
+        plan = sa.mlp_agg_launch_plan(fin, bn, torch.float32, layout["n_node_blocks"])
+        bf16_note, bf16 = "", {}
         if full:
             fb = tiles[0].to(torch.bfloat16)
             kb, kb2, pb = kernel(fb), kernel(fb), plain(fb)
@@ -737,11 +806,19 @@ def phase_segment_agg(sem, ptxas):
                                         MLP_AGG_BF16_TOL)
             err_ba, ok_ba = within_band(kb[1], pb[1], MLP_AGG_TOL, MLP_AGG_TOL)
             ms_b = cuda_ms(lambda: kernel(fb), iters=20)
-            b_ms_b, _ = bound_ms(nbytes(fb, *tiles[1:], *mlp, *kb), flops)
-            ok = ok and same_b and ok_be and ok_ba
+            moved_b = nbytes(fb, *tiles[1:], *mlp, *kb)
+            b_ms_b, b_by_b = min(bound_ms(moved_b, flops),
+                                 bound_ms(moved_b, 3 * flops, PEAK_TF32_FLOPS))
+            plan_b = sa.mlp_agg_launch_plan(fin, bn, torch.bfloat16, layout["n_node_blocks"])
+            checks.update({"bf16 bitwise repeatable": same_b, "bf16 e_new vs plain": ok_be,
+                           "bf16 agg vs plain": ok_ba})
+            bf16 = dict(bf16_ms=ms_b, bf16_bound_ms=b_ms_b, bf16_bound_by=b_by_b)
             bf16_note = (f" | bf16 feats: vs plain e_new {err_be:.3g} (band "
                          f"{MLP_AGG_BF16_TOL}) agg {err_ba:.3g}, bitwise repeatable: {same_b}, "
-                         f"kernel {ms_b:.4f} ms, bound {b_ms_b:.4f} ms | ptxas fp32 "
+                         f"kernel {ms_b:.4f} ms, bound {b_ms_b:.4f} ms ({b_by_b}, "
+                         f"{moved_b / 1e9:.3f} GB), {plan_b['groups']} groups of 4 warps, "
+                         f"{plan_b['smem_bytes']} B shared memory per block, "
+                         f"{plan_b['blocks_per_sm']} block(s) per SM | ptxas fp32 "
                          f"{ptxas['edge_mlp_agg']}, bf16 {ptxas['edge_mlp_agg_bf16']}")
             del fb, kb, kb2, pb
         say("2 kernels", f"edge_mlp_agg {name}: E={E} N={n} Fin={fin} Hh={hh} H={hid} "
@@ -750,16 +827,23 @@ def phase_segment_agg(sem, ptxas):
             f"edge_mlp_agg_ref (e_new rtol/atol {MLP_AGG_E_TOL}, agg {MLP_AGG_TOL}): kernel "
             f"{errs['kernel'][0]}, plain {errs['plain'][0]} | two launches bitwise equal: "
             f"{same} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}, {flops / 1e9:.2f} GFLOP, {moved / 1e9:.3f} GB){op_note}{bf16_note}")
-        if not ok:
-            raise RuntimeError(f"edge_mlp_agg ({name}) disagrees with edge_mlp_agg_ref or "
-                               f"its plain version, or is not repeatable")
+            f"({b_by}, {flops / 1e9:.2f} GFLOP, 3 x that in 3xTF32 on tensor cores, "
+            f"{moved / 1e9:.3f} GB; fp32 on CUDA cores {fp32_ms:.4f} ms) | launch: grid "
+            f"{plan['grid']}, {plan['groups']} groups of 4 warps, {plan['smem_bytes']} B "
+            f"shared memory per block, {plan['blocks_per_sm']} block(s) per SM"
+            f"{f64_note}{op_note}{bf16_note}")
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            raise RuntimeError(f"edge_mlp_agg ({name}) failed: {failed}")
         if full:
             record = dict(name=sa.KERNEL_MLP_AGG, route="cuda",
                           source="src/repro_torch/csrc/edge_mlp_agg.cu",
                           replaces="src/repro/kernels/segment_agg/kernel.py:435",
                           max_abs_err=errs["kernel"][1], ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          fp32_bound_ms=fp32_ms, **bf16)
+        else:
+            record["ms_8k_edges"] = ms
         del feats, wgt, tiles, got, want_e, want_agg, perm, dstl, dst_t
         t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -938,6 +1022,20 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
     return record
 
 
+def check_launches(phase, path, got, want):
+    """Every kernel's launches on ``path`` exactly as ``want`` says (0 for
+    the kernels it does not name).  On the 2x2 partition's 4 NMP layers:
+    per layer one fused forward (and backward) per rank, one exchange pack
+    (all 3 rounds and 4 ranks) per halo exchange and its reversal, one
+    unpack-add per round and receiver (3 rounds x 4 ranks)."""
+    bad = {k: (got.get(k, 0), want.get(k, 0)) for k in set(got) | set(want)
+           if got.get(k, 0) != want.get(k, 0)}
+    say(phase, f"launches on {path}: {got} (expected exactly {want}) -> "
+        f"{'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise RuntimeError(f"launch counts on {path}: (got, expected) {bad}")
+
+
 def phase_consistency(cfg):
     import torch
     from repro_torch.core.gnn import init_gnn
@@ -966,7 +1064,8 @@ def phase_consistency(cfg):
     build.reset_launch_counts()
     y4 = run(CONS_GRID, NEIGHBOR, FUSED, packed=True, sync_fn=halo_sync_stacked)
     launches = dict(build.launch_counts)
-    say("3 consistency", f"launches on the R=4 packed neighbor forward: {launches}")
+    check_launches("3 consistency", "the R=4 packed neighbor forward", launches,
+                   {"nmp_fwd": 16, "halo_pack": 4, "halo_unpack_add": 48})
     cases = {
         "R=4 packed neighbor (pack/unpack kernels)": y4,
         "R=4 a2a oracle": run(CONS_GRID, A2A, FUSED),
@@ -1018,8 +1117,9 @@ def phase_grad_consistency(cfg):
     l4, _, g4 = grad(r4, halo_sync_stacked)
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
-    say("3b gradients", f"launches on the R=4 packed neighbor gradient run: {launches} "
-        "(expected nmp_fwd = nmp_bwd = 16, pack = unpack-add = 48 + 48 = 96)")
+    check_launches("3b gradients", "the R=4 packed neighbor gradient run", launches,
+                   {"nmp_fwd": 16, "nmp_bwd": 16, "halo_pack": 4 + 4,
+                    "halo_unpack_add": 48 + 48})
     lx, _, gx = grad(prepare(CONS_GRID, NEIGHBOR, XLA, packed=True), halo_sync_stacked)
     for name, (la, ga), (lb, gb) in (
             ("fused R=1 vs R=4 packed neighbor", (l4, g4), (l1, g1)),

@@ -118,7 +118,10 @@ class ShardedGraph:
     device.  ``graph[name]`` has a leading rank axis; ``graph.rank(r)``
     returns rank r's slice (a rank-local graph).  ``graph.wire(name)`` is a
     packed halo round's :class:`HaloWire` (``pk{k}_send`` / ``pk{k}_recv``:
-    ids, mask and their inverse), made once by :meth:`build`."""
+    ids, mask and their inverse) or an exchange wire (``pk_send`` /
+    ``pk_recv``: the rounds' wires concatenated in round order, the rows of
+    round k from the sum of the earlier rounds' widths on), made once by
+    :meth:`build`."""
 
     __slots__ = ("arrays", "wires")
 
@@ -174,10 +177,17 @@ class ShardedGraph:
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                   for k, v in _level_arrays(pg, coords, plan.seg_layout,
                                             plan.wants_packed).items()}
+        rounds = [k for k in range(len(pg.halo.perms)) if f"pk{k}_send_idx" in arrays]
         wires = {f"pk{k}_{side}": halo_wire(arrays[f"pk{k}_{side}_idx"],
                                             arrays[f"pk{k}_{side}_mask"], pg.n_pad)
-                 for k in range(len(pg.halo.perms)) if f"pk{k}_send_idx" in arrays
-                 for side in ("send", "recv")}
+                 for k in rounds for side in ("send", "recv")}
+        if rounds:
+            # the exchange wires: every round's wire, concatenated in round
+            # order (a row may be sent in several rounds, so no inverse)
+            for side in ("send", "recv"):
+                wires[f"pk_{side}"] = HaloWire(*(
+                    torch.cat([arrays[f"pk{k}_{side}_{part}"] for k in rounds], -1)
+                    for part in ("idx", "mask")))
         return cls(arrays, wires)
 
 

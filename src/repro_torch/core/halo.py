@@ -7,8 +7,10 @@ Modes, matching the paper's study:
 * ``A2A``      — equal-size buffers to every rank.
 * ``NEIGHBOR`` — rounds of disjoint rank-pair swaps (one round per color of
                  the rank-adjacency edge coloring); ``packed=True`` ships
-                 the bucketed per-round buffers and runs the pack/unpack
-                 CUDA kernels (``repro_torch.kernels.halo_pack``).
+                 the bucketed per-round buffers as one exchange
+                 (``repro_torch.kernels.halo_pack.halo_exchange``): one
+                 pack launch for all rounds, one unpack-add per round and
+                 receiver, and the reversed exchange as its gradient.
 
 The "synchronization" (Eq. 4d) is fused into the exchange: received
 buffers are scatter-added onto the owning local rows.  Every scatter here
@@ -27,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.halo_pack.ops import HaloWire, halo_pack, halo_unpack_add
+from repro_torch.kernels.halo_pack.ops import ExchangeRound, halo_exchange
 
 NONE = "none"
 A2A = "a2a"
@@ -68,28 +70,17 @@ def _check_spec(spec: HaloSpec, combine: str):
         raise ValueError(f"unknown halo mode {spec.mode!r}")
 
 
-def _gather_wire(a, wire, spec: HaloSpec):
-    """Pack boundary rows into one round's send buffer (Eq. 4c send side)."""
-    if spec.packed:
-        return halo_pack(a, wire)
-    return a.index_select(0, wire.idx) * wire.mask[:, None]
-
-
-def _scatter_wire(out, wire, got, spec: HaloSpec):
-    """Apply one round's received buffer onto the local rows (Eq. 4d)."""
-    if spec.packed:
-        return halo_unpack_add(out, got, wire)
-    return out.index_add(0, wire.idx, got * wire.mask[:, None])
-
-
-def _stacked_round_wires(graph, spec: HaloSpec, k: int):
-    """Round-``k`` (send, recv) wires, leading rank axis kept: the graph's
-    bucketed ``pk{k}_*`` wires (with their inverses) when packed, dense
-    ``nbr_*`` slices (no inverses) otherwise."""
-    if spec.packed:
-        return graph.wire(f"pk{k}_send"), graph.wire(f"pk{k}_recv")
-    return tuple(HaloWire(graph[f"nbr_{side}_idx"][:, k],
-                          graph[f"nbr_{side}_mask"][:, k]) for side in ("send", "recv"))
+def _exchange_rounds(graph, spec: HaloSpec):
+    """Each packed round's :class:`ExchangeRound`: its rows' offset in the
+    exchange wires ``pk_send`` / ``pk_recv`` (the earlier rounds' widths),
+    its (sender, receiver) pairs by receiver, and its own wires."""
+    rounds, offset = [], 0
+    for k, perm in enumerate(spec.perms):
+        send, recv = graph.wire(f"pk{k}_send"), graph.wire(f"pk{k}_recv")
+        pairs = tuple(sorted(((int(s), int(d)) for s, d in perm), key=lambda p: p[1]))
+        rounds.append(ExchangeRound(offset, pairs, send, recv))
+        offset += send.idx.shape[-1]
+    return rounds
 
 
 def halo_sync_reference(a_stacked: torch.Tensor, graph, spec: HaloSpec,
@@ -127,8 +118,9 @@ def halo_sync_stacked(a_stacked: torch.Tensor, graph, spec: HaloSpec,
     """Mode-faithful single-device emulator of the per-rank exchange over a
     stacked [R, N, F] aggregate: per-rank gathers and wire masking, the
     exchange (emulated by indexing the senders' buffers), and a
-    scatter-add seeded from the local aggregate — including the packed
-    pack/unpack kernels when ``spec.packed``."""
+    scatter-add seeded from the local aggregate — the packed exchange op
+    (one pack launch, one unpack-add per round and receiver, the reversed
+    exchange as its gradient) when ``spec.packed``."""
     if spec.mode == NONE:
         return a_stacked
     _check_spec(spec, combine)
@@ -153,12 +145,18 @@ def halo_sync_stacked(a_stacked: torch.Tensor, graph, spec: HaloSpec,
             outs.append(out_r)
         return torch.stack(outs)
 
-    # NEIGHBOR: per-round disjoint pair exchanges
+    if spec.packed:
+        return halo_exchange(a_stacked, graph.wire("pk_send"), graph.wire("pk_recv"),
+                             _exchange_rounds(graph, spec))
+
+    # NEIGHBOR, dense wires: per-round disjoint pair exchanges
     out = list(a_stacked.unbind(0))
     for k, perm in enumerate(spec.perms):
         if not perm:
             continue
-        send, recv = _stacked_round_wires(graph, spec, k)
+        send_idx, send_mask, recv_idx, recv_mask = (
+            graph[f"nbr_{side}_{part}"][:, k]
+            for side in ("send", "recv") for part in ("idx", "mask"))
         src_of = {int(d): int(s) for (s, d) in perm}
         new_out = list(out)
         for r in range(R):
@@ -166,7 +164,7 @@ def halo_sync_stacked(a_stacked: torch.Tensor, graph, spec: HaloSpec,
             if s is None:
                 continue   # non-destination ranks receive nothing
             # gather from the ORIGINAL aggregate, scatter into the running one
-            buf = _gather_wire(a_stacked[s], send.rank(s), spec)
-            new_out[r] = _scatter_wire(out[r], recv.rank(r), buf, spec)
+            buf = a_stacked[s].index_select(0, send_idx[s]) * send_mask[s][:, None]
+            new_out[r] = out[r].index_add(0, recv_idx[r], buf * recv_mask[r][:, None])
         out = new_out
     return torch.stack(out)

@@ -5,19 +5,30 @@
 //   src/repro/kernels/halo_pack/kernel.py::unpack_add_pallas (_unpack_kernel)
 // the send-side gather and recv-side scatter-add of the packed neighbor
 // halo exchange (Eq. 4c/4d):
-//   pack:       buf[w, :] = x[idx[w], :] * mask[w]
+//   pack:       buf[s, w, :] = x[s, idx[s, w], :] * mask[s, w]
 //   unpack-add: out = a;  out[idx[w], :] += buf[w, :] * mask[w]
 //
 // What bounds them on the H100 SXM (published peaks at its 700 W limit):
 // bytes.  They do one multiply (and one add) per element moved, far below
 // the fp32 ridge of ~20 FLOP/byte, so the least time is the bytes moved
 // over 3.35 TB/s; at the wire widths of a halo round (a few hundred rows
-// of H=32 floats) they are launch-bound, so the host path around the launch
-// is kept short (one C call, one kernel each).
+// of H=32 floats) that is well under a microsecond, and a launch costs
+// more: they are launch-bound, so the host path around the launch is kept
+// short (one C call, one kernel each) and the pack is made once per
+// exchange, not once per round.
 //
-// pack: one thread per (slot, feature) — neighbouring threads touch
-// neighbouring features of one row, so each warp's loads and stores are
-// coalesced 128-byte rows at H=32.
+// pack, one launch per exchange: every round of an exchange gathers from
+// the ORIGINAL aggregate (the reference's halo_sync_stacked says so), so
+// the send buffers of all rounds, concatenated into one wire of
+// W = sum of the rounds' widths (idx [S, W]), are packed by one launch
+// over all S senders (S = R ranks in the stacked emulator, 1 for one
+// rank's own wire) before the first unpack; round k's buffer is a slice of
+// the result.  The gradient of an exchange packs the incoming gradient
+// through the concatenated recv wire in one launch the same way.  One
+// thread per 16 bytes of a row (one per float when F is not a multiple of
+// 4 or a row is not 16-byte aligned): neighbouring threads touch
+// neighbouring features of one row, so a warp's loads and stores are
+// coalesced rows.
 //
 // unpack-add is one gather pass over the output rows, not a copy of the
 // seed followed by a scatter:
@@ -51,15 +62,26 @@ namespace {
 
 constexpr int kThreads = 256;
 
+__device__ __forceinline__ float4 scale(float4 v, float m) {
+  return make_float4(__fmul_rn(v.x, m), __fmul_rn(v.y, m), __fmul_rn(v.z, m), __fmul_rn(v.w, m));
+}
+__device__ __forceinline__ float scale(float v, float m) { return __fmul_rn(v, m); }
+
+// V floats per thread (4: one 16-byte access, 1: scalar); x [S, n, F], idx
+// and mask [S, w], buf [S, w, F]; total = S * w * fv, fv = F / V
+template <int V>
 __global__ void pack_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                             const float* __restrict__ mask, float* __restrict__ buf,
-                            long long total, int f, int n) {
+                            long long total, int fv, int w, int n) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const int w = (int)(i / f);
-  const int c = (int)(i - (long long)w * f);
-  const int r = min(max(idx[w], 0), n - 1);
-  buf[i] = __fmul_rn(x[(size_t)r * f + c], mask[w]);
+  const long long slot = i / fv;            // over senders x w
+  const int c = (int)(i - slot * fv);
+  const long long sender = slot / w;
+  const int r = min(max(idx[slot], 0), n - 1);
+  const Vec v = reinterpret_cast<const Vec*>(x)[(sender * n + r) * fv + c];
+  reinterpret_cast<Vec*>(buf)[i] = scale(v, mask[slot]);
 }
 
 __device__ __forceinline__ float madd(float s, float b, float m) {
@@ -105,13 +127,22 @@ inline int blocks_for(long long total) {
 
 }  // namespace
 
+// x [senders, n, f] -> buf [senders, w, f] through idx / mask [senders, w]
 extern "C" int halo_pack_f32(const void* x, const void* idx, const void* mask, void* buf,
-                             int w, int f, int n, void* stream) {
-  const long long total = (long long)w * f;
-  if (total == 0) return 0;
+                             int w, int f, int n, int senders, void* stream) {
+  const long long rows = (long long)senders * w;
+  if (rows * f == 0) return 0;
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  pack_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)idx, (const float*)mask, (float*)buf, total, f, n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (f % 4 == 0 && ((uintptr_t)x | (uintptr_t)buf) % 16 == 0) {
+    const long long total = rows * (f / 4);
+    pack_kernel<4><<<blocks_for(total), kThreads, 0, st>>>(
+        (const float*)x, (const int*)idx, (const float*)mask, (float*)buf, total, f / 4, w, n);
+  } else {
+    const long long total = rows * f;
+    pack_kernel<1><<<blocks_for(total), kThreads, 0, st>>>(
+        (const float*)x, (const int*)idx, (const float*)mask, (float*)buf, total, f, w, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,14 @@ Port of ``repro.kernels.halo_pack.ops`` (``halo_pack`` /
 * ``halo_pack(x, wire)``            -> ``buf = x[idx] * mask[:, None]``
 * ``halo_unpack_add(a, buf, wire)`` -> ``a.index_add(0, idx, buf * mask)``
 
+and the whole packed neighbor exchange of a stacked [R, N, F] aggregate as
+one differentiable op, :func:`halo_exchange`: one pack launch for every
+round and sender (the rounds' send wires concatenated into one exchange
+wire), then one unpack-add per (round, receiver); its backward is the
+reversed exchange (one pack of the incoming gradient through the
+concatenated recv wire, then one unpack-add per (round, sender) through
+the round's send wire, seeded with the gradient).
+
 On a CUDA tensor each wrapper launches its kernel in ``csrc/halo_pack.cu``
 (or raises); on a CPU tensor it runs the plain version.  Both kernels are
 pure data movement and bitwise equal to the plain versions, which are
@@ -15,12 +23,13 @@ A wire carries ``idx`` and ``mask`` and, when :func:`halo_wire` built it,
 their inverse ``inv`` (``inv[r]`` is the slot with a non-zero mask that
 lands on row ``r``, -1 for rows that receive nothing), so the kernels and
 the plain versions read one object whose inverse matches its ids.
-``ShardedGraph.build`` makes each packed round's wires once per plan.  The
-unpack-add kernel is a gather through ``inv``, one pass with no seed copy;
-the pack kernel needs it only for its gradient, which is an unpack-add.
-Slots with mask 0 add nothing on the card, so a non-finite value in a
-padding slot's buffer row (``x[0] * 0``) does not reach row 0 there as it
-does in the plain version.
+``ShardedGraph.build`` makes each packed round's wires, and the exchange
+wires (``pk_send`` / ``pk_recv``: the rounds' wires concatenated, no
+inverse), once per plan.  The unpack-add kernel is a gather through
+``inv``, one pass with no seed copy; the pack kernel needs it only for its
+gradient, which is an unpack-add.  Slots with mask 0 add nothing on the
+card, so a non-finite value in a padding slot's buffer row (``x[0] * 0``)
+does not reach row 0 there as it does in the plain version.
 
 Each op is the other's adjoint, as in the reference's custom VJPs
 (``_pack_core`` / ``_unpack_core``): d pack / d x =
@@ -34,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,7 +54,7 @@ PACK, UNPACK = "halo_pack", "halo_unpack_add"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "halo_pack_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "halo_pack_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
     "halo_unpack_add_f32": (_P,) * 5 + (_I,) * 2 + (_P,),
 }
 _F32, _I32 = torch.float32, torch.int32
@@ -126,19 +135,25 @@ def _bad_args(name, tensors, dtypes):
 
 
 def _pack(x, idx, mask):
+    """``x`` [N, F] with ``idx`` / ``mask`` [W] -> [W, F]; or one pack of
+    every sender: ``x`` [S, N, F] with [S, W] -> [S, W, F]."""
     if x.is_cpu:
-        return halo_pack_plain(x, idx, mask)
+        if x.dim() == 2:
+            return halo_pack_plain(x, idx, mask)
+        return torch.stack([halo_pack_plain(x[s], idx[s], mask[s])
+                            for s in range(x.shape[0])])
     dev = x.get_device()
     if not (x.dtype is _F32 and idx.dtype is _I32 and mask.dtype is _F32
             and idx.get_device() == dev and mask.get_device() == dev
             and x.is_contiguous() and idx.is_contiguous() and mask.is_contiguous()):
         _bad_args(PACK, (x, idx, mask), (_F32, _I32, _F32))
-    n, f = x.shape
-    w = idx.shape[0]
-    buf = x.new_empty((w, f))
+    n, f = x.shape[-2:]
+    w = idx.shape[-1]
+    senders = x.shape[0] if x.dim() == 3 else 1
+    buf = x.new_empty(idx.shape + (f,))
     lib, fn, _ = _lib or _entries()
     code = fn(x.data_ptr(), idx.data_ptr(), mask.data_ptr(), buf.data_ptr(),
-              w, f, n, build.stream_of(x))
+              w, f, n, senders, build.stream_of(x))
     if code:
         build.check(lib, code, "halo_pack_f32")
     build.count_launch(PACK)
@@ -236,3 +251,72 @@ def halo_unpack_add(a: torch.Tensor, buf: torch.Tensor, wire: HaloWire
     if torch.is_grad_enabled() and (a.requires_grad or buf.requires_grad):
         return _UnpackAdd.apply(a, buf, idx, mask, inv)
     return _unpack_add(a, buf, idx, mask, inv, a.shape[0])
+
+
+class ExchangeRound(NamedTuple):
+    """One round of a packed exchange: the offset of its rows in the
+    exchange wire, its (sender, receiver) pairs in the order their
+    unpack-adds run (receivers ascending), and the round's own send and
+    recv wires ([R, W_k], with their inverses)."""
+    offset: int
+    pairs: Tuple[Tuple[int, int], ...]
+    send: HaloWire
+    recv: HaloWire
+
+
+def _exchange(a, wire, rounds, forward: bool):
+    """One pack of ``a`` [R, N, F] through the exchange ``wire`` [R, W],
+    then each round's unpack-adds into the running result, seeded with
+    ``a``.  Forward: receiver r takes sender s's rows through the round's
+    recv wire.  Backward (``a`` the incoming gradient, ``wire`` the
+    concatenated recv wire): sender s takes receiver r's rows through the
+    round's send wire."""
+    buf = _pack(a, wire.idx, wire.mask)
+    out = list(a.unbind(0))
+    for rnd in rounds:
+        lo = rnd.offset
+        hi = lo + rnd.send.idx.shape[-1]
+        for s, r in rnd.pairs:
+            src, dst, w = (s, r, rnd.recv) if forward else (r, s, rnd.send)
+            wr = w.rank(dst)
+            out[dst] = _unpack_add(out[dst], buf[src, lo:hi], wr.idx, wr.mask, wr.inv,
+                                   a.shape[1])
+    return torch.stack(out)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, send, recv, rounds):
+        ctx.recv, ctx.rounds = recv, rounds
+        return _exchange(a, send, rounds, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g.contiguous(), ctx.recv, ctx.rounds, False), None, None, None
+
+
+def halo_exchange(a: torch.Tensor, send: HaloWire, recv: HaloWire,
+                  rounds: Sequence[ExchangeRound]) -> torch.Tensor:
+    """The packed neighbor exchange of a stacked aggregate, Eq. 4c-d.
+
+    a: [R, N, F] float32; send / recv: the exchange wires ([R, W], the
+    rounds' send / recv wires concatenated; ``ShardedGraph`` holds them as
+    ``pk_send`` / ``pk_recv``); rounds: each round's :class:`ExchangeRound`.
+
+    Every round gathers from the original ``a``, so all rounds' send
+    buffers are packed by one launch, before the first unpack; then round
+    by round, each receiver r adds sender s's rows into the running result
+    (seeded with ``a[r]``), one unpack-add each.  Bitwise equal to the
+    per-round path (a pack and an unpack-add per round and receiver).
+    Differentiable in ``a``: the backward is the reversed exchange, one
+    pack of the gradient through ``recv`` and one unpack-add per round and
+    sender through the round's send wire, seeded with the gradient.
+    Returns [R, N, F]."""
+    if a.dim() != 3 or send.idx.shape != (a.shape[0], send.idx.shape[-1]) \
+            or recv.idx.shape != send.idx.shape:
+        raise ValueError(f"halo_exchange: expected a [R, N, F] and wires [R, W]; got "
+                         f"{tuple(a.shape)}, {tuple(send.idx.shape)}, "
+                         f"{tuple(recv.idx.shape)}")
+    if torch.is_grad_enabled() and a.requires_grad:
+        return _Exchange.apply(a, send, recv, tuple(rounds))
+    return _exchange(a, send, rounds, True)

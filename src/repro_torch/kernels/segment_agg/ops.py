@@ -73,6 +73,8 @@ _MLP_AGG_ENTRY = {torch.float32: "edge_mlp_agg_f32", torch.bfloat16: "edge_mlp_a
 # block, Fin, Hh, H, block_n, stream
 _SIGNATURES_MLP_AGG = {name: (_P,) * 9 + (_I,) * 6 + (_P,)
                        for name in _MLP_AGG_ENTRY.values()}
+# Fin, block_n, feats' element size, NB, out[5]
+_SIGNATURES_MLP_AGG["edge_mlp_agg_plan"] = (_I,) * 4 + (ctypes.POINTER(ctypes.c_int),)
 #: what ``csrc/edge_mlp_agg.cu`` takes: Fin, Hh and H, block_n at most
 MLP_AGG_MAX_FIN, MLP_AGG_MAX_HIDDEN, MLP_AGG_MAX_BLOCK_N = 128, 32, 256
 
@@ -500,13 +502,15 @@ def _check_tiles(feats, dst_local, weights, w1, b1, w2, b2, n_node_blocks,
 def edge_mlp_agg_plain(feats, dst_local, weights, w1, b1, w2, b2, *,
                        n_node_blocks: int, block_n: int, block_e: int):
     """Plain PyTorch version of :func:`edge_mlp_agg`, on the same tiles:
-    the MLP in fp32, then each node block's weighted sum through the sorted,
+    the MLP in fp32 (float64 for float64 feats, a yardstick the kernel does
+    not take), then each node block's weighted sum through the sorted,
     deterministic ``segment_sum``.  Slots whose ``dst_local`` is outside
     ``[0, block_n)`` add to no node (the TPU kernel's one-hot drops them)."""
-    h = F.elu(feats.float() @ w1.float() + b1.float())
-    e = h @ w2.float() + b2.float()
+    ct = torch.promote_types(feats.dtype, torch.float32)
+    h = F.elu(feats.to(ct) @ w1.to(ct) + b1.to(ct))
+    e = h @ w2.to(ct) + b2.to(ct)
     d = dst_local.long()
-    w = torch.where((d >= 0) & (d < block_n), weights.float(), 0.0)
+    w = torch.where((d >= 0) & (d < block_n), weights.to(ct), 0.0)
     ids = (torch.arange(n_node_blocks, device=feats.device)[:, None, None] * block_n
            + d.clamp(0, block_n - 1))
     agg = segment_sum((e * w[..., None]).reshape(-1, e.shape[-1]), ids.reshape(-1),
@@ -527,8 +531,10 @@ def edge_mlp_agg(feats, dst_local, weights, w1, b1, w2, b2, *,
       w1 [Fin, Hh], b1 [Hh], w2 [Hh, H], b2 [H]: float32.
 
     CPU tensors run :func:`edge_mlp_agg_plain`; CUDA tensors launch
-    ``csrc/edge_mlp_agg.cu`` (Fin <= 128, Hh and H <= 32, block_n <= 256)
-    or raise.  Forward-only: raises when a gradient would be needed.
+    ``csrc/edge_mlp_agg.cu`` (Fin <= 128, Hh and H <= 32, block_n <= 256;
+    3xTF32 tensor-core products, the aggregate a one-hot product summed in
+    a fixed order, so bitwise repeatable; :func:`mlp_agg_launch_plan` gives
+    its launch) or raise.  Forward-only: raises when a gradient would be needed.
 
     Returns (e_new [NB, NE, BE, H] in feats' dtype, agg [NB, block_n, H]
     float32).
@@ -561,6 +567,22 @@ def edge_mlp_agg(feats, dst_local, weights, w1, b1, w2, b2, *,
     build.check(lib, code, entry)
     build.count_launch(name)
     return e_new, agg
+
+
+def mlp_agg_launch_plan(fin: int, block_n: int, dtype: torch.dtype,
+                        n_node_blocks: int) -> dict:
+    """``edge_mlp_agg``'s launch on the current card for feats of ``dtype``:
+    ``grid`` (persistent blocks), ``groups`` of 4 warps per block (each on
+    its own node blocks), ``smem_bytes`` of dynamic shared memory per
+    block, ``blocks_per_sm`` resident (occupancy API) and ``threads`` per
+    block."""
+    lib = build.load(KERNEL_MLP_AGG, _SIGNATURES_MLP_AGG)
+    plan = (ctypes.c_int * 5)()
+    code = lib.edge_mlp_agg_plan(fin, block_n, torch.finfo(dtype).bits // 8,
+                                 n_node_blocks, plan)
+    build.check(lib, code, "edge_mlp_agg_plan")
+    return dict(grid=plan[0], groups=plan[1], smem_bytes=plan[2],
+                blocks_per_sm=plan[3], threads=plan[4])
 
 
 def fused_edge_mlp_agg(feats, dst, weights, w1, b1, w2, b2, layout, *,
@@ -597,5 +619,6 @@ def fused_edge_mlp_agg(feats, dst, weights, w1, b1, w2, b2, layout, *,
 
 __all__ = ["KERNEL_MLP_AGG", "compact_gather_layout", "dst_aligned_layout",
            "edge_mlp_agg", "edge_mlp_agg_plain", "fused_edge_mlp_agg",
+           "mlp_agg_launch_plan",
            "fused_nmp_edge_agg", "fused_nmp_edge_agg_bwd",
            "fused_nmp_edge_agg_bwd_plain", "fused_nmp_edge_agg_plain"]

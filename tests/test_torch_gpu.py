@@ -15,7 +15,9 @@ forward band), also on a graph built to hit its tile edges
 version to ``repro`` on).  Its backward: node and edge gradients rtol 1e-3 / atol
 2e-5 (the reference's gradient band); the weight gradients are sums over
 every edge, so they are held to a relative L2 norm of 5e-4.  Pack and
-unpack-add are pure data movement: bitwise, values and gradients.  The
+unpack-add are pure data movement: bitwise, values and gradients; so is
+the packed exchange (one pack launch for every round and rank), against
+the per-round path and against the CPU's plain exchange, gradients too.  The
 embedding bag sums in the plain version's order and type: bitwise.  Flash
 attention runs its online softmax over key tiles where the plain version
 takes one softmax: ``tests/test_kernels.py``'s ``TOL`` (fp32 rtol / atol
@@ -25,7 +27,9 @@ forward in fp32 at the reference's forward band.  The dst-aligned
 edge-MLP kernel sums its aggregate in another order than the plain
 version's sorted segment sum: e_new rtol / atol 3e-5 in fp32 and 2e-2 in
 bf16 (``tests/test_kernels.py``'s bands for the op and its ``TOL``), agg
-1e-4 in both (fp32).  Every kernel, and a training step through them, is
+1e-4 in both (fp32), also at its tile edges (block_e against its 64-slot
+tiles, Fin and H off multiples of 8, a node block of one slot and one of
+padding only, every block_n it is built for).  Every kernel, and a training step through them, is
 bitwise repeatable.
 """
 import os
@@ -781,3 +785,156 @@ def test_edge_mlp_agg_kernel_raises_on_what_it_does_not_take(cuda):
         sa.edge_mlp_agg(*tiles, w1.t().contiguous().t(), b1, w2, b2, **kw)
     with pytest.raises(ValueError, match="on cpu|expected cuda"):
         sa.edge_mlp_agg(*tiles, w1.cpu(), b1, w2, b2, **kw)
+
+
+def _edge_blocks_case(device, fin, hid, block_n, block_e, dtype):
+    """Three node blocks of ``block_n``: the first with many edges (a tile
+    that ends part-way at any block_e), the second with one slot, the third
+    with padding only."""
+    rng = np.random.default_rng(fin * 1000 + hid * 10 + block_e)
+    n = 3 * block_n
+    dst = np.concatenate([rng.integers(0, block_n, 5 * block_e // 2 + 7),
+                          [block_n + block_n // 3]])
+    rng.shuffle(dst)
+    layout = sa.dst_aligned_layout(dst, n, block_n, block_e)
+    T = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(dt).to(device)
+    feats = T(rng.normal(size=(dst.size, fin)), dtype)
+    wgt = T(rng.uniform(0.5, 1.0, dst.size))
+    mlp = (T(rng.normal(size=(fin, hid)) * 0.3), T(rng.normal(size=hid) * 0.1),
+           T(rng.normal(size=(hid, hid)) * 0.3), T(rng.normal(size=hid) * 0.1))
+    return layout, _mlp_agg_tiles(layout, feats, wgt), mlp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hid", [16, 20, 32])
+@pytest.mark.parametrize("fin", [3, 24, 96, 128])
+@pytest.mark.parametrize("block_e", [32, 128, 256])
+def test_edge_mlp_agg_kernel_tile_edges(cuda, block_e, fin, hid, dtype):
+    """Kernel 3 at its tile edges: 64-slot tiles against any block_e, Fin
+    and H that are not multiples of 8 (zero-padded k-steps and n-tiles),
+    rows that are not 16-byte multiples (element loads), a node block of
+    one slot and one of padding only: within the bands of plain, exactly
+    one launch, two launches bitwise equal."""
+    layout, tiles, mlp = _edge_blocks_case(cuda, fin, hid, 128, block_e, dtype)
+    kw = dict(n_node_blocks=3, block_n=128, block_e=block_e)
+    n0 = build.launch_counts.get(sa.KERNEL_MLP_AGG, 0)
+    e_new, agg = sa.edge_mlp_agg(*tiles, *mlp, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[sa.KERNEL_MLP_AGG] == n0 + 1
+    want_e, want_agg = sa.edge_mlp_agg_plain(*tiles, *mlp, **kw)
+    torch.testing.assert_close(e_new, want_e, **MLP_AGG_E_TOL[dtype])
+    torch.testing.assert_close(agg, want_agg, **MLP_AGG_TOL)
+    assert not bool(agg[2].any()) and int((agg[1].abs().sum(-1) > 0).sum()) == 1
+    again = sa.edge_mlp_agg(*tiles, *mlp, **kw)
+    assert torch.equal(e_new, again[0]) and torch.equal(agg, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("block_n", [1, 16, 64, 100, 129, 200, 256])
+def test_edge_mlp_agg_kernel_block_n(cuda, block_n, dtype):
+    """Every node m-tile count the kernel is built for (block_n up to 64,
+    128 and 256 per warp group), block_n not a multiple of 16: within the
+    bands of plain, bitwise repeatable; the launch plan fits the card."""
+    layout, tiles, mlp = _edge_blocks_case(cuda, 24, 16, block_n, 32, dtype)
+    kw = dict(n_node_blocks=3, block_n=block_n, block_e=32)
+    e_new, agg = sa.edge_mlp_agg(*tiles, *mlp, **kw)
+    want_e, want_agg = sa.edge_mlp_agg_plain(*tiles, *mlp, **kw)
+    torch.testing.assert_close(e_new, want_e, **MLP_AGG_E_TOL[dtype])
+    torch.testing.assert_close(agg, want_agg, **MLP_AGG_TOL)
+    again = sa.edge_mlp_agg(*tiles, *mlp, **kw)
+    assert torch.equal(e_new, again[0]) and torch.equal(agg, again[1])
+    plan = sa.mlp_agg_launch_plan(24, block_n, dtype, 3)
+    assert plan["grid"] == 3 and plan["groups"] == 1 and plan["blocks_per_sm"] >= 1
+
+
+@pytest.mark.gpu
+def test_edge_mlp_agg_launch_plan_at_full_width(cuda):
+    """At the serving mesh's 5,687 node blocks: fp32 feats run 3 groups of
+    4 warps per SM, bf16 feats 4, one persistent block per SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, groups in ((torch.float32, 3), (torch.bfloat16, 4)):
+        plan = sa.mlp_agg_launch_plan(96, 128, dtype, 5687)
+        assert plan == dict(grid=sms, groups=groups, smem_bytes=plan["smem_bytes"],
+                            blocks_per_sm=1, threads=128 * groups)
+    assert sa.mlp_agg_launch_plan(96, 128, torch.float32, 5687)["smem_bytes"] == 228_608
+
+
+def _packed_graph(grid, device):
+    sem = box_mesh((4, 2, 2), p=2)
+    pg = partition_mesh(sem, grid)
+    plan = NMPPlan.build(pg, NEIGHBOR, packed=True)
+    return pg, plan, ShardedGraph.build(pg, sem.coords, plan, device=device)
+
+
+def _per_round_exchange(a, graph, plan):
+    """The packed exchange as one pack and one unpack-add per round and
+    receiver (the exchange before it was one op)."""
+    out = list(a.unbind(0))
+    for k, perm in enumerate(plan.halo.perms):
+        send, recv = graph.wire(f"pk{k}_send"), graph.wire(f"pk{k}_recv")
+        new = list(out)
+        for s, r in perm:
+            new[r] = hp.halo_unpack_add(out[r], hp.halo_pack(a[s], send.rank(s)),
+                                        recv.rank(r))
+        out = new
+    return torch.stack(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(2, 2, 1), (4, 1, 1)], ids=["2x2", "4x1"])
+def test_halo_exchange_pack_bitwise_plain(cuda, grid):
+    """The exchange pack (one launch over every round and sender, send and
+    recv wires): torch.equal to each round's plain pack of each rank."""
+    pg, plan, graph = _packed_graph(grid, cuda)
+    a = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(pg.R, pg.n_pad, 32)).astype(np.float32)).to(cuda)
+    for side in ("send", "recv"):
+        wire = graph.wire(f"pk_{side}")
+        n0 = build.launch_counts.get(hp.PACK, 0)
+        got = hp._pack(a, wire.idx, wire.mask)
+        torch.cuda.synchronize()
+        assert build.launch_counts[hp.PACK] == n0 + 1
+        off = 0
+        for k in range(len(plan.halo.perms)):
+            rw = graph.wire(f"pk{k}_{side}")
+            w = rw.idx.shape[-1]
+            for r in range(pg.R):
+                assert torch.equal(got[r, off:off + w],
+                                   hp.halo_pack_plain(a[r], *rw.rank(r)[:2]))
+            off += w
+        assert off == got.shape[1]
+
+
+@pytest.mark.gpu
+def test_halo_exchange_on_card_launches_and_bitwise(cuda):
+    """halo_sync_stacked's packed exchange on the card: one pack and one
+    unpack-add per round and receiver forward, the same again backward;
+    the forward bitwise equal to the per-round path, values and gradients
+    bitwise equal to the CPU's plain exchange and to a second run."""
+    pg, plan, graph = _packed_graph((2, 2, 1), cuda)
+    _, _, cpu_graph = _packed_graph((2, 2, 1), "cpu")
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.normal(size=(pg.R, pg.n_pad, 32)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=a.shape).astype(np.float32))
+    pairs = sum(len(p) for p in plan.halo.perms)
+
+    def run(device, graph):
+        x = a.to(device).requires_grad_(True)
+        counts = dict(build.launch_counts)
+        y = halo_sync_stacked(x, graph, plan.halo)
+        (gx,) = torch.autograd.grad(y, x, g.to(device))
+        delta = {k: build.launch_counts.get(k, 0) - counts.get(k, 0)
+                 for k in (hp.PACK, hp.UNPACK)}
+        return y.detach(), gx, delta
+
+    y, gx, delta = run(cuda, graph)
+    assert delta == {hp.PACK: 2, hp.UNPACK: 2 * pairs}
+    y2, gx2, _ = run(cuda, graph)
+    assert torch.equal(y, y2) and torch.equal(gx, gx2)
+    with torch.no_grad():
+        assert torch.equal(y, _per_round_exchange(a.to(cuda), graph, plan))
+    yc, gc, delta = run("cpu", cpu_graph)
+    assert delta == {hp.PACK: 0, hp.UNPACK: 0}
+    assert torch.equal(y.cpu(), yc) and torch.equal(gx.cpu(), gc)

@@ -182,3 +182,22 @@ def test_wire_inverse_edges_and_errors():
         halo_wire(T([0, 3]), T([1.0, 1.0]), 3)
     with pytest.raises(ValueError, match="mask"):
         halo_wire(T([0, 1]), T([1.0]), 3)
+
+
+@pytest.mark.parametrize("elems,grid", [((2, 2, 2), (2, 2, 1)), ((4, 2, 2), (4, 1, 1))])
+def test_exchange_wires_concatenate_rounds(elems, grid):
+    """The packed graph's exchange wires pk_send / pk_recv are the rounds'
+    pk{k}_* arrays concatenated in round order (round k from the sum of
+    the earlier widths on), carry no inverse (a row may be sent in several
+    rounds), and slice per rank like the round wires."""
+    port, graph = _packed_graph(elems, grid)
+    arrays = port.device_arrays(packed=True)
+    K = len(port.halo.perms)
+    for side in ("send", "recv"):
+        wire = graph.wire(f"pk_{side}")
+        for part, got in (("idx", wire.idx), ("mask", wire.mask)):
+            want = np.concatenate([arrays[f"pk{k}_{side}_{part}"] for k in range(K)], -1)
+            assert np.array_equal(got.numpy(), want)
+        assert wire.inv is None
+        for r in range(port.R):
+            assert torch.equal(graph.rank(r).wire(f"pk_{side}").idx, wire.idx[r])

@@ -7,7 +7,11 @@ reference, so it is held to the band the reference holds its own fused
 backend to (rtol 1e-4 / atol 1e-5), its gradients to the reference's
 gradient band (rtol 1e-3 / atol 2e-5, ``tests/test_consistency.py``); the
 pack/unpack ops are pure data movement and must be bitwise equal, values
-and gradients.  The embedding bag's plain version is held to
+and gradients; so is the packed exchange's forward (one pack for all
+rounds) against the per-round path, and within the reference's forward
+band of the reference's exchange; its gradient (the reversed exchange)
+sums each sender's parts in another order than autograd through the
+per-round path: rtol / atol 1e-6.  The embedding bag's plain version is held to
 ``tests/test_kernels.py``'s ``TOL`` against the reference's interpret-mode
 kernel and its oracle, and its gradient (a sorted segment sum, where the
 reference's scatter-add may add duplicate rows in another order) to the
@@ -33,11 +37,13 @@ from repro.kernels.embedding_bag.ops import embedding_bag as ref_embedding_bag
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.embedding_bag.ref import embedding_bag_ref
+from repro.core.halo import halo_sync_stacked as ref_halo_sync_stacked
 from repro.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_add_ref
 from repro.kernels.segment_agg.ops import compact_gather_layout as ref_layout
 
 from repro_torch.convert import params_from_jax
 from repro_torch.core.graph_state import FUSED, NMPPlan, ShardedGraph
+from repro_torch.core.halo import NEIGHBOR, halo_sync_stacked
 from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import partition_mesh
 from repro_torch.kernels import build
@@ -47,7 +53,7 @@ from repro_torch.kernels.halo_pack import ops as hp
 from repro_torch.kernels.segment_agg import ops as sa
 from repro_torch.nn import tree_leaves
 
-from test_torch_gpu import tile_edge_graph
+from test_torch_gpu import _per_round_exchange, tile_edge_graph
 
 RTOL, ATOL = 1e-4, 1e-5
 G_RTOL, G_ATOL = 1e-3, 2e-5        # the reference's gradient band
@@ -449,3 +455,82 @@ def test_halo_grads_bitwise_reference_vjps(seed):
     assert np.array_equal(gx.numpy(), np.asarray(ref_gx))
     assert np.array_equal(ga.numpy(), np.asarray(ref_ga))
     assert np.array_equal(gbuf.numpy(), np.asarray(ref_gbuf))
+
+
+# ---------------------------------------------------------------------------
+# the packed halo exchange (one pack for all rounds; the reversed exchange)
+# ---------------------------------------------------------------------------
+
+EXCHANGE_GRIDS = [(2, 2, 1), (4, 1, 1)]
+
+
+def _exchange_case(grid, f=8, seed=0):
+    """Both packages' packed 2x2 / 4x1 partitions of a small box mesh, the
+    port's packed plan and graph (CPU), and a stacked aggregate."""
+    sem = ref_box_mesh((4, 2, 2), p=2)
+    ref_pg = ref_partition_mesh(sem, grid)
+    pg = partition_mesh(box_mesh((4, 2, 2), p=2), grid)
+    plan = NMPPlan.build(pg, NEIGHBOR, packed=True)
+    graph = ShardedGraph.build(pg, sem.coords, plan, device="cpu")
+    a = np.random.default_rng(seed).normal(size=(pg.R, pg.n_pad, f)).astype(np.float32)
+    return sem, ref_pg, plan, graph, a
+
+
+@pytest.mark.parametrize("grid", EXCHANGE_GRIDS, ids=["2x2", "4x1"])
+def test_exchange_wire_pack_bitwise_reference(grid):
+    """The exchange wires' plain pack (every round of every rank, one call)
+    equals, bitwise, the concatenation of the reference's pack of each
+    round and rank over the reference's own packed arrays."""
+    sem, ref_pg, plan, graph, a = _exchange_case(grid)
+    ref_arrays = ref_pg.device_arrays(packed=True)
+    K = len(plan.halo.perms)
+    for side in ("send", "recv"):
+        wire = graph.wire(f"pk_{side}")
+        got = hp._pack(torch.from_numpy(a), wire.idx, wire.mask).numpy()
+        want = np.concatenate([np.stack([np.asarray(halo_pack_ref(
+            jnp.asarray(a[r]), jnp.asarray(ref_arrays[f"pk{k}_{side}_idx"][r]),
+            jnp.asarray(ref_arrays[f"pk{k}_{side}_mask"][r]))) for r in range(ref_pg.R)])
+            for k in range(K)], axis=1)
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("grid", EXCHANGE_GRIDS, ids=["2x2", "4x1"])
+def test_packed_exchange_forward_bitwise_per_round_and_reference(grid):
+    """halo_sync_stacked's packed exchange: bitwise equal to a pack and an
+    unpack-add per round and receiver, and within the reference's band of
+    the reference's halo_sync_stacked over its dense neighbor wires (its
+    packed Pallas path does not run in interpret mode on this JAX; its own
+    tests hold packed and dense bitwise equal)."""
+    sem, ref_pg, plan, graph, a = _exchange_case(grid, seed=1)
+    got = halo_sync_stacked(torch.from_numpy(a), graph, plan.halo)
+    assert torch.equal(got, _per_round_exchange(torch.from_numpy(a), graph, plan))
+    ref_plan = RefPlan.build(ref_pg, "neighbor")
+    want = ref_halo_sync_stacked(jnp.asarray(a), RefGraph.build(ref_pg, sem.coords, ref_plan),
+                                 ref_plan.halo)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("grid", EXCHANGE_GRIDS, ids=["2x2", "4x1"])
+def test_packed_exchange_grad_matches_per_round_autograd(grid):
+    """The exchange's backward (one pack of the gradient through the recv
+    wire, then each round's unpack-add onto its senders, seeded with the
+    gradient) against autograd through the per-round path, against
+    jax.vjp of the reference's (dense neighbor) exchange, and gradcheck in
+    float64."""
+    sem, ref_pg, plan, graph, a = _exchange_case(grid, f=4, seed=2)
+    g = np.random.default_rng(3).normal(size=a.shape).astype(np.float32)
+    build.reset_launch_counts()
+    x = torch.from_numpy(a).requires_grad_(True)
+    (got,) = torch.autograd.grad(halo_sync_stacked(x, graph, plan.halo), x, torch.from_numpy(g))
+    x = torch.from_numpy(a).requires_grad_(True)
+    (want,) = torch.autograd.grad(_per_round_exchange(x, graph, plan), x, torch.from_numpy(g))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    ref_plan = RefPlan.build(ref_pg, "neighbor")
+    ref_graph = RefGraph.build(ref_pg, sem.coords, ref_plan)
+    _, vjp = jax.vjp(lambda v: ref_halo_sync_stacked(v, ref_graph, ref_plan.halo),
+                     jnp.asarray(a))
+    (ref_g,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_g), rtol=1e-6, atol=1e-6)
+    x64 = torch.from_numpy(a[..., :2]).double().requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda v: halo_sync_stacked(v, graph, plan.halo), (x64,))
+    assert all(v == 0 for v in build.launch_counts.values())
