@@ -51,6 +51,16 @@ Phases (one line each, prefixed ``[n name]``):
   3b gradients   stacked loss and parameter gradients, same mesh: R=1 vs
                  R=4 packed neighbor (fused), and fused vs plain at R=4; the
                  R=4 gradient run's launches checked exactly
+  3c distributed 4 gloo processes sharing the card
+                 (``repro_torch.launch.consistency``): the 2x2 split through
+                 the real torch.distributed exchange (packed neighbor, a2a,
+                 none), each rank's prediction bitwise equal to its slice of
+                 phase 3's stacked forward, loss and gradients within the
+                 bands of 3b's R=1, every process's launches checked
+                 exactly, rank 0's CUDA-event times and host ms per
+                 exchange (staging copies, gloo transfer); then 3 training
+                 steps at (2,1,1) x 2 replicas, batch 2, step 0 against an
+                 R=1 run and the parameters bitwise equal everywhere
   4 serve        fingerprinted checkpoint of seeded random large params,
                  InferenceEngine(batch_slots=4, rollout_steps=2), >=16
                  streamed Taylor-Green requests, each bitwise equal to the
@@ -98,7 +108,10 @@ before the path and read right after it — one full-width call of
 fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
 forward (phase 3; exactly 16 fused forwards, 4 exchange packs, 48
 unpack-adds), the R=4 packed-neighbor gradient run (3b; 16 forwards, 16
-backwards, 8 packs, 96 unpack-adds), the serve stream
+backwards, 8 packs, 96 unpack-adds), the distributed R=4 forward and
+gradient run (3c; per process 4 forwards, 4 packs, 12 unpack-adds, and 4
+forwards, 4 backwards, 8 packs, 24 unpack-adds; the paths' counts are the
+sums over the 4 processes), the serve stream
 after warm-up (4), the 10 training steps (6), the K=2 rollout run (6) and
 each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
@@ -260,15 +273,13 @@ def grads_close(got, want):
     misses the elementwise band is named and held to a relative L2 norm of
     5e-4 instead (its elements cancel to near zero).  Returns (max abs
     error, {leaf: rel norm} of the leaves held by norm, ok)."""
+    from repro_torch.launch.consistency import grads_close as close
     from repro_torch.nn import tree_leaves
-    err, by_norm, ok = 0.0, {}, True
-    for name, a, b in zip(leaf_names(want), tree_leaves(got), tree_leaves(want)):
-        e, within = within_band(a, b, G_RTOL, G_ATOL)
-        err = max(err, e)
-        if not within:
-            by_norm[name] = rel_norm(a, b)
-            ok = ok and by_norm[name] <= W_REL
-    return err, by_norm, ok
+    names = leaf_names(want)
+    err, by_norm, ok = close([t.detach().cpu().numpy() for t in tree_leaves(got)],
+                             [t.detach().cpu().numpy() for t in tree_leaves(want)],
+                             G_RTOL, G_ATOL, W_REL)
+    return err, {names[i]: v for i, v in by_norm.items()}, ok
 
 
 def ptxas_summary(report, needle):
@@ -1052,23 +1063,29 @@ def phase_consistency(cfg):
     sem = box_mesh(CONS_ELEMS, p=ORDER)
     x = taylor_green_velocity(sem.coords)
 
-    def run(grid, mode, backend, packed=False, sync_fn=None):
+    def run(grid, mode, backend, packed=False, sync_fn=None, per_rank=None):
         pg = partition_mesh(sem, grid)
         plan = NMPPlan.build(pg, mode, packed=packed, backend=backend)
         g = ShardedGraph.build(pg, sem.coords, plan, device=dev)
         xs = torch.from_numpy(gather_node_features(pg, x)).to(dev)
-        y = gnn_forward_stacked(params, xs, g, plan, sync_fn=sync_fn)
-        return torch.from_numpy(scatter_node_outputs(pg, y.cpu().numpy()))
+        y = gnn_forward_stacked(params, xs, g, plan, sync_fn=sync_fn).cpu().numpy()
+        if per_rank is not None:
+            per_rank[mode] = y
+        return torch.from_numpy(scatter_node_outputs(pg, y))
 
     y1 = run((1, 1, 1), NONE, FUSED)
+    per_rank = {}
     build.reset_launch_counts()
-    y4 = run(CONS_GRID, NEIGHBOR, FUSED, packed=True, sync_fn=halo_sync_stacked)
+    y4 = run(CONS_GRID, NEIGHBOR, FUSED, packed=True, sync_fn=halo_sync_stacked,
+             per_rank=per_rank)
     launches = dict(build.launch_counts)
     check_launches("3 consistency", "the R=4 packed neighbor forward", launches,
                    {"nmp_fwd": 16, "halo_pack": 4, "halo_unpack_add": 48})
     cases = {
         "R=4 packed neighbor (pack/unpack kernels)": y4,
         "R=4 a2a oracle": run(CONS_GRID, A2A, FUSED),
+        "R=4 a2a, per-rank order": run(CONS_GRID, A2A, FUSED, sync_fn=halo_sync_stacked,
+                                       per_rank=per_rank),
         "R=1 plain backend": run((1, 1, 1), NONE, XLA),
     }
     if not bool(torch.isfinite(y1).all()) or tuple(y1.shape) != (sem.n_nodes, cfg.node_out):
@@ -1080,7 +1097,7 @@ def phase_consistency(cfg):
             f"(rtol {RTOL} atol {ATOL}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"consistency failed: R=1 vs {name}")
-    return launches
+    return launches, per_rank
 
 
 def phase_grad_consistency(cfg):
@@ -1133,7 +1150,106 @@ def phase_grad_consistency(cfg):
             + f" -> {'ok' if ok and rel <= LOSS_REL else 'FAIL'}")
         if not (ok and rel <= LOSS_REL):
             raise RuntimeError(f"gradient consistency failed: {name}")
-    return launches
+    return launches, (float(l1), g1)
+
+
+DIST_FWD = {"nmp_fwd": 4, "halo_pack": 4, "halo_unpack_add": 12}
+DIST_GRAD = {"nmp_fwd": 4, "nmp_bwd": 4, "halo_pack": 8, "halo_unpack_add": 24}
+DIST_TIMING, DIST_TRAIN_STEPS = 5, 3
+
+
+def phase_distributed(cfg, stacked, r1, smi):
+    """4 gloo processes sharing the card (``launch/consistency.py``): (a)
+    the (2,2,1) split, packed neighbor and a2a, each rank's prediction
+    bitwise equal to its slice of phase 3's stacked forward, loss and
+    gradients within the bands of phase 3b's R=1, launches per process
+    exactly DIST_FWD / DIST_GRAD; (b) 3 training steps at (2,1,1) x 2,
+    batch 2, whose step 0 matches an R=1 run's and whose parameters end
+    bitwise equal on every process.  Returns the summed launches of the
+    forward and of the gradient run."""
+    import torch
+    from repro_torch.core.graph_state import FUSED, NMPPlan
+    from repro_torch.core.halo import HaloSpec
+    from repro_torch.core.mesh_gen import box_mesh
+    from repro_torch.core.partition import partition_mesh
+    from repro_torch.launch import consistency as cons
+    from repro_torch.train.loop import TrainConfig, train_consistent_gnn
+
+    t0 = time.perf_counter()
+    job = cons.Job(elements=CONS_ELEMS, order=ORDER, cfg=cfg, device="cuda",
+                   backends=(FUSED,), modes=("packed", "a2a", "none"),
+                   cases=((CONS_GRID, 1),), timing=DIST_TIMING,
+                   train_steps=DIST_TRAIN_STEPS)
+    procs = cons.run_world(job, 4)
+    wall = time.perf_counter() - t0
+    case = cons.case_name(CONS_GRID, 1)
+    l1 = r1[0]
+    base = (l1, [t.cpu().numpy() for t in _leaves(r1[1])])
+    loss = {}
+    for mode, stacked_mode in (("packed", "neighbor"), ("a2a", "a2a"), ("none", None)):
+        recs = [p[case]["steps"][(FUSED, mode)] for p in procs]
+        loss[mode] = float(recs[0]["loss"])
+        line = cons.check_step(recs, base, mode, w_rel=W_REL)
+        if stacked_mode is not None:
+            bitwise = all(np.array_equal(r["pred"][0, 0],
+                                         stacked[stacked_mode][p[case]["rank"]])
+                          for r, p in zip(recs, procs))
+            line = (f"every rank's prediction bitwise equal to its stacked slice: "
+                    f"{bitwise} | {line}")
+        say("3c distributed", f"4 gloo processes on one card, {CONS_ELEMS} p={ORDER}, "
+            f"{CONS_GRID} split, large config, fused, R=1 loss {l1:.8g}: {line}")
+        if stacked_mode is not None and not bitwise:
+            raise RuntimeError(f"distributed {mode} forward != the stacked forward")
+    say("3c distributed", cons.check_agree(loss) + " -> ok")
+    sums = {}
+    for key, run, want in (("fwd_launches", "forward", DIST_FWD),
+                           ("grad_launches", "gradient run", DIST_GRAD)):
+        total = {}
+        for w, p in enumerate(procs):
+            got = p[case]["steps"][(FUSED, "packed")][key]
+            check_launches("3c distributed", f"process {w}'s packed {run}", got, want)
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        say("3c distributed", f"launches summed over the 4 processes, packed {run}: "
+            f"{total}")
+        sums[key] = total
+    t = procs[0][case]["steps"][(FUSED, "packed")]
+    say("3c distributed", f"{smi} | 4 processes share one card (gloo through the host: "
+        f"a check of the path, not a scaling number); rank 0 by CUDA events, median of "
+        f"{DIST_TIMING}: forward {t['fwd_ms']:.3f} ms, gradient step {t['grad_ms']:.3f} "
+        f"ms; per exchange (host) staging copies {t['stage_ms_per_exchange']:.3f} ms, "
+        f"gloo transfer {t['wire_ms_per_exchange']:.3f} ms; staged "
+        f"{t['staged_bytes_per_layer']:.0f} B per layer; spawn + all of (a), (b) "
+        f"{wall:.1f} s")
+
+    # (b) against one rank's first step on the same batch
+    train = [p["train"] for p in procs]
+    sem = box_mesh(CONS_ELEMS, p=ORDER)
+    tcfg = TrainConfig(n_steps=1, batch=cons.TRAIN_BATCH, lr=1e-3, seed=cons.SEED,
+                       plan=NMPPlan(halo=HaloSpec(mode="neighbor", packed=True),
+                                    backend=FUSED))
+    one = train_consistent_gnn(partition_mesh(sem, (1, 1, 1)), sem, cfg, tcfg,
+                               device="cuda")["losses"][0]
+    rel = abs(train[0]["losses"][0] - one) / abs(one)
+    same = all(r["losses"] == train[0]["losses"] for r in train)
+    sums_equal = len(set(train[0]["checksums"])) == 1
+    step_ms = [1e3 * s for s in train[0]["step_s"][1:]]
+    good = rel <= LOSS_REL and same and sums_equal and np.all(np.isfinite(train[0]["losses"]))
+    say("3c distributed", f"{smi} | training (2, 1, 1) x 2 replicas, batch 2, large "
+        f"config, fused, packed neighbor, {DIST_TRAIN_STEPS} steps: losses "
+        f"{[round(v, 6) for v in train[0]['losses']]} on every process: {same}; step 0 vs "
+        f"R=1 {one:.8g} (rel {rel:.2e}, band {LOSS_REL}); parameter checksums "
+        f"gathered to rank 0 equal: {sums_equal}; ms per step after step 0 (rank 0, "
+        f"host) {[round(v, 1) for v in step_ms]} -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("distributed training disagrees across processes or with R=1")
+    torch.cuda.empty_cache()
+    return sums["fwd_launches"], sums["grad_launches"]
+
+
+def _leaves(tree):
+    from repro_torch.nn import tree_leaves
+    return tree_leaves(tree)
 
 
 def phase_serve(cfg, sem, pg, smi):
@@ -1910,10 +2026,13 @@ def main():
     records.append(phase_embedding_bag(ptxas))
     records.append(phase_flash_attention(ptxas))
     lap("2 kernels")
-    by_path = {"segment_agg_op": seg_counts,
-               "consistency_r4_packed": phase_consistency(cfg),
-               "grad_r4_packed": phase_grad_consistency(cfg)}
+    by_path = {"segment_agg_op": seg_counts}
+    by_path["consistency_r4_packed"], stacked = phase_consistency(cfg)
+    by_path["grad_r4_packed"], r1 = phase_grad_consistency(cfg)
     lap("3b gradients")
+    by_path["dist_r4_packed"], by_path["dist_r4_grad"] = phase_distributed(
+        cfg, stacked, r1, smi)
+    lap("3c distributed")
     engine, mesh_hash, by_path["serve"] = phase_serve(cfg, sem, pg, smi)
     phase_profile(engine, mesh_hash, sem)
     del engine
@@ -1933,10 +2052,12 @@ def main():
     # check their exact counts on every path), the op's one call for the
     # dst-aligned edge MLP (phase 2 checks that it launched exactly once)
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
-                       "rollout_k2"),
-           sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2"),
-           hp.PACK: ("grad_r4_packed", "consistency_r4_packed"),
-           hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed"),
+                       "rollout_k2", "dist_r4_packed", "dist_r4_grad"),
+           sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2", "dist_r4_grad"),
+           hp.PACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
+                     "dist_r4_grad"),
+           hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
+                       "dist_r4_grad"),
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",)}

@@ -20,9 +20,10 @@ Backends for the 4a+4b hot loop (``plan.backend``):
   for a fused plan).
 
 Both compute the same arithmetic up to summation order.  This slice
-registers the blocking schedule; a single process runs the exchange
-through ``sync_fn`` (the stacked emulators of ``repro_torch.core.halo``) —
-the ``torch.distributed`` exchange is a later slice.
+registers the blocking schedule.  The caller threads the exchange in as
+``sync_fn``: ``core/halo.py::halo_sync`` on one process's rank-local graph
+and its mesh (``core/distributed.py`` builds it), or a stacked emulator
+over every rank on one device (``core/reference.py``).
 """
 from __future__ import annotations
 
@@ -100,10 +101,11 @@ def _blocking_layer(agg_fn, params, x, e, graph, plan, halo: HaloSpec,
     if sync_fn is not None:
         agg = sync_fn(agg)
     elif halo.mode != NONE:
-        raise NotImplementedError(
-            f"halo mode {halo.mode!r} on one rank's arrays needs the "
-            "torch.distributed exchange, which is not ported yet; run the "
-            "stacked reference (repro_torch.core.reference) instead")
+        raise ValueError(
+            f"halo mode {halo.mode!r} on one rank's arrays needs the exchange: "
+            "no mesh was given (pass sync_fn=lambda a: halo_sync(a, graph, "
+            "plan.halo, mesh) with a repro_torch.launch.mesh.make_mesh mesh), "
+            "or run the stacked reference (repro_torch.core.reference)")
     # --- Eq. 4e: node update (residual) ---
     return node_update(params, x, agg, graph), e_new
 

@@ -1,28 +1,36 @@
-"""GNN step functions on one device (the one-rank, one-replica part of
+"""GNN step functions over a ``(data, graph)`` process mesh (port of
 ``repro.core.distributed``).
 
 ``make_gnn_step_fns`` returns ``(eval_step, loss_step, grad_step,
-train_step)`` over ``[B, 1, N_pad, F]`` inputs and a stacked one-rank
-:class:`~repro_torch.core.graph_state.ShardedGraph`, with the reference's
-contract: the loss is the Eq. 6 consistent MSE, averaged over the batch;
-``grad_step`` returns (loss, d loss / d params); ``train_step`` is plain SGD
-for consistency experiments (the training loop uses ``grad_step`` with
-AdamW).  With one rank and one data replica the reference's ``pmean``s are
-identities, and so is the halo exchange: a rank with no peers has nothing
-to exchange, so any halo mode runs as ``none``.  A graph of R > 1 ranks
-needs the ``torch.distributed`` halo exchange, a later slice, and raises.
+train_step)`` with the reference's contract: the loss is the Eq. 6
+consistent MSE over the graph group, averaged over the batch and over the
+data group; ``grad_step`` returns (loss, d loss / d params), the same on
+every process; ``train_step`` is plain SGD for consistency experiments (the
+training loop uses ``grad_step`` with AdamW).
+
+* With a mesh (``repro_torch.launch.mesh.make_mesh``), each process passes
+  its own ``[B_local, 1, N_pad, F]`` block (:func:`shard_inputs`) and its
+  rank-local graph (:func:`shard_graph`); each layer's halo exchange is
+  ``core/halo.py::halo_sync`` over the graph group, and the gradients are
+  averaged over every process in one flattened all-reduce
+  (:func:`average_gradients`).
+* Without one, the inputs are ``[B, 1, N_pad, F]`` on a stacked one-rank
+  graph: the reference's ``pmean``s are identities, and so is the halo
+  exchange (a rank with no peers has nothing to exchange), so any halo
+  mode runs as ``none``.  A graph of R > 1 ranks raises: it needs a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import nn
-from repro_torch.core.consistent_loss import consistent_mse
+from repro_torch.core.consistent_loss import all_reduce_sum, consistent_mse
 from repro_torch.core.gnn import GNNConfig, gnn_forward
 from repro_torch.core.graph_state import NMPPlan, ShardedGraph, as_graph
-from repro_torch.core.halo import NONE, HaloSpec
+from repro_torch.core.halo import NONE, HaloSpec, halo_sync
 
 
 def one_rank(graph) -> ShardedGraph:
@@ -30,12 +38,11 @@ def one_rank(graph) -> ShardedGraph:
     graph = as_graph(graph)
     n_ranks = int(graph["node_mask"].shape[0])
     if n_ranks != 1:
-        raise NotImplementedError(
-            f"a {n_ranks}-rank graph needs the torch.distributed halo "
-            "exchange (ROADMAP queue: 'Real torch.distributed halo and "
-            "core/distributed.py'), which is not ported yet; run the stacked "
-            "reference (repro_torch.core.reference) or partition with ranks "
-            "(1, 1, 1)")
+        raise ValueError(
+            f"a {n_ranks}-rank graph needs a mesh: run one process per rank "
+            "(repro_torch.launch.mesh.spawn + make_mesh) and pass mesh= to the "
+            "step functions, or run the stacked reference "
+            "(repro_torch.core.reference)")
     return graph.rank(0)
 
 
@@ -46,26 +53,92 @@ def one_rank_plan(plan: NMPPlan) -> NMPPlan:
     return dataclasses.replace(plan, halo=HaloSpec(mode=NONE))
 
 
+def shard_graph(mesh, graph) -> ShardedGraph:
+    """This process's rank-local graph on its device, from a stacked graph
+    (a rank-local one passes through)."""
+    graph = as_graph(graph)
+    if graph["node_mask"].dim() == 2:
+        if graph["node_mask"].shape[0] != mesh.graph:
+            raise ValueError(f"the graph has {graph['node_mask'].shape[0]} ranks, "
+                             f"the mesh {mesh.graph}")
+        graph = graph.rank(mesh.rank)
+    return graph.to(mesh.device)
+
+
+def shard_inputs(mesh, x, graph):
+    """This process's block of a host batch ``x`` [B, R, N_pad, F] (numpy
+    or tensor): its replica's ``B / D`` samples of its rank, as
+    [B / D, 1, N_pad, F] on its device; with :func:`shard_graph` of
+    ``graph``."""
+    b = x.shape[0]
+    if b % mesh.data:
+        raise ValueError(f"batch {b} does not split over {mesh.data} data replicas")
+    n = b // mesh.data
+    block = x[mesh.replica * n:(mesh.replica + 1) * n, mesh.rank:mesh.rank + 1]
+    xs = torch.as_tensor(np.ascontiguousarray(block) if isinstance(block, np.ndarray)
+                         else block, dtype=torch.float32).to(mesh.device)
+    return xs, shard_graph(mesh, graph)
+
+
+def data_mean(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The loss averaged over the data group (differentiable)."""
+    return all_reduce_sum(loss, mesh.data_group) / mesh.data
+
+
+def average_gradients(grads, mesh):
+    """Each leaf averaged over every process of the mesh, in one flattened
+    all-reduce (see ``core/consistent_loss.py::_AllReduceSum`` for why
+    the average is dL / d theta)."""
+    leaves = nn.tree_leaves(grads)
+    flat = torch.cat([g.reshape(-1) for g in leaves])
+    flat = mesh.world_group.all_reduce(flat) / mesh.world_group.size
+    parts = flat.split([g.numel() for g in leaves])
+    return nn.tree_unflatten(grads, [p.view_as(g) for p, g in zip(parts, leaves)])
+
+
+def halo_fn(plan: NMPPlan, graph, mesh):
+    """The ``sync_fn`` of ``gnn_forward`` for this process's graph (None
+    for halo mode none)."""
+    if plan.halo.mode == NONE:
+        return None
+    return lambda agg: halo_sync(agg, graph, plan.halo, mesh)
+
+
+def local_graph(graph, mesh) -> ShardedGraph:
+    """This process's rank-local graph: :func:`one_rank` without a mesh."""
+    return one_rank(graph) if mesh is None else shard_graph(mesh, graph)
+
+
 def make_gnn_step_fns(cfg: GNNConfig, plan: NMPPlan,
-                      learning_rate: float = 1e-3):
-    """(eval_step, loss_step, grad_step, train_step) on one device.
+                      learning_rate: float = 1e-3, mesh=None):
+    """(eval_step, loss_step, grad_step, train_step) of this process.
 
     ``eval_step(params, x, graph) -> y [B, 1, N_pad, F_y]``;
     ``loss_step(params, x, y_hat, graph) -> loss``;
     ``grad_step(params, x, y_hat, graph) -> (loss, grads)``;
     ``train_step(params, x, y_hat, graph) -> (loss, new params)`` (SGD).
+    ``mesh``: this process's ``(data, graph)`` mesh, or None for one rank
+    and one replica (module docstring).
     """
     del cfg  # the architecture is entirely encoded in the params tree
-    local_plan = one_rank_plan(plan)
+    local_plan = one_rank_plan(plan) if mesh is None else plan
+
+    def forward(params, x, graph):
+        g = local_graph(graph, mesh)
+        sync = None if mesh is None else halo_fn(local_plan, g, mesh)
+        return gnn_forward(params, x[:, 0], g, local_plan, sync_fn=sync), g
 
     def loss_local(params, x, y_hat, graph):
-        g = one_rank(graph)
-        y = gnn_forward(params, x[:, 0], g, local_plan)
-        return consistent_mse(y, y_hat[:, 0], g["node_inv_mult"]), y
+        y, g = forward(params, x, graph)
+        if mesh is None:
+            return consistent_mse(y, y_hat[:, 0], g["node_inv_mult"]), y
+        loss = consistent_mse(y, y_hat[:, 0], g["node_inv_mult"],
+                              group=mesh.graph_group)
+        return data_mean(loss, mesh), y
 
     @torch.no_grad()
     def eval_step(params, x, graph):
-        return gnn_forward(params, x[:, 0], one_rank(graph), local_plan)[:, None]
+        return forward(params, x, graph)[0][:, None]
 
     @torch.no_grad()
     def loss_step(params, x, y_hat, graph):
@@ -74,6 +147,8 @@ def make_gnn_step_fns(cfg: GNNConfig, plan: NMPPlan,
     def grad_step(params, x, y_hat, graph):
         (loss, _), grads = nn.value_and_grad(loss_local, params, x, y_hat,
                                              graph, has_aux=True)
+        if mesh is not None:
+            grads = average_gradients(grads, mesh)
         return loss, grads
 
     def train_step(params, x, y_hat, graph):

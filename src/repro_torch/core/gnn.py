@@ -65,21 +65,23 @@ def build_edge_inputs(x: torch.Tensor, graph) -> torch.Tensor:
 
 
 def gnn_forward(params: nn.Params, x: torch.Tensor, graph,
-                plan: NMPPlan) -> torch.Tensor:
+                plan: NMPPlan, sync_fn=None) -> torch.Tensor:
     """Encode-process-decode forward on one rank.
 
     ``x``: [N_pad, F_x], or [B, N_pad, F_x], which runs one sample at a time
     so every matmul sees the same row count at any batch size (cuBLAS may
     pick another algorithm, with other last bits, for another shape).
-    Returns [..., N_pad, F_y].
+    ``sync_fn`` is each layer's halo exchange of the local aggregate
+    (``core/halo.py::halo_sync`` on this rank's graph and mesh); a halo
+    mode other than none without one raises.  Returns [..., N_pad, F_y].
     """
     graph = as_graph(graph)
     if x.dim() == 3:
-        return torch.stack([gnn_forward(params, xb, graph, plan) for xb in x])
+        return torch.stack([gnn_forward(params, xb, graph, plan, sync_fn) for xb in x])
     mask = graph["node_mask"][:, None]
     h = nn.mlp(params["node_enc"], x) * mask
     e = nn.mlp(params["edge_enc"], build_edge_inputs(x, graph)) \
         * graph["edge_mask"][:, None]
     for lp in params["mp"]:
-        h, e = nmp_layer(lp, h, e, graph, plan)
+        h, e = nmp_layer(lp, h, e, graph, plan, sync_fn=sync_fn)
     return nn.mlp(params["node_dec"], h) * mask

@@ -116,7 +116,8 @@ def registered_nmp_impls() -> Tuple[Tuple[str, str], ...]:
 class ShardedGraph:
     """Stacked per-rank static arrays of one partition, as tensors on one
     device.  ``graph[name]`` has a leading rank axis; ``graph.rank(r)``
-    returns rank r's slice (a rank-local graph).  ``graph.wire(name)`` is a
+    returns rank r's slice (a rank-local graph, which one process of a
+    multi-process run holds).  ``graph.wire(name)`` is a
     packed halo round's :class:`HaloWire` (``pk{k}_send`` / ``pk{k}_recv``:
     ids, mask and their inverse) or an exchange wire (``pk_send`` /
     ``pk_recv``: the rounds' wires concatenated in round order, the rows of
@@ -166,13 +167,21 @@ class ShardedGraph:
         return ShardedGraph({k: v[r] for k, v in self.arrays.items()},
                             {k: w.rank(r) for k, w in self.wires.items()})
 
+    def to(self, device) -> "ShardedGraph":
+        """Every array and wire on ``device``."""
+        return ShardedGraph({k: v.to(device) for k, v in self.arrays.items()},
+                            {k: w.to(device) for k, w in self.wires.items()})
+
     @classmethod
     def build(cls, pg, coords: np.ndarray, plan: NMPPlan | None = None,
-              device="cuda") -> "ShardedGraph":
+              device="cuda", rank: int | None = None) -> "ShardedGraph":
         """Collect ``pg``'s static arrays plus the static geometric edge
         features from ``coords`` onto ``device``; ``plan`` decides what else
         rides along (the fused backend's compact layout, the packed halo
-        arrays and their wires)."""
+        arrays and their wires).  With ``rank``, only that rank's slice
+        (:meth:`rank`) reaches ``device``: the stack is built on the CPU."""
+        if rank is not None:
+            return cls.build(pg, coords, plan, device="cpu").rank(rank).to(device)
         plan = plan or NMPPlan()
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                   for k, v in _level_arrays(pg, coords, plan.seg_layout,

@@ -1,26 +1,33 @@
-"""Halo exchanges (Sec. II-B Eq. 4c-d) over a stacked [R, ...] graph on one
-device (port of the single-device parts of ``repro.core.halo``).
+"""Halo exchanges (Sec. II-B Eq. 4c-d): the real multi-process exchange
+on ``torch.distributed`` and its single-device emulators over a stacked
+[R, ...] graph (port of ``repro.core.halo``).
 
 Modes, matching the paper's study:
 
 * ``NONE``     — skip the exchange: the *inconsistent* baseline.
-* ``A2A``      — equal-size buffers to every rank.
+* ``A2A``      — equal-size buffers to every rank (``all_to_all_single``).
 * ``NEIGHBOR`` — rounds of disjoint rank-pair swaps (one round per color of
-                 the rank-adjacency edge coloring); ``packed=True`` ships
-                 the bucketed per-round buffers as one exchange
-                 (``repro_torch.kernels.halo_pack.halo_exchange``): one
-                 pack launch for all rounds, one unpack-add per round and
-                 receiver, and the reversed exchange as its gradient.
+                 the rank-adjacency edge coloring; one ``batch_isend_irecv``
+                 per round); ``packed=True`` ships the bucketed per-round
+                 buffers through the exchange wires: one pack launch for
+                 all rounds, one unpack-add per round received
+                 (``repro_torch.kernels.halo_pack``).
 
 The "synchronization" (Eq. 4d) is fused into the exchange: received
 buffers are scatter-added onto the owning local rows.  Every scatter here
-adds one sender's buffer at a time, whose real ids are unique, so the sums
-are deterministic on the GPU too (only exact zero-adds of padding slots
-can collide).  Only ``combine="sum"`` is ported.
+adds one sender's buffer at a time, in sender (or round) order, whose real
+ids are unique, so the sums are deterministic on the GPU too (only exact
+zero-adds of padding slots can collide).  Only ``combine="sum"`` is
+ported.
 
-The real multi-process exchange (``halo_sync`` on ``torch.distributed``)
-is a later slice; :func:`halo_sync_stacked` emulates its per-rank
-arithmetic and :func:`halo_sync_reference` is the canonical-order oracle.
+:func:`halo_sync` runs on one process's rank-local graph and a
+:class:`~repro_torch.launch.mesh.Mesh`; JAX differentiates its collectives
+through their transpose rules, so here each exchange is one
+``torch.autograd.Function`` whose backward is the reversed exchange.
+:func:`halo_sync_stacked` emulates the same per-rank arithmetic over a
+stacked aggregate on one device (each rank's :func:`halo_sync` result is
+bitwise equal to its slice), and :func:`halo_sync_reference` is the
+canonical-order oracle.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.halo_pack.ops import ExchangeRound, halo_exchange
+from repro_torch.kernels.halo_pack.ops import (
+    ExchangeRound, halo_exchange, halo_exchange_rank)
 
 NONE = "none"
 A2A = "a2a"
@@ -168,3 +176,118 @@ def halo_sync_stacked(a_stacked: torch.Tensor, graph, spec: HaloSpec,
             new_out[r] = out[r].index_add(0, recv_idx[r], buf * recv_mask[r][:, None])
         out = new_out
     return torch.stack(out)
+
+
+def _peers(perm, rank: int):
+    """(the rank ``rank`` sends to, the rank it receives from) in one round."""
+    return (next((d for s, d in perm if s == rank), None),
+            next((s for s, d in perm if d == rank), None))
+
+
+def _a2a(a, send_idx, send_mask, recv_idx, recv_mask, group):
+    """Gather every peer's rows, all-to-all, and add what each sender sent,
+    one sender at a time in sender order, seeded from ``a``."""
+    R, w = send_idx.shape
+    buf = a.index_select(0, send_idx.reshape(-1)).reshape(R, w, a.shape[1]) \
+        * send_mask[..., None]
+    got = group.all_to_all(buf)
+    out = a
+    for s in range(R):
+        out = out.index_add(0, recv_idx[s], got[s] * recv_mask[s][:, None])
+    return out
+
+
+class _A2A(torch.autograd.Function):
+    """All-to-all exchange; its reversal is the same exchange with the send
+    and recv sides swapped."""
+
+    @staticmethod
+    def forward(ctx, a, send_idx, send_mask, recv_idx, recv_mask, group):
+        ctx.save_for_backward(send_idx, send_mask, recv_idx, recv_mask)
+        ctx.group = group
+        return _a2a(a, send_idx, send_mask, recv_idx, recv_mask, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_idx, send_mask, recv_idx, recv_mask = ctx.saved_tensors
+        ga = _a2a(g.contiguous(), recv_idx, recv_mask, send_idx, send_mask, ctx.group)
+        return ga, None, None, None, None, None
+
+
+def _neighbor(a, send_idx, send_mask, recv_idx, recv_mask, peers, group):
+    """Dense neighbor rounds: gather from the ORIGINAL ``a``, swap with the
+    round's partner, add into the running result."""
+    out = a
+    for k, (to, frm) in enumerate(peers):
+        buf = a.index_select(0, send_idx[k]) * send_mask[k][:, None] \
+            if to is not None else None
+        got = group.swap(buf, to, frm, (recv_idx.shape[1], a.shape[1]), a.dtype)
+        if got is not None:
+            out = out.index_add(0, recv_idx[k], got * recv_mask[k][:, None])
+    return out.clone() if out is a else out
+
+
+class _Neighbor(torch.autograd.Function):
+    """Dense neighbor exchange; its reversal runs the rounds with the send
+    and recv sides and the partners swapped."""
+
+    @staticmethod
+    def forward(ctx, a, send_idx, send_mask, recv_idx, recv_mask, peers, group):
+        ctx.save_for_backward(send_idx, send_mask, recv_idx, recv_mask)
+        ctx.peers, ctx.group = peers, group
+        return _neighbor(a, send_idx, send_mask, recv_idx, recv_mask, peers, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_idx, send_mask, recv_idx, recv_mask = ctx.saved_tensors
+        back = tuple((frm, to) for to, frm in ctx.peers)
+        ga = _neighbor(g.contiguous(), recv_idx, recv_mask, send_idx, send_mask,
+                       back, ctx.group)
+        return ga, None, None, None, None, None, None
+
+
+def halo_sync(a: torch.Tensor, graph, spec: HaloSpec, mesh,
+              combine: str = "sum") -> torch.Tensor:
+    """Exchange + synchronize one process's local aggregate across the
+    coincident node copies of its graph group (reference
+    ``core/halo.py::halo_sync``).
+
+    ``a``: [N_pad, F] or [B, N_pad, F] on this process; ``graph``: its
+    rank-local :class:`~repro_torch.core.graph_state.ShardedGraph`
+    (``ShardedGraph.build(..., rank=mesh.rank)`` or ``.rank(r)``);
+    ``mesh``: the process's :class:`~repro_torch.launch.mesh.Mesh`.  Every
+    process of the graph group must call it with the same spec.  A2A is
+    one ``all_to_all_single``; NEIGHBOR one ``batch_isend_irecv`` per round
+    between the round's pairs (ranks outside them skip it); packed
+    NEIGHBOR one pack launch, then per round a swap of the round's slice
+    and one unpack-add launch.  Differentiable in ``a``.  Returns ``a*``,
+    shaped as ``a``.
+    """
+    if spec.mode == NONE:
+        return a
+    _check_spec(spec, combine)
+    if a.dim() == 3:
+        # rows are exchanged whole: carry the batch as feature columns
+        b, n, f = a.shape
+        flat = a.permute(1, 0, 2).reshape(n, b * f)
+        return halo_sync(flat, graph, spec, mesh).reshape(n, b, f).permute(1, 0, 2)
+    if a.dim() != 2 or graph["node_mask"].dim() != 1:
+        raise ValueError("halo_sync expects one rank's [N, F] or [B, N, F] aggregate "
+                         f"and a rank-local graph; got {tuple(a.shape)} and a graph "
+                         f"of node_mask {tuple(graph['node_mask'].shape)}")
+    group, rank = mesh.graph_group, mesh.rank
+    a = a.contiguous()
+
+    if spec.mode == A2A:
+        if graph["a2a_send_idx"].shape[0] != group.size:
+            raise ValueError(f"the graph has {graph['a2a_send_idx'].shape[0]} "
+                             f"ranks, the graph group {group.size}")
+        return _A2A.apply(a, graph["a2a_send_idx"], graph["a2a_send_mask"],
+                          graph["a2a_recv_idx"], graph["a2a_recv_mask"], group)
+
+    peers = tuple(_peers(perm, rank) for perm in spec.perms)
+    if spec.packed:
+        return halo_exchange_rank(a, graph.wire("pk_send"), graph.wire("pk_recv"),
+                                  _exchange_rounds(graph, spec), peers, group.swap)
+    return _Neighbor.apply(a, graph["nbr_send_idx"], graph["nbr_send_mask"],
+                           graph["nbr_recv_idx"], graph["nbr_recv_mask"], peers, group)

@@ -442,11 +442,16 @@ def partition_mesh(mesh: SEMMesh, rank_grid: Sequence[int], pad_to: int = 8,
                 pad_to=pad_to)
 
 
-def gather_node_features(pg: PartitionedGraphs, global_x: np.ndarray) -> np.ndarray:
-    """[n_global, F] -> [R, N_pad, F]; coincident copies get identical rows."""
-    safe = np.clip(pg.global_ids, 0, None)
-    out = global_x[safe.reshape(-1)].reshape(pg.R, pg.n_pad, -1)
-    return out * pg.node_mask[..., None]
+def gather_node_features(pg: PartitionedGraphs, global_x: np.ndarray,
+                         rank: int | None = None) -> np.ndarray:
+    """[n_global, F] -> [R, N_pad, F]; coincident copies get identical rows.
+    With ``rank``, that rank's rows alone: [1, N_pad, F]."""
+    ids, mask = pg.global_ids, pg.node_mask
+    if rank is not None:
+        ids, mask = ids[rank:rank + 1], mask[rank:rank + 1]
+    safe = np.clip(ids, 0, None)
+    out = global_x[safe.reshape(-1)].reshape(ids.shape[0], pg.n_pad, -1)
+    return out * mask[..., None]
 
 
 def scatter_node_outputs(pg: PartitionedGraphs, per_rank_y: np.ndarray) -> np.ndarray:

@@ -14,6 +14,12 @@ reversed exchange (one pack of the incoming gradient through the
 concatenated recv wire, then one unpack-add per (round, sender) through
 the round's send wire, seeded with the gradient).
 
+:func:`halo_exchange_rank` is the same exchange on one process's [N, F]
+aggregate, given each round's peers, their rows arriving through a
+``swap`` callable (the process group of ``core/halo.py::halo_sync``): one pack
+launch for every round, one unpack-add per round received, and the
+reversed exchange as its gradient.
+
 On a CUDA tensor each wrapper launches its kernel in ``csrc/halo_pack.cu``
 (or raises); on a CPU tensor it runs the plain version.  Both kernels are
 pure data movement and bitwise equal to the plain versions, which are
@@ -43,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -73,6 +79,9 @@ class HaloWire(NamedTuple):
     def rank(self, r: int) -> "HaloWire":
         return HaloWire(self.idx[r], self.mask[r],
                         None if self.inv is None else self.inv[r])
+
+    def to(self, device) -> "HaloWire":
+        return HaloWire(*(None if t is None else t.to(device) for t in self))
 
 
 def halo_wire(idx: torch.Tensor, mask: torch.Tensor, n_rows: int) -> HaloWire:
@@ -320,3 +329,76 @@ def halo_exchange(a: torch.Tensor, send: HaloWire, recv: HaloWire,
     if torch.is_grad_enabled() and a.requires_grad:
         return _Exchange.apply(a, send, recv, tuple(rounds))
     return _exchange(a, send, rounds, True)
+
+
+def _exchange_rank(a, wire, rounds, peers, swap, forward: bool):
+    """:func:`_exchange` on one process: ``a`` [N, F] is its own, ``wire``
+    and each round's wires its own slices ([W]), ``peers`` each round's
+    (rank it sends to, rank it receives from).  Forward: send the round's
+    rows to the receiver, unpack-add what the sender sent through the
+    round's recv wire.  Backward (``a`` the incoming gradient, ``wire`` the
+    concatenated recv wire): send the round's rows back to the sender,
+    unpack-add what the receiver sends back through the round's send
+    wire."""
+    buf = _pack(a, wire.idx, wire.mask)
+    out = a
+    for rnd, (to, frm) in zip(rounds, peers):
+        lo = rnd.offset
+        hi = lo + rnd.send.idx.shape[-1]
+        if not forward:
+            to, frm = frm, to
+        got = swap(buf[lo:hi] if to is not None else None, to, frm,
+                   (hi - lo, a.shape[1]), a.dtype)
+        if got is not None:
+            w = rnd.recv if forward else rnd.send
+            out = _unpack_add(out, got, w.idx, w.mask, w.inv, a.shape[0])
+    return out.clone() if out is a else out
+
+
+class _RankExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, send, recv, rounds, peers, swap):
+        ctx.recv, ctx.rounds, ctx.peers, ctx.swap = recv, rounds, peers, swap
+        return _exchange_rank(a, send, rounds, peers, swap, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange_rank(g.contiguous(), ctx.recv, ctx.rounds, ctx.peers,
+                               ctx.swap, False), None, None, None, None, None)
+
+
+def halo_exchange_rank(a: torch.Tensor, send: HaloWire, recv: HaloWire,
+                       rounds: Sequence[ExchangeRound],
+                       peers: Sequence[Tuple[Optional[int], Optional[int]]],
+                       swap: Callable) -> torch.Tensor:
+    """The packed neighbor exchange of one rank's aggregate, Eq. 4c-d: the
+    per-process counterpart of :func:`halo_exchange`.
+
+    a: [N, F] float32, this rank's; send / recv: its exchange wires ([W],
+    ``graph.wire("pk_send")`` / ``("pk_recv")`` of a rank-local graph);
+    rounds: each round's :class:`ExchangeRound` with this rank's wires
+    ([W_k]); peers: each round's (rank this one sends to, rank it receives
+    from), None where it does not; ``swap(rows, to, frm, shape, dtype)``
+    sends ``rows`` to rank ``to`` and returns the ``shape`` rows rank
+    ``frm`` sent (None for a missing side).
+
+    One pack launch gathers every round's send rows from the original
+    ``a``; round by round, the round's slice goes to this rank's receiver
+    and the sender's rows are unpack-added into the running result (seeded
+    with ``a``), one launch each.  Each rank's result is bitwise equal to
+    its slice of :func:`halo_exchange`.  Differentiable in ``a``: the
+    backward is the reversed exchange (one pack of the gradient through
+    ``recv``, each round's slice back to its sender, one unpack-add per
+    round through the round's send wire, seeded with the gradient).
+    Returns [N, F]."""
+    if a.dim() != 2 or send.idx.dim() != 1 or recv.idx.shape != send.idx.shape:
+        raise ValueError(f"halo_exchange_rank: expected a [N, F] and wires [W]; got "
+                         f"{tuple(a.shape)}, {tuple(send.idx.shape)}, "
+                         f"{tuple(recv.idx.shape)}")
+    rounds, peers = tuple(rounds), tuple(peers)
+    if len(peers) != len(rounds):
+        raise ValueError(f"halo_exchange_rank: {len(rounds)} rounds, "
+                         f"{len(peers)} peer pairs")
+    if torch.is_grad_enabled() and a.requires_grad:
+        return _RankExchange.apply(a, send, recv, rounds, peers, swap)
+    return _exchange_rank(a, send, rounds, peers, swap, True)

@@ -1,10 +1,11 @@
-"""Training launcher (CLI) on one device: the port of ``repro.launch.train``.
+"""Training launcher (CLI): the port of ``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --elements 4 4 2 --order 3 --steps 200 --model small \
         --mp-backend fused --ckpt /tmp/ckpt            # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-        --elements 2 2 1 --order 2 --steps 3 --batch 1
+        --elements 2 2 1 --order 2 --steps 3 --batch 2 \
+        --ranks 2 1 1 --data-parallel 2                # 4 processes, gloo
 
 SEM mesh -> block partition -> ``ShardedGraph`` on the device -> fused (or
 plain) NMP forward and backward -> Eq. 6 loss -> AdamW -> synchronous
@@ -12,19 +13,54 @@ fingerprinted checkpoints (``--ckpt``), readable by either package.
 ``--rollout-steps K`` (K > 1) trains autoregressively over the model's own
 predictions; ``--pushforward-noise`` adds the detached step-1 noise.
 
-One rank and one data replica only: ``--ranks 1 1 1 --data-parallel 1``.
-What this slice refuses, it refuses naming the slice that brings it: more
-ranks (the ``torch.distributed`` halo), the overlap/auto schedules, bf16,
-multilevel ``--levels``, the spectral partitioner and the resilient
-``--ckpt-dir`` driver.
+``--ranks`` and ``--data-parallel`` other than one process spawn R * D
+processes (``repro_torch.launch.mesh.spawn``), joined by
+``--dist-backend``: gloo (the default; CUDA tensors staged through the
+host, so processes may share a card) or nccl (one card per process).
+``--batch`` must split over the replicas.  Process 0 prints the loss line
+and writes the checkpoints.  What is not ported, the CLI refuses naming the
+slice that brings it: the overlap/auto schedules, bf16, multilevel
+``--levels``, the spectral partitioner and the resilient ``--ckpt-dir``
+mode.
 """
 import argparse
+import math
 
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph_state import NMPPlan
 from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import partition_mesh
+from repro_torch.launch.mesh import BACKENDS, check_backend, make_mesh, spawn
 from repro_torch.train.loop import TrainConfig, train_consistent_gnn
+
+
+def _run(args, mesh=None):
+    sem = box_mesh(tuple(args.elements), p=args.order)
+    pg = partition_mesh(sem, tuple(args.ranks))
+    cfg = GNNConfig.small() if args.model == "small" else GNNConfig.large()
+    tcfg = TrainConfig(n_steps=args.steps, batch=args.batch, lr=args.lr,
+                       halo_mode=args.halo, ckpt_dir=args.ckpt,
+                       ckpt_every=args.ckpt_every,
+                       plan=NMPPlan(backend=args.mp_backend),
+                       rollout_steps=args.rollout_steps,
+                       pushforward_noise=args.pushforward_noise,
+                       partitioner=args.partitioner)
+    hist = train_consistent_gnn(pg, sem, cfg, tcfg, device=args.device, mesh=mesh)
+    if mesh is None or mesh.lead:
+        print(f"loss {hist['losses'][0]:.6f} -> {hist['losses'][-1]:.6f} "
+              f"({len(hist['losses'])} steps, {hist['straggler_events']} "
+              "straggler events)", flush=True)
+    return hist
+
+
+def _process(args):
+    """One process of a multi-process run."""
+    return _run(args, make_mesh(args.data_parallel, _ranks(args),
+                                backend=args.dist_backend, device=args.device))
+
+
+def _ranks(args) -> int:
+    return math.prod(args.ranks)
 
 
 def main(argv=None):
@@ -32,9 +68,11 @@ def main(argv=None):
     ap.add_argument("--elements", type=int, nargs=3, default=[4, 4, 2])
     ap.add_argument("--order", type=int, default=3)
     ap.add_argument("--ranks", type=int, nargs=3, default=[1, 1, 1],
-                    help="rank grid; only 1 1 1 in this slice")
+                    help="rank grid: one process per rank")
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="data replicas; only 1 in this slice")
+                    help="data replicas: R processes each")
+    ap.add_argument("--dist-backend", default="gloo", choices=list(BACKENDS),
+                    help="torch.distributed backend of a multi-process run")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--lr", type=float, default=2e-3)
@@ -65,12 +103,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     refusals = (
-        (tuple(args.ranks) != (1, 1, 1),
-         "--ranks other than 1 1 1 needs the torch.distributed halo "
-         "exchange (ROADMAP queue: 'Real torch.distributed halo')"),
-        (args.data_parallel != 1,
-         "--data-parallel > 1 needs torch.distributed "
-         "(ROADMAP queue: 'Real torch.distributed halo')"),
         (args.mp_schedule != "blocking",
          f"--mp-schedule {args.mp_schedule} is not ported "
          "(ROADMAP queue: 'Overlap schedule')"),
@@ -95,25 +127,27 @@ def main(argv=None):
     if args.pushforward_noise and args.rollout_steps == 1:
         ap.error("--pushforward-noise needs --rollout-steps > 1 (one-step "
                  "training never feeds predictions back)")
+    if min(args.ranks) < 1 or args.data_parallel < 1:
+        ap.error("--ranks and --data-parallel must be >= 1")
+    if args.batch % args.data_parallel:
+        ap.error(f"--batch {args.batch} must split over --data-parallel "
+                 f"{args.data_parallel} replicas")
+    nprocs = _ranks(args) * args.data_parallel
+    if nprocs > 1:
+        try:
+            check_backend(args.dist_backend, args.device, nprocs)
+        except (ValueError, RuntimeError) as err:
+            ap.error(str(err))
 
     sem = box_mesh(tuple(args.elements), p=args.order)
-    pg = partition_mesh(sem, tuple(args.ranks))
-    cfg = GNNConfig.small() if args.model == "small" else GNNConfig.large()
     print(f"mesh: {sem.n_elem} elems p={args.order} ({sem.n_nodes} nodes); "
-          f"R=1 on {args.device}; backend={args.mp_backend}; "
-          f"rollout K={args.rollout_steps}")
-    tcfg = TrainConfig(n_steps=args.steps, batch=args.batch, lr=args.lr,
-                       halo_mode=args.halo, ckpt_dir=args.ckpt,
-                       ckpt_every=args.ckpt_every,
-                       plan=NMPPlan(backend=args.mp_backend),
-                       rollout_steps=args.rollout_steps,
-                       pushforward_noise=args.pushforward_noise,
-                       partitioner=args.partitioner)
-    hist = train_consistent_gnn(pg, sem, cfg, tcfg, device=args.device)
-    print(f"loss {hist['losses'][0]:.6f} -> {hist['losses'][-1]:.6f} "
-          f"({len(hist['losses'])} steps, {hist['straggler_events']} "
-          "straggler events)")
-    return hist
+          f"R={_ranks(args)} x DP={args.data_parallel} on {args.device}"
+          + (f" ({nprocs} processes, {args.dist_backend})" if nprocs > 1 else "")
+          + f"; backend={args.mp_backend}; rollout K={args.rollout_steps}", flush=True)
+    if nprocs == 1:
+        return _run(args)
+    return spawn(_process, nprocs, args, backend=args.dist_backend,
+                 device=args.device)[0]
 
 
 if __name__ == "__main__":

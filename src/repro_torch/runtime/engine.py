@@ -31,8 +31,9 @@ engine's ``GNNConfig``, and refuses requests or mesh registrations whose
 hashes.  A corrupted newest checkpoint falls back to the previous
 committed step.
 
-This slice serves one rank on one device (halo mode none); multi-rank
-serving needs the ``torch.distributed`` exchange of a later slice.
+This slice serves one rank on one device (halo mode none); serving a
+multi-rank partition (requests fanned out to the processes of a mesh)
+is a later slice.
 """
 from __future__ import annotations
 

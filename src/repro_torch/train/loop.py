@@ -15,12 +15,17 @@ with ``ckpt_dir``, a synchronous checkpoint ``{"params", "opt", "rng"}``
 with the run fingerprint and the loss history in its manifest — the tree
 and manifest ``repro`` writes, so either package restores it.
 
-One device only: a partition of R > 1 ranks needs the ``torch.distributed``
-halo exchange (a later slice) and raises, as do ``resilience=`` (the
-elastic driver and ``AsyncCheckpointer`` are a later slice), schedules
-other than ``blocking`` and multilevel configs.  ``mesh_fingerprint_hash``
-hashes the global mesh exactly as the reference does, so a checkpoint
-written by either package names the same mesh.
+A partition of R > 1 ranks, and data parallelism, run one process per
+(replica, rank) with ``mesh=`` (``repro_torch.launch.mesh``): each process
+builds its rank's slice of the graph and of its replica's ``B / D``
+samples of each step's batch, the loss is consistent over the graph group
+and averaged over the replicas, the gradients are averaged over every
+process, and every process runs the same AdamW on them; only replica 0,
+rank 0 writes checkpoints.  Without a mesh R > 1 raises, as do
+``resilience=`` (elastic resume and ``AsyncCheckpointer`` are a later
+slice), schedules other than ``blocking`` and multilevel configs.
+``mesh_fingerprint_hash`` hashes the global mesh exactly as the reference
+does, so a checkpoint written by either package names the same mesh.
 """
 from __future__ import annotations
 
@@ -72,15 +77,19 @@ class TrainConfig:
 
 
 def make_tgv_batch_fn(pg: PartitionedGraphs, mesh_sem: SEMMesh, batch: int,
-                      dt: float = 0.05):
+                      dt: float = 0.05, samples=None, rank=None):
     """Deterministic Taylor-Green snapshot batches keyed by step: numpy
-    [B, R, N_pad, F] (autoencoding target = input)."""
+    [B, R, N_pad, F] (autoencoding target = input).  One process's share:
+    ``samples`` (indices into the batch of ``batch``) and ``rank`` (R = 1:
+    that rank's rows), each sample the same as in the whole batch."""
+    samples = range(batch) if samples is None else samples
+
     def batch_fn(step: int):
         xs = []
-        for b in range(batch):
+        for b in samples:
             t = (step * batch + b) * dt % 2.0
             xs.append(gather_node_features(
-                pg, taylor_green_velocity(mesh_sem.coords, t=t)))
+                pg, taylor_green_velocity(mesh_sem.coords, t=t), rank))
         return np.stack(xs)
     return batch_fn
 
@@ -144,16 +153,27 @@ def _to_device(arrays, device):
                  for a in arrays)
 
 
-def _build_execution(pg, sem_mesh, cfg, tcfg, device):
-    """Everything a training step needs for this partition: the plan (halo
-    spec from the partition), the graph on ``device``, the optimizer, and
-    per-step batch / gradient closures."""
-    if pg.R != 1:
-        raise NotImplementedError(
-            f"training on {pg.R} ranks needs the torch.distributed halo "
-            "exchange (ROADMAP queue: 'Real torch.distributed halo and "
-            "core/distributed.py'), which is not ported yet; partition with "
-            "ranks (1, 1, 1)")
+def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None):
+    """Everything a training step needs for this partition (this process's
+    share of it, under ``mesh``): the plan (halo spec from the partition),
+    the graph on ``device``, the optimizer, and per-step batch / gradient
+    closures."""
+    if mesh is None and pg.R != 1:
+        raise ValueError(
+            f"training on {pg.R} ranks needs a mesh: run one process per "
+            "rank (repro_torch.launch.mesh.spawn + make_mesh) and pass mesh=, "
+            "or partition with ranks (1, 1, 1)")
+    share = {}
+    if mesh is not None:
+        if mesh.graph != pg.R:
+            raise ValueError(f"the partition has {pg.R} ranks, the mesh's "
+                             f"graph axis {mesh.graph}")
+        if tcfg.batch % mesh.data:
+            raise ValueError(f"batch {tcfg.batch} does not split over "
+                             f"{mesh.data} data replicas")
+        n = tcfg.batch // mesh.data
+        share = {"samples": range(mesh.replica * n, (mesh.replica + 1) * n),
+                 "rank": mesh.rank}
     if tcfg.resilience is not None:
         raise NotImplementedError(
             "resilience= (run_resilient, AsyncCheckpointer, elastic resume) "
@@ -167,7 +187,8 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device):
         raise NotImplementedError(
             f"schedule {plan.schedule!r} is not ported to repro_torch yet "
             "(ROADMAP queue: 'Overlap schedule'); use 'blocking'")
-    graph = ShardedGraph.build(pg, sem_mesh.coords, plan, device=device)
+    graph = ShardedGraph.build(pg, sem_mesh.coords, plan, device=device,
+                               rank=None if mesh is None else mesh.rank)
     plan = plan.autotune(graph, hidden=cfg.hidden)
     opt_cfg = AdamWConfig(schedule=constant_lr(tcfg.lr), weight_decay=0.0)
 
@@ -190,10 +211,10 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device):
         def fns(step):
             k = k_for_step(step)
             if k not in fns_by_k:
-                _, rollout_grad = make_rollout_step_fns(cfg, plan, k)
+                _, rollout_grad = make_rollout_step_fns(cfg, plan, k, mesh=mesh)
                 bf = make_tgv_rollout_batch_fn(
                     pg, sem_mesh, tcfg.batch, k, noise_scale=noise_scale,
-                    seed=tcfg.seed)
+                    seed=tcfg.seed, **share)
                 fns_by_k[k] = (rollout_grad, bf)
             return fns_by_k[k]
 
@@ -203,8 +224,8 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device):
         def grad_for_batch(params, step, batch):
             return fns(step)[0](params, *batch, graph)
     else:
-        _, _, grad_step, _ = make_gnn_step_fns(cfg, plan)
-        batch_fn = make_tgv_batch_fn(pg, sem_mesh, tcfg.batch)
+        _, _, grad_step, _ = make_gnn_step_fns(cfg, plan, mesh=mesh)
+        batch_fn = make_tgv_batch_fn(pg, sem_mesh, tcfg.batch, **share)
 
         def k_for_step(step: int) -> int:
             return 1
@@ -228,17 +249,21 @@ def _sync(device):
 
 def train_consistent_gnn(pg: PartitionedGraphs, sem_mesh: SEMMesh,
                          cfg: GNNConfig, tcfg: TrainConfig, params=None,
-                         device="cuda") -> dict:
-    """Full training run on one device; returns the history.
+                         device="cuda", mesh=None) -> dict:
+    """Full training run of this process; returns the history.
 
     ``params`` (optional) is the starting parameter tree (tensors or numpy,
     e.g. another package's weights); by default they are drawn from
-    ``tcfg.seed``.  History: ``losses`` per step, ``rollout_k`` per step,
-    ``schedule``, ``straggler_events``, final ``params``, and the host
+    ``tcfg.seed``.  ``mesh``: this process's ``(data, graph)`` mesh
+    (module docstring; ``device`` is then the mesh's), or None for one
+    rank on ``device``.  History: ``losses`` per step, ``rollout_k`` per
+    step, ``schedule``, ``straggler_events``, final ``params``, and the host
     seconds per step: ``batch_s`` (host batch build + copy to the device)
     and ``step_s`` (the whole step, ending in a device synchronisation).
     """
-    ex = _build_execution(pg, sem_mesh, cfg, tcfg, device)
+    if mesh is not None:
+        device = mesh.device
+    ex = _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh)
     fp = run_fingerprint(sem_mesh, pg, cfg, tcfg, ex.plan)
     state = _init_state(cfg, tcfg, ex.opt_cfg, params=params, device=device)
     params, opt_state = state["params"], state["opt"]
@@ -258,8 +283,8 @@ def train_consistent_gnn(pg: PartitionedGraphs, sem_mesh: SEMMesh,
         history["batch_s"].append(t1 - t0)
         history["step_s"].append(time.perf_counter() - t0)
         history["rollout_k"].append(ex.k_for_step(step))
-        if tcfg.ckpt_dir and (step % tcfg.ckpt_every == 0
-                              or step == tcfg.n_steps - 1):
+        if tcfg.ckpt_dir and (mesh is None or mesh.lead) and (
+                step % tcfg.ckpt_every == 0 or step == tcfg.n_steps - 1):
             ckpt.save(tcfg.ckpt_dir, step,
                       {"params": params, "opt": opt_state, "rng": state["rng"]},
                       extra={"reason": "periodic", "fingerprint": fp,

@@ -938,3 +938,47 @@ def test_halo_exchange_on_card_launches_and_bitwise(cuda):
     yc, gc, delta = run("cpu", cpu_graph)
     assert delta == {hp.PACK: 0, hp.UNPACK: 0}
     assert torch.equal(y.cpu(), yc) and torch.equal(gx.cpu(), gc)
+
+
+@pytest.mark.gpu
+def test_distributed_step_on_card_bitwise_stacked(cuda):
+    """4 gloo processes sharing the card (``launch/consistency.py``): each
+    rank's exchange of a seeded aggregate, its gradient and its forward
+    bitwise equal to the stacked emulator's rank slice on the card, and
+    each process's launches per packed forward exactly one pack and one
+    unpack-add per round it receives in, per layer."""
+    from repro_torch.launch import consistency as cons
+    cfg = GNNConfig.small()
+    job = cons.Job(elements=(4, 4, 2), order=3, cfg=cfg, device="cuda",
+                   backends=(FUSED,), modes=("packed", "a2a"), halo=True)
+    procs = cons.run_world(job, 4)
+    sem = box_mesh(job.elements, p=job.order)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=cuda)
+    for grid, data in cons.CASES[4]:
+        pg = partition_mesh(sem, grid)
+        case = cons.case_name(grid, data)
+        a = torch.from_numpy(cons.seeded(1, (pg.R, pg.n_pad, cfg.hidden))).to(cuda)
+        w = torch.from_numpy(cons.seeded(2, a.shape)).to(cuda)
+        x = torch.from_numpy(gather_node_features(pg, taylor_green_velocity(sem.coords)))
+        for mode in ("packed", "a2a"):
+            plan = cons.plan_for(pg, mode, FUSED)
+            g = ShardedGraph.build(pg, sem.coords, plan, device=cuda)
+            xa = a.clone().requires_grad_(True)
+            y = halo_sync_stacked(xa, g, plan.halo)
+            (ga,) = torch.autograd.grad(y, xa, w)
+            with torch.no_grad():
+                pred = gnn_forward_stacked(params, x.to(cuda), g, plan,
+                                           sync_fn=halo_sync_stacked)
+            rounds = [sum(1 for _, d in perm if d == r) for perm in plan.halo.perms
+                      for r in range(pg.R)]
+            for p in procs:
+                r, rec = p[case]["rank"], p[case]
+                assert np.array_equal(rec["halo"][mode]["out"], y[r].detach().cpu().numpy())
+                if mode == "packed":
+                    assert np.array_equal(rec["halo"][mode]["grad"], ga[r].cpu().numpy())
+                    got = rec["steps"][(FUSED, mode)]["fwd_launches"]
+                    recv = sum(rounds[k * pg.R + r] for k in range(len(plan.halo.perms)))
+                    assert got == {"nmp_fwd": cfg.n_mp_layers, hp.PACK: cfg.n_mp_layers,
+                                   hp.UNPACK: cfg.n_mp_layers * recv}
+                assert np.array_equal(rec["steps"][(FUSED, mode)]["pred"][0, 0],
+                                      pred[r].cpu().numpy())
