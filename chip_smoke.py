@@ -45,26 +45,46 @@ Phases (one line each, prefixed ``[n name]``):
                  against plain (time and bound), and one launch-counted
                  call of fused_edge_mlp_agg (phase_segment_agg runs alone)
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
-                 (2x2 grid) under the packed neighbor exchange and the A2A
-                 oracle, and fused vs the plain backend at R=1; the R=4
-                 forward's launches checked exactly
+                 (2x2 grid) under the packed neighbor exchange (blocking and
+                 overlap schedules) and the A2A oracle, overlap vs blocking
+                 (bitwise reported), and fused vs the plain backend at R=1;
+                 each R=4 packed forward's launches checked exactly
   3b gradients   stacked loss and parameter gradients, same mesh: R=1 vs
-                 R=4 packed neighbor (fused), and fused vs plain at R=4; the
-                 R=4 gradient run's launches checked exactly
+                 R=4 packed neighbor (fused, both schedules), and fused vs
+                 plain at R=4; each R=4 gradient run's launches checked
+                 exactly
   3c distributed 4 gloo processes sharing the card
                  (``repro_torch.launch.consistency``): the 2x2 split through
                  the real torch.distributed exchange (packed neighbor, a2a,
-                 none), each rank's prediction bitwise equal to its slice of
-                 phase 3's stacked forward, loss and gradients within the
-                 bands of 3b's R=1, every process's launches checked
+                 none) under the blocking and the overlap schedule, each
+                 rank's prediction bitwise equal to its slice of phase 3's
+                 stacked forward of the same schedule, loss and gradients
+                 within the bands of 3b's R=1, every process's launches and
+                 exchanges (posted forward, blocking gradient) checked
                  exactly, rank 0's CUDA-event times and host ms per
-                 exchange (staging copies, gloo transfer); then 3 training
-                 steps at (2,1,1) x 2 replicas, batch 2, step 0 against an
-                 R=1 run and the parameters bitwise equal everywhere
+                 exchange (stream sync, staging copies, gloo calls, wait)
+                 under each schedule; then 3 training steps at (2,1,1) x 2
+                 replicas, batch 2, step 0 against an R=1 run and the
+                 parameters bitwise equal everywhere
   4 serve        fingerprinted checkpoint of seeded random large params,
                  InferenceEngine(batch_slots=4, rollout_steps=2), >=16
                  streamed Taylor-Green requests, each bitwise equal to the
                  engine's offline batch-1 reference
+  4b serve R=4   the same checkpoint and mesh served by the engine over 4
+                 gloo processes sharing the card (``launch/serve.py``),
+                 split (2,2,1), packed neighbor, under the overlap and the
+                 blocking schedule: 16 requests from 2 producers, each
+                 bitwise equal to the offline reference, two against phase
+                 4's R=1 (the first rollout step within the reference
+                 serving check's band 3e-4 / 1e-5, the second within twice the
+                 R=1 plain backend's drift from it), one
+                 request's rows of every rank bitwise equal to the stacked
+                 overlap rollout, a mismatched mesh refused by name, a dying
+                 producer ending every process, launches per process exact;
+                 latency, req/s, build time, peak memory per process and
+                 rank 0's host ms per exchange (four processes share the
+                 card: a check of the path, not a scaling number); then
+                 ``launch/serve.py --ranks 2`` on a small mesh
   5 profile      where one served forward's time goes, on the engine's own
                  graph and params: CUDA-event times per stage, device busy
                  share and the top kernels under torch.profiler, and the
@@ -107,12 +127,15 @@ The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — one full-width call of
 fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
 forward (phase 3; exactly 16 fused forwards, 4 exchange packs, 48
-unpack-adds), the R=4 packed-neighbor gradient run (3b; 16 forwards, 16
-backwards, 8 packs, 96 unpack-adds), the distributed R=4 forward and
-gradient run (3c; per process 4 forwards, 4 packs, 12 unpack-adds, and 4
-forwards, 4 backwards, 8 packs, 24 unpack-adds; the paths' counts are the
-sums over the 4 processes), the serve stream
-after warm-up (4), the 10 training steps (6), the K=2 rollout run (6) and
+unpack-adds; 32 / 4 / 48 under the overlap schedule, kernel 1 once per
+side), the R=4 packed-neighbor gradient run (3b; 16 forwards, 16
+backwards, 8 packs, 96 unpack-adds; overlap 32 / 32 / 8 / 96), the
+distributed R=4 forward and gradient run (3c; per process 4 forwards, 4
+packs, 12 unpack-adds, and 4 forwards, 4 backwards, 8 packs, 24
+unpack-adds; overlap 8 / 4 / 12 and 8 / 8 / 8 / 24; the paths' counts are
+the sums over the 4 processes), the serve stream after warm-up (4), the
+R=4 serve streams (4b; the lead's launches, every process's checked
+against its batches), the 10 training steps (6), the K=2 rollout run (6) and
 each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
@@ -1047,6 +1070,17 @@ def check_launches(phase, path, got, want):
         raise RuntimeError(f"launch counts on {path}: (got, expected) {bad}")
 
 
+# exact launches of the stacked R=4 packed-neighbor paths on the 2x2 split,
+# M=4 layers: kernel 1 once per rank and layer (twice under the overlap
+# schedule: the boundary side, then the interior side), kernel 4 once per
+# exchange, kernel 5 once per round and receiver (3 x 4); the gradient run
+# adds the reversed exchanges and kernel 2 per kernel 1
+CONS_FWD = {"nmp_fwd": 16, "halo_pack": 4, "halo_unpack_add": 48}
+CONS_FWD_OVERLAP = {"nmp_fwd": 32, "halo_pack": 4, "halo_unpack_add": 48}
+CONS_GRAD = {"nmp_fwd": 16, "nmp_bwd": 16, "halo_pack": 8, "halo_unpack_add": 96}
+CONS_GRAD_OVERLAP = {"nmp_fwd": 32, "nmp_bwd": 32, "halo_pack": 8, "halo_unpack_add": 96}
+
+
 def phase_consistency(cfg):
     import torch
     from repro_torch.core.gnn import init_gnn
@@ -1063,26 +1097,31 @@ def phase_consistency(cfg):
     sem = box_mesh(CONS_ELEMS, p=ORDER)
     x = taylor_green_velocity(sem.coords)
 
-    def run(grid, mode, backend, packed=False, sync_fn=None, per_rank=None):
+    def run(grid, mode, backend, packed=False, sync_fn=None, per_rank=None, key=None,
+            schedule="blocking"):
         pg = partition_mesh(sem, grid)
-        plan = NMPPlan.build(pg, mode, packed=packed, backend=backend)
+        plan = NMPPlan.build(pg, mode, packed=packed, backend=backend, schedule=schedule)
         g = ShardedGraph.build(pg, sem.coords, plan, device=dev)
         xs = torch.from_numpy(gather_node_features(pg, x)).to(dev)
         y = gnn_forward_stacked(params, xs, g, plan, sync_fn=sync_fn).cpu().numpy()
         if per_rank is not None:
-            per_rank[mode] = y
+            per_rank[key or mode] = y
         return torch.from_numpy(scatter_node_outputs(pg, y))
 
     y1 = run((1, 1, 1), NONE, FUSED)
-    per_rank = {}
-    build.reset_launch_counts()
-    y4 = run(CONS_GRID, NEIGHBOR, FUSED, packed=True, sync_fn=halo_sync_stacked,
-             per_rank=per_rank)
-    launches = dict(build.launch_counts)
-    check_launches("3 consistency", "the R=4 packed neighbor forward", launches,
-                   {"nmp_fwd": 16, "halo_pack": 4, "halo_unpack_add": 48})
+    per_rank, launches, y4 = {}, {}, {}
+    for schedule, want in (("blocking", CONS_FWD), ("overlap", CONS_FWD_OVERLAP)):
+        build.reset_launch_counts()
+        y4[schedule] = run(CONS_GRID, NEIGHBOR, FUSED, packed=True,
+                           sync_fn=halo_sync_stacked, per_rank=per_rank,
+                           key="neighbor" if schedule == "blocking" else schedule,
+                           schedule=schedule)
+        launches[schedule] = dict(build.launch_counts)
+        check_launches("3 consistency", f"the R=4 packed neighbor forward, {schedule}",
+                       launches[schedule], want)
     cases = {
-        "R=4 packed neighbor (pack/unpack kernels)": y4,
+        "R=4 packed neighbor (pack/unpack kernels)": y4["blocking"],
+        "R=4 packed neighbor, overlap schedule": y4["overlap"],
         "R=4 a2a oracle": run(CONS_GRID, A2A, FUSED),
         "R=4 a2a, per-rank order": run(CONS_GRID, A2A, FUSED, sync_fn=halo_sync_stacked,
                                        per_rank=per_rank),
@@ -1097,7 +1136,14 @@ def phase_consistency(cfg):
             f"(rtol {RTOL} atol {ATOL}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"consistency failed: R=1 vs {name}")
-    return launches, per_rank
+    yo, yb = per_rank["overlap"], per_rank["neighbor"]
+    err, ok = within_band(torch.from_numpy(yo), torch.from_numpy(yb))
+    say("3 consistency", f"R=4 packed neighbor, overlap vs blocking schedule (every "
+        f"rank's padded rows): max|err| {err:.3g} (rtol {RTOL} atol {ATOL}), bitwise "
+        f"{np.array_equal(yo, yb)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("consistency failed: overlap vs blocking at R=4")
+    return launches["blocking"], launches["overlap"], per_rank
 
 
 def phase_grad_consistency(cfg):
@@ -1116,9 +1162,9 @@ def phase_grad_consistency(cfg):
     x = taylor_green_velocity(sem.coords)
     y = taylor_green_velocity(sem.coords, t=DT)
 
-    def prepare(grid, mode, backend, packed=False):
+    def prepare(grid, mode, backend, packed=False, schedule="blocking"):
         pg = partition_mesh(sem, grid)
-        plan = NMPPlan.build(pg, mode, packed=packed, backend=backend)
+        plan = NMPPlan.build(pg, mode, packed=packed, backend=backend, schedule=schedule)
         g = ShardedGraph.build(pg, sem.coords, plan, device=dev)
         xs, ys = (torch.from_numpy(gather_node_features(pg, f)).to(dev) for f in (x, y))
         return xs, ys, g, plan
@@ -1129,17 +1175,23 @@ def phase_grad_consistency(cfg):
                                      sync_fn=sync_fn)
 
     l1, _, g1 = grad(prepare((1, 1, 1), NONE, FUSED))
-    r4 = prepare(CONS_GRID, NEIGHBOR, FUSED, packed=True)
-    build.reset_launch_counts()
-    l4, _, g4 = grad(r4, halo_sync_stacked)
-    torch.cuda.synchronize()
-    launches = dict(build.launch_counts)
-    check_launches("3b gradients", "the R=4 packed neighbor gradient run", launches,
-                   {"nmp_fwd": 16, "nmp_bwd": 16, "halo_pack": 4 + 4,
-                    "halo_unpack_add": 48 + 48})
+    launches, runs = {}, {}
+    for schedule, want in (("blocking", CONS_GRAD), ("overlap", CONS_GRAD_OVERLAP)):
+        r4 = prepare(CONS_GRID, NEIGHBOR, FUSED, packed=True, schedule=schedule)
+        build.reset_launch_counts()
+        l4, _, g4 = grad(r4, halo_sync_stacked)
+        torch.cuda.synchronize()
+        launches[schedule] = dict(build.launch_counts)
+        check_launches("3b gradients", f"the R=4 packed neighbor gradient run, {schedule}",
+                       launches[schedule], want)
+        runs[schedule] = (l4, g4)
+        del r4
     lx, _, gx = grad(prepare(CONS_GRID, NEIGHBOR, XLA, packed=True), halo_sync_stacked)
+    l4, g4 = runs["blocking"]
     for name, (la, ga), (lb, gb) in (
             ("fused R=1 vs R=4 packed neighbor", (l4, g4), (l1, g1)),
+            ("fused R=1 vs R=4 packed neighbor, overlap schedule", runs["overlap"],
+             (l1, g1)),
             ("R=4 packed neighbor, fused vs plain backend", (l4, g4), (lx, gx))):
         rel = abs(float(la) - float(lb)) / abs(float(lb))
         err, by_norm, ok = grads_close(ga, gb)
@@ -1150,23 +1202,30 @@ def phase_grad_consistency(cfg):
             + f" -> {'ok' if ok and rel <= LOSS_REL else 'FAIL'}")
         if not (ok and rel <= LOSS_REL):
             raise RuntimeError(f"gradient consistency failed: {name}")
-    return launches, (float(l1), g1)
+    return launches["blocking"], launches["overlap"], (float(l1), g1)
 
 
+# per process of phase 3c (one rank of the 2x2 split): the stacked counts
+# over 4; the forward's exchanges posted, the gradient run's blocking
 DIST_FWD = {"nmp_fwd": 4, "halo_pack": 4, "halo_unpack_add": 12}
 DIST_GRAD = {"nmp_fwd": 4, "nmp_bwd": 4, "halo_pack": 8, "halo_unpack_add": 24}
+DIST_FWD_OVERLAP = {"nmp_fwd": 8, "halo_pack": 4, "halo_unpack_add": 12}
+DIST_GRAD_OVERLAP = {"nmp_fwd": 8, "nmp_bwd": 8, "halo_pack": 8, "halo_unpack_add": 24}
 DIST_TIMING, DIST_TRAIN_STEPS = 5, 3
 
 
 def phase_distributed(cfg, stacked, r1, smi):
     """4 gloo processes sharing the card (``launch/consistency.py``): (a)
-    the (2,2,1) split, packed neighbor and a2a, each rank's prediction
-    bitwise equal to its slice of phase 3's stacked forward, loss and
-    gradients within the bands of phase 3b's R=1, launches per process
-    exactly DIST_FWD / DIST_GRAD; (b) 3 training steps at (2,1,1) x 2,
-    batch 2, whose step 0 matches an R=1 run's and whose parameters end
-    bitwise equal on every process.  Returns the summed launches of the
-    forward and of the gradient run."""
+    the (2,2,1) split, packed neighbor and a2a, under the blocking and the
+    overlap schedule, each rank's prediction bitwise equal to its slice of
+    phase 3's stacked forward of the same schedule, loss and gradients
+    within the bands of phase 3b's R=1, launches per process exactly
+    DIST_* and the exchanges each run took (the forward posts, the
+    overlap's after queueing the interior side; the gradient run finishes
+    each at once);
+    (b) 3 training steps at (2,1,1) x 2, batch 2, whose step 0 matches an
+    R=1 run's and whose parameters end bitwise equal on every process.
+    Returns the summed launches of each path."""
     import torch
     from repro_torch.core.graph_state import FUSED, NMPPlan
     from repro_torch.core.halo import HaloSpec
@@ -1178,53 +1237,76 @@ def phase_distributed(cfg, stacked, r1, smi):
     t0 = time.perf_counter()
     job = cons.Job(elements=CONS_ELEMS, order=ORDER, cfg=cfg, device="cuda",
                    backends=(FUSED,), modes=("packed", "a2a", "none"),
-                   cases=((CONS_GRID, 1),), timing=DIST_TIMING,
-                   train_steps=DIST_TRAIN_STEPS)
+                   schedules=("blocking", "overlap"), cases=((CONS_GRID, 1),),
+                   timing=DIST_TIMING, train_steps=DIST_TRAIN_STEPS)
     procs = cons.run_world(job, 4)
     wall = time.perf_counter() - t0
     case = cons.case_name(CONS_GRID, 1)
     l1 = r1[0]
     base = (l1, [t.cpu().numpy() for t in _leaves(r1[1])])
-    loss = {}
-    for mode, stacked_mode in (("packed", "neighbor"), ("a2a", "a2a"), ("none", None)):
-        recs = [p[case]["steps"][(FUSED, mode)] for p in procs]
-        loss[mode] = float(recs[0]["loss"])
-        line = cons.check_step(recs, base, mode, w_rel=W_REL)
-        if stacked_mode is not None:
-            bitwise = all(np.array_equal(r["pred"][0, 0],
-                                         stacked[stacked_mode][p[case]["rank"]])
-                          for r, p in zip(recs, procs))
-            line = (f"every rank's prediction bitwise equal to its stacked slice: "
-                    f"{bitwise} | {line}")
-        say("3c distributed", f"4 gloo processes on one card, {CONS_ELEMS} p={ORDER}, "
-            f"{CONS_GRID} split, large config, fused, R=1 loss {l1:.8g}: {line}")
-        if stacked_mode is not None and not bitwise:
-            raise RuntimeError(f"distributed {mode} forward != the stacked forward")
-    say("3c distributed", cons.check_agree(loss) + " -> ok")
+    layers = cfg.n_mp_layers
+    sem = box_mesh(CONS_ELEMS, p=ORDER)
     sums = {}
-    for key, run, want in (("fwd_launches", "forward", DIST_FWD),
-                           ("grad_launches", "gradient run", DIST_GRAD)):
-        total = {}
-        for w, p in enumerate(procs):
-            got = p[case]["steps"][(FUSED, "packed")][key]
-            check_launches("3c distributed", f"process {w}'s packed {run}", got, want)
-            for k, v in got.items():
-                total[k] = total.get(k, 0) + v
-        say("3c distributed", f"launches summed over the 4 processes, packed {run}: "
-            f"{total}")
-        sums[key] = total
-    t = procs[0][case]["steps"][(FUSED, "packed")]
+    for schedule in ("blocking", "overlap"):
+        key = cons.steps_key(schedule)
+        loss = {}
+        for mode, stacked_mode in (("packed", "neighbor"), ("a2a", "a2a"), ("none", None)):
+            if schedule == "overlap" and stacked_mode is not None:
+                stacked_mode = "overlap" if mode == "packed" else None
+            recs = [p[case][key][(FUSED, mode)] for p in procs]
+            loss[mode] = float(recs[0]["loss"])
+            line = cons.check_step(recs, base, mode, w_rel=W_REL)
+            if stacked_mode is not None:
+                bitwise = all(np.array_equal(r["pred"][0, 0],
+                                             stacked[stacked_mode][p[case]["rank"]])
+                              for r, p in zip(recs, procs))
+                line = (f"every rank's prediction bitwise equal to its stacked slice: "
+                        f"{bitwise} | {line}")
+            say("3c distributed", f"4 gloo processes on one card, {CONS_ELEMS} p={ORDER}, "
+                f"{CONS_GRID} split, large config, fused, {schedule}, R=1 loss {l1:.8g}: "
+                f"{line}")
+            if stacked_mode is not None and not bitwise:
+                raise RuntimeError(f"distributed {mode} {schedule} forward != the "
+                                   "stacked forward")
+        say("3c distributed", f"{schedule}: " + cons.check_agree(loss) + " -> ok")
+        fwd, grad = ((DIST_FWD, DIST_GRAD) if schedule == "blocking"
+                     else (DIST_FWD_OVERLAP, DIST_GRAD_OVERLAP))
+        for name, run, want, exchanges in (
+                ("fwd_launches", "forward", fwd,
+                 {"posted": layers, "overlapped": layers if schedule == "overlap" else 0}),
+                ("grad_launches", "gradient run", grad,
+                 {"posted": 2 * layers, "overlapped": 0})):
+            total = {}
+            for w, p in enumerate(procs):
+                rec = p[case][key][(FUSED, "packed")]
+                check_launches("3c distributed", f"process {w}'s packed {schedule} {run}",
+                               rec[name], want)
+                got = rec[name.replace("launches", "exchanges")]
+                if got != exchanges:
+                    raise RuntimeError(f"process {w}'s packed {schedule} {run} took "
+                                       f"exchanges {got}, expected {exchanges}")
+                for k, v in rec[name].items():
+                    total[k] = total.get(k, 0) + v
+            say("3c distributed", f"launches summed over the 4 processes, packed "
+                f"{schedule} {run}: {total}; exchanges per process {exchanges} "
+                "(posted: every round issued at once, then waited; overlapped: "
+                "finished after the interior side was queued)")
+            sums[(schedule, name)] = total
+    times = {sch: procs[0][case][cons.steps_key(sch)][(FUSED, "packed")]
+             for sch in ("blocking", "overlap")}
     say("3c distributed", f"{smi} | 4 processes share one card (gloo through the host: "
         f"a check of the path, not a scaling number); rank 0 by CUDA events, median of "
-        f"{DIST_TIMING}: forward {t['fwd_ms']:.3f} ms, gradient step {t['grad_ms']:.3f} "
-        f"ms; per exchange (host) staging copies {t['stage_ms_per_exchange']:.3f} ms, "
-        f"gloo transfer {t['wire_ms_per_exchange']:.3f} ms; staged "
-        f"{t['staged_bytes_per_layer']:.0f} B per layer; spawn + all of (a), (b) "
-        f"{wall:.1f} s")
+        f"{DIST_TIMING}: " + "; ".join(
+            f"{sch}: forward {t['fwd_ms']:.3f} ms, gradient step {t['grad_ms']:.3f} ms, "
+            f"per exchange (host) stream sync {t['sync_ms_per_exchange']:.3f} ms, staging "
+            f"copies {t['stage_ms_per_exchange']:.3f} ms, gloo calls "
+            f"{t['wire_ms_per_exchange']:.3f} ms, blocked in the wait "
+            f"{t['wait_ms_per_exchange']:.3f} ms" for sch, t in times.items())
+        + f"; staged {times['blocking']['staged_bytes_per_layer']:.0f} B per layer; "
+        f"spawn + all of (a), (b) {wall:.1f} s")
 
     # (b) against one rank's first step on the same batch
     train = [p["train"] for p in procs]
-    sem = box_mesh(CONS_ELEMS, p=ORDER)
     tcfg = TrainConfig(n_steps=1, batch=cons.TRAIN_BATCH, lr=1e-3, seed=cons.SEED,
                        plan=NMPPlan(halo=HaloSpec(mode="neighbor", packed=True),
                                     backend=FUSED))
@@ -1244,7 +1326,10 @@ def phase_distributed(cfg, stacked, r1, smi):
     if not good:
         raise RuntimeError("distributed training disagrees across processes or with R=1")
     torch.cuda.empty_cache()
-    return sums["fwd_launches"], sums["grad_launches"]
+    return {"dist_r4_packed": sums[("blocking", "fwd_launches")],
+            "dist_r4_grad": sums[("blocking", "grad_launches")],
+            "dist_r4_overlap": sums[("overlap", "fwd_launches")],
+            "dist_r4_overlap_grad": sums[("overlap", "grad_launches")]}
 
 
 def _leaves(tree):
@@ -1306,8 +1391,287 @@ def phase_serve(cfg, sem, pg, smi):
         f"{np.percentile(lat, 95):.1f} ms, {N_REQUESTS / wall:.2f} req/s | peak "
         f"device memory {peak / 2**30:.2f} GiB | host graph build {build_s:.1f} s | "
         f"{smi}")
+    return engine, mesh_hash, launches, ckdir
+
+
+# phase 4b: the serving mesh split (2,2,1) over 4 gloo processes sharing
+# the card, packed neighbor, fused; both schedules (overlap first)
+SERVE_GRID, SERVE_SCHEDULES = (2, 2, 1), ("overlap", "blocking")
+SERVE_BAND = (3e-4, 1e-5)            # tests/drivers/serve_driver.py:125
+# at later rollout steps the large config's random weights amplify fp32
+# noise past that band between any two correct paths (R=1 plain vs fused:
+# 63,923 elements outside at step 1): a later step outside the band is held
+# to at most this multiple of the plain backend's distance (max |err| and
+# rel L2) from the fused one at R=1
+SERVE_DRIFT_FACTOR = 2.0
+FOLLOWER_EXIT_S = 60.0               # a follower's return after the lead's stop
+
+
+def phase_serve_dist(cfg, sem, engine, mesh_hash, ckdir, smi):
+    """4b: the engine over 4 gloo processes sharing the card
+    (``launch/serve_checks.py`` through ``launch/serve.py::run_world``),
+    phase 4's checkpoint and mesh split SERVE_GRID, under each schedule:
+    every request bitwise equal to the engine's offline reference, two
+    against phase 4's R=1 engine (the first rollout step within
+    SERVE_BAND, every step within SERVE_DRIFT_FACTOR of the R=1 plain
+    backend's drift), one request's rows of every rank bitwise equal to
+    the stacked overlap rollout (``halo_sync_stacked``), a mismatched mesh
+    refused by name, a dying producer ending every process, launches per
+    process exactly batches x slots x K x M x sides kernel-1 launches (one
+    kernel-4 and one kernel-5 per round received per exchange); one
+    overlap layer's device time against a blocking one's, by part
+    (:func:`overlap_breakdown`); then the serve CLI at ``--ranks 2``.
+    Returns the lead's stream launches per schedule."""
+    import torch
+    from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, ShardedGraph
+    from repro_torch.core.halo import NEIGHBOR, halo_sync_stacked
+    from repro_torch.core.partition import (
+        gather_node_features, partition_mesh, scatter_node_outputs)
+    from repro_torch.core.reference import rollout_stacked
+    from repro_torch.launch import serve, serve_checks
+
+    pg = partition_mesh(sem, SERVE_GRID)
+    plan = NMPPlan.build(pg, NEIGHBOR, packed=True, backend=FUSED, schedule="overlap")
+    pg1 = partition_mesh(sem, (1, 1, 1))
+    plain = NMPPlan(backend=XLA)
+    g1 = ShardedGraph.build(pg1, sem.coords, plain, device="cuda")
+    r1_plain = {}                        # step -> the R=1 plain rollout, scattered
+
+    def plain_rollout(step):
+        if step not in r1_plain:
+            x = torch.from_numpy(gather_node_features(pg1, serve.snapshot(sem, step)))
+            with torch.no_grad():
+                _, y = rollout_stacked(engine.params, x.cuda(),
+                                       torch.zeros((ROLLOUT_K,) + tuple(x.shape),
+                                                   device="cuda"),
+                                       g1, plain, cfg.node_out)
+            r1_plain[step] = np.stack([scatter_node_outputs(pg1, y[k].cpu().numpy())
+                                       for k in range(ROLLOUT_K)])
+        return r1_plain[step]
+    received = [sum(any(d == r for _, d in perm) for perm in plan.halo.perms)
+                for r in range(pg.R)]
+    jobs = [serve_checks.CheckJob(ckpt_dir=str(ckdir), elements=SERVE_ELEMS, order=ORDER,
+                                  rank_grid=SERVE_GRID, requests=N_REQUESTS,
+                                  batch_slots=BATCH_SLOTS, rollout_steps=ROLLOUT_K,
+                                  producers=2, backend=FUSED, schedule=sch,
+                                  halo_mode=NEIGHBOR, packed=True, device="cuda", keep=2,
+                                  rank_preds=1 if sch == "overlap" else 0)
+            for sch in SERVE_SCHEDULES]
+    say("4b serve R=4", f"4 gloo processes share one card: these times check the "
+        f"path and are not a scaling number | {SERVE_ELEMS} p={ORDER} ({sem.n_nodes} "
+        f"nodes) split {SERVE_GRID} ({pg.n_pad} padded nodes per rank), large config, "
+        f"fused, packed neighbor, {BATCH_SLOTS} slots, K={ROLLOUT_K}, {N_REQUESTS} "
+        f"requests from 2 producers, schedules {SERVE_SCHEDULES}")
+    t0 = time.perf_counter()
+    procs = serve_checks.run_checks(*jobs)
+    wall = time.perf_counter() - t0
+    launches, M = {}, cfg.n_mp_layers
+    for i, sch in enumerate(SERVE_SCHEDULES):
+        recs = [p[i] for p in procs]
+        lead = recs[0]
+        if lead["n"] != N_REQUESTS or not lead["bitwise_offline"]:
+            raise RuntimeError(f"{sch}: served {lead['n']} of {N_REQUESTS}, bitwise "
+                               f"offline {lead['bitwise_offline']}")
+        bands, failed = [], []
+        for step, got in lead["preds"].items():
+            want = engine.offline_reference(mesh_hash, serve.snapshot(sem, step))
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise RuntimeError(f"{sch}: request {step} bad prediction {got.shape}")
+            ref = plain_rollout(step)
+            for k in range(ROLLOUT_K):
+                w = torch.from_numpy(want[k])
+                reading = {}
+                for name, y in (("R=4", got[k]), ("R=1 plain", ref[k])):
+                    y = torch.from_numpy(y)
+                    over = (y - w).abs() - SERVE_BAND[1] - SERVE_BAND[0] * w.abs()
+                    reading[name] = (float((y - w).abs().max()), rel_norm(y, w),
+                                     int((over > 0).sum()))
+                (e4, r4, n4), (ep, rp, np_) = reading["R=4"], reading["R=1 plain"]
+                ok = n4 == 0 or (k > 0 and e4 <= SERVE_DRIFT_FACTOR * ep
+                                 and r4 <= SERVE_DRIFT_FACTOR * rp)
+                bands.append(f"request {step} step {k}: R=4 max|err| {e4:.3g}, rel L2 "
+                             f"{r4:.3g}, {n4} of {w.numel()} elements outside the band; "
+                             f"R=1 plain backend {ep:.3g}, {rp:.3g}, {np_} outside")
+                if not ok:
+                    failed.append((step, k))
+        say("4b serve R=4", f"{sch}: against phase 4's R=1 (fused) engine, band "
+            f"{SERVE_BAND} at step 0, later steps in it or within {SERVE_DRIFT_FACTOR}x "
+            f"the R=1 plain backend's drift: {'; '.join(bands)} -> "
+            f"{'ok' if not failed else 'FAIL'}")
+        if failed:
+            raise RuntimeError(f"{sch}: requests and steps {failed} outside the band "
+                               "or past the plain backend's drift")
+        fp_hash, other = engine.fingerprint["mesh_hash"], lead["other_hash"]
+        refused = all(fp_hash in r["refused_registration"]
+                      and other in r["refused_registration"] for r in recs) \
+            and other in lead["refused_submit"] and fp_hash in lead["refused_submit"]
+        exits = [r["followed_until"] - lead["died_at"] for r in recs[1:]]
+        died = ("producer" in lead["producer_error"] and lead["closed"]
+                and lead["drained"] == list(range(serve_checks.DIE_AT))
+                and bool(lead["submit_after_close"])
+                and max(exits) < FOLLOWER_EXIT_S)
+        if not (refused and died):
+            raise RuntimeError(f"{sch}: mismatch refused {refused}, dying producer "
+                               f"handled {died} (follower exits {exits})")
+        sides = 2 if sch == "overlap" else 1
+        for w, r in enumerate(recs):
+            calls = r["stats"]["batches"] * BATCH_SLOTS * ROLLOUT_K * M
+            want = {"nmp_fwd": calls * sides, "halo_pack": calls,
+                    "halo_unpack_add": calls * received[w]}
+            check_launches("4b serve R=4", f"process {w}'s {sch} batches "
+                           f"({r['stats']['batches']})", r["launches"].get("batch", {}),
+                           want)
+        launches[sch] = lead["stream_launches"]
+        tr = lead["transport"]
+        lat = lead["latency_ms"]
+        say("4b serve R=4", f"{sch}: {N_REQUESTS} requests, {lead['stream_stats']['batches']} "
+            f"batches: streamed == offline bitwise for all; mismatched mesh refused by "
+            f"name on every process "
+            f"and at submit; dying producer: drained {lead['drained']}, engine closed, "
+            f"followers returned {max(exits):.2f} s after; lead's stream launches "
+            f"{launches[sch]}; exchanges: posted {tr['posted']}, overlapped "
+            f"{tr['overlapped']}")
+        per_ex = max(tr["posted"], 1)
+        say("4b serve R=4", f"{sch}: latency p50 {np.percentile(lat, 50):.1f} ms, p95 "
+            f"{np.percentile(lat, 95):.1f} ms, {N_REQUESTS / lead['wall_s']:.2f} req/s | "
+            f"host graph build per process {[round(r['build_s'], 2) for r in recs]} s | "
+            f"peak device memory per process "
+            f"{[round(r['peak_bytes'] / 2**30, 2) for r in recs]} GiB | rank 0 per "
+            f"exchange (host): stream sync {1e3 * tr['sync_s'] / per_ex:.3f} ms, staging "
+            f"{1e3 * tr['stage_s'] / per_ex:.3f} ms, gloo calls "
+            f"{1e3 * tr['wire_s'] / per_ex:.3f} ms, wait_s {1e3 * tr['wait_s'] / per_ex:.3f}"
+            f" ms | {smi}")
+
+    # one request's rows of every rank against the stacked overlap rollout
+    lead = procs[0][SERVE_SCHEDULES.index("overlap")]
+    g = ShardedGraph.build(pg, sem.coords, plan, device="cuda")
+    for step, got in lead["rank_preds"].items():
+        x = torch.from_numpy(gather_node_features(pg, serve.snapshot(sem, step))).cuda()
+        with torch.no_grad():
+            _, want = rollout_stacked(engine.params, x,
+                                      torch.zeros((ROLLOUT_K,) + tuple(x.shape),
+                                                  device="cuda"),
+                                      g, plan, cfg.node_out, sync_fn=halo_sync_stacked)
+        want = want.cpu().numpy()
+        same = [bool(np.array_equal(got[:, r], want[:, r])) for r in range(pg.R)]
+        say("4b serve R=4", f"overlap request {step}: each process's rows bitwise equal "
+            f"to its rank's slice of the stacked overlap rollout (packed, "
+            f"halo_sync_stacked, on the card): {same}")
+        if not all(same):
+            raise RuntimeError("the served ranks differ from the stacked overlap rollout")
+    overlap_breakdown(engine.params, g.rank(0), plan, pg,
+                      serve.snapshot(sem, 0), smi)
+    del g, g1
+    torch.cuda.empty_cache()
     shutil.rmtree(ckdir, ignore_errors=True)
-    return engine, mesh_hash, launches
+
+    # the CLI at --ranks 2 on a small mesh, from a bootstrapped checkpoint
+    boot = ROOT / "build" / "chip_smoke_boot_r2"
+    shutil.rmtree(boot, ignore_errors=True)
+    rec = serve.main(["--ckpt-dir", str(boot), "--mesh", "4,4,2", "--p", "2",
+                      "--bootstrap-steps", "2", "--requests", "4", "--batch-slots", "2",
+                      "--device", "cuda", "--ranks", "2", "--schedule", "overlap",
+                      "--halo-mode", "neighbor", "--packed"])
+    shutil.rmtree(boot, ignore_errors=True)
+    if rec["n"] != 4 or rec["transport"]["overlapped"] != rec["transport"]["posted"]:
+        raise RuntimeError(f"serve CLI at --ranks 2: {rec['n']} requests, exchanges "
+                           f"{rec['transport']}")
+    say("4b serve R=4", f"launch/serve.py --ranks 2 --schedule overlap --packed: "
+        f"streamed 4 requests over 2 processes, every exchange overlapped "
+        f"({rec['transport']['overlapped']}) | phase wall {time.perf_counter() - t0:.1f} s "
+        f"(the 4-process spawn and both schedules {wall:.1f} s)")
+    return launches
+
+
+BREAKDOWN_ITERS = 10
+BREAKDOWN_SPIN_MS = 50.0             # the spin kernel the timed calls queue behind
+
+
+def overlap_breakdown(params, g, plan, pg, snapshot, smi):
+    """One NMP layer on one rank's graph ``g`` of the split, without the
+    exchange (the sync is the identity): the blocking layer and its kernel
+    1 on the full layout, against the overlap layer and its parts (kernel
+    1 on each side's layout, the edge join, the aggregate add), and the
+    full-size edge add that the join replaced.  Each part's device ms per
+    call: BREAKDOWN_ITERS calls queued behind a spin kernel, so they run
+    back to back on the card and the events around them hold device time
+    alone (the host's enqueue is checked to end inside the spin); beside
+    it, ms per call issued back to back without the spin (CUDA events:
+    the host's issue time where that is longer)."""
+    import dataclasses
+    import torch
+    from repro_torch import nn
+    from repro_torch.core.consistent_mp import (
+        edge_update_aggregate, edge_update_aggregate_part, join_sides, nmp_layer)
+    from repro_torch.core.gnn import build_edge_inputs
+    from repro_torch.core.graph_state import BLOCKING
+    from repro_torch.core.partition import gather_node_features
+
+    blocking = dataclasses.replace(plan, schedule=BLOCKING)
+    x = torch.from_numpy(gather_node_features(pg, snapshot)[0]).cuda()
+    lp = params["mp"][0]
+    spin0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    probe = torch.cuda.Event(enable_timing=True)
+    probe.record()
+    torch.cuda._sleep(1 << 20)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = (1 << 20) / probe.elapsed_time(end)
+
+    def ident(a):
+        return a
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        spin0.record()
+        torch.cuda._sleep(int(BREAKDOWN_SPIN_MS * cycles_per_ms))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(BREAKDOWN_ITERS):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if enqueue_ms >= spin0.elapsed_time(start):
+            raise RuntimeError(f"the host took {enqueue_ms:.1f} ms to queue the calls, "
+                               "longer than the spin: raise BREAKDOWN_SPIN_MS")
+        return start.elapsed_time(end) / BREAKDOWN_ITERS
+
+    def worst_tile(suffix):
+        """The most nodes one 128-slot tile of the layout walks."""
+        rowptr = g["seg_rowptr" + suffix].cpu().numpy()
+        tiles = max(1, -(-int(rowptr[-1]) // 128))
+        starts = np.searchsorted(rowptr, np.arange(tiles) * 128)
+        return tiles, int(np.diff(np.append(starts, len(rowptr) - 1)).max())
+    with torch.no_grad():
+        h = nn.mlp(params["node_enc"], x) * g["node_mask"][:, None]
+        e = nn.mlp(params["edge_enc"], build_edge_inputs(x, g)) * g["edge_mask"][:, None]
+        e_bnd, agg_bnd = edge_update_aggregate_part(lp, h, e, g, "bnd", plan)
+        e_int, agg_int = edge_update_aggregate_part(lp, h, e, g, "int", plan)
+        scratch = e_int.clone()
+        parts = {
+            "blocking layer": lambda: nmp_layer(lp, h, e, g, blocking, sync_fn=ident),
+            "kernel 1 full layout": lambda: edge_update_aggregate(lp, h, e, g, blocking),
+            "overlap layer": lambda: nmp_layer(lp, h, e, g, plan, sync_fn=ident),
+            "kernel 1 boundary side": lambda: edge_update_aggregate_part(
+                lp, h, e, g, "bnd", plan),
+            "kernel 1 interior side": lambda: edge_update_aggregate_part(
+                lp, h, e, g, "int", plan),
+            "edge join": lambda: join_sides(e_bnd, scratch, g),
+            "aggregate add": lambda: agg_bnd + agg_int,
+            "full-size edge add (replaced by the join)": lambda: e_bnd + e_int}
+        t = {k: (device_ms(fn), cuda_ms(fn, BREAKDOWN_ITERS)) for k, fn in parts.items()}
+    n_bnd = int(g["edge_bnd_valid"].sum())
+    tiles = {part: worst_tile(suffix) for part, suffix in
+             (("full", ""), ("boundary", "_bnd"), ("interior", "_int"))}
+    say("4b serve R=4", f"one NMP layer on rank 0 ({g['edge_mask'].shape[0]} edge slots, "
+        f"{n_bnd} boundary edges), no exchange, {BREAKDOWN_ITERS} calls each: device "
+        "ms per call, queued behind a spin (ms per call issued back to back): "
+        + "; ".join(f"{k} {d:.4f} ({c:.4f})" for k, (d, c) in t.items())
+        + " | kernel 1's layouts, tiles and the most nodes one tile walks: "
+        + ", ".join(f"{k} {n} / {w}" for k, (n, w) in tiles.items()) + f" | {smi}")
+    return t
 
 
 def phase_profile(engine, mesh_hash, sem):
@@ -2027,16 +2391,22 @@ def main():
     records.append(phase_flash_attention(ptxas))
     lap("2 kernels")
     by_path = {"segment_agg_op": seg_counts}
-    by_path["consistency_r4_packed"], stacked = phase_consistency(cfg)
-    by_path["grad_r4_packed"], r1 = phase_grad_consistency(cfg)
+    (by_path["consistency_r4_packed"], by_path["consistency_r4_overlap"],
+     stacked) = phase_consistency(cfg)
+    by_path["grad_r4_packed"], by_path["grad_r4_overlap"], r1 = \
+        phase_grad_consistency(cfg)
     lap("3b gradients")
-    by_path["dist_r4_packed"], by_path["dist_r4_grad"] = phase_distributed(
-        cfg, stacked, r1, smi)
+    by_path.update(phase_distributed(cfg, stacked, r1, smi))
     lap("3c distributed")
-    engine, mesh_hash, by_path["serve"] = phase_serve(cfg, sem, pg, smi)
+    engine, mesh_hash, by_path["serve"], ckdir = phase_serve(cfg, sem, pg, smi)
     phase_profile(engine, mesh_hash, sem)
-    del engine
     lap("5 profile")
+    served = phase_serve_dist(cfg, sem, engine, mesh_hash, ckdir, smi)
+    by_path["serve_r4_overlap"], by_path["serve_r4_blocking"] = \
+        served["overlap"], served["blocking"]
+    del engine
+    torch.cuda.empty_cache()
+    lap("4b serve R=4")
     by_path["train"], by_path["rollout_k2"] = phase_train(cfg, sem, pg, smi)
     torch.cuda.empty_cache()
     lap("6 train")
@@ -2051,13 +2421,16 @@ def main():
     # the embedding bag, the prefill for flash attention (phases 7 and 8
     # check their exact counts on every path), the op's one call for the
     # dst-aligned edge MLP (phase 2 checks that it launched exactly once)
+    r4 = ("consistency_r4_overlap", "grad_r4_overlap", "dist_r4_overlap",
+          "dist_r4_overlap_grad", "serve_r4_overlap", "serve_r4_blocking")
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
-                       "rollout_k2", "dist_r4_packed", "dist_r4_grad"),
-           sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2", "dist_r4_grad"),
+                       "rollout_k2", "dist_r4_packed", "dist_r4_grad") + r4,
+           sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2", "dist_r4_grad",
+                           "grad_r4_overlap", "dist_r4_overlap_grad"),
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                     "dist_r4_grad"),
+                     "dist_r4_grad") + r4,
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                       "dist_r4_grad"),
+                       "dist_r4_grad") + r4,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",)}

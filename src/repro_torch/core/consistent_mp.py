@@ -19,11 +19,31 @@ Backends for the 4a+4b hot loop (``plan.backend``):
   src-sorted companion on the graph (``ShardedGraph.build`` attaches both
   for a fused plan).
 
-Both compute the same arithmetic up to summation order.  This slice
-registers the blocking schedule.  The caller threads the exchange in as
-``sync_fn``: ``core/halo.py::halo_sync`` on one process's rank-local graph
-and its mesh (``core/distributed.py`` builds it), or a stacked emulator
-over every rank on one device (``core/reference.py``).
+Both compute the same arithmetic up to summation order.
+
+Schedules (``plan.schedule``):
+
+* ``"blocking"`` — Eq. 4a+4b, the exchange, Eq. 4e, serially (paper order).
+* ``"overlap"``  — the interior/boundary split
+  (``PartitionedGraphs.interior_split``): Eq. 4a+4b first on the edges
+  whose destination is a boundary node, the exchange of that partial
+  aggregate alone, and the interior edges, whose rows the exchange never
+  touches, while it is in flight.  Each side runs the backend once on its
+  own edges (the fused backend on the side's own compact layout).  Equal
+  to blocking up to the summation order inside the kernel:
+  ``halo_sync(agg_bnd) + agg_int == halo_sync(agg_bnd + agg_int)``; the
+  edge outputs join by adding the boundary side's rows into the interior
+  side's (:func:`join_sides`).
+
+The caller threads the exchange in as ``sync_fn``:
+``core/distributed.py::halo_fn`` on one process's rank-local graph and its
+mesh, or a stacked emulator over every rank on one device
+(``core/reference.py``).  Where ``sync_fn`` also has ``post`` (the
+distributed one) and the aggregate needs no gradient, the overlap layer
+posts the exchange before the interior side and finishes it after, so the
+interior kernel is queued on the stream while the transfer is in flight;
+under autograd it runs the exchange, finished at once, between the two
+sides (the reference's dataflow, the same values).
 """
 from __future__ import annotations
 
@@ -33,7 +53,7 @@ import torch
 
 from repro_torch import nn
 from repro_torch.core.graph_state import (
-    BLOCKING, FUSED, XLA, NMPPlan, ShardedGraph, as_graph, nmp_impl,
+    BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph, as_graph, nmp_impl,
     register_nmp_impl,
 )
 from repro_torch.core.halo import NONE, HaloSpec
@@ -77,13 +97,71 @@ def _agg_fused(params, x, e, graph: ShardedGraph, plan: NMPPlan):
         seg_src_rowptr=graph["seg_src_rowptr"])
 
 
+def _agg_xla_part(params, x, e, graph: ShardedGraph, part: str, plan: NMPPlan):
+    if f"edge_{part}_idx" not in graph:
+        raise ValueError(
+            "schedule='overlap' needs the interior/boundary edge split "
+            f"(edge_{part}_idx) on the graph — build it with the overlap "
+            "plan: ShardedGraph.build(pg, coords, plan)")
+    idx = graph[f"edge_{part}_idx"]          # [EP] the side's edge ids (0 pad)
+    valid = graph[f"edge_{part}_valid"]      # [EP]
+    src, dst = graph["edge_src"][idx], graph["edge_dst"][idx]
+    mask = (graph["edge_mask"][idx] * valid)[:, None]
+    inv = (graph["edge_inv_mult"][idx] * valid)[:, None]
+    e_sub = e.index_select(0, idx)
+    feats = torch.cat([segment.gather(x, src), segment.gather(x, dst), e_sub], dim=-1)
+    e_sub = (e_sub + nn.mlp(params["edge"], feats)) * mask
+    agg = segment.segment_sum(e_sub * inv, dst, x.shape[0])
+    # padding entries add zero rows at edge 0
+    e_full = torch.zeros(e.shape[0], e_sub.shape[1], dtype=e_sub.dtype,
+                         device=e_sub.device).index_add(0, idx, e_sub * valid[:, None])
+    return e_full, agg
+
+
+def _agg_fused_part(params, x, e, graph: ShardedGraph, part: str, plan: NMPPlan):
+    if f"seg_perm_{part}" not in graph:
+        raise ValueError(
+            "schedule='overlap' with backend='fused' needs the interior/boundary "
+            f"split's per-side compact layout (seg_perm_{part}, ...) on the graph "
+            "— build it with the fused overlap plan: ShardedGraph.build(pg, "
+            "coords, plan)")
+    # the side's layout holds only its own edges, so the full mask and
+    # inverse multiplicities select exactly the side's contributions
+    return fused_nmp_edge_agg(
+        x, e, params["edge"], graph[f"seg_perm_{part}"], graph[f"seg_src_{part}"],
+        graph[f"seg_rowptr_{part}"], graph["edge_mask"], graph["edge_inv_mult"],
+        seg_src_slots=graph[f"seg_src_slots_{part}"],
+        seg_src_rowptr=graph[f"seg_src_rowptr_{part}"])
+
+
 _AGGS = {XLA: _agg_xla, FUSED: _agg_fused}
+_AGGS_PART = {XLA: _agg_xla_part, FUSED: _agg_fused_part}
 
 
 def edge_update_aggregate(params, x, e, graph, plan: NMPPlan):
     """Eq. 4a + 4b on one rank: returns (e', local aggregate a)."""
     graph = as_graph(graph)
     return _AGGS[plan.backend](params, x, e, graph, plan)
+
+
+def edge_update_aggregate_part(params, x, e, graph, part: str, plan: NMPPlan):
+    """Eq. 4a + 4b on one side of the interior/boundary split (``"bnd"`` |
+    ``"int"``): returns (e_part, agg_part), full-size but zero outside the
+    side's edges and destination rows, so ``e_bnd + e_int`` and
+    ``agg_bnd + agg_int`` are the unsplit outputs."""
+    graph = as_graph(graph)
+    if part not in ("bnd", "int"):
+        raise ValueError(f"unknown edge split part {part!r}; expected 'bnd' or 'int'")
+    return _AGGS_PART[plan.backend](params, x, e, graph, part, plan)
+
+
+def join_sides(e_bnd: torch.Tensor, e_int: torch.Tensor, graph) -> torch.Tensor:
+    """``e_bnd + e_int``, the two sides' edge outputs, each zero outside its
+    own edges: the boundary side's few rows (``edge_bnd_idx``) added into
+    the interior side's output in place, in place of a full-size add."""
+    graph = as_graph(graph)
+    idx, valid = graph["edge_bnd_idx"], graph["edge_bnd_valid"]
+    return e_int.index_add_(0, idx, e_bnd.index_select(0, idx) * valid[:, None])
 
 
 def node_update(params: nn.Params, x: torch.Tensor, agg: torch.Tensor,
@@ -93,6 +171,15 @@ def node_update(params: nn.Params, x: torch.Tensor, agg: torch.Tensor,
     return x_new * graph["node_mask"][:, None]
 
 
+def _no_exchange(halo: HaloSpec):
+    if halo.mode != NONE:
+        raise ValueError(
+            f"halo mode {halo.mode!r} on one rank's arrays needs the exchange: "
+            "no mesh was given (pass sync_fn=core.distributed.halo_fn(plan, "
+            "graph, mesh) with a repro_torch.launch.mesh.make_mesh mesh), "
+            "or run the stacked reference (repro_torch.core.reference)")
+
+
 def _blocking_layer(agg_fn, params, x, e, graph, plan, halo: HaloSpec,
                     sync_fn):
     """The paper's serial order: full Eq. 4a+4b, exchange, Eq. 4e."""
@@ -100,19 +187,42 @@ def _blocking_layer(agg_fn, params, x, e, graph, plan, halo: HaloSpec,
     # --- Eq. 4c + 4d: halo swap + synchronization ---
     if sync_fn is not None:
         agg = sync_fn(agg)
-    elif halo.mode != NONE:
-        raise ValueError(
-            f"halo mode {halo.mode!r} on one rank's arrays needs the exchange: "
-            "no mesh was given (pass sync_fn=lambda a: halo_sync(a, graph, "
-            "plan.halo, mesh) with a repro_torch.launch.mesh.make_mesh mesh), "
-            "or run the stacked reference (repro_torch.core.reference)")
+    else:
+        _no_exchange(halo)
     # --- Eq. 4e: node update (residual) ---
     return node_update(params, x, agg, graph), e_new
+
+
+def _overlap_layer(agg_part_fn, params, x, e, graph, plan, halo: HaloSpec,
+                   sync_fn):
+    """Interior/boundary split: the exchange takes only the boundary
+    partial aggregate; the interior side runs while it is in flight (posted
+    where ``sync_fn`` can post and no gradient is needed)."""
+    e_bnd, agg_bnd = agg_part_fn(params, x, e, graph, "bnd", plan)
+    pending, post = None, getattr(sync_fn, "post", None)
+    # --- Eq. 4c + 4d on the boundary rows only ---
+    if sync_fn is None:
+        _no_exchange(halo)
+        agg_sync = agg_bnd
+    elif post is not None and not agg_bnd.requires_grad:
+        pending = post(agg_bnd)
+    else:
+        agg_sync = sync_fn(agg_bnd)
+    # the interior side: no data dependence on the exchange
+    e_int, agg_int = agg_part_fn(params, x, e, graph, "int", plan)
+    if pending is not None:
+        agg_sync = pending.finish()
+    # disjoint row support: the sum is the blocking schedule's aggregate
+    return (node_update(params, x, agg_sync + agg_int, graph),
+            join_sides(e_bnd, e_int, graph))
 
 
 for _backend, _agg in _AGGS.items():
     register_nmp_impl(_backend, BLOCKING)(
         functools.partial(_blocking_layer, _agg))
+for _backend, _agg_part in _AGGS_PART.items():
+    register_nmp_impl(_backend, OVERLAP)(
+        functools.partial(_overlap_layer, _agg_part))
 
 
 def nmp_layer(params: nn.Params, x: torch.Tensor, e: torch.Tensor, graph,

@@ -13,7 +13,10 @@ training loop uses ``grad_step`` with AdamW).
   rank-local graph (:func:`shard_graph`); each layer's halo exchange is
   ``core/halo.py::halo_sync`` over the graph group, and the gradients are
   averaged over every process in one flattened all-reduce
-  (:func:`average_gradients`).
+  (:func:`average_gradients`).  Under the overlap schedule the eval step
+  (no gradient) posts each exchange and finishes it after queueing the
+  interior side (:class:`HaloFn`); the gradient steps finish it at once,
+  between the sides.
 * Without one, the inputs are ``[B, 1, N_pad, F]`` on a stacked one-rank
   graph: the reference's ``pmean``s are identities, and so is the halo
   exchange (a rank with no peers has nothing to exchange), so any halo
@@ -30,7 +33,7 @@ from repro_torch import nn
 from repro_torch.core.consistent_loss import all_reduce_sum, consistent_mse
 from repro_torch.core.gnn import GNNConfig, gnn_forward
 from repro_torch.core.graph_state import NMPPlan, ShardedGraph, as_graph
-from repro_torch.core.halo import NONE, HaloSpec, halo_sync
+from repro_torch.core.halo import NONE, HaloSpec, halo_sync, halo_sync_post
 
 
 def one_rank(graph) -> ShardedGraph:
@@ -96,12 +99,30 @@ def average_gradients(grads, mesh):
     return nn.tree_unflatten(grads, [p.view_as(g) for p, g in zip(parts, leaves)])
 
 
+class HaloFn:
+    """Each layer's halo exchange on this process's rank-local graph:
+    called, the exchange itself (``halo_sync``, differentiable); ``post``,
+    the exchange posted (``halo_sync_post``), which the overlap schedule
+    finishes after queueing the interior side when no gradient is needed."""
+    __slots__ = ("graph", "spec", "mesh")
+
+    def __init__(self, graph, spec: HaloSpec, mesh):
+        self.graph, self.spec, self.mesh = graph, spec, mesh
+
+    def __call__(self, agg: torch.Tensor) -> torch.Tensor:
+        return halo_sync(agg, self.graph, self.spec, self.mesh)
+
+    def post(self, agg: torch.Tensor):
+        self.mesh.graph_group.transport.overlapped += 1
+        return halo_sync_post(agg, self.graph, self.spec, self.mesh)
+
+
 def halo_fn(plan: NMPPlan, graph, mesh):
-    """The ``sync_fn`` of ``gnn_forward`` for this process's graph (None
-    for halo mode none)."""
+    """The ``sync_fn`` of ``gnn_forward`` for this process's graph (a
+    :class:`HaloFn`; None for halo mode none)."""
     if plan.halo.mode == NONE:
         return None
-    return lambda agg: halo_sync(agg, graph, plan.halo, mesh)
+    return HaloFn(graph, plan.halo, mesh)
 
 
 def local_graph(graph, mesh) -> ShardedGraph:

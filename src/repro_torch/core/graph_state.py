@@ -9,10 +9,12 @@
 * :class:`NMPPlan` — a frozen execution policy: NMP backend (``xla`` |
   ``fused``), schedule, fused-layout block sizes and the
   :class:`~repro_torch.core.halo.HaloSpec`.  Layer implementations register
-  per ``(backend, schedule)`` cell via :func:`register_nmp_impl`.
+  per ``(backend, schedule)`` cell via :func:`register_nmp_impl`
+  (``core/consistent_mp.py`` registers the blocking and the overlap
+  schedule for both backends).
 
-This slice registers the blocking schedule for both backends; the overlap
-schedule, ``auto`` tuning, bf16 and multilevel graphs come later.
+``auto`` tuning, bf16 and multilevel graphs are not ported (ROADMAP queue
+1).
 """
 from __future__ import annotations
 
@@ -59,6 +61,11 @@ class NMPPlan:
     def seg_layout(self) -> Tuple[int, int] | None:
         """The (block_n, block_e) layout key the fused backend needs."""
         return (self.block_n, self.block_e) if self.backend == FUSED else None
+
+    @property
+    def wants_split(self) -> bool:
+        """Whether the graph needs the interior/boundary split."""
+        return self.schedule in (OVERLAP, AUTO)
 
     @property
     def wants_packed(self) -> bool:
@@ -177,15 +184,17 @@ class ShardedGraph:
               device="cuda", rank: int | None = None) -> "ShardedGraph":
         """Collect ``pg``'s static arrays plus the static geometric edge
         features from ``coords`` onto ``device``; ``plan`` decides what else
-        rides along (the fused backend's compact layout, the packed halo
-        arrays and their wires).  With ``rank``, only that rank's slice
-        (:meth:`rank`) reaches ``device``: the stack is built on the CPU."""
-        if rank is not None:
-            return cls.build(pg, coords, plan, device="cpu").rank(rank).to(device)
+        rides along (the fused backend's compact layout, the overlap
+        schedule's interior/boundary split with each side's layout, the
+        packed halo arrays and their wires).  With ``rank``, only that
+        rank's arrays are built (its compact layouts alone, padded as in the
+        stack) and its slice (:meth:`rank`) is returned: equal to the
+        stacked graph's ``.rank(rank)``."""
         plan = plan or NMPPlan()
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                   for k, v in _level_arrays(pg, coords, plan.seg_layout,
-                                            plan.wants_packed).items()}
+                                            plan.wants_split, plan.wants_packed,
+                                            rank).items()}
         rounds = [k for k in range(len(pg.halo.perms)) if f"pk{k}_send_idx" in arrays]
         wires = {f"pk{k}_{side}": halo_wire(arrays[f"pk{k}_{side}_idx"],
                                             arrays[f"pk{k}_{side}_mask"], pg.n_pad)
@@ -197,20 +206,24 @@ class ShardedGraph:
                 wires[f"pk_{side}"] = HaloWire(*(
                     torch.cat([arrays[f"pk{k}_{side}_{part}"] for k in rounds], -1)
                     for part in ("idx", "mask")))
-        return cls(arrays, wires)
+        graph = cls(arrays, wires)
+        return graph if rank is None else graph.rank(0)
 
 
-def _level_arrays(pg, coords, seg_layout, packed: bool) -> Dict[str, np.ndarray]:
-    """Stacked static arrays: halo/edge metadata + edge geometry (numpy)."""
+def _level_arrays(pg, coords, seg_layout, split: bool, packed: bool,
+                  rank: int | None = None) -> Dict[str, np.ndarray]:
+    """Stacked static arrays: halo/edge metadata + edge geometry (numpy);
+    with ``rank``, that rank's alone (a leading axis of 1)."""
     from repro_torch.core.mesh_gen import edge_features
     from repro_torch.core.partition import gather_node_features
 
-    arrays = dict(pg.device_arrays(seg_layout=seg_layout, packed=packed))
-    coords_r = gather_node_features(pg, coords)
+    arrays = dict(pg.device_arrays(seg_layout=seg_layout, split=split,
+                                   packed=packed, rank=rank))
+    coords_r = gather_node_features(pg, coords, rank)
     ef = []
-    for r in range(pg.R):
+    for i, r in enumerate(range(pg.R) if rank is None else (rank,)):
         e = np.stack([pg.edge_src[r], pg.edge_dst[r]], axis=-1)
-        ef.append(edge_features(coords_r[r], e) * pg.edge_mask[r][:, None])
+        ef.append(edge_features(coords_r[i], e) * pg.edge_mask[r][:, None])
     arrays["static_edge_feats"] = np.stack(ef).astype(np.float32)
     return arrays
 

@@ -21,9 +21,16 @@ zero-adds of padding slots can collide).  Only ``combine="sum"`` is
 ported.
 
 :func:`halo_sync` runs on one process's rank-local graph and a
-:class:`~repro_torch.launch.mesh.Mesh`; JAX differentiates its collectives
-through their transpose rules, so here each exchange is one
-``torch.autograd.Function`` whose backward is the reversed exchange.
+:class:`~repro_torch.launch.mesh.Mesh`.  Every exchange is posted
+(:func:`halo_sync_post`): the rows are gathered (packed: one pack launch)
+and every transfer is issued at once, and :meth:`PendingSync.finish`
+waits for them and adds what arrived, in round (or sender) order, so a
+caller (the overlap schedule) can queue other work on the card in
+between.  :func:`halo_sync` is the post and its finish at once; JAX
+differentiates its collectives through their transpose rules, so here
+every mode's exchange is one ``torch.autograd.Function`` whose forward
+posts and finishes the exchange and whose backward does the same with
+the reversed exchange.
 :func:`halo_sync_stacked` emulates the same per-rank arithmetic over a
 stacked aggregate on one device (each rank's :func:`halo_sync` result is
 bitwise equal to its slice), and :func:`halo_sync_reference` is the
@@ -37,7 +44,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.halo_pack.ops import (
-    ExchangeRound, halo_exchange, halo_exchange_rank)
+    ExchangeRound, halo_exchange, halo_exchange_rank_post)
 
 NONE = "none"
 A2A = "a2a"
@@ -184,66 +191,137 @@ def _peers(perm, rank: int):
             next((s for s, d in perm if d == rank), None))
 
 
-def _a2a(a, send_idx, send_mask, recv_idx, recv_mask, group):
-    """Gather every peer's rows, all-to-all, and add what each sender sent,
-    one sender at a time in sender order, seeded from ``a``."""
+def _a2a_rows(a, send_idx, send_mask):
+    """Every peer's rows of ``a``, masked: [R, w, F]."""
     R, w = send_idx.shape
-    buf = a.index_select(0, send_idx.reshape(-1)).reshape(R, w, a.shape[1]) \
+    return a.index_select(0, send_idx.reshape(-1)).reshape(R, w, a.shape[1]) \
         * send_mask[..., None]
-    got = group.all_to_all(buf)
+
+
+def _a2a_add(a, got, recv_idx, recv_mask):
+    """What each sender sent, added one sender at a time in sender order,
+    seeded from ``a``."""
     out = a
-    for s in range(R):
+    for s in range(recv_idx.shape[0]):
         out = out.index_add(0, recv_idx[s], got[s] * recv_mask[s][:, None])
     return out
 
 
-class _A2A(torch.autograd.Function):
-    """All-to-all exchange; its reversal is the same exchange with the send
-    and recv sides swapped."""
+class PendingSync:
+    """A posted halo exchange of one process (:func:`halo_sync_post`);
+    :meth:`finish` waits for it and returns ``a*``."""
+    __slots__ = ("_finish",)
+
+    def __init__(self, finish):
+        self._finish = finish
+
+    def finish(self) -> torch.Tensor:
+        return self._finish()
+
+
+def _a2a_post(a, send_idx, send_mask, recv_idx, recv_mask, group) -> PendingSync:
+    """Gather every peer's rows and post the all-to-all; the finish adds
+    what each sender sent."""
+    posted = group.post_all_to_all(_a2a_rows(a, send_idx, send_mask))
+    return PendingSync(lambda: _a2a_add(a, posted.wait()[0], recv_idx, recv_mask))
+
+
+def _neighbor_post(a, send_idx, send_mask, recv_idx, recv_mask, peers,
+                   group) -> PendingSync:
+    """Dense neighbor rounds, posted at once: gather from the ORIGINAL
+    ``a``; the finish adds each round received into the running result, in
+    round order."""
+    posted = group.post_swaps(
+        (a.index_select(0, send_idx[k]) * send_mask[k][:, None] if to is not None
+         else None, to, frm, (recv_idx.shape[1], a.shape[1]), a.dtype)
+        for k, (to, frm) in enumerate(peers))
+
+    def finish():
+        out = a
+        for k, got in enumerate(posted.wait()):
+            if got is not None:
+                out = out.index_add(0, recv_idx[k], got * recv_mask[k][:, None])
+        return out.clone() if out is a else out
+    return PendingSync(finish)
+
+
+class _Exchange(torch.autograd.Function):
+    """One exchange, differentiable: the forward posts ``post(a)`` and
+    finishes it at once, the backward does the same with ``post_back``, the
+    reversed exchange, on the incoming gradient."""
 
     @staticmethod
-    def forward(ctx, a, send_idx, send_mask, recv_idx, recv_mask, group):
-        ctx.save_for_backward(send_idx, send_mask, recv_idx, recv_mask)
-        ctx.group = group
-        return _a2a(a, send_idx, send_mask, recv_idx, recv_mask, group)
+    def forward(ctx, a, post, post_back):
+        ctx.post_back = post_back
+        return post(a).finish()
 
     @staticmethod
     def backward(ctx, g):
-        send_idx, send_mask, recv_idx, recv_mask = ctx.saved_tensors
-        ga = _a2a(g.contiguous(), recv_idx, recv_mask, send_idx, send_mask, ctx.group)
-        return ga, None, None, None, None, None
+        return ctx.post_back(g.contiguous()).finish(), None, None
 
 
-def _neighbor(a, send_idx, send_mask, recv_idx, recv_mask, peers, group):
-    """Dense neighbor rounds: gather from the ORIGINAL ``a``, swap with the
-    round's partner, add into the running result."""
-    out = a
-    for k, (to, frm) in enumerate(peers):
-        buf = a.index_select(0, send_idx[k]) * send_mask[k][:, None] \
-            if to is not None else None
-        got = group.swap(buf, to, frm, (recv_idx.shape[1], a.shape[1]), a.dtype)
-        if got is not None:
-            out = out.index_add(0, recv_idx[k], got * recv_mask[k][:, None])
-    return out.clone() if out is a else out
+def _posters(graph, spec: HaloSpec, mesh):
+    """(post, post_back) of one process's exchange: each takes an [N, F]
+    tensor, gathers its rows to send (packed: one pack launch), issues
+    every transfer at once and returns what ``finish()`` waits for and adds;
+    ``post_back`` runs the reversed exchange (send and recv sides and, in
+    each round, the partners swapped)."""
+    group = mesh.graph_group
+    if spec.mode == A2A:
+        _check_a2a(graph, group)
+        ends = (graph["a2a_send_idx"], graph["a2a_send_mask"],
+                graph["a2a_recv_idx"], graph["a2a_recv_mask"])
+        return (lambda t: _a2a_post(t, *ends, group),
+                lambda t: _a2a_post(t, *ends[2:], *ends[:2], group))
+    peers = tuple(_peers(perm, mesh.rank) for perm in spec.perms)
+    if spec.packed:
+        args = (graph.wire("pk_send"), graph.wire("pk_recv"),
+                _exchange_rounds(graph, spec), peers, group.post_swaps)
+        return (lambda t: halo_exchange_rank_post(t, *args),
+                lambda t: halo_exchange_rank_post(t, *args, reverse=True))
+    ends = (graph["nbr_send_idx"], graph["nbr_send_mask"],
+            graph["nbr_recv_idx"], graph["nbr_recv_mask"])
+    back = tuple((frm, to) for to, frm in peers)
+    return (lambda t: _neighbor_post(t, *ends, peers, group),
+            lambda t: _neighbor_post(t, *ends[2:], *ends[:2], back, group))
 
 
-class _Neighbor(torch.autograd.Function):
-    """Dense neighbor exchange; its reversal runs the rounds with the send
-    and recv sides and the partners swapped."""
+def _rank_local(a, graph, spec: HaloSpec, combine: str, name: str):
+    _check_spec(spec, combine)
+    if a.dim() != 2 or graph["node_mask"].dim() != 1:
+        raise ValueError(f"{name} expects one rank's [N, F] or [B, N, F] aggregate "
+                         f"and a rank-local graph; got {tuple(a.shape)} and a graph "
+                         f"of node_mask {tuple(graph['node_mask'].shape)}")
+    return a.contiguous()
 
-    @staticmethod
-    def forward(ctx, a, send_idx, send_mask, recv_idx, recv_mask, peers, group):
-        ctx.save_for_backward(send_idx, send_mask, recv_idx, recv_mask)
-        ctx.peers, ctx.group = peers, group
-        return _neighbor(a, send_idx, send_mask, recv_idx, recv_mask, peers, group)
 
-    @staticmethod
-    def backward(ctx, g):
-        send_idx, send_mask, recv_idx, recv_mask = ctx.saved_tensors
-        back = tuple((frm, to) for to, frm in ctx.peers)
-        ga = _neighbor(g.contiguous(), recv_idx, recv_mask, send_idx, send_mask,
-                       back, ctx.group)
-        return ga, None, None, None, None, None, None
+def halo_sync_post(a: torch.Tensor, graph, spec: HaloSpec, mesh,
+                   combine: str = "sum") -> PendingSync:
+    """Post :func:`halo_sync`'s exchange: gather the rows to send (packed:
+    one pack launch) and issue every transfer of the exchange at once
+    (``Group.post_all_to_all`` / ``post_swaps``).  Returns a
+    :class:`PendingSync` whose ``finish()`` waits for the rows and adds
+    them as :func:`halo_sync` does, bitwise equal to it.  Not
+    differentiable: ``a`` must need no gradient (under autograd call
+    :func:`halo_sync`)."""
+    if spec.mode == NONE:
+        return PendingSync(lambda: a)
+    if torch.is_grad_enabled() and a.requires_grad:
+        raise ValueError("halo_sync_post: a posted exchange has no gradient; "
+                         "call halo_sync under autograd")
+    if a.dim() == 3:
+        b, n, f = a.shape
+        flat = halo_sync_post(a.permute(1, 0, 2).reshape(n, b * f), graph, spec,
+                              mesh, combine)
+        return PendingSync(lambda: flat.finish().reshape(n, b, f).permute(1, 0, 2))
+    a = _rank_local(a, graph, spec, combine, "halo_sync_post")
+    return _posters(graph, spec, mesh)[0](a)
+
+
+def _check_a2a(graph, group):
+    if graph["a2a_send_idx"].shape[0] != group.size:
+        raise ValueError(f"the graph has {graph['a2a_send_idx'].shape[0]} "
+                         f"ranks, the graph group {group.size}")
 
 
 def halo_sync(a: torch.Tensor, graph, spec: HaloSpec, mesh,
@@ -258,36 +336,19 @@ def halo_sync(a: torch.Tensor, graph, spec: HaloSpec, mesh,
     ``mesh``: the process's :class:`~repro_torch.launch.mesh.Mesh`.  Every
     process of the graph group must call it with the same spec.  A2A is
     one ``all_to_all_single``; NEIGHBOR one ``batch_isend_irecv`` per round
-    between the round's pairs (ranks outside them skip it); packed
-    NEIGHBOR one pack launch, then per round a swap of the round's slice
-    and one unpack-add launch.  Differentiable in ``a``.  Returns ``a*``,
+    between the round's pairs (ranks outside them skip it), every round
+    posted at once; packed NEIGHBOR one pack launch, the rounds' slices
+    posted, then one unpack-add launch per round received.  It is
+    :func:`halo_sync_post` and its finish, differentiable in ``a`` (the
+    backward posts and finishes the reversed exchange).  Returns ``a*``,
     shaped as ``a``.
     """
     if spec.mode == NONE:
         return a
-    _check_spec(spec, combine)
     if a.dim() == 3:
         # rows are exchanged whole: carry the batch as feature columns
         b, n, f = a.shape
         flat = a.permute(1, 0, 2).reshape(n, b * f)
         return halo_sync(flat, graph, spec, mesh).reshape(n, b, f).permute(1, 0, 2)
-    if a.dim() != 2 or graph["node_mask"].dim() != 1:
-        raise ValueError("halo_sync expects one rank's [N, F] or [B, N, F] aggregate "
-                         f"and a rank-local graph; got {tuple(a.shape)} and a graph "
-                         f"of node_mask {tuple(graph['node_mask'].shape)}")
-    group, rank = mesh.graph_group, mesh.rank
-    a = a.contiguous()
-
-    if spec.mode == A2A:
-        if graph["a2a_send_idx"].shape[0] != group.size:
-            raise ValueError(f"the graph has {graph['a2a_send_idx'].shape[0]} "
-                             f"ranks, the graph group {group.size}")
-        return _A2A.apply(a, graph["a2a_send_idx"], graph["a2a_send_mask"],
-                          graph["a2a_recv_idx"], graph["a2a_recv_mask"], group)
-
-    peers = tuple(_peers(perm, rank) for perm in spec.perms)
-    if spec.packed:
-        return halo_exchange_rank(a, graph.wire("pk_send"), graph.wire("pk_recv"),
-                                  _exchange_rounds(graph, spec), peers, group.swap)
-    return _Neighbor.apply(a, graph["nbr_send_idx"], graph["nbr_send_mask"],
-                           graph["nbr_recv_idx"], graph["nbr_recv_mask"], peers, group)
+    a = _rank_local(a, graph, spec, combine, "halo_sync")
+    return _Exchange.apply(a, *_posters(graph, spec, mesh))

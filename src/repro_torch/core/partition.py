@@ -12,6 +12,12 @@ The halo plan carries both exchange layouts of the reference:
   * NEIGHBOR  — the rank adjacency graph greedily edge-colored into rounds
     of disjoint rank pairs (plus the bucketed per-round packed arrays).
 
+The overlap schedule's interior/boundary split
+(:meth:`PartitionedGraphs.interior_split`) and each side's compact layout
+(``segment_layout(part=)``) are array-equal to the reference's too
+(``tests/test_torch_overlap.py``); a process of a mesh builds only its own
+rank's layouts (``rank=``).
+
 Everything here is host-side numpy and produces arrays equal to the
 reference's (``tests/test_torch_host.py``).  The per-edge python loops of
 the reference are vectorized (``np.unique`` over int64 pair keys,
@@ -85,8 +91,12 @@ class PartitionedGraphs:
     halo: HaloPlan
     # compact gather layouts for the fused NMP kernel, memoized per
     # (block_n, block_e): the host-side sort runs once per partition
-    _seg_layouts: Dict[Tuple[int, int], dict] = dataclasses.field(
+    _seg_layouts: Dict[Tuple[int, int, str], dict] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    # interior/boundary edge classification for the overlap schedule,
+    # memoized (host-side, one pass per partition)
+    _int_split: dict | None = dataclasses.field(
+        default=None, repr=False, compare=False)
     # bucketed per-round packed halo arrays, memoized per bucket size
     _packed_halos: Dict[int, dict] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
@@ -99,14 +109,68 @@ class PartitionedGraphs:
     def e_pad(self) -> int:
         return int(self.edge_src.shape[1])
 
-    def segment_layout(self, block_n: int, block_e: int) -> dict:
+    def interior_split(self) -> dict:
+        """Cached interior/boundary classification (the overlap schedule's).
+
+        A node is *boundary* when a coincident copy lives on another rank
+        (it appears in some halo send buffer); an edge is *boundary* when its
+        destination is a boundary node, so its aggregate feeds the exchange.
+        Interior edges land only on rows the exchange never reads or writes:
+        ``halo_sync(agg_bnd) + agg_int == halo_sync(agg_bnd + agg_int)``.
+
+        Returns stacked arrays, equal to the reference's:
+          node_bnd_mask  [R, N_pad]  1.0 on boundary nodes;
+          edge_bnd_mask / edge_int_mask [R, E_pad], a disjoint split of
+            edge_mask;
+          edge_bnd_idx / edge_int_idx [R, EB] / [R, EI] int32, each side's
+            edge ids (0 on padding), with edge_bnd_valid / edge_int_valid;
+          interior_frac, the share of real edges that are interior.
+        """
+        if self._int_split is not None:
+            return self._int_split
+        h = self.halo
+        node_bnd = np.zeros((self.R, self.n_pad), dtype=np.float32)
+        for r in range(self.R):
+            node_bnd[r, h.a2a_send_idx[r][h.a2a_send_mask[r] > 0]] = 1.0
+        node_bnd *= self.node_mask
+        edge_bnd = np.take_along_axis(node_bnd, self.edge_dst, axis=1) * self.edge_mask
+        edge_int = self.edge_mask - edge_bnd
+
+        def compact(mask):
+            ids = [np.nonzero(mask[r] > 0)[0] for r in range(self.R)]
+            width = _round_up(max((i.size for i in ids), default=1), 8)
+            idx = np.zeros((self.R, width), dtype=np.int32)
+            valid = np.zeros((self.R, width), dtype=np.float32)
+            for r, i in enumerate(ids):
+                idx[r, :i.size] = i
+                valid[r, :i.size] = 1.0
+            return idx, valid
+
+        bnd_idx, bnd_valid = compact(edge_bnd)
+        int_idx, int_valid = compact(edge_int)
+        n_real = float(self.edge_mask.sum())
+        self._int_split = dict(
+            node_bnd_mask=node_bnd, edge_bnd_mask=edge_bnd, edge_int_mask=edge_int,
+            edge_bnd_idx=bnd_idx, edge_bnd_valid=bnd_valid,
+            edge_int_idx=int_idx, edge_int_valid=int_valid,
+            interior_frac=float(edge_int.sum()) / n_real if n_real else 0.0)
+        return self._int_split
+
+    def segment_layout(self, block_n: int, block_e: int, part: str = "all",
+                       rank: int | None = None) -> dict:
         """Cached compact gather layout for the fused NMP kernel.
 
-        Runs ``compact_gather_layout`` once per rank (padding edges are
-        routed to an out-of-range sentinel so they are dropped) and pads the
-        per-rank tile counts to a common maximum (pad tiles: ``perm == -1``,
-        src/dst 0).  ``block_n`` does not shape the layout; it stays in the
-        cache key as in the reference.
+        Runs ``compact_gather_layout`` once per rank (edges outside the
+        layout are routed to the ``n_pad`` sentinel so they are dropped) and
+        pads the per-rank tile counts to a common maximum (pad tiles:
+        ``perm == -1``, src/dst 0).  ``part`` restricts the layout to one
+        side of :meth:`interior_split` (``"int"`` | ``"bnd"``): the overlap
+        schedule runs the kernel once per side.  A side with no edge on a
+        rank (every side ``"bnd"`` at R=1) is one tile of ``perm == -1`` and
+        an all-zero ``rowptr``.  ``block_n`` does not shape the layout; it
+        stays in the cache key as in the reference.  With ``rank``, only
+        that rank's layout is built (a leading axis of 1), padded to the
+        same tile count: equal to the stacked layout's slice.
 
         Returns {perm [R, T, BE] int32 (-1 = empty slot), src [R, T, BE],
                  dst [R, T, BE], rowptr [R, N_pad + 1] int32,
@@ -118,28 +182,38 @@ class PartitionedGraphs:
         src_rowptr[n + 1]]`` are node n's outgoing slots (flat slot ids),
         over which the backward kernel reduces the source-row gradients.
         """
-        key = (int(block_n), int(block_e))
+        key = (int(block_n), int(block_e), part, rank)
         cached = self._seg_layouts.get(key)
         if cached is not None:
             return cached
         from repro_torch.kernels.segment_agg.ops import compact_gather_layout
+        if part == "all":
+            keep = self.edge_mask
+        elif part in ("int", "bnd"):
+            keep = self.interior_split()[f"edge_{part}_mask"]
+        else:
+            raise ValueError(f"unknown layout part {part!r}; expected 'all', "
+                             "'int' or 'bnd'")
+        ranks = range(self.R) if rank is None else (rank,)
         per_rank = []
-        for r in range(self.R):
-            # masked-out edges get dst = n_pad -> dropped by the layout pass
-            dst = np.where(self.edge_mask[r] > 0, self.edge_dst[r], self.n_pad)
+        for r in ranks:
+            # excluded edges get dst = n_pad -> dropped by the layout pass
+            dst = np.where(keep[r] > 0, self.edge_dst[r], self.n_pad)
             per_rank.append(compact_gather_layout(
                 self.edge_src[r], dst, self.n_pad, block_e))
-        nt = max(l["n_tiles"] for l in per_rank)
-        perm = np.full((self.R, nt, block_e), -1, dtype=np.int32)
-        src = np.zeros((self.R, nt, block_e), dtype=np.int32)
-        dst_t = np.zeros((self.R, nt, block_e), dtype=np.int32)
+        # every rank's tile count, from its edge count alone
+        nt = max(1, math.ceil(int((keep > 0).sum(axis=1).max()) / block_e))
+        n = len(per_rank)
+        perm = np.full((n, nt, block_e), -1, dtype=np.int32)
+        src = np.zeros((n, nt, block_e), dtype=np.int32)
+        dst_t = np.zeros((n, nt, block_e), dtype=np.int32)
         for r, l in enumerate(per_rank):
             perm[r, :l["n_tiles"]] = l["perm"]
             src[r, :l["n_tiles"]] = l["src"]
             dst_t[r, :l["n_tiles"]] = l["dst"]
         rowptr = np.stack([l["rowptr"] for l in per_rank])
         # src-sorted slot ids, zero-padded past each rank's real slots
-        src_slots = np.zeros((self.R, nt * block_e), dtype=np.int32)
+        src_slots = np.zeros((n, nt * block_e), dtype=np.int32)
         for r, l in enumerate(per_rank):
             src_slots[r, :l["n_edges"]] = l["src_slots"]
         src_rowptr = np.stack([l["src_rowptr"] for l in per_rank])
@@ -164,13 +238,19 @@ class PartitionedGraphs:
         return cached
 
     def device_arrays(self, seg_layout: Tuple[int, int] | None = None,
-                      packed: bool = False) -> Dict[str, np.ndarray]:
+                      split: bool = False, packed: bool = False,
+                      rank: int | None = None) -> Dict[str, np.ndarray]:
         """The dict of arrays a serve/train step consumes (leading rank axis).
 
         ``seg_layout=(block_n, block_e)`` adds the cached compact layout
         (``seg_perm``/``seg_src``/``seg_dst`` and the port's ``seg_rowptr``,
-        ``seg_src_slots``, ``seg_src_rowptr``);
+        ``seg_src_slots``, ``seg_src_rowptr``); ``split=True`` adds the
+        interior/boundary split of the overlap schedule
+        (``edge_{bnd,int}_idx`` / ``_valid``, and with ``seg_layout`` each
+        side's layout under the same names suffixed ``_bnd`` / ``_int``);
         ``packed=True`` adds the bucketed per-round packed halo arrays.
+        With ``rank``, every array is that rank's slice (a leading axis of
+        1) and only its layouts are built.
         """
         h = self.halo
         out = dict(
@@ -182,16 +262,20 @@ class PartitionedGraphs:
             nbr_send_idx=h.nbr_send_idx, nbr_send_mask=h.nbr_send_mask,
             nbr_recv_idx=h.nbr_recv_idx, nbr_recv_mask=h.nbr_recv_mask,
         )
-        if seg_layout is not None:
-            layout = self.segment_layout(*seg_layout)
-            out["seg_perm"] = layout["perm"]
-            out["seg_src"] = layout["src"]
-            out["seg_dst"] = layout["dst"]
-            out["seg_rowptr"] = layout["rowptr"]
-            out["seg_src_slots"] = layout["src_slots"]
-            out["seg_src_rowptr"] = layout["src_rowptr"]
+        if split:
+            sp = self.interior_split()
+            for k in ("edge_bnd_idx", "edge_bnd_valid", "edge_int_idx", "edge_int_valid"):
+                out[k] = sp[k]
         if packed:
             out.update(self.packed_halo())
+        if rank is not None:
+            out = {k: v[rank:rank + 1] for k, v in out.items()}
+        layout_keys = ("perm", "src", "dst", "rowptr", "src_slots", "src_rowptr")
+        parts = (("all", ""),) + ((("bnd", "_bnd"), ("int", "_int")) if split else ())
+        if seg_layout is not None:
+            for part, suffix in parts:
+                layout = self.segment_layout(*seg_layout, part=part, rank=rank)
+                out.update((f"seg_{k}{suffix}", layout[k]) for k in layout_keys)
         return out
 
 

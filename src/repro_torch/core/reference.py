@@ -1,17 +1,18 @@
 """Single-device stacked-rank evaluation of the consistent GNN (port of
-``repro.core.reference``, blocking schedule): the stacked forward, the
-Eq. 6 loss over the stacked ranks, its parameter gradients
+``repro.core.reference``, flat graphs): the stacked forward, the Eq. 6
+loss over the stacked ranks, its parameter gradients
 (``torch.autograd.grad`` where the reference uses ``value_and_grad``) and
-the K-step rollout oracle.
+the K-step rollout oracle, under the blocking or the overlap schedule.
 
 Runs the R-rank partitioned model on ONE device by looping ranks in python
 and emulating the halo exchange over the stacked aggregate
 (``halo_sync_reference`` by default, or ``sync_fn`` such as
 ``halo_sync_stacked`` for the mode-faithful per-rank arithmetic, which runs
 the packed pack/unpack kernels under ``HaloSpec(packed=True)``).  The NMP
-hot loop goes through the same ``edge_update_aggregate`` as one rank's
-forward, so a fused plan runs the CUDA kernel here too.  This is how the
-1-rank == R-rank guarantee is checked on one card, for values and for
+hot loop goes through the same ``edge_update_aggregate`` (and, under the
+overlap schedule, ``edge_update_aggregate_part`` once per side) as one
+rank's forward, so a fused plan runs the CUDA kernel here too.  This is how
+the 1-rank == R-rank guarantee is checked on one card, for values and for
 gradients: the backward runs the fused backward kernel and, under the
 packed exchange, the pack/unpack kernels as each other's adjoint.
 """
@@ -20,26 +21,42 @@ from __future__ import annotations
 import torch
 
 from repro_torch import nn
-from repro_torch.core.consistent_mp import edge_update_aggregate, node_update
+from repro_torch.core.consistent_mp import (
+    edge_update_aggregate, edge_update_aggregate_part, join_sides, node_update)
 from repro_torch.core.gnn import build_edge_inputs
-from repro_torch.core.graph_state import BLOCKING, NMPPlan, ShardedGraph, as_graph
+from repro_torch.core.graph_state import (
+    BLOCKING, OVERLAP, NMPPlan, ShardedGraph, as_graph)
 from repro_torch.core.halo import NONE, halo_sync_reference
 
 
 def _smooth_stacked(lp, h, e, g: ShardedGraph, plan: NMPPlan, sync_fn=None):
-    """One consistent NMP layer over the stacked ranks."""
-    if plan.schedule != BLOCKING:
+    """One consistent NMP layer over the stacked ranks.  Under the overlap
+    schedule every rank's boundary side runs first, the exchange takes
+    their aggregates, and the interior sides are added after it."""
+    if plan.schedule not in (BLOCKING, OVERLAP):
         raise NotImplementedError(
             f"schedule {plan.schedule!r} is not ported to repro_torch yet")
     sync = halo_sync_reference if sync_fn is None else sync_fn
     R = h.shape[0]
     ranks = [g.rank(r) for r in range(R)]
-    outs = [edge_update_aggregate(lp, h[r], e[r], ranks[r], plan)
-            for r in range(R)]
-    agg = torch.stack([o[1] for o in outs])
-    if plan.halo.mode != NONE:
-        agg = sync(agg, g, plan.halo, combine="sum")
-    e_new = torch.stack([o[0] for o in outs])
+    if plan.schedule == OVERLAP:
+        outs_b = [edge_update_aggregate_part(lp, h[r], e[r], ranks[r], "bnd", plan)
+                  for r in range(R)]
+        agg = torch.stack([o[1] for o in outs_b])
+        if plan.halo.mode != NONE:
+            agg = sync(agg, g, plan.halo, combine="sum")
+        outs_i = [edge_update_aggregate_part(lp, h[r], e[r], ranks[r], "int", plan)
+                  for r in range(R)]
+        agg = agg + torch.stack([o[1] for o in outs_i])
+        e_new = torch.stack([join_sides(b[0], i[0], ranks[r])
+                             for r, (b, i) in enumerate(zip(outs_b, outs_i))])
+    else:
+        outs = [edge_update_aggregate(lp, h[r], e[r], ranks[r], plan)
+                for r in range(R)]
+        agg = torch.stack([o[1] for o in outs])
+        if plan.halo.mode != NONE:
+            agg = sync(agg, g, plan.halo, combine="sum")
+        e_new = torch.stack([o[0] for o in outs])
     h_new = torch.stack([node_update(lp, h[r], agg[r], ranks[r])
                          for r in range(R)])
     return h_new, e_new

@@ -378,24 +378,30 @@ nmp_fwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ e,
     prefetch_b();
     group_sync(grp);
 
-    // --- agg: per node, e' * (1/d) summed in slot order ---
+    // --- agg: per node, e' * (1/d) summed in slot order, four features a
+    //     thread (a tile may own thousands of nodes with no slot here) ---
     {
-      const int j = tid % H;
-      for (int n = n0 + tid / H; n < hi; n += kWarps * 32 / H) {
+      const int j = (tid % CH) * 4;
+      for (int n = n0 + tid / CH; n < hi; n += kWarps * 32 / CH) {
         const bool cached = n - n0 < kWarps * 32;
         const int rs0 = cached ? s_run[2 * (n - n0)] : rowptr[n];
         const int re0 = cached ? s_run[2 * (n - n0) + 1] : rowptr[n + 1];
         if (rs0 < base && re0 <= base) continue;   // ended before this tile
         const int rs = max(rs0, base), re = min(re0, end);
-        float acc = 0.f;
-        for (int s = rs; s < re; ++s)
-          acc = fmaf(s_a[(s - base) * SA + j], s_inv[s - base], acc);
-        if (rs0 < base)                             // runs in from the tile before
-          partials[((size_t)tile * 2) * H + j] = acc;
-        else if (re0 > end)                         // starts here, runs past the end
-          partials[((size_t)tile * 2 + 1) * H + j] = acc;
-        else
-          agg[(size_t)n * H + j] = acc;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = rs; s < re; ++s) {
+          const float4 a = *reinterpret_cast<const float4*>(s_a + (s - base) * SA + j);
+          const float w = s_inv[s - base];
+          acc.x = fmaf(a.x, w, acc.x);
+          acc.y = fmaf(a.y, w, acc.y);
+          acc.z = fmaf(a.z, w, acc.z);
+          acc.w = fmaf(a.w, w, acc.w);
+        }
+        // partial 0: runs in from the tile before; 1: runs past this one's end
+        float* out = rs0 < base  ? partials + (size_t)tile * 2 * H
+                     : re0 > end ? partials + ((size_t)tile * 2 + 1) * H
+                                 : agg + (size_t)n * H;
+        *reinterpret_cast<float4*>(out + j) = acc;
       }
     }
     group_sync(grp);
@@ -425,15 +431,15 @@ __global__ void nmp_fwd_fixup_kernel(const int* __restrict__ rowptr,
   agg[(size_t)n * H + j] = acc;
 }
 
-// (d) e' = 0 on the edges the layout does not hold (no slot wrote them)
+// (d) e' = 0 on the edges the layout does not hold (no slot wrote them):
+// one 16-byte chunk a thread, consecutive threads on consecutive chunks
 template <int H>
 __global__ void nmp_fwd_zero_kernel(const uint8_t* __restrict__ covered,
                                     float* __restrict__ e_new, long long n_edges) {
+  constexpr int CH = H / 4;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_edges || covered[i]) return;
-#pragma unroll
-  for (int c = 0; c < H; c += 4)
-    *reinterpret_cast<float4*>(e_new + i * H + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i >= n_edges * CH || covered[i / CH]) return;
+  reinterpret_cast<float4*>(e_new)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 struct LaunchPlan {
@@ -519,8 +525,10 @@ extern "C" int nmp_edge_mlp_agg_fwd_f32(
   cudaStream_t st = (cudaStream_t)stream;
   if (n_nodes <= 0)                         // no node: no edge in the layout
     return (int)cudaMemsetAsync(e_new, 0, (size_t)n_edges * hidden * sizeof(float), st);
-  // 16-byte row copies (x, e) and stores (e')
-  if (!aligned16(x) || !aligned16(e) || !aligned16(e_new)) return (int)cudaErrorMisalignedAddress;
+  // 16-byte row copies (x, e) and stores (e', agg, partials)
+  if (!aligned16(x) || !aligned16(e) || !aligned16(e_new) || !aligned16(agg) ||
+      !aligned16(partials))
+    return (int)cudaErrorMisalignedAddress;
   err = cudaMemsetAsync(covered, 0, (size_t)n_edges, st);
   if (err != cudaSuccess) return (int)err;
   tile_lo_kernel<<<(n_nodes + 256) / 256, 256, 0, st>>>((const int*)rowptr, (int*)tile_lo,
@@ -557,7 +565,7 @@ extern "C" int nmp_edge_mlp_agg_fwd_f32(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (n_edges > 0) {
-    const int zgrid = (int)((n_edges + threads - 1) / threads);
+    const int zgrid = (int)((n_edges * (hidden / 4) + threads - 1) / threads);
 #define ZERO_ARGS (const uint8_t*)covered, (float*)e_new, n_edges
     switch (hidden) {
       case 8: nmp_fwd_zero_kernel<8><<<zgrid, threads, 0, st>>>(ZERO_ARGS); break;

@@ -14,11 +14,14 @@ reversed exchange (one pack of the incoming gradient through the
 concatenated recv wire, then one unpack-add per (round, sender) through
 the round's send wire, seeded with the gradient).
 
-:func:`halo_exchange_rank` is the same exchange on one process's [N, F]
-aggregate, given each round's peers, their rows arriving through a
-``swap`` callable (the process group of ``core/halo.py::halo_sync``): one pack
-launch for every round, one unpack-add per round received, and the
-reversed exchange as its gradient.
+:func:`halo_exchange_rank_post` is the same exchange on one process's
+[N, F] aggregate, given each round's peers (the process group of
+``core/halo.py::halo_sync``), posted: one pack launch for every round,
+every round's transfer issued at once, and :meth:`PendingExchange.finish`
+(the wait, then one unpack-add per round received, in round order), which
+a caller without a gradient may hold back to queue other work on the
+card while the rows are in flight; ``reverse=True`` is the reversed
+exchange, its gradient.
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/halo_pack.cu``
 (or raises); on a CPU tensor it runs the plain version.  Both kernels are
@@ -331,74 +334,72 @@ def halo_exchange(a: torch.Tensor, send: HaloWire, recv: HaloWire,
     return _exchange(a, send, rounds, True)
 
 
-def _exchange_rank(a, wire, rounds, peers, swap, forward: bool):
-    """:func:`_exchange` on one process: ``a`` [N, F] is its own, ``wire``
-    and each round's wires its own slices ([W]), ``peers`` each round's
-    (rank it sends to, rank it receives from).  Forward: send the round's
-    rows to the receiver, unpack-add what the sender sent through the
-    round's recv wire.  Backward (``a`` the incoming gradient, ``wire`` the
-    concatenated recv wire): send the round's rows back to the sender,
-    unpack-add what the receiver sends back through the round's send
-    wire."""
-    buf = _pack(a, wire.idx, wire.mask)
-    out = a
-    for rnd, (to, frm) in zip(rounds, peers):
-        lo = rnd.offset
-        hi = lo + rnd.send.idx.shape[-1]
-        if not forward:
-            to, frm = frm, to
-        got = swap(buf[lo:hi] if to is not None else None, to, frm,
-                   (hi - lo, a.shape[1]), a.dtype)
-        if got is not None:
-            w = rnd.recv if forward else rnd.send
-            out = _unpack_add(out, got, w.idx, w.mask, w.inv, a.shape[0])
-    return out.clone() if out is a else out
+class PendingExchange:
+    """A posted packed exchange of one process (:func:`halo_exchange_rank_post`):
+    :meth:`finish` waits for the rows and unpack-adds each round received,
+    in round order, into the running result seeded with the aggregate
+    (through the round's recv wire; the reversed exchange's through its
+    send wire), and returns it."""
+
+    def __init__(self, a: torch.Tensor, rounds, posted, reverse: bool):
+        self.a, self.rounds, self.posted, self.reverse = a, rounds, posted, reverse
+
+    def finish(self) -> torch.Tensor:
+        a = self.a
+        out = a
+        for rnd, got in zip(self.rounds, self.posted.wait()):
+            if got is not None:
+                w = rnd.send if self.reverse else rnd.recv
+                out = _unpack_add(out, got, w.idx, w.mask, w.inv, a.shape[0])
+        return out.clone() if out is a else out
 
 
-class _RankExchange(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, a, send, recv, rounds, peers, swap):
-        ctx.recv, ctx.rounds, ctx.peers, ctx.swap = recv, rounds, peers, swap
-        return _exchange_rank(a, send, rounds, peers, swap, True)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (_exchange_rank(g.contiguous(), ctx.recv, ctx.rounds, ctx.peers,
-                               ctx.swap, False), None, None, None, None, None)
-
-
-def halo_exchange_rank(a: torch.Tensor, send: HaloWire, recv: HaloWire,
-                       rounds: Sequence[ExchangeRound],
-                       peers: Sequence[Tuple[Optional[int], Optional[int]]],
-                       swap: Callable) -> torch.Tensor:
-    """The packed neighbor exchange of one rank's aggregate, Eq. 4c-d: the
-    per-process counterpart of :func:`halo_exchange`.
+def halo_exchange_rank_post(a: torch.Tensor, send: HaloWire, recv: HaloWire,
+                            rounds: Sequence[ExchangeRound],
+                            peers: Sequence[Tuple[Optional[int], Optional[int]]],
+                            post: Callable, reverse: bool = False) -> PendingExchange:
+    """The packed neighbor exchange of one rank's aggregate, Eq. 4c-d, posted:
+    the per-process counterpart of :func:`halo_exchange`.
 
     a: [N, F] float32, this rank's; send / recv: its exchange wires ([W],
     ``graph.wire("pk_send")`` / ``("pk_recv")`` of a rank-local graph);
     rounds: each round's :class:`ExchangeRound` with this rank's wires
     ([W_k]); peers: each round's (rank this one sends to, rank it receives
-    from), None where it does not; ``swap(rows, to, frm, shape, dtype)``
-    sends ``rows`` to rank ``to`` and returns the ``shape`` rows rank
-    ``frm`` sent (None for a missing side).
+    from), None where it does not; ``post(items)`` takes one ``(rows, to,
+    frm, shape, dtype)`` per round (``Group.post_swaps``), issues every
+    transfer at once and returns an object whose ``wait()`` gives each
+    round's received rows.
 
-    One pack launch gathers every round's send rows from the original
-    ``a``; round by round, the round's slice goes to this rank's receiver
-    and the sender's rows are unpack-added into the running result (seeded
-    with ``a``), one launch each.  Each rank's result is bitwise equal to
-    its slice of :func:`halo_exchange`.  Differentiable in ``a``: the
-    backward is the reversed exchange (one pack of the gradient through
-    ``recv``, each round's slice back to its sender, one unpack-add per
-    round through the round's send wire, seeded with the gradient).
-    Returns [N, F]."""
-    if a.dim() != 2 or send.idx.dim() != 1 or recv.idx.shape != send.idx.shape:
-        raise ValueError(f"halo_exchange_rank: expected a [N, F] and wires [W]; got "
-                         f"{tuple(a.shape)}, {tuple(send.idx.shape)}, "
-                         f"{tuple(recv.idx.shape)}")
+    One pack launch gathers every round's send rows from ``a``, then the
+    rounds are posted; :meth:`PendingExchange.finish` waits and unpack-adds
+    each round received into the running result (seeded with ``a``), one
+    launch each, in round order.  Each rank's result is bitwise equal to
+    its slice of :func:`halo_exchange`.  ``reverse`` posts the reversed
+    exchange, the gradient of the forward one (``a`` the incoming
+    gradient: one pack through ``recv``, each round's slice back to its
+    sender, one unpack-add per round through the round's send wire).  Not
+    differentiable itself: ``a`` must need no gradient
+    (``core/halo.py::halo_sync`` wraps both directions in one
+    ``autograd.Function``).  Returns the :class:`PendingExchange`."""
     rounds, peers = tuple(rounds), tuple(peers)
+    if a.dim() != 2 or send.idx.dim() != 1 or recv.idx.shape != send.idx.shape:
+        raise ValueError(f"halo_exchange_rank_post: expected a [N, F] and wires [W]; "
+                         f"got {tuple(a.shape)}, {tuple(send.idx.shape)}, "
+                         f"{tuple(recv.idx.shape)}")
     if len(peers) != len(rounds):
-        raise ValueError(f"halo_exchange_rank: {len(rounds)} rounds, "
+        raise ValueError(f"halo_exchange_rank_post: {len(rounds)} rounds, "
                          f"{len(peers)} peer pairs")
     if torch.is_grad_enabled() and a.requires_grad:
-        return _RankExchange.apply(a, send, recv, rounds, peers, swap)
-    return _exchange_rank(a, send, rounds, peers, swap, True)
+        raise ValueError("halo_exchange_rank_post: a posted exchange has no gradient; "
+                         "use core/halo.py::halo_sync under autograd")
+    wire = recv if reverse else send
+    buf = _pack(a, wire.idx, wire.mask)
+    items = []
+    for rnd, (to, frm) in zip(rounds, peers):
+        lo = rnd.offset
+        hi = lo + rnd.send.idx.shape[-1]
+        if reverse:
+            to, frm = frm, to
+        items.append((buf[lo:hi] if to is not None else None, to, frm,
+                      (hi - lo, a.shape[1]), a.dtype))
+    return PendingExchange(a, rounds, post(items), reverse)

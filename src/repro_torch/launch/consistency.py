@@ -18,8 +18,15 @@ does: losses within rel 2e-6 and gradients within rtol 1e-3 / atol 2e-5
 of R=1, ``none`` deviating by more than 1e-6, the exchanges within 1e-7
 of each other.
 
-A :class:`Job` also asks for the halo exchanges alone on a seeded
-aggregate (``halo``), the consistent reductions (``reductions``), a K-step
+``Job.schedules`` runs each (backend, mode) under the blocking schedule
+(records under ``"steps"``) and, with ``overlap``, under the
+interior/boundary overlap schedule (``"steps_overlap"``, :func:`steps_key`):
+the forward (no gradient) posts each exchange and finishes it after
+queueing the interior side, the gradient run finishes each exchange as
+soon as it is posted, between the sides; each record counts the
+exchanges each run posted and overlapped (``fwd_exchanges``,
+``grad_exchanges``).  A :class:`Job` also asks for the halo exchanges
+alone on a seeded aggregate (``halo``), the consistent reductions (``reductions``), a K-step
 rollout gradient (``rollout``), training steps (``train_steps``), and
 per-process launch counts and times (``timing``: CUDA events on a card); the tests
 (``tests/test_torch_dist.py``) and ``chip_smoke.py`` phase 3c read those.
@@ -42,8 +49,10 @@ from repro_torch.core.consistent_loss import (
     consistent_mse, consistent_node_count, consistent_node_sum)
 from repro_torch.core.distributed import make_gnn_step_fns
 from repro_torch.core.gnn import GNNConfig, init_gnn
-from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, ShardedGraph
-from repro_torch.core.halo import A2A, NEIGHBOR, NONE, HaloSpec, halo_sync
+from repro_torch.core.graph_state import (
+    BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph)
+from repro_torch.core.halo import (
+    A2A, NEIGHBOR, NONE, HaloSpec, halo_sync, halo_sync_post)
 from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
 from repro_torch.core.partition import gather_node_features, partition_mesh
 from repro_torch.core.reference import loss_and_grad_stacked
@@ -77,6 +86,7 @@ class Job:
     device: str = "cuda"
     backends: Tuple[str, ...] = (XLA, FUSED)
     modes: Tuple[str, ...] = tuple(MODES)
+    schedules: Tuple[str, ...] = (BLOCKING,)
     cases: Optional[tuple] = None
     params: object = None
     halo: bool = False
@@ -92,9 +102,15 @@ def _params(job: Job, device):
     return params_from_jax(job.params, device)
 
 
-def plan_for(pg, mode: str, backend: str) -> NMPPlan:
+def plan_for(pg, mode: str, backend: str, schedule: str = BLOCKING) -> NMPPlan:
     halo_mode, packed = MODES[mode]
-    return NMPPlan.build(pg, halo_mode, packed=packed, backend=backend)
+    return NMPPlan.build(pg, halo_mode, packed=packed, backend=backend,
+                         schedule=schedule)
+
+
+def steps_key(schedule: str) -> str:
+    """Where a process's record keeps one schedule's step results."""
+    return "steps" if schedule == BLOCKING else f"steps_{schedule}"
 
 
 def case_name(grid, data) -> str:
@@ -148,8 +164,13 @@ def _counted(fn):
     return out, {k: v for k, v in build.launch_counts.items() if v}
 
 
+def _exchanges(tr) -> dict:
+    return {"posted": tr.posted, "overlapped": tr.overlapped}
+
+
 def _halo_case(mesh, pg, graph, job, R):
-    """Each mode's exchange of a seeded aggregate and its gradient."""
+    """Each mode's exchange of a seeded aggregate (through autograd, and
+    posted), its gradient, and a batched one without gradient."""
     f = job.cfg.hidden
     a_all = seeded(1, (R, pg.n_pad, f))
     w_all = seeded(2, (R, pg.n_pad, f))
@@ -165,7 +186,8 @@ def _halo_case(mesh, pg, graph, job, R):
         with torch.no_grad():
             yb = halo_sync(torch.from_numpy(b_all[:, mesh.rank]).to(mesh.device),
                            g, spec, mesh)
-        out[mode] = {"out": y.detach(), "grad": ga, "batched": yb}
+            posted = halo_sync_post(a.detach(), g, spec, mesh).finish()
+        out[mode] = {"out": y.detach(), "grad": ga, "batched": yb, "posted": posted}
     return out
 
 
@@ -181,30 +203,37 @@ def _reductions(mesh, pg, g, R):
             "node_count": consistent_node_count(inv, group=grp)}
 
 
-def _steps(mesh, pg, sem, params, job, backend, mode, graph):
-    """Loss, gradients and forward of one (backend, mode), each with this
-    process's launches; with ``job.timing`` the packed mode's times too."""
-    plan = plan_for(pg, mode, backend)
+def _steps(mesh, pg, sem, params, job, backend, mode, graph, schedule=BLOCKING):
+    """Loss, gradients and forward of one (backend, mode, schedule), each
+    with this process's launches and exchanges; with ``job.timing`` the
+    packed mode's times too (the host's per exchange: the stream sync
+    before staging, the staging copies, the gloo calls and the part of them
+    blocked in a posted exchange's wait)."""
+    plan = plan_for(pg, mode, backend, schedule)
     eval_step, _, grad_step, _ = make_gnn_step_fns(job.cfg, plan, mesh=mesh)
-    dev = mesh.device
+    dev, tr = mesh.device, mesh.world_group.transport
     # one snapshot per replica, the same on each (as the reference check)
     xs, ys = (torch.from_numpy(gather_node_features(
         pg, taylor_green_velocity(sem.coords, t=t), mesh.rank)[None]).to(dev)
         for t in (0.0, DT))
     rec = {}
+    tr.reset()
     rec["pred"], rec["fwd_launches"] = _counted(lambda: eval_step(params, xs, graph))
+    rec["fwd_exchanges"] = _exchanges(tr)
+    tr.reset()
     (rec["loss"], rec["grads"]), rec["grad_launches"] = _counted(
         lambda: grad_step(params, xs, ys, graph))
+    rec["grad_exchanges"] = _exchanges(tr)
     _sync(dev)
     if job.timing and mode == "packed":
-        tr, layers = mesh.world_group.transport, job.cfg.n_mp_layers * xs.shape[0]
+        layers = job.cfg.n_mp_layers * xs.shape[0]
         eval_step(params, xs, graph)
         rec["fwd_ms"] = _median_ms(lambda: eval_step(params, xs, graph), job.timing, dev)
         tr.reset()
         eval_step(params, xs, graph)
         _sync(dev)
-        rec["stage_ms_per_exchange"] = 1e3 * tr.stage_s / layers
-        rec["wire_ms_per_exchange"] = 1e3 * tr.wire_s / layers
+        for name in ("sync", "stage", "wire", "wait"):
+            rec[f"{name}_ms_per_exchange"] = 1e3 * getattr(tr, f"{name}_s") / layers
         rec["staged_bytes_per_layer"] = tr.staged_bytes / layers
         rec["grad_ms"] = _median_ms(lambda: grad_step(params, xs, ys, graph),
                                   job.timing, dev)
@@ -236,15 +265,19 @@ def _world(job: Job, world: int, backend: str):
         mesh = make_mesh(data, R, backend=backend, device=job.device)
         params = _params(job, mesh.device)
         pg = partition_mesh(sem, grid)
-        rec = {"rank": mesh.rank, "replica": mesh.replica, "steps": {}}
+        rec = {"rank": mesh.rank, "replica": mesh.replica}
+        rec.update((steps_key(sch), {}) for sch in job.schedules)
+        # an overlap plan's graph also carries what the blocking one reads
+        build_schedule = OVERLAP if OVERLAP in job.schedules else BLOCKING
         for backend_name in job.backends:
-            graphs = {mode: ShardedGraph.build(pg, sem.coords,
-                                               plan_for(pg, mode, backend_name),
-                                               device=mesh.device, rank=mesh.rank)
-                      for mode in job.modes}
-            for mode in job.modes:
-                rec["steps"][(backend_name, mode)] = _steps(
-                    mesh, pg, sem, params, job, backend_name, mode, graphs[mode])
+            graphs = {mode: ShardedGraph.build(
+                pg, sem.coords, plan_for(pg, mode, backend_name, build_schedule),
+                device=mesh.device, rank=mesh.rank) for mode in job.modes}
+            for schedule in job.schedules:
+                for mode in job.modes:
+                    rec[steps_key(schedule)][(backend_name, mode)] = _steps(
+                        mesh, pg, sem, params, job, backend_name, mode, graphs[mode],
+                        schedule)
         if job.halo or job.reductions:
             g = {mode: ShardedGraph.build(pg, sem.coords, plan_for(pg, mode, XLA),
                                           device=mesh.device, rank=mesh.rank)
@@ -360,22 +393,23 @@ def check_agree(losses: dict) -> str:
     return line
 
 
-def check(results, base, w_rel=None) -> list:
+def check(results, base, w_rel=None, schedule: str = BLOCKING) -> list:
     """The reference check's assertions (:func:`check_step`,
     :func:`check_agree`) on every case, backend and mode of one world's
-    results, as lines; raises on the first that fails."""
-    lines = []
+    results under ``schedule``, as lines; raises on the first that fails."""
+    lines, key = [], steps_key(schedule)
+    tag = "" if schedule == BLOCKING else f" {schedule}"
     for case in (c for c in results[0] if c != "train"):
-        keys = results[0][case]["steps"]
+        keys = results[0][case][key]
         for backend in dict.fromkeys(k[0] for k in keys):
             losses = {}
             for (b, mode) in keys:
                 if b == backend:
-                    recs = [p[case]["steps"][(b, mode)] for p in results]
-                    lines.append(f"{case} {backend:5s} "
+                    recs = [p[case][key][(b, mode)] for p in results]
+                    lines.append(f"{case} {backend:5s}{tag} "
                                  + check_step(recs, base, mode, w_rel))
                     losses[mode] = float(recs[0]["loss"])
-            lines.append(f"{case} {backend:5s} " + check_agree(losses))
+            lines.append(f"{case} {backend:5s}{tag} " + check_agree(losses))
     return lines
 
 
@@ -383,14 +417,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--world", type=int, nargs="+", default=[2, 4], choices=sorted(CASES))
     ap.add_argument("--mp-backend", nargs="+", default=[XLA, FUSED], choices=[XLA, FUSED])
+    ap.add_argument("--schedule", nargs="+", default=[BLOCKING],
+                    choices=[BLOCKING, OVERLAP])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    job = Job(device=args.device, backends=tuple(args.mp_backend))
+    job = Job(device=args.device, backends=tuple(args.mp_backend),
+              schedules=tuple(args.schedule))
     base = baseline(job)
     print(f"R=1 loss {base[0]:.8f} ({args.device})", flush=True)
     for world in args.world:
         t0 = time.perf_counter()
-        for line in check(run_world(job, world), base):
+        results = run_world(job, world)
+        for line in (l for sch in job.schedules for l in check(results, base,
+                                                                schedule=sch)):
             print(f"world {world}: {line}", flush=True)
         print(f"world {world}: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"consistency": "pass", "worlds": args.world}))

@@ -23,8 +23,21 @@ tensor), and a worker that raises makes :func:`spawn` raise.
 * ``gloo``: CPU tensors go as they are; CUDA tensors are staged through
   pinned host buffers explicitly (``staged_bytes`` counts both directions;
   ``stage_s`` / ``wire_s`` split the host time between the copies and the
-  gloo transfer).  No CUDA tensor is ever handed to gloo, and no backend
-  is ever switched silently.
+  gloo calls).  No CUDA tensor is ever handed to gloo, and no backend is
+  ever switched silently.
+
+Every halo exchange is posted (``post_all_to_all``, ``post_swaps``): the
+transfers are issued now and :meth:`Posted.wait` collects them later, so
+work queued on the card in between runs while they are in flight; a
+caller that needs the rows at once waits right away (the autograd
+exchanges do).  A posted exchange under gloo with CUDA tensors takes one
+stream sync (``sync_s``), stages every send row into pinned buffers and
+issues every round's ``isend`` / ``irecv`` at once, each round under its
+own ``tag``; the wait waits the rounds in order (``wait_s``, the host time
+blocked there) and copies each round's rows back to the card.  ``posted``
+counts the exchanges waited and ``overlapped`` those of them the overlap
+schedule finished after queueing other work
+(``core/distributed.py::HaloFn.post``), so a run can show which it took.
 """
 from __future__ import annotations
 
@@ -33,7 +46,7 @@ import os
 import pickle
 import tempfile
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -61,7 +74,7 @@ def check_backend(backend: str, device: str, nprocs: int):
 
 
 class Transport:
-    """Collectives and pair swaps of one process, under one backend (module
+    """Collectives and posted exchanges of one process, under one backend (module
     docstring).  ``group`` arguments are :class:`Group` objects."""
 
     def __init__(self, backend: str, device: torch.device):
@@ -71,13 +84,18 @@ class Transport:
 
     def reset(self):
         self.staged_bytes, self.stage_s, self.wire_s = 0, 0.0, 0.0
+        self.sync_s, self.wait_s = 0.0, 0.0
+        self.posted, self.overlapped = 0, 0
 
-    def _out(self, t: torch.Tensor) -> torch.Tensor:
-        """The tensor to hand to the backend: a pinned host copy of a CUDA
-        tensor under gloo."""
-        if not self.stages:
-            return t
+    def _sync(self):
+        """Wait for the work queued on this process's stream (the rows to
+        stage come out of it)."""
+        t0 = time.perf_counter()
         torch.cuda.current_stream(self.device).synchronize()
+        self.sync_s += time.perf_counter() - t0
+
+    def _stage(self, t: torch.Tensor) -> torch.Tensor:
+        """A pinned host copy of a CUDA tensor whose producers are done."""
         t0 = time.perf_counter()
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t)
@@ -85,23 +103,69 @@ class Transport:
         self.stage_s += time.perf_counter() - t0
         return host
 
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        """The tensor to hand to the backend: a pinned host copy of a CUDA
+        tensor under gloo."""
+        if not self.stages:
+            return t
+        self._sync()
+        return self._stage(t)
+
     def _empty(self, shape, dtype) -> torch.Tensor:
         dev = "cpu" if self.stages else self.device
         return torch.empty(shape, dtype=dtype, device=dev, pin_memory=self.stages)
 
-    def _back(self, t: torch.Tensor) -> torch.Tensor:
+    def _back(self, t: torch.Tensor, non_blocking: bool = False) -> torch.Tensor:
         if not self.stages:
             return t
         t0 = time.perf_counter()
-        out = t.to(self.device)
+        out = t.to(self.device, non_blocking=non_blocking)
         self.staged_bytes += t.numel() * t.element_size()
         self.stage_s += time.perf_counter() - t0
         return out
 
     def _wire(self, fn):
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         self.wire_s += time.perf_counter() - t0
+        return out
+
+    def post_all_to_all(self, buf: torch.Tensor, group: "Group") -> "Posted":
+        """``buf`` [S, ...] with slice s for group rank s, posted:
+        ``wait()`` returns ``[got]``, [S, ...] with slice s from group rank
+        s."""
+        send = self._out(buf.contiguous())
+        got = self._empty(buf.shape, buf.dtype)
+        work = self._wire(lambda: dist.all_to_all_single(got, send, group=group.pg,
+                                                         async_op=True))
+        return Posted(self, [[work]], [got], [send])
+
+    def post_swaps(self, rounds, group: "Group") -> "Posted":
+        """Every round of an exchange, posted: ``rounds`` holds one
+        ``(send, dst, src, shape, dtype)`` per round (round k under tag k):
+        send ``send`` to group rank ``dst`` and receive a ``shape`` tensor
+        from group rank ``src``, either of them None where this process
+        sits the round out.  ``wait()`` returns what arrived in each round
+        (None where nothing was received)."""
+        rounds = list(rounds)
+        if self.stages and any(r[0] is not None for r in rounds):
+            self._sync()
+        works, recvs, keep = [], [], []
+        for k, (send, dst, src, shape, dtype) in enumerate(rounds):
+            ops, got = [], None
+            if dst is not None:
+                rows = send.contiguous()
+                rows = self._stage(rows) if self.stages else rows
+                keep.append(rows)
+                ops.append(dist.P2POp(dist.isend, rows, group.ranks[dst],
+                                      group=group.pg, tag=k))
+            if src is not None:
+                got = self._empty(shape, dtype)
+                ops.append(dist.P2POp(dist.irecv, got, group.ranks[src],
+                                      group=group.pg, tag=k))
+            works.append(self._wire(lambda: dist.batch_isend_irecv(ops)) if ops else [])
+            recvs.append(got)
+        return Posted(self, works, recvs, keep)
 
     def all_reduce(self, t: torch.Tensor, group: "Group") -> torch.Tensor:
         """A new tensor holding the sum of ``t`` over ``group``."""
@@ -113,34 +177,31 @@ class Transport:
         self._wire(lambda: dist.all_reduce(buf, group=group.pg))
         return self._back(buf)
 
-    def all_to_all(self, buf: torch.Tensor, group: "Group") -> torch.Tensor:
-        """``buf`` [S, ...] with slice s for group rank s -> [S, ...] with
-        slice s from group rank s."""
-        send = self._out(buf.contiguous())
-        got = self._empty(buf.shape, buf.dtype)
-        self._wire(lambda: dist.all_to_all_single(got, send, group=group.pg))
-        return self._back(got)
 
-    def swap(self, send: Optional[torch.Tensor], dst: Optional[int],
-             src: Optional[int], shape, dtype, group: "Group"
-             ) -> Optional[torch.Tensor]:
-        """One exchange round of this process: send ``send`` to group rank
-        ``dst`` and receive a ``shape`` tensor from group rank ``src``
-        (either may be None), in one ``batch_isend_irecv``.  Returns what
-        arrived, or None."""
-        ops, got = [], None
-        if dst is not None:
-            ops.append(dist.P2POp(dist.isend, self._out(send.contiguous()),
-                                  group.ranks[dst], group=group.pg))
-        if src is not None:
-            got = self._empty(shape, dtype)
-            ops.append(dist.P2POp(dist.irecv, got, group.ranks[src], group=group.pg))
-        if ops:
-            def run():
-                for req in dist.batch_isend_irecv(ops):
-                    req.wait()
-            self._wire(run)
-        return None if got is None else self._back(got)
+class Posted:
+    """A posted exchange of one process: the backend's works per round, the
+    buffers receiving each round (None where nothing is received) and the
+    send buffers, held until the works are done."""
+
+    def __init__(self, transport: Transport, works, recvs, keep):
+        self.transport, self.works, self.recvs, self.keep = transport, works, recvs, keep
+        self.done = False
+
+    def wait(self) -> list:
+        """Wait the rounds in order; each round's rows on this process's
+        device, in round order."""
+        if self.done:
+            raise RuntimeError("this posted exchange was already waited")
+        tr, out = self.transport, []
+        for works, got in zip(self.works, self.recvs):
+            t0 = time.perf_counter()
+            for work in works:
+                work.wait()
+            tr.wait_s += time.perf_counter() - t0
+            out.append(None if got is None else tr._back(got, non_blocking=True))
+        self.done, self.keep = True, None
+        tr.posted += 1
+        return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -160,11 +221,11 @@ class Group:
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         return self.transport.all_reduce(t, self)
 
-    def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
-        return self.transport.all_to_all(buf, self)
+    def post_all_to_all(self, buf: torch.Tensor) -> Posted:
+        return self.transport.post_all_to_all(buf, self)
 
-    def swap(self, send, dst, src, shape, dtype):
-        return self.transport.swap(send, dst, src, shape, dtype, self)
+    def post_swaps(self, rounds) -> Posted:
+        return self.transport.post_swaps(rounds, self)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

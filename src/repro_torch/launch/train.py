@@ -18,10 +18,11 @@ processes (``repro_torch.launch.mesh.spawn``), joined by
 ``--dist-backend``: gloo (the default; CUDA tensors staged through the
 host, so processes may share a card) or nccl (one card per process).
 ``--batch`` must split over the replicas.  Process 0 prints the loss line
-and writes the checkpoints.  What is not ported, the CLI refuses naming the
-slice that brings it: the overlap/auto schedules, bf16, multilevel
-``--levels``, the spectral partitioner and the resilient ``--ckpt-dir``
-mode.
+and writes the checkpoints.  ``--mp-schedule overlap`` runs the
+interior/boundary split (its exchange blocking between the two sides, as
+the gradient needs).  What is not ported, the CLI refuses naming the slice
+that brings it: the ``auto`` schedule, bf16, multilevel ``--levels``, the
+spectral partitioner and the resilient ``--ckpt-dir`` mode.
 """
 import argparse
 import math
@@ -41,7 +42,8 @@ def _run(args, mesh=None):
     tcfg = TrainConfig(n_steps=args.steps, batch=args.batch, lr=args.lr,
                        halo_mode=args.halo, ckpt_dir=args.ckpt,
                        ckpt_every=args.ckpt_every,
-                       plan=NMPPlan(backend=args.mp_backend),
+                       plan=NMPPlan(backend=args.mp_backend,
+                                    schedule=args.mp_schedule),
                        rollout_steps=args.rollout_steps,
                        pushforward_noise=args.pushforward_noise,
                        partitioner=args.partitioner)
@@ -103,9 +105,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     refusals = (
-        (args.mp_schedule != "blocking",
-         f"--mp-schedule {args.mp_schedule} is not ported "
-         "(ROADMAP queue: 'Overlap schedule')"),
+        (args.mp_schedule == "auto",
+         "--mp-schedule auto is not ported (ROADMAP queue: 'Spectral "
+         "partitioning and autotune')"),
         (args.mp_precision != "fp32",
          "--mp-precision bf16 is not ported (ROADMAP queue: "
          "'bf16')"),
@@ -143,7 +145,8 @@ def main(argv=None):
     print(f"mesh: {sem.n_elem} elems p={args.order} ({sem.n_nodes} nodes); "
           f"R={_ranks(args)} x DP={args.data_parallel} on {args.device}"
           + (f" ({nprocs} processes, {args.dist_backend})" if nprocs > 1 else "")
-          + f"; backend={args.mp_backend}; rollout K={args.rollout_steps}", flush=True)
+          + f"; backend={args.mp_backend}, schedule={args.mp_schedule}; rollout "
+          f"K={args.rollout_steps}", flush=True)
     if nprocs == 1:
         return _run(args)
     return spawn(_process, nprocs, args, backend=args.dist_backend,

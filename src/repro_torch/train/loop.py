@@ -21,9 +21,12 @@ builds its rank's slice of the graph and of its replica's ``B / D``
 samples of each step's batch, the loss is consistent over the graph group
 and averaged over the replicas, the gradients are averaged over every
 process, and every process runs the same AdamW on them; only replica 0,
-rank 0 writes checkpoints.  Without a mesh R > 1 raises, as do
-``resilience=`` (elastic resume and ``AsyncCheckpointer`` are a later
-slice), schedules other than ``blocking`` and multilevel configs.
+rank 0 writes checkpoints.  ``plan.schedule`` is ``blocking`` or
+``overlap`` (the interior/boundary split; a training step runs each
+layer's exchange between the two sides, blocking, as the gradient needs).
+Without a mesh R > 1 raises, as do ``resilience=`` (elastic resume and
+``AsyncCheckpointer`` are a later slice), ``auto`` and multilevel
+configs.
 ``mesh_fingerprint_hash`` hashes the global mesh exactly as the reference
 does, so a checkpoint written by either package names the same mesh.
 """
@@ -43,7 +46,7 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.convert import params_from_jax
 from repro_torch.core.distributed import make_gnn_step_fns
 from repro_torch.core.gnn import GNNConfig, init_gnn
-from repro_torch.core.graph_state import BLOCKING, NMPPlan, ShardedGraph
+from repro_torch.core.graph_state import BLOCKING, OVERLAP, NMPPlan, ShardedGraph
 from repro_torch.core.mesh_gen import SEMMesh, taylor_green_velocity
 from repro_torch.core.partition import PartitionedGraphs, gather_node_features
 from repro_torch.runtime.straggler import StragglerMonitor
@@ -183,10 +186,11 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None):
     plan = NMPPlan.build(pg, tcfg.halo_mode, packed=policy.halo.packed,
                          backend=policy.backend, schedule=policy.schedule,
                          block_n=policy.block_n, block_e=policy.block_e)
-    if plan.schedule != BLOCKING:
+    if plan.schedule not in (BLOCKING, OVERLAP):
         raise NotImplementedError(
             f"schedule {plan.schedule!r} is not ported to repro_torch yet "
-            "(ROADMAP queue: 'Overlap schedule'); use 'blocking'")
+            "(ROADMAP queue: 'Spectral partitioning and autotune'); use "
+            "'blocking' or 'overlap'")
     graph = ShardedGraph.build(pg, sem_mesh.coords, plan, device=device,
                                rank=None if mesh is None else mesh.rank)
     plan = plan.autotune(graph, hidden=cfg.hidden)

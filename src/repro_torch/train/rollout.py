@@ -9,7 +9,8 @@ one process of a ``(data, graph)`` mesh or, without one, one device:
 * ``make_rollout_step_fns`` -> (``rollout_eval``, ``rollout_grad``) over
   ``[B, 1, N_pad, F]`` inputs and ``[B, K, 1, N_pad, F]`` targets;
 * ``make_rollout_predict_fn`` — the inference rollout the serving engine
-  runs (zero targets, one batch slot at a time; the engine is one-rank);
+  runs (zero targets, one batch slot at a time; with a mesh, each process
+  its own rank, through the posted exchange under the overlap schedule);
 * ``curriculum_k`` and ``make_tgv_rollout_batch_fn``, both PURE in
   ``step`` (the deterministic-replay contract): snapshot times are
   ``(step*batch + b)*dt`` and noise is drawn from

@@ -982,3 +982,125 @@ def test_distributed_step_on_card_bitwise_stacked(cuda):
                                    hp.UNPACK: cfg.n_mp_layers * recv}
                 assert np.array_equal(rec["steps"][(FUSED, mode)]["pred"][0, 0],
                                       pred[r].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the overlap schedule: kernels 1 and 2 on each side's layout
+# ---------------------------------------------------------------------------
+
+def _side_case(cuda, grid, part, r, hidden=32, layers=6, seed=0):
+    plan = NMPPlan(backend=FUSED, schedule="overlap", block_e=32)
+    _, pg, g = _graph((4, 2, 2), grid, plan, cuda)
+    g = g.rank(r)
+    gen = torch.Generator().manual_seed(seed)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=layers - 1)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    for lp in edge["layers"]:                  # non-trivial biases
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    x = torch.randn(pg.n_pad, hidden, generator=gen).to(cuda)
+    e = torch.randn(pg.e_pad, hidden, generator=gen).to(cuda)
+    g_enew = torch.randn(pg.e_pad, hidden, generator=gen).to(cuda)
+    g_agg = torch.randn(pg.n_pad, hidden, generator=gen).to(cuda)
+    lay = tuple(g[f"seg_{k}_{part}"] for k in ("perm", "src", "rowptr"))
+    src_lay = (g[f"seg_src_slots_{part}"], g[f"seg_src_rowptr_{part}"])
+    return x, e, edge, lay, src_lay, (g["edge_mask"], g["edge_inv_mult"]), (g_enew, g_agg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [8, 32])
+def test_fused_nmp_kernels_on_an_empty_layout(cuda, hidden):
+    """One rank's boundary side holds no edge (one tile of perm -1, an
+    all-zero rowptr): the forward writes e' = 0 on every edge and agg = 0
+    on every row, the backward zero gradients, as the plain versions."""
+    x, e, edge, lay, src_lay, rest, cot = _side_case(cuda, (1, 1, 1), "bnd", 0, hidden)
+    assert not lay[2].any() and bool((lay[0] == -1).all())
+    e_new, agg = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    assert not e_new.any() and not agg.any()
+    pe, pa = sa.fused_nmp_edge_agg_plain(x, e, edge, *lay, *rest)
+    assert not pe.any() and not pa.any()
+    got = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, *cot)
+    assert not any(t.any() for t in got)
+    want = sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest, *cot)
+    assert not any(t.any() for t in want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", ["bnd", "int"])
+@pytest.mark.parametrize("grid,rank", [((2, 2, 1), 0), ((2, 2, 1), 3), ((4, 1, 1), 1),
+                                       ((1, 1, 1), 0)],
+                         ids=["2x2_r0", "2x2_r3", "4x1_r1", "1x1_r0"])
+def test_fused_nmp_kernels_on_each_side_layout(cuda, grid, rank, part):
+    """Kernels 1 and 2 on one side of the interior/boundary split: within
+    the forward and gradient bands of the plain versions, e' zero outside
+    the side's edges, two launches bitwise equal; the two sides' outputs
+    sum to the full layout's within the forward band."""
+    x, e, edge, lay, src_lay, rest, cot = _side_case(cuda, grid, part, rank)
+    e_new, agg = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    pe, pa = sa.fused_nmp_edge_agg_plain(x, e, edge, *lay, *rest)
+    torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
+    n_side = int(lay[2][-1])
+    inside = torch.zeros(e.shape[0], dtype=torch.bool, device=cuda)
+    inside[lay[0].reshape(-1)[:n_side].long()] = True
+    assert not e_new[~inside].any()
+    e2, a2 = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    assert torch.equal(e_new, e2) and torch.equal(agg, a2)
+    got = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, *cot)
+    want = sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest, *cot)
+    torch.testing.assert_close(got[0], want[0], rtol=G_RTOL, atol=G_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=G_RTOL, atol=G_ATOL)
+    for i, (a, b) in enumerate(zip(got[2:], want[2:])):
+        if n_side == 0:
+            assert not a.any() and not b.any()
+        else:
+            assert _rel_norm(a, b) <= W_REL, i
+    other = "int" if part == "bnd" else "bnd"
+    _, _, _, lay_o, _, _, _ = _side_case(cuda, grid, other, rank)
+    e_o, a_o = sa.fused_nmp_edge_agg(x, e, edge, *lay_o, *rest)
+    full = NMPPlan(backend=FUSED, block_e=32)
+    _, _, gf = _graph((4, 2, 2), grid, full, cuda)
+    gf = gf.rank(rank)
+    e_f, a_f = sa.fused_nmp_edge_agg(x, e, edge, gf["seg_perm"], gf["seg_src"],
+                                     gf["seg_rowptr"], *rest)
+    torch.testing.assert_close(e_new + e_o, e_f, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg + a_o, a_f, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_overlap_on_card_posted_exchange_and_forward_bitwise_stacked(cuda):
+    """4 gloo processes sharing the card (``launch/consistency.py``,
+    ``schedules=("blocking", "overlap")``): each rank's posted packed
+    exchange bitwise equal to the blocking one and to the stacked
+    emulator's slice, each rank's overlap forward (posted exchanges)
+    bitwise equal to the stacked overlap forward's slice on the card, and
+    the overlap forward's launches per process exactly two kernel-1 launches
+    per layer, one pack and one unpack-add per round received."""
+    from repro_torch.launch import consistency as cons
+    cfg = GNNConfig.small()
+    grid = (2, 2, 1)
+    job = cons.Job(elements=(4, 4, 2), order=3, cfg=cfg, device="cuda",
+                   backends=(FUSED,), modes=("packed",), cases=((grid, 1),),
+                   schedules=("blocking", "overlap"), halo=True)
+    procs = cons.run_world(job, 4)
+    sem = box_mesh(job.elements, p=job.order)
+    pg = partition_mesh(sem, grid)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=cuda)
+    case = cons.case_name(grid, 1)
+    a = torch.from_numpy(cons.seeded(1, (pg.R, pg.n_pad, cfg.hidden))).to(cuda)
+    x = torch.from_numpy(gather_node_features(pg, taylor_green_velocity(sem.coords)))
+    plan = cons.plan_for(pg, "packed", FUSED, "overlap")
+    g = ShardedGraph.build(pg, sem.coords, plan, device=cuda)
+    with torch.no_grad():
+        y = halo_sync_stacked(a, g, plan.halo)
+        pred = gnn_forward_stacked(params, x.to(cuda), g, plan, sync_fn=halo_sync_stacked)
+    for p in procs:
+        r, rec = p[case]["rank"], p[case]
+        halo = rec["halo"]["packed"]
+        assert np.array_equal(halo["posted"], halo["out"])
+        assert np.array_equal(halo["posted"], y[r].cpu().numpy())
+        step = rec["steps_overlap"][(FUSED, "packed")]
+        assert np.array_equal(step["pred"][0, 0], pred[r].cpu().numpy())
+        recv = sum(any(d == r for _, d in perm) for perm in plan.halo.perms)
+        M = cfg.n_mp_layers
+        assert step["fwd_launches"] == {sa.KERNEL: 2 * M, hp.PACK: M, hp.UNPACK: M * recv}
+        assert step["fwd_exchanges"] == {"posted": M, "overlapped": M}

@@ -183,7 +183,8 @@ def test_consistent_mse_partition_invariant(case):
 
 
 def test_registry_cells_and_unported_paths():
-    assert registered_nmp_impls() == ((FUSED, "blocking"), (XLA, "blocking"))
+    assert registered_nmp_impls() == ((FUSED, "blocking"), (FUSED, "overlap"),
+                                      (XLA, "blocking"), (XLA, "overlap"))
     plan = NMPPlan(schedule="auto")
     with pytest.raises(NotImplementedError, match="auto"):
         plan.autotune()

@@ -354,7 +354,7 @@ def test_train_cli_runs_on_cpu(capsys):
     assert hist["rollout_k"] == [2, 2]
 
 
-@pytest.mark.parametrize("flags", [["--partitioner", "spectral"], ["--mp-schedule", "overlap"],
+@pytest.mark.parametrize("flags", [["--partitioner", "spectral"], ["--mp-schedule", "auto"],
                                    ["--mp-precision", "bf16"], ["--levels", "2"],
                                    ["--ckpt-dir", "x"]])
 def test_train_cli_refuses_later_slices(flags, capsys):
