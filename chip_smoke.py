@@ -18,7 +18,12 @@ Phases (one line each, prefixed ``[n name]``):
   1 device       nvidia-smi name / power limit, TF32 off, kernel build
   2 kernels      fused NMP forward and backward on the serving mesh's
                  edges (each also held to a float64 forward or VJP, with
-                 its launch plan and ptxas registers), pack and unpack-add on
+                 its launch plan and ptxas registers), the same in bf16
+                 (precision="bf16": against the plain bf16 version by
+                 relative L2, by its ratio to the distance from the fp32
+                 kernel's output, max |err| and, for the gradients, the
+                 reference's per-leaf bf16 band; times, bound, launch
+                 plan, ptxas), pack and unpack-add on
                  every round and rank of the 2x2 partition and the exchange
                  pack (one launch for every round and rank) against the
                  per-round packs it replaces (each wrapper's host time per
@@ -48,11 +53,15 @@ Phases (one line each, prefixed ``[n name]``):
                  (2x2 grid) under the packed neighbor exchange (blocking and
                  overlap schedules) and the A2A oracle, overlap vs blocking
                  (bitwise reported), and fused vs the plain backend at R=1;
-                 each R=4 packed forward's launches checked exactly
+                 each R=4 packed forward's launches checked exactly; the
+                 same R=1 vs R=4 packed forward in bf16 (both schedules),
+                 held to the bf16 bands, launches exact (bf16 kernel only)
   3b gradients   stacked loss and parameter gradients, same mesh: R=1 vs
                  R=4 packed neighbor (fused, both schedules), and fused vs
                  plain at R=4; each R=4 gradient run's launches checked
-                 exactly
+                 exactly; in bf16 (both schedules) the loss within 2e-6 and
+                 every gradient within 1e-2 of its leaf's largest magnitude
+                 of R=1's, launches exact
   3c distributed 4 gloo processes sharing the card
                  (``repro_torch.launch.consistency``): the 2x2 split through
                  the real torch.distributed exchange (packed neighbor, a2a,
@@ -69,7 +78,10 @@ Phases (one line each, prefixed ``[n name]``):
   4 serve        fingerprinted checkpoint of seeded random large params,
                  InferenceEngine(batch_slots=4, rollout_steps=2), >=16
                  streamed Taylor-Green requests, each bitwise equal to the
-                 engine's offline batch-1 reference
+                 engine's offline batch-1 reference; then a second engine
+                 on a bf16 plan: 8 streamed requests, each bitwise equal to
+                 its offline reference, launches exactly batches x slots x
+                 K x M of the bf16 kernel and none of the fp32 one
   4b serve R=4   the same checkpoint and mesh served by the engine over 4
                  gloo processes sharing the card (``launch/serve.py``),
                  split (2,2,1), packed neighbor, under the overlap and the
@@ -93,8 +105,11 @@ Phases (one line each, prefixed ``[n name]``):
                  fused backend, K=1, batch 1: 10 steps (losses, step time,
                  peak memory, host batch time, checkpoints), one step's
                  breakdown, a 3-step run repeated bitwise, 3 steps of the
-                 plain backend, a 2-step K=2 rollout run on the consistency
-                 mesh, and ``launch/serve.py --bootstrap-steps 2``
+                 plain backend, 3 steps on the bf16 plan (``--mp-precision
+                 bf16``) repeated bitwise with their step time and
+                 CUDA-event forward / backward, a 2-step K=2 rollout run on
+                 the consistency mesh, and ``launch/serve.py
+                 --bootstrap-steps 2``
   7 dlrm         DLRM RM2 at full width through
                  ``repro_torch.configs.get_arch("dlrm-rm2")``'s
                  ``build_cell``, weights drawn on the card from a seeded
@@ -133,9 +148,12 @@ backwards, 8 packs, 96 unpack-adds; overlap 32 / 32 / 8 / 96), the
 distributed R=4 forward and gradient run (3c; per process 4 forwards, 4
 packs, 12 unpack-adds, and 4 forwards, 4 backwards, 8 packs, 24
 unpack-adds; overlap 8 / 4 / 12 and 8 / 8 / 8 / 24; the paths' counts are
-the sums over the 4 processes), the serve stream after warm-up (4), the
+the sums over the 4 processes), the bf16 R=4 forward and gradient runs (3,
+3b; the same counts on the bf16 kernels, none on the fp32 ones), the serve
+stream after warm-up (4) and the bf16 engine's stream (4), the
 R=4 serve streams (4b; the lead's launches, every process's checked
-against its batches), the 10 training steps (6), the K=2 rollout run (6) and
+against its batches), the 10 training steps (6), the 3 bf16 training steps
+(6; exactly 12 bf16 forwards and backwards), the K=2 rollout run (6) and
 each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
@@ -209,13 +227,30 @@ FAULT_ROW, FAULT_TILE = 2048, 64
 MLP_AGG_BLOCKS = (128, 256)
 # phase 2's GNN cases (phase_kernels), each of which can run alone; the
 # readings of each host-bound halo timing, taken in turns
-GNN_CASES = ("nmp_fwd", "nmp_bwd", "halo")
+GNN_CASES = ("nmp_fwd", "nmp_bwd", "nmp_fwd_bf16", "nmp_bwd_bf16", "halo")
 HALO_ROUNDS = 5
 MLP_AGG_E_TOL, MLP_AGG_TOL, MLP_AGG_BF16_TOL = 3e-5, 1e-4, 2e-2
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on CUDA cores,
 # bf16 dense on tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = 67e12, 989e12, 3.35e12
 PEAK_TF32_FLOPS = 495e12         # tensor cores, dense
+# seconds per flop of an fp32 x bf16-valued product at fp32 precision on the
+# tensor cores: the cheaper of 3 bf16 products (fp32 split 8+8+8 bits) and
+# 2 TF32 products (2xTF32)
+COT_ROUTE_S_PER_FLOP = min(3 / PEAK_BF16_FLOPS, 2 / PEAK_TF32_FLOPS)
+# bf16 (precision="bf16"): two correct paths differ where a pre-activation
+# one fp32 bit apart rounds to the neighbouring bf16 value, a 2^-8 step
+# that the layers carry on; so a forward is held by its relative L2
+# distance from the plain bf16 version (BF_REL) and by that distance's
+# ratio to its distance from the fp32 result (BF_RATIO: the rounding
+# happened), max |err| BF_MAX (tests/test_kernels.py's bf16 band);
+# gradients per leaf within rtol / atol BF_G x max(1, max|ref|), the band
+# the reference holds its own bf16 pair to; R=1 vs R=4 gradients within
+# BF_LEAF of each leaf's largest magnitude
+BF_REL, BF_RATIO, BF_MAX, BF_G, BF_LEAF = 1e-3, 0.2, 5e-2, 1e-2, 1e-2
+BF16 = "bf16"
+BF_REQUESTS = 8                  # phase 4's bf16 engine stream
+BF_TRAIN_STEPS = 3               # phase 6's bf16 training run, run twice
 
 
 def say(phase, msg):
@@ -280,6 +315,21 @@ def row_rel_err(got, want):
     """Largest relative L2 error of one row (last axis) of ``got``."""
     g, w = got.float(), want.float()
     return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def bf16_reading(got, want, want_fp32):
+    """(rel L2 from the plain bf16 ``want``, rel L2 from the fp32
+    ``want_fp32``, max |err|, within the bf16 forward bands)."""
+    rel, rel32 = rel_norm(got, want), rel_norm(got, want_fp32)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    return rel, rel32, err, rel <= BF_REL and rel <= BF_RATIO * rel32 and err <= BF_MAX
+
+
+def bf16_leaf_ok(got, want):
+    """Within rtol / atol BF_G x max(1, max|want|) elementwise."""
+    import torch
+    atol = BF_G * max(1.0, float(want.abs().max()) if want.numel() else 0.0)
+    return bool(torch.all((got - want).abs() <= atol + BF_G * want.abs()))
 
 
 def leaf_names(tree, prefix=""):
@@ -380,8 +430,10 @@ def phase_device():
     say("1 device", f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a, in parallel); ptxas: {regs}")
     # {key: (source, mangled-name needle)}
-    kernels = {"nmp_fwd": ("nmp_fwd", "nmp_fwd_tile_kernelILi32E"),
-               "nmp_bwd": ("nmp_bwd", "nmp_bwd_edge_kernelILi32E"),
+    kernels = {"nmp_fwd": ("nmp_fwd", "nmp_fwd_tile_kernelILi32ELb0E"),
+               "nmp_bwd": ("nmp_bwd", "nmp_bwd_edge_kernelILi32ELb0E"),
+               "nmp_fwd_bf16": ("nmp_fwd", "nmp_fwd_tile_kernelILi32ELb1E"),
+               "nmp_bwd_bf16": ("nmp_bwd", "nmp_bwd_edge_kernelILi32ELb1E"),
                "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
                "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
                "edge_mlp_agg": ("edge_mlp_agg", "edge_mlp_agg_kernelIfLi2E"),
@@ -390,7 +442,7 @@ def phase_device():
                "halo_unpack_add": ("halo_pack", "unpack_add_kernelILi4E")}
     ptxas = {key: ptxas_summary(reports.get(src, ""), needle)
              for key, (src, needle) in kernels.items()}
-    say("1 device", f"ptxas at H=32 (embedding bag: fp32, 16-byte loads; flash "
+    say("1 device", f"ptxas at H=32 (NMP pair: fp32 and bf16; embedding bag: fp32, 16-byte loads; flash "
         f"attention: bf16, D=128; edge_mlp_agg: fp32 and bf16 feats, block_n <= 128; "
         f"halo pack and unpack-add: 16-byte accesses): {ptxas}")
     return smi, ptxas
@@ -542,6 +594,149 @@ def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, fp32_bound_ms=fp32_ms)
 
 
+def nmp_fwd_bf16_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas):
+    """Kernel 1's bf16 entry against its plain bf16 version: e' and agg
+    within the bf16 bands (relative L2, its ratio to the distance from the
+    fp32 kernel's output on the same inputs, max |err|), two launches
+    bitwise equal, times, the bound (bf16 products on tensor cores against
+    the same bytes as fp32: bytes), the launch as the card plans it and
+    ptxas's registers and spills."""
+    import torch
+    from repro_torch.kernels.segment_agg import ops as sa
+    H, Lp = x.shape[1], len(edge["layers"]) - 1
+    lay = (g["seg_perm"], g["seg_src"], g["seg_rowptr"])
+    rest = (g["edge_mask"], g["edge_inv_mult"])
+
+    def fwd():
+        return sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest, precision=BF16)
+
+    def fwd_plain():
+        return sa.fused_nmp_edge_agg_plain(x, e, edge, *lay, *rest, precision=BF16)
+
+    got, again = fwd(), fwd()
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want, k32 = fwd_plain(), sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    readings = {n: bf16_reading(a, b, c)
+                for n, a, b, c in zip(("e_new", "agg"), got, want, k32)}
+    del want, k32
+    ok = all(r[3] for r in readings.values())
+    ms = cuda_ms(fwd, iters=20)
+    plain = cuda_ms(fwd_plain, iters=5, warmup=1)
+    _, dev_ops = host_device_split(fwd, 3)      # the kernels of one call
+    moved = nbytes(x, e, *lay, *rest, *weights, *got)
+    b_ms, b_by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
+    plan = sa.fwd_launch_plan(H, Lp, g["seg_perm"].numel(), BF16)
+    say("2 kernels", f"nmp_fwd_bf16 H={H} Lp={Lp} E={n_real} N={n_pad}: vs plain bf16 "
+        + ", ".join(f"{k} rel L2 {r:.2e} (vs the fp32 kernel {r32:.2e}, ratio "
+                    f"{r32 / max(r, 1e-30):.1f}) max|err| {m:.3g}"
+                    for k, (r, r32, m, _) in readings.items())
+        + f" (bands: rel <= {BF_REL}, <= {BF_RATIO} x the fp32 distance, max <= "
+        f"{BF_MAX}) | two launches bitwise equal: {repeat} | kernel {ms:.3f} ms, plain "
+        f"bf16 {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {moved / 1e9:.2f} GB; "
+        f"{flops / 1e9:.1f} GFLOP bf16 on tensor cores "
+        f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms) | edge pass: grid {plan['grid']}, "
+        f"{plan['smem_bytes']} B shared memory per block, {plan['blocks_per_sm']} "
+        f"block(s) per SM, {plan['smem_layers']} hidden layer(s) in shared memory, "
+        f"{plan['tiles']} tiles | ptxas {ptxas['nmp_fwd_bf16']} | one call's device "
+        "kernels under torch.profiler: "
+        + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
+    if not (ok and repeat):
+        raise RuntimeError("bf16 NMP kernel outside the bands of its plain version, or "
+                           "not repeatable")
+    return dict(name=sa.KERNEL_BF16, route="cuda", source="src/repro_torch/csrc/nmp_fwd.cu",
+                replaces="src/repro/kernels/segment_agg/kernel.py:215",
+                max_abs_err=max(r[2] for r in readings.values()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                rel_l2={k: r[0] for k, r in readings.items()},
+                rel_l2_vs_fp32={k: r[1] for k, r in readings.items()})
+
+
+def nmp_bwd_bf16_case(x, e, edge, g, n_real, n_pad, fwd_flops, weights, ptxas, gen):
+    """Kernel 2's bf16 entry against its plain bf16 version: every output
+    within the reference's per-leaf bf16 band, its relative L2 distance
+    from plain at most BF_RATIO of its distance from the fp32 kernel's
+    output (but ln_b's, which no product touches), two launches bitwise
+    equal, times, the bound (by operations:
+    the recompute's bf16 products at the bf16 peak, the products with the
+    fp32 cotangent as three bf16 products at the bf16 peak), launch plan
+    and ptxas."""
+    import torch
+    from repro_torch.kernels.segment_agg import ops as sa
+    H, Lp = x.shape[1], len(edge["layers"]) - 1
+    dev = x.device
+    g_enew = torch.randn(e.shape[0], H, generator=gen).to(dev)
+    g_agg = torch.randn(n_pad, H, generator=gen).to(dev)
+    lay = (g["seg_perm"], g["seg_src"], g["seg_rowptr"])
+    src_lay = (g["seg_src_slots"], g["seg_src_rowptr"])
+    rest = (g["edge_mask"], g["edge_inv_mult"], g_enew, g_agg)
+
+    def bwd():
+        return sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, precision=BF16)
+
+    def bwd_plain():
+        return sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest, precision=BF16)
+
+    got, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = bwd_plain()
+    k32 = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest)
+    names = ("g_x", "g_e", "w0", "b0", "wrest", "brest", "ln_g", "ln_b")
+    readings = {n: (rel_norm(a, b), rel_norm(a, c), float((a - b).abs().max()),
+                    bf16_leaf_ok(a, b))
+                for n, a, b, c in zip(names, got, want, k32)}
+    rounded = all(torch.equal(w, w.to(torch.bfloat16).float()) for w in (got[2], got[4]))
+    del want, k32
+    # ln_b's gradient is the column sum of the incoming cotangent, which no
+    # product touches: the bf16 and fp32 kernels give it alike (distance 0),
+    # so it is held by the leaf band alone
+    ok = all(leaf and (k == "ln_b" or r <= BF_RATIO * r32)
+             for k, (r, r32, _, leaf) in readings.items())
+    ms = cuda_ms(bwd, iters=10, warmup=1)
+    plain = cuda_ms(bwd_plain, iters=3, warmup=1)
+    _, dev_ops = host_device_split(bwd, 3)      # the kernels of one call
+    moved = nbytes(x, e, *lay, *src_lay, *rest, *weights, *got)
+    # products with the fp32 cotangent, FMAs per edge: the input gradients
+    # of the Lp hidden layers and layer 0's e slice, the per-slot x_src and
+    # x_dst slices (rounded per slot, so not factored per node), and every
+    # weight gradient.  The other operand is bf16-valued, so the cheapest
+    # tensor-core route that keeps the cotangent's 24 bits is three bf16
+    # products (the cotangent split 8+8+8 bits, exact) at the bf16 peak,
+    # cheaper than two TF32 products (2xTF32, which keeps ~22 bits)
+    cot_flops = n_real * 2 * ((Lp + 1) * H * H + 2 * H * H + (3 + Lp) * H * H)
+    t_ops = fwd_flops / PEAK_BF16_FLOPS + cot_flops * COT_ROUTE_S_PER_FLOP
+    t_bytes = moved / PEAK_BYTES_S
+    b_ms, b_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    plan = sa.bwd_launch_plan(H, Lp, g["seg_perm"].numel(), BF16)
+    say("2 kernels", f"nmp_bwd_bf16 H={H} Lp={Lp} E={n_real} N={n_pad}: vs plain bf16 "
+        + ", ".join(f"{k} rel L2 {r:.2e} (vs the fp32 kernel {r32:.2e}) max|err| {m:.3g}"
+                    f"{'' if leaf else ' OUTSIDE the leaf band'}"
+                    for k, (r, r32, m, leaf) in readings.items())
+        + f" (per-leaf band rtol / atol {BF_G} x max(1, max|ref|), rel <= {BF_RATIO} x "
+        f"the fp32 distance) | weight gradients bf16-valued: {rounded} | two launches "
+        f"bitwise equal: {repeat} | kernel {ms:.3f} ms, plain bf16 {plain:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}: recompute {fwd_flops / 1e9:.1f} GFLOP bf16 + 3 x "
+        f"{cot_flops / 1e9:.1f} GFLOP bf16 (the fp32 cotangent in three bf16 parts); "
+        f"{moved / 1e9:.2f} GB) | edge pass: grid "
+        f"{plan['grid']}, {plan['smem_bytes']} B shared memory per block, "
+        f"{plan['blocks_per_sm']} block(s) per SM | ptxas {ptxas['nmp_bwd_bf16']} | one "
+        "call's device kernels under torch.profiler: "
+        + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
+    if not (ok and rounded and repeat):
+        raise RuntimeError("bf16 NMP backward kernel outside the bands of its plain "
+                           "version, or not repeatable")
+    return dict(name=sa.KERNEL_BWD_BF16, route="cuda",
+                source="src/repro_torch/csrc/nmp_bwd.cu",
+                replaces="src/repro/kernels/segment_agg/kernel.py:357",
+                max_abs_err=max(r[2] for r in readings.values()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                rel_l2={k: r[0] for k, r in readings.items()},
+                rel_l2_vs_fp32={k: r[1] for k, r in readings.items()})
+
+
 def halo_cases(F, gen):
     """Kernels 4 and 5 on every round and rank of the 2x2 partition of the
     consistency mesh, bitwise against the plain versions: the pack of one
@@ -626,11 +821,14 @@ def halo_cases(F, gen):
     splits = {name: host_device_split(fn, 200) for name, fn in calls.items()}
     _, pack_c, unpack_c = hp._entries()
     stream = build.stream_of(seed)
+    # each bare call's own output: the exchange's rows, the N rows of the
+    # unpack-add
     out = torch.empty(R, W_ex, F, device=dev)
+    out_rows = torch.empty(cpg.n_pad, F, device=dev)
     pack_args = (stacked.data_ptr(), sidx.data_ptr(), smask.data_ptr(), out.data_ptr(),
                  W_ex, F, cpg.n_pad, R, stream)
     unpack_args = (seed.data_ptr(), buf.data_ptr(), rinv.data_ptr(), rmask.data_ptr(),
-                   out.data_ptr(), cpg.n_pad, F, stream)
+                   out_rows.data_ptr(), cpg.n_pad, F, stream)
     bare = {hp.PACK: host_ms(lambda: pack_c(*pack_args), 200),
             hp.UNPACK: host_ms(lambda: unpack_c(*unpack_args), 200)}
     # the functions' own bytes, whatever index the kernel reads: rows
@@ -674,7 +872,7 @@ def halo_cases(F, gen):
 def phase_kernels(ptxas, cfg=None, cases=GNN_CASES):
     """The GNN's kernels at the shapes its main paths give them: ``cases``
     from GNN_CASES (the fused NMP forward and backward on the serving mesh,
-    pack / unpack-add on the 2x2 partition's rounds).  A subset runs those
+    in fp32 and in bf16, pack / unpack-add on the 2x2 partition's rounds).  A subset runs those
     alone, the way two source trees are compared on one card: ``python3 -c
     'import chip_smoke as c; c.phase_kernels(c.phase_device()[1],
     cases=("nmp_bwd", "halo"))'`` from the root of each tree.  Returns
@@ -712,6 +910,12 @@ def phase_kernels(ptxas, cfg=None, cases=GNN_CASES):
     if "nmp_bwd" in cases:
         records.append(nmp_bwd_case(x, e, edge, g, n_real, pg.n_pad, 3 * fwd_flops,
                                     weights, ptxas, gen))
+    if "nmp_fwd_bf16" in cases:
+        records.append(nmp_fwd_bf16_case(x, e, edge, g, n_real, pg.n_pad, fwd_flops,
+                                         weights, ptxas))
+    if "nmp_bwd_bf16" in cases:
+        records.append(nmp_bwd_bf16_case(x, e, edge, g, n_real, pg.n_pad, fwd_flops,
+                                         weights, ptxas, gen))
     del x, e, g
     torch.cuda.empty_cache()
     if "halo" in cases:
@@ -1205,6 +1409,110 @@ def phase_grad_consistency(cfg):
     return launches["blocking"], launches["overlap"], (float(l1), g1)
 
 
+# the same R=4 paths on a bf16 plan: the bf16 kernels' counts, none of the
+# fp32 ones (check_launches holds every kernel it is not given to 0)
+CONS_FWD_BF16 = {"nmp_fwd_bf16": 16, "halo_pack": 4, "halo_unpack_add": 48}
+CONS_FWD_BF16_OVERLAP = {"nmp_fwd_bf16": 32, "halo_pack": 4, "halo_unpack_add": 48}
+CONS_GRAD_BF16 = {"nmp_fwd_bf16": 16, "nmp_bwd_bf16": 16, "halo_pack": 8,
+                  "halo_unpack_add": 96}
+CONS_GRAD_BF16_OVERLAP = {"nmp_fwd_bf16": 32, "nmp_bwd_bf16": 32, "halo_pack": 8,
+                          "halo_unpack_add": 96}
+
+
+def phase_consistency_bf16(cfg):
+    """Phases 3 and 3b on a bf16 plan (``NMPPlan(precision="bf16")``): the
+    stacked R=4 packed-neighbor forward and gradient run under both
+    schedules against R=1 in bf16, launches exact.  R=1 and R=4 are two
+    bf16 paths that sum in other orders, so predictions are held to the
+    bf16 forward bands (relative L2 from R=1 bf16, its ratio to the
+    distance from R=1 on the fp32 plan, max |err|; the reading against the
+    fp32 band, rtol 1e-4 / atol 1e-5, is reported), the loss within
+    LOSS_REL of R=1 bf16's and within BF_RATIO of its distance from the
+    fp32 plan's, and every gradient within BF_LEAF of its leaf's largest
+    magnitude.  Returns {path: launches}."""
+    import torch
+    from repro_torch.core.gnn import init_gnn
+    from repro_torch.core.graph_state import FUSED, NMPPlan, ShardedGraph
+    from repro_torch.core.halo import NEIGHBOR, NONE, halo_sync_stacked
+    from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
+    from repro_torch.core.partition import (
+        gather_node_features, partition_mesh, scatter_node_outputs)
+    from repro_torch.core.reference import gnn_forward_stacked, loss_and_grad_stacked
+    from repro_torch.kernels import build
+    from repro_torch.nn import tree_leaves
+
+    dev = torch.device("cuda")
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    sem = box_mesh(CONS_ELEMS, p=ORDER)
+    x = taylor_green_velocity(sem.coords)
+    y = taylor_green_velocity(sem.coords, t=DT)
+
+    def prepare(grid, mode, precision, schedule="blocking"):
+        pg = partition_mesh(sem, grid)
+        plan = NMPPlan.build(pg, mode, packed=mode == NEIGHBOR, backend=FUSED,
+                             schedule=schedule, precision=precision)
+        g = ShardedGraph.build(pg, sem.coords, plan, device=dev)
+        xs, ys = (torch.from_numpy(gather_node_features(pg, f)).to(dev) for f in (x, y))
+        return pg, g, plan, xs, ys
+
+    def forward(prep):
+        pg, g, plan, xs, _ = prep
+        with torch.no_grad():
+            out = gnn_forward_stacked(params, xs, g, plan, sync_fn=halo_sync_stacked)
+        return torch.from_numpy(scatter_node_outputs(pg, out.cpu().numpy()))
+
+    def grad(prep):
+        _, g, plan, xs, ys = prep
+        loss, _, grads = loss_and_grad_stacked(params, xs, ys, g, plan, cfg.node_out,
+                                               sync_fn=halo_sync_stacked)
+        return float(loss), tree_leaves(grads)
+
+    r1, r1_fp32 = prepare((1, 1, 1), NONE, BF16), prepare((1, 1, 1), NONE, "fp32")
+    y1, y1_fp32 = forward(r1), forward(r1_fp32)
+    (l1, g1), (l1_fp32, _) = grad(r1), grad(r1_fp32)
+    del r1, r1_fp32
+    if not bool(torch.isfinite(y1).all()) or tuple(y1.shape) != (sem.n_nodes, cfg.node_out):
+        raise RuntimeError(f"bf16 R=1 output not finite / wrong shape {tuple(y1.shape)}")
+    launches = {}
+    for schedule, want_f, want_g in (("blocking", CONS_FWD_BF16, CONS_GRAD_BF16),
+                                     ("overlap", CONS_FWD_BF16_OVERLAP,
+                                      CONS_GRAD_BF16_OVERLAP)):
+        r4 = prepare(CONS_GRID, NEIGHBOR, BF16, schedule)
+        build.reset_launch_counts()
+        y4 = forward(r4)
+        torch.cuda.synchronize()
+        launches[f"consistency_r4_bf16_{schedule}"] = dict(build.launch_counts)
+        check_launches("3 consistency", f"the R=4 packed neighbor forward, bf16, {schedule}",
+                       launches[f"consistency_r4_bf16_{schedule}"], want_f)
+        build.reset_launch_counts()
+        l4, g4 = grad(r4)
+        torch.cuda.synchronize()
+        launches[f"grad_r4_bf16_{schedule}"] = dict(build.launch_counts)
+        check_launches("3b gradients", f"the R=4 packed neighbor gradient run, bf16, "
+                       f"{schedule}", launches[f"grad_r4_bf16_{schedule}"], want_g)
+        del r4
+        rel, rel32, err, ok_f = bf16_reading(y4, y1, y1_fp32)
+        _, fp32_band = within_band(y4, y1)
+        say("3 consistency", f"{CONS_ELEMS} p={ORDER}, large config, bf16 plan, R=1 vs R=4 "
+            f"packed neighbor, {schedule}: rel L2 {rel:.2e} (R=4 bf16 vs R=1 fp32 "
+            f"{rel32:.2e}), max|err| {err:.3g} (bf16 bands: rel <= {BF_REL}, <= {BF_RATIO} "
+            f"x the fp32 distance, max <= {BF_MAX}); within the fp32 band rtol {RTOL} "
+            f"atol {ATOL}: {fp32_band} -> {'ok' if ok_f else 'FAIL'}")
+        loss_rel, loss_rel32 = abs(l4 - l1) / abs(l1), abs(l4 - l1_fp32) / abs(l1_fp32)
+        leaf = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g4, g1)]
+        ok_g = (loss_rel <= LOSS_REL and loss_rel <= BF_RATIO * loss_rel32
+                and max(leaf) <= BF_LEAF)
+        say("3b gradients", f"{CONS_ELEMS} p={ORDER}, large config, bf16 plan, R=1 vs R=4 "
+            f"packed neighbor, {schedule}: loss {l4!r} vs {l1!r} (rel {loss_rel:.2e}, band "
+            f"{LOSS_REL}; vs the fp32 plan's {l1_fp32!r} {loss_rel32:.2e}, band "
+            f"{BF_RATIO} x that) | gradients max |err| / leaf max "
+            f"{max(leaf):.2e} (band {BF_LEAF}) -> {'ok' if ok_g else 'FAIL'}")
+        if not (ok_f and ok_g):
+            raise RuntimeError(f"bf16 consistency failed: R=1 vs R=4 {schedule}")
+    return launches
+
+
 # per process of phase 3c (one rank of the 2x2 split): the stacked counts
 # over 4; the forward's exchanges posted, the gradient run's blocking
 DIST_FWD = {"nmp_fwd": 4, "halo_pack": 4, "halo_unpack_add": 12}
@@ -1392,6 +1700,64 @@ def phase_serve(cfg, sem, pg, smi):
         f"device memory {peak / 2**30:.2f} GiB | host graph build {build_s:.1f} s | "
         f"{smi}")
     return engine, mesh_hash, launches, ckdir
+
+
+def phase_serve_bf16(cfg, sem, engine, mesh_hash, ckdir, smi):
+    """Phase 4 on a bf16 plan: a second engine over the same checkpoint
+    and mesh with ``NMPPlan(backend="fused", precision="bf16")``,
+    BF_REQUESTS streamed requests, each bitwise equal to its offline
+    reference; launches exactly batches x slots x K x M of the bf16
+    kernel and none of the fp32 one; the first rollout step's distance
+    from the fp32 engine's reported.  Returns the stream's launches."""
+    import torch
+    from repro_torch.core.graph_state import FUSED, NMPPlan
+    from repro_torch.core.mesh_gen import taylor_green_velocity
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as sa
+    from repro_torch.runtime.engine import EngineConfig, InferenceEngine
+
+    bf = InferenceEngine(
+        ckdir, cfg, EngineConfig(batch_slots=BATCH_SLOTS, rollout_steps=ROLLOUT_K),
+        plan=NMPPlan(backend=FUSED, precision=BF16), device="cuda")
+    h = bf.register_mesh(sem)
+    if h != mesh_hash or bf.entry(h).plan.precision != BF16:
+        raise RuntimeError("the bf16 engine's mesh or plan")
+    bf.warmup()
+    torch.cuda.synchronize()
+
+    def snapshot(step):
+        return taylor_green_velocity(sem.coords, t=(step * DT) % 2.0).astype(np.float32)
+
+    with bf:
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = dict(bf.stream(h, snapshot, BF_REQUESTS, n_producers=2))
+        wall = time.perf_counter() - t0
+        launches = dict(build.launch_counts)
+    st = bf.stats
+    want = {sa.KERNEL_BF16: st["batches"] * BATCH_SLOTS * ROLLOUT_K * cfg.n_mp_layers}
+    check_launches("4 serve", "the bf16 engine's stream", launches, want)
+    if len(results) != BF_REQUESTS:
+        raise RuntimeError(f"bf16 engine served {len(results)} of {BF_REQUESTS} requests")
+    for step, res in results.items():
+        if res.preds.shape != (ROLLOUT_K, sem.n_nodes, cfg.node_out) \
+                or not np.isfinite(res.preds).all():
+            raise RuntimeError(f"bf16 request {step}: bad prediction {res.preds.shape}")
+        if not np.array_equal(res.preds, bf.offline_reference(h, snapshot(step))):
+            raise RuntimeError(f"bf16 request {step}: streamed != offline reference")
+    step = min(results)
+    got = torch.from_numpy(results[step].preds[0])
+    fp32 = torch.from_numpy(engine.offline_reference(mesh_hash, snapshot(step))[0])
+    lat = np.array([r.latency_s for r in results.values()]) * 1e3
+    say("4 serve", f"bf16 plan, large config on {SERVE_ELEMS} p={ORDER}: {BF_REQUESTS} "
+        f"requests, K={ROLLOUT_K}, {BATCH_SLOTS} slots, {st['batches']} batches: streamed "
+        f"== offline bitwise for all | rollout step 0 vs the fp32 engine: rel L2 "
+        f"{rel_norm(got, fp32):.2e}, max|err| {float((got - fp32).abs().max()):.3g} | "
+        f"latency p50 {np.percentile(lat, 50):.1f} ms, {BF_REQUESTS / wall:.2f} req/s | "
+        f"{smi}")
+    del bf
+    torch.cuda.empty_cache()
+    return launches
 
 
 # phase 4b: the serving mesh split (2,2,1) over 4 gloo processes sharing
@@ -1753,11 +2119,13 @@ def phase_train(cfg, sem, pg, smi):
     from repro_torch.train.optimizer import (
         AdamWConfig, adamw_update_, constant_lr, init_adamw)
 
+    from repro_torch.kernels.segment_agg import ops as sa
+
     start = init_gnn(torch.Generator().manual_seed(0), cfg, device="cpu")
 
-    def train(n_steps, backend=FUSED, mesh=(sem, pg), **kw):
+    def train(n_steps, backend=FUSED, mesh=(sem, pg), precision="fp32", **kw):
         tcfg = TrainConfig(n_steps=n_steps, batch=1, lr=TRAIN_LR, halo_mode="none",
-                           plan=NMPPlan(backend=backend), **kw)
+                           plan=NMPPlan(backend=backend, precision=precision), **kw)
         return train_consistent_gnn(mesh[1], mesh[0], cfg, tcfg, params=start,
                                     device="cuda")
 
@@ -1846,6 +2214,41 @@ def phase_train(cfg, sem, pg, smi):
     del a, c
     torch.cuda.empty_cache()
 
+    # --- the bf16 plan (``--mp-precision bf16``): BF_TRAIN_STEPS steps
+    #     twice, bitwise, on the bf16 kernels only; the step's CUDA-event
+    #     forward and backward ---
+    build.reset_launch_counts()
+    a = train(BF_TRAIN_STEPS, precision=BF16)
+    bf_launches = dict(build.launch_counts)
+    check_launches("6 train", f"the {BF_TRAIN_STEPS} bf16 training steps", bf_launches,
+                   {sa.KERNEL_BF16: BF_TRAIN_STEPS * cfg.n_mp_layers,
+                    sa.KERNEL_BWD_BF16: BF_TRAIN_STEPS * cfg.n_mp_layers})
+    b = train(BF_TRAIN_STEPS, precision=BF16)
+    same = a["losses"] == b["losses"] and all(
+        torch.equal(u, v) for u, v in zip(tree_leaves(a["params"]),
+                                          tree_leaves(b["params"])))
+    if not same or not np.all(np.isfinite(a["losses"])):
+        raise RuntimeError(f"bf16 training not bitwise repeatable or not finite: "
+                           f"{a['losses']} vs {b['losses']}")
+    bf_step = [1e3 * t for t in a["step_s"]]
+    del b
+    plan = NMPPlan(backend=FUSED, precision=BF16)
+    g = ShardedGraph.build(pg, sem.coords, plan, device="cuda")
+    _, loss_step, grad_step, _ = make_gnn_step_fns(cfg, plan)
+    xb = torch.from_numpy(make_tgv_batch_fn(pg, sem, 1)(1)).to("cuda")
+    params = a["params"]
+    t_fwd_bf = cuda_ms(lambda: loss_step(params, xb, xb, g), 3, warmup=1)
+    t_grad_bf = cuda_ms(lambda: grad_step(params, xb, xb, g), 3, warmup=1)
+    say("6 train", f"bf16 plan, {BF_TRAIN_STEPS} steps twice from the same params: "
+        f"losses and params bitwise equal: {same} | losses "
+        + ", ".join(f"{v!r}" for v in a["losses"])
+        + f" | step time median after step 0 {np.median(bf_step[1:]):.1f} ms (step 0 "
+        f"{bf_step[0]:.1f}) | CUDA events: forward + loss {t_fwd_bf:.3f} ms, forward + "
+        f"backward {t_grad_bf:.3f} ms (fp32 plan: {t_fwd:.3f} / {t_grad:.3f}) | launches "
+        f"{bf_launches}")
+    del a, params, g, xb
+    torch.cuda.empty_cache()
+
     # --- K=2 rollout training on the consistency mesh ---
     csem = box_mesh(CONS_ELEMS, p=ORDER)
     cpg = partition_mesh(csem, (1, 1, 1))
@@ -1870,7 +2273,7 @@ def phase_train(cfg, sem, pg, smi):
         "checkpoint (steps [0, 1]) and served 2 requests from it")
     shutil.rmtree(boot, ignore_errors=True)
     shutil.rmtree(ckdir, ignore_errors=True)
-    return launches, roll_launches
+    return launches, roll_launches, bf_launches
 
 
 def checksum(t):
@@ -2395,10 +2798,12 @@ def main():
      stacked) = phase_consistency(cfg)
     by_path["grad_r4_packed"], by_path["grad_r4_overlap"], r1 = \
         phase_grad_consistency(cfg)
+    by_path.update(phase_consistency_bf16(cfg))
     lap("3b gradients")
     by_path.update(phase_distributed(cfg, stacked, r1, smi))
     lap("3c distributed")
     engine, mesh_hash, by_path["serve"], ckdir = phase_serve(cfg, sem, pg, smi)
+    by_path["serve_bf16"] = phase_serve_bf16(cfg, sem, engine, mesh_hash, ckdir, smi)
     phase_profile(engine, mesh_hash, sem)
     lap("5 profile")
     served = phase_serve_dist(cfg, sem, engine, mesh_hash, ckdir, smi)
@@ -2407,7 +2812,8 @@ def main():
     del engine
     torch.cuda.empty_cache()
     lap("4b serve R=4")
-    by_path["train"], by_path["rollout_k2"] = phase_train(cfg, sem, pg, smi)
+    by_path["train"], by_path["rollout_k2"], by_path["train_bf16"] = \
+        phase_train(cfg, sem, pg, smi)
     torch.cuda.empty_cache()
     lap("6 train")
     by_path.update(phase_dlrm(smi))
@@ -2416,7 +2822,8 @@ def main():
     by_path.update(phase_lm(smi))
     lap("8 lm")
     # each kernel's own path first, then every other path that must use it:
-    # training for the fused NMP pair, the R=4 packed-neighbor gradient run
+    # training for the fused NMP pair (its bf16 entries: the bf16 training
+    # steps, then the bf16 engine and R=4 runs), the R=4 packed-neighbor gradient run
     # for the halo kernels (training and serving are R=1), serve_bulk for
     # the embedding bag, the prefill for flash attention (phases 7 and 8
     # check their exact counts on every path), the op's one call for the
@@ -2433,7 +2840,18 @@ def main():
                        "dist_r4_grad") + r4,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
-           sa.KERNEL_MLP_AGG: ("segment_agg_op",)}
+           sa.KERNEL_MLP_AGG: ("segment_agg_op",),
+           sa.KERNEL_BF16: ("train_bf16", "serve_bf16", "consistency_r4_bf16_blocking",
+                            "consistency_r4_bf16_overlap", "grad_r4_bf16_blocking",
+                            "grad_r4_bf16_overlap"),
+           sa.KERNEL_BWD_BF16: ("train_bf16", "grad_r4_bf16_blocking",
+                                "grad_r4_bf16_overlap")}
+    # no path of the fp32 plan ran a bf16 kernel (the bf16 paths' fp32
+    # counts are held to 0 where they are checked)
+    for path, counts in by_path.items():
+        if "bf16" not in path and (counts.get(sa.KERNEL_BF16) or
+                                   counts.get(sa.KERNEL_BWD_BF16)):
+            raise RuntimeError(f"the fp32 path {path} launched a bf16 kernel: {counts}")
     for rec in records:
         counts = {path: int(by_path[path].get(rec["name"], 0)) for path in by_path}
         rec["launches"] = counts[own[rec["name"]][0]]

@@ -19,7 +19,12 @@ Backends for the 4a+4b hot loop (``plan.backend``):
   src-sorted companion on the graph (``ShardedGraph.build`` attaches both
   for a fused plan).
 
-Both compute the same arithmetic up to summation order.
+Both compute the same arithmetic up to summation order, under either
+precision (``plan.precision``): ``fp32``, or ``bf16``, where every dense
+product of the edge MLP takes bf16-rounded operands and accumulates in
+fp32 (``nn.dense(precision=)`` on the plain backend, the kernels' bf16
+entries on the fused one).  The node MLP (Eq. 4e) stays fp32, as in the
+reference.
 
 Schedules (``plan.schedule``):
 
@@ -77,7 +82,8 @@ def _agg_xla(params, x, e, graph: ShardedGraph, plan: NMPPlan):
     src, dst = graph["edge_src"], graph["edge_dst"]
     # --- Eq. 4a: edge update (residual) ---
     feats = torch.cat([segment.gather(x, src), segment.gather(x, dst), e], dim=-1)
-    e_new = (e + nn.mlp(params["edge"], feats)) * graph["edge_mask"][:, None]
+    e_new = (e + nn.mlp(params["edge"], feats, precision=plan.precision)) \
+        * graph["edge_mask"][:, None]
     # --- Eq. 4b: local aggregation with inverse edge multiplicity ---
     weighted = e_new * graph["edge_inv_mult"][:, None]
     return e_new, segment.segment_sum(weighted, dst, x.shape[0])
@@ -94,7 +100,7 @@ def _agg_fused(params, x, e, graph: ShardedGraph, plan: NMPPlan):
         x, e, params["edge"], graph["seg_perm"], graph["seg_src"],
         graph["seg_rowptr"], graph["edge_mask"], graph["edge_inv_mult"],
         seg_src_slots=graph["seg_src_slots"],
-        seg_src_rowptr=graph["seg_src_rowptr"])
+        seg_src_rowptr=graph["seg_src_rowptr"], precision=plan.precision)
 
 
 def _agg_xla_part(params, x, e, graph: ShardedGraph, part: str, plan: NMPPlan):
@@ -110,7 +116,7 @@ def _agg_xla_part(params, x, e, graph: ShardedGraph, part: str, plan: NMPPlan):
     inv = (graph["edge_inv_mult"][idx] * valid)[:, None]
     e_sub = e.index_select(0, idx)
     feats = torch.cat([segment.gather(x, src), segment.gather(x, dst), e_sub], dim=-1)
-    e_sub = (e_sub + nn.mlp(params["edge"], feats)) * mask
+    e_sub = (e_sub + nn.mlp(params["edge"], feats, precision=plan.precision)) * mask
     agg = segment.segment_sum(e_sub * inv, dst, x.shape[0])
     # padding entries add zero rows at edge 0
     e_full = torch.zeros(e.shape[0], e_sub.shape[1], dtype=e_sub.dtype,
@@ -131,7 +137,7 @@ def _agg_fused_part(params, x, e, graph: ShardedGraph, part: str, plan: NMPPlan)
         x, e, params["edge"], graph[f"seg_perm_{part}"], graph[f"seg_src_{part}"],
         graph[f"seg_rowptr_{part}"], graph["edge_mask"], graph["edge_inv_mult"],
         seg_src_slots=graph[f"seg_src_slots_{part}"],
-        seg_src_rowptr=graph[f"seg_src_rowptr_{part}"])
+        seg_src_rowptr=graph[f"seg_src_rowptr_{part}"], precision=plan.precision)
 
 
 _AGGS = {XLA: _agg_xla, FUSED: _agg_fused}

@@ -7,14 +7,14 @@
   edge features, the fused kernel's compact layout) and the packed halo
   rounds' wires; :meth:`rank` slices one rank out.
 * :class:`NMPPlan` — a frozen execution policy: NMP backend (``xla`` |
-  ``fused``), schedule, fused-layout block sizes and the
+  ``fused``), schedule, the edge MLP's precision (``fp32`` | ``bf16``),
+  fused-layout block sizes and the
   :class:`~repro_torch.core.halo.HaloSpec`.  Layer implementations register
   per ``(backend, schedule)`` cell via :func:`register_nmp_impl`
   (``core/consistent_mp.py`` registers the blocking and the overlap
   schedule for both backends).
 
-``auto`` tuning, bf16 and multilevel graphs are not ported (ROADMAP queue
-1).
+``auto`` tuning and multilevel graphs are not ported (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ import torch
 
 from repro_torch.core.halo import AUTO, HaloSpec, halo_spec_from_plan
 from repro_torch.kernels.halo_pack.ops import HaloWire, halo_wire
+# the edge MLP's precisions (the fused kernels' entries): fp32, bf16
+from repro_torch.nn import BF16, FP32, PRECISIONS  # noqa: F401
 
 XLA = "xla"          # plain PyTorch ops (the name mirrors the reference)
 FUSED = "fused"      # the hand-written CUDA kernel
@@ -39,6 +41,10 @@ SCHEDULES = (BLOCKING, OVERLAP, AUTO)
 class NMPPlan:
     """Static execution policy for every consistent-NMP forward path.
 
+    ``precision`` is the edge MLP's (Eq. 4a) product policy on either
+    backend: ``bf16`` rounds both operands of every dense product to bf16
+    and accumulates in fp32; everything else (biases, ELU, LayerNorm, the
+    residual, the aggregate, the node MLP, encoders and decoder) stays fp32.
     ``block_n`` / ``block_e`` key the cached compact layout (``block_e`` is
     its tile depth); the CUDA kernel itself walks the layout node by node,
     so they do not change its arithmetic.
@@ -46,10 +52,14 @@ class NMPPlan:
     halo: HaloSpec = HaloSpec(mode="none")
     backend: str = XLA
     schedule: str = BLOCKING
+    precision: str = FP32
     block_n: int = 128
     block_e: int = 128
 
     def __post_init__(self):
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision!r}; "
+                             f"expected one of {PRECISIONS}")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown NMP backend {self.backend!r}; "
                              f"expected one of {BACKENDS}")
@@ -87,8 +97,10 @@ class NMPPlan:
             "pick a fixed schedule and halo mode")
 
     def policy(self) -> dict:
-        """JSON-able policy fields (the plan's checkpoint-fingerprint entry)."""
+        """JSON-able policy fields (the plan's checkpoint-fingerprint entry;
+        one written before ``precision`` existed reads as fp32)."""
         return {"backend": self.backend, "schedule": self.schedule,
+                "precision": self.precision,
                 "block_n": self.block_n, "block_e": self.block_e,
                 "halo_mode": self.halo.mode, "halo_packed": self.halo.packed}
 

@@ -14,7 +14,10 @@ overlap schedule, ``edge_update_aggregate_part`` once per side) as one
 rank's forward, so a fused plan runs the CUDA kernel here too.  This is how
 the 1-rank == R-rank guarantee is checked on one card, for values and for
 gradients: the backward runs the fused backward kernel and, under the
-packed exchange, the pack/unpack kernels as each other's adjoint.
+packed exchange, the pack/unpack kernels as each other's adjoint.  The
+plan's precision holds on every rank; on a bf16 plan each rank's layer
+call rounds its own weight gradients to bf16, where the reference's
+stacked xla path rounds once over every rank's edges.
 """
 from __future__ import annotations
 

@@ -15,7 +15,10 @@ Port of ``repro.kernels.segment_agg.ops``.  The NMP pair (Eq. 4a + 4b,
   Function``, counterpart of the reference's ``_nmp_core`` custom VJP): on
   CUDA tensors its forward launches ``csrc/nmp_fwd.cu`` and its backward
   ``csrc/nmp_bwd.cu`` (or raise); on CPU tensors both run the plain
-  versions.  There is no other fallback.
+  versions.  There is no other fallback.  ``precision`` is the reference's
+  policy: ``"fp32"``, or ``"bf16"`` (every edge-MLP product on bf16-rounded
+  operands, accumulated in fp32; the kernels' ``*_bf16`` entries, counted
+  apart as ``nmp_fwd_bf16`` / ``nmp_bwd_bf16``); anything else raises.
 * ``fused_nmp_edge_agg_plain`` / ``fused_nmp_edge_agg_bwd_plain`` — the
   same functions in plain PyTorch, used by the CPU tests and by
   ``chip_smoke.py`` to check the kernels on the card;
@@ -49,6 +52,10 @@ from repro_torch.kernels import build
 
 KERNEL = "nmp_fwd"
 KERNEL_BWD = "nmp_bwd"
+#: the bf16 entries' launch counters, apart from the fp32 ones
+KERNEL_BF16 = "nmp_fwd_bf16"
+KERNEL_BWD_BF16 = "nmp_bwd_bf16"
+FP32, BF16, PRECISIONS = nn.FP32, nn.BF16, nn.PRECISIONS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -57,12 +64,17 @@ _SIGNATURES = {
     # 13 operands, e_new, agg, scratch tile_lo / partials / covered; N,
     # slots, edges, H, Lp, has_ln, stream
     "nmp_edge_mlp_agg_fwd_f32": (_P,) * 18 + (_I, _L, _L) + (_I,) * 3 + (_P,),
+    "nmp_edge_mlp_agg_fwd_bf16_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    "nmp_edge_mlp_agg_fwd_bf16": (_P,) * 18 + (_I, _L, _L) + (_I,) * 3 + (_P,),
 }
 _SIGNATURES_BWD = {
     "nmp_edge_mlp_agg_bwd_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
     # 17 operands, gx, ge, gw, scratch g_z0 / slot_dst / partials; N, slots,
     # H, Lp, has_ln, partial rows, stream
     "nmp_edge_mlp_agg_bwd_f32": (_P,) * 23 + (_I, _L) + (_I,) * 4 + (_P,),
+    "nmp_edge_mlp_agg_bwd_bf16_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    # as f32, with a second per-slot scratch: the slot's x_dst gradient
+    "nmp_edge_mlp_agg_bwd_bf16": (_P,) * 24 + (_I, _L) + (_I,) * 4 + (_P,),
 }
 SUPPORTED_HIDDEN = (8, 16, 32)
 #: hidden layers the backward kernel's register accumulators hold
@@ -171,6 +183,23 @@ def _check_hidden(edge_params, hid):
             f"features, expected 3*H = {3 * hid}")
 
 
+def _check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{PRECISIONS}")
+
+
+#: (C entry, launch counter, C launch-plan entry) of each NMP kernel at
+#: each precision
+_ENTRIES = {
+    ("fwd", FP32): ("nmp_edge_mlp_agg_fwd_f32", KERNEL, "nmp_edge_mlp_agg_fwd_plan"),
+    ("fwd", BF16): ("nmp_edge_mlp_agg_fwd_bf16", KERNEL_BF16,
+                    "nmp_edge_mlp_agg_fwd_bf16_plan"),
+    ("bwd", FP32): ("nmp_edge_mlp_agg_bwd_f32", KERNEL_BWD, "nmp_edge_mlp_agg_bwd_plan"),
+    ("bwd", BF16): ("nmp_edge_mlp_agg_bwd_bf16", KERNEL_BWD_BF16,
+                    "nmp_edge_mlp_agg_bwd_bf16_plan")}
+
+
 def _check_cuda(name, x, hid, n, seg_rowptr):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -186,9 +215,11 @@ def _check_cuda(name, x, hid, n, seg_rowptr):
 # ---------------------------------------------------------------------------
 
 def fused_nmp_edge_agg_plain(x, e, edge_params, seg_perm, seg_src,
-                             seg_rowptr, edge_mask, edge_inv_mult):
+                             seg_rowptr, edge_mask, edge_inv_mult,
+                             precision=FP32):
     """Plain PyTorch Eq. 4a + 4b over the compact layout, on the operands the
-    kernel takes (each slot's destination node comes from ``seg_rowptr``).
+    kernel takes (each slot's destination node comes from ``seg_rowptr``),
+    the edge MLP under ``precision`` (``nn.mlp``).
 
     Returns (e_new [E, H] == (e + MLP([x_src, x_dst, e])) * mask on the
     layout's edges and 0 elsewhere, agg [N, H] == segment sum of
@@ -199,7 +230,7 @@ def fused_nmp_edge_agg_plain(x, e, edge_params, seg_perm, seg_src,
     d = torch.repeat_interleave(torch.arange(x.shape[0], device=x.device),
                                 seg_rowptr.diff().long())
     feats = torch.cat([x[s], x[d], e[p]], dim=-1)
-    en = (e[p] + nn.mlp(edge_params, feats)) * edge_mask[p][:, None]
+    en = (e[p] + nn.mlp(edge_params, feats, precision)) * edge_mask[p][:, None]
     e_new = torch.zeros(e.shape[0], x.shape[1], dtype=x.dtype, device=x.device)
     e_new[p] = en
     agg = torch.zeros_like(x).index_add_(0, d, en * edge_inv_mult[p][:, None])
@@ -207,13 +238,14 @@ def fused_nmp_edge_agg_plain(x, e, edge_params, seg_perm, seg_src,
 
 
 def _bwd_plain_stacked(x, e, ops, n_hidden, has_ln, seg_perm, seg_src,
-                       seg_rowptr, edge_mask, edge_inv_mult, g_enew, g_agg):
+                       seg_rowptr, edge_mask, edge_inv_mult, g_enew, g_agg,
+                       precision=FP32):
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (x, e) + tuple(ops)]
         params = _unstack_edge_mlp(*leaves[2:], n_hidden, has_ln)
         e_new, agg = fused_nmp_edge_agg_plain(
             leaves[0], leaves[1], params, seg_perm, seg_src, seg_rowptr,
-            edge_mask, edge_inv_mult)
+            edge_mask, edge_inv_mult, precision)
         grads = torch.autograd.grad((e_new, agg), leaves, (g_enew, g_agg),
                                     allow_unused=True)
     return tuple(torch.zeros_like(l) if g is None else g
@@ -222,9 +254,13 @@ def _bwd_plain_stacked(x, e, ops, n_hidden, has_ln, seg_perm, seg_src,
 
 def fused_nmp_edge_agg_bwd_plain(x, e, edge_params, seg_perm, seg_src,
                                  seg_rowptr, edge_mask, edge_inv_mult,
-                                 g_enew, g_agg):
+                                 g_enew, g_agg, precision=FP32):
     """Plain VJP of :func:`fused_nmp_edge_agg_plain` (``torch.autograd.grad``
-    through it) for the cotangents (g_enew [E, H], g_agg [N, H]).
+    through it) for the cotangents (g_enew [E, H], g_agg [N, H]).  Under
+    ``precision="bf16"`` autograd through the operands' casts rounds each
+    cast operand's cotangent to bf16, as JAX's VJP of the reference's
+    policy does: per element for the inputs, once on each weight's
+    gradient summed over every edge.
 
     Returns (g_x [N, H], g_e [E, H], g_w0 [3H, H], g_b0 [H],
     g_wrest [max(Lp,1), H, H], g_brest [max(Lp,1), H], g_lng [H],
@@ -234,7 +270,7 @@ def fused_nmp_edge_agg_bwd_plain(x, e, edge_params, seg_perm, seg_src,
     *ops, n_hidden, has_ln = _stack_edge_mlp(edge_params)
     return _bwd_plain_stacked(x, e, ops, n_hidden, has_ln, seg_perm, seg_src,
                               seg_rowptr, edge_mask, edge_inv_mult, g_enew,
-                              g_agg)
+                              g_agg, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -242,13 +278,14 @@ def fused_nmp_edge_agg_bwd_plain(x, e, edge_params, seg_perm, seg_src,
 # ---------------------------------------------------------------------------
 
 def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
-         edge_mask, edge_inv_mult):
-    """Forward on stacked operands: plain on CPU, ``nmp_fwd`` on CUDA."""
+         edge_mask, edge_inv_mult, precision):
+    """Forward on stacked operands: plain on CPU, ``nmp_fwd`` (or its bf16
+    entry) on CUDA."""
     n, hid = x.shape
     if x.device.type == "cpu":
         return fused_nmp_edge_agg_plain(
             x, e, _unstack_edge_mlp(*ops, n_hidden, has_ln), seg_perm,
-            seg_src, seg_rowptr, edge_mask, edge_inv_mult)
+            seg_src, seg_rowptr, edge_mask, edge_inv_mult, precision)
     _check_cuda("fused_nmp_edge_agg", x, hid, n, seg_rowptr)
     f32, i32 = torch.float32, torch.int32
     args = (x, e, seg_perm.reshape(-1), seg_src.reshape(-1), seg_rowptr,
@@ -256,7 +293,7 @@ def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     build.require_cuda("fused_nmp_edge_agg", *args,
                        dtypes=(f32, f32, i32, i32, i32) + (f32,) * 8)
     n_slots = args[2].shape[0]
-    tiles = fwd_launch_plan(hid, n_hidden, n_slots)["tiles"]
+    tiles = fwd_launch_plan(hid, n_hidden, n_slots, precision)["tiles"]
     dev, n_edges = x.device, e.shape[0]
     e_new = torch.empty(n_edges, hid, dtype=f32, device=dev)
     agg = torch.empty(n, hid, dtype=f32, device=dev)
@@ -266,49 +303,58 @@ def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     partials = torch.empty(tiles, 2, hid, dtype=f32, device=dev)
     covered = torch.empty(n_edges, dtype=torch.uint8, device=dev)
     lib = build.load(KERNEL, _SIGNATURES)
-    code = lib.nmp_edge_mlp_agg_fwd_f32(
+    entry, counter, _ = _ENTRIES["fwd", precision]
+    code = getattr(lib, entry)(
         *(t.data_ptr() for t in args), e_new.data_ptr(), agg.data_ptr(),
         tile_lo.data_ptr(), partials.data_ptr(), covered.data_ptr(), n, n_slots,
         n_edges, hid, n_hidden, int(has_ln), build.stream_of(x))
-    build.check(lib, code, "nmp_edge_mlp_agg_fwd_f32")
-    build.count_launch(KERNEL)
+    build.check(lib, code, entry)
+    build.count_launch(counter)
     return e_new, agg
 
 
-def fwd_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
-    """The forward edge pass's launch on the current card: ``grid``,
-    ``smem_bytes`` of dynamic shared memory per block, ``blocks_per_sm``
-    resident (occupancy API), ``smem_layers`` (the hidden layers whose
-    weights sit in shared memory; the rest are read from global memory) and
-    ``tiles`` (128-slot tiles the scratch holds)."""
+def fwd_launch_plan(hidden: int, n_hidden: int, n_slots: int,
+                    precision: str = FP32) -> dict:
+    """The forward edge pass's launch on the current card at ``precision``:
+    ``grid``, ``smem_bytes`` of dynamic shared memory per block,
+    ``blocks_per_sm`` resident (occupancy API), ``smem_layers`` (the hidden
+    layers whose weights sit in shared memory; the rest are read from
+    global memory) and ``tiles`` (128-slot tiles the scratch holds)."""
+    _check_precision(precision)
     lib = build.load(KERNEL, _SIGNATURES)
     plan = (ctypes.c_int * 5)()
-    code = lib.nmp_edge_mlp_agg_fwd_plan(hidden, n_hidden, n_slots, plan)
-    build.check(lib, code, "nmp_edge_mlp_agg_fwd_plan")
+    entry = _ENTRIES["fwd", precision][2]
+    code = getattr(lib, entry)(hidden, n_hidden, n_slots, plan)
+    build.check(lib, code, entry)
     return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
                 smem_layers=plan[3], tiles=plan[4])
 
 
-def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
-    """The backward edge pass's launch on the current card: ``grid`` (the
-    partial weight-gradient rows), ``smem_bytes`` of dynamic shared memory
-    per block and ``blocks_per_sm`` resident (occupancy API)."""
+def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int,
+                    precision: str = FP32) -> dict:
+    """The backward edge pass's launch on the current card at
+    ``precision``: ``grid`` (the partial weight-gradient rows),
+    ``smem_bytes`` of dynamic shared memory per block and ``blocks_per_sm``
+    resident (occupancy API)."""
+    _check_precision(precision)
     lib = build.load(KERNEL_BWD, _SIGNATURES_BWD)
     plan = (ctypes.c_int * 3)()
-    code = lib.nmp_edge_mlp_agg_bwd_plan(hidden, n_hidden, n_slots, plan)
-    build.check(lib, code, "nmp_edge_mlp_agg_bwd_plan")
+    entry = _ENTRIES["bwd", precision][2]
+    code = getattr(lib, entry)(hidden, n_hidden, n_slots, plan)
+    build.check(lib, code, entry)
     return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2])
 
 
 def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
          seg_src_slots, seg_src_rowptr, edge_mask, edge_inv_mult, g_enew,
-         g_agg):
-    """Backward on stacked operands: plain on CPU, ``nmp_bwd`` on CUDA."""
+         g_agg, precision):
+    """Backward on stacked operands: plain on CPU, ``nmp_bwd`` (or its bf16
+    entry) on CUDA."""
     n, hid = x.shape
     if x.device.type == "cpu":
         return _bwd_plain_stacked(x, e, ops, n_hidden, has_ln, seg_perm,
                                   seg_src, seg_rowptr, edge_mask,
-                                  edge_inv_mult, g_enew, g_agg)
+                                  edge_inv_mult, g_enew, g_agg, precision)
     _check_cuda("fused_nmp_edge_agg_bwd", x, hid, n, seg_rowptr)
     if seg_src_slots is None or seg_src_rowptr is None:
         raise ValueError(
@@ -334,7 +380,7 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
                        dtypes=(f32, f32) + (i32,) * 5 + (f32,) * 10)
     lib = build.load(KERNEL_BWD, _SIGNATURES_BWD)
     n_slots = perm.shape[0]
-    groups = bwd_launch_plan(hid, n_hidden, n_slots)["grid"]
+    groups = bwd_launch_plan(hid, n_hidden, n_slots, precision)["grid"]
     lp = ops[2].shape[0]
     sizes = (3 * hid * hid, hid, lp * hid * hid, lp * hid, hid, hid)
     wsize = sum(sizes)
@@ -343,17 +389,24 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     ge = torch.zeros(e.shape[0], hid, dtype=f32, device=dev)
     gw = torch.empty(wsize, dtype=f32, device=dev)
     # scratch: each slot's layer-0 pre-activation gradient (slots x H fp32,
-    # 552 MB at the serving mesh's 4.3 M slots, H=32), each slot's
-    # destination node, and one row of partial weight gradients per block
+    # 552 MB at the serving mesh's 4.3 M slots, H=32; in bf16 the slot's
+    # x_src gradient, and as much again for its x_dst gradient), each
+    # slot's destination node, and one row of partial weight gradients per
+    # block
     gz0 = torch.empty(n_slots, hid, dtype=f32, device=dev)
+    scratch = [gz0.data_ptr()]
+    if precision == BF16:
+        gxd = torch.empty(n_slots, hid, dtype=f32, device=dev)
+        scratch.append(gxd.data_ptr())
     slot_dst = torch.empty(n_slots, dtype=i32, device=dev)
     partials = torch.empty(groups, wsize, dtype=f32, device=dev)
-    code = lib.nmp_edge_mlp_agg_bwd_f32(
+    entry, counter, _ = _ENTRIES["bwd", precision]
+    code = getattr(lib, entry)(
         *(t.data_ptr() for t in args), gx.data_ptr(), ge.data_ptr(),
-        gw.data_ptr(), gz0.data_ptr(), slot_dst.data_ptr(), partials.data_ptr(),
+        gw.data_ptr(), *scratch, slot_dst.data_ptr(), partials.data_ptr(),
         n, n_slots, hid, n_hidden, int(has_ln), groups, build.stream_of(x))
-    build.check(lib, code, "nmp_edge_mlp_agg_bwd_f32")
-    build.count_launch(KERNEL_BWD)
+    build.check(lib, code, entry)
+    build.count_launch(counter)
     gw0, gb0, gwr, gbr, glng, glnb = torch.split(gw, sizes)
     return (gx, ge, gw0.view(3 * hid, hid), gb0, gwr.view(lp, hid, hid),
             gbr.view(lp, hid), glng, glnb)
@@ -366,27 +419,30 @@ class _FusedNMP(torch.autograd.Function):
     as the reference's VJP returns zeros for them."""
 
     @staticmethod
-    def forward(ctx, save, n_hidden, has_ln, x, e, w0, b0, wrest, brest, lng,
-                lnb, perm, src, rowptr, src_slots, src_rowptr, emask, einv):
+    def forward(ctx, save, n_hidden, has_ln, precision, x, e, w0, b0, wrest,
+                brest, lng, lnb, perm, src, rowptr, src_slots, src_rowptr,
+                emask, einv):
         ops = (w0, b0, wrest, brest, lng, lnb)
-        out = _fwd(x, e, ops, n_hidden, has_ln, perm, src, rowptr, emask, einv)
+        out = _fwd(x, e, ops, n_hidden, has_ln, perm, src, rowptr, emask, einv,
+                   precision)
         if save:
             ctx.save_for_backward(x, e, *ops, perm, src, rowptr, src_slots,
                                   src_rowptr, emask, einv)
-        ctx.static = (n_hidden, has_ln)
+        ctx.static = (n_hidden, has_ln, precision)
         return out
 
     @staticmethod
     def backward(ctx, g_enew, g_agg):
         x, e, *rest = ctx.saved_tensors
-        grads = _bwd(x, e, tuple(rest[:6]), *ctx.static, *rest[6:],
-                     g_enew, g_agg)
-        return (None, None, None) + tuple(grads) + (None,) * 7
+        n_hidden, has_ln, precision = ctx.static
+        grads = _bwd(x, e, tuple(rest[:6]), n_hidden, has_ln, *rest[6:],
+                     g_enew, g_agg, precision)
+        return (None,) * 4 + tuple(grads) + (None,) * 7
 
 
 def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
                        edge_mask, edge_inv_mult, *, seg_src_slots=None,
-                       seg_src_rowptr=None):
+                       seg_src_rowptr=None, precision=FP32):
     """Fused, differentiable Eq. 4a + 4b (edge MLP -> 1/d_ij-weighted
     aggregate).
 
@@ -399,11 +455,13 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
       edge_mask / edge_inv_mult: [E_pad].
       seg_src_slots / seg_src_rowptr: the src-sorted companion layout; the
         CUDA backward needs it (the forward does not).
+      precision: ``"fp32"`` or ``"bf16"`` (the edge MLP's products on
+        bf16-rounded operands, accumulated in fp32); anything else raises.
 
     CPU tensors run the plain forward and backward; CUDA tensors launch
-    ``csrc/nmp_fwd.cu`` (fp32, H in {8, 16, 32}, any number of hidden
-    layers) and, in the backward, ``csrc/nmp_bwd.cu`` (at most 5 hidden
-    layers) or raise.  Tensors are saved for the backward only when grad is
+    ``csrc/nmp_fwd.cu`` (fp32 operands in memory, H in {8, 16, 32}, any
+    number of hidden layers) and, in the backward, ``csrc/nmp_bwd.cu`` (at
+    most 5 hidden layers), each at ``precision``, or raise.  Tensors are saved for the backward only when grad is
     enabled and an input requires it.
 
     Returns (e_new [E_pad, H], agg [N_pad, H]).
@@ -412,14 +470,14 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
     *ops, n_hidden, has_ln = _stack_edge_mlp(edge_params)
     save = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, e, *ops))
-    return _FusedNMP.apply(save, n_hidden, has_ln, x, e, *ops, seg_perm,
+    return _FusedNMP.apply(save, n_hidden, has_ln, precision, x, e, *ops, seg_perm,
                            seg_src, seg_rowptr, seg_src_slots, seg_src_rowptr,
                            edge_mask, edge_inv_mult)
 
 
 def fused_nmp_edge_agg_bwd(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
                            seg_src_slots, seg_src_rowptr, edge_mask,
-                           edge_inv_mult, g_enew, g_agg):
+                           edge_inv_mult, g_enew, g_agg, precision=FP32):
     """The backward on its own: VJP of :func:`fused_nmp_edge_agg` for the
     cotangents (g_enew [E_pad, H], g_agg [N_pad, H]).  CPU tensors run
     :func:`fused_nmp_edge_agg_bwd_plain`; CUDA tensors launch
@@ -429,7 +487,7 @@ def fused_nmp_edge_agg_bwd(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
     *ops, n_hidden, has_ln = _stack_edge_mlp(edge_params)
     return _bwd(x, e, tuple(ops), n_hidden, has_ln, seg_perm, seg_src,
                 seg_rowptr, seg_src_slots, seg_src_rowptr, edge_mask,
-                edge_inv_mult, g_enew, g_agg)
+                edge_inv_mult, g_enew, g_agg, precision)
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core.gnn import GNNConfig
-from repro_torch.core.graph_state import BLOCKING, NMPPlan
+from repro_torch.core.graph_state import BLOCKING, FP32, NMPPlan
 from repro_torch.core.halo import A2A, NEIGHBOR, HaloSpec
 from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
 from repro_torch.core.partition import partition_mesh
@@ -76,6 +76,7 @@ class ServeJob:
     max_pending: int = 16
     backend: str = "fused"
     schedule: str = BLOCKING
+    precision: str = FP32
     halo_mode: str = A2A
     packed: bool = False
     device: str = "cuda"
@@ -87,7 +88,8 @@ class ServeJob:
 
     def plan(self) -> NMPPlan:
         return NMPPlan(halo=HaloSpec(mode=self.halo_mode, packed=self.packed),
-                       backend=self.backend, schedule=self.schedule)
+                       backend=self.backend, schedule=self.schedule,
+                       precision=self.precision)
 
     def engine_config(self) -> EngineConfig:
         return EngineConfig(batch_slots=self.batch_slots,

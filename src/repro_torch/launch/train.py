@@ -20,15 +20,17 @@ host, so processes may share a card) or nccl (one card per process).
 ``--batch`` must split over the replicas.  Process 0 prints the loss line
 and writes the checkpoints.  ``--mp-schedule overlap`` runs the
 interior/boundary split (its exchange blocking between the two sides, as
-the gradient needs).  What is not ported, the CLI refuses naming the slice
-that brings it: the ``auto`` schedule, bf16, multilevel ``--levels``, the
-spectral partitioner and the resilient ``--ckpt-dir`` mode.
+the gradient needs).  ``--mp-precision bf16`` runs the edge MLP's products
+on bf16-rounded operands with fp32 accumulation.  What is not ported, the
+CLI refuses naming the slice that brings it: the ``auto`` schedule,
+multilevel ``--levels``, the spectral partitioner and the resilient
+``--ckpt-dir`` mode.
 """
 import argparse
 import math
 
 from repro_torch.core.gnn import GNNConfig
-from repro_torch.core.graph_state import NMPPlan
+from repro_torch.core.graph_state import FP32, PRECISIONS, NMPPlan
 from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import partition_mesh
 from repro_torch.launch.mesh import BACKENDS, check_backend, make_mesh, spawn
@@ -43,7 +45,8 @@ def _run(args, mesh=None):
                        halo_mode=args.halo, ckpt_dir=args.ckpt,
                        ckpt_every=args.ckpt_every,
                        plan=NMPPlan(backend=args.mp_backend,
-                                    schedule=args.mp_schedule),
+                                    schedule=args.mp_schedule,
+                                    precision=args.mp_precision),
                        rollout_steps=args.rollout_steps,
                        pushforward_noise=args.pushforward_noise,
                        partitioner=args.partitioner)
@@ -94,7 +97,10 @@ def main(argv=None):
     ap.add_argument("--mp-schedule", default="blocking",
                     choices=["blocking", "overlap", "auto"])
     ap.add_argument("--partitioner", default="block", choices=["block", "spectral"])
-    ap.add_argument("--mp-precision", default="fp32", choices=["fp32", "bf16"])
+    ap.add_argument("--mp-precision", default=FP32, choices=PRECISIONS,
+                    help="edge-MLP products: bf16 rounds their operands to "
+                         "bf16 and accumulates in fp32 (the kernels' bf16 "
+                         "entries on the fused backend)")
     ap.add_argument("--levels", type=int, default=1)
     ap.add_argument("--rollout-steps", type=int, default=1,
                     help="K > 1 trains autoregressively over the model's "
@@ -108,9 +114,6 @@ def main(argv=None):
         (args.mp_schedule == "auto",
          "--mp-schedule auto is not ported (ROADMAP queue: 'Spectral "
          "partitioning and autotune')"),
-        (args.mp_precision != "fp32",
-         "--mp-precision bf16 is not ported (ROADMAP queue: "
-         "'bf16')"),
         (args.levels != 1,
          "--levels > 1 is not ported (ROADMAP queue: 'Multilevel "
          "V-cycle')"),
@@ -145,7 +148,8 @@ def main(argv=None):
     print(f"mesh: {sem.n_elem} elems p={args.order} ({sem.n_nodes} nodes); "
           f"R={_ranks(args)} x DP={args.data_parallel} on {args.device}"
           + (f" ({nprocs} processes, {args.dist_backend})" if nprocs > 1 else "")
-          + f"; backend={args.mp_backend}, schedule={args.mp_schedule}; rollout "
+          + f"; backend={args.mp_backend}, schedule={args.mp_schedule}, "
+          f"precision={args.mp_precision}; rollout "
           f"K={args.rollout_steps}", flush=True)
     if nprocs == 1:
         return _run(args)

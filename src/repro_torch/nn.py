@@ -5,7 +5,9 @@ over 1:1: a dense layer is ``{"w": [d_in, d_out], "b": [d_out]}``, an MLP
 is ``{"layers": [dense, ...], "ln": {"g", "b"}}``.  Modules are plain
 functions over those nested dicts of tensors; initializers draw from a
 ``torch.Generator`` on the CPU (so a seed gives the same weights on every
-device) and then move to ``device``.  fp32 only in this slice.  Parameter
+device) and then move to ``device``.  Parameters and activations are fp32;
+``precision="bf16"`` runs a dense layer's product on bf16-rounded operands
+with an fp32 result, the reference's mixed-precision policy.  Parameter
 trees are handled by ``tree_leaves`` (JAX's flatten order), ``tree_map`` and
 ``tree_unflatten``; ``value_and_grad`` is the counterpart of
 ``jax.value_and_grad`` over them.
@@ -19,6 +21,9 @@ import torch
 import torch.nn.functional as F
 
 Params = dict
+#: the dense products' precisions (``None`` reads as fp32)
+FP32, BF16 = "fp32", "bf16"
+PRECISIONS = (FP32, BF16)
 
 
 def glorot(gen: torch.Generator, shape) -> torch.Tensor:
@@ -36,8 +41,24 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, device="cuda",
     return p
 
 
-def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even) and back to fp32.  Autograd
+    through the two casts rounds the cotangent to bf16, as JAX's VJP of
+    ``astype(bfloat16)`` does."""
+    return t.to(torch.bfloat16).float()
+
+
+def dense(p: Params, x: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """``precision="bf16"``: the product of the bf16-rounded operands in
+    fp32 (the reference's ``preferred_element_type=float32``), not a bf16
+    matmul, whose output would be rounded too; ``None`` / ``"fp32"`` is the
+    plain product.  The bias stays fp32 either way."""
+    if precision == BF16:
+        y = _bf16(x) @ _bf16(p["w"])
+    elif precision in (None, FP32):
+        y = x @ p["w"]
+    else:
+        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
     if "b" in p:
         y = y + p["b"]
     return y
@@ -66,10 +87,12 @@ def init_mlp(gen: torch.Generator, d_in: int, hidden: Sequence[int], d_out: int,
     return p
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """Every dense layer under ``precision`` (:func:`dense`); the ELUs and
+    the LayerNorm stay fp32."""
     n = len(p["layers"])
     for i, lp in enumerate(p["layers"]):
-        x = dense(lp, x)
+        x = dense(lp, x, precision)
         if i < n - 1:
             x = F.elu(x)
     if "ln" in p:

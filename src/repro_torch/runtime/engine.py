@@ -251,6 +251,7 @@ class InferenceEngine:
                 f"is {config.halo_mode!r}")
         # execution-policy fields forwarded into each mesh's NMPPlan.build
         self._policy = {"backend": plan.backend, "schedule": plan.schedule,
+                        "precision": plan.precision,
                         "block_n": plan.block_n, "block_e": plan.block_e}
         self._packed = plan.halo.packed
         self.params, self.fingerprint, self.ckpt_step = \

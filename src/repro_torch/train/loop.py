@@ -185,7 +185,8 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None):
     policy = tcfg.plan
     plan = NMPPlan.build(pg, tcfg.halo_mode, packed=policy.halo.packed,
                          backend=policy.backend, schedule=policy.schedule,
-                         block_n=policy.block_n, block_e=policy.block_e)
+                         precision=policy.precision, block_n=policy.block_n,
+                         block_e=policy.block_e)
     if plan.schedule not in (BLOCKING, OVERLAP):
         raise NotImplementedError(
             f"schedule {plan.schedule!r} is not ported to repro_torch yet "

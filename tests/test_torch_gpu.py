@@ -48,7 +48,7 @@ from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
 from repro_torch.core.partition import (
     gather_node_features, partition_mesh, scatter_node_outputs)
 from repro_torch.core.reference import gnn_forward_stacked
-from repro_torch.nn import tree_leaves
+from repro_torch.nn import BF16, tree_leaves
 from repro_torch.train.loop import TrainConfig, train_consistent_gnn
 from repro_torch.graph.segment import segment_sum
 from repro_torch.configs import dlrm_rm2, granite_34b
@@ -1104,3 +1104,263 @@ def test_overlap_on_card_posted_exchange_and_forward_bitwise_stacked(cuda):
         M = cfg.n_mp_layers
         assert step["fwd_launches"] == {sa.KERNEL: 2 * M, hp.PACK: M, hp.UNPACK: M * recv}
         assert step["fwd_exchanges"] == {"posted": M, "overlapped": M}
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2 in bf16 (precision="bf16"): the bands of
+# tests/test_torch_bf16.py.  A pre-activation one fp32 bit apart (another
+# summation order) can round to the neighbouring bf16 value, so the forward
+# is held by its relative L2 distance from the plain bf16 version (at most
+# 1e-3) and by that distance's ratio to its distance from the plain fp32
+# version (at most 0.2: the kernel rounded where the plain version does),
+# max |err| at most 5e-2; every gradient within rtol 1e-2 / atol 1e-2 *
+# max(1, max|ref|), the reference's band for its own bf16 pair.
+# ---------------------------------------------------------------------------
+
+BF_REL, BF_RATIO, BF_MAX = 1e-3, 0.2, 5e-2
+
+
+def _bf16_fwd_close(got, want, want_fp32):
+    rel, rel32 = _rel_norm(got, want), _rel_norm(got, want_fp32)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    assert rel <= BF_REL and rel <= BF_RATIO * rel32 and err <= BF_MAX, (rel, rel32, err)
+
+
+def _bf16_grads_close(got, want):
+    for a, b in zip(got, want):
+        atol = 1e-2 * max(1.0, float(b.abs().max()) if b.numel() else 0.0)
+        torch.testing.assert_close(a, b, rtol=1e-2, atol=atol)
+
+
+def _counts(*names):
+    return {k: build.launch_counts.get(k, 0) for k in names}
+
+
+_NMP_COUNTERS = (sa.KERNEL, sa.KERNEL_BWD, sa.KERNEL_BF16, sa.KERNEL_BWD_BF16)
+
+
+def _fwd_bf16_checks(args, outside=None):
+    """The bf16 forward of ``args`` against plain bf16 and plain fp32: the
+    bands, one bf16 launch and no fp32 one, two launches bitwise equal."""
+    n0 = _counts(*_NMP_COUNTERS)
+    e_new, agg = sa.fused_nmp_edge_agg(*args, precision=BF16)
+    torch.cuda.synchronize()
+    n1 = _counts(*_NMP_COUNTERS)
+    assert n1[sa.KERNEL_BF16] == n0[sa.KERNEL_BF16] + 1 and n1[sa.KERNEL] == n0[sa.KERNEL]
+    pe, pa = sa.fused_nmp_edge_agg_plain(*args, precision=BF16)
+    fe, fa_ = sa.fused_nmp_edge_agg_plain(*args)
+    _bf16_fwd_close(e_new, pe, fe)
+    _bf16_fwd_close(agg, pa, fa_)
+    if outside is not None:
+        assert not e_new[torch.from_numpy(outside).to(e_new.device)].any()
+    e2, a2 = sa.fused_nmp_edge_agg(*args, precision=BF16)
+    assert torch.equal(e_new, e2) and torch.equal(agg, a2)
+    return e_new, agg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,layers", [(8, 2), (16, 1), (32, 5)])
+def test_fused_nmp_bf16_kernel_matches_plain(cuda, hidden, layers):
+    plan = NMPPlan(backend=FUSED, block_e=32)
+    _, pg, g = _graph((3, 2, 2), (1, 1, 1), plan, cuda)
+    g = g.rank(0)
+    gen = torch.Generator().manual_seed(hidden)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=layers)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    x = torch.randn(pg.n_pad, hidden, generator=gen).to(cuda)
+    e = torch.randn(pg.e_pad, hidden, generator=gen).to(cuda)
+    _fwd_bf16_checks((x, e, edge, g["seg_perm"], g["seg_src"], g["seg_rowptr"],
+                      g["edge_mask"], g["edge_inv_mult"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("n_hidden", [0, 7])
+@pytest.mark.parametrize("hidden", [8, 16, 32])
+def test_fused_nmp_bf16_kernel_tile_edges(cuda, hidden, n_hidden, has_ln):
+    """The forward's tile edges (``tile_edge_graph``) in bf16: H 8/16/32
+    (at H=8 layer 0's K=24 ends on a half k-step of 16), Lp 0 and 7, with
+    and without LayerNorm."""
+    args, outside = _tile_edge_case(cuda, hidden, n_hidden, has_ln, hidden + n_hidden)
+    _fwd_bf16_checks(args, outside)
+
+
+@pytest.mark.gpu
+def test_fused_nmp_bf16_kernel_weights_past_shared_memory_and_plans(cuda):
+    """bf16 weights take a quarter of the pre-split ones' shared memory:
+    more hidden layers fit, the rest are read from global memory and
+    rounded per fragment; the serving mesh's launches as the card plans
+    them."""
+    args, _ = _tile_edge_case(cuda, 32, 48, True, 5)
+    n_slots = args[3].numel()
+    plan = sa.fwd_launch_plan(32, 48, n_slots, BF16)
+    assert sa.fwd_launch_plan(32, 48, n_slots)["smem_layers"] < plan["smem_layers"] < 48
+    n0 = _counts(sa.KERNEL_BF16)[sa.KERNEL_BF16]
+    e_new, agg = sa.fused_nmp_edge_agg(*args, precision=BF16)
+    assert build.launch_counts[sa.KERNEL_BF16] == n0 + 1
+    pe, pa = sa.fused_nmp_edge_agg_plain(*args, precision=BF16)
+    fe, fa_ = sa.fused_nmp_edge_agg_plain(*args)
+    _bf16_fwd_close(e_new, pe, fe)
+    _bf16_fwd_close(agg, pa, fa_)
+    full = sa.fwd_launch_plan(32, 5, 4_315_696, BF16)
+    assert full["smem_layers"] == 5 and full["tiles"] == -(-4_315_696 // 128)
+    assert full["smem_bytes"] < sa.fwd_launch_plan(32, 5, 4_315_696)["smem_bytes"]
+    bwd = sa.bwd_launch_plan(32, 5, 4_315_696, BF16)
+    assert bwd["smem_bytes"] == 220_672 and bwd["blocks_per_sm"] >= 1
+
+
+def _bwd_bf16_checks(x, e, edge, lay, src_lay, rest, n_hidden, has_ln=True, empty=False):
+    n0 = _counts(*_NMP_COUNTERS)
+    got = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, precision=BF16)
+    torch.cuda.synchronize()
+    n1 = _counts(*_NMP_COUNTERS)
+    assert n1[sa.KERNEL_BWD_BF16] == n0[sa.KERNEL_BWD_BF16] + 1
+    assert n1[sa.KERNEL_BWD] == n0[sa.KERNEL_BWD]
+    want = sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest, precision=BF16)
+    if empty:
+        assert not any(t.any() for t in got) and not any(t.any() for t in want)
+    _bf16_grads_close(got, want)
+    # the rounding happened on every side, not on the weight gradients
+    # alone: each output nearer plain bf16 than the fp32 kernel's, by the
+    # forward's ratio; but the last layer's bias gradient (ln_b, or b0 with
+    # no hidden layer and no LN), the column sum of the incoming cotangent,
+    # which no product touches, is the same in both
+    untouched = "ln_b" if has_ln else ("b0" if n_hidden == 0 else None)
+    k32 = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest)
+    for name, a, b, c in zip(("g_x", "g_e", "w0", "b0", "wrest", "brest", "ln_g", "ln_b"),
+                             got, want, k32):
+        if name != untouched:
+            assert _rel_norm(a, b) <= BF_RATIO * _rel_norm(a, c), name
+    for i, (a, b) in enumerate(zip(got[2:], want[2:])):
+        if (i in (2, 3) and n_hidden == 0) or (i in (4, 5) and not has_ln):
+            assert not a.any() and not b.any()
+    # each weight gradient rounded once to bf16, as the plain version's
+    for w in (got[2], got[4]):
+        assert torch.equal(w, w.to(torch.bfloat16).float())
+    again = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, precision=BF16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("layers", [1, 6], ids=["lp0", "lp5"])
+@pytest.mark.parametrize("hidden", [8, 16, 32])
+def test_fused_nmp_bf16_bwd_kernel_matches_plain(cuda, hidden, layers, has_ln):
+    plan = NMPPlan(backend=FUSED, block_e=32)
+    _, pg, g = _graph((3, 2, 2), (1, 1, 1), plan, cuda)
+    g = g.rank(0)
+    gen = torch.Generator().manual_seed(hidden + layers)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=layers - 1)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    if not has_ln:
+        edge.pop("ln")
+    for lp in edge["layers"]:                  # non-trivial biases
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    x, e = R(pg.n_pad, hidden), R(pg.e_pad, hidden)
+    rest = (g["edge_mask"], g["edge_inv_mult"], R(pg.e_pad, hidden), R(pg.n_pad, hidden))
+    _bwd_bf16_checks(x, e, edge, (g["seg_perm"], g["seg_src"], g["seg_rowptr"]),
+                     (g["seg_src_slots"], g["seg_src_rowptr"]), rest, layers - 1, has_ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,layers", [(8, 1), (16, 3), (32, 6)])
+def test_fused_nmp_bf16_bwd_kernel_ragged_tiles(cuda, hidden, layers):
+    rng = np.random.default_rng(hidden)
+    lay, src_lay, mask, inv, outside = _ragged_layout(rng, cuda)
+    n, n_edges = 300, mask.shape[0]
+    gen = torch.Generator().manual_seed(hidden)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=layers - 1)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    for lp in edge["layers"]:
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    x, e = R(n, hidden), R(n_edges, hidden)
+    got = _bwd_bf16_checks(x, e, edge, lay, src_lay, (mask, inv, R(n_edges, hidden),
+                                                      R(n, hidden)), layers - 1)
+    assert not got[1][torch.from_numpy(outside).to(cuda)].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", ["bnd", "int"])
+@pytest.mark.parametrize("grid,rank", [((2, 2, 1), 0), ((1, 1, 1), 0)], ids=["2x2_r0", "1x1_r0"])
+def test_fused_nmp_bf16_kernels_on_each_side_layout(cuda, grid, rank, part):
+    """The overlap schedule's per-side layouts in bf16, the empty boundary
+    side of one rank included: zeros from both kernels, as plain."""
+    x, e, edge, lay, src_lay, rest, cot = _side_case(cuda, grid, part, rank)
+    n_side = int(lay[2][-1])
+    e_new, agg = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest, precision=BF16)
+    if n_side == 0:
+        assert not e_new.any() and not agg.any()
+    else:
+        _fwd_bf16_checks((x, e, edge, *lay, *rest))
+    _bwd_bf16_checks(x, e, edge, lay, src_lay, rest + cot, 5, empty=n_side == 0)
+
+
+@pytest.mark.gpu
+def test_bf16_plan_launches_bf16_kernels_only(cuda):
+    """The stacked R=4 packed forward and gradient on a bf16 plan launch
+    the bf16 entries and never the fp32 ones, and the reverse on an fp32
+    plan; 1 rank == 4 ranks in bf16 within the loss and prediction bands;
+    an unknown precision raises on CUDA tensors."""
+    from repro_torch.core.reference import loss_and_grad_stacked
+    cfg = GNNConfig(hidden=32, n_mp_layers=2, mlp_hidden_layers=5)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=cuda)
+    sem = box_mesh((4, 2, 2), p=2)
+    x = taylor_green_velocity(sem.coords)
+    out = {}
+    for prec in (BF16, "fp32"):
+        for grid, mode in (((1, 1, 1), NONE), ((2, 2, 1), NEIGHBOR)):
+            pg = partition_mesh(sem, grid)
+            plan = NMPPlan.build(pg, mode, packed=True, backend=FUSED, precision=prec)
+            g = ShardedGraph.build(pg, sem.coords, plan, device=cuda)
+            xs = torch.from_numpy(gather_node_features(pg, x)).to(cuda)
+            n0 = _counts(*_NMP_COUNTERS)
+            loss, y, _ = loss_and_grad_stacked(params, xs, xs, g, plan, cfg.node_out,
+                                               sync_fn=halo_sync_stacked)
+            torch.cuda.synchronize()
+            n1 = _counts(*_NMP_COUNTERS)
+            d = {k: n1[k] - n0[k] for k in _NMP_COUNTERS}
+            launches = pg.R * cfg.n_mp_layers
+            fwd, bwd = (sa.KERNEL_BF16, sa.KERNEL_BWD_BF16) if prec == BF16 else \
+                (sa.KERNEL, sa.KERNEL_BWD)
+            assert d == {k: launches if k in (fwd, bwd) else 0 for k in _NMP_COUNTERS}, d
+            out[prec, grid] = (float(loss), scatter_node_outputs(pg, y.cpu().numpy()))
+    (l1, y1), (l4, y4) = out[BF16, (1, 1, 1)], out[BF16, (2, 2, 1)]
+    assert abs(l4 - l1) <= 2e-6 * abs(l1)
+    np.testing.assert_allclose(y4, y1, rtol=RTOL, atol=ATOL)
+    assert l1 != out["fp32", (1, 1, 1)][0]
+    with pytest.raises(ValueError, match="precision"):
+        sa.fused_nmp_edge_agg(torch.zeros(4, 8, device=cuda), torch.zeros(4, 8, device=cuda),
+                              init_gnn(torch.Generator().manual_seed(0),
+                                       GNNConfig(hidden=8, n_mp_layers=1,
+                                                 mlp_hidden_layers=1),
+                                       device=cuda)["mp"][0]["edge"],
+                              *(torch.zeros(1, 4, dtype=torch.int32, device=cuda),) * 2,
+                              torch.zeros(5, dtype=torch.int32, device=cuda),
+                              torch.zeros(4, device=cuda), torch.zeros(4, device=cuda),
+                              precision="fp8")
+
+
+@pytest.mark.gpu
+def test_fused_bf16_training_steps_bitwise_repeatable(cuda):
+    sem = box_mesh((4, 2, 2), p=2)
+    pg = partition_mesh(sem, (1, 1, 1))
+    cfg = GNNConfig(hidden=32, n_mp_layers=2, mlp_hidden_layers=5)
+    start = init_gnn(torch.Generator().manual_seed(2), cfg, device="cpu")
+    runs = []
+    for _ in range(2):
+        n0 = _counts(*_NMP_COUNTERS)
+        hist = train_consistent_gnn(
+            pg, sem, cfg,
+            TrainConfig(n_steps=3, plan=NMPPlan(backend=FUSED, precision=BF16)),
+            params=start, device=cuda)
+        n1 = _counts(*_NMP_COUNTERS)
+        assert n1[sa.KERNEL_BWD_BF16] == n0[sa.KERNEL_BWD_BF16] + 3 * 2
+        assert n1[sa.KERNEL_BWD] == n0[sa.KERNEL_BWD] and n1[sa.KERNEL] == n0[sa.KERNEL]
+        runs.append(hist)
+    assert runs[0]["losses"] == runs[1]["losses"]
+    assert all(np.isfinite(runs[0]["losses"]))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[0]["params"]),
+                                                 tree_leaves(runs[1]["params"])))

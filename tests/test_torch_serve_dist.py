@@ -7,7 +7,8 @@ package and the port's own stacked emulator.
 One module fixture per world size spawns once and runs every job in turn:
 2 processes split (2,1,1) with the A2A exchange and the plain backend, 4
 processes split (2,2,1) with the packed neighbor exchange and the fused
-backend (its plain versions on the CPU), each under both schedules.  The
+backend (its plain versions on the CPU), each under both schedules; on 2
+processes also a bf16 plan (fused, blocking).  The
 workers import nothing of this file, of ``repro`` or of JAX.
 
 The four checks of the reference's ``tests/drivers/serve_driver.py``:
@@ -51,7 +52,8 @@ from repro.core.reference import rollout_stacked as ref_rollout_stacked
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.convert import params_from_jax
 from repro_torch.core.gnn import GNNConfig
-from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, ShardedGraph
+from repro_torch.core.graph_state import (
+    BF16, BLOCKING, FUSED, XLA, NMPPlan, ShardedGraph)
 from repro_torch.core.halo import A2A, NEIGHBOR, halo_sync_stacked
 from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import (
@@ -89,13 +91,18 @@ def served(tmp_path_factory):
 
 
 def _jobs(served, world):
+    """One job per schedule; on 2 processes a last one on a bf16 plan
+    (``ServeJob.precision``), fused, blocking."""
     grid, mode, packed, backend = WORLDS[world]
-    return [serve_checks.CheckJob(ckpt_dir=served["ckdir"], elements=ELEMS, order=ORDER,
-                                  rank_grid=grid, requests=N_REQ, batch_slots=SLOTS,
-                                  rollout_steps=K, backend=backend, schedule=schedule,
-                                  halo_mode=mode, packed=packed, device="cpu",
-                                  keep=N_REQ, rank_preds=1, halo=i == 0)
+    job = dict(ckpt_dir=served["ckdir"], elements=ELEMS, order=ORDER, rank_grid=grid,
+               requests=N_REQ, batch_slots=SLOTS, rollout_steps=K, halo_mode=mode,
+               packed=packed, device="cpu", keep=N_REQ, rank_preds=1)
+    jobs = [serve_checks.CheckJob(**job, backend=backend, schedule=schedule, halo=i == 0)
             for i, schedule in enumerate(SCHEDULES)]
+    if world == 2:
+        jobs.append(serve_checks.CheckJob(**job, backend=FUSED, schedule=BLOCKING,
+                                          precision=BF16))
+    return jobs
 
 
 @pytest.fixture(scope="module")
@@ -191,6 +198,46 @@ def test_bitwise_equal_to_port_stacked_rollout(request, served, world, schedule)
         assert np.array_equal(got, want), step
         if step in lead["rank_preds"]:      # every rank's padded rows
             assert np.array_equal(lead["rank_preds"][step], preds.numpy()), step
+
+
+def _rollout_stacked(served, grid, plan, step):
+    """The port's stacked rollout of ``step``'s snapshot under ``plan``:
+    (scattered [K, N, F_out], per rank [K, R, N_pad, F_out])."""
+    sem = served["sem"]
+    pg = partition_mesh(sem, grid)
+    graph = ShardedGraph.build(pg, sem.coords, plan, device="cpu")
+    x = torch.from_numpy(gather_node_features(pg, serve.snapshot(sem, step)))
+    with torch.no_grad():
+        _, preds = rollout_stacked(served["params"], x, torch.zeros((K,) + x.shape),
+                                   graph, plan, FY, sync_fn=halo_sync_stacked)
+    return (np.stack([scatter_node_outputs(pg, preds[k].numpy()) for k in range(K)]),
+            preds.numpy())
+
+
+def test_bf16_plan_two_procs_bitwise_equal_to_port_stacked_rollout(request, served):
+    """A bf16 plan served by 2 processes through ``run_world``
+    (``ServeJob(precision="bf16")``): streamed == offline bitwise, every
+    request the same bits as the port's stacked bf16 rollout at R=2, and
+    within the bf16 forward bands (tests/test_torch_bf16.py) of the stacked
+    bf16 rollout at R=1, nearer it than the fp32 one."""
+    lead = request.getfixturevalue("world2")[0][len(SCHEDULES)]
+    assert lead["n"] == N_REQ and lead["bitwise_offline"] is True
+    grid, mode, packed, _ = WORLDS[2]
+    plan = NMPPlan.build(partition_mesh(served["sem"], grid), mode, packed=packed,
+                         backend=FUSED, precision=BF16)
+    for step, got in lead["preds"].items():
+        want, per_rank = _rollout_stacked(served, grid, plan, step)
+        assert np.array_equal(got, want), step
+        if step in lead["rank_preds"]:
+            assert np.array_equal(lead["rank_preds"][step], per_rank), step
+    for step in sorted(lead["preds"])[:2]:
+        got = lead["preds"][step]
+        one, _ = _rollout_stacked(served, (1, 1, 1), NMPPlan(precision=BF16), step)
+        one32, _ = _rollout_stacked(served, (1, 1, 1), NMPPlan(), step)
+        rel = np.linalg.norm(got - one) / np.linalg.norm(one)
+        rel32 = np.linalg.norm(got - one32) / np.linalg.norm(one32)
+        assert rel <= 1e-3 and rel <= 0.2 * rel32, (step, rel, rel32)
+        assert np.abs(got - one).max() <= 5e-2
 
 
 @pytest.mark.parametrize("world,schedule", CELLS, ids=CELL_IDS)

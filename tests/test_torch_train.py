@@ -355,7 +355,8 @@ def test_train_cli_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--partitioner", "spectral"], ["--mp-schedule", "auto"],
-                                   ["--mp-precision", "bf16"], ["--levels", "2"],
+                                   ["--mp-precision", "bf16", "--levels", "2"],
+                                   ["--levels", "2"],
                                    ["--ckpt-dir", "x"]])
 def test_train_cli_refuses_later_slices(flags, capsys):
     with pytest.raises(SystemExit):
