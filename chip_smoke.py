@@ -110,6 +110,20 @@ Phases (one line each, prefixed ``[n name]``):
                  CUDA-event forward / backward, a 2-step K=2 rollout run on
                  the consistency mesh, and ``launch/serve.py
                  --bootstrap-steps 2``
+  6b multilevel  the multilevel V-cycle (``--levels 3 --coarse-mp-layers 2``,
+                 large config, 727,833 -> 2,048 -> 256 nodes): one forward,
+                 kernel 1 against the plain backend, launches exact per
+                 level, CUDA-event forward with and without the V-cycle;
+                 one loss and gradient, kernels 1 and 2 against the plain
+                 backend in the gradient band; the engine with ``register_mesh(hierarchy=)``, 8 streamed
+                 requests bitwise equal to the offline reference; the
+                 training CLI, 3 steps twice, bitwise, with its step, its
+                 CUDA-event forward + backward and the transfers' device
+                 time; the consistency mesh split 2x2 through the stacked
+                 emulator (packed neighbor, both schedules) against R=1 in
+                 repro's multilevel bands, launches exact per level; the
+                 same split through 4 gloo processes, each rank bitwise its
+                 stacked slice, launches and exchanges per process exact
   7 dlrm         DLRM RM2 at full width through
                  ``repro_torch.configs.get_arch("dlrm-rm2")``'s
                  ``build_cell``, weights drawn on the card from a seeded
@@ -153,8 +167,10 @@ the sums over the 4 processes), the bf16 R=4 forward and gradient runs (3,
 stream after warm-up (4) and the bf16 engine's stream (4), the
 R=4 serve streams (4b; the lead's launches, every process's checked
 against its batches), the 10 training steps (6), the 3 bf16 training steps
-(6; exactly 12 bf16 forwards and backwards), the K=2 rollout run (6) and
-each DLRM path (7; the embedding bag must launch exactly once per
+(6; exactly 12 bf16 forwards and backwards), the K=2 rollout run (6), the
+multilevel paths (6b; kernel 1 M + (L-1) C = 8 times per forward and rank,
+twice under overlap, 12 exchanges per forward, each level's launches
+counted apart) and each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
 step).
@@ -2276,6 +2292,452 @@ def phase_train(cfg, sem, pg, smi):
     return launches, roll_launches, bf_launches
 
 
+# --- phase 6b: the multilevel V-cycle (``--levels``), at full width ---
+ML_LEVELS, ML_COARSE_LAYERS = 3, 2       # box_mesh((16,16,8), p=7): 727,833 -> 2,048 -> 256
+ML_REQUESTS, ML_TRAIN_STEPS = 8, 3
+# repro's multilevel bands (tests/test_multilevel.py:184-188): loss,
+# predictions, gradients (a weight gradient summed over every edge is held
+# to W_REL by its relative L2 norm where its elements cancel, as in 3b)
+ML_LOSS, ML_RTOL, ML_ATOL, ML_G_RTOL, ML_G_ATOL = 2e-6, 3e-5, 5e-6, 2e-3, 2e-5
+# fused against plain at full width: the loss in PERF.md section 2's
+# fused-vs-plain band (phase 6's training losses); gradients in G_RTOL /
+# G_ATOL, or W_REL by relative L2 (grads_close), as in phase 3b
+ML_FUSED_LOSS_REL = 1e-4
+
+
+def ml_config(cfg):
+    """``cfg`` with the V-cycle: 3 levels, 2 NMP layers per coarse level,
+    4 coarse edge features (the training CLI's ``--levels 3``)."""
+    return dataclasses.replace(cfg, n_levels=ML_LEVELS, coarse_mp_layers=ML_COARSE_LAYERS,
+                               coarse_edge_in=4)
+
+
+class LevelLaunches:
+    """Kernel launches of each level of a multilevel graph over a run.
+
+    Wraps functions that run one level's work, each given that level's
+    graph at argument ``pos`` (an NMP layer, an exchange): the launch
+    counters' growth inside the outermost wrapped call goes to the level
+    whose padded node count the graph has (levels are told apart by it).
+    ``targets``: (module, attribute, pos) to patch while the context is
+    open; :meth:`wrap` wraps a function passed by hand.  Backward launches
+    (autograd, after the forward) are outside every call and not counted."""
+
+    def __init__(self, graph, targets=()):
+        self.n_pads = [int(l["node_mask"].shape[-1]) for l in graph.levels]
+        if len(set(self.n_pads)) != len(self.n_pads):
+            raise RuntimeError(f"levels share a padded node count: {self.n_pads}")
+        self.targets, self.tally, self.depth = targets, [{} for _ in self.n_pads], 0
+
+    def wrap(self, fn, pos):
+        from repro_torch.kernels import build
+
+        def inner(*a, **k):
+            lvl = self.n_pads.index(int(a[pos]["node_mask"].shape[-1]))
+            before, self.depth = dict(build.launch_counts), self.depth + 1
+            try:
+                return fn(*a, **k)
+            finally:
+                self.depth -= 1
+                if self.depth == 0:
+                    for key, v in build.launch_counts.items():
+                        if v != before.get(key, 0):
+                            t = self.tally[lvl]
+                            t[key] = t.get(key, 0) + v - before.get(key, 0)
+        return inner
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.targets]
+        for m, n, pos in self.targets:
+            setattr(m, n, self.wrap(getattr(m, n), pos))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+        return False
+
+
+def ml_expected(plan, cfg, R, overlap=False, times=1):
+    """Each level's exact launches of ``times`` forwards over R stacked
+    ranks (or one rank's, R=1 with its plan): kernel 1 once per rank and
+    layer (twice under overlap), and per exchange of a packed plan one pack
+    and one unpack-add per round and receiver.  Level 0 runs the M layers'
+    exchanges and level 1's prolongation; level l >= 1 its restriction, its
+    C layers' and (below the top) level l+1's prolongation."""
+    L, M, C = cfg.n_levels, cfg.n_mp_layers, cfg.coarse_mp_layers
+    out = []
+    for lvl, spec in enumerate(plan.halos(L)):
+        layers = M if lvl == 0 else C
+        n_ex = M + 1 if lvl == 0 else 1 + C + (1 if lvl < L - 1 else 0)
+        want = {"nmp_fwd": times * R * layers * (2 if overlap else 1)}
+        if spec.packed and spec.mode != "none" and spec.perms:
+            want["halo_pack"] = times * n_ex
+            want["halo_unpack_add"] = times * n_ex * sum(len(p) for p in spec.perms)
+        out.append(want)
+    return out
+
+
+def ml_process_expected(plan, cfg, rank, overlap):
+    """One process's launches of a forward and of a gradient run: kernel 1
+    per layer (per side under overlap), kernel 2 as often in the gradient
+    run, one pack per exchange (each reversal too), one unpack-add per
+    round this rank receives in."""
+    L, M, C = cfg.n_levels, cfg.n_mp_layers, cfg.coarse_mp_layers
+    layers = (M + (L - 1) * C) * (2 if overlap else 1)
+    packs = unpacks = 0
+    for lvl, spec in enumerate(plan.halos(L)):
+        n_ex = M + 1 if lvl == 0 else 1 + C + (1 if lvl < L - 1 else 0)
+        packs += n_ex
+        unpacks += n_ex * sum(1 for p in spec.perms if any(d == rank for _, d in p))
+    fwd = {"nmp_fwd": layers, "halo_pack": packs, "halo_unpack_add": unpacks}
+    grad = {"nmp_fwd": layers, "nmp_bwd": layers, "halo_pack": 2 * packs,
+            "halo_unpack_add": 2 * unpacks}
+    return fwd, grad
+
+
+def check_level_launches(phase, path, tally, want):
+    for lvl, (got, w) in enumerate(zip(tally, want)):
+        check_launches(phase, f"{path}, level {lvl}", got, w)
+
+
+def phase_multilevel(cfg, smi):
+    """The multilevel V-cycle (``GNNConfig(n_levels=3, coarse_mp_layers=2)``
+    on the large config) on the card:
+    (a) one forward on the serving mesh (727,833 -> 2,048 -> 256 nodes),
+        kernel 1 against the plain backend in the forward band, launches
+        exact per level; CUDA-event forward with and without the V-cycle;
+        one loss and gradient, kernels 1 and 2 against the plain backend
+        in the gradient band, launches exact (kernel 1 per level);
+    (b) the engine with ``register_mesh(hierarchy=)``: ML_REQUESTS streamed
+        Taylor-Green requests, 4 slots, K=2, each bitwise equal to its
+        offline reference; launches exact per level;
+    (c) ML_TRAIN_STEPS steps of ``launch/train.py --levels 3
+        --coarse-mp-layers 2 --model large`` at R=1, run twice, bitwise;
+        median step, CUDA-event forward + backward, the transfers' device
+        time, one step under torch.profiler;
+    (d) the consistency mesh split 2x2 (R=4) through the stacked emulator,
+        packed neighbor, both schedules: values and gradients against R=1
+        within repro's multilevel bands, launches of kernels 1, 4, 5 exact
+        per level (forward) and of 1, 2, 4, 5 in total (gradient run);
+    (e) the same split through 4 gloo processes on the card, every rank's
+        prediction bitwise its slice of (d)'s stacked forward, loss and
+        gradients within the bands of (d)'s R=1, launches and exchanges
+        per process exact.
+    Returns each path's launches."""
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core import consistent_mp, gnn, reference
+    from repro_torch.core.coarsen import build_hierarchy
+    from repro_torch.core.distributed import make_gnn_step_fns
+    from repro_torch.core.gnn import gnn_forward, init_gnn
+    from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, ShardedGraph
+    from repro_torch.core.halo import NEIGHBOR, NONE, halo_sync_stacked
+    from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
+    from repro_torch.core.partition import gather_node_features, scatter_node_outputs
+    from repro_torch.core.reference import gnn_forward_stacked, loss_and_grad_stacked
+    from repro_torch.kernels import build
+    from repro_torch.launch import consistency as cons
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn import tree_leaves
+    from repro_torch.runtime.engine import EngineConfig, InferenceEngine
+    from repro_torch.train.loop import TrainConfig, make_tgv_batch_fn, run_fingerprint
+
+    P = "6b multilevel"
+    mcfg = ml_config(cfg)
+    dev = torch.device("cuda")
+    paths = {}
+    sem = box_mesh(SERVE_ELEMS, p=ORDER)
+    t0 = time.perf_counter()
+    ml = build_hierarchy(sem, (1, 1, 1), ML_LEVELS)
+    host_s = time.perf_counter() - t0
+    pg = ml.levels[0]
+    params = init_gnn(torch.Generator().manual_seed(0), mcfg, device=dev)
+    layer_patches = ((gnn, "nmp_layer", 3), (consistent_mp, "nmp_layer", 3))
+
+    # --- (a) one forward, fused against plain; the V-cycle's share ---
+    plan, plain = NMPPlan(backend=FUSED), NMPPlan(backend=XLA)
+    t0 = time.perf_counter()
+    gs = ShardedGraph.build(pg, sem.coords, plan, device=dev, hierarchy=ml)
+    build_s = time.perf_counter() - t0
+    g = gs.rank(0)
+    x, xt = (torch.from_numpy(gather_node_features(
+        pg, taylor_green_velocity(sem.coords, t=t))[0]).to(dev) for t in (0.0, DT))
+    slots = [int(l["node_mask"].shape[0]) for l in g.levels]
+    edges = [int(l["edge_mask"].sum()) for l in g.levels]
+    m_pad = [t.m_pad for t in ml.transfers]
+    with torch.no_grad():
+        build.reset_launch_counts()
+        with LevelLaunches(g, layer_patches) as lv:
+            y = gnn_forward(params, x, g, plan)
+            torch.cuda.synchronize()
+        paths["ml_fwd"] = dict(build.launch_counts)
+        check_level_launches(P, "(a) the R=1 forward", lv.tally,
+                             ml_expected(plan, mcfg, 1))
+        gxs = ShardedGraph.build(pg, sem.coords, plain, device=dev, hierarchy=ml)
+        gx = gxs.rank(0)
+        yx = gnn_forward(params, x, gx, plain)
+        err, ok = within_band(y, yx)
+        flat = {k: v for k, v in params.items() if k != "coarse"}
+        t_ml = cuda_ms(lambda: gnn_forward(params, x, g, plan), 5)
+        t_flat = cuda_ms(lambda: gnn_forward(flat, x, g, plan), 5)
+        t_plain = cuda_ms(lambda: gnn_forward(params, x, gx, plain), 2, 1)
+        prof_ml = profile_line(lambda: gnn_forward(params, x, g, plan))
+        prof_flat = profile_line(lambda: gnn_forward(flat, x, g, plan))
+    finite = bool(torch.isfinite(y).all()) and tuple(y.shape) == (pg.n_pad, cfg.node_out)
+    say(P, f"large config, {ML_LEVELS} levels, {ML_COARSE_LAYERS} NMP layers per coarse "
+        f"level, on {SERVE_ELEMS} p={ORDER}: nodes per level {ml.level_sizes()} (padded "
+        f"{slots}), edges {edges}, transfer slots {m_pad}; host hierarchy {host_s:.1f} s, "
+        f"graph {build_s:.1f} s")
+    say(P, f"(a) R=1 forward, fused vs plain backend: max|err| {err:.3g} (rtol {RTOL} "
+        f"atol {ATOL}), finite, shape {tuple(y.shape)} -> "
+        f"{'ok' if ok and finite else 'FAIL'} | CUDA events: forward {t_ml:.3f} ms, the "
+        f"same without the V-cycle {t_flat:.3f} ms (V-cycle {t_ml - t_flat:.3f} ms), plain "
+        f"backend {t_plain:.3f} ms | {smi}")
+    say(P, f"(a) the forward {prof_ml}")
+    say(P, f"(a) without the V-cycle {prof_flat}")
+    if not (ok and finite):
+        raise RuntimeError("multilevel forward: fused != plain, or not finite")
+    del gx, yx
+    torch.cuda.empty_cache()
+
+    # --- (a) the gradient, fused against plain: kernel 2 on every level ---
+    layers = mcfg.n_mp_layers + (ML_LEVELS - 1) * ML_COARSE_LAYERS
+    build.reset_launch_counts()
+    with LevelLaunches(g, ((reference, "_smooth_stacked", 3),)) as lv:
+        lf, _, gf = loss_and_grad_stacked(params, x[None], xt[None], gs, plan,
+                                          cfg.node_out)
+        torch.cuda.synchronize()
+    paths["ml_grad"] = dict(build.launch_counts)
+    check_level_launches(P, "(a) the R=1 gradient run's forward", lv.tally,
+                         ml_expected(plan, mcfg, 1))
+    check_launches(P, "(a) the R=1 gradient run", paths["ml_grad"],
+                   {"nmp_fwd": layers, "nmp_bwd": layers})
+    lp, _, gp = loss_and_grad_stacked(params, x[None], xt[None], gxs, plain, cfg.node_out)
+    rel = abs(float(lf) - float(lp)) / abs(float(lp))
+    g_err, by_norm, g_ok = grads_close(gf, gp)
+    ok = g_ok and rel <= ML_FUSED_LOSS_REL and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(gf))
+    say(P, f"(a) R=1 gradient, fused vs plain backend: loss {float(lf):.8g} vs "
+        f"{float(lp):.8g} (rel {rel:.3g}, band {ML_FUSED_LOSS_REL}) | grads max|err| "
+        f"{g_err:.3g} (rtol {G_RTOL} atol {G_ATOL})"
+        + (f"; held by rel L2 <= {W_REL}: {by_norm}" if by_norm else "")
+        + f" | launches {paths['ml_grad']} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("multilevel gradient: fused != plain, or not finite")
+    del gs, gxs, gf, gp, xt
+    torch.cuda.empty_cache()
+
+    # --- (b) serving through register_mesh(hierarchy=) ---
+    ckdir = ROOT / "build" / "chip_smoke_ml_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    fp = run_fingerprint(sem, pg, mcfg, TrainConfig(), NMPPlan(backend=FUSED))
+    ckpt.save(ckdir, 0, {"params": params}, extra={"fingerprint": fp})
+    engine = InferenceEngine(
+        ckdir, mcfg, EngineConfig(batch_slots=BATCH_SLOTS, rollout_steps=ROLLOUT_K),
+        plan=NMPPlan(backend=FUSED), device="cuda")
+    mesh_hash = engine.register_mesh(sem, hierarchy=ml)
+    reg_s = engine.entry(mesh_hash).build_s
+    engine.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def snapshot(step):
+        return taylor_green_velocity(sem.coords, t=(step * DT) % 2.0).astype(np.float32)
+
+    with engine, LevelLaunches(g, layer_patches) as lv:
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = dict(engine.stream(mesh_hash, snapshot, ML_REQUESTS, n_producers=2))
+        wall = time.perf_counter() - t0
+        paths["ml_serve"] = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    if len(results) != ML_REQUESTS:
+        raise RuntimeError(f"served {len(results)} of {ML_REQUESTS} requests")
+    for step, res in results.items():
+        if res.preds.shape != (ROLLOUT_K, sem.n_nodes, cfg.node_out) \
+                or not np.isfinite(res.preds).all():
+            raise RuntimeError(f"request {step}: bad prediction {res.preds.shape}")
+        if not np.array_equal(res.preds, engine.offline_reference(mesh_hash,
+                                                                  snapshot(step))):
+            raise RuntimeError(f"request {step}: streamed != offline reference")
+    n_fwd = engine.stats["batches"] * BATCH_SLOTS * ROLLOUT_K
+    check_level_launches(P, "(b) the served stream", lv.tally,
+                         ml_expected(engine.entry(mesh_hash).plan, mcfg, 1, times=n_fwd))
+    lat = np.array([r.latency_s for r in results.values()]) * 1e3
+    say(P, f"(b) engine, register_mesh(hierarchy=): {ML_REQUESTS} requests, K={ROLLOUT_K}, "
+        f"{BATCH_SLOTS} slots, {engine.stats['batches']} batches: streamed == offline "
+        f"bitwise for all | latency p50 {np.percentile(lat, 50):.1f} ms, p95 "
+        f"{np.percentile(lat, 95):.1f} ms, {ML_REQUESTS / wall:.2f} req/s | peak device "
+        f"memory {peak / 2**30:.2f} GiB | host graph build {reg_s:.1f} s | launches "
+        f"{paths['ml_serve']} | {smi}")
+    del engine
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- (c) the training CLI, twice, bitwise; where a step's time goes ---
+    argv = ["--device", "cuda", "--elements", *map(str, SERVE_ELEMS), "--order", str(ORDER),
+            "--model", "large", "--levels", str(ML_LEVELS), "--coarse-mp-layers",
+            str(ML_COARSE_LAYERS), "--steps", str(ML_TRAIN_STEPS), "--batch", "1",
+            "--halo", "none"]
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with LevelLaunches(g, layer_patches) as lv:
+        a = train_cli.main(argv)
+    paths["ml_train"] = dict(build.launch_counts)
+    train_peak = torch.cuda.max_memory_allocated()
+    check_level_launches(P, "(c) the training run's forwards", lv.tally,
+                         ml_expected(plan, mcfg, 1, times=ML_TRAIN_STEPS))
+    layers = ML_TRAIN_STEPS * (mcfg.n_mp_layers + (ML_LEVELS - 1) * ML_COARSE_LAYERS)
+    check_launches(P, "(c) the training run", paths["ml_train"],
+                   {"nmp_fwd": layers, "nmp_bwd": layers})
+    b = train_cli.main(argv)
+    same = a["losses"] == b["losses"] and all(
+        torch.equal(u, v) for u, v in zip(tree_leaves(a["params"]), tree_leaves(b["params"])))
+    if not same or not np.all(np.isfinite(a["losses"])):
+        raise RuntimeError(f"multilevel training not bitwise repeatable or not finite: "
+                           f"{a['losses']} vs {b['losses']}")
+    step_ms = [1e3 * s for s in a["step_s"]]
+    del b
+    gt = ShardedGraph.build(pg, sem.coords, plan, device=dev, hierarchy=ml)
+    _, loss_step, grad_step, _ = make_gnn_step_fns(mcfg, plan)
+    xb = torch.from_numpy(make_tgv_batch_fn(pg, sem, 1)(1)).to(dev)
+    tp = a["params"]
+    t_fwd = cuda_ms(lambda: loss_step(tp, xb, xb, gt), 3, warmup=1)
+    t_grad = cuda_ms(lambda: grad_step(tp, xb, xb, gt), 3, warmup=1)
+    g1 = g.level(1)
+    h = torch.randn(pg.n_pad, cfg.hidden, generator=torch.Generator().manual_seed(1)).to(dev)
+    c = consistent_mp.restrict_aggregate(h, g1)
+    t_restrict = cuda_ms(lambda: consistent_mp.restrict_aggregate(h, g1), 10)
+    t_prolong = cuda_ms(lambda: consistent_mp.prolong_aggregate(c, g1), 10)
+    hr, cr = h.clone().requires_grad_(True), c.clone().requires_grad_(True)
+    t_restrict_fb = cuda_ms(lambda: torch.autograd.grad(
+        consistent_mp.restrict_aggregate(hr, g1), hr, c), 10)
+    t_prolong_fb = cuda_ms(lambda: torch.autograd.grad(
+        consistent_mp.prolong_aggregate(cr, g1), cr, h), 10)
+    prof = profile_line(lambda: grad_step(tp, xb, xb, gt))
+    say(P, f"(c) launch/train.py --levels {ML_LEVELS} --coarse-mp-layers "
+        f"{ML_COARSE_LAYERS} --model large, R=1, {ML_TRAIN_STEPS} steps, run twice: "
+        f"losses {[float(v) for v in a['losses']]}, losses and params bitwise equal: "
+        f"{same} | step time median after step 0 {np.median(step_ms[1:]):.1f} ms (step 0 "
+        f"{step_ms[0]:.1f}) | peak device memory {train_peak / 2**30:.2f} GiB | "
+        f"launches {paths['ml_train']} | {smi}")
+    say(P, f"(c) CUDA events: forward + loss {t_fwd:.3f} ms, forward + backward "
+        f"{t_grad:.3f} ms | fine-level transfers (level 0 <-> 1, {m_pad[0]} slots, "
+        f"H={cfg.hidden}): restriction {t_restrict:.3f} ms, prolongation "
+        f"{t_prolong:.3f} ms forward; with their backward {t_restrict_fb:.3f} / "
+        f"{t_prolong_fb:.3f} ms | one gradient step {prof}")
+    del a, tp, gt, xb, h, c, hr, cr
+    torch.cuda.empty_cache()
+
+    # --- (d) R=4 against R=1, stacked, packed neighbor, both schedules ---
+    csem = box_mesh(CONS_ELEMS, p=ORDER)
+    xg, yg = (taylor_green_velocity(csem.coords, t=t) for t in (0.0, DT))
+    ml1 = build_hierarchy(csem, (1, 1, 1), ML_LEVELS)
+    ml4 = build_hierarchy(csem, CONS_GRID, ML_LEVELS)
+
+    def prepare(h_, mode, schedule):
+        p_ = NMPPlan.build(h_, mode, packed=mode == NEIGHBOR, backend=FUSED,
+                           schedule=schedule)
+        g_ = ShardedGraph.build(h_.levels[0], csem.coords, p_, device=dev, hierarchy=h_)
+        xs, ys = (torch.from_numpy(gather_node_features(h_.levels[0], f)).to(dev)
+                  for f in (xg, yg))
+        return p_, g_, xs, ys
+
+    p1, g1s, x1, y1 = prepare(ml1, NONE, "blocking")
+    l1, yy1, gr1 = loss_and_grad_stacked(params, x1, y1, g1s, p1, cfg.node_out)
+    yy1 = scatter_node_outputs(ml1.levels[0], yy1.cpu().numpy())
+    base = (float(l1), [t.cpu().numpy() for t in tree_leaves(gr1)])
+    del g1s, x1, y1, gr1
+    stacked = {}
+    for schedule in ("blocking", "overlap"):
+        p4, g4, x4, y4 = prepare(ml4, NEIGHBOR, schedule)
+        with torch.no_grad():
+            build.reset_launch_counts()
+            # the layers, and the exchanges the V-cycle runs outside them
+            with LevelLaunches(g4, ((reference, "_smooth_stacked", 3),)) as lv:
+                yf = gnn_forward_stacked(params, x4, g4, p4,
+                                         sync_fn=lv.wrap(halo_sync_stacked, 1))
+                torch.cuda.synchronize()
+            paths[f"ml_r4_fwd_{schedule}"] = dict(build.launch_counts)
+        check_level_launches(P, f"(d) the R=4 packed forward, {schedule}", lv.tally,
+                             ml_expected(p4, mcfg, 4, overlap=schedule == "overlap"))
+        stacked[schedule] = yf.cpu().numpy()
+        build.reset_launch_counts()
+        l4, yy4, gr4 = loss_and_grad_stacked(params, x4, y4, g4, p4, cfg.node_out,
+                                             sync_fn=halo_sync_stacked)
+        torch.cuda.synchronize()
+        paths[f"ml_r4_grad_{schedule}"] = got = dict(build.launch_counts)
+        # kernel 2 once per kernel 1; every exchange reversed once
+        want = {}
+        for lvl in ml_expected(p4, mcfg, 4, overlap=schedule == "overlap"):
+            for k, v in lvl.items():
+                want[k] = want.get(k, 0) + (v if k == "nmp_fwd" else 2 * v)
+        want["nmp_bwd"] = want["nmp_fwd"]
+        check_launches(P, f"(d) the R=4 packed gradient run, {schedule}", got, want)
+        yy4 = scatter_node_outputs(ml4.levels[0], yy4.cpu().numpy())
+        dl = abs(float(l4) - base[0])
+        y_ok = bool(np.all(np.abs(yy4 - yy1) <= ML_ATOL + ML_RTOL * np.abs(yy1)))
+        g_err, by_norm, g_ok = cons.grads_close(
+            [t.cpu().numpy() for t in tree_leaves(gr4)], base[1], ML_G_RTOL, ML_G_ATOL,
+            W_REL)
+        ok = dl <= ML_LOSS * max(1.0, abs(base[0])) and y_ok and g_ok
+        say(P, f"(d) {CONS_ELEMS} p={ORDER} ({csem.n_nodes} nodes; levels "
+            f"{ml4.level_sizes()}), R=1 vs R=4 {CONS_GRID} packed neighbor, {schedule}: "
+            f"loss {float(l4):.8g} vs {base[0]:.8g} (|diff| {dl:.3g}, band {ML_LOSS} x "
+            f"max(1, |l|)) | predictions max|err| {np.abs(yy4 - yy1).max():.3g} (rtol "
+            f"{ML_RTOL} atol {ML_ATOL}) | grads max|err| {g_err:.3g} (rtol {ML_G_RTOL} atol "
+            f"{ML_G_ATOL})" + (f"; held by rel L2 <= {W_REL}: {by_norm}" if by_norm else "")
+            + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"multilevel R=1 vs R=4 ({schedule}) outside the bands")
+        del g4, x4, y4, gr4
+    torch.cuda.empty_cache()
+
+    # --- (e) the same split through 4 gloo processes on the card ---
+    t0 = time.perf_counter()
+    job = cons.Job(elements=CONS_ELEMS, order=ORDER, cfg=mcfg, device="cuda",
+                   backends=(FUSED,), modes=("packed",), schedules=("blocking", "overlap"),
+                   cases=((CONS_GRID, 1),))
+    procs = cons.run_world(job, 4)
+    wall = time.perf_counter() - t0
+    case = cons.case_name(CONS_GRID, 1)
+    layers = mcfg.n_mp_layers + (ML_LEVELS - 1) * ML_COARSE_LAYERS
+    for schedule in ("blocking", "overlap"):
+        key = cons.steps_key(schedule)
+        recs = [p[case][key][(FUSED, "packed")] for p in procs]
+        line = cons.check_step(recs, base, "packed", w_rel=W_REL, g_rtol=ML_G_RTOL)
+        bitwise = all(np.array_equal(r["pred"][0, 0], stacked[schedule][p[case]["rank"]])
+                      for r, p in zip(recs, procs))
+        p4 = NMPPlan.build(ml4, NEIGHBOR, packed=True, backend=FUSED, schedule=schedule)
+        total = {"fwd_launches": {}, "grad_launches": {}}
+        for p, r in zip(procs, recs):
+            fwd, grad = ml_process_expected(p4, mcfg, p[case]["rank"], schedule == "overlap")
+            check_launches(P, f"(e) process {p[case]['rank']}'s {schedule} forward",
+                           r["fwd_launches"], fwd)
+            check_launches(P, f"(e) process {p[case]['rank']}'s {schedule} gradient run",
+                           r["grad_launches"], grad)
+            n_ex = cons.exchanges_per_forward(mcfg)
+            want_ex = ({"posted": n_ex, "overlapped": layers if schedule == "overlap" else 0},
+                       {"posted": 2 * n_ex, "overlapped": 0})
+            if (r["fwd_exchanges"], r["grad_exchanges"]) != want_ex:
+                raise RuntimeError(f"exchanges {r['fwd_exchanges']}, {r['grad_exchanges']}"
+                                   f", expected {want_ex}")
+            for name in ("fwd_launches", "grad_launches"):
+                for k, v in r[name].items():
+                    total[name][k] = total[name].get(k, 0) + v
+        paths[f"ml_dist_{schedule}"] = total["fwd_launches"]
+        paths[f"ml_dist_{schedule}_grad"] = total["grad_launches"]
+        say(P, f"(e) 4 gloo processes on one card, {CONS_GRID} split, packed neighbor, "
+            f"{schedule}: every rank's prediction bitwise equal to its stacked slice: "
+            f"{bitwise} | {line} | launches summed {total} | exchanges per process "
+            f"as counted | spawn and run {wall:.1f} s")
+        if not bitwise:
+            raise RuntimeError(f"distributed multilevel {schedule} forward != stacked")
+    torch.cuda.empty_cache()
+    return paths
+
+
 def checksum(t):
     """Position-weighted sum of a tensor's 32-bit words, on the device."""
     import torch
@@ -2816,6 +3278,9 @@ def main():
         phase_train(cfg, sem, pg, smi)
     torch.cuda.empty_cache()
     lap("6 train")
+    by_path.update(phase_multilevel(cfg, smi))
+    torch.cuda.empty_cache()
+    lap("6b multilevel")
     by_path.update(phase_dlrm(smi))
     torch.cuda.empty_cache()
     lap("7 dlrm")
@@ -2830,14 +3295,22 @@ def main():
     # dst-aligned edge MLP (phase 2 checks that it launched exactly once)
     r4 = ("consistency_r4_overlap", "grad_r4_overlap", "dist_r4_overlap",
           "dist_r4_overlap_grad", "serve_r4_overlap", "serve_r4_blocking")
+    # the multilevel V-cycle's paths (phase 6b): kernels 1 and 2 on every
+    # level, kernels 4 and 5 in every level's exchange
+    ml_grad = ("ml_r4_grad_blocking", "ml_r4_grad_overlap", "ml_dist_blocking_grad",
+               "ml_dist_overlap_grad")
+    ml_r4 = ("ml_r4_fwd_blocking", "ml_r4_fwd_overlap", "ml_dist_blocking",
+             "ml_dist_overlap") + ml_grad
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
-                       "rollout_k2", "dist_r4_packed", "dist_r4_grad") + r4,
+                       "rollout_k2", "dist_r4_packed", "dist_r4_grad") + r4
+           + ("ml_fwd", "ml_grad", "ml_serve", "ml_train") + ml_r4,
            sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2", "dist_r4_grad",
-                           "grad_r4_overlap", "dist_r4_overlap_grad"),
+                           "grad_r4_overlap", "dist_r4_overlap_grad", "ml_grad",
+                           "ml_train") + ml_grad,
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                     "dist_r4_grad") + r4,
+                     "dist_r4_grad") + r4 + ml_r4,
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                       "dist_r4_grad") + r4,
+                       "dist_r4_grad") + r4 + ml_r4,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),

@@ -41,14 +41,24 @@ Schedules (``plan.schedule``):
   side's (:func:`join_sides`).
 
 The caller threads the exchange in as ``sync_fn``:
-``core/distributed.py::halo_fn`` on one process's rank-local graph and its
-mesh, or a stacked emulator over every rank on one device
+``core/distributed.py::halo_fns`` on one process's rank-local graph and its
+mesh (one per level), or a stacked emulator over every rank on one device
 (``core/reference.py``).  Where ``sync_fn`` also has ``post`` (the
 distributed one) and the aggregate needs no gradient, the overlap layer
 posts the exchange before the interior side and finishes it after, so the
 interior kernel is queued on the stream while the transfer is in flight;
 under autograd it runs the exchange, finished at once, between the two
 sides (the reference's dataflow, the same values).
+
+Multilevel message passing (:func:`multilevel_vcycle`, ``GNNConfig.
+n_levels > 1``): after the M fine layers, a V-cycle over the coarse levels
+of ``core/coarsen.py``'s hierarchy.  Each restriction / prolongation is a
+rank-local partial sum (:func:`restrict_aggregate`,
+:func:`prolong_aggregate`: a gather and a segment sum over the level's
+transfer map, sorted once in ``ShardedGraph.build``; no atomics),
+completed by the halo sum of the level it lands on, and every coarse
+level's NMP layers run through the same (backend, schedule) registry cell
+as the fine ones, on the level's own layouts, split and exchange.
 """
 from __future__ import annotations
 
@@ -61,7 +71,7 @@ from repro_torch.core.graph_state import (
     BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph, as_graph, nmp_impl,
     register_nmp_impl,
 )
-from repro_torch.core.halo import NONE, HaloSpec
+from repro_torch.core.halo import NEIGHBOR, NONE, HaloSpec
 from repro_torch.graph import segment
 from repro_torch.kernels.segment_agg.ops import fused_nmp_edge_agg
 
@@ -181,9 +191,10 @@ def _no_exchange(halo: HaloSpec):
     if halo.mode != NONE:
         raise ValueError(
             f"halo mode {halo.mode!r} on one rank's arrays needs the exchange: "
-            "no mesh was given (pass sync_fn=core.distributed.halo_fn(plan, "
-            "graph, mesh) with a repro_torch.launch.mesh.make_mesh mesh), "
-            "or run the stacked reference (repro_torch.core.reference)")
+            "no mesh was given (pass gnn_forward sync_fns="
+            "core.distributed.halo_fns(plan, graph, mesh) with a "
+            "repro_torch.launch.mesh.make_mesh mesh), or run the stacked "
+            "reference (repro_torch.core.reference)")
 
 
 def _blocking_layer(agg_fn, params, x, e, graph, plan, halo: HaloSpec,
@@ -244,3 +255,91 @@ def nmp_layer(params: nn.Params, x: torch.Tensor, e: torch.Tensor, graph,
     impl = nmp_impl(plan)
     halo = plan.halo if halo is None else halo
     return impl(params, x, e, graph, plan, halo, sync_fn)
+
+
+# ---------------------------------------------------------------------------
+# multilevel (coarse-grid) message passing
+# ---------------------------------------------------------------------------
+
+def restrict_aggregate(x_fine: torch.Tensor, coarse_graph) -> torch.Tensor:
+    """Rank-local restriction partial sum (fine -> coarse, weight
+    1/|children|) over ``coarse_graph``'s transfer map: [N_f, H] ->
+    [N_c, H].  Each restriction edge lives on exactly one rank (the fine
+    endpoint's primary), so the caller completes it with the coarse level's
+    halo sum, as the Eq. 4b aggregate is; without it, coarse replica
+    copies would hold partial sums and R ranks would not equal 1."""
+    g = coarse_graph
+    return segment.sorted_segment_sum(
+        x_fine, (g["tc_src"], g["tc_rw"], g["tc_len"]),
+        (g["tf_src"], g["tf_rw"], g["tf_len"]))
+
+
+def prolong_aggregate(x_coarse: torch.Tensor, coarse_graph) -> torch.Tensor:
+    """Rank-local prolongation partial sum (coarse -> fine, weight
+    1/|parents|): [N_c, H] -> [N_f, H]; completed by the FINE level's halo
+    sum."""
+    g = coarse_graph
+    return segment.sorted_segment_sum(
+        x_coarse, (g["tf_src"], g["tf_pw"], g["tf_len"]),
+        (g["tc_src"], g["tc_pw"], g["tc_len"]))
+
+
+def check_coarse_halos(plan: NMPPlan, n_levels: int):
+    """A NEIGHBOR-mode hierarchy needs one HaloSpec per coarse level: the
+    level-0 rounds encode the FINE rank adjacency and cannot be reused."""
+    if plan.halo.mode != NEIGHBOR or len(plan.coarse_halos) >= n_levels - 1:
+        return
+    raise ValueError(
+        "NEIGHBOR-mode multilevel exchange needs one HaloSpec per coarse "
+        f"level (got {len(plan.coarse_halos)} coarse_halos for "
+        f"{n_levels - 1} coarse levels): the level-0 perms encode the FINE "
+        "rank adjacency and cannot be reused — build the plan via "
+        "NMPPlan.build(hierarchy, mode, ...)")
+
+
+def multilevel_vcycle(coarse_params, h: torch.Tensor, graph, plan: NMPPlan,
+                      sync_fns=None) -> torch.Tensor:
+    """One consistent V-cycle over the coarsening hierarchy on one rank.
+    Returns h' [N_pad, H].
+
+    Down sweep, level l-1 -> l: restrict (:func:`restrict_aggregate`),
+    complete the partial sums by level l's exchange and mask its padding,
+    then ``coarse_params[l-1]["mp"]`` NMP layers on level l (the plan's
+    registry cell, the level's own layouts, split and halo spec; the edge
+    state from the level's static features through its edge encoder).  Up
+    sweep: prolong each level's state, complete it by the finer level's
+    exchange, add it to the finer state and mask.
+
+    ``sync_fns[l]`` is level l's exchange (``core/distributed.py::
+    halo_fns``); None where the level's halo mode is none (one rank).
+    Halo specs come from ``plan.halos``; a NEIGHBOR plan without its
+    coarse specs raises (:func:`check_coarse_halos`).
+    """
+    graph = as_graph(graph)
+    n_levels = len(coarse_params) + 1
+    graph.level(n_levels - 1)          # loud error if coarse levels missing
+    levels = graph.levels
+    check_coarse_halos(plan, n_levels)
+    halos = plan.halos(n_levels)
+    syncs = sync_fns or (None,) * n_levels
+
+    def sync(a, lvl):
+        if syncs[lvl] is None:
+            _no_exchange(halos[lvl])
+            return a
+        return syncs[lvl](a)
+
+    states = [h]
+    for lvl in range(1, n_levels):
+        g = levels[lvl]
+        c = sync(restrict_aggregate(states[-1], g), lvl) * g["node_mask"][:, None]
+        p = coarse_params[lvl - 1]
+        e = nn.mlp(p["edge_enc"], g["static_edge_feats"]) * g["edge_mask"][:, None]
+        for lp in p["mp"]:
+            c, e = nmp_layer(lp, c, e, g, plan, halo=halos[lvl], sync_fn=syncs[lvl])
+        states.append(c)
+    for lvl in range(n_levels - 1, 0, -1):
+        gf = levels[lvl - 1]
+        up = sync(prolong_aggregate(states[lvl], levels[lvl]), lvl - 1)
+        states[lvl - 1] = (states[lvl - 1] + up) * gf["node_mask"][:, None]
+    return states[0]

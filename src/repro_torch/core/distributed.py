@@ -13,7 +13,8 @@ training loop uses ``grad_step`` with AdamW).
   rank-local graph (:func:`shard_graph`); each layer's halo exchange is
   ``core/halo.py::halo_sync`` over the graph group, and the gradients are
   averaged over every process in one flattened all-reduce
-  (:func:`average_gradients`).  Under the overlap schedule the eval step
+  (:func:`average_gradients`); a multilevel graph has one exchange per
+  level (:func:`halo_fns`).  Under the overlap schedule the eval step
   (no gradient) posts each exchange and finishes it after queueing the
   interior side (:class:`HaloFn`); the gradient steps finish it at once,
   between the sides.
@@ -50,15 +51,16 @@ def one_rank(graph) -> ShardedGraph:
 
 
 def one_rank_plan(plan: NMPPlan) -> NMPPlan:
-    """``plan`` with its halo exchange dropped: one rank has no peers."""
-    if plan.halo.mode == NONE:
+    """``plan`` with every level's halo exchange dropped: one rank has no
+    peers."""
+    if plan.halo.mode == NONE and not plan.coarse_halos:
         return plan
-    return dataclasses.replace(plan, halo=HaloSpec(mode=NONE))
+    return dataclasses.replace(plan, halo=HaloSpec(mode=NONE), coarse_halos=())
 
 
 def shard_graph(mesh, graph) -> ShardedGraph:
-    """This process's rank-local graph on its device, from a stacked graph
-    (a rank-local one passes through)."""
+    """This process's rank-local graph (every level) on its device, from a
+    stacked graph (a rank-local one passes through)."""
     graph = as_graph(graph)
     if graph["node_mask"].dim() == 2:
         if graph["node_mask"].shape[0] != mesh.graph:
@@ -117,12 +119,13 @@ class HaloFn:
         return halo_sync_post(agg, self.graph, self.spec, self.mesh)
 
 
-def halo_fn(plan: NMPPlan, graph, mesh):
-    """The ``sync_fn`` of ``gnn_forward`` for this process's graph (a
-    :class:`HaloFn`; None for halo mode none)."""
-    if plan.halo.mode == NONE:
-        return None
-    return HaloFn(graph, plan.halo, mesh)
+def halo_fns(plan: NMPPlan, graph, mesh) -> tuple:
+    """The ``sync_fns`` of ``gnn_forward`` for this process's graph: one
+    :class:`HaloFn` per level of ``graph`` (fine first) on that level's
+    graph and spec (``plan.halos``), None where the mode is none."""
+    levels = as_graph(graph).levels
+    return tuple(None if spec.mode == NONE else HaloFn(g, spec, mesh)
+                 for g, spec in zip(levels, plan.halos(len(levels))))
 
 
 def local_graph(graph, mesh) -> ShardedGraph:
@@ -146,8 +149,8 @@ def make_gnn_step_fns(cfg: GNNConfig, plan: NMPPlan,
 
     def forward(params, x, graph):
         g = local_graph(graph, mesh)
-        sync = None if mesh is None else halo_fn(local_plan, g, mesh)
-        return gnn_forward(params, x[:, 0], g, local_plan, sync_fn=sync), g
+        sync = None if mesh is None else halo_fns(local_plan, g, mesh)
+        return gnn_forward(params, x[:, 0], g, local_plan, sync_fns=sync), g
 
     def loss_local(params, x, y_hat, graph):
         y, g = forward(params, x, graph)

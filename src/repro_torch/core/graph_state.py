@@ -5,16 +5,19 @@
   dict of tensors on one device, each with a leading rank axis (node/edge
   indices, masks, inverse multiplicities, halo buffers, static geometric
   edge features, the fused kernel's compact layout) and the packed halo
-  rounds' wires; :meth:`rank` slices one rank out.
+  rounds' wires; each coarser level of a multilevel hierarchy is nested as
+  a child ``ShardedGraph`` (``coarse``) carrying its restriction /
+  prolongation transfer maps; :meth:`rank` slices one rank out of every
+  level.
 * :class:`NMPPlan` — a frozen execution policy: NMP backend (``xla`` |
   ``fused``), schedule, the edge MLP's precision (``fp32`` | ``bf16``),
-  fused-layout block sizes and the
-  :class:`~repro_torch.core.halo.HaloSpec`.  Layer implementations register
-  per ``(backend, schedule)`` cell via :func:`register_nmp_impl`
+  fused-layout block sizes and the fine and per-coarse-level
+  :class:`~repro_torch.core.halo.HaloSpec` objects.  Layer implementations
+  register per ``(backend, schedule)`` cell via :func:`register_nmp_impl`
   (``core/consistent_mp.py`` registers the blocking and the overlap
   schedule for both backends).
 
-``auto`` tuning and multilevel graphs are not ported (ROADMAP queue 1).
+``auto`` tuning is not ported (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -47,9 +50,12 @@ class NMPPlan:
     residual, the aggregate, the node MLP, encoders and decoder) stays fp32.
     ``block_n`` / ``block_e`` key the cached compact layout (``block_e`` is
     its tile depth); the CUDA kernel itself walks the layout node by node,
-    so they do not change its arithmetic.
+    so they do not change its arithmetic.  ``halo`` is the fine (level-0)
+    exchange spec and ``coarse_halos[l-1]`` level l's: each coarse level
+    has its own rank adjacency and rounds.
     """
     halo: HaloSpec = HaloSpec(mode="none")
+    coarse_halos: Tuple[HaloSpec, ...] = ()
     backend: str = XLA
     schedule: str = BLOCKING
     precision: str = FP32
@@ -79,13 +85,31 @@ class NMPPlan:
 
     @property
     def wants_packed(self) -> bool:
-        return self.halo.packed or self.halo.mode == AUTO
+        """Whether any level's graph needs the packed halo arrays."""
+        return any(h.packed or h.mode == AUTO
+                   for h in (self.halo, *self.coarse_halos))
+
+    def halos(self, n_levels: int) -> Tuple[HaloSpec, ...]:
+        """Per-level exchange specs of an ``n_levels``-deep hierarchy.
+
+        A missing coarse entry falls back to the fine spec, which is right
+        only for the A2A / NONE modes (a NEIGHBOR fine spec without its
+        coarse entries is refused by ``multilevel_vcycle``)."""
+        return (self.halo,) + tuple(
+            self.coarse_halos[i] if i < len(self.coarse_halos) else self.halo
+            for i in range(n_levels - 1))
 
     @classmethod
-    def build(cls, pg, mode: str, packed: bool = False, **policy) -> "NMPPlan":
-        """Plan with its halo spec derived from ``pg``'s halo plan."""
-        return cls(halo=halo_spec_from_plan(pg.halo, mode, packed=packed),
-                   **policy)
+    def build(cls, pg_or_hierarchy, mode: str, packed: bool = False,
+              **policy) -> "NMPPlan":
+        """Plan with its halo specs derived from the partition's halo plans:
+        ``pg_or_hierarchy`` is a ``PartitionedGraphs`` (flat) or a
+        ``MultiLevelGraphs`` (``core/coarsen.py``; every level its own
+        spec)."""
+        levels = getattr(pg_or_hierarchy, "levels", [pg_or_hierarchy])
+        specs = tuple(halo_spec_from_plan(lvl.halo, mode, packed=packed)
+                      for lvl in levels)
+        return cls(halo=specs[0], coarse_halos=specs[1:], **policy)
 
     def autotune(self, graph=None, hidden: int = 8) -> "NMPPlan":
         """Plans with nothing set to ``auto`` are returned unchanged; the
@@ -133,31 +157,39 @@ def registered_nmp_impls() -> Tuple[Tuple[str, str], ...]:
 
 
 class ShardedGraph:
-    """Stacked per-rank static arrays of one partition, as tensors on one
-    device.  ``graph[name]`` has a leading rank axis; ``graph.rank(r)``
-    returns rank r's slice (a rank-local graph, which one process of a
-    multi-process run holds).  ``graph.wire(name)`` is a
+    """Stacked per-rank static arrays of one partition level, as tensors on
+    one device.  ``graph[name]`` has a leading rank axis; ``graph.rank(r)``
+    returns rank r's slice of every level (a rank-local graph, which one
+    process of a multi-process run holds).  ``graph.wire(name)`` is a
     packed halo round's :class:`HaloWire` (``pk{k}_send`` / ``pk{k}_recv``:
     ids, mask and their inverse) or an exchange wire (``pk_send`` /
     ``pk_recv``: the rounds' wires concatenated in round order, the rows of
     round k from the sum of the earlier rounds' widths on), made once by
-    :meth:`build`."""
+    :meth:`build`.  ``coarse`` chains the next coarser level of a
+    multilevel hierarchy (its arrays also carry the transfer maps from the
+    finer level, sorted once by coarse and by fine node:
+    :func:`_transfer_arrays`)."""
 
-    __slots__ = ("arrays", "wires")
+    __slots__ = ("arrays", "wires", "coarse")
 
     def __init__(self, arrays: Dict[str, torch.Tensor],
-                 wires: Dict[str, HaloWire] | None = None):
+                 wires: Dict[str, HaloWire] | None = None,
+                 coarse: "ShardedGraph | None" = None):
         if not isinstance(arrays, dict):
             raise TypeError(f"arrays must be a dict, got {type(arrays)}")
+        if coarse is not None and not isinstance(coarse, ShardedGraph):
+            raise TypeError("coarse must be a ShardedGraph (or None), got "
+                            f"{type(coarse)}")
         self.arrays = dict(arrays)
         self.wires = dict(wires or {})
+        self.coarse = coarse
 
     def __getitem__(self, key: str) -> torch.Tensor:
         try:
             return self.arrays[key]
         except KeyError:
             raise KeyError(
-                f"ShardedGraph has no array {key!r}; present: "
+                f"ShardedGraph has no array {key!r} at this level; present: "
                 f"{sorted(self.arrays)} — was the graph built with the plan "
                 "that needs it (ShardedGraph.build(pg, coords, plan))?"
             ) from None
@@ -166,11 +198,36 @@ class ShardedGraph:
         return key in self.arrays
 
     def __repr__(self) -> str:
-        return f"ShardedGraph({len(self.arrays)} arrays)"
+        lv = ", ".join(f"L{i}:{len(l.arrays)} arrays"
+                       for i, l in enumerate(self.levels))
+        return f"ShardedGraph({lv})"
 
     @property
     def device(self) -> torch.device:
         return next(iter(self.arrays.values())).device
+
+    @property
+    def levels(self) -> Tuple["ShardedGraph", ...]:
+        """Fine-to-coarse chain of levels (``levels[0] is self``)."""
+        out, g = [], self
+        while g is not None:
+            out.append(g)
+            g = g.coarse
+        return tuple(out)
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels)
+
+    def level(self, lvl: int) -> "ShardedGraph":
+        levels = self.levels
+        if lvl >= len(levels):
+            raise ValueError(
+                f"multilevel graph for level {lvl} missing (graph has "
+                f"{len(levels)} levels) — build the graph from the "
+                "hierarchy: ShardedGraph.build(pg, coords, plan, "
+                "hierarchy=...)")
+        return levels[lvl]
 
     def wire(self, name: str) -> HaloWire:
         try:
@@ -182,18 +239,21 @@ class ShardedGraph:
                 "plan (ShardedGraph.build(pg, coords, plan))?") from None
 
     def rank(self, r: int) -> "ShardedGraph":
-        """Slice every array's (and wire's) leading rank axis."""
+        """Slice every array's (and wire's) leading rank axis, every level."""
         return ShardedGraph({k: v[r] for k, v in self.arrays.items()},
-                            {k: w.rank(r) for k, w in self.wires.items()})
+                            {k: w.rank(r) for k, w in self.wires.items()},
+                            None if self.coarse is None else self.coarse.rank(r))
 
     def to(self, device) -> "ShardedGraph":
-        """Every array and wire on ``device``."""
+        """Every array and wire of every level on ``device``."""
         return ShardedGraph({k: v.to(device) for k, v in self.arrays.items()},
-                            {k: w.to(device) for k, w in self.wires.items()})
+                            {k: w.to(device) for k, w in self.wires.items()},
+                            None if self.coarse is None else self.coarse.to(device))
 
     @classmethod
     def build(cls, pg, coords: np.ndarray, plan: NMPPlan | None = None,
-              device="cuda", rank: int | None = None) -> "ShardedGraph":
+              device="cuda", rank: int | None = None,
+              hierarchy=None) -> "ShardedGraph":
         """Collect ``pg``'s static arrays plus the static geometric edge
         features from ``coords`` onto ``device``; ``plan`` decides what else
         rides along (the fused backend's compact layout, the overlap
@@ -201,12 +261,44 @@ class ShardedGraph:
         packed halo arrays and their wires).  With ``rank``, only that
         rank's arrays are built (its compact layouts alone, padded as in the
         stack) and its slice (:meth:`rank`) is returned: equal to the
-        stacked graph's ``.rank(rank)``."""
+        stacked graph's ``.rank(rank)``, at every level.
+
+        ``hierarchy`` (a ``core.coarsen.MultiLevelGraphs`` whose level 0 is
+        ``pg``) nests each coarse level, built the same way from its own
+        partition and coordinates, with its transfer maps; ``coords`` must
+        then agree with the hierarchy's, which define every level's edge
+        features."""
         plan = plan or NMPPlan()
-        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                  for k, v in _level_arrays(pg, coords, plan.seg_layout,
-                                            plan.wants_split, plan.wants_packed,
-                                            rank).items()}
+        if hierarchy is None:
+            return cls._one_level(pg, coords, plan, device, rank)
+        if hierarchy.levels[0] is not pg:
+            raise ValueError("hierarchy.levels[0] must be the pg passed in "
+                             "(the fine partition the step fns shard over)")
+        if coords is not None and coords is not hierarchy.coords[0] \
+                and not np.array_equal(coords, hierarchy.coords[0]):
+            raise ValueError(
+                "coords disagrees with hierarchy.coords[0]: the hierarchy's "
+                "build-time coordinates define every level's static edge "
+                "features — rebuild the hierarchy from the transformed mesh "
+                "instead of passing different coords here")
+        graph = None
+        for lvl in range(hierarchy.n_levels - 1, -1, -1):
+            level = cls._one_level(hierarchy.levels[lvl], hierarchy.coords[lvl],
+                                   plan, device, rank)
+            if lvl >= 1:
+                level.arrays.update(_to_device(_transfer_arrays(
+                    hierarchy.transfers[lvl - 1], hierarchy.levels[lvl - 1].n_pad,
+                    hierarchy.levels[lvl].n_pad, rank), device, rank))
+            level.coarse = graph
+            graph = level
+        return graph
+
+    @classmethod
+    def _one_level(cls, pg, coords, plan: NMPPlan, device, rank) -> "ShardedGraph":
+        """One level's graph (every rank's, or ``rank``'s slice)."""
+        arrays = _to_device(_level_arrays(pg, coords, plan.seg_layout,
+                                          plan.wants_split, plan.wants_packed,
+                                          rank), device)
         rounds = [k for k in range(len(pg.halo.perms)) if f"pk{k}_send_idx" in arrays]
         wires = {f"pk{k}_{side}": halo_wire(arrays[f"pk{k}_{side}_idx"],
                                             arrays[f"pk{k}_{side}_mask"], pg.n_pad)
@@ -220,6 +312,47 @@ class ShardedGraph:
                     for part in ("idx", "mask")))
         graph = cls(arrays, wires)
         return graph if rank is None else graph.rank(0)
+
+
+def _to_device(arrays: Dict[str, np.ndarray], device, rank=None):
+    """numpy arrays -> tensors on ``device``; with ``rank``, each is the
+    rank's slice (a leading axis of 1 stripped)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in arrays.items()}
+    return out if rank is None else {k: v[0] for k, v in out.items()}
+
+
+def _transfer_arrays(t, n_fine: int, n_coarse: int,
+                     rank: int | None = None) -> Dict[str, np.ndarray]:
+    """A coarse level's transfer maps from the finer level (every rank's, or
+    ``rank``'s alone with a leading axis of 1): the slots of
+    ``core/coarsen.py::TransferPlan`` ([R, M_pad]; the reference's
+    ``t_fine``, ``t_coarse``, ``t_rw``, ``t_pw``) sorted once (stably) by
+    coarse and by fine node, which the transfers' segment sums take in
+    place of sorting the ids on every call
+    (``graph/segment.py::sorted_segment_sum``):
+
+      tc_src [R, M_pad]  the fine node of each slot, sorted by coarse node;
+      tc_rw / tc_pw      its restriction / prolongation weight;
+      tc_len [R, N_c]    slots per coarse node;
+      tf_src, tf_rw, tf_pw, tf_len [R, N_f]   the same sorted by fine node.
+
+    Restriction sums ``x[tc_src] * tc_rw`` per coarse node (its gradient
+    ``g[tf_src] * tf_rw`` per fine node); prolongation ``c[tf_src] * tf_pw``
+    per fine node (its gradient ``g[tc_src] * tc_pw`` per coarse node).
+    Padding slots (index 0, weight 0) are kept where the reference's
+    segment sum has them."""
+    ranks = range(t.fine_idx.shape[0]) if rank is None else (rank,)
+    out = {}
+    for key, ids, other, n in (("tc", t.coarse_idx, t.fine_idx, n_coarse),
+                               ("tf", t.fine_idx, t.coarse_idx, n_fine)):
+        order = [np.argsort(ids[r], kind="stable") for r in ranks]
+        out[f"{key}_src"] = np.stack([other[r][o] for r, o in zip(ranks, order)])
+        out[f"{key}_rw"] = np.stack([t.r_w[r][o] for r, o in zip(ranks, order)])
+        out[f"{key}_pw"] = np.stack([t.p_w[r][o] for r, o in zip(ranks, order)])
+        out[f"{key}_len"] = np.stack([np.bincount(ids[r], minlength=n)
+                                      for r in ranks]).astype(np.int64)
+    return out
 
 
 def _level_arrays(pg, coords, seg_layout, split: bool, packed: bool,

@@ -1,11 +1,14 @@
 """Distributed mesh-based graph partitioning with halo metadata (Sec. II-A).
 
-Port of ``repro.core.partition``, block partitioner only: elements of an
-``SEMMesh`` are assigned to ranks by blocks of the element grid
-(NekRS-style slab/pencil/block decompositions); nodes on shared element
-faces become *coincident copies* on every touching rank and face-lattice
-edges are duplicated across ranks (edge multiplicity d_ij > 1, undone by
-1/d_ij scaling during aggregation — Eq. 4b).
+Port of ``repro.core.partition``, block partitioner and vertex-cut edge
+partition (no spectral bisection): elements of an ``SEMMesh`` are assigned
+to ranks by blocks of the element grid (NekRS-style slab/pencil/block
+decompositions); nodes on shared element faces become *coincident copies*
+on every touching rank and face-lattice edges are duplicated across ranks
+(edge multiplicity d_ij > 1, undone by 1/d_ij scaling during aggregation —
+Eq. 4b).  :func:`from_edge_partition` partitions an arbitrary directed
+edge list by vertex cut, with forced replica copies: the coarse levels of
+the multilevel hierarchy (``core/coarsen.py``).
 
 The halo plan carries both exchange layouts of the reference:
   * A2A       — equal-size buffers to *all* ranks;
@@ -347,6 +350,60 @@ def from_element_partition(mesh: SEMMesh, elem2rank: np.ndarray,
             global_ids=gids,
             edges=loc,
             edge_inv_mult=np.concatenate([inv_und, inv_und]),
+            node_inv_mult=(1.0 / node_mult[gids]).astype(np.float32),
+        ))
+    return graphs
+
+
+def from_edge_partition(
+    n_nodes: int,
+    directed_edges: np.ndarray,
+    R: int,
+    node2part: np.ndarray | None = None,
+    assign: str = "dst",
+    extra_nodes: Sequence[np.ndarray] | None = None,
+) -> List[RankGraph]:
+    """Vertex-cut partition of an arbitrary directed edge list.
+
+    Every node's *primary* copy lives on ``node2part[node]`` (contiguous
+    blocks by default); each directed edge is assigned to one rank
+    (``assign`` = 'dst' | 'src'); endpoint copies are replicated wherever
+    used.  d_ij == 1 always; d_i = number of ranks holding a copy of i.
+
+    ``extra_nodes`` (one array of global ids per rank) forces additional
+    replica copies beyond the edge-endpoint closure: the multilevel
+    hierarchy (``core/coarsen.py``) places a coarse-node copy on every rank
+    that owns restriction / prolongation edges into it, so the transfer
+    aggregates are completed by the same halo sum as the edge aggregates.
+    """
+    if node2part is None:
+        node2part = (np.arange(n_nodes) * R) // max(n_nodes, 1)
+    node2part = node2part.astype(np.int64)
+    e_owner = node2part[directed_edges[:, 1 if assign == "dst" else 0]]
+
+    node_mult = np.zeros(n_nodes, dtype=np.int64)
+    rank_nodes: List[np.ndarray] = []
+    rank_edges: List[np.ndarray] = []
+    for r in range(R):
+        er = directed_edges[e_owner == r]
+        parts = [er.reshape(-1), np.nonzero(node2part == r)[0]]
+        if extra_nodes is not None and len(extra_nodes[r]):
+            parts.append(np.asarray(extra_nodes[r], dtype=np.int64))
+        gids = np.unique(np.concatenate(parts))
+        rank_nodes.append(gids)
+        rank_edges.append(er)
+        node_mult[gids] += 1
+
+    graphs: List[RankGraph] = []
+    for r in range(R):
+        gids, er = rank_nodes[r], rank_edges[r]
+        lookup = np.full(n_nodes, -1, dtype=np.int64)
+        lookup[gids] = np.arange(gids.size)
+        loc = lookup[er].reshape(-1, 2) if er.size else np.zeros((0, 2), dtype=np.int64)
+        graphs.append(RankGraph(
+            global_ids=gids,
+            edges=loc,
+            edge_inv_mult=np.ones(loc.shape[0], dtype=np.float32),
             node_inv_mult=(1.0 / node_mult[gids]).astype(np.float32),
         ))
     return graphs

@@ -18,6 +18,11 @@ packed exchange, the pack/unpack kernels as each other's adjoint.  The
 plan's precision holds on every rank; on a bf16 plan each rank's layer
 call rounds its own weight gradients to bf16, where the reference's
 stacked xla path rounds once over every rank's edges.
+
+Params with a ``"coarse"`` list run the multilevel V-cycle
+(:func:`vcycle_stacked`) over a graph built from the hierarchy: every
+level's exchange (the transfers' completions included) goes through the
+same stacked ``sync_fn`` on that level's graph and halo spec.
 """
 from __future__ import annotations
 
@@ -25,29 +30,32 @@ import torch
 
 from repro_torch import nn
 from repro_torch.core.consistent_mp import (
-    edge_update_aggregate, edge_update_aggregate_part, join_sides, node_update)
+    check_coarse_halos, edge_update_aggregate, edge_update_aggregate_part,
+    join_sides, node_update, prolong_aggregate, restrict_aggregate)
 from repro_torch.core.gnn import build_edge_inputs
 from repro_torch.core.graph_state import (
     BLOCKING, OVERLAP, NMPPlan, ShardedGraph, as_graph)
-from repro_torch.core.halo import NONE, halo_sync_reference
+from repro_torch.core.halo import NONE, HaloSpec, halo_sync_reference
 
 
-def _smooth_stacked(lp, h, e, g: ShardedGraph, plan: NMPPlan, sync_fn=None):
-    """One consistent NMP layer over the stacked ranks.  Under the overlap
-    schedule every rank's boundary side runs first, the exchange takes
-    their aggregates, and the interior sides are added after it."""
+def _smooth_stacked(lp, h, e, g: ShardedGraph, plan: NMPPlan, sync_fn=None,
+                    halo: HaloSpec | None = None):
+    """One consistent NMP layer over the stacked ranks (``halo``: the
+    level's spec, ``plan.halo`` by default).  Under the overlap schedule
+    every rank's boundary side runs first, the exchange takes their
+    aggregates, and the interior sides are added after it."""
     if plan.schedule not in (BLOCKING, OVERLAP):
         raise NotImplementedError(
             f"schedule {plan.schedule!r} is not ported to repro_torch yet")
-    sync = halo_sync_reference if sync_fn is None else sync_fn
+    sync = _stacked_sync(sync_fn)
+    halo = plan.halo if halo is None else halo
     R = h.shape[0]
     ranks = [g.rank(r) for r in range(R)]
     if plan.schedule == OVERLAP:
         outs_b = [edge_update_aggregate_part(lp, h[r], e[r], ranks[r], "bnd", plan)
                   for r in range(R)]
         agg = torch.stack([o[1] for o in outs_b])
-        if plan.halo.mode != NONE:
-            agg = sync(agg, g, plan.halo, combine="sum")
+        agg = sync(agg, g, halo)
         outs_i = [edge_update_aggregate_part(lp, h[r], e[r], ranks[r], "int", plan)
                   for r in range(R)]
         agg = agg + torch.stack([o[1] for o in outs_i])
@@ -57,17 +65,65 @@ def _smooth_stacked(lp, h, e, g: ShardedGraph, plan: NMPPlan, sync_fn=None):
         outs = [edge_update_aggregate(lp, h[r], e[r], ranks[r], plan)
                 for r in range(R)]
         agg = torch.stack([o[1] for o in outs])
-        if plan.halo.mode != NONE:
-            agg = sync(agg, g, plan.halo, combine="sum")
+        agg = sync(agg, g, halo)
         e_new = torch.stack([o[0] for o in outs])
     h_new = torch.stack([node_update(lp, h[r], agg[r], ranks[r])
                          for r in range(R)])
     return h_new, e_new
 
 
+def _stacked_sync(sync_fn):
+    """The stacked exchange ``sync(a, graph, spec)`` of ``sync_fn`` (the
+    canonical-order oracle by default); halo mode none is the identity."""
+    sync_fn = halo_sync_reference if sync_fn is None else sync_fn
+
+    def sync(a, g, spec):
+        return a if spec.mode == NONE else sync_fn(a, g, spec, combine="sum")
+    return sync
+
+
+def vcycle_stacked(coarse_params, h: torch.Tensor, graph, plan: NMPPlan,
+                   sync_fn=None) -> torch.Tensor:
+    """Single-device emulator of ``consistent_mp.multilevel_vcycle`` over
+    the stacked ranks: each rank's transfers and layers as one rank runs
+    them, every exchange (the transfers' completions included) through
+    ``sync_fn`` on the level's stacked graph and spec (``plan.halos``).
+    ``h``: [R, N_pad, H] -> [R, N_pad, H]."""
+    graph = as_graph(graph)
+    n_levels = len(coarse_params) + 1
+    graph.level(n_levels - 1)          # loud error if coarse levels missing
+    levels = graph.levels
+    check_coarse_halos(plan, n_levels)
+    halos = plan.halos(n_levels)
+    sync = _stacked_sync(sync_fn)
+    R = h.shape[0]
+
+    states = [h]
+    for lvl in range(1, n_levels):
+        g = levels[lvl]
+        ranks = [g.rank(r) for r in range(R)]
+        c = torch.stack([restrict_aggregate(states[-1][r], ranks[r])
+                         for r in range(R)])
+        c = sync(c, g, halos[lvl]) * g["node_mask"][..., None]
+        p = coarse_params[lvl - 1]
+        e = torch.stack([nn.mlp(p["edge_enc"], ranks[r]["static_edge_feats"])
+                         * ranks[r]["edge_mask"][:, None] for r in range(R)])
+        for lp in p["mp"]:
+            c, e = _smooth_stacked(lp, c, e, g, plan, sync_fn, halos[lvl])
+        states.append(c)
+    for lvl in range(n_levels - 1, 0, -1):
+        gt, gf = levels[lvl], levels[lvl - 1]
+        up = torch.stack([prolong_aggregate(states[lvl][r], gt.rank(r))
+                          for r in range(R)])
+        up = sync(up, gf, halos[lvl - 1])
+        states[lvl - 1] = (states[lvl - 1] + up) * gf["node_mask"][..., None]
+    return states[0]
+
+
 def gnn_forward_stacked(params: nn.Params, x: torch.Tensor, graph,
                         plan: NMPPlan, sync_fn=None) -> torch.Tensor:
-    """Paper GNN forward over all R ranks on one device.
+    """Paper GNN forward over all R ranks on one device; params with a
+    ``"coarse"`` list run :func:`vcycle_stacked` before the decoder.
 
     ``x``: [R, N_pad, F_x] -> [R, N_pad, F_y].
     """
@@ -82,6 +138,8 @@ def gnn_forward_stacked(params: nn.Params, x: torch.Tensor, graph,
     h, e = torch.stack(hs), torch.stack(es)
     for lp in params["mp"]:
         h, e = _smooth_stacked(lp, h, e, g0, plan, sync_fn)
+    if "coarse" in params:
+        h = vcycle_stacked(params["coarse"], h, g0, plan, sync_fn)
     return torch.stack([nn.mlp(params["node_dec"], h[r])
                         * g0["node_mask"][r][:, None] for r in range(R)])
 

@@ -11,6 +11,11 @@ Both are deterministic on every device, forward and backward:
   ``segment_sum`` instead of ``index_select``'s own backward, which is an
   atomic ``index_add_`` on CUDA.  Training's bitwise repeatability rests on
   this.
+* ``sorted_segment_sum`` is a weighted gather and segment sum over ids
+  sorted once ahead of time (a static map: the multilevel transfers),
+  differentiable in the gathered rows through the transposed map, also
+  sorted ahead of time; bitwise ``segment_sum(gather(x, src) * w, dst)``,
+  without the sort on every call.
 """
 from __future__ import annotations
 
@@ -46,3 +51,29 @@ def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather along the node axis (dim -2), with the deterministic
     scatter-add backward."""
     return _Gather.apply(x, idx)
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return _sorted_sum(x, *fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sorted_sum(g.contiguous(), *ctx.bwd), None, None
+
+
+def _sorted_sum(x, idx, w, lengths):
+    return torch.segment_reduce(x.index_select(0, idx) * w[:, None], "sum",
+                                lengths=lengths, axis=0)
+
+
+def sorted_segment_sum(x: torch.Tensor, fwd, bwd) -> torch.Tensor:
+    """``out[s] = sum_i w[i] * x[src[i]]`` over the slots i of segment s,
+    in the order of a stable sort by segment, from the map sorted ahead of
+    time: ``fwd = (src sorted by segment, w sorted alike, slots per
+    segment)``; ``bwd`` is the transposed map in the same form (the
+    segment of each slot sorted by ``src``, its weight, slots per row of
+    ``x``), whose sum is the gradient in ``x``.  x: [N, F] -> [S, F]."""
+    return _SortedSegmentSum.apply(x, tuple(fwd), tuple(bwd))

@@ -269,7 +269,9 @@ def main(argv=None):
     cfg = config_from_checkpoint(args.ckpt_dir)
     step = ckpt.latest_step(args.ckpt_dir)
     fp = ckpt.peek_manifest(args.ckpt_dir, step)["extra"]["fingerprint"]
-    print(f"[serve] {cfg.name} config (N_H={cfg.hidden}, M={cfg.n_mp_layers}) from "
+    levels = (f", {cfg.n_levels} levels x {cfg.coarse_mp_layers} coarse layers"
+              if cfg.n_levels > 1 else "")
+    print(f"[serve] {cfg.name} config (N_H={cfg.hidden}, M={cfg.n_mp_layers}{levels}) from "
           f"step {step}, trained mesh {fp['mesh_hash']} "
           f"(n_global={fp['n_global']}), serving on {args.device} with the "
           f"{args.mp_backend} backend, {args.ranks} rank(s) {grid}, schedule "

@@ -21,14 +21,19 @@ host, so processes may share a card) or nccl (one card per process).
 and writes the checkpoints.  ``--mp-schedule overlap`` runs the
 interior/boundary split (its exchange blocking between the two sides, as
 the gradient needs).  ``--mp-precision bf16`` runs the edge MLP's products
-on bf16-rounded operands with fp32 accumulation.  What is not ported, the
-CLI refuses naming the slice that brings it: the ``auto`` schedule,
-multilevel ``--levels``, the spectral partitioner and the resilient
-``--ckpt-dir`` mode.
+on bf16-rounded operands with fp32 accumulation.  ``--levels L`` (L > 1)
+adds the consistent multilevel V-cycle (``core/coarsen.py``: level 1 the
+element centroids, deeper levels the element grid clustered 2x per axis)
+with ``--coarse-mp-layers`` NMP layers per coarse level, at R=1 and under
+``--ranks``.  What is not ported, the CLI refuses naming the slice that
+brings it: the ``auto`` schedule, the spectral partitioner and the
+resilient ``--ckpt-dir`` mode.
 """
 import argparse
+import dataclasses
 import math
 
+from repro_torch.core.coarsen import build_hierarchy
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph_state import FP32, PRECISIONS, NMPPlan
 from repro_torch.core.mesh_gen import box_mesh
@@ -39,8 +44,19 @@ from repro_torch.train.loop import TrainConfig, train_consistent_gnn
 
 def _run(args, mesh=None):
     sem = box_mesh(tuple(args.elements), p=args.order)
-    pg = partition_mesh(sem, tuple(args.ranks))
     cfg = GNNConfig.small() if args.model == "small" else GNNConfig.large()
+    hierarchy = None
+    if args.levels > 1:
+        cfg = dataclasses.replace(cfg, n_levels=args.levels,
+                                  coarse_mp_layers=args.coarse_mp_layers,
+                                  coarse_edge_in=sem.dim + 1)
+        hierarchy = build_hierarchy(sem, tuple(args.ranks), args.levels)
+        pg = hierarchy.levels[0]
+        if mesh is None or mesh.lead:
+            sizes = " -> ".join(str(s) for s in hierarchy.level_sizes())
+            print(f"multilevel hierarchy: {sizes} nodes per level", flush=True)
+    else:
+        pg = partition_mesh(sem, tuple(args.ranks))
     tcfg = TrainConfig(n_steps=args.steps, batch=args.batch, lr=args.lr,
                        halo_mode=args.halo, ckpt_dir=args.ckpt,
                        ckpt_every=args.ckpt_every,
@@ -50,7 +66,8 @@ def _run(args, mesh=None):
                        rollout_steps=args.rollout_steps,
                        pushforward_noise=args.pushforward_noise,
                        partitioner=args.partitioner)
-    hist = train_consistent_gnn(pg, sem, cfg, tcfg, device=args.device, mesh=mesh)
+    hist = train_consistent_gnn(pg, sem, cfg, tcfg, device=args.device, mesh=mesh,
+                                hierarchy=hierarchy)
     if mesh is None or mesh.lead:
         print(f"loss {hist['losses'][0]:.6f} -> {hist['losses'][-1]:.6f} "
               f"({len(hist['losses'])} steps, {hist['straggler_events']} "
@@ -101,7 +118,11 @@ def main(argv=None):
                     help="edge-MLP products: bf16 rounds their operands to "
                          "bf16 and accumulates in fp32 (the kernels' bf16 "
                          "entries on the fused backend)")
-    ap.add_argument("--levels", type=int, default=1)
+    ap.add_argument("--levels", type=int, default=1,
+                    help="multilevel depth: 1 = flat NMP; >1 adds a "
+                         "consistent coarse-grid V-cycle")
+    ap.add_argument("--coarse-mp-layers", type=int, default=2,
+                    help="NMP layers smoothing each coarse level")
     ap.add_argument("--rollout-steps", type=int, default=1,
                     help="K > 1 trains autoregressively over the model's "
                          "own predictions")
@@ -114,9 +135,6 @@ def main(argv=None):
         (args.mp_schedule == "auto",
          "--mp-schedule auto is not ported (ROADMAP queue: 'Spectral "
          "partitioning and autotune')"),
-        (args.levels != 1,
-         "--levels > 1 is not ported (ROADMAP queue: 'Multilevel "
-         "V-cycle')"),
         (args.partitioner != "block",
          "--partitioner spectral is not ported (ROADMAP queue: "
          "'Spectral partitioning and autotune')"),
@@ -127,6 +145,8 @@ def main(argv=None):
     for refused, msg in refusals:
         if refused:
             ap.error(msg)
+    if args.levels < 1 or args.coarse_mp_layers < 0:
+        ap.error("--levels must be >= 1 and --coarse-mp-layers >= 0")
     if args.rollout_steps < 1:
         ap.error("--rollout-steps must be >= 1")
     if args.pushforward_noise and args.rollout_steps == 1:
@@ -149,7 +169,7 @@ def main(argv=None):
           f"R={_ranks(args)} x DP={args.data_parallel} on {args.device}"
           + (f" ({nprocs} processes, {args.dist_backend})" if nprocs > 1 else "")
           + f"; backend={args.mp_backend}, schedule={args.mp_schedule}, "
-          f"precision={args.mp_precision}; rollout "
+          f"precision={args.mp_precision}; levels={args.levels}; rollout "
           f"K={args.rollout_steps}", flush=True)
     if nprocs == 1:
         return _run(args)

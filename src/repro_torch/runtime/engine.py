@@ -69,6 +69,7 @@ import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.core.coarsen import build_hierarchy
 from repro_torch.core.gnn import GNNConfig, init_gnn
 from repro_torch.core.graph_state import NMPPlan, ShardedGraph
 from repro_torch.core.halo import A2A, NEIGHBOR, NONE
@@ -189,9 +190,10 @@ class _GraphEntry:
 
 
 def config_from_checkpoint(ckpt_dir, step: Optional[int] = None) -> GNNConfig:
-    """The flat GNN config whose parameters a checkpoint holds, read from the
-    array shapes in its manifest (the newest committed step by default).
-    Returns ``GNNConfig.small()``/``large()`` when the shapes are theirs."""
+    """The GNN config whose parameters a checkpoint holds, read from the
+    array shapes in its manifest (the newest committed step by default),
+    its V-cycle's levels too.  Returns ``GNNConfig.small()``/``large()``
+    (with those levels) when the shapes are theirs."""
     manifest = ckpt.peek_manifest(ckpt_dir, step)
     if manifest is None:
         raise EngineError(f"no committed checkpoint under {ckpt_dir}")
@@ -208,10 +210,15 @@ def config_from_checkpoint(ckpt_dir, step: Optional[int] = None) -> GNNConfig:
                   mlp_hidden_layers=n_layers - 1, node_in=enc[0],
                   edge_in=shapes["params/edge_enc/layers/0/w"][0],
                   node_out=shapes[f"params/node_dec/layers/{n_layers - 1}/w"][1])
+    coarse = indices("params/coarse/", 2)
+    levels = {} if not coarse else dict(
+        n_levels=len(coarse) + 1,
+        coarse_mp_layers=len(indices("params/coarse/0/mp/", 4)),
+        coarse_edge_in=shapes["params/coarse/0/edge_enc/layers/0/w"][0])
     for named in (GNNConfig.small(), GNNConfig.large()):
         if all(getattr(named, k) == v for k, v in fields.items()):
-            return named
-    return GNNConfig(**fields, name="custom")
+            return dataclasses.replace(named, **levels)
+    return GNNConfig(**fields, **levels, name="custom")
 
 
 class InferenceEngine:
@@ -339,13 +346,17 @@ class InferenceEngine:
             "refuses to run a model on a geometry it was not trained on")
 
     def register_mesh(self, sem_mesh: SEMMesh, rank_grid=None,
-                      partitioner: Optional[str] = None) -> str:
+                      partitioner: Optional[str] = None,
+                      hierarchy=None) -> str:
         """Build (or fetch from cache) the execution state for one mesh;
         returns its ``mesh_fingerprint_hash``, the key of every later
         :meth:`submit` / :meth:`stream` call.  Over a mesh every process
         calls it with the same arguments; each builds its own rank's graph
         (the lead keeps the whole partition for the host gather and
-        scatter)."""
+        scatter).  A multilevel model (``cfg.n_levels > 1``) runs over
+        ``hierarchy`` (``core/coarsen.py::build_hierarchy`` of this mesh on
+        the engine's R ranks; built here from ``rank_grid`` when not
+        given): one halo spec per level, every level's graph."""
         mesh_hash = mesh_fingerprint_hash(sem_mesh)
         if mesh_hash != self.fingerprint["mesh_hash"]:
             raise self._mismatch(mesh_hash)
@@ -362,13 +373,30 @@ class InferenceEngine:
                 raise EngineError(
                     f"rank_grid {grid} does not cover the engine's "
                     f"R={self.R} rank(s)")
-            pg = partition_mesh(sem_mesh, grid, method=partitioner)
+            if self.cfg.n_levels > 1:
+                if partitioner != "block":
+                    raise EngineError(f"partitioner {partitioner!r} is not ported: "
+                                      "a multilevel hierarchy is built on 'block'")
+                if hierarchy is None:
+                    hierarchy = build_hierarchy(sem_mesh, grid, self.cfg.n_levels)
+                if hierarchy.n_levels != self.cfg.n_levels \
+                        or hierarchy.levels[0].R != self.R:
+                    raise EngineError(
+                        f"hierarchy of {hierarchy.n_levels} levels on "
+                        f"{hierarchy.levels[0].R} rank(s); the engine runs "
+                        f"{self.cfg.n_levels} levels on R={self.R}")
+                pg, part = hierarchy.levels[0], hierarchy
+            else:
+                hierarchy = None
+                pg = part = partition_mesh(sem_mesh, grid, method=partitioner)
             mode = self.config.halo_mode if self.R > 1 else NONE
-            plan = NMPPlan.build(pg, mode, packed=self._packed and mode == NEIGHBOR,
+            plan = NMPPlan.build(part, mode,
+                                 packed=self._packed and mode == NEIGHBOR,
                                  **self._policy)
             graph = ShardedGraph.build(
                 pg, sem_mesh.coords, plan, device=self.device,
-                rank=None if self.mesh is None else self.mesh.rank)
+                rank=None if self.mesh is None else self.mesh.rank,
+                hierarchy=hierarchy)
             plan = plan.autotune(graph, hidden=self.cfg.hidden)
             predict = make_rollout_predict_fn(self.cfg, plan,
                                               self.config.rollout_steps,

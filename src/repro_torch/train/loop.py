@@ -25,8 +25,11 @@ rank 0 writes checkpoints.  ``plan.schedule`` is ``blocking`` or
 ``overlap`` (the interior/boundary split; a training step runs each
 layer's exchange between the two sides, blocking, as the gradient needs).
 Without a mesh R > 1 raises, as do ``resilience=`` (elastic resume and
-``AsyncCheckpointer`` are a later slice), ``auto`` and multilevel
-configs.
+``AsyncCheckpointer`` are a later slice) and ``auto``.  A multilevel
+config (``cfg.n_levels > 1``) needs ``hierarchy=`` (``core/coarsen.py::
+build_hierarchy``, whose level 0 is ``pg``): the plan gets one halo spec
+per level and the graph (this process's rank of every level) the coarse
+chain with its transfer maps.
 ``mesh_fingerprint_hash`` hashes the global mesh exactly as the reference
 does, so a checkpoint written by either package names the same mesh.
 """
@@ -156,11 +159,15 @@ def _to_device(arrays, device):
                  for a in arrays)
 
 
-def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None):
+def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None, hierarchy=None):
     """Everything a training step needs for this partition (this process's
-    share of it, under ``mesh``): the plan (halo spec from the partition),
-    the graph on ``device``, the optimizer, and per-step batch / gradient
-    closures."""
+    share of it, under ``mesh``): the plan (halo specs from the partition,
+    or from ``hierarchy``'s levels), the graph on ``device``, the
+    optimizer, and per-step batch / gradient closures."""
+    if cfg.n_levels > 1 and hierarchy is None:
+        raise ValueError("cfg.n_levels > 1 needs hierarchy= "
+                         "(repro_torch.core.coarsen.build_hierarchy)")
+    hierarchy = hierarchy if cfg.n_levels > 1 else None
     if mesh is None and pg.R != 1:
         raise ValueError(
             f"training on {pg.R} ranks needs a mesh: run one process per "
@@ -183,7 +190,8 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None):
             "is not ported yet (ROADMAP queue: 'Checkpoint resilience'); use "
             "TrainConfig.ckpt_dir for synchronous checkpoints")
     policy = tcfg.plan
-    plan = NMPPlan.build(pg, tcfg.halo_mode, packed=policy.halo.packed,
+    plan = NMPPlan.build(pg if hierarchy is None else hierarchy, tcfg.halo_mode,
+                         packed=policy.halo.packed,
                          backend=policy.backend, schedule=policy.schedule,
                          precision=policy.precision, block_n=policy.block_n,
                          block_e=policy.block_e)
@@ -193,7 +201,8 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None):
             "(ROADMAP queue: 'Spectral partitioning and autotune'); use "
             "'blocking' or 'overlap'")
     graph = ShardedGraph.build(pg, sem_mesh.coords, plan, device=device,
-                               rank=None if mesh is None else mesh.rank)
+                               rank=None if mesh is None else mesh.rank,
+                               hierarchy=hierarchy)
     plan = plan.autotune(graph, hidden=cfg.hidden)
     opt_cfg = AdamWConfig(schedule=constant_lr(tcfg.lr), weight_decay=0.0)
 
@@ -254,21 +263,23 @@ def _sync(device):
 
 def train_consistent_gnn(pg: PartitionedGraphs, sem_mesh: SEMMesh,
                          cfg: GNNConfig, tcfg: TrainConfig, params=None,
-                         device="cuda", mesh=None) -> dict:
+                         device="cuda", mesh=None, hierarchy=None) -> dict:
     """Full training run of this process; returns the history.
 
     ``params`` (optional) is the starting parameter tree (tensors or numpy,
     e.g. another package's weights); by default they are drawn from
     ``tcfg.seed``.  ``mesh``: this process's ``(data, graph)`` mesh
     (module docstring; ``device`` is then the mesh's), or None for one
-    rank on ``device``.  History: ``losses`` per step, ``rollout_k`` per
+    rank on ``device``.  ``hierarchy`` (``core/coarsen.py::
+    MultiLevelGraphs`` with ``pg`` as level 0) runs the consistent V-cycle
+    when ``cfg.n_levels > 1``.  History: ``losses`` per step, ``rollout_k`` per
     step, ``schedule``, ``straggler_events``, final ``params``, and the host
     seconds per step: ``batch_s`` (host batch build + copy to the device)
     and ``step_s`` (the whole step, ending in a device synchronisation).
     """
     if mesh is not None:
         device = mesh.device
-    ex = _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh)
+    ex = _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh, hierarchy)
     fp = run_fingerprint(sem_mesh, pg, cfg, tcfg, ex.plan)
     state = _init_state(cfg, tcfg, ex.opt_cfg, params=params, device=device)
     params, opt_state = state["params"], state["opt"]

@@ -27,7 +27,7 @@ import torch
 from repro_torch import nn
 from repro_torch.core.consistent_loss import consistent_mse
 from repro_torch.core.distributed import (
-    average_gradients, data_mean, halo_fn, local_graph, one_rank_plan)
+    average_gradients, data_mean, halo_fns, local_graph, one_rank_plan)
 from repro_torch.core.gnn import GNNConfig, gnn_forward
 from repro_torch.core.graph_state import NMPPlan, as_graph
 from repro_torch.core.mesh_gen import SEMMesh, taylor_green_velocity
@@ -46,20 +46,20 @@ def curriculum_k(stages: Sequence[int], n_steps: int, step: int) -> int:
 
 
 def rollout_step(params, x0, targets, graph, plan: NMPPlan, noise=None,
-                 group=None, sync_fn=None):
+                 group=None, sync_fns=None):
     """Rank-local K-step autoregressive rollout.
 
     ``x0``: [N_pad, F] or [B, N_pad, F]; ``targets``: [K, ...x0 shape...];
     ``noise`` (pushforward) perturbs only the step-1 input, detached;
-    ``group`` is the loss's graph group and ``sync_fn`` each layer's halo
-    exchange (both None on one rank).  Returns (mean per-step loss,
+    ``group`` is the loss's graph group and ``sync_fns`` each level's halo
+    exchange (``core/distributed.py::halo_fns``; both None on one rank).  Returns (mean per-step loss,
     predictions [K, ..., N_pad, F]).
     """
     graph = as_graph(graph)
     x = x0 if noise is None else x0 + noise.detach()
     losses, preds = [], []
     for tgt in targets:
-        y = gnn_forward(params, x, graph, plan, sync_fn=sync_fn)
+        y = gnn_forward(params, x, graph, plan, sync_fns=sync_fns)
         losses.append(consistent_mse(y, tgt, graph["node_inv_mult"], group=group))
         preds.append(y)
         x = y
@@ -95,9 +95,9 @@ def make_rollout_predict_fn(cfg: GNNConfig, plan: NMPPlan, rollout_steps: int,
         if key not in zeros_cache:
             zeros_cache[key] = torch.zeros(rollout_steps, n, f, device=g.device)
         targets = zeros_cache[key]
-        sync = None if mesh is None else halo_fn(local_plan, g, mesh)
+        sync = None if mesh is None else halo_fns(local_plan, g, mesh)
         preds = [rollout_step(params, xs[i, 0], targets, g, local_plan,
-                              sync_fn=sync)[1]
+                              sync_fns=sync)[1]
                  for i in range(b)]
         return torch.stack(preds)[:, :, None]          # [B, K, 1, N, F]
 
@@ -128,7 +128,7 @@ def make_rollout_step_fns(cfg: GNNConfig, plan: NMPPlan, rollout_steps: int,
         loss, preds = rollout_step(
             params, x0[:, 0], tgt, g, local_plan, noise=noise[:, 0],
             group=None if mesh is None else mesh.graph_group,
-            sync_fn=None if mesh is None else halo_fn(local_plan, g, mesh))
+            sync_fns=None if mesh is None else halo_fns(local_plan, g, mesh))
         if mesh is not None:
             loss = data_mean(loss, mesh)
         return loss, preds.movedim(0, 1)[:, :, None]

@@ -1364,3 +1364,169 @@ def test_fused_bf16_training_steps_bitwise_repeatable(cuda):
     assert all(np.isfinite(runs[0]["losses"]))
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[0]["params"]),
                                                  tree_leaves(runs[1]["params"])))
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2 on the multilevel V-cycle's coarse layouts: element and
+# block adjacency (up to 17 neighbours here, 26 at full size), levels
+# smaller than one 128-slot tile, ranks without an edge at the last level
+# ---------------------------------------------------------------------------
+
+def _coarse_case(cuda, elems, grid, lvl, rank, part="", hidden=32, layers=6, seed=0):
+    """Level ``lvl`` of a 3-level hierarchy of ``box_mesh(elems, p=2)`` on
+    ``grid``, rank ``rank``'s layout (``part``: "" the whole level, "_bnd"
+    / "_int" an overlap side), with random inputs and cotangents."""
+    from repro_torch.core.coarsen import build_hierarchy
+    ml = build_hierarchy(box_mesh(elems, p=2), grid, 3)
+    plan = NMPPlan.build(ml, NEIGHBOR, packed=True, backend=FUSED, schedule="overlap")
+    g = ShardedGraph.build(ml.levels[0], ml.coords[0], plan, device=cuda,
+                           hierarchy=ml).level(lvl).rank(rank)
+    n, n_e = g["node_mask"].shape[0], g["edge_mask"].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=layers - 1)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    for lp in edge["layers"]:                  # non-trivial biases
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    lay = tuple(g[f"seg_{k}{part}"] for k in ("perm", "src", "rowptr"))
+    src_lay = (g[f"seg_src_slots{part}"], g[f"seg_src_rowptr{part}"])
+    return (R(n, hidden), R(n_e, hidden), edge, lay, src_lay,
+            (g["edge_mask"], g["edge_inv_mult"]), (R(n_e, hidden), R(n, hidden)))
+
+
+COARSE_CASES = {
+    # 32 element nodes, 368 edges of in-degree up to 17 across three tiles
+    "l1_1x1": ((4, 4, 2), (1, 1, 1), 1, 0),
+    # 4 block nodes (8 padded), 12 edges: less than one tile
+    "l2_1x1": ((4, 4, 2), (1, 1, 1), 2, 0),
+    # a 2x2 rank's level 2: 3 edges into its one block
+    "l2_2x2_r1": ((4, 4, 2), (2, 2, 1), 2, 1),
+    # the (4,1,1) split's rank 1 owns no block: no edge at the last level
+    "l2_4x1_r1_empty": ((4, 4, 2), (4, 1, 1), 2, 1),
+    # a single-block level: no edge on any rank
+    "l2_2x1_single_block": ((2, 2, 2), (2, 1, 1), 2, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", ["", "_bnd", "_int"], ids=["all", "bnd", "int"])
+@pytest.mark.parametrize("case", sorted(COARSE_CASES))
+def test_fused_nmp_kernels_on_coarse_layouts(cuda, case, part):
+    """Kernels 1 and 2 (fp32) on a coarse level's layout and on each of its
+    overlap sides: within the forward and gradient bands of the plain
+    versions, one launch each, two launches bitwise equal; a layout without
+    an edge gives zeros, as the plain versions."""
+    x, e, edge, lay, src_lay, rest, cot = _coarse_case(cuda, *COARSE_CASES[case], part)
+    n_side = int(lay[2][-1])
+    n0 = _counts(*_NMP_COUNTERS)
+    e_new, agg = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    got = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, *cot)
+    torch.cuda.synchronize()
+    n1 = _counts(*_NMP_COUNTERS)
+    assert {k: n1[k] - n0[k] for k in _NMP_COUNTERS} == {
+        sa.KERNEL: 1, sa.KERNEL_BWD: 1, sa.KERNEL_BF16: 0, sa.KERNEL_BWD_BF16: 0}
+    pe, pa = sa.fused_nmp_edge_agg_plain(x, e, edge, *lay, *rest)
+    torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
+    want = sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest, *cot)
+    torch.testing.assert_close(got[0], want[0], rtol=G_RTOL, atol=G_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=G_RTOL, atol=G_ATOL)
+    for i, (a, b) in enumerate(zip(got[2:], want[2:])):
+        if n_side == 0:
+            assert not a.any() and not b.any()
+        else:
+            assert _rel_norm(a, b) <= W_REL, i
+    if n_side == 0:
+        assert not e_new.any() and not agg.any()
+    e2, a2 = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    again = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, *cot)
+    assert torch.equal(e_new, e2) and torch.equal(agg, a2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", ["", "_bnd", "_int"], ids=["all", "bnd", "int"])
+@pytest.mark.parametrize("case", sorted(COARSE_CASES))
+def test_fused_nmp_bf16_kernels_on_coarse_layouts(cuda, case, part):
+    """The same layouts in bf16: the bf16 bands, bf16 launches only, zeros
+    where the layout holds no edge."""
+    x, e, edge, lay, src_lay, rest, cot = _coarse_case(cuda, *COARSE_CASES[case], part)
+    n_side = int(lay[2][-1])
+    if n_side == 0:
+        e_new, agg = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest, precision=BF16)
+        assert not e_new.any() and not agg.any()
+    else:
+        _fwd_bf16_checks((x, e, edge, *lay, *rest))
+    _bwd_bf16_checks(x, e, edge, lay, src_lay, rest + cot, 5, empty=n_side == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", BF16])
+@pytest.mark.parametrize("schedule", ["blocking", "overlap"])
+@pytest.mark.parametrize("grid", [(1, 1, 1), (4, 1, 1), (2, 2, 1)],
+                         ids=["1x1", "4x1", "2x2"])
+def test_vcycle_on_card_fused_matches_plain(cuda, grid, schedule, precision):
+    """The stacked V-cycle's loss, prediction and gradients on the card
+    (packed neighbor exchange), fused against the plain backend: fp32 in the
+    forward and gradient bands, bf16 in the bf16 bands; kernel 1 launched
+    once per rank and layer (per side under overlap) on every level, kernel
+    2 as often, the bf16 entries alone on a bf16 plan; two runs bitwise.
+    In bf16 the prediction comes out of 6 NMP layers of bf16 products,
+    where an fp32 bit (another summation order) that rounds a
+    pre-activation to the neighbouring bf16 value is carried on: the two
+    paths read 6e-4 to 1.2e-3 apart (rel L2) against ~6e-3 from fp32 on
+    the card, against 6e-7 with one layer per level, where no rounding
+    flipped.  So the bf16 prediction is held, like the gradients, to the
+    reference's band for its own bf16 pair (rtol / atol 1e-2 x max(1,
+    max|ref|)) and must lie nearer the plain bf16 prediction than the
+    fp32 one; each kernel's own bf16 band is held on the coarse layouts
+    above."""
+    from repro_torch.core.coarsen import build_hierarchy
+    from repro_torch.core.reference import loss_and_grad_stacked
+    sem = box_mesh((4, 4, 2), p=2)
+    ml = build_hierarchy(sem, grid, 3)
+    cfg = GNNConfig(hidden=32, n_mp_layers=2, mlp_hidden_layers=5, n_levels=3,
+                    coarse_mp_layers=2)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=cuda)
+    mode = NONE if grid == (1, 1, 1) else NEIGHBOR
+    xs = torch.from_numpy(gather_node_features(
+        ml.levels[0], taylor_green_velocity(sem.coords))).to(cuda)
+    out = {}
+    runs = [(FUSED, precision), (FUSED, precision), (XLA, precision)]
+    for backend, prec in runs + ([(XLA, "fp32")] if precision == BF16 else []):
+        plan = NMPPlan.build(ml, mode, packed=True, backend=backend, schedule=schedule,
+                             precision=prec)
+        g = ShardedGraph.build(ml.levels[0], sem.coords, plan, device=cuda, hierarchy=ml)
+        n0 = _counts(*_NMP_COUNTERS)
+        loss, y, grads = loss_and_grad_stacked(params, xs, xs, g, plan, cfg.node_out,
+                                               sync_fn=halo_sync_stacked)
+        torch.cuda.synchronize()
+        n1 = _counts(*_NMP_COUNTERS)
+        out.setdefault((backend, prec), []).append((loss, y, tree_leaves(grads)))
+        if backend == FUSED:
+            layers = len(ml.levels[0].global_ids) * (
+                cfg.n_mp_layers + 2 * cfg.coarse_mp_layers)
+            layers *= 2 if schedule == "overlap" else 1
+            fwd, bwd = (sa.KERNEL_BF16, sa.KERNEL_BWD_BF16) if precision == BF16 else \
+                (sa.KERNEL, sa.KERNEL_BWD)
+            assert {k: n1[k] - n0[k] for k in _NMP_COUNTERS} == {
+                k: layers if k in (fwd, bwd) else 0 for k in _NMP_COUNTERS}
+    (lf, yf, gf), (lf2, yf2, gf2) = out[FUSED, precision]
+    assert torch.equal(lf, lf2) and torch.equal(yf, yf2)
+    assert all(torch.equal(a, b) for a, b in zip(gf, gf2))
+    lx, yx, gx = out[XLA, precision][0]
+    # the loss: fp32 fused vs plain within rel 1e-4, bf16 within BF_REL
+    assert abs(float(lf) - float(lx)) <= (BF_REL if precision == BF16 else 1e-4) \
+        * abs(float(lx))
+    if precision == BF16:
+        _bf16_grads_close(gf, gx)
+        _bf16_grads_close([yf], [yx])
+        y32 = out[XLA, "fp32"][0][1]
+        assert _rel_norm(yf, yx) < _rel_norm(yf, y32)
+    else:
+        torch.testing.assert_close(yf, yx, rtol=RTOL, atol=ATOL)
+        # a weight gradient is a sum over every edge: held by its relative
+        # L2 norm where its elements cancel past the elementwise band
+        for a, b in zip(gf, gx):
+            assert torch.allclose(a, b, rtol=G_RTOL, atol=G_ATOL) or \
+                _rel_norm(a, b) <= W_REL

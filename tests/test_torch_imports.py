@@ -86,3 +86,15 @@ def test_lm_slice_module_imports_alone_without_jax(mod):
 def test_segment_agg_slice_module_imports_alone_without_jax(mod):
     """The same for the modules of the dst-aligned edge-MLP op."""
     _imports_alone_without_jax(mod)
+
+
+MULTILEVEL_SLICE = ["repro_torch.core.coarsen", "repro_torch.core.consistent_mp",
+                    "repro_torch.core.graph_state", "repro_torch.core.partition",
+                    "repro_torch.graph.segment"]
+
+
+@pytest.mark.parametrize("mod", MULTILEVEL_SLICE)
+def test_multilevel_slice_module_imports_alone_without_jax(mod):
+    """The same for the modules of the multilevel V-cycle (the hierarchy
+    is the port's own copy of the reference's numpy-only module)."""
+    _imports_alone_without_jax(mod)

@@ -33,6 +33,15 @@ rank; each mode's posted exchange
 bitwise equal to the autograd one and to its slice of
 ``halo_sync_stacked``; which exchange each schedule ran; the serve CLI at
 ``--ranks 2``; the refusals of a mesh engine.
+
+A multilevel checkpoint (``n_levels=3``, the V-cycle) served by 2
+processes split (2,1,1), packed neighbor exchange, fused backend, under
+both schedules, each process building the hierarchy from the rank grid:
+streamed == offline bitwise, every request the same bits as the port's
+stacked multilevel rollout at R=2 (every rank's rows too), its first
+rollout step within ``repro``'s multilevel band of the R=1 rollout and the
+second within the serving band, one posted exchange per layer and
+transfer; and the serve CLI on that checkpoint.
 """
 import numpy as np
 import pytest
@@ -51,6 +60,7 @@ from repro.core.reference import rollout_stacked as ref_rollout_stacked
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.convert import params_from_jax
+from repro_torch.core.coarsen import build_hierarchy
 from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph_state import (
     BF16, BLOCKING, FUSED, XLA, NMPPlan, ShardedGraph)
@@ -74,6 +84,12 @@ FOLLOWER_EXIT_S = 30.0
 SCHEDULES = ["blocking", "overlap"]
 #: world size -> (rank grid, halo mode, packed, backend)
 WORLDS = {2: ((2, 1, 1), A2A, False, XLA), 4: ((2, 2, 1), NEIGHBOR, True, FUSED)}
+#: the multilevel checkpoint: 3 levels (405 -> 32 -> 4 nodes), one NMP
+#: layer per coarse level, served on (2,1,1) with the packed exchange
+ML_CFG = dict(CFG, n_levels=3, coarse_mp_layers=1)
+ML_GRID = (2, 1, 1)
+#: repro's multilevel bands, 1 rank vs R ranks (tests/test_multilevel.py)
+ML_RTOL, ML_ATOL = 3e-5, 5e-6
 
 
 @pytest.fixture(scope="module")
@@ -338,3 +354,103 @@ def test_mesh_engine_refusals(served):
         eng.follow()
     with pytest.raises(EngineError, match="R=1"):          # R > 1 needs a mesh
         eng.register_mesh(served["sem"], rank_grid=(2, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# a multilevel checkpoint (the V-cycle) served by 2 processes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served_ml(tmp_path_factory):
+    """A fingerprinted checkpoint of ``repro``'s seeded multilevel weights."""
+    np_params = jax.tree.map(np.asarray,
+                             ref_init_gnn(jax.random.PRNGKey(0), RefConfig(**ML_CFG)))
+    params = params_from_jax(np_params, "cpu")
+    sem = box_mesh(ELEMS, p=ORDER)
+    fp = run_fingerprint(sem, partition_mesh(sem, (1, 1, 1)), GNNConfig(**ML_CFG),
+                         TrainConfig(), NMPPlan())
+    ckdir = tmp_path_factory.mktemp("serve_dist_ml") / "ck"
+    ckpt.save(ckdir, 0, {"params": params}, extra={"fingerprint": fp})
+    return dict(ckdir=str(ckdir), params=params, sem=sem)
+
+
+@pytest.fixture(scope="module")
+def world2_ml(served_ml):
+    job = dict(ckpt_dir=served_ml["ckdir"], elements=ELEMS, order=ORDER,
+               rank_grid=ML_GRID, requests=N_REQ, batch_slots=SLOTS, rollout_steps=K,
+               halo_mode=NEIGHBOR, packed=True, backend=FUSED, device="cpu",
+               keep=N_REQ, rank_preds=1)
+    return serve_checks.run_checks(*(serve_checks.CheckJob(**job, schedule=schedule)
+                                     for schedule in SCHEDULES))
+
+
+def _ml_rollout(served_ml, grid, schedule, step):
+    """The port's stacked multilevel rollout of ``step``'s snapshot on
+    ``grid``: (scattered [K, N, F_out], per rank [K, R, N_pad, F_out])."""
+    sem = served_ml["sem"]
+    ml = build_hierarchy(sem, grid, ML_CFG["n_levels"])
+    pg = ml.levels[0]
+    plan = NMPPlan.build(ml, NEIGHBOR, packed=True, backend=FUSED, schedule=schedule)
+    graph = ShardedGraph.build(pg, sem.coords, plan, device="cpu", hierarchy=ml)
+    x = torch.from_numpy(gather_node_features(pg, serve.snapshot(sem, step)))
+    with torch.no_grad():
+        _, preds = rollout_stacked(served_ml["params"], x, torch.zeros((K,) + x.shape),
+                                   graph, plan, FY, sync_fn=halo_sync_stacked)
+    return (np.stack([scatter_node_outputs(pg, preds[k].numpy()) for k in range(K)]),
+            preds.numpy())
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_multilevel_two_procs_bitwise_equal_to_port_stacked_rollout(
+        world2_ml, served_ml, schedule):
+    """Streamed == offline bitwise on the lead; every request the same bits
+    as the port's stacked multilevel rollout at R=2 (one request's rows of
+    every rank too), and within repro's multilevel bands of the R=1 one."""
+    recs = [p[SCHEDULES.index(schedule)] for p in world2_ml]
+    lead = recs[0]
+    assert lead["n"] == N_REQ and lead["bitwise_offline"] is True
+    assert len(lead["preds"]) == N_REQ and len(lead["rank_preds"]) == 1
+    for step, got in lead["preds"].items():
+        want, per_rank = _ml_rollout(served_ml, ML_GRID, schedule, step)
+        assert np.array_equal(got, want), step
+        if step in lead["rank_preds"]:
+            assert np.array_equal(lead["rank_preds"][step], per_rank), step
+    # rollout step 1 in repro's multilevel band (on the CPU: at most 0.64 of
+    # it); step 2 runs over step 1's outputs, whose spread grows to 1.1-2.7x
+    # that band (max|err| 2.4e-5 to 3.3e-5), so it is held to the serving
+    # band of the flat worlds above (at most 0.45 of it)
+    for step in sorted(lead["preds"])[:2]:
+        got = lead["preds"][step]
+        one, _ = _ml_rollout(served_ml, (1, 1, 1), schedule, step)
+        np.testing.assert_allclose(got[0], one[0], rtol=ML_RTOL, atol=ML_ATOL)
+        np.testing.assert_allclose(got[1:], one[1:], rtol=BAND_RTOL, atol=BAND_ATOL)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_multilevel_two_procs_exchanges_and_refusals(world2_ml, served_ml, schedule):
+    """One posted exchange per fine layer, per coarse layer and per
+    transfer (restriction and prolongation each complete one); under the
+    overlap schedule the layers' are finished after the interior side;
+    the untrained mesh refused; every follower ran the lead's batches."""
+    recs = [p[SCHEDULES.index(schedule)] for p in world2_ml]
+    lead = recs[0]
+    L, M, C = ML_CFG["n_levels"], ML_CFG["n_mp_layers"], ML_CFG["coarse_mp_layers"]
+    fwds = lead["stream_stats"]["batches"] * SLOTS * K
+    assert lead["transport"]["posted"] == fwds * (M + (L - 1) * (C + 2))
+    assert lead["transport"]["overlapped"] == (
+        fwds * (M + (L - 1) * C) if schedule == "overlap" else 0)
+    for rec in recs:
+        assert rec["other_hash"] in rec["refused_registration"]
+    for rec in recs[1:]:
+        assert rec["stats"]["batches"] == lead["stats"]["batches"]
+
+
+def test_serve_cli_multilevel_checkpoint(served_ml, capfd):
+    """``launch/serve.py`` on a multilevel checkpoint: the config read back
+    with its levels, the engine building the hierarchy itself."""
+    rec = serve.main(["--ckpt-dir", served_ml["ckdir"], "--mesh", "4,4,2", "--p", "2",
+                      "--requests", "3", "--batch-slots", "2", "--rollout-steps", "2",
+                      "--device", "cpu", "--mp-backend", "fused"])
+    out = capfd.readouterr().out
+    assert "3 levels x 1 coarse layers" in out and "3 requests" in out
+    assert rec["n"] == 3

@@ -355,8 +355,8 @@ def test_train_cli_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--partitioner", "spectral"], ["--mp-schedule", "auto"],
-                                   ["--mp-precision", "bf16", "--levels", "2"],
-                                   ["--levels", "2"],
+                                   ["--levels", "2", "--partitioner", "spectral"],
+                                   ["--levels", "2", "--mp-schedule", "auto"],
                                    ["--ckpt-dir", "x"]])
 def test_train_cli_refuses_later_slices(flags, capsys):
     with pytest.raises(SystemExit):
