@@ -47,8 +47,10 @@ Phases (one line each, prefixed ``[n name]``):
                  bands, two launches bitwise equal, CUDA-event times, the
                  bound, the launch plan, the layout's waste, at full width
                  each output against a float64 forward and bf16 feats
-                 against plain (time and bound), and one launch-counted
-                 call of fused_edge_mlp_agg (phase_segment_agg runs alone)
+                 against plain (time and bound), one launch-counted
+                 call of fused_edge_mlp_agg (phase_segment_agg runs alone),
+                 and its time at each (block_n, block_e) of BLOCK_PAIRS
+                 beside pick_block_sizes' CUDA row
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
                  (2x2 grid) under the packed neighbor exchange (blocking and
                  overlap schedules) and the A2A oracle, overlap vs blocking
@@ -75,6 +77,28 @@ Phases (one line each, prefixed ``[n name]``):
                  under each schedule; then 3 training steps at (2,1,1) x 2
                  replicas, batch 2, step 0 against an R=1 run and the
                  parameters bitwise equal everywhere
+  3d plan        the exchange's remaining forms and the plan's choice, on
+                 the consistency mesh (not the serving mesh: spectral
+                 bisection is seconds of host power iteration per level):
+                 the spectral split's partition_quality beside the block
+                 split's; its stacked R=4 forward and gradient (large
+                 config, fused, packed neighbor) against R=1 in the bands
+                 of phases 3 and 3b; kernels 1 and 2 against plain on its
+                 rank 0 (vertex-cut) layout; the bf16 wire on the packed
+                 forward within 2e-2 of the fp32 wire; rounds2d on a (2, 2)
+                 grid, packed against R=1 and bitwise the dense form; then
+                 4 gloo processes sharing the card: the spectral packed
+                 forward under both wires bitwise each rank's stacked
+                 slice, bytes staged exactly half under bf16, every
+                 exchange form (a2a, neighbor, packed, rounds2d, packed
+                 rounds2d x fp32 / bf16 wire x sum / max) bitwise the
+                 stacked emulator with no pack under max, the tuner's 12
+                 (schedule x halo mode x wire) candidates at hidden 32 in
+                 ms, its pick the argmin and the same on every process, a
+                 second call launching nothing; and 3 training steps of
+                 ``launch/train.py --mp-schedule auto --partitioner
+                 spectral --ranks 2 2 1 --model large``, step 0 against
+                 an R=1 run
   4 serve        fingerprinted checkpoint of seeded random large params,
                  InferenceEngine(batch_slots=4, rollout_steps=2), >=16
                  streamed Taylor-Green requests, each bitwise equal to the
@@ -168,7 +192,14 @@ stream after warm-up (4) and the bf16 engine's stream (4), the
 R=4 serve streams (4b; the lead's launches, every process's checked
 against its batches), the 10 training steps (6), the 3 bf16 training steps
 (6; exactly 12 bf16 forwards and backwards), the K=2 rollout run (6), the
-multilevel paths (6b; kernel 1 M + (L-1) C = 8 times per forward and rank,
+phase 3d's paths (the spectral R=4 forward, gradient and bf16-wire
+forward, the rounds2d forward: 16 forwards, 4 packs, 4 x pairs
+unpack-adds, twice with the gradient and 16 backwards; per process of
+the distributed spectral forward 4 forwards, 4 packs, 4 unpack-adds per
+round it receives in; per exchange form one pack and one unpack-add per
+round received under sum with the packed wire, none otherwise; the
+tuner's measurement, whatever it launched, and nothing on its second
+call), the multilevel paths (6b; kernel 1 M + (L-1) C = 8 times per forward and rank,
 twice under overlap, 12 exchanges per forward, each level's launches
 counted apart) and each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
@@ -939,6 +970,35 @@ def phase_kernels(ptxas, cfg=None, cases=GNN_CASES):
     return sem, pg, records
 
 
+# the (block_n, block_e) pairs whose kernel-3 times at full width pick the
+# CUDA row of kernels/segment_agg/ops.py::pick_block_sizes
+BLOCK_PAIRS = ((64, 128), (128, 256), (256, 256))
+
+
+def block_pairs_ms(dst, n, feats, wgt, mlp):
+    """Kernel 3 at full width under each of BLOCK_PAIRS (its layout built
+    for the pair): CUDA-event ms each, printed beside the table's row and
+    the pick; returns {"bn/be": ms}."""
+    import torch
+    from repro_torch.kernels.segment_agg import ops as sa
+    out = {}
+    for bn, be in BLOCK_PAIRS:
+        layout = sa.dst_aligned_layout(dst, n, bn, be)
+        perm = torch.from_numpy(layout["perm"]).to(feats.device)
+        valid, safe = perm >= 0, perm.clamp(min=0)
+        tiles = (torch.where(valid[..., None], feats[safe], 0),
+                 torch.from_numpy(layout["dstl"]).to(feats.device),
+                 torch.where(valid, wgt[safe], 0))
+        kw = dict(n_node_blocks=layout["n_node_blocks"], block_n=bn, block_e=be)
+        out[f"{bn}/{be}"] = cuda_ms(lambda: sa.edge_mlp_agg(*tiles, *mlp, **kw), iters=10)
+        del perm, valid, safe, tiles
+    row = sa.pick_block_sizes(mlp[2].shape[1], torch.float32, backend="cuda")
+    say("2 kernels", f"edge_mlp_agg full width by (block_n, block_e): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items())
+        + f" | fastest {min(out, key=out.get)}; pick_block_sizes' CUDA row {row[0]}/{row[1]}")
+    return out
+
+
 def phase_segment_agg(sem, ptxas):
     """Kernel 3, the dst-aligned edge MLP + aggregate, at full width (Fin
     96, Hh 32, H 32) on the serving mesh's directed edges and at
@@ -1096,6 +1156,7 @@ def phase_segment_agg(sem, ptxas):
                           max_abs_err=errs["kernel"][1], ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
                           fp32_bound_ms=fp32_ms, **bf16)
+            record["block_pairs_ms"] = block_pairs_ms(dst, n, feats, wgt, mlp)
         else:
             record["ms_8k_edges"] = ms
         del feats, wgt, tiles, got, want_e, want_agg, perm, dstl, dst_t
@@ -1654,6 +1715,327 @@ def phase_distributed(cfg, stacked, r1, smi):
             "dist_r4_grad": sums[("blocking", "grad_launches")],
             "dist_r4_overlap": sums[("overlap", "fwd_launches")],
             "dist_r4_overlap_grad": sums[("overlap", "grad_launches")]}
+
+
+# phase 3d: the exchange's remaining forms and the plan's choice, on the
+# consistency mesh (the spectral bisection of the 727,833-node serving mesh
+# is many seconds of host power iteration per level): the spectral split,
+# the bf16 wire, rounds2d, combine="max" and the measured tuner
+WIRE_BAND = 2e-2                 # tests/test_extras.py:49, the bf16 wire's band
+PLAN_TRAIN_STEPS = 3
+
+
+def _pairs_into(perms, rank):
+    """Rounds of ``perms`` whose flat pairs deliver to ``rank``."""
+    return sum(any(d == rank for _, d in p) for p in perms)
+
+
+def _sum_counts(counts):
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_plan(cfg, r1, smi):
+    """Phase 3d (module docstring): spectral R=4 beside block (quality, the
+    stacked forward and gradient at full width against R=1, kernels 1 and
+    2 against plain on a vertex-cut layout), the bf16 wire on the packed
+    forward (stacked and over 4 gloo processes: within 2e-2 of fp32, half
+    the bytes, the same launches), rounds2d on a (2, 2) grid (dense and
+    packed, stacked and over gloo), max over gloo (bitwise stacked, no pack
+    launch), the 12-candidate tuner table at hidden 32 over the 4
+    processes (one triple everywhere, its argmin, a second call launching
+    nothing), and 3 training steps of the CLI with ``--mp-schedule auto
+    --partitioner spectral --ranks 2 2 1 --model large``.  Returns the
+    launches of each path."""
+    import torch
+    from repro_torch.core.gnn import init_gnn
+    from repro_torch.core.graph_state import FUSED, NMPPlan, ShardedGraph
+    from repro_torch.core.halo import NEIGHBOR, NONE, halo_sync_stacked
+    from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
+    from repro_torch.core.partition import (
+        gather_node_features, partition_mesh, partition_mesh_2d, scatter_node_outputs)
+    from repro_torch.core.partition_quality import partition_quality
+    from repro_torch.core.reference import gnn_forward_stacked, loss_and_grad_stacked
+    from repro_torch.kernels import build
+    from repro_torch.kernels.halo_pack import ops as hp
+    from repro_torch.kernels.segment_agg import ops as sa
+    from repro_torch.launch import consistency as cons
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.loop import TrainConfig, train_consistent_gnn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sem = box_mesh(CONS_ELEMS, p=ORDER)
+    x = taylor_green_velocity(sem.coords)
+    y = taylor_green_velocity(sem.coords, t=DT)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    t0 = time.perf_counter()
+    pg_s = partition_mesh(sem, CONS_GRID, method="spectral")
+    spectral_s = time.perf_counter() - t0
+    pg_b, pg_1 = partition_mesh(sem, CONS_GRID), partition_mesh(sem, (1, 1, 1))
+    pg_2d = partition_mesh_2d(sem, (2, 2))
+    q_s, q_b = partition_quality(pg_s), partition_quality(pg_b)
+    wb = {name: pg.wire_bytes("neighbor", True, cfg.hidden, w)["max"]
+          for name, pg, w in (("spectral fp32", pg_s, None),
+                              ("spectral bf16", pg_s, "bfloat16"),
+                              ("block fp32", pg_b, None))}
+    keys = ("halo_volume", "edge_cut", "boundary_frac_max", "imbalance", "max_rank_nodes")
+    say("3d plan", f"{CONS_ELEMS} p={ORDER} ({sem.n_nodes} nodes; the spectral and "
+        f"rounds2d paths run on the consistency mesh, not the 727,833-node serving mesh) "
+        f"split {CONS_GRID}: spectral bisection {spectral_s:.1f} s on the host | "
+        f"partition_quality spectral {({k: q_s[k] for k in keys})}, block "
+        f"{({k: q_b[k] for k in keys})} | packed neighbor bytes of one exchange at "
+        f"H={cfg.hidden}, largest rank: {wb}")
+
+    def prepare(pg, plan):
+        g = ShardedGraph.build(pg, sem.coords, plan, device=dev)
+        xs, ys = (torch.from_numpy(gather_node_features(pg, f)).to(dev) for f in (x, y))
+        return g, xs, ys
+
+    def forward(pg, plan, sync=halo_sync_stacked):
+        g, xs, _ = prepare(pg, plan)
+        build.reset_launch_counts()
+        with torch.no_grad():
+            yr = gnn_forward_stacked(params, xs, g, plan, sync_fn=sync)
+        torch.cuda.synchronize()
+        counts = dict(build.launch_counts)
+        yr = yr.cpu().numpy()
+        return torch.from_numpy(scatter_node_outputs(pg, yr)), yr, counts
+
+    def grad(pg, plan):
+        g, xs, ys = prepare(pg, plan)
+        build.reset_launch_counts()
+        loss, _, grads = loss_and_grad_stacked(params, xs, ys, g, plan, cfg.node_out,
+                                               sync_fn=halo_sync_stacked)
+        torch.cuda.synchronize()
+        return float(loss), grads, dict(build.launch_counts)
+
+    def packed(pg, wire=None):
+        return NMPPlan.build(pg, NEIGHBOR, packed=True, wire_dtype=wire, backend=FUSED)
+
+    by_path = {}
+    y1 = forward(pg_1, NMPPlan.build(pg_1, NONE, backend=FUSED))[0]
+    pairs_s = sum(len(p) for p in packed(pg_s).halo.perms)
+    layers = cfg.n_mp_layers
+    fwd_want = {sa.KERNEL: 4 * layers, hp.PACK: layers, hp.UNPACK: layers * pairs_s}
+    grad_want = {sa.KERNEL: 4 * layers, sa.KERNEL_BWD: 4 * layers, hp.PACK: 2 * layers,
+                 hp.UNPACK: 2 * layers * pairs_s}
+    # (a) the spectral split, stacked, at full width
+    ys4, ys4_rank, by_path["plan_spectral_r4_fwd"] = forward(pg_s, packed(pg_s))
+    check_launches("3d plan", "the spectral R=4 packed forward", by_path["plan_spectral_r4_fwd"],
+                   fwd_want)
+    err, ok = within_band(ys4, y1)
+    l4, g4, by_path["plan_spectral_r4_grad"] = grad(pg_s, packed(pg_s))
+    check_launches("3d plan", "the spectral R=4 packed gradient run",
+                   by_path["plan_spectral_r4_grad"], grad_want)
+    l1, g1 = r1
+    rel = abs(l4 - l1) / abs(l1)
+    gerr, by_norm, gok = grads_close(g4, g1)
+    good = ok and gok and rel <= LOSS_REL
+    say("3d plan", f"spectral R=4 (vertex cut, {pairs_s} neighbor pairs in "
+        f"{len(packed(pg_s).halo.perms)} rounds), large config, fused, packed neighbor: "
+        f"forward vs fused R=1 max|err| {err:.3g} (rtol {RTOL} atol {ATOL}) | loss "
+        f"{l4:.8g} vs R=1 {l1:.8g} (rel {rel:.2e}, band {LOSS_REL}) | grads max|err| "
+        f"{gerr:.3g} (rtol {G_RTOL} atol {G_ATOL})"
+        + (f"; held by rel L2 (<= {W_REL}): {by_norm}" if by_norm else "")
+        + f" -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("spectral R=4 disagrees with R=1")
+    del g4
+
+    # kernels 1 and 2 against plain on one vertex-cut layout (rank 0)
+    g0 = ShardedGraph.build(pg_s, sem.coords, packed(pg_s), device=dev).rank(0)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n, n_e = g0["node_mask"].shape[0], g0["edge_mask"].shape[0]
+    xk, ek = (torch.randn(s, cfg.hidden, generator=gen, device=dev) for s in (n, n_e))
+    ge, gx = (torch.randn(s, cfg.hidden, generator=gen, device=dev) for s in (n_e, n))
+    edge = params["mp"][0]["edge"]
+    lay = (g0["seg_perm"], g0["seg_src"], g0["seg_rowptr"])
+    rest = (g0["edge_mask"], g0["edge_inv_mult"])
+    e_k, a_k = sa.fused_nmp_edge_agg(xk, ek, edge, *lay, *rest)
+    e_p, a_p = sa.fused_nmp_edge_agg_plain(xk, ek, edge, *lay, *rest)
+    bk = sa.fused_nmp_edge_agg_bwd(xk, ek, edge, *lay, g0["seg_src_slots"],
+                                   g0["seg_src_rowptr"], *rest, ge, gx)
+    bp = sa.fused_nmp_edge_agg_bwd_plain(xk, ek, edge, *lay, *rest, ge, gx)
+    torch.cuda.synchronize()
+    k_err = max(within_band(e_k, e_p)[0], within_band(a_k, a_p)[0])
+    k_ok = within_band(e_k, e_p)[1] and within_band(a_k, a_p)[1]
+    b_err = max(within_band(a, b, G_RTOL, G_ATOL)[0] for a, b in zip(bk[:2], bp[:2]))
+    b_ok = all(within_band(a, b, G_RTOL, G_ATOL)[1] for a, b in zip(bk[:2], bp[:2]))
+    w_rel = max(rel_norm(a, b) for a, b in zip(bk[2:], bp[2:]))
+    good = k_ok and b_ok and w_rel <= W_REL
+    say("3d plan", f"kernels 1 and 2 on the spectral split's rank 0 layout (N={n}, "
+        f"{int(rest[0].sum())} edges, d_ij = 1): forward vs plain max|err| {k_err:.3g} "
+        f"(rtol {RTOL} atol {ATOL}), backward x/e max|err| {b_err:.3g} (rtol {G_RTOL} "
+        f"atol {G_ATOL}), weights rel L2 {w_rel:.2e} (<= {W_REL}) -> "
+        f"{'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("kernels 1/2 disagree with plain on the vertex-cut layout")
+    del g0, xk, ek, ge, gx, bk, bp
+
+    # (b) the bf16 wire on the packed forward, stacked
+    bf = torch.bfloat16
+    ysw, ysw_rank, by_path["plan_spectral_r4_bf16_wire"] = forward(pg_s, packed(pg_s, bf))
+    check_launches("3d plan", "the spectral R=4 packed forward, bf16 wire",
+                   by_path["plan_spectral_r4_bf16_wire"], fwd_want)
+    err_w, ok_w = within_band(ysw, ys4, WIRE_BAND, WIRE_BAND)
+    moved = float((ysw - ys4).abs().max())
+    err_1, ok_1 = within_band(ysw, y1, WIRE_BAND, WIRE_BAND)
+    good = ok_w and ok_1 and moved > 0
+    say("3d plan", f"bf16 wire, spectral R=4 packed forward (stacked): vs the fp32 wire "
+        f"max|err| {err_w:.3g}, vs R=1 {err_1:.3g} (band {WIRE_BAND}; rounding happened: "
+        f"{moved > 0}); launches as under fp32 -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("the bf16 wire leaves its band")
+
+    # (c) rounds2d on a (2, 2) grid, dense and packed, stacked
+    plan_2d = NMPPlan.build(pg_2d, NEIGHBOR, packed=True, backend=FUSED)
+    pairs_2d = sum(len(p) for p in plan_2d.halo.perms)
+    y2p, y2p_rank, by_path["plan_rounds2d_r4"] = forward(pg_2d, plan_2d)
+    check_launches("3d plan", "the rounds2d R=4 packed forward", by_path["plan_rounds2d_r4"],
+                   {sa.KERNEL: 4 * layers, hp.PACK: layers, hp.UNPACK: layers * pairs_2d})
+    y2d, y2d_rank, c2d = forward(pg_2d, NMPPlan.build(pg_2d, NEIGHBOR, backend=FUSED))
+    check_launches("3d plan", "the rounds2d R=4 dense forward", c2d, {sa.KERNEL: 4 * layers})
+    err_2, ok_2 = within_band(y2p, y1)
+    same_2 = np.array_equal(y2p_rank, y2d_rank)
+    say("3d plan", f"rounds2d, (2, 2) grid ({len(plan_2d.halo.rounds2d)} rounds, "
+        f"{pairs_2d} flat pairs, diagonals in two hops), stacked: packed vs fused R=1 "
+        f"max|err| {err_2:.3g} (rtol {RTOL} atol {ATOL}); packed == dense bitwise: "
+        f"{same_2} -> {'ok' if ok_2 and same_2 else 'FAIL'}")
+    if not (ok_2 and same_2):
+        raise RuntimeError("rounds2d disagrees with R=1 or dense with packed")
+
+    # (b-e) over 4 gloo processes sharing the card
+    t0 = time.perf_counter()
+    job = cons.Job(elements=CONS_ELEMS, order=ORDER, cfg=cfg, device="cuda",
+                   backends=(FUSED,), modes=("packed", "packed_bf16"),
+                   cases=((CONS_GRID, 1),), forms=True, tune=cfg.hidden,
+                   partitioner="spectral")
+    procs = cons.run_world(job, 4)
+    wall = time.perf_counter() - t0
+    case = cons.case_name(CONS_GRID, 1)
+    recs = [p[case] for p in procs]
+    perms_s = packed(pg_s).halo.perms
+    bitwise, sums = {}, {}
+    for mode, want_rank in (("packed", ys4_rank), ("packed_bf16", ysw_rank)):
+        steps = [r["steps"][(FUSED, mode)] for r in recs]
+        bitwise[mode] = all(np.array_equal(s["pred"][0, 0], want_rank[r["rank"]])
+                            for s, r in zip(steps, recs))
+        for r, s in zip(recs, steps):
+            into = _pairs_into(perms_s, r["rank"])
+            check_launches("3d plan", f"process {r['rank']}'s {mode} forward",
+                           s["fwd_launches"], {sa.KERNEL: layers, hp.PACK: layers,
+                                               hp.UNPACK: layers * into})
+            check_launches("3d plan", f"process {r['rank']}'s {mode} gradient run",
+                           s["grad_launches"], {sa.KERNEL: layers, sa.KERNEL_BWD: layers,
+                                                hp.PACK: 2 * layers,
+                                                hp.UNPACK: 2 * layers * into})
+        sums[mode] = _sum_counts(s["fwd_launches"] for s in steps)
+    step_fp = [r["steps"][(FUSED, "packed")] for r in recs]
+    step_bf = [r["steps"][(FUSED, "packed_bf16")] for r in recs]
+    line = cons.check_step(step_fp, (l1, [t.cpu().numpy() for t in _leaves(g1)]),
+                           "packed", w_rel=W_REL)
+    half = all(2 * b["fwd_staged_bytes"] == f["fwd_staged_bytes"]
+               and 2 * b["fwd_sent_bytes"] == f["fwd_sent_bytes"] > 0
+               for f, b in zip(step_fp, step_bf))
+    bf_rel = abs(float(step_bf[0]["loss"]) - l1) / abs(l1)
+    good = all(bitwise.values()) and half
+    say("3d plan", f"4 gloo processes on one card, spectral {CONS_GRID}: each rank's "
+        f"packed forward bitwise its stacked slice, fp32 wire {bitwise['packed']}, bf16 "
+        f"wire {bitwise['packed_bf16']} | {line} | bf16 wire: loss rel to R=1 {bf_rel:.2e}, "
+        f"bytes staged per forward (rank 0) fp32 {step_fp[0]['fwd_staged_bytes']} / bf16 "
+        f"{step_bf[0]['fwd_staged_bytes']}, handed to gloo {step_fp[0]['fwd_sent_bytes']} / "
+        f"{step_bf[0]['fwd_sent_bytes']} (exactly half on every process: {half}); "
+        f"launches per process exact, bf16 as fp32 -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("the distributed spectral / bf16-wire forward disagrees")
+    by_path["plan_dist_spectral"], by_path["plan_dist_bf16_wire"] = \
+        sums["packed"], sums["packed_bf16"]
+
+    # every exchange form over gloo against the stacked emulator on the card
+    parts = cons.form_partitions(sem)
+    graphs = {k: ShardedGraph.build(pg, sem.coords, NMPPlan.build(pg, NEIGHBOR, packed=True),
+                                    device=dev) for k, pg in parts.items()}
+    form_ok, max_counts, r2d_counts = [], [], []
+    for name, (part, _, is_packed, _, combine) in cons.FORMS.items():
+        pg = parts[part]
+        spec = cons.form_spec(pg, name)
+        a = torch.from_numpy(cons.seeded(6, (4, pg.n_pad, cfg.hidden))
+                             * pg.node_mask[..., None]).to(dev)
+        with torch.no_grad():
+            want = halo_sync_stacked(a, graphs[part], spec, combine=combine).cpu().numpy()
+        same = all(np.array_equal(r["forms"][name]["out"], want[r["rank"]]) for r in recs)
+        for r in recs:
+            got = r["forms"][name]["launches"]
+            exp = ({hp.PACK: 1, hp.UNPACK: _pairs_into(spec.perms, r["rank"])}
+                   if is_packed and combine == "sum" else {})
+            check_launches("3d plan", f"process {r['rank']}'s {name} exchange", got, exp)
+        if combine == "max":
+            max_counts += [r["forms"][name]["launches"] for r in recs]
+        if part == "2d" and is_packed and combine == "sum":
+            r2d_counts += [r["forms"][name]["launches"] for r in recs]
+        form_ok.append((name, same))
+    bad = [n for n, s in form_ok if not s]
+    say("3d plan", f"every exchange form over the 4 processes (a2a, neighbor, packed, "
+        f"rounds2d, packed rounds2d; fp32 / bf16 wire; sum / max; H={cfg.hidden}) bitwise "
+        f"the stacked emulator's rank slice: {len(form_ok) - len(bad)}/{len(form_ok)}; "
+        f"max: no pack / unpack-add launch; packed sum: one pack and one unpack-add per "
+        f"round received -> {'ok' if not bad else 'FAIL ' + str(bad)}")
+    if bad:
+        raise RuntimeError(f"exchange forms disagree with the stacked emulator: {bad}")
+    by_path["plan_dist_forms_max"] = _sum_counts(max_counts)
+    by_path["plan_dist_forms_rounds2d"] = _sum_counts(r2d_counts)
+
+    # the measured tuner over the processes
+    tunes = [r["tune"] for r in recs]
+    table = tunes[0]["table"]
+    picks = {t["pick"] for t in tunes} | {t["pick_again"] for t in tunes}
+    argmin = min(table, key=table.get)
+    again = [t["launches_again"] for t in tunes]
+    # 2 schedules x 3 mode labels (2 without the kernels) x 2 wires
+    n_cands = 2 * (3 if torch.cuda.is_available() else 2) * 2
+    good = (len(picks) == 1 and tunes[0]["pick"] == argmin and len(table) == n_cands
+            and not any(again) and all("table" not in t for t in tunes[1:]))
+    rows = sorted(table.items(), key=lambda kv: kv[1])
+    say("3d plan", f"{smi} | tuner at hidden {cfg.hidden} on the spectral R=4 split "
+        f"(the lead measures one stacked NMP layer per candidate, min of 20 after a "
+        f"warm-up, and broadcasts): " + ", ".join(
+            f"{s}/{m}/{w or 'fp32'} {1e3 * t:.3f} ms" for (s, m, w), t in rows)
+        + f" | pick {tunes[0]['pick']} (argmin: {tunes[0]['pick'] == argmin}), the same "
+        f"on all 4 processes: {len(picks) == 1}; the lead's tune {tunes[0]['seconds']:.1f} "
+        f"s; a second autotune launched {again} -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("the multi-process tuner did not resolve one argmin triple")
+    by_path["plan_tuner"] = tunes[0]["launches"]
+    say("3d plan", f"spawn + all of the gloo checks {wall:.1f} s")
+
+    # (f) the training CLI: auto schedule, spectral split, 4 processes
+    t0 = time.perf_counter()
+    argv = ["--elements", *map(str, CONS_ELEMS), "--order", str(ORDER), "--ranks", "2",
+            "2", "1", "--model", "large", "--mp-schedule", "auto", "--partitioner",
+            "spectral", "--halo", "neighbor", "--steps", str(PLAN_TRAIN_STEPS),
+            "--batch", "1", "--device", "cuda"]
+    hist = train_cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    tcfg = TrainConfig(n_steps=1, batch=1, lr=2e-3, halo_mode="neighbor",
+                       plan=NMPPlan(backend=FUSED))
+    one = train_consistent_gnn(pg_1, sem, cfg, tcfg, device="cuda")["losses"][0]
+    rel = abs(hist["losses"][0] - one) / abs(one)
+    good = (rel <= LOSS_REL and np.all(np.isfinite(hist["losses"]))
+            and hist["schedule"] in ("blocking", "overlap"))
+    say("3d plan", f"{smi} | python -m repro_torch.launch.train {' '.join(argv)}: losses "
+        f"{[round(v, 6) for v in hist['losses']]}, schedule auto resolved to "
+        f"{hist['schedule']}, step 0 vs an R=1 block run {one:.8g} (rel {rel:.2e}, band "
+        f"{LOSS_REL}); {cli_s:.1f} s with the spawn, the 4 spectral bisections and the "
+        f"tune -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("the auto / spectral training CLI disagrees with R=1")
+    torch.cuda.empty_cache()
+    say("3d plan", f"phase 3d {time.perf_counter() - t_phase:.1f} s")
+    return by_path
 
 
 def _leaves(tree):
@@ -3264,6 +3646,8 @@ def main():
     lap("3b gradients")
     by_path.update(phase_distributed(cfg, stacked, r1, smi))
     lap("3c distributed")
+    by_path.update(phase_plan(cfg, r1, smi))
+    lap("3d plan")
     engine, mesh_hash, by_path["serve"], ckdir = phase_serve(cfg, sem, pg, smi)
     by_path["serve_bf16"] = phase_serve_bf16(cfg, sem, engine, mesh_hash, ckdir, smi)
     phase_profile(engine, mesh_hash, sem)
@@ -3301,16 +3685,23 @@ def main():
                "ml_dist_overlap_grad")
     ml_r4 = ("ml_r4_fwd_blocking", "ml_r4_fwd_overlap", "ml_dist_blocking",
              "ml_dist_overlap") + ml_grad
+    # phase 3d's paths: kernels 1 and 2 on the spectral (vertex-cut) split,
+    # kernels 4 and 5 under the bf16 wire, on rounds2d rounds and in the
+    # tuner's packed candidates (the max forms hold 4 and 5 to 0)
+    plan_fwd = ("plan_spectral_r4_fwd", "plan_spectral_r4_grad",
+                "plan_spectral_r4_bf16_wire", "plan_rounds2d_r4", "plan_dist_spectral",
+                "plan_dist_bf16_wire", "plan_tuner")
+    plan_halo = plan_fwd + ("plan_dist_forms_rounds2d",)
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
                        "rollout_k2", "dist_r4_packed", "dist_r4_grad") + r4
-           + ("ml_fwd", "ml_grad", "ml_serve", "ml_train") + ml_r4,
+           + ("ml_fwd", "ml_grad", "ml_serve", "ml_train") + ml_r4 + plan_fwd,
            sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2", "dist_r4_grad",
                            "grad_r4_overlap", "dist_r4_overlap_grad", "ml_grad",
-                           "ml_train") + ml_grad,
+                           "ml_train") + ml_grad + ("plan_spectral_r4_grad",),
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                     "dist_r4_grad") + r4 + ml_r4,
+                     "dist_r4_grad") + r4 + ml_r4 + plan_halo,
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                       "dist_r4_grad") + r4 + ml_r4,
+                       "dist_r4_grad") + r4 + ml_r4 + plan_halo,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),
@@ -3325,6 +3716,9 @@ def main():
         if "bf16" not in path and (counts.get(sa.KERNEL_BF16) or
                                    counts.get(sa.KERNEL_BWD_BF16)):
             raise RuntimeError(f"the fp32 path {path} launched a bf16 kernel: {counts}")
+    for k in (hp.PACK, hp.UNPACK):
+        if by_path["plan_dist_forms_max"].get(k):
+            raise RuntimeError(f"a combine='max' exchange launched {k}")
     for rec in records:
         counts = {path: int(by_path[path].get(rec["name"], 0)) for path in by_path}
         rec["launches"] = counts[own[rec["name"]][0]]
@@ -3333,6 +3727,7 @@ def main():
             if counts[path] == 0:
                 raise RuntimeError(f"kernel {rec['name']} never launched on the "
                                    f"{path} path")
+    say("end", f"whole script {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

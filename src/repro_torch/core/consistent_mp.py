@@ -59,19 +59,29 @@ transfer map, sorted once in ``ShardedGraph.build``; no atomics),
 completed by the halo sum of the level it lands on, and every coarse
 level's NMP layers run through the same (backend, schedule) registry cell
 as the fine ones, on the level's own layouts, split and exchange.
+
+Measured plan autotuning (``NMPPlan.autotune``, :func:`autotune_plan`):
+``schedule="auto"`` and halo mode ``"auto"`` resolve to the fastest
+(schedule x halo mode x wire) candidate of one stacked NMP layer timed on
+the partition at the model's width (:func:`measure_plan_candidates`),
+cached per (graph, rank count, policy); over processes the lead measures
+on the stacked proxy and broadcasts its pick.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import os
 
 import torch
 
 from repro_torch import nn
 from repro_torch.core.graph_state import (
-    BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph, as_graph, nmp_impl,
+    AUTO, BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph, as_graph, nmp_impl,
     register_nmp_impl,
 )
-from repro_torch.core.halo import NEIGHBOR, NONE, HaloSpec
+from repro_torch.core.halo import (
+    NEIGHBOR, NONE, HaloSpec, wire_dtype_of, wire_name)
 from repro_torch.graph import segment
 from repro_torch.kernels.segment_agg.ops import fused_nmp_edge_agg
 
@@ -343,3 +353,304 @@ def multilevel_vcycle(coarse_params, h: torch.Tensor, graph, plan: NMPPlan,
         up = sync(prolong_aggregate(states[lvl], levels[lvl]), lvl - 1)
         states[lvl - 1] = (states[lvl - 1] + up) * gf["node_mask"][:, None]
     return states[0]
+
+
+# ---------------------------------------------------------------------------
+# measured plan autotuning (NMPPlan.autotune: schedule="auto", halo="auto")
+# ---------------------------------------------------------------------------
+
+# (graph hash, R, policy) -> resolved pick (a schedule string on the
+# schedule-only path; a (schedule, halo-mode label, wire name) triple on the
+# cross-product path), for the process lifetime: one measurement per
+# distinct (graph, rank count, policy).  Over processes every process
+# caches the pick its lead broadcast, keyed by its own rank-local graph.
+_SCHEDULE_CACHE: dict = {}
+
+# (graph hash, R, policy, candidate grid) -> {(schedule, mode label, wire
+# name): seconds}: the measured table the cross-product pick argmins over.
+_TUNE_TABLE_CACHE: dict = {}
+
+#: halo-mode labels the cross-product tuner sweeps; "neighbor-packed" is the
+#: bucketed wire format (NEIGHBOR exchange over the narrow pk{k}_* arrays)
+MODE_LABELS = ("a2a", "neighbor", "neighbor-packed")
+
+
+def _graph_schedule_key(g0) -> tuple:
+    """A hash of one level's edges and node mask (stacked or rank-local)."""
+    import hashlib
+    h = hashlib.sha1()
+    for k in ("edge_src", "edge_dst", "node_mask"):
+        a = g0[k].detach().cpu().numpy()
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return (h.hexdigest(),)
+
+
+def _probe_inputs(g0, hidden: int):
+    """The tuner's probe: one NMP layer's params (2 MLP hidden layers) at
+    the model's width and seeded node / edge features, on the graph's
+    device, as the reference draws them (its own seeds)."""
+    import numpy as np
+    R, n_pad = g0["node_mask"].shape
+    e_pad = g0["edge_mask"].shape[-1]
+    dev = g0.device
+    params = init_nmp_layer(torch.Generator().manual_seed(0), hidden, 2, device=dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(R, n_pad, hidden)).astype(np.float32)).to(dev)
+    e = torch.from_numpy(rng.normal(size=(R, e_pad, hidden)).astype(np.float32)).to(dev)
+    return params, x, e
+
+
+def _min_seconds(fn, iters: int, device) -> float:
+    """Min over ``iters`` calls of ``fn``'s wall time, after one warm-up
+    call (which builds the kernels at their first use); on a card each call
+    is fenced by ``torch.cuda.synchronize``."""
+    import time
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    with torch.no_grad():
+        fn()
+        sync()
+        best = float("inf")
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _measure_best_schedule(plan: NMPPlan, g0, hidden: int, iters: int) -> str:
+    """Time one stacked NMP layer per schedule (``reference._smooth_stacked``,
+    the canonical-order exchange) at the model's width; return the
+    winner."""
+    from repro_torch.core.reference import _smooth_stacked
+    params, x, e = _probe_inputs(g0, hidden)
+    best, best_t = BLOCKING, float("inf")
+    for sched in (BLOCKING, OVERLAP):
+        cand = plan.replace(schedule=sched)
+        t = _min_seconds(lambda c=cand: _smooth_stacked(params, x, e, g0, c),
+                         iters, g0.device)
+        if t < best_t:
+            best, best_t = sched, t
+    return best
+
+
+def interior_frac(g0) -> float:
+    """Fraction of real edges in the interior side of the split (edges whose
+    aggregate rows the halo exchange never touches)."""
+    if "edge_int_valid" not in g0:
+        raise ValueError("graph has no interior/boundary split — build it "
+                         "with a plan whose schedule is 'overlap' or 'auto'")
+    n_int = float(g0["edge_int_valid"].sum())
+    n_bnd = float(g0["edge_bnd_valid"].sum())
+    return n_int / max(n_int + n_bnd, 1.0)
+
+
+def _mode_label(spec: HaloSpec) -> str:
+    return f"{spec.mode}-packed" if spec.packed else spec.mode
+
+
+def _spec_for(spec: HaloSpec, label: str, wire: str | None) -> HaloSpec:
+    """The fixed HaloSpec a (mode label, wire name) candidate denotes; its
+    perms, rounds2d and grid are kept from ``spec``."""
+    if label == "neighbor-packed":
+        mode, packed = NEIGHBOR, True
+    elif label in ("a2a", "neighbor", "none"):
+        mode, packed = label, False
+    else:
+        raise ValueError(f"unknown halo-mode label {label!r}; expected one of "
+                         f"{MODE_LABELS}")
+    return dataclasses.replace(spec, mode=mode, packed=packed,
+                               wire_dtype=wire_dtype_of(wire))
+
+
+def _resolve_plan(plan: NMPPlan, schedule: str, label: str,
+                  wire: str | None) -> NMPPlan:
+    """Apply a resolved (schedule, mode label, wire name) triple: the fine
+    halo and every still-auto coarse halo (each keeps its own perms)."""
+    halo = _spec_for(plan.halo, label, wire)
+    coarse = tuple(_spec_for(h, label, wire) if h.mode == AUTO else h
+                   for h in plan.coarse_halos)
+    return plan.replace(schedule=schedule, halo=halo, coarse_halos=coarse)
+
+
+def _packed_supported(graph) -> bool:
+    """Whether the packed candidate runs its fused kernels: the pack and
+    unpack-add kernels are in use on a card.  On the CPU the tuner sweeps
+    ("a2a", "neighbor"), as the reference does without its interpreter."""
+    return graph.device.type == "cuda"
+
+
+def _grid(plan: NMPPlan, graph):
+    """The (schedules, mode labels, wire names) a cross-product plan
+    sweeps: the tuner may drop a requested wire, never introduce one."""
+    schedules = (BLOCKING, OVERLAP) if plan.schedule == AUTO else (plan.schedule,)
+    modes = MODE_LABELS if _packed_supported(graph) else ("a2a", "neighbor")
+    wires = (None,) if plan.halo.wire_dtype is None \
+        else (None, wire_name(plan.halo.wire_dtype))
+    return schedules, modes, wires
+
+
+def measure_plan_candidates(plan: NMPPlan, graph, hidden: int = 8,
+                            iters: int = 20, schedules=None, modes=None,
+                            wires=None) -> dict:
+    """Time the (schedule x halo-mode x wire) candidate grid on the stacked
+    ``graph``, memoized for the process lifetime.
+
+    Each candidate times one stacked NMP layer (``reference._smooth_stacked``)
+    with the exchange through the mode-faithful emulator
+    (``halo.halo_sync_stacked``): the per-rank arithmetic, wire masking and
+    compression, and the pack / unpack-add kernels the multi-process
+    exchange runs for that candidate.  Min of ``iters`` calls after a
+    warm-up, each fenced by ``torch.cuda.synchronize`` on a card.  Returns
+    {(schedule, mode label, wire name): seconds}; ``NMPPlan.autotune``
+    argmins over it."""
+    import itertools
+    from repro_torch.core.halo import halo_sync_stacked
+    from repro_torch.core.reference import _smooth_stacked
+
+    graph = as_graph(graph)
+    g0 = graph.levels[0]
+    R = g0["node_mask"].shape[0]
+    d_sched, d_modes, d_wires = _grid(plan, graph)
+    schedules = d_sched if schedules is None else schedules
+    if modes is None:
+        modes = d_modes if plan.halo.mode == AUTO else (_mode_label(plan.halo),)
+    wires = tuple(wire_name(w) for w in (d_wires if wires is None else wires))
+    key = (_graph_schedule_key(g0), R, plan.backend, plan.precision,
+           graph.device.type, tuple(schedules), tuple(modes), wires, hidden)
+    cached = _TUNE_TABLE_CACHE.get(key)
+    if cached is not None:
+        return dict(cached)
+    params, x, e = _probe_inputs(g0, hidden)
+    table = {}
+    for sched, label, wire in itertools.product(schedules, modes, wires):
+        cand = plan.replace(schedule=sched, halo=_spec_for(plan.halo, label, wire))
+        table[(sched, label, wire)] = _min_seconds(
+            lambda c=cand: _smooth_stacked(params, x, e, g0, c, halo_sync_stacked),
+            iters, g0.device)
+    _TUNE_TABLE_CACHE[key] = dict(table)
+    return table
+
+
+def autotune_plan(plan: NMPPlan, graph, measure: bool | None = None,
+                  hidden: int = 8, iters: int = 20, mesh=None,
+                  stacked=None) -> NMPPlan:
+    """Resolve every ``"auto"`` field of the plan (``schedule`` and/or the
+    halo ``mode``) against a stacked graph (see :meth:`NMPPlan.autotune`).
+
+    A fixed halo mode resolves the schedule alone (:func:`_measure_best_schedule`);
+    a halo mode ``"auto"`` takes the (schedule x halo-mode x wire) table of
+    :func:`measure_plan_candidates`.  Wire candidates are ``{None,
+    plan.halo.wire_dtype}``.  ``measure=False`` (or
+    ``REPRO_SCHEDULE_AUTOTUNE=0``) takes the reference's structural
+    fallback: overlap where ``interior_frac`` < 0.5, and packed neighbor
+    (neighbor on the CPU) for the halo mode.
+
+    ``graph`` rank-local (one process of a mesh): every process must
+    resolve the same plan, or the ranks post different exchanges and hang.
+    So the lead (world rank 0) resolves it on the stacked proxy
+    ``stacked()`` (a callable building the stacked graph, called on the
+    lead alone), broadcasts the pick to every process of ``mesh``, and
+    every process caches it."""
+    graph = as_graph(graph)
+    if plan.schedule != AUTO and plan.halo.mode != AUTO:
+        return plan
+    g0 = graph.levels[0]
+    nm = g0["node_mask"]
+    if nm.dim() == 1 and mesh is not None:
+        return _autotune_over(plan, g0, mesh, stacked, measure, hidden, iters)
+    if nm.dim() != 2:
+        raise ValueError("autotune needs the stacked graph (leading rank axis), or "
+                         "a rank-local one with mesh= and stacked=; got node_mask "
+                         f"of ndim {nm.dim()}")
+    R = nm.shape[0]
+    if R <= 1 or plan.halo.mode == NONE:
+        return _one_rank_pick(plan)
+    if measure is None:
+        measure = os.environ.get("REPRO_SCHEDULE_AUTOTUNE", "1") != "0"
+    policy = (_graph_schedule_key(g0), R, plan.backend, plan.precision,
+              graph.device.type)
+    if plan.halo.mode != AUTO:
+        key = policy + (plan.halo.mode, bool(measure), hidden)
+        sched = _SCHEDULE_CACHE.get(key)
+        if sched is None:
+            if measure:
+                sched = _measure_best_schedule(plan, g0, hidden, iters)
+            else:
+                # structural fallback: once the exchange-independent share
+                # of the edge work drops under half, there is not enough
+                # interior compute to pay blocking's serialization
+                sched = OVERLAP if interior_frac(g0) < 0.5 else BLOCKING
+            _SCHEDULE_CACHE[key] = sched
+        return plan.replace(schedule=sched)
+
+    schedules, modes, wires = _grid(plan, graph)
+    key = policy + ("cross", schedules, modes, wires, bool(measure), hidden)
+    triple = _SCHEDULE_CACHE.get(key)
+    if triple is None:
+        if measure:
+            table = measure_plan_candidates(plan, graph, hidden=hidden, iters=iters,
+                                            schedules=schedules, modes=modes,
+                                            wires=wires)
+            triple = min(table, key=table.get)
+        else:
+            if plan.schedule == AUTO:
+                sched = OVERLAP if interior_frac(g0) < 0.5 else BLOCKING
+            else:
+                sched = plan.schedule
+            label = "neighbor-packed" if _packed_supported(graph) else "neighbor"
+            triple = (sched, label, wire_name(plan.halo.wire_dtype))
+        _SCHEDULE_CACHE[key] = triple
+    return _resolve_plan(plan, *triple)
+
+
+def _one_rank_pick(plan: NMPPlan) -> NMPPlan:
+    # no exchange to hide: blocking is trivially optimal, and one rank
+    # needs no exchange at all
+    out = plan.replace(schedule=BLOCKING) if plan.schedule == AUTO else plan
+    if out.halo.mode == AUTO:
+        out = _resolve_plan(out, out.schedule, "none", None)
+    return out
+
+
+def _pick_of(plan: NMPPlan) -> tuple:
+    """A resolved plan's (schedule, mode label, wire name)."""
+    return (plan.schedule, _mode_label(plan.halo), wire_name(plan.halo.wire_dtype))
+
+
+def _autotune_over(plan: NMPPlan, g0, mesh, stacked, measure, hidden, iters):
+    """:func:`autotune_plan` on one process of ``mesh`` (its docstring)."""
+    import torch.distributed as dist
+    if mesh.graph <= 1 or plan.halo.mode == NONE:
+        return _one_rank_pick(plan)
+    key = ("mesh", _graph_schedule_key(g0), mesh.rank, mesh.graph, plan.schedule,
+           _mode_label(plan.halo), wire_name(plan.halo.wire_dtype), plan.backend,
+           plan.precision, g0.device.type, measure, hidden)
+    pick = _SCHEDULE_CACHE.get(key)
+    if pick is None:
+        box = [None]
+        if mesh.lead:
+            if stacked is None:
+                raise ValueError("autotune of a rank-local graph needs stacked=, a "
+                                 "callable building the stacked graph (the lead "
+                                 "measures on it)")
+            box[0] = _pick_of(autotune_plan(plan, stacked(), measure=measure,
+                                            hidden=hidden, iters=iters))
+        group = mesh.world_group
+        dist.broadcast_object_list(box, src=group.ranks[0], group=group.pg)
+        pick = _SCHEDULE_CACHE[key] = tuple(box[0])
+    if plan.halo.mode != AUTO:
+        return plan.replace(schedule=pick[0])
+    return _resolve_plan(plan, *pick)
+
+
+def autotune_schedule(plan: NMPPlan, graph, measure: bool | None = None,
+                      hidden: int = 8, iters: int = 20, **kw) -> NMPPlan:
+    """Alias of :func:`autotune_plan` (the reference's name from before the
+    tuner also resolved halo mode ``"auto"``)."""
+    return autotune_plan(plan, graph, measure=measure, hidden=hidden,
+                         iters=iters, **kw)

@@ -15,9 +15,10 @@
   :class:`~repro_torch.core.halo.HaloSpec` objects.  Layer implementations
   register per ``(backend, schedule)`` cell via :func:`register_nmp_impl`
   (``core/consistent_mp.py`` registers the blocking and the overlap
-  schedule for both backends).
-
-``auto`` tuning is not ported (ROADMAP queue 1).
+  schedule for both backends).  ``schedule="auto"`` and halo mode
+  ``"auto"`` are resolved by :meth:`NMPPlan.autotune` (the measured tuner
+  of ``core/consistent_mp.py``); :meth:`NMPPlan.autotune_blocks` takes the
+  block sizes from ``kernels/segment_agg/ops.py::pick_block_sizes``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.halo import AUTO, HaloSpec, halo_spec_from_plan
+from repro_torch.core.halo import AUTO, HaloSpec, halo_spec_from_plan, wire_name
 from repro_torch.kernels.halo_pack.ops import HaloWire, halo_wire
 # the edge MLP's precisions (the fused kernels' entries): fp32, bf16
 from repro_torch.nn import BF16, FP32, PRECISIONS  # noqa: F401
@@ -99,34 +100,63 @@ class NMPPlan:
             self.coarse_halos[i] if i < len(self.coarse_halos) else self.halo
             for i in range(n_levels - 1))
 
+    def replace(self, **kw) -> "NMPPlan":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def build(cls, pg_or_hierarchy, mode: str, packed: bool = False,
-              **policy) -> "NMPPlan":
+              wire_dtype=None, **policy) -> "NMPPlan":
         """Plan with its halo specs derived from the partition's halo plans:
         ``pg_or_hierarchy`` is a ``PartitionedGraphs`` (flat) or a
         ``MultiLevelGraphs`` (``core/coarsen.py``; every level its own
-        spec)."""
+        spec); ``mode`` is ``none`` | ``a2a`` | ``neighbor`` | ``auto`` (the
+        last resolved by :meth:`autotune` over the (schedule x halo-mode x
+        wire) candidates); ``wire_dtype`` (e.g. ``torch.bfloat16`` or
+        ``"bfloat16"``) compresses the exchanges' wire."""
         levels = getattr(pg_or_hierarchy, "levels", [pg_or_hierarchy])
-        specs = tuple(halo_spec_from_plan(lvl.halo, mode, packed=packed)
+        specs = tuple(halo_spec_from_plan(lvl.halo, mode, packed=packed,
+                                          wire_dtype=wire_dtype)
                       for lvl in levels)
         return cls(halo=specs[0], coarse_halos=specs[1:], **policy)
 
-    def autotune(self, graph=None, hidden: int = 8) -> "NMPPlan":
-        """Plans with nothing set to ``auto`` are returned unchanged; the
-        measured (schedule x halo-mode) tuner is not ported yet."""
+    def autotune_blocks(self, hidden: int, dtype=torch.float32,
+                        backend: str | None = None) -> "NMPPlan":
+        """``block_n`` / ``block_e`` from the static table of
+        ``kernels/segment_agg/ops.py::pick_block_sizes`` for this width
+        (``REPRO_SEG_BLOCKS`` overrides it)."""
+        from repro_torch.kernels.segment_agg.ops import pick_block_sizes
+        bn, be = pick_block_sizes(hidden, dtype, backend)
+        return self.replace(block_n=bn, block_e=be)
+
+    def autotune(self, graph=None, measure: bool | None = None, hidden: int = 8,
+                 iters: int = 20, mesh=None, stacked=None) -> "NMPPlan":
+        """Resolve ``schedule="auto"`` and/or halo mode ``"auto"``.
+
+        Times one stacked NMP layer per candidate (the (schedule x
+        halo-mode x wire) cross-product when the halo mode is ``"auto"``,
+        schedules only otherwise) on ``graph`` (a stacked
+        :class:`ShardedGraph`) at width ``hidden``, and returns a plan with
+        the fastest, cached per (graph, rank count, policy) for the process
+        lifetime.  ``measure=False`` (or ``REPRO_SCHEDULE_AUTOTUNE=0``)
+        takes the reference's structural fallback.  A rank-local ``graph``
+        (one process of ``mesh``) takes the pick its lead measured on
+        ``stacked()`` and broadcast.  Plans with nothing ``auto`` are
+        returned unchanged (``core/consistent_mp.py::autotune_plan``)."""
         if self.schedule != AUTO and self.halo.mode != AUTO:
             return self
-        raise NotImplementedError(
-            "schedule/halo mode 'auto' is not ported to repro_torch yet: "
-            "pick a fixed schedule and halo mode")
+        from repro_torch.core.consistent_mp import autotune_plan
+        return autotune_plan(self, graph, measure=measure, hidden=hidden,
+                             iters=iters, mesh=mesh, stacked=stacked)
 
     def policy(self) -> dict:
         """JSON-able policy fields (the plan's checkpoint-fingerprint entry;
-        one written before ``precision`` existed reads as fp32)."""
+        one written before ``precision`` existed reads as fp32, one before
+        ``halo_wire`` as None: ``policy.get("halo_wire")``)."""
         return {"backend": self.backend, "schedule": self.schedule,
                 "precision": self.precision,
                 "block_n": self.block_n, "block_e": self.block_e,
-                "halo_mode": self.halo.mode, "halo_packed": self.halo.packed}
+                "halo_mode": self.halo.mode, "halo_packed": self.halo.packed,
+                "halo_wire": wire_name(self.halo.wire_dtype)}
 
 
 _NMP_IMPLS: Dict[Tuple[str, str], Callable] = {}
@@ -146,6 +176,11 @@ def nmp_impl(plan: NMPPlan) -> Callable:
     try:
         return _NMP_IMPLS[(plan.backend, plan.schedule)]
     except KeyError:
+        if plan.schedule == AUTO:
+            raise ValueError(
+                "schedule='auto' must be resolved before layer dispatch: call "
+                "plan.autotune(graph) after ShardedGraph.build (the training "
+                "loop and the engine do this)") from None
         raise ValueError(
             f"no NMP implementation registered for backend={plan.backend!r}, "
             f"schedule={plan.schedule!r}; registered cells: "

@@ -1,19 +1,28 @@
 """Distributed mesh-based graph partitioning with halo metadata (Sec. II-A).
 
-Port of ``repro.core.partition``, block partitioner and vertex-cut edge
-partition (no spectral bisection): elements of an ``SEMMesh`` are assigned
-to ranks by blocks of the element grid (NekRS-style slab/pencil/block
-decompositions); nodes on shared element faces become *coincident copies*
-on every touching rank and face-lattice edges are duplicated across ranks
-(edge multiplicity d_ij > 1, undone by 1/d_ij scaling during aggregation —
-Eq. 4b).  :func:`from_edge_partition` partitions an arbitrary directed
-edge list by vertex cut, with forced replica copies: the coarse levels of
-the multilevel hierarchy (``core/coarsen.py``).
+Port of ``repro.core.partition``.  Two partitioners produce the same
+``PartitionedGraphs`` structure:
+
+* the block partitioner (:func:`partition_elements` +
+  :func:`from_element_partition`): elements of an ``SEMMesh`` are assigned
+  to ranks by blocks of the element grid (NekRS-style slab/pencil/block
+  decompositions); nodes on shared element faces become *coincident
+  copies* on every touching rank and face-lattice edges are duplicated
+  across ranks (edge multiplicity d_ij > 1, undone by 1/d_ij scaling
+  during aggregation — Eq. 4b);
+* the vertex cut (:func:`from_edge_partition`) of an arbitrary directed
+  edge list (d_ij == 1), with forced replica copies: the spectral
+  partitioner (``partition_mesh(method="spectral")``, node -> part from
+  ``core/partition_quality.py``), :func:`partition_graph`, and the coarse
+  levels of the multilevel hierarchy (``core/coarsen.py``).
 
 The halo plan carries both exchange layouts of the reference:
   * A2A       — equal-size buffers to *all* ranks;
   * NEIGHBOR  — the rank adjacency graph greedily edge-colored into rounds
-    of disjoint rank pairs (plus the bucketed per-round packed arrays).
+    of disjoint rank pairs (plus the bucketed per-round packed arrays), or,
+    on a (Ga, Gb) rank grid, the two-level rounds of
+    :func:`build_2d_halo_rounds` (:func:`partition_mesh_2d`): one round per
+    grid shift, routed as chained one-way hops along the grid's axes.
 
 The overlap schedule's interior/boundary split
 (:meth:`PartitionedGraphs.interior_split`) and each side's compact layout
@@ -22,7 +31,8 @@ The overlap schedule's interior/boundary split
 rank's layouts (``rank=``).
 
 Everything here is host-side numpy and produces arrays equal to the
-reference's (``tests/test_torch_host.py``).  The per-edge python loops of
+reference's (``tests/test_torch_host.py``,
+``tests/test_torch_partition_quality.py``).  The per-edge python loops of
 the reference are vectorized (``np.unique`` over int64 pair keys,
 ``np.searchsorted`` for global->local ids), which keeps the host build of
 the ~0.7M-node p=7 serving mesh to seconds; the arithmetic and the order of
@@ -77,6 +87,17 @@ class HaloPlan:
     nbr_send_mask: np.ndarray    # float32 [R, K, B2]
     nbr_recv_idx: np.ndarray     # int32 [R, K, B2]
     nbr_recv_mask: np.ndarray    # float32 [R, K, B2]
+
+
+@dataclasses.dataclass
+class HaloPlan2d(HaloPlan):
+    """A two-level halo plan (:func:`partition_mesh_2d`): the ``nbr_*``
+    arrays of :func:`build_2d_halo_rounds`, ``rounds2d`` (each round's
+    chain of per-axis hops), ``grid2d`` (the two grid axes as ((name,
+    size), (name, size)), rank ``a * Gb + b``) and as ``perms`` the rounds'
+    flat (src, dst) pairs (:func:`flat_rounds2d_perms`)."""
+    rounds2d: tuple = ()         # per round: ((axis, ((s, d), ...)), ...)
+    grid2d: tuple = ()           # ((axis a, Ga), (axis b, Gb))
 
 
 @dataclasses.dataclass
@@ -239,6 +260,47 @@ class PartitionedGraphs:
             ), bucket=bucket)
             self._packed_halos[key] = cached
         return cached
+
+    def wire_bytes(self, mode: str, packed: bool = False, feat_dim: int = 1,
+                   wire_dtype=None, bucket: int = 8) -> dict:
+        """Per-rank on-wire halo payload for ONE exchange of a
+        ``[N, feat_dim]`` aggregate (the reference's metric):
+
+        * ``mode="a2a"``: every rank ships its full dense buffer to each of
+          the other R-1 ranks — ``(R-1) * B * feat_dim`` elements;
+        * ``mode="neighbor"``: one ``B``-wide buffer per round a rank
+          takes part in;
+        * ``packed=True`` (neighbor only): round ``k``'s bucketed width
+          ``w_k`` in place of ``B``.
+
+        ``wire_dtype`` (a torch dtype or its name; None is float32) sets
+        the element size.  Returns ``{mode, packed, itemsize, per_rank,
+        max, mean, total}`` (bytes; ``per_rank`` a plain list)."""
+        if mode not in ("a2a", "neighbor"):
+            raise ValueError(f"wire_bytes: unknown halo mode {mode!r}")
+        if packed and mode == "a2a":
+            raise ValueError("wire_bytes: packed buffers are neighbor-only — "
+                             "all-to-all needs uniform per-rank buffers")
+        from repro_torch.core.halo import wire_dtype_of
+        itemsize = 4 if wire_dtype is None else wire_dtype_of(wire_dtype).itemsize
+        h = self.halo
+        per_rank = np.zeros(self.R, dtype=np.int64)
+        if mode == "a2a":
+            B = h.a2a_send_idx.shape[-1]
+            per_rank[:] = (self.R - 1) * B * feat_dim * itemsize
+        else:
+            K, B = h.nbr_send_idx.shape[1], h.nbr_send_idx.shape[2]
+            pk = self.packed_halo(bucket) if packed else None
+            for k in range(K):
+                width = pk[f"pk{k}_send_idx"].shape[-1] if packed else B
+                participates = (h.nbr_send_mask[:, k].sum(axis=-1) > 0) \
+                    | (h.nbr_recv_mask[:, k].sum(axis=-1) > 0)
+                per_rank += participates * width * feat_dim * itemsize
+        return dict(mode=mode, packed=bool(packed), itemsize=itemsize,
+                    per_rank=[int(v) for v in per_rank],
+                    max=int(per_rank.max()) if self.R else 0,
+                    mean=float(per_rank.mean()) if self.R else 0.0,
+                    total=int(per_rank.sum()))
 
     def device_arrays(self, seg_layout: Tuple[int, int] | None = None,
                       split: bool = False, packed: bool = False,
@@ -564,23 +626,169 @@ def pack(graphs: List[RankGraph], n_global: int, pad_to: int = 8) -> Partitioned
     )
 
 
+def _shifts():
+    return [(da, db) for da in (-1, 0, 1) for db in (-1, 0, 1)
+            if not (da == 0 and db == 0)]
+
+
+def flat_rounds2d_perms(grid: Tuple[int, int]) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+    """Flat per-round (src, dst) rank pairs of :func:`build_2d_halo_rounds`.
+
+    Each round routes one uniform (da, db) grid shift as <= 2 chained
+    per-axis hops; their composition delivers rank ``a*Gb + b``'s buffer to
+    ``(a+da)*Gb + (b+db)`` exactly when that rank exists.  The stacked
+    emulator exchanges along these pairs; the shift order is
+    :func:`build_2d_halo_rounds`'s."""
+    Ga, Gb = grid
+    rounds = []
+    for da, db in _shifts():
+        perm = []
+        for a in range(Ga):
+            for b in range(Gb):
+                a2, b2 = a + da, b + db
+                if 0 <= a2 < Ga and 0 <= b2 < Gb:
+                    perm.append((a * Gb + b, a2 * Gb + b2))
+        rounds.append(tuple(perm))
+    return tuple(rounds)
+
+
+def build_2d_halo_rounds(graphs: List[RankGraph], grid: Tuple[int, int],
+                         axes: Tuple[str, str] = ("data", "model"),
+                         pad_to: int = 8):
+    """Two-level halo plan: sub-graphs laid out on a (Ga, Gb) grid (rank
+    ``a * Gb + b``, a along ``axes[0]``, b along ``axes[1]``); every
+    neighbor shift (da, db) becomes one exchange round routed as <= 2
+    chained one-way hops, first along ``axes[1]`` then along ``axes[0]``
+    (a uniform translation: no relay conflicts).
+
+    Returns (rounds2d, nbr arrays [R, K, B]); rounds2d holds per round its
+    hops ``(axis, ((i, i + d), ...))``, indexed along the named axis."""
+    Ga, Gb = grid
+    R = len(graphs)
+    if R != Ga * Gb:
+        raise ValueError(f"{R} rank graphs do not fill a {Ga}x{Gb} grid")
+    shifts = _shifts()
+    shared: Dict[Tuple[int, int], np.ndarray] = {}
+    maxb = 1
+    for r in range(R):
+        a, b = divmod(r, Gb)
+        for si, (da, db) in enumerate(shifts):
+            a2, b2 = a + da, b + db
+            if not (0 <= a2 < Ga and 0 <= b2 < Gb):
+                continue
+            s = a2 * Gb + b2
+            common = np.intersect1d(graphs[r].global_ids, graphs[s].global_ids,
+                                    assume_unique=True)
+            if common.size:
+                shared[(r, si)] = common
+                maxb = max(maxb, common.size)
+
+    B = _round_up(maxb, pad_to)
+    K = len(shifts)
+    send_idx = np.zeros((R, K, B), dtype=np.int32)
+    send_mask = np.zeros((R, K, B), dtype=np.float32)
+    recv_idx = np.zeros((R, K, B), dtype=np.int32)
+    recv_mask = np.zeros((R, K, B), dtype=np.float32)
+    rounds2d = []
+    for si, (da, db) in enumerate(shifts):
+        hops = []
+        if db:
+            hops.append((axes[1], tuple((b, b + db) for b in range(Gb)
+                                        if 0 <= b + db < Gb)))
+        if da:
+            hops.append((axes[0], tuple((a, a + da) for a in range(Ga)
+                                        if 0 <= a + da < Ga)))
+        rounds2d.append(tuple(hops))
+        for r in range(R):
+            common = shared.get((r, si))
+            if common is None:
+                continue
+            a, b = divmod(r, Gb)
+            s = (a + da) * Gb + (b + db)
+            n = common.size
+            # global -> local ids (sorted unique global ids, as the
+            # reference's dict lookup)
+            send_idx[r, si, :n] = np.searchsorted(graphs[r].global_ids, common)
+            send_mask[r, si, :n] = 1.0
+            recv_idx[s, si, :n] = np.searchsorted(graphs[s].global_ids, common)
+            recv_mask[s, si, :n] = 1.0
+    arrays = dict(nbr_send_idx=send_idx, nbr_send_mask=send_mask,
+                  nbr_recv_idx=recv_idx, nbr_recv_mask=recv_mask)
+    return tuple(rounds2d), arrays
+
+
+def partition_mesh_2d(mesh: SEMMesh, grid: Tuple[int, int],
+                      axes: Tuple[str, str] = ("data", "model"),
+                      pad_to: int = 8) -> PartitionedGraphs:
+    """The block partition of ``mesh`` on a (Ga, Gb) rank grid (rank
+    ``a * Gb + b``: element blocks (Gb, Ga, 1), y-major, as the reference's
+    two-level driver lays them out) with the two-level halo plan of
+    :func:`build_2d_halo_rounds` in place of the edge-colored rounds: its
+    ``nbr_*`` arrays, ``rounds2d`` and ``grid2d``, and the rounds' flat
+    pairs as ``perms``.  ``NMPPlan.build(pg, "neighbor")`` then gives the
+    rounds2d spec, and ``ShardedGraph.build`` its dense and packed arrays."""
+    Ga, Gb = grid
+    graphs = from_element_partition(mesh, partition_elements(mesh, (Gb, Ga, 1)),
+                                     Ga * Gb)
+    pg = pack(graphs, mesh.n_nodes, pad_to=pad_to)
+    rounds2d, nbr = build_2d_halo_rounds(graphs, grid, axes, pad_to=pad_to)
+    a2a = {f.name: getattr(pg.halo, f.name) for f in dataclasses.fields(HaloPlan)
+           if f.name.startswith("a2a_")}
+    pg.halo = HaloPlan2d(**a2a, **nbr, perms=[list(p) for p in flat_rounds2d_perms(grid)],
+                         rounds2d=rounds2d, grid2d=((axes[0], Ga), (axes[1], Gb)))
+    return pg
+
+
 # ---------------------------------------------------------------------------
 # front doors
 # ---------------------------------------------------------------------------
 
 def partition_mesh(mesh: SEMMesh, rank_grid: Sequence[int], pad_to: int = 8,
                    method: str = "block") -> PartitionedGraphs:
-    """Partition an SEM mesh onto ``prod(rank_grid)`` ranks by element
-    blocks.  ``method="spectral"`` (the reference's spectral bisection) is
-    not ported yet and raises."""
-    if method != "block":
-        raise NotImplementedError(
-            f"partition method {method!r} is not ported to repro_torch yet "
-            "(only 'block'); see ROADMAP.md")
+    """Partition an SEM mesh onto ``prod(rank_grid)`` ranks.
+
+    ``method="block"`` is the NekRS-style element-block decomposition along
+    the rank grid (d_ij > 1 coincident GLL copies); ``method="spectral"``
+    runs recursive spectral bisection + KL refinement on the mesh graph
+    (``core/partition_quality.py``) and builds a vertex-cut edge partition
+    (d_ij == 1).  Consistency (Eqs. 2, 3) holds either way: the choice only
+    moves halo volume and balance."""
     R = int(math.prod(rank_grid))
-    e2r = partition_elements(mesh, rank_grid)
-    return pack(from_element_partition(mesh, e2r, R), mesh.n_nodes,
-                pad_to=pad_to)
+    if method == "block":
+        e2r = partition_elements(mesh, rank_grid)
+        return pack(from_element_partition(mesh, e2r, R), mesh.n_nodes,
+                    pad_to=pad_to)
+    if method == "spectral":
+        from repro_torch.core.mesh_gen import mesh_graph_edges
+        from repro_torch.core.partition_quality import mesh_node2part
+        node2part = mesh_node2part(mesh, R)
+        directed = undirected_to_directed(mesh_graph_edges(mesh))
+        return pack(from_edge_partition(mesh.n_nodes, directed, R,
+                                        node2part=node2part),
+                    mesh.n_nodes, pad_to=pad_to)
+    raise ValueError(f"unknown partition method {method!r} "
+                     "(expected 'block' or 'spectral')")
+
+
+def partition_graph(n_nodes: int, directed_edges: np.ndarray, R: int,
+                    pad_to: int = 8, assign: str = "dst",
+                    method: str = "block",
+                    node2part: np.ndarray = None) -> PartitionedGraphs:
+    """Partition an arbitrary directed graph onto R ranks.
+
+    ``node2part`` (any [N] int array; ranks may even be empty) wins over
+    ``method``; otherwise ``method="block"`` keeps the contiguous index
+    split and ``method="spectral"`` computes one with
+    ``core/partition_quality.py::spectral_node2part``."""
+    if node2part is None and method == "spectral":
+        from repro_torch.core.partition_quality import spectral_node2part
+        node2part = spectral_node2part(n_nodes, directed_edges, R)
+    elif node2part is None and method != "block":
+        raise ValueError(f"unknown partition method {method!r} "
+                         "(expected 'block' or 'spectral')")
+    return pack(from_edge_partition(n_nodes, directed_edges, R,
+                                    node2part=node2part, assign=assign),
+                n_nodes, pad_to=pad_to)
 
 
 def gather_node_features(pg: PartitionedGraphs, global_x: np.ndarray,

@@ -276,14 +276,17 @@ class ExchangeRound(NamedTuple):
     recv: HaloWire
 
 
-def _exchange(a, wire, rounds, forward: bool):
+def _exchange(a, wire, rounds, forward: bool, wire_dtype=None):
     """One pack of ``a`` [R, N, F] through the exchange ``wire`` [R, W],
     then each round's unpack-adds into the running result, seeded with
     ``a``.  Forward: receiver r takes sender s's rows through the round's
     recv wire.  Backward (``a`` the incoming gradient, ``wire`` the
     concatenated recv wire): sender s takes receiver r's rows through the
-    round's send wire."""
+    round's send wire.  ``wire_dtype`` rounds the packed rows through it
+    (one cast after the pack, one back before the unpack-adds)."""
     buf = _pack(a, wire.idx, wire.mask)
+    if wire_dtype is not None and wire_dtype != buf.dtype:
+        buf = buf.to(wire_dtype).to(a.dtype)
     out = list(a.unbind(0))
     for rnd in rounds:
         lo = rnd.offset
@@ -298,17 +301,18 @@ def _exchange(a, wire, rounds, forward: bool):
 
 class _Exchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, send, recv, rounds):
-        ctx.recv, ctx.rounds = recv, rounds
-        return _exchange(a, send, rounds, True)
+    def forward(ctx, a, send, recv, rounds, wire_dtype):
+        ctx.recv, ctx.rounds, ctx.wire_dtype = recv, rounds, wire_dtype
+        return _exchange(a, send, rounds, True, wire_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g.contiguous(), ctx.recv, ctx.rounds, False), None, None, None
+        return (_exchange(g.contiguous(), ctx.recv, ctx.rounds, False, ctx.wire_dtype),
+                None, None, None, None)
 
 
 def halo_exchange(a: torch.Tensor, send: HaloWire, recv: HaloWire,
-                  rounds: Sequence[ExchangeRound]) -> torch.Tensor:
+                  rounds: Sequence[ExchangeRound], wire_dtype=None) -> torch.Tensor:
     """The packed neighbor exchange of a stacked aggregate, Eq. 4c-d.
 
     a: [R, N, F] float32; send / recv: the exchange wires ([R, W], the
@@ -323,15 +327,16 @@ def halo_exchange(a: torch.Tensor, send: HaloWire, recv: HaloWire,
     Differentiable in ``a``: the backward is the reversed exchange, one
     pack of the gradient through ``recv`` and one unpack-add per round and
     sender through the round's send wire, seeded with the gradient.
-    Returns [R, N, F]."""
+    ``wire_dtype`` (e.g. ``torch.bfloat16``) rounds the packed rows through
+    the wire dtype, in both directions.  Returns [R, N, F]."""
     if a.dim() != 3 or send.idx.shape != (a.shape[0], send.idx.shape[-1]) \
             or recv.idx.shape != send.idx.shape:
         raise ValueError(f"halo_exchange: expected a [R, N, F] and wires [R, W]; got "
                          f"{tuple(a.shape)}, {tuple(send.idx.shape)}, "
                          f"{tuple(recv.idx.shape)}")
     if torch.is_grad_enabled() and a.requires_grad:
-        return _Exchange.apply(a, send, recv, tuple(rounds))
-    return _exchange(a, send, rounds, True)
+        return _Exchange.apply(a, send, recv, tuple(rounds), wire_dtype)
+    return _exchange(a, send, rounds, True, wire_dtype)
 
 
 class PendingExchange:
@@ -350,14 +355,16 @@ class PendingExchange:
         for rnd, got in zip(self.rounds, self.posted.wait()):
             if got is not None:
                 w = rnd.send if self.reverse else rnd.recv
-                out = _unpack_add(out, got, w.idx, w.mask, w.inv, a.shape[0])
+                out = _unpack_add(out, got.to(a.dtype), w.idx, w.mask, w.inv,
+                                  a.shape[0])
         return out.clone() if out is a else out
 
 
 def halo_exchange_rank_post(a: torch.Tensor, send: HaloWire, recv: HaloWire,
                             rounds: Sequence[ExchangeRound],
                             peers: Sequence[Tuple[Optional[int], Optional[int]]],
-                            post: Callable, reverse: bool = False) -> PendingExchange:
+                            post: Callable, reverse: bool = False,
+                            wire_dtype=None) -> PendingExchange:
     """The packed neighbor exchange of one rank's aggregate, Eq. 4c-d, posted:
     the per-process counterpart of :func:`halo_exchange`.
 
@@ -366,7 +373,7 @@ def halo_exchange_rank_post(a: torch.Tensor, send: HaloWire, recv: HaloWire,
     rounds: each round's :class:`ExchangeRound` with this rank's wires
     ([W_k]); peers: each round's (rank this one sends to, rank it receives
     from), None where it does not; ``post(items)`` takes one ``(rows, to,
-    frm, shape, dtype)`` per round (``Group.post_swaps``), issues every
+    frm, shape, dtype)`` per round (``Group.post_permute``), issues every
     transfer at once and returns an object whose ``wait()`` gives each
     round's received rows.
 
@@ -377,7 +384,9 @@ def halo_exchange_rank_post(a: torch.Tensor, send: HaloWire, recv: HaloWire,
     its slice of :func:`halo_exchange`.  ``reverse`` posts the reversed
     exchange, the gradient of the forward one (``a`` the incoming
     gradient: one pack through ``recv``, each round's slice back to its
-    sender, one unpack-add per round through the round's send wire).  Not
+    sender, one unpack-add per round through the round's send wire).
+    ``wire_dtype`` casts the packed rows to it once after the pack, and
+    each round received back before its unpack-add.  Not
     differentiable itself: ``a`` must need no gradient
     (``core/halo.py::halo_sync`` wraps both directions in one
     ``autograd.Function``).  Returns the :class:`PendingExchange`."""
@@ -394,6 +403,8 @@ def halo_exchange_rank_post(a: torch.Tensor, send: HaloWire, recv: HaloWire,
                          "use core/halo.py::halo_sync under autograd")
     wire = recv if reverse else send
     buf = _pack(a, wire.idx, wire.mask)
+    if wire_dtype is not None and wire_dtype != buf.dtype:
+        buf = buf.to(wire_dtype)
     items = []
     for rnd, (to, frm) in zip(rounds, peers):
         lo = rnd.offset
@@ -401,5 +412,5 @@ def halo_exchange_rank_post(a: torch.Tensor, send: HaloWire, recv: HaloWire,
         if reverse:
             to, frm = frm, to
         items.append((buf[lo:hi] if to is not None else None, to, frm,
-                      (hi - lo, a.shape[1]), a.dtype))
+                      (hi - lo, a.shape[1]), buf.dtype))
     return PendingExchange(a, rounds, post(items), reverse)

@@ -91,6 +91,43 @@ _SIGNATURES_MLP_AGG["edge_mlp_agg_plan"] = (_I,) * 4 + (ctypes.POINTER(ctypes.c_
 MLP_AGG_MAX_FIN, MLP_AGG_MAX_HIDDEN, MLP_AGG_MAX_BLOCK_N = 128, 32, 256
 
 
+#: env var overriding the block-size table: "block_n,block_e"
+BLOCKS_ENV = "REPRO_SEG_BLOCKS"
+#: (max hidden, block_n, block_e) rows by backend, first match wins.  The
+#: CPU rows are the reference's.  On a card kernels 1 and 2 walk the
+#: compact layout node by node, so the pair does not change their
+#: arithmetic; the CUDA row is the pair the measurement of kernel 3 (the
+#: dst-aligned op, block_n <= 256, H <= 32) picked at H = 32 among 64/128,
+#: 128/256 and 256/256 (PERF.md §6; chip_smoke.py phase 2,
+#: ``block_pairs_ms``), applied at every width.
+BLOCK_TABLE = {"cpu": ((64, 16, 32), (256, 32, 64), (4096, 32, 32)),
+               "cuda": ((4096, 64, 128),)}
+
+
+def pick_block_sizes(hidden: int, dtype=torch.float32,
+                     backend: str | None = None) -> Tuple[int, int]:
+    """Static block-size table of the fused NMP kernels (port of
+    ``repro.kernels.segment_agg.ops.pick_block_sizes``): ``(block_n,
+    block_e)`` keyed on (hidden, dtype, backend), ``backend`` "cpu" or
+    "cuda" (default: "cuda" where torch finds a card).  bf16 rows are half
+    the bytes, so they go twice as deep.  ``REPRO_SEG_BLOCKS``
+    ("block_n,block_e") overrides the table."""
+    import os
+    override = os.environ.get(BLOCKS_ENV)
+    if override:
+        bn, be = (int(v) for v in override.split(","))
+        return bn, be
+    if backend is None:
+        backend = "cuda" if torch.cuda.is_available() else "cpu"
+    table = BLOCK_TABLE["cuda" if backend == "cuda" else "cpu"]
+    for max_h, bn, be in table:
+        if hidden <= max_h:
+            break
+    if torch.empty((), dtype=dtype).element_size() <= 2:
+        be *= 2
+    return bn, be
+
+
 # ---------------------------------------------------------------------------
 # layout pass (host)
 # ---------------------------------------------------------------------------

@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.consistency --device cpu
     PYTHONPATH=src python -m repro_torch.launch.consistency --device cpu --levels 3
+    PYTHONPATH=src python -m repro_torch.launch.consistency --device cpu \
+        --partitioner spectral
 
 On the reference check's mesh (``box_mesh((4, 4, 2), p=3)``) and model
 (``GNNConfig.small()``), spawns the reference check's (rank grid, data replicas) cases, one
@@ -36,7 +38,16 @@ runs every case over ``core/coarsen.py``'s hierarchy of the case's rank
 grid (one halo spec per level, every level's graph on each process): the
 counterpart of the reference's ``tests/drivers/multilevel_driver.py``
 (:func:`multilevel_job`: its mesh, model and rank grids; gradients held to
-its rtol 2e-3).  The workers import nothing outside this package.
+its rtol 2e-3).  ``Job.partitioner`` (the CLI's ``--partitioner``)
+splits every case by ``block`` element grids or by ``spectral`` bisection
+(a vertex cut), as the reference check's ``--partitioner`` does.
+``Job.forms`` runs, on the 4-rank case, every form of the exchange alone
+on a seeded aggregate (:data:`FORMS`: a2a, dense and packed neighbor, the
+two-level rounds2d dense and packed, each with and without the bf16 wire,
+under sum and under max), and ``Job.tune`` (a width) resolves a
+(schedule x halo-mode x wire) ``auto`` plan through the multi-process
+tuner twice, with the launches of each call.  The workers import nothing
+outside this package.
 """
 from __future__ import annotations
 
@@ -56,12 +67,15 @@ from repro_torch.core.consistent_loss import (
     consistent_mse, consistent_node_count, consistent_node_sum)
 from repro_torch.core.distributed import make_gnn_step_fns
 from repro_torch.core.gnn import GNNConfig, init_gnn
+from repro_torch.core.consistent_mp import _pick_of, measure_plan_candidates
 from repro_torch.core.graph_state import (
-    BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph)
+    AUTO, BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph)
 from repro_torch.core.halo import (
-    A2A, NEIGHBOR, NONE, HaloSpec, halo_sync, halo_sync_post)
+    A2A, MAX, NEIGHBOR, NONE, SUM, HaloSpec, halo_sync, halo_sync_post)
 from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
-from repro_torch.core.partition import gather_node_features, partition_mesh
+from repro_torch.core.partition import (
+    gather_node_features, partition_mesh, partition_mesh_2d)
+from repro_torch.core.partition_quality import mesh_node2part
 from repro_torch.core.reference import loss_and_grad_stacked
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import make_mesh, spawn
@@ -75,6 +89,16 @@ CASES = {2: (((2, 1, 1), 1),),
 #: halo modes: name -> (HaloSpec mode, packed)
 MODES = {"a2a": (A2A, False), "neighbor": (NEIGHBOR, False),
          "packed": (NEIGHBOR, True), "none": (NONE, False)}
+#: modes with a compressed wire: name -> (HaloSpec mode, packed, wire)
+WIRE_MODES = {"packed_bf16": (NEIGHBOR, True, torch.bfloat16)}
+#: the exchange forms of ``Job.forms``: name -> (partition: "block" or the
+#: two-level "2d" grid, HaloSpec mode, packed, wire, combine)
+FORMS = {f"{base}{'_bf16' if wire else ''}_{combine}": (part, mode, packed, wire, combine)
+         for base, (part, mode, packed) in (
+             ("a2a", ("block", A2A, False)), ("neighbor", ("block", NEIGHBOR, False)),
+             ("packed", ("block", NEIGHBOR, True)), ("rounds2d", ("2d", NEIGHBOR, False)),
+             ("rounds2d_packed", ("2d", NEIGHBOR, True)))
+         for wire in (None, torch.bfloat16) for combine in (SUM, MAX)}
 DT = 0.05
 SEED = 0
 #: the training run's (rank grid, data replicas) and global batch
@@ -106,6 +130,9 @@ class Job:
     rollout: int = 0              # K of a rollout on the last case (packed)
     train_steps: int = 0          # training steps (packed neighbor) on TRAIN_CASE
     timing: int = 0               # timed repeats of the packed forward and step
+    partitioner: str = "block"    # or "spectral" (a vertex cut)
+    forms: bool = False           # every exchange form alone (FORMS), 4 ranks
+    tune: int = 0                 # width of the multi-process autotune (0: off)
 
 
 def _params(job: Job, device):
@@ -118,17 +145,33 @@ def plan_for(pg, mode: str, backend: str, schedule: str = BLOCKING,
              hier=None) -> NMPPlan:
     """The plan of one halo mode on ``pg`` (one spec per level of ``hier``,
     the hierarchy over ``pg``, when given)."""
-    halo_mode, packed = MODES[mode]
+    halo_mode, packed, wire = WIRE_MODES.get(mode) or MODES[mode] + (None,)
     return NMPPlan.build(pg if hier is None else hier, halo_mode, packed=packed,
-                         backend=backend, schedule=schedule)
+                         wire_dtype=wire, backend=backend, schedule=schedule)
 
 
-def partition(sem, grid, cfg: GNNConfig):
-    """(fine partition, hierarchy or None) of ``grid`` for ``cfg``."""
+def partition(sem, grid, cfg: GNNConfig, partitioner: str = "block"):
+    """(fine partition, hierarchy or None) of ``grid`` for ``cfg``, split by
+    ``partitioner``."""
     if cfg.n_levels > 1:
-        hier = build_hierarchy(sem, grid, cfg.n_levels)
+        node2part = (mesh_node2part(sem, int(np.prod(grid)))
+                     if partitioner == "spectral" else None)
+        hier = build_hierarchy(sem, grid, cfg.n_levels, node2part=node2part)
         return hier.levels[0], hier
-    return partition_mesh(sem, grid), None
+    return partition_mesh(sem, grid, method=partitioner), None
+
+
+def form_spec(pg, name: str) -> HaloSpec:
+    """The HaloSpec of one of :data:`FORMS` on ``pg`` (the form's own
+    partition: :func:`form_partitions`)."""
+    _, mode, packed, wire, _ = FORMS[name]
+    return NMPPlan.build(pg, mode, packed=packed, wire_dtype=wire).halo
+
+
+def form_partitions(sem) -> dict:
+    """The 4-rank partitions of :data:`FORMS` by name: the (2, 2, 1) block
+    split and the two-level split of a (2, 2) rank grid."""
+    return {"block": partition_mesh(sem, (2, 2, 1)), "2d": partition_mesh_2d(sem, (2, 2))}
 
 
 def build_graph(pg, hier, sem, plan: NMPPlan, device, rank=None) -> ShardedGraph:
@@ -234,6 +277,62 @@ def _halo_case(mesh, pg, graph, job, R):
     return out
 
 
+def _forms_case(mesh, sem, job, R):
+    """Each of :data:`FORMS` on a seeded aggregate (masked to real rows):
+    the exchange without gradient, and under sum its gradient; with this
+    process's launches and staged bytes of the exchange."""
+    f = job.cfg.hidden
+    parts = form_partitions(sem)
+    graphs = {k: ShardedGraph.build(pg, sem.coords, NMPPlan.build(pg, NEIGHBOR, packed=True),
+                                    device=mesh.device, rank=mesh.rank)
+              for k, pg in parts.items()}
+    tr, out = mesh.graph_group.transport, {}
+    for name, (part, _, _, _, combine) in FORMS.items():
+        pg, g = parts[part], graphs[part]
+        spec = form_spec(pg, name)
+        a_all = seeded(6, (R, pg.n_pad, f)) * pg.node_mask[..., None]
+        a = torch.from_numpy(a_all[mesh.rank]).to(mesh.device)
+        tr.reset()
+        with torch.no_grad():
+            y, launches = _counted(lambda: halo_sync(a, g, spec, mesh, combine))
+        rec = {"out": y, "launches": launches, "staged_bytes": tr.staged_bytes,
+               "sent_bytes": tr.sent_bytes}
+        if combine == SUM:
+            w = torch.from_numpy(seeded(7, (R, pg.n_pad, f))[mesh.rank]).to(mesh.device)
+            a_g = a.clone().requires_grad_(True)
+            rec["grad"], = torch.autograd.grad((halo_sync(a_g, g, spec, mesh) * w).sum(),
+                                               a_g)
+        out[name] = rec
+    return out
+
+
+def _tune_case(mesh, pg, sem, job):
+    """A (schedule x halo-mode x wire) ``auto`` plan with the bf16 wire
+    resolved by the multi-process tuner at width ``job.tune`` (the lead
+    measures on the stacked graph, every process takes its pick), then
+    again (a cache hit: nothing measured, nothing launched).  The lead's
+    record holds the measured table."""
+    plan = NMPPlan.build(pg, AUTO, schedule=AUTO, wire_dtype=torch.bfloat16,
+                         backend=job.backends[-1])
+    g = ShardedGraph.build(pg, sem.coords, plan, device=mesh.device, rank=mesh.rank)
+    held = {}
+
+    def stacked():
+        held["g"] = ShardedGraph.build(pg, sem.coords, plan, device=mesh.device)
+        return held["g"]
+    t0 = time.perf_counter()
+    first, launches = _counted(lambda: plan.autotune(g, hidden=job.tune, mesh=mesh,
+                                                     stacked=stacked))
+    seconds = time.perf_counter() - t0
+    again, launches_again = _counted(lambda: plan.autotune(g, hidden=job.tune, mesh=mesh,
+                                                           stacked=stacked))
+    rec = {"pick": _pick_of(first), "pick_again": _pick_of(again), "launches": launches,
+           "launches_again": launches_again, "seconds": seconds}
+    if "g" in held:
+        rec["table"] = measure_plan_candidates(plan, held["g"], hidden=job.tune)
+    return rec
+
+
 def _reductions(mesh, pg, g, R):
     y_all = seeded(4, (2, R, pg.n_pad, 3))
     t_all = seeded(5, (2, R, pg.n_pad, 3))
@@ -264,6 +363,7 @@ def _steps(mesh, pg, sem, params, job, backend, mode, graph, schedule=BLOCKING,
     tr.reset()
     rec["pred"], rec["fwd_launches"] = _counted(lambda: eval_step(params, xs, graph))
     rec["fwd_exchanges"] = _exchanges(tr)
+    rec["fwd_staged_bytes"], rec["fwd_sent_bytes"] = tr.staged_bytes, tr.sent_bytes
     tr.reset()
     (rec["loss"], rec["grads"]), rec["grad_launches"] = _counted(
         lambda: grad_step(params, xs, ys, graph))
@@ -309,7 +409,7 @@ def _world(job: Job, world: int, backend: str):
         R = int(np.prod(grid))
         mesh = make_mesh(data, R, backend=backend, device=job.device)
         params = _params(job, mesh.device)
-        pg, hier = partition(sem, grid, job.cfg)
+        pg, hier = partition(sem, grid, job.cfg, job.partitioner)
         rec = {"rank": mesh.rank, "replica": mesh.replica}
         rec.update((steps_key(sch), {}) for sch in job.schedules)
         # an overlap plan's graph also carries what the blocking one reads
@@ -331,13 +431,17 @@ def _world(job: Job, world: int, backend: str):
                 rec["halo"] = _halo_case(mesh, pg, g, job, R)
             if job.reductions:
                 rec["reductions"] = _reductions(mesh, pg, g["a2a"], R)
+        if job.forms and R == 4:
+            rec["forms"] = _forms_case(mesh, sem, job, R)
+        if job.tune:
+            rec["tune"] = _tune_case(mesh, pg, sem, job)
         if job.rollout and ci == len(cases) - 1:
             rec["rollout"] = _rollout(mesh, pg, sem, params, job, hier)
         out[case_name(grid, data)] = rec
     if job.train_steps:
         grid, data = TRAIN_CASE
         mesh = make_mesh(data, int(np.prod(grid)), backend=backend, device=job.device)
-        pg, hier = partition(sem, grid, job.cfg)
+        pg, hier = partition(sem, grid, job.cfg, job.partitioner)
         out["train"] = _train(mesh, pg, sem, job, hier)
     return out
 
@@ -472,12 +576,15 @@ def main(argv=None):
     ap.add_argument("--schedule", nargs="+", default=[BLOCKING],
                     choices=[BLOCKING, OVERLAP])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--partitioner", default="block", choices=["block", "spectral"],
+                    help="split every case by element blocks or by spectral "
+                         "bisection (a vertex cut)")
     ap.add_argument("--levels", type=int, default=1,
                     help="> 1: the multilevel V-cycle on the reference "
                          "multilevel check's mesh, model and rank grids")
     args = ap.parse_args(argv)
     kw = dict(device=args.device, backends=tuple(args.mp_backend),
-              schedules=tuple(args.schedule))
+              schedules=tuple(args.schedule), partitioner=args.partitioner)
     job = multilevel_job(args.levels, **kw) if args.levels > 1 else Job(**kw)
     g_rtol = ML_G_RTOL if args.levels > 1 else G_RTOL
     base = baseline(job)

@@ -21,12 +21,16 @@ tensor), and a worker that raises makes :func:`spawn` raise.
 * ``nccl``: device tensors go on the wire as they are, one card per
   process (``cuda:{rank}``); fewer cards than processes raises.
 * ``gloo``: CPU tensors go as they are; CUDA tensors are staged through
-  pinned host buffers explicitly (``staged_bytes`` counts both directions;
+  pinned host buffers explicitly (``sent_bytes`` counts what this process
+  hands to the backend under any backend, ``staged_bytes`` the staging
+  copies in both directions;
   ``stage_s`` / ``wire_s`` split the host time between the copies and the
   gloo calls).  No CUDA tensor is ever handed to gloo, and no backend is
   ever switched silently.
 
-Every halo exchange is posted (``post_all_to_all``, ``post_swaps``): the
+Every halo exchange is posted (``post_all_to_all``; ``post_permute``, one
+one-way permutation per round: a neighbor round's pair swaps, or one hop
+of a two-level round): the
 transfers are issued now and :meth:`Posted.wait` collects them later, so
 work queued on the card in between runs while they are in flight; a
 caller that needs the rows at once waits right away (the autograd
@@ -38,6 +42,10 @@ blocked there) and copies each round's rows back to the card.  ``posted``
 counts the exchanges waited and ``overlapped`` those of them the overlap
 schedule finished after queueing other work
 (``core/distributed.py::HaloFn.post``), so a run can show which it took.
+gloo moves a ``bfloat16`` tensor (a compressed halo wire) as its bits, a
+``uint8`` view of the same bytes (gloo's all-to-all takes neither
+``bfloat16`` nor ``int16``), so ``staged_bytes`` counts two bytes an
+element.
 """
 from __future__ import annotations
 
@@ -83,7 +91,7 @@ class Transport:
         self.reset()
 
     def reset(self):
-        self.staged_bytes, self.stage_s, self.wire_s = 0, 0.0, 0.0
+        self.staged_bytes, self.sent_bytes, self.stage_s, self.wire_s = 0, 0, 0.0, 0.0
         self.sync_s, self.wait_s = 0.0, 0.0
         self.posted, self.overlapped = 0, 0
 
@@ -130,42 +138,55 @@ class Transport:
         self.wire_s += time.perf_counter() - t0
         return out
 
+    def _bits(self, dtype, shape):
+        """(dtype, shape) a ``dtype`` tensor of ``shape`` crosses the backend
+        as: gloo moves bfloat16 as the uint8 view of its bytes."""
+        if self.backend == "gloo" and dtype == torch.bfloat16:
+            return torch.uint8, tuple(shape[:-1]) + (2 * shape[-1],)
+        return dtype, tuple(shape)
+
     def post_all_to_all(self, buf: torch.Tensor, group: "Group") -> "Posted":
         """``buf`` [S, ...] with slice s for group rank s, posted:
         ``wait()`` returns ``[got]``, [S, ...] with slice s from group rank
         s."""
-        send = self._out(buf.contiguous())
-        got = self._empty(buf.shape, buf.dtype)
+        bits, shape = self._bits(buf.dtype, buf.shape)
+        send = self._out(buf.contiguous().view(bits))
+        self.sent_bytes += send.numel() * send.element_size()
+        got = self._empty(shape, bits)
         work = self._wire(lambda: dist.all_to_all_single(got, send, group=group.pg,
                                                          async_op=True))
-        return Posted(self, [[work]], [got], [send])
+        return Posted(self, [[work]], [got], [send], [buf.dtype])
 
-    def post_swaps(self, rounds, group: "Group") -> "Posted":
-        """Every round of an exchange, posted: ``rounds`` holds one
-        ``(send, dst, src, shape, dtype)`` per round (round k under tag k):
-        send ``send`` to group rank ``dst`` and receive a ``shape`` tensor
-        from group rank ``src``, either of them None where this process
-        sits the round out.  ``wait()`` returns what arrived in each round
-        (None where nothing was received)."""
+    def post_permute(self, rounds, group: "Group", tag: int = 0) -> "Posted":
+        """One one-way permutation per round, every round posted at once:
+        ``rounds`` holds one ``(send, dst, src, shape, dtype)`` per round
+        (round k under tag ``tag + k``): send ``send`` to group rank ``dst``
+        and receive a ``shape`` tensor from group rank ``src``, either of
+        them None where this process sits the round out.  ``wait()``
+        returns what arrived in each round (None where nothing was
+        received)."""
         rounds = list(rounds)
-        if self.stages and any(r[0] is not None for r in rounds):
+        if self.stages and any(r[0] is not None and r[1] is not None for r in rounds):
             self._sync()
-        works, recvs, keep = [], [], []
+        works, recvs, keep, dtypes = [], [], [], []
         for k, (send, dst, src, shape, dtype) in enumerate(rounds):
             ops, got = [], None
+            bits, shape = self._bits(dtype, shape)
             if dst is not None:
-                rows = send.contiguous()
+                rows = send.contiguous().view(bits)
                 rows = self._stage(rows) if self.stages else rows
+                self.sent_bytes += rows.numel() * rows.element_size()
                 keep.append(rows)
                 ops.append(dist.P2POp(dist.isend, rows, group.ranks[dst],
-                                      group=group.pg, tag=k))
+                                      group=group.pg, tag=tag + k))
             if src is not None:
-                got = self._empty(shape, dtype)
+                got = self._empty(shape, bits)
                 ops.append(dist.P2POp(dist.irecv, got, group.ranks[src],
-                                      group=group.pg, tag=k))
+                                      group=group.pg, tag=tag + k))
             works.append(self._wire(lambda: dist.batch_isend_irecv(ops)) if ops else [])
             recvs.append(got)
-        return Posted(self, works, recvs, keep)
+            dtypes.append(dtype)
+        return Posted(self, works, recvs, keep, dtypes)
 
     def all_reduce(self, t: torch.Tensor, group: "Group") -> torch.Tensor:
         """A new tensor holding the sum of ``t`` over ``group``."""
@@ -180,27 +201,31 @@ class Transport:
 
 class Posted:
     """A posted exchange of one process: the backend's works per round, the
-    buffers receiving each round (None where nothing is received) and the
-    send buffers, held until the works are done."""
+    buffers receiving each round (None where nothing is received), the send
+    buffers, held until the works are done, and the dtype of each round's
+    rows."""
 
-    def __init__(self, transport: Transport, works, recvs, keep):
+    def __init__(self, transport: Transport, works, recvs, keep, dtypes):
         self.transport, self.works, self.recvs, self.keep = transport, works, recvs, keep
+        self.dtypes = dtypes
         self.done = False
 
-    def wait(self) -> list:
+    def wait(self, count: bool = True) -> list:
         """Wait the rounds in order; each round's rows on this process's
-        device, in round order."""
+        device, in round order.  ``count`` adds the exchange to
+        ``posted`` (a two-level exchange's first hops do not count)."""
         if self.done:
             raise RuntimeError("this posted exchange was already waited")
         tr, out = self.transport, []
-        for works, got in zip(self.works, self.recvs):
+        for works, got, dtype in zip(self.works, self.recvs, self.dtypes):
             t0 = time.perf_counter()
             for work in works:
                 work.wait()
             tr.wait_s += time.perf_counter() - t0
-            out.append(None if got is None else tr._back(got, non_blocking=True))
+            out.append(None if got is None
+                       else tr._back(got, non_blocking=True).view(dtype))
         self.done, self.keep = True, None
-        tr.posted += 1
+        tr.posted += int(count)
         return out
 
 
@@ -224,8 +249,8 @@ class Group:
     def post_all_to_all(self, buf: torch.Tensor) -> Posted:
         return self.transport.post_all_to_all(buf, self)
 
-    def post_swaps(self, rounds) -> Posted:
-        return self.transport.post_swaps(rounds, self)
+    def post_permute(self, rounds, tag: int = 0) -> Posted:
+        return self.transport.post_permute(rounds, self, tag)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

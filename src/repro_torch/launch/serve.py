@@ -24,7 +24,9 @@ checkpoint first, as the reference's ``_bootstrap`` does.
 ``--transport`` (gloo: CUDA tensors staged through the host, so processes
 may share a card; nccl: one card per process, refused with fewer cards);
 each builds the engine over the mesh and its rank's graph of the
-``--rank-grid`` split, process 0 streams and prints, the others follow.
+``--rank-grid`` split (``--partitioner spectral``: the spectral bisection's
+vertex cut on ``--ranks`` parts), process 0 streams and prints, the others
+follow.
 :class:`ServeJob` and :func:`run_world` are the same run as a library
 call (several jobs in one spawn); ``run_world(..., worker=)`` runs
 another per-process function in the same world, as the serving checks
@@ -81,6 +83,7 @@ class ServeJob:
     packed: bool = False
     device: str = "cuda"
     transport: str = "gloo"
+    partitioner: str = "block"
 
     @property
     def ranks(self) -> int:
@@ -94,7 +97,8 @@ class ServeJob:
     def engine_config(self) -> EngineConfig:
         return EngineConfig(batch_slots=self.batch_slots,
                             rollout_steps=self.rollout_steps,
-                            max_pending=self.max_pending, halo_mode=self.halo_mode)
+                            max_pending=self.max_pending, halo_mode=self.halo_mode,
+                            partitioner=self.partitioner)
 
 
 def _peak(device) -> int:
@@ -232,6 +236,9 @@ def main(argv=None):
                     help="element split of the ranks (default: R x 1 x 1)")
     ap.add_argument("--schedule", default=BLOCKING, choices=["blocking", "overlap"])
     ap.add_argument("--halo-mode", default=A2A, choices=[A2A, NEIGHBOR])
+    ap.add_argument("--partitioner", default="block", choices=["block", "spectral"],
+                    help="block = element blocks of --rank-grid; spectral = "
+                         "recursive spectral bisection (a vertex cut)")
     ap.add_argument("--packed", action="store_true",
                     help="the packed neighbor exchange (needs --halo-mode neighbor)")
     ap.add_argument("--transport", default="gloo", choices=list(BACKENDS),
@@ -275,7 +282,7 @@ def main(argv=None):
           f"step {step}, trained mesh {fp['mesh_hash']} "
           f"(n_global={fp['n_global']}), serving on {args.device} with the "
           f"{args.mp_backend} backend, {args.ranks} rank(s) {grid}, schedule "
-          f"{args.schedule}" + (f", {args.halo_mode}{' packed' if args.packed else ''} "
+          f"{args.schedule}, {args.partitioner} partition" + (f", {args.halo_mode}{' packed' if args.packed else ''} "
                                 f"exchange over {args.transport}" if args.ranks > 1 else ""),
           flush=True)
     job = ServeJob(ckpt_dir=args.ckpt_dir, elements=elements, order=args.p,
@@ -284,7 +291,7 @@ def main(argv=None):
                    producers=args.producers, max_pending=args.max_pending,
                    backend=args.mp_backend, schedule=args.schedule,
                    halo_mode=args.halo_mode, packed=args.packed, device=args.device,
-                   transport=args.transport)
+                   transport=args.transport, partitioner=args.partitioner)
     rec = run_world(job)[0][0]
     lat, st = rec["latency_ms"], rec["stream_stats"]
     print(f"[serve] {rec['n']} requests in {rec['wall_s']:.2f}s "

@@ -123,7 +123,7 @@ def check_process(job: CheckJob):
         rec["refused_registration"] = str(e)
     mesh_hash = engine.register_mesh(sem, rank_grid=job.rank_grid)
     entry = engine.entry(mesh_hash)
-    rec.update(mesh_hash=mesh_hash, build_s=entry.build_s)
+    rec.update(mesh_hash=mesh_hash, build_s=entry.build_s, policy=entry.plan.policy())
     if job.halo and mesh is not None:
         rec["halo"] = _halo_check(mesh, entry.pg, sem.coords, engine.cfg.hidden)
     if not engine.lead:

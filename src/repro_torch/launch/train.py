@@ -7,9 +7,11 @@
         --elements 2 2 1 --order 2 --steps 3 --batch 2 \
         --ranks 2 1 1 --data-parallel 2                # 4 processes, gloo
 
-SEM mesh -> block partition -> ``ShardedGraph`` on the device -> fused (or
-plain) NMP forward and backward -> Eq. 6 loss -> AdamW -> synchronous
-fingerprinted checkpoints (``--ckpt``), readable by either package.
+SEM mesh -> block (or ``--partitioner spectral``: recursive spectral
+bisection, a vertex cut) partition -> ``ShardedGraph`` on the device ->
+fused (or plain) NMP forward and backward -> Eq. 6 loss -> AdamW ->
+synchronous fingerprinted checkpoints (``--ckpt``), readable by either
+package.
 ``--rollout-steps K`` (K > 1) trains autoregressively over the model's own
 predictions; ``--pushforward-noise`` adds the detached step-1 noise.
 
@@ -25,9 +27,16 @@ on bf16-rounded operands with fp32 accumulation.  ``--levels L`` (L > 1)
 adds the consistent multilevel V-cycle (``core/coarsen.py``: level 1 the
 element centroids, deeper levels the element grid clustered 2x per axis)
 with ``--coarse-mp-layers`` NMP layers per coarse level, at R=1 and under
-``--ranks``.  What is not ported, the CLI refuses naming the slice that
-brings it: the ``auto`` schedule, the spectral partitioner and the
-resilient ``--ckpt-dir`` mode.
+``--ranks`` (with ``--partitioner spectral`` its level 0 is the spectral
+split).  ``--mp-schedule auto`` measures blocking against overlap once on
+this partition at the model's width and trains with the faster (over
+processes the lead measures, every process takes its pick).  What is not
+ported, the CLI refuses naming the slice that brings it: the resilient
+``--ckpt-dir`` mode.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --elements 2 2 1 --order 2 --steps 3 --batch 1 \
+        --mp-schedule auto --partitioner spectral --ranks 2 1 1
 """
 import argparse
 import dataclasses
@@ -38,6 +47,7 @@ from repro_torch.core.gnn import GNNConfig
 from repro_torch.core.graph_state import FP32, PRECISIONS, NMPPlan
 from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import partition_mesh
+from repro_torch.core.partition_quality import mesh_node2part
 from repro_torch.launch.mesh import BACKENDS, check_backend, make_mesh, spawn
 from repro_torch.train.loop import TrainConfig, train_consistent_gnn
 
@@ -50,13 +60,16 @@ def _run(args, mesh=None):
         cfg = dataclasses.replace(cfg, n_levels=args.levels,
                                   coarse_mp_layers=args.coarse_mp_layers,
                                   coarse_edge_in=sem.dim + 1)
-        hierarchy = build_hierarchy(sem, tuple(args.ranks), args.levels)
+        node2part = (mesh_node2part(sem, _ranks(args))
+                     if args.partitioner == "spectral" else None)
+        hierarchy = build_hierarchy(sem, tuple(args.ranks), args.levels,
+                                    node2part=node2part)
         pg = hierarchy.levels[0]
         if mesh is None or mesh.lead:
             sizes = " -> ".join(str(s) for s in hierarchy.level_sizes())
             print(f"multilevel hierarchy: {sizes} nodes per level", flush=True)
     else:
-        pg = partition_mesh(sem, tuple(args.ranks))
+        pg = partition_mesh(sem, tuple(args.ranks), method=args.partitioner)
     tcfg = TrainConfig(n_steps=args.steps, batch=args.batch, lr=args.lr,
                        halo_mode=args.halo, ckpt_dir=args.ckpt,
                        ckpt_every=args.ckpt_every,
@@ -69,6 +82,8 @@ def _run(args, mesh=None):
     hist = train_consistent_gnn(pg, sem, cfg, tcfg, device=args.device, mesh=mesh,
                                 hierarchy=hierarchy)
     if mesh is None or mesh.lead:
+        if args.mp_schedule == "auto":
+            print(f"schedule auto resolved to {hist['schedule']}", flush=True)
         print(f"loss {hist['losses'][0]:.6f} -> {hist['losses'][-1]:.6f} "
               f"({len(hist['losses'])} steps, {hist['straggler_events']} "
               "straggler events)", flush=True)
@@ -112,8 +127,14 @@ def main(argv=None):
                     help="NMP hot loop: plain PyTorch (xla) or the CUDA "
                          "kernels (fused; plain versions on the CPU)")
     ap.add_argument("--mp-schedule", default="blocking",
-                    choices=["blocking", "overlap", "auto"])
-    ap.add_argument("--partitioner", default="block", choices=["block", "spectral"])
+                    choices=["blocking", "overlap", "auto"],
+                    help="halo/compute schedule: auto measures both on this "
+                         "graph x rank count and trains with the faster")
+    ap.add_argument("--partitioner", default="block", choices=["block", "spectral"],
+                    help="block = element blocks along --ranks; spectral = "
+                         "recursive spectral bisection + KL refinement (a "
+                         "vertex cut): lower halo volume on stretched meshes, "
+                         "the same results either way")
     ap.add_argument("--mp-precision", default=FP32, choices=PRECISIONS,
                     help="edge-MLP products: bf16 rounds their operands to "
                          "bf16 and accumulates in fp32 (the kernels' bf16 "
@@ -131,20 +152,9 @@ def main(argv=None):
                          "(needs --rollout-steps > 1)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    refusals = (
-        (args.mp_schedule == "auto",
-         "--mp-schedule auto is not ported (ROADMAP queue: 'Spectral "
-         "partitioning and autotune')"),
-        (args.partitioner != "block",
-         "--partitioner spectral is not ported (ROADMAP queue: "
-         "'Spectral partitioning and autotune')"),
-        (args.ckpt_dir is not None,
-         "--ckpt-dir (resilient auto-resume) is not ported "
-         "(ROADMAP queue: 'Checkpoint resilience'); use --ckpt"),
-    )
-    for refused, msg in refusals:
-        if refused:
-            ap.error(msg)
+    if args.ckpt_dir is not None:
+        ap.error("--ckpt-dir (resilient auto-resume) is not ported "
+                 "(ROADMAP queue: 'Checkpoint resilience'); use --ckpt")
     if args.levels < 1 or args.coarse_mp_layers < 0:
         ap.error("--levels must be >= 1 and --coarse-mp-layers >= 0")
     if args.rollout_steps < 1:
@@ -168,7 +178,8 @@ def main(argv=None):
     print(f"mesh: {sem.n_elem} elems p={args.order} ({sem.n_nodes} nodes); "
           f"R={_ranks(args)} x DP={args.data_parallel} on {args.device}"
           + (f" ({nprocs} processes, {args.dist_backend})" if nprocs > 1 else "")
-          + f"; backend={args.mp_backend}, schedule={args.mp_schedule}, "
+          + f"; partitioner={args.partitioner}; backend={args.mp_backend}, "
+          f"schedule={args.mp_schedule}, "
           f"precision={args.mp_precision}; levels={args.levels}; rollout "
           f"K={args.rollout_steps}", flush=True)
     if nprocs == 1:

@@ -72,10 +72,11 @@ from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.core.coarsen import build_hierarchy
 from repro_torch.core.gnn import GNNConfig, init_gnn
 from repro_torch.core.graph_state import NMPPlan, ShardedGraph
-from repro_torch.core.halo import A2A, NEIGHBOR, NONE
+from repro_torch.core.halo import A2A, AUTO, NEIGHBOR, NONE
 from repro_torch.core.mesh_gen import SEMMesh
 from repro_torch.core.partition import (
     gather_node_features, partition_mesh, scatter_node_outputs)
+from repro_torch.core.partition_quality import mesh_node2part
 from repro_torch.data.pipeline import PrefetchingLoader
 from repro_torch.kernels import build
 from repro_torch.train.loop import mesh_fingerprint_hash
@@ -106,8 +107,10 @@ class EngineConfig:
     zero-padded up to it), ``max_pending`` bounds the request queue (the
     backpressure point), ``flush_timeout_s`` is how long a non-full batch
     waits for more requests, ``halo_mode`` the exchange of R > 1 ranks
-    (``a2a`` or ``neighbor``; the packed neighbor exchange is the plan's
-    ``halo.packed``)."""
+    (``a2a``, ``neighbor`` or ``auto``, resolved with the plan's ``auto``
+    schedule by ``plan.autotune`` when a mesh is registered; the packed
+    neighbor exchange is the plan's ``halo.packed``), ``partitioner``
+    ``block`` or ``spectral``."""
     batch_slots: int = 4
     rollout_steps: int = 1
     max_pending: int = 16
@@ -117,9 +120,12 @@ class EngineConfig:
     partitioner: str = "block"
 
     def __post_init__(self):
-        if self.halo_mode not in (A2A, NEIGHBOR):
-            raise ValueError(f"halo_mode {self.halo_mode!r}: expected {A2A!r} or "
-                             f"{NEIGHBOR!r} ('auto' is not ported)")
+        if self.halo_mode not in (A2A, NEIGHBOR, AUTO):
+            raise ValueError(f"halo_mode {self.halo_mode!r}: expected {A2A!r}, "
+                             f"{NEIGHBOR!r} or {AUTO!r}")
+        if self.partitioner not in ("block", "spectral"):
+            raise ValueError(f"partitioner {self.partitioner!r}: expected 'block' "
+                             "or 'spectral'")
         if self.batch_slots < 1 or self.rollout_steps < 1 \
                 or self.max_pending < 1:
             raise ValueError(
@@ -261,6 +267,7 @@ class InferenceEngine:
                         "precision": plan.precision,
                         "block_n": plan.block_n, "block_e": plan.block_e}
         self._packed = plan.halo.packed
+        self._wire = plan.halo.wire_dtype
         self.params, self.fingerprint, self.ckpt_step = \
             self._load_params(ckpt_dir)
         self._graphs: dict[tuple, _GraphEntry] = {}
@@ -356,7 +363,10 @@ class InferenceEngine:
         scatter).  A multilevel model (``cfg.n_levels > 1``) runs over
         ``hierarchy`` (``core/coarsen.py::build_hierarchy`` of this mesh on
         the engine's R ranks; built here from ``rank_grid`` when not
-        given): one halo spec per level, every level's graph."""
+        given; with ``partitioner="spectral"`` over its spectral split):
+        one halo spec per level, every level's graph.  ``auto`` fields of
+        the plan are resolved here (over a mesh the lead measures on the
+        stacked graph and every process takes its pick)."""
         mesh_hash = mesh_fingerprint_hash(sem_mesh)
         if mesh_hash != self.fingerprint["mesh_hash"]:
             raise self._mismatch(mesh_hash)
@@ -374,11 +384,11 @@ class InferenceEngine:
                     f"rank_grid {grid} does not cover the engine's "
                     f"R={self.R} rank(s)")
             if self.cfg.n_levels > 1:
-                if partitioner != "block":
-                    raise EngineError(f"partitioner {partitioner!r} is not ported: "
-                                      "a multilevel hierarchy is built on 'block'")
                 if hierarchy is None:
-                    hierarchy = build_hierarchy(sem_mesh, grid, self.cfg.n_levels)
+                    node2part = (mesh_node2part(sem_mesh, self.R)
+                                 if partitioner == "spectral" else None)
+                    hierarchy = build_hierarchy(sem_mesh, grid, self.cfg.n_levels,
+                                                node2part=node2part)
                 if hierarchy.n_levels != self.cfg.n_levels \
                         or hierarchy.levels[0].R != self.R:
                     raise EngineError(
@@ -392,12 +402,14 @@ class InferenceEngine:
             mode = self.config.halo_mode if self.R > 1 else NONE
             plan = NMPPlan.build(part, mode,
                                  packed=self._packed and mode == NEIGHBOR,
-                                 **self._policy)
+                                 wire_dtype=self._wire, **self._policy)
             graph = ShardedGraph.build(
                 pg, sem_mesh.coords, plan, device=self.device,
                 rank=None if self.mesh is None else self.mesh.rank,
                 hierarchy=hierarchy)
-            plan = plan.autotune(graph, hidden=self.cfg.hidden)
+            plan = plan.autotune(graph, hidden=self.cfg.hidden, mesh=self.mesh,
+                                 stacked=lambda: ShardedGraph.build(
+                                     pg, sem_mesh.coords, plan, device=self.device))
             predict = make_rollout_predict_fn(self.cfg, plan,
                                               self.config.rollout_steps,
                                               mesh=self.mesh)

@@ -21,11 +21,16 @@ builds its rank's slice of the graph and of its replica's ``B / D``
 samples of each step's batch, the loss is consistent over the graph group
 and averaged over the replicas, the gradients are averaged over every
 process, and every process runs the same AdamW on them; only replica 0,
-rank 0 writes checkpoints.  ``plan.schedule`` is ``blocking`` or
+rank 0 writes checkpoints.  ``plan.schedule`` is ``blocking``,
 ``overlap`` (the interior/boundary split; a training step runs each
-layer's exchange between the two sides, blocking, as the gradient needs).
-Without a mesh R > 1 raises, as do ``resilience=`` (elastic resume and
-``AsyncCheckpointer`` are a later slice) and ``auto``.  A multilevel
+layer's exchange between the two sides, blocking, as the gradient needs)
+or ``auto``, and ``halo_mode`` may be ``auto`` too: the plan is resolved
+once per partition by ``plan.autotune(graph, hidden=cfg.hidden)`` where the
+reference calls it (under a mesh the lead measures on the stacked graph
+and every process takes its pick).  Reusing the resolved schedule on a
+same-R restart waits for the resilient ``--ckpt-dir`` mode.  Without a
+mesh R > 1 raises, as does ``resilience=`` (elastic resume and
+``AsyncCheckpointer`` are a later slice).  A multilevel
 config (``cfg.n_levels > 1``) needs ``hierarchy=`` (``core/coarsen.py::
 build_hierarchy``, whose level 0 is ``pg``): the plan gets one halo spec
 per level and the graph (this process's rank of every level) the coarse
@@ -49,7 +54,7 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.convert import params_from_jax
 from repro_torch.core.distributed import make_gnn_step_fns
 from repro_torch.core.gnn import GNNConfig, init_gnn
-from repro_torch.core.graph_state import BLOCKING, OVERLAP, NMPPlan, ShardedGraph
+from repro_torch.core.graph_state import NMPPlan, ShardedGraph
 from repro_torch.core.mesh_gen import SEMMesh, taylor_green_velocity
 from repro_torch.core.partition import PartitionedGraphs, gather_node_features
 from repro_torch.runtime.straggler import StragglerMonitor
@@ -191,19 +196,17 @@ def _build_execution(pg, sem_mesh, cfg, tcfg, device, mesh=None, hierarchy=None)
             "TrainConfig.ckpt_dir for synchronous checkpoints")
     policy = tcfg.plan
     plan = NMPPlan.build(pg if hierarchy is None else hierarchy, tcfg.halo_mode,
-                         packed=policy.halo.packed,
+                         packed=policy.halo.packed, wire_dtype=policy.halo.wire_dtype,
                          backend=policy.backend, schedule=policy.schedule,
                          precision=policy.precision, block_n=policy.block_n,
                          block_e=policy.block_e)
-    if plan.schedule not in (BLOCKING, OVERLAP):
-        raise NotImplementedError(
-            f"schedule {plan.schedule!r} is not ported to repro_torch yet "
-            "(ROADMAP queue: 'Spectral partitioning and autotune'); use "
-            "'blocking' or 'overlap'")
     graph = ShardedGraph.build(pg, sem_mesh.coords, plan, device=device,
                                rank=None if mesh is None else mesh.rank,
                                hierarchy=hierarchy)
-    plan = plan.autotune(graph, hidden=cfg.hidden)
+    # "auto" fields: measured once per partition (under a mesh, by the lead
+    # on the stacked level-0 graph, its pick broadcast to every process)
+    plan = plan.autotune(graph, hidden=cfg.hidden, mesh=mesh, stacked=lambda: (
+        ShardedGraph.build(pg, sem_mesh.coords, plan, device=device)))
     opt_cfg = AdamWConfig(schedule=constant_lr(tcfg.lr), weight_decay=0.0)
 
     def update(params, opt_state, grads):
@@ -273,7 +276,8 @@ def train_consistent_gnn(pg: PartitionedGraphs, sem_mesh: SEMMesh,
     rank on ``device``.  ``hierarchy`` (``core/coarsen.py::
     MultiLevelGraphs`` with ``pg`` as level 0) runs the consistent V-cycle
     when ``cfg.n_levels > 1``.  History: ``losses`` per step, ``rollout_k`` per
-    step, ``schedule``, ``straggler_events``, final ``params``, and the host
+    step, ``schedule`` and ``policy`` (the resolved plan's), ``straggler_events``,
+    final ``params``, and the host
     seconds per step: ``batch_s`` (host batch build + copy to the device)
     and ``step_s`` (the whole step, ending in a device synchronisation).
     """
@@ -285,7 +289,7 @@ def train_consistent_gnn(pg: PartitionedGraphs, sem_mesh: SEMMesh,
     params, opt_state = state["params"], state["opt"]
     monitor = StragglerMonitor()
     history = {"losses": [], "rollout_k": [], "schedule": ex.plan.schedule,
-               "batch_s": [], "step_s": []}
+               "policy": ex.plan.policy(), "batch_s": [], "step_s": []}
     for step in range(tcfg.n_steps):
         t0 = time.perf_counter()
         monitor.start_step()

@@ -1530,3 +1530,135 @@ def test_vcycle_on_card_fused_matches_plain(cuda, grid, schedule, precision):
         for a, b in zip(gf, gx):
             assert torch.allclose(a, b, rtol=G_RTOL, atol=G_ATOL) or \
                 _rel_norm(a, b) <= W_REL
+
+
+# ---------------------------------------------------------------------------
+# the exchange's remaining forms and the plan's choice: vertex-cut (spectral)
+# layouts, the bf16 wire, rounds2d, combine="max", the measured autotune
+# ---------------------------------------------------------------------------
+
+def _spectral_case(cuda, grid, rank, part, hidden=32, layers=3, seed=0):
+    """Kernel 1 and 2 inputs on one rank of a spectral (vertex-cut: d_ij ==
+    1, uneven ranks) split of a stretched mesh, or one overlap side."""
+    sem = box_mesh((8, 2, 2), p=2, lengths=(4.0, 1.0, 1.0))
+    pg = partition_mesh(sem, grid, method="spectral")
+    plan = NMPPlan.build(pg, NEIGHBOR, packed=True, backend=FUSED, schedule="overlap")
+    g = ShardedGraph.build(pg, sem.coords, plan, device=cuda).rank(rank)
+    n, n_e = g["node_mask"].shape[0], g["edge_mask"].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=layers - 1)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    for lp in edge["layers"]:
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    lay = tuple(g[f"seg_{k}{part}"] for k in ("perm", "src", "rowptr"))
+    src_lay = (g[f"seg_src_slots{part}"], g[f"seg_src_rowptr{part}"])
+    return (R(n, hidden), R(n_e, hidden), edge, lay, src_lay,
+            (g["edge_mask"], g["edge_inv_mult"]), (R(n_e, hidden), R(n, hidden)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", ["", "_bnd", "_int"], ids=["all", "bnd", "int"])
+@pytest.mark.parametrize("grid,rank", [((2, 2, 1), 0), ((2, 2, 1), 3), ((3, 1, 1), 1)],
+                         ids=["2x2_r0", "2x2_r3", "3x1_r1"])
+def test_fused_nmp_kernels_on_spectral_layouts(cuda, grid, rank, part):
+    """Kernels 1 and 2 (fp32) on a vertex-cut layout of the spectral
+    partitioner and on each overlap side: within the forward and gradient
+    bands of the plain versions, one launch each, bitwise repeatable."""
+    x, e, edge, lay, src_lay, rest, cot = _spectral_case(cuda, grid, rank, part)
+    n0 = _counts(*_NMP_COUNTERS)
+    e_new, agg = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    got = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, *cot)
+    torch.cuda.synchronize()
+    n1 = _counts(*_NMP_COUNTERS)
+    assert {k: n1[k] - n0[k] for k in _NMP_COUNTERS} == {
+        sa.KERNEL: 1, sa.KERNEL_BWD: 1, sa.KERNEL_BF16: 0, sa.KERNEL_BWD_BF16: 0}
+    pe, pa = sa.fused_nmp_edge_agg_plain(x, e, edge, *lay, *rest)
+    torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
+    want = sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest, *cot)
+    torch.testing.assert_close(got[0], want[0], rtol=G_RTOL, atol=G_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=G_RTOL, atol=G_ATOL)
+    for i, (a, b) in enumerate(zip(got[2:], want[2:])):
+        assert _rel_norm(a, b) <= W_REL, i
+    e2, a2 = sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+    assert torch.equal(e_new, e2) and torch.equal(agg, a2)
+
+
+def _form_graphs(device):
+    from repro_torch.launch import consistency as cons
+    sem = box_mesh((4, 4, 2), p=2)
+    parts = cons.form_partitions(sem)
+    return cons, parts, {k: ShardedGraph.build(pg, sem.coords,
+                                               NMPPlan.build(pg, NEIGHBOR, packed=True),
+                                               device=device)
+                         for k, pg in parts.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["a2a_bf16_sum", "neighbor_bf16_sum", "packed_sum",
+                                  "packed_bf16_sum", "rounds2d_packed_sum",
+                                  "rounds2d_packed_bf16_sum", "rounds2d_bf16_sum",
+                                  "a2a_max", "packed_max", "packed_bf16_max",
+                                  "rounds2d_max", "rounds2d_packed_bf16_max"])
+def test_exchange_forms_on_card_bitwise_cpu(cuda, name):
+    """Each form of the stacked exchange on the card (kernels 4 and 5 under
+    a bf16 wire and on rounds2d rounds; the scatter-max under
+    ``torch.use_deterministic_algorithms``): values and, under sum,
+    gradients bitwise equal to the CPU's plain exchange and to a second
+    run; pack / unpack-add launch for the packed sum forms exactly as
+    under the fp32 wire, never under max."""
+    cons, parts, graphs = _form_graphs(cuda)
+    _, _, cpu_graphs = _form_graphs("cpu")
+    part, _, packed, _, combine = cons.FORMS[name]
+    pg = parts[part]
+    spec = cons.form_spec(pg, name)
+    a = torch.from_numpy(cons.seeded(6, (4, pg.n_pad, 32)) * pg.node_mask[..., None])
+    w = torch.from_numpy(cons.seeded(7, tuple(a.shape)))
+    pairs = sum(len(p) for p in spec.perms)
+
+    def run(device, g):
+        x = a.to(device).requires_grad_(combine == "sum")
+        n0 = _counts(hp.PACK, hp.UNPACK)
+        y = halo_sync_stacked(x, g, spec, combine=combine)
+        gx = torch.autograd.grad((y * w.to(device)).sum(), x)[0] if combine == "sum" else None
+        n1 = _counts(hp.PACK, hp.UNPACK)
+        return y.detach(), gx, {k: n1[k] - n0[k] for k in n1}
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        y, gx, delta = run(cuda, graphs[part])
+        y2, gx2, _ = run(cuda, graphs[part])
+    finally:
+        torch.use_deterministic_algorithms(det)
+    want = ({hp.PACK: 2, hp.UNPACK: 2 * pairs} if packed and combine == "sum"
+            else {hp.PACK: 0, hp.UNPACK: 0})
+    assert delta == want
+    yc, gc, _ = run("cpu", cpu_graphs[part])
+    assert torch.equal(y, y2) and torch.equal(y.cpu(), yc)
+    if combine == "sum":
+        assert torch.equal(gx, gx2) and torch.equal(gx.cpu(), gc)
+
+
+@pytest.mark.gpu
+def test_autotune_on_card_grid_argmin_and_cache(cuda):
+    """halo mode auto with a bf16 wire on a stacked graph on the card: the
+    grid is 2 schedules x 3 mode labels (the packed candidate runs kernels
+    4 and 5 here) x 2 wires, the pick is the table's argmin, and a second
+    autotune launches nothing."""
+    from repro_torch.core import consistent_mp as cmp
+    sem = box_mesh((4, 4, 2), p=2)
+    pg = partition_mesh(sem, (2, 2, 1))
+    plan = NMPPlan.build(pg, "auto", schedule="auto", wire_dtype=torch.bfloat16,
+                         backend=FUSED)
+    g = ShardedGraph.build(pg, sem.coords, plan, device=cuda)
+    n0 = _counts(sa.KERNEL, hp.PACK, hp.UNPACK)
+    out = plan.autotune(g, hidden=32, iters=2)
+    n1 = _counts(sa.KERNEL, hp.PACK, hp.UNPACK)
+    assert n1[sa.KERNEL] > n0[sa.KERNEL] and n1[hp.PACK] > n0[hp.PACK]
+    table = cmp.measure_plan_candidates(plan, g, hidden=32)
+    assert len(table) == 12 and {k[1] for k in table} == set(cmp.MODE_LABELS)
+    assert cmp._pick_of(out) == min(table, key=table.get)
+    again = plan.autotune(g, hidden=32, iters=2)
+    assert _counts(sa.KERNEL, hp.PACK, hp.UNPACK) == n1 and again == out

@@ -95,9 +95,12 @@ def test_gather_scatter_roundtrip_matches_reference():
 
 
 def test_spectral_partitioner_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="spectral"):
-        partition.partition_mesh(mesh_gen.box_mesh((2, 2, 2), p=2), (2, 1, 1),
-                                 method="spectral")
+    # the spectral partitioner is ported (tests/test_torch_partition_quality.py
+    # holds it array-equal to repro's); only an unknown method raises
+    mesh = mesh_gen.box_mesh((2, 2, 2), p=2)
+    assert partition.partition_mesh(mesh, (2, 1, 1), method="spectral").R == 2
+    with pytest.raises(ValueError, match="spectral"):
+        partition.partition_mesh(mesh, (2, 1, 1), method="metis")
 
 
 def _packed_graph(elems, grid):

@@ -98,3 +98,17 @@ def test_multilevel_slice_module_imports_alone_without_jax(mod):
     """The same for the modules of the multilevel V-cycle (the hierarchy
     is the port's own copy of the reference's numpy-only module)."""
     _imports_alone_without_jax(mod)
+
+
+PLAN_SLICE = ["repro_torch.core.partition_quality", "repro_torch.core.halo",
+              "repro_torch.core.consistent_mp", "repro_torch.core.partition",
+              "repro_torch.launch.mesh", "repro_torch.launch.consistency",
+              "repro_torch.kernels.halo_pack.ops"]
+
+
+@pytest.mark.parametrize("mod", PLAN_SLICE)
+def test_plan_slice_module_imports_alone_without_jax(mod):
+    """The same for the modules of the exchange's remaining forms and the
+    plan's choice (the spectral partitioner is the port's own copy of the
+    reference's numpy-only module)."""
+    _imports_alone_without_jax(mod)

@@ -348,7 +348,7 @@ def test_mesh_engine_refusals(served):
                         plan=NMPPlan.build(partition_mesh(served["sem"], (2, 1, 1)),
                                            NEIGHBOR, packed=True), device="cpu")
     with pytest.raises(ValueError, match="halo_mode"):
-        EngineConfig(halo_mode="auto")
+        EngineConfig(halo_mode="ring")
     eng = InferenceEngine(served["ckdir"], GNNConfig(**CFG), device="cpu")
     with pytest.raises(EngineError, match="other than the lead"):
         eng.follow()
