@@ -134,6 +134,24 @@ Phases (one line each, prefixed ``[n name]``):
                  CUDA-event forward / backward, a 2-step K=2 rollout run on
                  the consistency mesh, and ``launch/serve.py
                  --bootstrap-steps 2``
+  6c resilience  checkpoint resilience on the serving mesh, large config,
+                 R=1, fused, fp32, K=1, batch 1, 8 steps, a checkpoint every
+                 3, from phase 6's start params: one uninterrupted resilient
+                 run, then (a) an injected crash before step 5, (b) the
+                 save of step 3 dying before its COMMIT, (c) the newest
+                 committed shard corrupted and a resume that falls back,
+                 (d) a process that os._exits at step 5 and a fresh process
+                 (kernels loaded cold) that resumes: each bitwise the
+                 uninterrupted run (losses and params), kernels 1 and 2
+                 launched once per layer of every step executed, replays
+                 included; the state's checkpoint save (sync, async) and
+                 restore times; then an elastic resume: 4 gloo processes on
+                 the consistency mesh (2x2 block split, packed neighbor, 6
+                 steps, a checkpoint every 2) killed at step 4 (every
+                 process exits, none is left), 2 processes resume at
+                 (2,1,1): the restored losses bitwise the R=4 run's, every
+                 step within 1e-4 of an uninterrupted R=1 run, the elastic
+                 record 4 -> 2, kernels 1, 2, 4, 5 launches exact per process
   6b multilevel  the multilevel V-cycle (``--levels 3 --coarse-mp-layers 2``,
                  large config, 727,833 -> 2,048 -> 256 nodes): one forward,
                  kernel 1 against the plain backend, launches exact per
@@ -191,7 +209,11 @@ the sums over the 4 processes), the bf16 R=4 forward and gradient runs (3,
 stream after warm-up (4) and the bf16 engine's stream (4), the
 R=4 serve streams (4b; the lead's launches, every process's checked
 against its batches), the 10 training steps (6), the 3 bf16 training steps
-(6; exactly 12 bf16 forwards and backwards), the K=2 rollout run (6), the
+(6; exactly 12 bf16 forwards and backwards), the K=2 rollout run (6),
+phase 6c's resilient runs (kernels 1 and 2 M times per step executed,
+replays included: 32, 36, 56, 36, 20 + 16; per process per step of the
+killed R=4 world and the R=2 resume M forwards, M backwards, 2M packs and
+2M unpack-adds per round received), the
 phase 3d's paths (the spectral R=4 forward, gradient and bf16-wire
 forward, the rounds2d forward: 16 forwards, 4 packs, 4 x pairs
 unpack-adds, twice with the gradient and 16 backwards; per process of
@@ -214,9 +236,11 @@ exits 1 before printing any result.
 """
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2674,6 +2698,267 @@ def phase_train(cfg, sem, pg, smi):
     return launches, roll_launches, bf_launches
 
 
+# --- phase 6c: checkpoint resilience (crash, save failure, corruption, kill,
+#     elastic resume), through kernels 1 and 2 (and 4, 5 at R>1) ---
+RES_STEPS, RES_EVERY = 8, 3
+RES_CRASH_AT, RES_SAVE_FAIL_AT, RES_KILL_AT = 5, 3, 5
+EL_STEPS, EL_EVERY, EL_KILL_AT, EL_GRID = 6, 2, 4, (2, 1, 1)
+ELASTIC_RTOL = 1e-4               # tests/drivers/resilience_driver.py:44
+CKPT_TIMINGS = 3                  # save / restore timings, median of
+
+
+def _per_step(cfg, perms=None, rank=0):
+    """One training step's launches on one rank: kernels 1 and 2 once per
+    layer; under the packed exchange one pack per exchange (forward and
+    reversed) and one unpack-add per exchange and round received."""
+    from repro_torch.kernels.halo_pack import ops as hp
+    from repro_torch.kernels.segment_agg import ops as sa
+    M = cfg.n_mp_layers
+    want = {sa.KERNEL: M, sa.KERNEL_BWD: M}
+    if perms:
+        want.update({hp.PACK: 2 * M, hp.UNPACK: 2 * M * _pairs_into(perms, rank)})
+    return want
+
+
+def _times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def _np_params(tree):
+    from repro_torch.launch.mesh import to_host
+    from repro_torch.nn import tree_leaves
+    return [np.asarray(a) for a in tree_leaves(to_host(tree))]
+
+
+def phase_resilience(cfg, sem, pg, smi):
+    """Phase 6c (module docstring): resilient training at R=1 on the serving
+    mesh against one uninterrupted resilient run, bitwise, through (a) an
+    injected crash, (b) a save dying before its COMMIT, (c) a corrupted
+    newest shard and (d) a killed process resumed by a fresh one; then an
+    elastic resume of a killed 4-process world on 2 processes."""
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core.gnn import init_gnn
+    from repro_torch.core.graph_state import FUSED, NMPPlan
+    from repro_torch.core.mesh_gen import box_mesh
+    from repro_torch.core.partition import partition_mesh
+    from repro_torch.kernels import build
+    from repro_torch.launch import resilience_checks as rc
+    from repro_torch.launch.mesh import to_host
+    from repro_torch.runtime.fault_tolerance import FaultPlan, ResilientConfig
+    from repro_torch.train.loop import TrainConfig, _init_state, train_consistent_gnn
+    from repro_torch.train.optimizer import AdamWConfig, constant_lr
+
+    t_phase = time.perf_counter()
+    phase = "6c resilience"
+    # phase 6's start params (the same seed)
+    start = init_gnn(torch.Generator().manual_seed(0), cfg, device="cpu")
+    root = ROOT / "build" / "chip_smoke_resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    one = _per_step(cfg)
+    by_path = {}
+
+    # the elastic case's two gloo worlds (4 processes on the card, 2x2
+    # block split, packed neighbor, killed at step EL_KILL_AT; 2 resume at
+    # EL_GRID) run in their own processes beside the R=1 cases below: a
+    # thread here only spawns them and reads their files
+    ejob = rc.ResJob(root=str(root / "elastic"), elements=CONS_ELEMS, order=ORDER,
+                     cfg=cfg, grid=CONS_GRID, steps=EL_STEPS,
+                     ckpt_every=EL_EVERY, device="cuda",
+                     params=to_host(start), kill_at=EL_KILL_AT)
+    worlds = {}
+
+    def elastic_worlds():
+        try:
+            t0 = time.perf_counter()
+            worlds["code"] = rc.run_kill(ejob, 4)
+            worlds["alive"] = []
+            for pid in rc.pids(ejob, 4):
+                try:
+                    os.kill(pid, 0)
+                    worlds["alive"].append(pid)
+                except ProcessLookupError:
+                    pass
+            worlds["ref4"] = rc.read_ref(ejob)
+            worlds["killed"] = rc.killed_launches(ejob, 4)
+            worlds["recs"] = [p["resume"] for p in rc.run_resume(
+                dataclasses.replace(ejob, grid=EL_GRID), 2, cases=("resume",))]
+            worlds["seconds"] = time.perf_counter() - t0
+        except BaseException as err:  # raised in the phase's own thread below
+            worlds["error"] = err
+
+    beside = threading.Thread(target=elastic_worlds, daemon=True)
+    beside.start()
+
+    def train(name, fault=None, n_steps=RES_STEPS):
+        tcfg = TrainConfig(n_steps=n_steps, batch=1, lr=rc.LR, halo_mode="none",
+                           plan=NMPPlan(backend=FUSED),
+                           resilience=ResilientConfig(ckpt_dir=str(root / name),
+                                                      ckpt_every=RES_EVERY,
+                                                      backoff_base=0.001))
+        build.reset_launch_counts()
+        hist = train_consistent_gnn(pg, sem, cfg, tcfg, params=start, device="cuda",
+                                    fault=fault)
+        return hist, dict(build.launch_counts)
+
+    t0 = time.perf_counter()
+    ref, by_path["res_uninterrupted"] = train("ref")
+    t_ref = time.perf_counter() - t0
+    check_launches(phase, "the uninterrupted resilient run", by_path["res_uninterrupted"],
+                   _times(one, RES_STEPS))
+    want_p = _np_params(ref["params"])
+    losses = ref["losses"]
+    if ref["restarts"] or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"uninterrupted resilient run: {ref['restarts']} restarts, "
+                           f"losses {losses}")
+    say(phase, f"uninterrupted: large config on {SERVE_ELEMS} p={ORDER} ({sem.n_nodes} "
+        f"nodes), R=1, fused, fp32, K=1, batch 1, {RES_STEPS} steps, a checkpoint every "
+        f"{RES_EVERY}: {t_ref:.1f} s; losses " + ", ".join(f"{v!r}" for v in losses)
+        + f" | checkpoints {ckpt.committed_steps(root / 'ref')}")
+
+    def verdict(case, hist, launches, executed, extra=""):
+        same = hist["losses"] == losses and all(
+            np.array_equal(a, b) for a, b in zip(_np_params(hist["params"]), want_p))
+        say(phase, f"({case}) restarts {hist['restarts']}, restart steps "
+            f"{hist['restart_steps']}, resume steps {hist['resume_steps']}{extra} | losses "
+            f"and params bitwise the uninterrupted run's: {same} | {executed} steps "
+            f"executed, replays included")
+        if not same:
+            raise RuntimeError(f"({case}) not bitwise: {hist['losses']} vs {losses}")
+        check_launches(phase, f"({case})", launches, _times(one, executed))
+
+    # (a) an injected crash before step RES_CRASH_AT: the saver's wait puts
+    # step 3 on disk, so steps 0-4 run, then 4-7 again from its restore
+    hist, by_path["res_crash"] = train("a", FaultPlan(crash_at_step=RES_CRASH_AT))
+    if hist["resume_steps"] != [3]:
+        raise RuntimeError(f"(a) resumed from {hist['resume_steps']}, expected [3]")
+    verdict("a crash", hist, by_path["res_crash"],
+            RES_CRASH_AT + RES_STEPS - (hist["resume_steps"][0] + 1))
+
+    # (b) the save of step RES_SAVE_FAIL_AT dies before its COMMIT; the
+    # error surfaces at the next save (after step 6 ran), restore falls back
+    hist, by_path["res_save_fail"] = train("b", FaultPlan(
+        crash_save_at_step=RES_SAVE_FAIL_AT, save_stage="pre_commit"))
+    if hist["restarts"] != 1 or hist["resume_steps"][0] >= RES_SAVE_FAIL_AT:
+        raise RuntimeError(f"(b) did not fall back past step {RES_SAVE_FAIL_AT}: {hist}")
+    verdict("b save dies at pre_commit", hist, by_path["res_save_fail"],
+            hist["restart_steps"][0] + 1 + RES_STEPS - (hist["resume_steps"][0] + 1))
+
+    # (c) 5 steps, the newest committed shard corrupted, then a resume that
+    # falls back to the step before it
+    first, c1 = train("c", n_steps=5)
+    newest = ckpt.latest_step(root / "c")
+    FaultPlan.corrupt_shard(root / "c", newest)
+    hist, c2 = train("c")
+    by_path["res_corrupt"] = _sum_counts([c1, c2])
+    if hist["resume_steps"][0] >= newest:
+        raise RuntimeError(f"(c) resumed from the corrupted step {newest}")
+    verdict("c corrupted shard", hist, by_path["res_corrupt"],
+            5 + RES_STEPS - (hist["resume_steps"][0] + 1),
+            f" (step {newest} corrupted)")
+
+    # (d) one process os._exits at step RES_KILL_AT; a fresh one (kernels
+    # loaded cold, TF32 off) resumes from disk
+    job = rc.ResJob(root=str(root / "d"), elements=SERVE_ELEMS, order=ORDER, cfg=cfg,
+                    grid=(1, 1, 1), halo_mode="none", packed=False,
+                    steps=RES_STEPS, ckpt_every=RES_EVERY, device="cuda",
+                    params=to_host(start), kill_ref=False, kill_at=RES_KILL_AT)
+    t0 = time.perf_counter()
+    code = rc.run_kill(job, 1)
+    killed = rc.killed_launches(job, 1)[0]
+    rec = rc.run_resume(job, 1, cases=("resume",))[0]["resume"]
+    t_d = time.perf_counter() - t0
+    if code != rc.KILL_EXIT:
+        raise RuntimeError(f"(d) the killed process exited {code}, not {rc.KILL_EXIT}")
+    check_launches(phase, "(d) the killed process", killed, _times(one, RES_KILL_AT))
+    by_path["res_kill"] = _sum_counts([killed, rec["launches"]])
+    verdict("d killed process, fresh process resumes", rec, by_path["res_kill"],
+            RES_KILL_AT + RES_STEPS - (rec["resume_steps"][0] + 1),
+            f" (exit {code}; both processes {t_d:.1f} s)")
+
+    beside.join()
+    if "error" in worlds:
+        raise RuntimeError("the elastic case's gloo worlds failed") from worlds["error"]
+
+    # checkpoint save (sync, async) and restore of the large config's state
+    opt_cfg = AdamWConfig(schedule=constant_lr(rc.LR), weight_decay=0.0)
+    tcfg = TrainConfig(n_steps=RES_STEPS, batch=1, lr=rc.LR)
+    state = _init_state(cfg, tcfg, opt_cfg, params=ref["params"], device="cuda")
+    n_bytes = sum(a.nbytes for a in ckpt._flatten(to_host(state)).values())
+    sync_ms, async_ms, async_total_ms, restore_ms = [], [], [], []
+    for i in range(CKPT_TIMINGS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(root / "timing_sync", i, state)
+        sync_ms.append(1e3 * (time.perf_counter() - t0))
+        saver = ckpt.AsyncCheckpointer(root / "timing_async")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(i, state)
+        async_ms.append(1e3 * (time.perf_counter() - t0))
+        saver.wait()
+        async_total_ms.append(1e3 * (time.perf_counter() - t0))
+        template = _init_state(cfg, tcfg, opt_cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = ckpt.restore(root / "timing_sync", template, step=i)
+        torch.cuda.synchronize()
+        restore_ms.append(1e3 * (time.perf_counter() - t0))
+    if not all(np.array_equal(a, b) for a, b in zip(_np_params(got["params"]), want_p)):
+        raise RuntimeError("the timed restore is not the saved state")
+    say(phase, f"checkpoint of the large config's state ({n_bytes} B: params, AdamW "
+        f"moments, step, key), host clock, median of {CKPT_TIMINGS}: sync save "
+        f"{np.median(sync_ms):.3f} ms | async save returns after {np.median(async_ms):.3f} "
+        f"ms (the owned host snapshot), written after {np.median(async_total_ms):.3f} ms | "
+        f"restore onto the card {np.median(restore_ms):.3f} ms | {smi}")
+
+    # elastic: the worlds' records against an uninterrupted R=1 run here
+    code, alive, ref4, killed, recs = (worlds[k] for k in ("code", "alive", "ref4",
+                                                            "killed", "recs"))
+    if code != rc.KILL_EXIT or alive:
+        raise RuntimeError(f"the killed world exited {code}; processes left: {alive}")
+    csem = box_mesh(CONS_ELEMS, p=ORDER)
+    r1 = rc.train(dataclasses.replace(ejob, grid=(1, 1, 1), halo_mode="none",
+                                      packed=False),
+                  csem, partition_mesh(csem, (1, 1, 1)), root / "elastic_r1")
+    el = recs[0]["elastic"]
+    s = el["step"] if el else None
+    if not el or el["from_ranks"] != 4 or el["to_ranks"] != 2:
+        raise RuntimeError(f"elastic record: {el}")
+    plan4 = NMPPlan.build(partition_mesh(csem, CONS_GRID), "neighbor", packed=True)
+    plan2 = NMPPlan.build(partition_mesh(csem, EL_GRID), "neighbor", packed=True)
+    for r in range(4):
+        check_launches(phase, f"the killed R=4 run, process {r}", killed[r],
+                       _times(_per_step(cfg, plan4.halo.perms, r), EL_KILL_AT))
+    check_launches(phase, "the uninterrupted R=4 run, process 0", ref4["launches"],
+                   _times(_per_step(cfg, plan4.halo.perms, 0), EL_STEPS))
+    for r, rec in enumerate(recs):
+        check_launches(phase, f"the R=2 resume, process {r}", rec["launches"],
+                       _times(_per_step(cfg, plan2.halo.perms, r), EL_STEPS - s))
+    by_path["res_elastic_r4"] = _sum_counts(killed)
+    by_path["res_elastic_r2"] = _sum_counts([rec["launches"] for rec in recs])
+    got = recs[0]["losses"]
+    prefix = got[:s] == ref4["losses"][:s] and all(rec["losses"] == got for rec in recs)
+    dev = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, r1["losses"])]
+    same = all(np.array_equal(a, b) for a, b in zip(_np_params(recs[0]["params"]),
+                                                     _np_params(recs[1]["params"])))
+    say(phase, f"elastic: {CONS_ELEMS} p={ORDER} ({csem.n_nodes} nodes), {EL_STEPS} "
+        f"steps, a checkpoint every {EL_EVERY}, 4 gloo processes (2x2, packed neighbor) "
+        f"killed at step {EL_KILL_AT} (exit {code}, none left), 2 resume at {EL_GRID} "
+        f"from step {s}: elastic {el['from_ranks']} -> {el['to_ranks']} | restored "
+        f"prefix bitwise the R=4 run's: {prefix} | every step within "
+        f"{ELASTIC_RTOL} of an uninterrupted R=1 run: max {max(dev):.2e} | params "
+        f"bitwise on both processes: {same} | R=4 losses "
+        + ", ".join(f"{v!r}" for v in ref4["losses"]) + " | resumed "
+        + ", ".join(f"{v!r}" for v in got) + f" | both worlds {worlds['seconds']:.1f} s "
+        "(beside cases a-d)")
+    if not prefix or max(dev) > ELASTIC_RTOL or not same:
+        raise RuntimeError("the elastic resume failed its checks")
+    shutil.rmtree(root, ignore_errors=True)
+    say(phase, f"phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 # --- phase 6b: the multilevel V-cycle (``--levels``), at full width ---
 ML_LEVELS, ML_COARSE_LAYERS = 3, 2       # box_mesh((16,16,8), p=7): 727,833 -> 2,048 -> 256
 ML_REQUESTS, ML_TRAIN_STEPS = 8, 3
@@ -3662,6 +3947,9 @@ def main():
         phase_train(cfg, sem, pg, smi)
     torch.cuda.empty_cache()
     lap("6 train")
+    by_path.update(phase_resilience(cfg, sem, pg, smi))
+    torch.cuda.empty_cache()
+    lap("6c resilience")
     by_path.update(phase_multilevel(cfg, smi))
     torch.cuda.empty_cache()
     lap("6b multilevel")
@@ -3692,16 +3980,21 @@ def main():
                 "plan_spectral_r4_bf16_wire", "plan_rounds2d_r4", "plan_dist_spectral",
                 "plan_dist_bf16_wire", "plan_tuner")
     plan_halo = plan_fwd + ("plan_dist_forms_rounds2d",)
+    # phase 6c's resilient paths: kernels 1 and 2 on every case, replays
+    # included; kernels 4 and 5 in the killed R=4 world and the R=2 resume
+    res = ("res_uninterrupted", "res_crash", "res_save_fail", "res_corrupt", "res_kill",
+           "res_elastic_r4", "res_elastic_r2")
+    res_halo = ("res_elastic_r4", "res_elastic_r2")
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
                        "rollout_k2", "dist_r4_packed", "dist_r4_grad") + r4
-           + ("ml_fwd", "ml_grad", "ml_serve", "ml_train") + ml_r4 + plan_fwd,
+           + ("ml_fwd", "ml_grad", "ml_serve", "ml_train") + ml_r4 + plan_fwd + res,
            sa.KERNEL_BWD: ("train", "grad_r4_packed", "rollout_k2", "dist_r4_grad",
                            "grad_r4_overlap", "dist_r4_overlap_grad", "ml_grad",
-                           "ml_train") + ml_grad + ("plan_spectral_r4_grad",),
+                           "ml_train") + ml_grad + ("plan_spectral_r4_grad",) + res,
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                     "dist_r4_grad") + r4 + ml_r4 + plan_halo,
+                     "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo,
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                       "dist_r4_grad") + r4 + ml_r4 + plan_halo,
+                       "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),

@@ -10,8 +10,15 @@
 SEM mesh -> block (or ``--partitioner spectral``: recursive spectral
 bisection, a vertex cut) partition -> ``ShardedGraph`` on the device ->
 fused (or plain) NMP forward and backward -> Eq. 6 loss -> AdamW ->
-synchronous fingerprinted checkpoints (``--ckpt``), readable by either
-package.
+asynchronous fingerprinted checkpoints (``--ckpt``), readable by either
+package.  ``--ckpt-dir`` instead runs the resilient driver
+(``runtime/fault_tolerance.py``): it resumes from the newest valid
+checkpoint there (elastically: the checkpoint may come from another
+``--ranks`` or ``--partitioner``), recovers from up to ``--max-restarts``
+crashes, commits an early checkpoint on SIGTERM, and writes a checkpoint
+every ``--ckpt-every`` steps.  Over processes every process runs the
+driver and only process 0 writes; a process that dies takes the world
+down, and the next call resumes from disk.
 ``--rollout-steps K`` (K > 1) trains autoregressively over the model's own
 predictions; ``--pushforward-noise`` adds the detached step-1 noise.
 
@@ -30,13 +37,14 @@ with ``--coarse-mp-layers`` NMP layers per coarse level, at R=1 and under
 ``--ranks`` (with ``--partitioner spectral`` its level 0 is the spectral
 split).  ``--mp-schedule auto`` measures blocking against overlap once on
 this partition at the model's width and trains with the faster (over
-processes the lead measures, every process takes its pick).  What is not
-ported, the CLI refuses naming the slice that brings it: the resilient
-``--ckpt-dir`` mode.
+processes the lead measures, every process takes its pick).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --elements 2 2 1 --order 2 --steps 3 --batch 1 \
         --mp-schedule auto --partitioner spectral --ranks 2 1 1
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --elements 2 2 1 --order 2 --steps 8 --batch 1 \
+        --ckpt-dir /tmp/ck --ckpt-every 3     # a second call resumes
 """
 import argparse
 import dataclasses
@@ -49,6 +57,7 @@ from repro_torch.core.mesh_gen import box_mesh
 from repro_torch.core.partition import partition_mesh
 from repro_torch.core.partition_quality import mesh_node2part
 from repro_torch.launch.mesh import BACKENDS, check_backend, make_mesh, spawn
+from repro_torch.runtime.fault_tolerance import ResilientConfig
 from repro_torch.train.loop import TrainConfig, train_consistent_gnn
 
 
@@ -70,6 +79,11 @@ def _run(args, mesh=None):
             print(f"multilevel hierarchy: {sizes} nodes per level", flush=True)
     else:
         pg = partition_mesh(sem, tuple(args.ranks), method=args.partitioner)
+    resilience = None
+    if args.ckpt_dir:
+        resilience = ResilientConfig(ckpt_dir=args.ckpt_dir,
+                                     ckpt_every=args.ckpt_every,
+                                     max_restarts=args.max_restarts)
     tcfg = TrainConfig(n_steps=args.steps, batch=args.batch, lr=args.lr,
                        halo_mode=args.halo, ckpt_dir=args.ckpt,
                        ckpt_every=args.ckpt_every,
@@ -78,12 +92,21 @@ def _run(args, mesh=None):
                                     precision=args.mp_precision),
                        rollout_steps=args.rollout_steps,
                        pushforward_noise=args.pushforward_noise,
-                       partitioner=args.partitioner)
+                       partitioner=args.partitioner, resilience=resilience)
     hist = train_consistent_gnn(pg, sem, cfg, tcfg, device=args.device, mesh=mesh,
                                 hierarchy=hierarchy)
     if mesh is None or mesh.lead:
         if args.mp_schedule == "auto":
             print(f"schedule auto resolved to {hist['schedule']}", flush=True)
+        if hist.get("elastic"):
+            el = hist["elastic"]
+            print(f"elastic resume at step {el['step']}: "
+                  f"R={el['from_ranks']}/{el['from_partitioner']} -> "
+                  f"R={el['to_ranks']}/{el['to_partitioner']}", flush=True)
+        if hist.get("resume_steps"):
+            print(f"resumed from step {hist['resume_steps'][0]}", flush=True)
+        if hist.get("restarts"):
+            print(f"recovered from {hist['restarts']} crash(es)", flush=True)
         print(f"loss {hist['losses'][0]:.6f} -> {hist['losses'][-1]:.6f} "
               f"({len(hist['losses'])} steps, {hist['straggler_events']} "
               "straggler events)", flush=True)
@@ -117,12 +140,18 @@ def main(argv=None):
                     help="halo mode (one rank exchanges nothing in any mode)")
     ap.add_argument("--model", default="small", choices=["small", "large"])
     ap.add_argument("--ckpt", default=None,
-                    help="synchronous fingerprinted checkpoint dir")
-    ap.add_argument("--ckpt-every", type=int, default=50,
-                    help="steps between checkpoints (with --ckpt)")
+                    help="plain fire-and-forget checkpoint dir (no resume); "
+                         "for crash recovery + elastic resume use --ckpt-dir")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="the reference's resilient auto-resume dir; refused "
-                         "(checkpoint resilience is a later slice)")
+                    help="resilient checkpoint dir: auto-resumes from the "
+                         "newest valid checkpoint (elastically: it may come "
+                         "from another --ranks or --partitioner), recovers "
+                         "from crashes, and writes fingerprinted manifests")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints (with --ckpt or --ckpt-dir)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="in-process crash recoveries before giving up "
+                         "(with --ckpt-dir)")
     ap.add_argument("--mp-backend", default="fused", choices=["xla", "fused"],
                     help="NMP hot loop: plain PyTorch (xla) or the CUDA "
                          "kernels (fused; plain versions on the CPU)")
@@ -152,9 +181,9 @@ def main(argv=None):
                          "(needs --rollout-steps > 1)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        ap.error("--ckpt-dir (resilient auto-resume) is not ported "
-                 "(ROADMAP queue: 'Checkpoint resilience'); use --ckpt")
+    if args.ckpt and args.ckpt_dir:
+        ap.error("--ckpt and --ckpt-dir are mutually exclusive (plain "
+                 "fire-and-forget saves vs resilient auto-resume)")
     if args.levels < 1 or args.coarse_mp_layers < 0:
         ap.error("--levels must be >= 1 and --coarse-mp-layers >= 0")
     if args.rollout_steps < 1:

@@ -2,8 +2,9 @@
 
 The monitor keeps an EWMA + variance of step times and flags outliers
 (> mean + k*std and > slack*mean).  The training loop reports the number of
-flagged steps; the mitigation hooks of the reference's resilient driver
-(early checkpoints, elastic restart) come with that driver.
+flagged steps; the resilient driver (``runtime/fault_tolerance.py``)
+commits an early checkpoint on each, and an elastic resume resets the
+statistics.
 """
 from __future__ import annotations
 

@@ -50,6 +50,7 @@ from repro_torch.core.partition import (
 from repro_torch.core.reference import gnn_forward_stacked
 from repro_torch.nn import BF16, tree_leaves
 from repro_torch.train.loop import TrainConfig, train_consistent_gnn
+from repro_torch.runtime.fault_tolerance import FaultPlan, ResilientConfig
 from repro_torch.graph.segment import segment_sum
 from repro_torch.configs import dlrm_rm2, granite_34b
 from repro_torch.kernels import build
@@ -1662,3 +1663,34 @@ def test_autotune_on_card_grid_argmin_and_cache(cuda):
     assert cmp._pick_of(out) == min(table, key=table.get)
     again = plan.autotune(g, hidden=32, iters=2)
     assert _counts(sa.KERNEL, hp.PACK, hp.UNPACK) == n1 and again == out
+
+
+@pytest.mark.gpu
+def test_resilient_training_recovers_bitwise_on_card(cuda, tmp_path):
+    """A crash before step 5 of 8 (a checkpoint every 3) recovers from step
+    3 on the card: losses and params bitwise the uninterrupted resilient
+    run's, kernels 1 and 2 launched once per layer of every step executed
+    (8, and 5 + 4 with the replay)."""
+    sem = box_mesh((4, 2, 2), p=2)
+    pg = partition_mesh(sem, (1, 1, 1))
+    cfg = GNNConfig(hidden=32, n_mp_layers=2, mlp_hidden_layers=5)
+    start = init_gnn(torch.Generator().manual_seed(2), cfg, device="cpu")
+
+    def run(name, fault=None):
+        rcfg = ResilientConfig(ckpt_dir=str(tmp_path / name), ckpt_every=3,
+                               backoff_base=0.001)
+        build.reset_launch_counts()
+        hist = train_consistent_gnn(
+            pg, sem, cfg, TrainConfig(n_steps=8, plan=NMPPlan(backend=FUSED),
+                                      resilience=rcfg),
+            params=start, device=cuda, fault=fault)
+        return hist, {k: v for k, v in build.launch_counts.items() if v}
+
+    ref, n_ref = run("ref")
+    hist, n = run("crash", FaultPlan(crash_at_step=5))
+    assert hist["restarts"] == 1 and hist["resume_steps"] == [3]
+    assert hist["losses"] == ref["losses"] and all(np.isfinite(ref["losses"]))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(hist["params"]),
+                                                 tree_leaves(ref["params"])))
+    assert n_ref == {sa.KERNEL: 8 * 2, sa.KERNEL_BWD: 8 * 2}
+    assert n == {sa.KERNEL: 9 * 2, sa.KERNEL_BWD: 9 * 2}

@@ -112,3 +112,14 @@ def test_plan_slice_module_imports_alone_without_jax(mod):
     plan's choice (the spectral partitioner is the port's own copy of the
     reference's numpy-only module)."""
     _imports_alone_without_jax(mod)
+
+
+RESILIENCE_SLICE = ["repro_torch.runtime.fault_tolerance",
+                    "repro_torch.launch.resilience_checks"]
+
+
+@pytest.mark.parametrize("mod", RESILIENCE_SLICE)
+def test_resilience_slice_module_imports_alone_without_jax(mod):
+    """The same for the new modules of checkpoint resilience (the driver is
+    the port's own copy of the reference's)."""
+    _imports_alone_without_jax(mod)

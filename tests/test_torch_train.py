@@ -45,6 +45,7 @@ from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
 from repro_torch.core.partition import gather_node_features, partition_mesh
 from repro_torch.core.reference import loss_and_grad_stacked, rollout_stacked
 from repro_torch.launch import train as train_cli
+from repro_torch.runtime.fault_tolerance import ResilientConfig
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.train import optimizer as opt
 from repro_torch.train.loop import (
@@ -333,15 +334,22 @@ def test_training_loop_updates_its_own_copy_of_the_params(case):
                                                      nn.tree_leaves(before)))
 
 
-def test_training_refuses_what_this_slice_lacks(case):
+def test_training_refuses_what_this_slice_lacks(case, tmp_path):
+    """R > 1 without a mesh is still refused; ``resilience=`` (refused
+    before the resilient driver was ported) trains and checkpoints."""
     pg4 = partition_mesh(case["port_sem"], (2, 2, 1))
     with pytest.raises(ValueError, match="needs a mesh"):
         train_consistent_gnn(pg4, case["port_sem"], GNNConfig.small(),
                              TrainConfig(n_steps=1), device="cpu")
     pg1 = partition_mesh(case["port_sem"], (1, 1, 1))
-    with pytest.raises(NotImplementedError, match="resilience"):
-        train_consistent_gnn(pg1, case["port_sem"], GNNConfig.small(),
-                             TrainConfig(n_steps=1, resilience=object()), device="cpu")
+    hist = train_consistent_gnn(
+        pg1, case["port_sem"], GNNConfig.small(),
+        TrainConfig(n_steps=3, resilience=ResilientConfig(ckpt_dir=str(tmp_path),
+                                                          ckpt_every=2)),
+        device="cpu")
+    assert len(hist["losses"]) == 3 and all(np.isfinite(hist["losses"]))
+    assert hist["restarts"] == 0 and hist["resume_steps"] == []
+    assert ref_ckpt.committed_steps(tmp_path) == [0, 2]
 
 
 def test_train_cli_runs_on_cpu(capsys):
@@ -355,9 +363,21 @@ def test_train_cli_runs_on_cpu(capsys):
 
 
 # --partitioner spectral and --mp-schedule auto run now
-# (tests/test_torch_autotune.py); the resilient mode is still a later slice
-@pytest.mark.parametrize("flags", [["--ckpt-dir", "x"]])
-def test_train_cli_refuses_later_slices(flags, capsys):
+# (tests/test_torch_autotune.py), and so does the resilient --ckpt-dir mode:
+# a run, resumed by a second call; --ckpt with --ckpt-dir is refused
+@pytest.mark.parametrize("flags", [["--ckpt-every", "2"]])
+def test_train_cli_refuses_later_slices(flags, tmp_path, capsys):
+    argv = ["--device", "cpu", "--elements", "2", "2", "1", "--order", "2",
+            "--batch", "1", *flags]
+    whole = train_cli.main(argv + ["--steps", "5"])
+    d = str(tmp_path / "ck")
+    first = train_cli.main(argv + ["--steps", "3", "--ckpt-dir", d])
+    capsys.readouterr()
+    resumed = train_cli.main(argv + ["--steps", "5", "--ckpt-dir", d])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out and "(5 steps," in out
+    assert first["losses"] == whole["losses"][:3]
+    assert resumed["losses"] == whole["losses"]
     with pytest.raises(SystemExit):
-        train_cli.main(["--device", "cpu", "--steps", "1", *flags])
-    assert "ROADMAP queue" in capsys.readouterr().err
+        train_cli.main(argv + ["--steps", "1", "--ckpt", d, "--ckpt-dir", d])
+    assert "mutually exclusive" in capsys.readouterr().err
