@@ -10,7 +10,9 @@ serves and trains DLRM RM2 at full width (50,003,968 x 64 fp32 table)
 through its cell builder, and serves Granite-34B-code (MQA, 48:1) at full
 width (88 layers for the prefill and the serving loop, 44 for decode and
 the full-width check) through its cell builder and the greedy serving
-loop.
+loop, serves GraphCast's weather configuration at its published widths
+(d512, 16 layers) through kernel 1's generic-width entry, and runs the
+paper's smoke config (N_H=4) through the ``paper-gnn`` registry entry.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -50,7 +52,13 @@ Phases (one line each, prefixed ``[n name]``):
                  against plain (time and bound), one launch-counted
                  call of fused_edge_mlp_agg (phase_segment_agg runs alone),
                  and its time at each (block_n, block_e) of BLOCK_PAIRS
-                 beside pick_block_sizes' CUDA row
+                 beside pick_block_sizes' CUDA row; kernels 1 and 2's
+                 generic-width entries (csrc/nmp_any.cu) at H 4, 12, 64,
+                 100 (a (4, 4, 4) box, p=7), 512 and 1024 (a (2, 2, 2)
+                 box) x 1, 2, 7 hidden layers against plain and a float64
+                 forward / VJP (times, launch plan, ptxas), and the
+                 dispatch: H=32 launches only the tuned pair, H=4 only the
+                 generic one (phase_kernels_any)
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
                  (2x2 grid) under the packed neighbor exchange (blocking and
                  overlap schedules) and the A2A oracle, overlap vs blocking
@@ -166,6 +174,22 @@ Phases (one line each, prefixed ``[n name]``):
                  repro's multilevel bands, launches exact per level; the
                  same split through 4 gloo processes, each rank bitwise its
                  stacked slice, launches and exchanges per process exact
+  9 graphcast    GraphCast ``weather_config(5)`` through
+                 ``repro_torch.configs.get_arch("graphcast")``: d512, 16
+                 processor layers of one MLP hidden layer, 227 variables,
+                 on a refinement-5 icosphere (10,242 mesh nodes) and a 2
+                 deg grid (16,380 nodes), 180,180 directed edges (the cuts
+                 from refinement 6 and 0.25 deg are the host kNN's time,
+                 printed as ``reduced``): 4 served states (CUDA-event ms
+                 per forward, busy share, peak memory), one forward fused
+                 vs the plain backend (and both vs float64), one loss
+                 gradient at 2 layers through kernel 2 at H=512 vs plain,
+                 and kernels 1 and 2 alone at the cell's shapes (their
+                 records in the kernel line)
+  9b paper-gnn   the paper's smoke config (N_H=4, M=2) through the
+                 ``paper-gnn`` registry entry as tests/test_arch_smoke.py
+                 runs it (box (2, 2, 1) p=2 split (2, 1, 1), a2a, the
+                 stacked loss and gradient), fused vs plain
   7 dlrm         DLRM RM2 at full width through
                  ``repro_torch.configs.get_arch("dlrm-rm2")``'s
                  ``build_cell``, weights drawn on the card from a seeded
@@ -226,7 +250,10 @@ twice under overlap, 12 exchanges per forward, each level's launches
 counted apart) and each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
-step).
+step), GraphCast's served states (9; kernel 1's generic entry exactly 16
+times a forward, nothing else) and its gradient (2 + 2 generic launches),
+and the paper's smoke run (9b; 4 + 4 generic launches: M layers x R
+ranks).
 Every kernel must have launched on the paths that use it.  The two lines
 before the last are a JSON record of the kernels (``launches`` on the
 kernel's own path, ``launches_by_path`` on all) and the card's nvidia-smi
@@ -378,6 +405,18 @@ def within_band(got, want, rtol=RTOL, atol=ATOL):
     return err, ok
 
 
+def worst_element(got, want, exact, rtol, atol):
+    """Where ``got`` leaves the band of ``want`` furthest: the element's
+    index and its kernel, plain and float64 values, and each one's distance
+    from float64 (which of the two fp32 paths is off there)."""
+    import torch
+    over = ((got - want).abs() - (atol + rtol * want.abs())).reshape(-1)
+    i = int(torch.argmax(over))
+    k, p, f = float(got.reshape(-1)[i]), float(want.reshape(-1)[i]), float(exact.reshape(-1)[i])
+    return (f"worst element {i}: kernel {k:.6e}, plain {p:.6e}, float64 {f:.6e} "
+            f"(|kernel - f64| {abs(k - f):.2e}, |plain - f64| {abs(p - f):.2e})")
+
+
 def rel_norm(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
@@ -494,7 +533,7 @@ def phase_device():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd", "embedding_bag",
-                           "flash_attention", "edge_mlp_agg"])
+                           "flash_attention", "edge_mlp_agg", "nmp_any"])
     regs = {k: sorted({ln.split("Used ")[1].split(",")[0]
                        for ln in v.splitlines() if "Used " in ln})
             for k, v in reports.items()}
@@ -511,6 +550,11 @@ def phase_device():
                "edge_mlp_agg_bf16": ("edge_mlp_agg", "edge_mlp_agg_kernelI13__nv_bfloat16Li2E"),
                "halo_pack": ("halo_pack", "11pack_kernelILi4E"),
                "halo_unpack_add": ("halo_pack", "unpack_add_kernelILi4E")}
+    # the generic-width pair: one instance per n-tile count (16 NT columns a
+    # product chunk; NT 8 from H = 65 on, GraphCast's d512 among them)
+    for nt in (1, 2, 4, 8):
+        kernels[f"nmp_fwd_any_nt{nt}"] = ("nmp_any", f"nmp_any_fwd_kernelILi{nt}E")
+        kernels[f"nmp_bwd_any_nt{nt}"] = ("nmp_any", f"nmp_any_bwd_kernelILi{nt}E")
     ptxas = {key: ptxas_summary(reports.get(src, ""), needle)
              for key, (src, needle) in kernels.items()}
     say("1 device", f"ptxas at H=32 (NMP pair: fp32 and bf16; embedding bag: fp32, 16-byte loads; flash "
@@ -530,18 +574,50 @@ def double(*trees):
     return [f64(t) for t in trees]
 
 
-def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas):
+def any_spec(kind, H, Lp, n_slots, ptxas):
+    """The generic-width entry of kernel 1 or 2 (``kind`` "fwd" / "bwd",
+    ``csrc/nmp_any.cu``) for :func:`nmp_fwd_case` / :func:`nmp_bwd_case`:
+    its counter, source, launch plan and ptxas line (the template instance
+    of H's n-tiles)."""
+    from repro_torch.kernels.segment_agg import ops as sa
+    nt = 1 if H <= 16 else 2 if H <= 32 else 4 if H <= 64 else 8
+    plan = sa.fwd_any_launch_plan if kind == "fwd" else sa.bwd_any_launch_plan
+    return dict(name=sa.KERNEL_ANY if kind == "fwd" else sa.KERNEL_BWD_ANY,
+                source="src/repro_torch/csrc/nmp_any.cu", plan=plan(H, Lp, n_slots),
+                ptxas=ptxas.get(f"nmp_{kind}_any_nt{nt}", "not built here"))
+
+
+def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, spec=None,
+                 detail=True, iters=(20, 5)):
     """Kernel 1 against its plain version: e' and agg within the forward
     band, each one's distance from a float64 plain forward within
-    F64_FACTOR of plain fp32's, two launches bitwise equal, times, the bound
+    F64_FACTOR of plain fp32's, two launches bitwise equal (each one launch
+    of the entry's own counter), times (``iters``: kernel, plain), the bound
     (3xTF32 on tensor cores, the kernel's arithmetic; the fp32 CUDA-core one
     beside it), the launch as the card plans it and ptxas's registers and
-    spills."""
+    spills; with ``detail`` one call's device kernels under torch.profiler.
+    ``spec`` (:func:`any_spec`) names the generic-width entry; default the
+    tuned one.  The generic entry's outputs hold the forward band around
+    plain's or, element by element where two fp32 paths part by more
+    (high in-degrees, wide rows), the same band around the float64
+    forward; the worst element's three values are printed."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.segment_agg import ops as sa
     H, Lp = x.shape[1], len(edge["layers"]) - 1
     lay = (g["seg_perm"], g["seg_src"], g["seg_rowptr"])
     rest = (g["edge_mask"], g["edge_inv_mult"])
+    generic = spec is not None
+    if spec is None:
+        plan = sa.fwd_launch_plan(H, Lp, g["seg_perm"].numel())
+        spec = dict(name=sa.KERNEL, source="src/repro_torch/csrc/nmp_fwd.cu",
+                    ptxas=ptxas["nmp_fwd"],
+                    plan_line=(f"edge pass: grid {plan['grid']}, {plan['smem_bytes']} B shared "
+                               f"memory per block, {plan['blocks_per_sm']} block(s) per SM, "
+                               f"{plan['smem_layers']} hidden layer(s) in shared memory, "
+                               f"{plan['tiles']} tiles"))
+    plan_line = spec.get("plan_line") or "edge pass: " + ", ".join(
+        f"{k} {v}" for k, v in spec["plan"].items())
 
     def fwd():
         return sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
@@ -549,8 +625,12 @@ def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas):
     def fwd_plain():
         return sa.fused_nmp_edge_agg_plain(x, e, edge, *lay, *rest)
 
+    before = dict(build.launch_counts)
     got, again = fwd(), fwd()
     torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in build.launch_counts.items()
+                if v != before.get(k, 0)}
+    counted = launched == {spec["name"]: 2}
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     want = fwd_plain()
@@ -560,49 +640,73 @@ def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas):
     exact = sa.fused_nmp_edge_agg_plain(*double(x, e, edge), *lay, *double(*rest))
     vs64 = {n: (rel_norm(a.double(), r), rel_norm(b.double(), r))
             for n, a, b, r in zip(("e_new", "agg"), got, want, exact)}
+    worst = [f"{n} " + worst_element(a, b, r, RTOL, ATOL)
+             for n, a, b, r, ok in zip(("e_new", "agg"), got, want, exact, (ok_e, ok_a))
+             if not ok]
+    if generic:
+        # the generic entry may instead hold the band around the float64
+        # forward: where high in-degrees or wide rows leave two fp32 paths
+        # further apart than the band, plain is one of them
+        ok_e = ok_e or within_band(got[0].double(), exact[0])[1]
+        ok_a = ok_a or within_band(got[1].double(), exact[1])[1]
     del want, exact
     f64_ok = all(a <= F64_FACTOR * b for a, b in vs64.values())
-    ms = cuda_ms(fwd, iters=20)
-    plain = cuda_ms(fwd_plain, iters=5, warmup=1)
-    _, dev_ops = host_device_split(fwd, 3)      # the kernels of one call
+    ms = cuda_ms(fwd, iters=iters[0])
+    plain = cuda_ms(fwd_plain, iters=iters[1], warmup=1)
     moved = nbytes(x, e, *lay, *rest, *weights, *got)
     # the products' FMAs, each three TF32 products in the kernel's 3xTF32
     # (the lower bound), beside the fp32 CUDA-core bound
     fp32_ms, fp32_by = bound_ms(moved, flops)
     b_ms, b_by = min((fp32_ms, fp32_by), bound_ms(moved, 3 * flops, PEAK_TF32_FLOPS))
-    plan = sa.fwd_launch_plan(H, Lp, g["seg_perm"].numel())
-    say("2 kernels", f"nmp_fwd H={H} Lp={Lp} E={n_real} N={n_pad}: max|err| e_new "
+    name = spec["name"]
+    say("2 kernels", f"{name} H={H} Lp={Lp} E={n_real} N={n_pad}: max|err| e_new "
         f"{err_e:.3g} agg {err_a:.3g} (rtol {RTOL} atol {ATOL}) | two launches bitwise "
-        f"equal: {repeat} | kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms "
-        f"({b_by}: 3 x {flops / 1e9:.1f} GFLOP in 3xTF32 on tensor cores, "
-        f"{moved / 1e9:.2f} GB; fp32 on CUDA cores {fp32_ms:.3f} ms) | edge pass: grid "
-        f"{plan['grid']}, {plan['smem_bytes']} B shared memory per block, "
-        f"{plan['blocks_per_sm']} block(s) per SM, {plan['smem_layers']} hidden layer(s) "
-        f"in shared memory, {plan['tiles']} tiles | ptxas {ptxas['nmp_fwd']}")
-    say("2 kernels", "nmp_fwd rel L2 against the float64 forward, kernel / plain fp32 "
-        f"(kernel <= {F64_FACTOR:g}x plain: {f64_ok}): "
-        + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in vs64.items())
-        + " | one call's device kernels under torch.profiler: "
-        + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
-    if not (ok_e and ok_a and f64_ok and repeat):
-        raise RuntimeError("fused NMP kernel disagrees with its plain version or the "
-                           "float64 forward, or is not repeatable")
-    return dict(name=sa.KERNEL, route="cuda", source="src/repro_torch/csrc/nmp_fwd.cu",
+        f"equal: {repeat}, launched {launched} | kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}: 3 x {flops / 1e9:.1f} GFLOP in 3xTF32 on tensor cores, "
+        f"{moved / 1e9:.2f} GB; fp32 on CUDA cores {fp32_ms:.3f} ms) | {plan_line} | ptxas "
+        f"{spec['ptxas']}")
+    line = (f"{name} rel L2 against the float64 forward, kernel / plain fp32 "
+            f"(kernel <= {F64_FACTOR:g}x plain: {f64_ok}): "
+            + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in vs64.items())
+            + "".join(f" | {w}" for w in worst))
+    if detail:
+        _, dev_ops = host_device_split(fwd, 3)      # the kernels of one call
+        line += (" | one call's device kernels under torch.profiler: "
+                 + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
+    say("2 kernels", line)
+    if not (ok_e and ok_a and f64_ok and repeat and counted):
+        raise RuntimeError(f"fused NMP kernel {name} disagrees with its plain version or the "
+                           "float64 forward, is not repeatable or did not launch once a call")
+    return dict(name=name, route="cuda", source=spec["source"],
                 replaces="src/repro/kernels/segment_agg/kernel.py:215",
                 max_abs_err=max(err_e, err_a), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, fp32_bound_ms=fp32_ms)
 
 
-def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
+def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen, spec=None,
+                 detail=True, iters=(10, 3)):
     """Kernel 2 against its plain version: g_x / g_e within the gradient
     band, weight gradients by relative L2, every output's distance from the
     float64 VJP within F64_FACTOR of plain fp32's, two launches bitwise
-    equal, times, the bound (3xTF32 on tensor cores, the kernel's
+    equal (each one launch of the entry's own counter), times (``iters``:
+    kernel, plain), the bound (3xTF32 on tensor cores, the kernel's
     arithmetic; the fp32 CUDA-core one beside it), the launch as the card
-    plans it and ptxas's registers and spills."""
+    plans it and ptxas's registers and spills; with ``detail`` one call's
+    device kernels under torch.profiler.  ``spec`` and the generic entry's
+    bands as in :func:`nmp_fwd_case`."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.segment_agg import ops as sa
     H, Lp = x.shape[1], len(edge["layers"]) - 1
+    generic = spec is not None
+    if spec is None:
+        plan = sa.bwd_launch_plan(H, Lp, g["seg_perm"].numel())
+        spec = dict(name=sa.KERNEL_BWD, source="src/repro_torch/csrc/nmp_bwd.cu",
+                    ptxas=ptxas["nmp_bwd"],
+                    plan_line=(f"edge pass: grid {plan['grid']}, {plan['smem_bytes']} B shared "
+                               f"memory per block, {plan['blocks_per_sm']} block(s) per SM"))
+    plan_line = spec.get("plan_line") or "edge pass: " + ", ".join(
+        f"{k} {v}" for k, v in spec["plan"].items())
     dev = x.device
     g_enew = torch.randn(e.shape[0], H, generator=gen).to(dev)
     g_agg = torch.randn(n_pad, H, generator=gen).to(dev)
@@ -616,8 +720,12 @@ def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
     def bwd_plain():
         return sa.fused_nmp_edge_agg_bwd_plain(x, e, edge, *lay, *rest)
 
+    before = dict(build.launch_counts)
     got, again = bwd(), bwd()
     torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in build.launch_counts.items()
+                if v != before.get(k, 0)}
+    counted = launched == {spec["name"]: 2}
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     want = bwd_plain()
@@ -629,37 +737,45 @@ def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen):
     exact = sa.fused_nmp_edge_agg_bwd_plain(*double(x, e, edge), *lay, *double(*rest))
     vs64 = {n: (rel_norm(a.double(), r), rel_norm(b.double(), r))
             for n, a, b, r in zip(("g_x", "g_e") + names, got, want, exact)}
+    worst = [f"{n} " + worst_element(a, b, r, G_RTOL, G_ATOL)
+             for n, a, b, r, ok in zip(("g_x", "g_e"), got, want, exact, (ok_x, ok_g))
+             if not ok]
+    if generic:                                 # as in nmp_fwd_case
+        ok_x = ok_x or within_band(got[0].double(), exact[0], G_RTOL, G_ATOL)[1]
+        ok_g = ok_g or within_band(got[1].double(), exact[1], G_RTOL, G_ATOL)[1]
     del want, exact
-    ms = cuda_ms(bwd, iters=10, warmup=1)
-    plain = cuda_ms(bwd_plain, iters=3, warmup=1)
-    _, dev_ops = host_device_split(bwd, 3)      # the kernels of one call
+    ms = cuda_ms(bwd, iters=iters[0], warmup=1)
+    plain = cuda_ms(bwd_plain, iters=iters[1], warmup=1)
     moved = nbytes(x, e, *lay, *src_lay, *rest, *weights, *got)
     # recompute, input gradients and weight gradients: 3x the forward's
     # FMAs, each three TF32 products in the kernel's 3xTF32 (the lower bound)
     fp32_ms, fp32_by = bound_ms(moved, flops)
     b_ms, b_by = min((fp32_ms, fp32_by), bound_ms(moved, 3 * flops, PEAK_TF32_FLOPS))
     f64_ok = all(a <= F64_FACTOR * b for a, b in vs64.values())
-    plan = sa.bwd_launch_plan(H, Lp, g["seg_perm"].numel())
-    say("2 kernels", f"nmp_bwd H={H} Lp={Lp} E={n_real} N={n_pad}: max|err| "
+    name = spec["name"]
+    say("2 kernels", f"{name} H={H} Lp={Lp} E={n_real} N={n_pad}: max|err| "
         f"g_x {err_x:.3g} g_e {err_g:.3g} (rtol {G_RTOL} atol {G_ATOL}); weight "
         f"grads rel L2 " + ", ".join(f"{k} {v:.2e}" for k, v in wrel.items())
         + f" (<= {W_REL}: sums over {n_real} edges, so an elementwise atol says "
-        f"nothing there) | two launches bitwise equal: {repeat} | kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}: 3 x "
+        f"nothing there) | two launches bitwise equal: {repeat}, launched {launched} | "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}: 3 x "
         f"{flops / 1e9:.1f} GFLOP in 3xTF32 on tensor cores, {moved / 1e9:.2f} GB; "
-        f"fp32 on CUDA cores {fp32_ms:.3f} ms) | edge pass: grid {plan['grid']}, "
-        f"{plan['smem_bytes']} B shared memory per block, {plan['blocks_per_sm']} "
-        f"block(s) per SM | ptxas {ptxas['nmp_bwd']}")
-    say("2 kernels", "nmp_bwd rel L2 against the float64 VJP, kernel / plain fp32 "
-        f"(kernel <= {F64_FACTOR:g}x plain: {f64_ok}): "
-        + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in vs64.items())
-        + " | one call's device kernels under torch.profiler: "
-        + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
+        f"fp32 on CUDA cores {fp32_ms:.3f} ms) | {plan_line} | ptxas {spec['ptxas']}")
+    line = (f"{name} rel L2 against the float64 VJP, kernel / plain fp32 "
+            f"(kernel <= {F64_FACTOR:g}x plain: {f64_ok}): "
+            + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in vs64.items())
+            + "".join(f" | {w}" for w in worst))
+    if detail:
+        _, dev_ops = host_device_split(bwd, 3)      # the kernels of one call
+        line += (" | one call's device kernels under torch.profiler: "
+                 + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
+    say("2 kernels", line)
     if not (ok_x and ok_g and all(v <= W_REL for v in wrel.values()) and f64_ok
-            and repeat):
-        raise RuntimeError("fused NMP backward kernel disagrees with its plain "
-                           "version or the float64 VJP, or is not repeatable")
-    return dict(name=sa.KERNEL_BWD, route="cuda", source="src/repro_torch/csrc/nmp_bwd.cu",
+            and repeat and counted):
+        raise RuntimeError(f"fused NMP backward kernel {name} disagrees with its plain "
+                           "version or the float64 VJP, is not repeatable or did not "
+                           "launch once a call")
+    return dict(name=name, route="cuda", source=spec["source"],
                 replaces="src/repro/kernels/segment_agg/kernel.py:357",
                 max_abs_err=max(err_x, err_g), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, fp32_bound_ms=fp32_ms)
@@ -992,6 +1108,107 @@ def phase_kernels(ptxas, cfg=None, cases=GNN_CASES):
     if "halo" in cases:
         records.extend(halo_cases(cfg.hidden, gen))
     return sem, pg, records
+
+
+# phase 2's generic-width cases of kernels 1 and 2 (csrc/nmp_any.cu): each
+# width x hidden layers, on a box of ANY_MID_ELEMS elements below ANY_WIDE
+# and of ANY_SMALL_ELEMS from there on (the float64 VJP at H=1024 with 7
+# hidden layers holds ~10.5 M weights per edge MLP), both at p=ORDER
+ANY_WIDTHS, ANY_DEPTHS, ANY_WIDE = (4, 12, 64, 100, 512, 1024), (1, 2, 7), 512
+ANY_MID_ELEMS, ANY_SMALL_ELEMS = (4, 4, 4), (2, 2, 2)
+
+
+def _any_graph(elems):
+    import torch
+    from repro_torch.core.graph_state import FUSED, NMPPlan, ShardedGraph
+    from repro_torch.core.mesh_gen import box_mesh
+    from repro_torch.core.partition import partition_mesh
+    sem = box_mesh(elems, p=ORDER)
+    pg = partition_mesh(sem, (1, 1, 1))
+    g = ShardedGraph.build(pg, sem.coords, NMPPlan(backend=FUSED),
+                           device=torch.device("cuda")).rank(0)
+    return pg, g
+
+
+def phase_kernels_any(ptxas, widths=ANY_WIDTHS, depths=ANY_DEPTHS):
+    """Kernels 1 and 2 at the widths and depths the tuned pair does not
+    take: each (H, hidden layers) through :func:`nmp_fwd_case` /
+    :func:`nmp_bwd_case` with the generic entries' specs (plain version,
+    float64 forward / VJP, bitwise rerun, one launch of the entry's own
+    counter per call, CUDA-event times, bound, launch plan, ptxas); then
+    the dispatch: at H=4 and H=32 with 2 hidden layers on the same graph,
+    one forward and one backward each, H=32 moves only the tuned counters
+    and H=4 only the generic ones.  Returns {(H, Lp): (fwd ms, bwd ms)}."""
+    import torch
+    from repro_torch.core.gnn import GNNConfig, init_gnn
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as sa
+    t0 = time.perf_counter()
+    graphs = {False: _any_graph(ANY_MID_ELEMS), True: _any_graph(ANY_SMALL_ELEMS)}
+    for wide, (pg, _) in graphs.items():
+        say("2 kernels", f"generic-width cases {'H >= ' if wide else 'H < '}{ANY_WIDE}: "
+            f"box {ANY_SMALL_ELEMS if wide else ANY_MID_ELEMS} p={ORDER}, {pg.n_global} nodes, "
+            f"{int(pg.edge_mask.sum())} directed edges")
+    gen = torch.Generator().manual_seed(27)
+    dev = torch.device("cuda")
+    times = {}
+
+    def case_inputs(H, Lp, wide):
+        pg, g = graphs[wide]
+        edge = init_gnn(gen, GNNConfig(hidden=H, n_mp_layers=1, mlp_hidden_layers=Lp),
+                        device=dev)["mp"][0]["edge"]
+        for lp in edge["layers"]:                  # non-trivial biases
+            lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(dev)
+        x = torch.randn(pg.n_pad, H, generator=gen).to(dev)
+        e = torch.randn(pg.e_pad, H, generator=gen).to(dev)
+        return pg, g, edge, x, e
+
+    failed = []
+    for H in widths:
+        for Lp in depths:
+            pg, g, edge, x, e = case_inputs(H, Lp, H >= ANY_WIDE)
+            n_real = int(pg.edge_mask.sum())
+            n_dst = int((g["seg_rowptr"].diff() > 0).sum())
+            flops = n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H
+            weights = [t for l in edge["layers"] for t in l.values()] + list(edge["ln"].values())
+            slots = g["seg_perm"].numel()
+            ms = []
+            for kind, case, fl, extra, iters in (("fwd", nmp_fwd_case, flops, (), (5, 2)),
+                                                 ("bwd", nmp_bwd_case, 3 * flops, (gen,), (3, 1))):
+                try:
+                    rec = case(x, e, edge, g, n_real, pg.n_pad, fl, weights, ptxas, *extra,
+                               spec=any_spec(kind, H, Lp, slots, ptxas), detail=False,
+                               iters=iters)
+                    ms.append(rec["ms"])
+                except RuntimeError as err:     # every case runs; the phase fails below
+                    failed.append(f"{kind} H={H} Lp={Lp}: {err}")
+                    ms.append(None)
+            times[H, Lp] = tuple(ms)
+            del x, e, edge
+    # the dispatch: the tuned widths keep the tuned kernels
+    moved = {}
+    for H in (32, 4):
+        pg, g, edge, x, e = case_inputs(H, 2, False)
+        lay = (g["seg_perm"], g["seg_src"], g["seg_rowptr"])
+        src_lay = (g["seg_src_slots"], g["seg_src_rowptr"])
+        rest = (g["edge_mask"], g["edge_inv_mult"])
+        before = dict(build.launch_counts)
+        sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
+        sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest, torch.ones_like(e),
+                                  torch.ones_like(x))
+        torch.cuda.synchronize()
+        moved[H] = {k: v - before.get(k, 0) for k, v in build.launch_counts.items()
+                    if v != before.get(k, 0)}
+    want = {32: {sa.KERNEL: 1, sa.KERNEL_BWD: 1}, 4: {sa.KERNEL_ANY: 1, sa.KERNEL_BWD_ANY: 1}}
+    say("2 kernels", f"dispatch on the {ANY_MID_ELEMS} box, 2 hidden layers: launches at H=32 "
+        f"{moved[32]}, at H=4 {moved[4]} (expected {want}) -> "
+        f"{'ok' if moved == want else 'FAIL'} | generic cases {time.perf_counter() - t0:.1f} s")
+    if moved != want:
+        raise RuntimeError(f"kernels 1 and 2 dispatched wrongly by width: {moved}")
+    if failed:
+        raise RuntimeError("generic-width cases failed: " + "; ".join(failed))
+    torch.cuda.empty_cache()
+    return times
 
 
 # the (block_n, block_e) pairs whose kernel-3 times at full width pick the
@@ -3434,6 +3651,221 @@ def profile_line(fn):
             + "; ".join(f"{t:.3f} ms {k[:60]}" for t, k in kern[:6]))
 
 
+# phase 9: GraphCast's weather configuration (repro's configs/graphcast.py
+# weather_config) at its published widths: d512, 16 processor layers of one
+# MLP hidden layer, 227 variables in and out, 4 geometric edge features,
+# on an icosphere of GC_REFINEMENT and a GC_GRID lat-lon grid, each grid
+# point joined to its GC_K nearest mesh vertices; GC_REQUESTS served
+# states, then one loss gradient at GC_GRAD_LAYERS processor layers
+GC_REFINEMENT, GC_GRID, GC_K = 5, (91, 180), 3
+GC_REQUESTS, GC_GRAD_LAYERS, GC_SEED = 4, 2, 0
+GC_REDUCED = {"mesh refinement": "6 -> 5 (40,962 -> 10,242 mesh nodes)",
+              "grid": "0.25 deg 721 x 1440 -> 2 deg 91 x 180",
+              "why": "the host's brute-force kNN (grid2mesh_edges) grows as grid x mesh"}
+
+
+def phase_graphcast(ptxas, smi):
+    """GraphCast weather_config(5) through ``repro_torch.configs``'s
+    ``graphcast`` entry and the fused backend: every processor layer runs
+    kernel 1's generic entry at H=512.  Serves GC_REQUESTS seeded
+    227-variable states (CUDA-event ms per forward, the device's busy
+    share under torch.profiler, peak memory; kernel 1 launched exactly 16
+    times a forward, nothing else), holds one forward to the plain backend
+    (rtol 1e-4 / atol 1e-5 elementwise, or, where the 16 layers' fp32
+    noise leaves that band, its relative L2 distance from a float64
+    forward within F64_FACTOR of the plain backend's), and one loss
+    gradient at GC_GRAD_LAYERS layers (kernel 2's generic entry at H=512,
+    launches exact) to the plain backend's in the gradient band; then
+    kernels 1 and 2 alone at this cell's shapes against their plain
+    versions (the records of the kernel line).  Returns ({path: launch
+    counts}, [kernel records])."""
+    import torch
+    from repro_torch import nn
+    from repro_torch.configs import get_arch
+    from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, ShardedGraph
+    from repro_torch.core.halo import NONE, HaloSpec
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as sa
+    from repro_torch.models.gnn_zoo import graphcast as gcm
+    phase = "9 graphcast"
+    arch, family = get_arch("graphcast")
+    cfg = arch.weather_config(GC_REFINEMENT)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    edges, xyz, n_grid, counts = gcm.weather_graph(GC_REFINEMENT, *GC_GRID, k=GC_K)
+    t_knn = time.perf_counter() - t0
+    n_total = xyz.shape[0]
+    plan = NMPPlan(halo=HaloSpec(mode=NONE), backend=FUSED)
+    pg = partition_graph(n_total, edges, 1)
+    g = ShardedGraph.build(pg, xyz, plan, device=dev).rank(0)
+    n_real = int(pg.edge_mask.sum())
+    say(phase, f"{cfg.name} ({family}): in {cfg.in_dim}, hidden {cfg.hidden}, {cfg.n_layers} "
+        f"layers of {cfg.mlp_hidden_layers} MLP hidden layer, out {cfg.out_dim}, edge_in "
+        f"{cfg.edge_in} | {n_total - n_grid} mesh + {n_grid} grid = {n_total} nodes, "
+        f"{n_real} directed edges {counts} | host kNN {t_knn:.1f} s, graph build "
+        f"{time.perf_counter() - t0 - t_knn:.1f} s | reduced: {GC_REDUCED}")
+    params = gcm.init_graphcast(torch.Generator().manual_seed(GC_SEED), cfg, device=dev)
+    ef = torch.from_numpy(gcm.weather_edge_feats(
+        xyz, pg.edge_src[0], pg.edge_dst[0], pg.edge_mask[0], cfg.edge_in)).to(dev)
+
+    def state(i):
+        x = np.zeros((pg.n_pad, cfg.in_dim), np.float32)
+        x[:n_grid] = np.random.default_rng(GC_SEED + 1 + i).normal(size=(n_grid, cfg.in_dim))
+        return torch.from_numpy(x).to(dev)
+
+    def forward(x, p=params, c=cfg, pl=plan):
+        with torch.no_grad():
+            return gcm.graphcast_forward(p, x, ef, g, pl, c)
+
+    x0 = state(0)
+    forward(x0)                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    ms, ok_out = [], True
+    t1 = time.perf_counter()
+    for i in range(GC_REQUESTS):
+        x = state(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = forward(x)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        ok_out &= tuple(y.shape) == (pg.n_pad, cfg.out_dim) and bool(torch.isfinite(y).all())
+    wall = time.perf_counter() - t1
+    by_path = {"graphcast_serve": dict(build.launch_counts)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(phase, "graphcast_serve", by_path["graphcast_serve"],
+                   {sa.KERNEL_ANY: GC_REQUESTS * cfg.n_layers})
+    say(phase, f"served {GC_REQUESTS} states: forward {', '.join(f'{m:.3f}' for m in ms)} ms "
+        f"(CUDA events; median {float(np.median(ms)):.3f}), {GC_REQUESTS / wall:.2f} req/s "
+        f"with the host's state build and copy, outputs [{pg.n_pad}, {cfg.out_dim}] finite: "
+        f"{ok_out} | peak memory {peak:.2f} GiB | one forward {profile_line(lambda: forward(x0))}")
+    if not ok_out:
+        raise RuntimeError("GraphCast's served output is not finite or has the wrong shape")
+
+    # one forward against the plain backend, and both against float64
+    y_f, y_p = forward(x0), forward(x0, pl=plan.replace(backend=XLA))
+    err, ok = within_band(y_f, y_p)
+    p64 = nn.tree_map(lambda t: t.double(), params)
+    c64 = dataclasses.replace(cfg, act_dtype=torch.float64)
+    with torch.no_grad():
+        y64 = gcm.graphcast_forward(p64, x0.double(), ef.double(), g,
+                                    plan.replace(backend=XLA), c64)
+    rel_f, rel_p = rel_norm(y_f.double(), y64), rel_norm(y_p.double(), y64)
+    f64_ok = rel_f <= F64_FACTOR * rel_p
+    del p64, y64
+    say(phase, f"fused vs plain backend, one forward at full width: max|err| {err:.3g} "
+        f"(rtol {RTOL} atol {ATOL}: {ok}); rel L2 from a float64 forward: fused {rel_f:.3e}, "
+        f"plain {rel_p:.3e} (fused <= {F64_FACTOR:g}x plain: {f64_ok})")
+    if not (ok or f64_ok):
+        raise RuntimeError("GraphCast's fused forward disagrees with the plain backend")
+
+    # one loss gradient at GC_GRAD_LAYERS layers: kernel 2 at H=512
+    cfg2 = dataclasses.replace(cfg, n_layers=GC_GRAD_LAYERS)
+    p2 = dict(params, proc=params["proc"][:GC_GRAD_LAYERS])
+    target = torch.randn(pg.n_pad, cfg.out_dim, generator=torch.Generator().manual_seed(
+        GC_SEED)).to(dev) * g["node_mask"][:, None]
+
+    def loss(p, pl):
+        y = gcm.graphcast_forward(p, x0, ef, g, pl, cfg2)
+        return ((y - target) ** 2).mean()
+    build.reset_launch_counts()
+    t2 = time.perf_counter()
+    lf, gf = nn.value_and_grad(lambda p: loss(p, plan), p2)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t2
+    by_path["graphcast_grad"] = dict(build.launch_counts)
+    check_launches(phase, "graphcast_grad", by_path["graphcast_grad"],
+                   {sa.KERNEL_ANY: GC_GRAD_LAYERS, sa.KERNEL_BWD_ANY: GC_GRAD_LAYERS})
+    lp, gp = nn.value_and_grad(lambda p: loss(p, plan.replace(backend=XLA)), p2)
+    l_err, l_ok = within_band(lf, lp)
+    g_err, by_norm, g_ok = grads_close(gf, gp)
+    say(phase, f"loss gradient at {GC_GRAD_LAYERS} layers, full width ({grad_s:.2f} s with "
+        f"the first launches): loss fused {float(lf):.6e} plain {float(lp):.6e} ({l_ok}); "
+        f"gradients max|err| {g_err:.3g} (rtol {G_RTOL} atol {G_ATOL}; by rel L2 <= {W_REL}: "
+        f"{by_norm}) -> {'ok' if g_ok else 'FAIL'}")
+    if not (l_ok and g_ok):
+        raise RuntimeError("GraphCast's fused gradient disagrees with the plain backend")
+    del gf, gp, p2
+    torch.cuda.empty_cache()
+
+    # kernels 1 and 2 alone at this cell's shapes: one processor layer's
+    # edge MLP on random node and edge rows of the width
+    gen = torch.Generator().manual_seed(GC_SEED + 9)
+    H, Lp = cfg.hidden, cfg.mlp_hidden_layers
+    edge = params["proc"][0]["edge"]
+    x = torch.randn(pg.n_pad, H, generator=gen).to(dev)
+    e = torch.randn(pg.e_pad, H, generator=gen).to(dev)
+    weights = [t for l in edge["layers"] for t in l.values()] + list(edge["ln"].values())
+    n_dst = int((g["seg_rowptr"].diff() > 0).sum())
+    flops = n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H
+    slots = g["seg_perm"].numel()
+    records = [
+        nmp_fwd_case(x, e, edge, g, n_real, pg.n_pad, flops, weights, ptxas,
+                     spec=any_spec("fwd", H, Lp, slots, ptxas), iters=(10, 3)),
+        nmp_bwd_case(x, e, edge, g, n_real, pg.n_pad, 3 * flops, weights, ptxas, gen,
+                     spec=any_spec("bwd", H, Lp, slots, ptxas), iters=(5, 2))]
+    for rec in records:
+        rec["shape"] = f"GraphCast weather_config({GC_REFINEMENT}) layer: H={H}, Lp={Lp}, " \
+                       f"E={n_real}, N={pg.n_pad}"
+    del x, e
+    torch.cuda.empty_cache()
+    return by_path, records
+
+
+def phase_paper_smoke():
+    """The paper's smoke config (N_H=4, M=2, one MLP hidden layer) through
+    the ``paper-gnn`` registry entry, as ``tests/test_arch_smoke.py::
+    test_paper_gnn_smoke`` runs it: ``box_mesh((2, 2, 1), p=2)`` split
+    (2, 1, 1), the A2A exchange, the fused backend, the stacked loss and
+    gradient (kernels 1 and 2's generic entries at H=4, launches exact: M
+    layers x R ranks each), held to the plain backend: loss and
+    predictions in the forward band, gradients in the gradient band."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.gnn import init_gnn
+    from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, ShardedGraph
+    from repro_torch.core.halo import A2A, HaloSpec
+    from repro_torch.core.mesh_gen import box_mesh, taylor_green_velocity
+    from repro_torch.core.partition import gather_node_features, partition_mesh
+    from repro_torch.core.reference import loss_and_grad_stacked
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as sa
+    phase = "9b paper-gnn"
+    arch, family = get_arch("paper-gnn")
+    cfg = arch.smoke_config()
+    dev = torch.device("cuda")
+    mesh = box_mesh((2, 2, 1), p=2)
+    pg = partition_mesh(mesh, (2, 1, 1))
+    plan = NMPPlan(halo=HaloSpec(mode=A2A), backend=FUSED)
+    graph = ShardedGraph.build(pg, mesh.coords, plan, device=dev)
+    x = torch.from_numpy(np.asarray(gather_node_features(
+        pg, taylor_green_velocity(mesh.coords)), dtype=np.float32)).to(dev)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    build.reset_launch_counts()
+    loss, y, grads = loss_and_grad_stacked(params, x, x, graph, plan, cfg.node_out)
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    n = cfg.n_mp_layers * pg.R
+    check_launches(phase, "paper_smoke", counts, {sa.KERNEL_ANY: n, sa.KERNEL_BWD_ANY: n})
+    lp, yp, gp = loss_and_grad_stacked(params, x, x, graph, plan.replace(backend=XLA),
+                                       cfg.node_out)
+    l_err, l_ok = within_band(loss, lp)
+    y_err, y_ok = within_band(y, yp)
+    g_err, by_norm, g_ok = grads_close(grads, gp)
+    say(phase, f"{arch.ARCH_ID} ({family}) smoke_config: N_H={cfg.hidden}, M={cfg.n_mp_layers}, "
+        f"{cfg.mlp_hidden_layers} MLP hidden layer on box (2, 2, 1) p=2 split (2, 1, 1), a2a, "
+        f"fused: loss {float(loss):.6e} vs plain {float(lp):.6e} ({l_ok}), predictions max|err| "
+        f"{y_err:.3g} ({y_ok}), gradients max|err| {g_err:.3g} (by rel L2: {by_norm}; {g_ok})")
+    if not (l_ok and y_ok and g_ok and torch.isfinite(y).all()):
+        raise RuntimeError("the paper's smoke config disagrees with the plain backend on the card")
+    return {"paper_smoke": counts}
+
+
 def phase_dlrm(smi):
     import torch
     from repro_torch.configs import get_arch
@@ -3917,6 +4349,7 @@ def main():
     smi, ptxas = phase_device()
     lap("1 device")
     sem, pg, records = phase_kernels(ptxas, cfg)
+    phase_kernels_any(ptxas)
     seg_record, seg_counts = phase_segment_agg(sem, ptxas)
     records.append(seg_record)
     records.append(phase_embedding_bag(ptxas))
@@ -3953,6 +4386,13 @@ def main():
     by_path.update(phase_multilevel(cfg, smi))
     torch.cuda.empty_cache()
     lap("6b multilevel")
+    gc_paths, gc_records = phase_graphcast(ptxas, smi)
+    by_path.update(gc_paths)
+    records.extend(gc_records)
+    torch.cuda.empty_cache()
+    lap("9 graphcast")
+    by_path.update(phase_paper_smoke())
+    lap("9b paper-gnn")
     by_path.update(phase_dlrm(smi))
     torch.cuda.empty_cache()
     lap("7 dlrm")
@@ -4002,7 +4442,11 @@ def main():
                             "consistency_r4_bf16_overlap", "grad_r4_bf16_blocking",
                             "grad_r4_bf16_overlap"),
            sa.KERNEL_BWD_BF16: ("train_bf16", "grad_r4_bf16_blocking",
-                                "grad_r4_bf16_overlap")}
+                                "grad_r4_bf16_overlap"),
+           # the generic-width entries: GraphCast's d512 (phase 9) and the
+           # paper's smoke config at H=4 (9b)
+           sa.KERNEL_ANY: ("graphcast_serve", "graphcast_grad", "paper_smoke"),
+           sa.KERNEL_BWD_ANY: ("graphcast_grad", "paper_smoke")}
     # no path of the fp32 plan ran a bf16 kernel (the bf16 paths' fp32
     # counts are held to 0 where they are checked)
     for path, counts in by_path.items():

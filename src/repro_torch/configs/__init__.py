@@ -1,5 +1,6 @@
 """Architecture registry (port of ``repro.configs``), holding the
-architectures the port has.  Modules are imported lazily."""
+architectures the port has, and the paper's own GNN.  Modules are imported
+lazily."""
 from __future__ import annotations
 
 import importlib
@@ -7,11 +8,22 @@ from typing import Dict
 
 # arch id -> (module path, family)
 ARCHS: Dict[str, tuple] = {
-    "dlrm-rm2": ("repro_torch.configs.dlrm_rm2", "recsys"),
     "granite-34b": ("repro_torch.configs.granite_34b", "lm"),
+    "graphcast": ("repro_torch.configs.graphcast", "gnn"),
+    "dlrm-rm2": ("repro_torch.configs.dlrm_rm2", "recsys"),
+    # the paper's own architecture (not part of the assigned matrix)
+    "paper-gnn": ("repro_torch.configs.paper_gnn", "gnn"),
 }
 
 
 def get_arch(arch_id: str):
     path, family = ARCHS[arch_id]
     return importlib.import_module(path), family
+
+
+def family_of(arch_id: str) -> str:
+    return ARCHS[arch_id][1]
+
+
+def assigned_archs():
+    return [a for a in ARCHS if a != "paper-gnn"]

@@ -7,6 +7,12 @@ arrays (``jax.tree.map(np.asarray, params)``) and returns tensors on
 ``torch.from_numpy`` refuses) bitwise as ``torch.bfloat16``, every other
 leaf as float32; ``params_to_jax`` returns the numpy tree ``repro`` takes
 (``jax.tree.map(jnp.asarray, tree)`` on the caller's side).
+
+GraphCast's tree differs in one place: ``repro`` stacks the processor's
+layers along a leading axis for its scan (``proc``: one tree whose every
+leaf is ``[n_layers, ...]``), the port keeps a list of ``n_layers`` layer
+trees.  ``graphcast_params_from_jax`` / ``graphcast_params_to_jax`` map the
+one to the other and every other key as above.
 """
 from __future__ import annotations
 
@@ -32,3 +38,43 @@ def params_to_jax(tree):
     if isinstance(tree, (list, tuple)):
         return [params_to_jax(v) for v in tree]
     return tree.detach().cpu().numpy()
+
+
+def _unstack(np_tree, i):
+    if isinstance(np_tree, dict):
+        return {k: _unstack(v, i) for k, v in np_tree.items()}
+    if isinstance(np_tree, (list, tuple)):
+        return [_unstack(v, i) for v in np_tree]
+    return np.asarray(np_tree)[i]
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return np.stack(trees)
+
+
+def _n_stacked(np_tree):
+    while isinstance(np_tree, (dict, list, tuple)):
+        np_tree = next(iter(np_tree.values())) if isinstance(np_tree, dict) else np_tree[0]
+    return np.asarray(np_tree).shape[0]
+
+
+def graphcast_params_from_jax(np_tree, device="cuda"):
+    """``repro``'s GraphCast params (numpy, ``proc`` stacked per layer) ->
+    the port's tree (``proc`` a list of layers) of tensors on ``device``."""
+    out = {k: v for k, v in np_tree.items() if k != "proc"}
+    proc = np_tree["proc"]
+    out["proc"] = [_unstack(proc, i) for i in range(_n_stacked(proc))]
+    return params_from_jax(out, device)
+
+
+def graphcast_params_to_jax(tree):
+    """The port's GraphCast params -> ``repro``'s numpy tree, ``proc``
+    stacked along a leading layer axis."""
+    out = params_to_jax({k: v for k, v in tree.items() if k != "proc"})
+    out["proc"] = _stack([params_to_jax(p) for p in tree["proc"]])
+    return out

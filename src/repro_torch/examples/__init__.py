@@ -1,0 +1,1 @@
+"""Part of the repro_torch port; see the modules."""

@@ -14,11 +14,15 @@ Port of ``repro.kernels.segment_agg.ops``.  The NMP pair (Eq. 4a + 4b,
 * ``fused_nmp_edge_agg`` — the differentiable op (a ``torch.autograd.
   Function``, counterpart of the reference's ``_nmp_core`` custom VJP): on
   CUDA tensors its forward launches ``csrc/nmp_fwd.cu`` and its backward
-  ``csrc/nmp_bwd.cu`` (or raise); on CPU tensors both run the plain
-  versions.  There is no other fallback.  ``precision`` is the reference's
-  policy: ``"fp32"``, or ``"bf16"`` (every edge-MLP product on bf16-rounded
-  operands, accumulated in fp32; the kernels' ``*_bf16`` entries, counted
-  apart as ``nmp_fwd_bf16`` / ``nmp_bwd_bf16``); anything else raises.
+  ``csrc/nmp_bwd.cu`` at the tuned widths H in {8, 16, 32} (the backward
+  at most 5 hidden layers), and ``csrc/nmp_any.cu``'s entries at every
+  other fp32 shape (any H >= 1, any depth; counted apart as
+  ``nmp_fwd_any`` / ``nmp_bwd_any``), or raise; on CPU tensors both run
+  the plain versions.  There is no other fallback.  ``precision`` is the
+  reference's policy: ``"fp32"``, or ``"bf16"`` (every edge-MLP product on
+  bf16-rounded operands, accumulated in fp32; the tuned kernels' ``*_bf16``
+  entries, counted apart as ``nmp_fwd_bf16`` / ``nmp_bwd_bf16``, which
+  raise at any other shape: ROADMAP queue 2); anything else raises.
 * ``fused_nmp_edge_agg_plain`` / ``fused_nmp_edge_agg_bwd_plain`` — the
   same functions in plain PyTorch, used by the CPU tests and by
   ``chip_smoke.py`` to check the kernels on the card;
@@ -55,6 +59,11 @@ KERNEL_BWD = "nmp_bwd"
 #: the bf16 entries' launch counters, apart from the fp32 ones
 KERNEL_BF16 = "nmp_fwd_bf16"
 KERNEL_BWD_BF16 = "nmp_bwd_bf16"
+#: the generic-width entries' launch counters (``csrc/nmp_any.cu``)
+KERNEL_ANY = "nmp_fwd_any"
+KERNEL_BWD_ANY = "nmp_bwd_any"
+#: the library of the generic-width entries
+LIB_ANY = "nmp_any"
 FP32, BF16, PRECISIONS = nn.FP32, nn.BF16, nn.PRECISIONS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,9 +85,25 @@ _SIGNATURES_BWD = {
     # as f32, with a second per-slot scratch: the slot's x_dst gradient
     "nmp_edge_mlp_agg_bwd_bf16": (_P,) * 24 + (_I, _L) + (_I,) * 4 + (_P,),
 }
+_PLAN = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURES_ANY = {
+    "nmp_edge_mlp_agg_fwd_any_plan": (_I, _I, _L, _PLAN),
+    # 13 operands, e_new, agg, scratch tile_lo / partials / work; N, slots,
+    # edges, H, Lp, has_ln, stream
+    "nmp_edge_mlp_agg_fwd_any_f32": (_P,) * 18 + (_I, _L, _L) + (_I,) * 3 + (_P,),
+    "nmp_edge_mlp_agg_bwd_any_plan": (_I, _I, _L, _PLAN),
+    # 17 operands, gx, ge, gw, scratch g_z0 / slot_dst / node sums /
+    # partials / work; N, slots, H, Lp, has_ln, partial rows, stream
+    "nmp_edge_mlp_agg_bwd_any_f32": (_P,) * 25 + (_I, _L) + (_I,) * 4 + (_P,),
+}
+#: the widths of the tuned kernels (``csrc/nmp_fwd.cu``, ``csrc/nmp_bwd.cu``
+#: and their bf16 entries); every other fp32 width runs ``csrc/nmp_any.cu``
 SUPPORTED_HIDDEN = (8, 16, 32)
-#: hidden layers the backward kernel's register accumulators hold
+#: hidden layers the tuned backward's register accumulators hold; deeper
+#: fp32 MLPs run ``csrc/nmp_any.cu``
 MAX_BWD_HIDDEN = 5
+#: where the bf16 entries at other shapes are queued
+BF16_ANY_ITEM = "ROADMAP.md queue 2 item 1 (bf16 NMP kernels at any width and depth)"
 KERNEL_MLP_AGG = "edge_mlp_agg"
 _MLP_AGG_ENTRY = {torch.float32: "edge_mlp_agg_f32", torch.bfloat16: "edge_mlp_agg_bf16"}
 # feats, dstl, weights, w1, b1, w2, b2, e_new, agg, NB, slots per node
@@ -237,11 +262,26 @@ _ENTRIES = {
                     "nmp_edge_mlp_agg_bwd_bf16_plan")}
 
 
+def entry_counter(kind: str, hidden: int, n_hidden: int, precision: str = FP32) -> str:
+    """The launch counter of the kernel that ``kind`` ("fwd" / "bwd") runs
+    at this shape and precision on a card: the tuned kernel's where H is in
+    :data:`SUPPORTED_HIDDEN` (and, for the backward, at most
+    :data:`MAX_BWD_HIDDEN` hidden layers), else the generic entry's; raises
+    for bf16 where the tuned kernels do not take the shape."""
+    _check_precision(precision)
+    if hidden in SUPPORTED_HIDDEN and (kind == "fwd" or n_hidden <= MAX_BWD_HIDDEN):
+        return _ENTRIES[kind, precision][1]
+    if precision == BF16:
+        raise ValueError(
+            f"fused_nmp_edge_agg: precision='bf16' at H={hidden} with {n_hidden} hidden "
+            f"layers; the bf16 kernels take H in {SUPPORTED_HIDDEN} (the backward at most "
+            f"{MAX_BWD_HIDDEN} hidden layers); other shapes are {BF16_ANY_ITEM}")
+    return KERNEL_ANY if kind == "fwd" else KERNEL_BWD_ANY
+
+
 def _check_cuda(name, x, hid, n, seg_rowptr):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if hid not in SUPPORTED_HIDDEN:
-        raise ValueError(f"{name}: hidden {hid} not in {SUPPORTED_HIDDEN}")
     if seg_rowptr.shape[0] != n + 1:
         raise ValueError(f"seg_rowptr has {seg_rowptr.shape[0]} entries, "
                          f"expected N_pad + 1 = {n + 1}")
@@ -316,35 +356,44 @@ def fused_nmp_edge_agg_bwd_plain(x, e, edge_params, seg_perm, seg_src,
 
 def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
          edge_mask, edge_inv_mult, precision):
-    """Forward on stacked operands: plain on CPU, ``nmp_fwd`` (or its bf16
-    entry) on CUDA."""
+    """Forward on stacked operands: plain on CPU; on CUDA ``nmp_fwd`` (or
+    its bf16 entry) at the tuned widths, ``nmp_any``'s forward at every
+    other fp32 shape."""
     n, hid = x.shape
     if x.device.type == "cpu":
         return fused_nmp_edge_agg_plain(
             x, e, _unstack_edge_mlp(*ops, n_hidden, has_ln), seg_perm,
             seg_src, seg_rowptr, edge_mask, edge_inv_mult, precision)
     _check_cuda("fused_nmp_edge_agg", x, hid, n, seg_rowptr)
+    counter = entry_counter("fwd", hid, n_hidden, precision)
     f32, i32 = torch.float32, torch.int32
     args = (x, e, seg_perm.reshape(-1), seg_src.reshape(-1), seg_rowptr,
             edge_mask, edge_inv_mult, *ops)
     build.require_cuda("fused_nmp_edge_agg", *args,
                        dtypes=(f32, f32, i32, i32, i32) + (f32,) * 8)
     n_slots = args[2].shape[0]
-    tiles = fwd_launch_plan(hid, n_hidden, n_slots, precision)["tiles"]
     dev, n_edges = x.device, e.shape[0]
     e_new = torch.empty(n_edges, hid, dtype=f32, device=dev)
     agg = torch.empty(n, hid, dtype=f32, device=dev)
-    # scratch: each 128-slot tile's first owned node, its two partial rows
-    # of the nodes its edges cut, and a byte per edge that the layout holds
-    tile_lo = torch.empty(tiles + 1, dtype=i32, device=dev)
-    partials = torch.empty(tiles, 2, hid, dtype=f32, device=dev)
-    covered = torch.empty(n_edges, dtype=torch.uint8, device=dev)
-    lib = build.load(KERNEL, _SIGNATURES)
-    entry, counter, _ = _ENTRIES["fwd", precision]
+    # scratch: each tile's first owned node and its two partial rows of the
+    # nodes its edges cut (128-slot tiles in the tuned kernel, 64 in the
+    # generic one); then a byte per edge that the layout holds (tuned), or
+    # the activation slabs where shared memory cannot hold them (generic)
+    if counter == KERNEL_ANY:
+        plan = fwd_any_launch_plan(hid, n_hidden, n_slots)
+        tiles = plan["tiles"]
+        last = torch.empty(max(1, plan["grid"] * plan["work_floats"]), dtype=f32, device=dev)
+        lib, entry = build.load(LIB_ANY, _SIGNATURES_ANY), "nmp_edge_mlp_agg_fwd_any_f32"
+    else:
+        tiles = fwd_launch_plan(hid, n_hidden, n_slots, precision)["tiles"]
+        last = torch.empty(n_edges, dtype=torch.uint8, device=dev)
+        lib, entry = build.load(KERNEL, _SIGNATURES), _ENTRIES["fwd", precision][0]
+    scratch = (torch.empty(tiles + 1, dtype=i32, device=dev),
+               torch.empty(tiles, 2, hid, dtype=f32, device=dev), last)
     code = getattr(lib, entry)(
         *(t.data_ptr() for t in args), e_new.data_ptr(), agg.data_ptr(),
-        tile_lo.data_ptr(), partials.data_ptr(), covered.data_ptr(), n, n_slots,
-        n_edges, hid, n_hidden, int(has_ln), build.stream_of(x))
+        *(t.data_ptr() for t in scratch), n, n_slots, n_edges, hid, n_hidden,
+        int(has_ln), build.stream_of(x))
     build.check(lib, code, entry)
     build.count_launch(counter)
     return e_new, agg
@@ -382,11 +431,39 @@ def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int,
     return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2])
 
 
+def fwd_any_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
+    """The generic forward's (``csrc/nmp_any.cu``) edge pass on the current
+    card: ``grid``, ``smem_bytes`` of dynamic shared memory per block,
+    ``blocks_per_sm`` resident (occupancy API), ``work_floats`` of global
+    scratch per block for the activation slabs (0: they sit in shared
+    memory) and ``tiles`` (64-slot tiles the scratch holds)."""
+    lib = build.load(LIB_ANY, _SIGNATURES_ANY)
+    plan = (ctypes.c_longlong * 5)()
+    code = lib.nmp_edge_mlp_agg_fwd_any_plan(hidden, n_hidden, n_slots, plan)
+    build.check(lib, code, "nmp_edge_mlp_agg_fwd_any_plan")
+    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
+                work_floats=plan[3], tiles=plan[4])
+
+
+def bwd_any_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
+    """The generic backward's edge pass on the current card: ``grid`` (the
+    partial weight-gradient rows), ``smem_bytes`` of dynamic shared memory
+    per block, ``blocks_per_sm`` resident and ``work_floats`` of global
+    scratch per block (0: the slabs sit in shared memory)."""
+    lib = build.load(LIB_ANY, _SIGNATURES_ANY)
+    plan = (ctypes.c_longlong * 4)()
+    code = lib.nmp_edge_mlp_agg_bwd_any_plan(hidden, n_hidden, n_slots, plan)
+    build.check(lib, code, "nmp_edge_mlp_agg_bwd_any_plan")
+    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
+                work_floats=plan[3])
+
+
 def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
          seg_src_slots, seg_src_rowptr, edge_mask, edge_inv_mult, g_enew,
          g_agg, precision):
-    """Backward on stacked operands: plain on CPU, ``nmp_bwd`` (or its bf16
-    entry) on CUDA."""
+    """Backward on stacked operands: plain on CPU; on CUDA ``nmp_bwd`` (or
+    its bf16 entry) at the tuned shapes, ``nmp_any``'s backward at every
+    other fp32 shape."""
     n, hid = x.shape
     if x.device.type == "cpu":
         return _bwd_plain_stacked(x, e, ops, n_hidden, has_ln, seg_perm,
@@ -405,9 +482,7 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
         raise ValueError(f"cotangents {tuple(g_enew.shape)}, {tuple(g_agg.shape)} "
                          f"do not match e_new [{e.shape[0]}, {hid}] and agg "
                          f"{tuple(x.shape)}")
-    if n_hidden > MAX_BWD_HIDDEN:
-        raise ValueError(f"fused_nmp_edge_agg_bwd: {n_hidden} hidden layers; the "
-                         f"kernel takes at most {MAX_BWD_HIDDEN}")
+    counter = entry_counter("bwd", hid, n_hidden, precision)
     f32, i32 = torch.float32, torch.int32
     g_enew, g_agg = g_enew.contiguous(), g_agg.contiguous()
     perm = seg_perm.reshape(-1)
@@ -415,9 +490,7 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
             seg_src_rowptr, edge_mask, edge_inv_mult, *ops, g_enew, g_agg)
     build.require_cuda("fused_nmp_edge_agg_bwd", *args,
                        dtypes=(f32, f32) + (i32,) * 5 + (f32,) * 10)
-    lib = build.load(KERNEL_BWD, _SIGNATURES_BWD)
     n_slots = perm.shape[0]
-    groups = bwd_launch_plan(hid, n_hidden, n_slots, precision)["grid"]
     lp = ops[2].shape[0]
     sizes = (3 * hid * hid, hid, lp * hid * hid, lp * hid, hid, hid)
     wsize = sum(sizes)
@@ -429,19 +502,30 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     # 552 MB at the serving mesh's 4.3 M slots, H=32; in bf16 the slot's
     # x_src gradient, and as much again for its x_dst gradient), each
     # slot's destination node, and one row of partial weight gradients per
-    # block
+    # block (~1.05 M floats a row at H=512, one hidden layer)
     gz0 = torch.empty(n_slots, hid, dtype=f32, device=dev)
-    scratch = [gz0.data_ptr()]
-    if precision == BF16:
-        gxd = torch.empty(n_slots, hid, dtype=f32, device=dev)
-        scratch.append(gxd.data_ptr())
     slot_dst = torch.empty(n_slots, dtype=i32, device=dev)
-    partials = torch.empty(groups, wsize, dtype=f32, device=dev)
-    entry, counter, _ = _ENTRIES["bwd", precision]
+    if counter == KERNEL_BWD_ANY:
+        plan = bwd_any_launch_plan(hid, n_hidden, n_slots)
+        groups = plan["grid"]
+        # the per-node sums of g_z0 (dst | src) and the activation slabs
+        # where shared memory cannot hold them
+        scratch = [gz0, slot_dst, torch.empty(n, 2 * hid, dtype=f32, device=dev),
+                   torch.empty(groups, wsize, dtype=f32, device=dev),
+                   torch.empty(max(1, groups * plan["work_floats"]), dtype=f32,
+                               device=dev)]
+        lib, entry = build.load(LIB_ANY, _SIGNATURES_ANY), "nmp_edge_mlp_agg_bwd_any_f32"
+    else:
+        groups = bwd_launch_plan(hid, n_hidden, n_slots, precision)["grid"]
+        scratch = [gz0]
+        if precision == BF16:
+            scratch.append(torch.empty(n_slots, hid, dtype=f32, device=dev))
+        scratch += [slot_dst, torch.empty(groups, wsize, dtype=f32, device=dev)]
+        lib, entry = build.load(KERNEL_BWD, _SIGNATURES_BWD), _ENTRIES["bwd", precision][0]
     code = getattr(lib, entry)(
         *(t.data_ptr() for t in args), gx.data_ptr(), ge.data_ptr(),
-        gw.data_ptr(), *scratch, slot_dst.data_ptr(), partials.data_ptr(),
-        n, n_slots, hid, n_hidden, int(has_ln), groups, build.stream_of(x))
+        gw.data_ptr(), *(t.data_ptr() for t in scratch), n, n_slots, hid,
+        n_hidden, int(has_ln), groups, build.stream_of(x))
     build.check(lib, code, entry)
     build.count_launch(counter)
     gw0, gb0, gwr, gbr, glng, glnb = torch.split(gw, sizes)
@@ -498,7 +582,9 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
     CPU tensors run the plain forward and backward; CUDA tensors launch
     ``csrc/nmp_fwd.cu`` (fp32 operands in memory, H in {8, 16, 32}, any
     number of hidden layers) and, in the backward, ``csrc/nmp_bwd.cu`` (at
-    most 5 hidden layers), each at ``precision``, or raise.  Tensors are saved for the backward only when grad is
+    most 5 hidden layers), each at ``precision``, and ``csrc/nmp_any.cu``
+    at every other fp32 shape (any H >= 1, any depth); bf16 at another
+    shape raises.  Tensors are saved for the backward only when grad is
     enabled and an input requires it.
 
     Returns (e_new [E_pad, H], agg [N_pad, H]).
@@ -518,7 +604,8 @@ def fused_nmp_edge_agg_bwd(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
     """The backward on its own: VJP of :func:`fused_nmp_edge_agg` for the
     cotangents (g_enew [E_pad, H], g_agg [N_pad, H]).  CPU tensors run
     :func:`fused_nmp_edge_agg_bwd_plain`; CUDA tensors launch
-    ``csrc/nmp_bwd.cu`` or raise.  Returns the tuple of
+    ``csrc/nmp_bwd.cu`` at the tuned shapes, ``csrc/nmp_any.cu`` at every
+    other fp32 shape, or raise.  Returns the tuple of
     :func:`fused_nmp_edge_agg_bwd_plain`."""
     _check_hidden(edge_params, x.shape[1])
     *ops, n_hidden, has_ln = _stack_edge_mlp(edge_params)
@@ -712,7 +799,8 @@ def fused_edge_mlp_agg(feats, dst, weights, w1, b1, w2, b2, layout, *,
     return e_new, agg.reshape(-1, agg.shape[-1])
 
 
-__all__ = ["KERNEL_MLP_AGG", "compact_gather_layout", "dst_aligned_layout",
+__all__ = ["KERNEL_MLP_AGG", "KERNEL_ANY", "KERNEL_BWD_ANY",
+           "compact_gather_layout", "dst_aligned_layout", "entry_counter",
            "edge_mlp_agg", "edge_mlp_agg_plain", "fused_edge_mlp_agg",
            "mlp_agg_launch_plan",
            "fused_nmp_edge_agg", "fused_nmp_edge_agg_bwd",

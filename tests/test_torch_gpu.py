@@ -29,7 +29,10 @@ version's sorted segment sum: e_new rtol / atol 3e-5 in fp32 and 2e-2 in
 bf16 (``tests/test_kernels.py``'s bands for the op and its ``TOL``), agg
 1e-4 in both (fp32), also at its tile edges (block_e against its 64-slot
 tiles, Fin and H off multiples of 8, a node block of one slot and one of
-padding only, every block_n it is built for).  Every kernel, and a training step through them, is
+padding only, every block_n it is built for).  Kernels 1 and 2's
+generic-width entries (``csrc/nmp_any.cu``: H 4, 12, 64, 100, 512, 1024
+x 1, 2, 7 hidden layers) are held to the same bands on the tile-edge and
+ragged graphs, bitwise on a rerun, each launch on its own counter.  Every kernel, and a training step through them, is
 bitwise repeatable.
 """
 import os
@@ -422,8 +425,11 @@ def test_fused_nmp_bwd_kernel_ragged_tiles(cuda, hidden, layers):
 
 @pytest.mark.gpu
 def test_fused_nmp_bwd_plan_and_limits(cuda):
-    """The edge pass's launch as the card reports it, and what the wrapper
-    refuses: more hidden layers than the accumulators hold."""
+    """The edge pass's launch as the card reports it, and where the tuned
+    kernel's limit now sends a shape: more hidden layers than its
+    accumulators hold run the generic backward (``csrc/nmp_any.cu``), within
+    the gradient bands of plain, counted on its own counter; the bf16
+    entries refuse that depth, naming their ROADMAP item."""
     plan = sa.bwd_launch_plan(32, 5, 4_315_696)
     assert plan["smem_bytes"] == 220_672 and plan["blocks_per_sm"] >= 1
     assert 1 <= plan["grid"] <= 132 * plan["blocks_per_sm"]
@@ -433,10 +439,142 @@ def test_fused_nmp_bwd_plan_and_limits(cuda):
     edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
     rng = np.random.default_rng(0)
     lay, src_lay, mask, inv, _ = _ragged_layout(rng, cuda)
-    z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
-    with pytest.raises(ValueError, match="at most 5"):
-        sa.fused_nmp_edge_agg_bwd(z(300, 8), z(1128, 8), edge, *lay, *src_lay, mask,
-                                  inv, z(1128, 8), z(300, 8))
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    args = (R(300, 8), R(1128, 8), edge, *lay, *src_lay, mask, inv, R(1128, 8), R(300, 8))
+    counts = {k: build.launch_counts.get(k, 0) for k in (sa.KERNEL_BWD, sa.KERNEL_BWD_ANY)}
+    got = sa.fused_nmp_edge_agg_bwd(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts[sa.KERNEL_BWD_ANY] == counts[sa.KERNEL_BWD_ANY] + 1
+    assert build.launch_counts.get(sa.KERNEL_BWD, 0) == counts[sa.KERNEL_BWD]
+    want = sa.fused_nmp_edge_agg_bwd_plain(*args[:6], *args[8:])
+    torch.testing.assert_close(got[0], want[0], rtol=G_RTOL, atol=G_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=G_RTOL, atol=G_ATOL)
+    assert all(_rel_norm(a, b) <= W_REL for a, b in zip(got[2:], want[2:]))
+    with pytest.raises(ValueError, match="queue 2"):
+        sa.fused_nmp_edge_agg_bwd(*args, precision=BF16)
+
+
+#: kernels 1 and 2 at the widths and depths the tuned pair does not take
+ANY_WIDTHS = (4, 12, 64, 100, 512, 1024)
+ANY_DEPTHS = (1, 2, 7)
+
+
+def _any_counts():
+    return {k: build.launch_counts.get(k, 0)
+            for k in (sa.KERNEL, sa.KERNEL_ANY, sa.KERNEL_BWD, sa.KERNEL_BWD_ANY)}
+
+
+def _moved(before):
+    return {k: build.launch_counts.get(k, 0) - v for k, v in before.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_hidden", ANY_DEPTHS)
+@pytest.mark.parametrize("hidden", ANY_WIDTHS)
+def test_nmp_any_fwd_matches_plain(cuda, hidden, n_hidden):
+    """The generic forward on the tile-edge graph (nodes across 2 to 5 of
+    its 64-slot tiles, degree-0 nodes, padding edges, a ragged last tile):
+    within the forward band of plain, e' of edges outside the layout 0,
+    two launches bitwise equal, one launch of its own counter each and
+    none of the tuned kernel's."""
+    args, outside = _tile_edge_case(cuda, hidden, n_hidden, True, hidden + n_hidden)
+    before = _any_counts()
+    e_new, agg = sa.fused_nmp_edge_agg(*args)
+    torch.cuda.synchronize()
+    assert _moved(before) == {sa.KERNEL: 0, sa.KERNEL_ANY: 1, sa.KERNEL_BWD: 0,
+                              sa.KERNEL_BWD_ANY: 0}
+    pe, pa = sa.fused_nmp_edge_agg_plain(*args)
+    torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
+    assert not e_new[torch.from_numpy(outside).to(cuda)].any()
+    e2, a2 = sa.fused_nmp_edge_agg(*args)
+    assert torch.equal(e_new, e2) and torch.equal(agg, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("hidden", [4, 12, 100])
+def test_nmp_any_fwd_without_ln_and_hidden_layers(cuda, hidden, has_ln):
+    """No hidden layer (the first product is the last) with and without
+    LayerNorm, at widths no multiple of 8: within the forward band."""
+    args, _ = _tile_edge_case(cuda, hidden, 0, has_ln, hidden)
+    e_new, agg = sa.fused_nmp_edge_agg(*args)
+    pe, pa = sa.fused_nmp_edge_agg_plain(*args)
+    torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
+
+
+def _any_bwd_case(cuda, hidden, n_hidden, has_ln, seed):
+    rng = np.random.default_rng(seed)
+    lay, src_lay, mask, inv, outside = _ragged_layout(rng, cuda)
+    n, n_edges = 300, mask.shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=n_hidden)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    if not has_ln:
+        edge.pop("ln")
+    for lp in edge["layers"]:
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    x, e, g_enew, g_agg = R(n, hidden), R(n_edges, hidden), R(n_edges, hidden), R(n, hidden)
+    return (x, e, edge, *lay, *src_lay, mask, inv, g_enew, g_agg), outside
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("n_hidden", ANY_DEPTHS)
+@pytest.mark.parametrize("hidden", ANY_WIDTHS)
+def test_nmp_any_bwd_matches_plain(cuda, hidden, n_hidden, has_ln):
+    """The generic backward on the ragged graph (a node's slots across 4
+    tiles, an all-masked run, isolated nodes, edges outside the layout, a
+    ragged last tile): g_x / g_e within the gradient band of plain, weight
+    gradients by relative L2, g_e outside the layout 0, two launches
+    bitwise equal, one launch of its own counter each."""
+    args, outside = _any_bwd_case(cuda, hidden, n_hidden, has_ln, hidden + n_hidden)
+    before = _any_counts()
+    got = sa.fused_nmp_edge_agg_bwd(*args)
+    torch.cuda.synchronize()
+    assert _moved(before) == {sa.KERNEL: 0, sa.KERNEL_ANY: 0, sa.KERNEL_BWD: 0,
+                              sa.KERNEL_BWD_ANY: 1}
+    want = sa.fused_nmp_edge_agg_bwd_plain(*args[:6], *args[8:])
+    torch.testing.assert_close(got[0], want[0], rtol=G_RTOL, atol=G_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=G_RTOL, atol=G_ATOL)
+    assert not got[1][torch.from_numpy(outside).to(cuda)].any()
+    for i, (a, b) in enumerate(zip(got[2:], want[2:])):
+        if i in (4, 5) and not has_ln:
+            assert not a.any() and not b.any()
+        else:
+            assert _rel_norm(a, b) <= W_REL, i
+    again = sa.fused_nmp_edge_agg_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_nmp_any_dispatch_and_plans(cuda):
+    """The tuned widths keep the tuned kernels (their counters move, the
+    generic ones do not), H=4 goes to the generic pair; bf16 at H=12
+    raises naming its ROADMAP item; the launch plans at GraphCast's width
+    (the slabs in global memory) and at H=100 (in shared memory)."""
+    for hidden, tuned_width in ((32, True), (4, False)):
+        args, _ = _any_bwd_case(cuda, hidden, 2, True, 3)
+        before = _any_counts()
+        sa.fused_nmp_edge_agg(*args[:6], *args[8:10])
+        sa.fused_nmp_edge_agg_bwd(*args)
+        torch.cuda.synchronize()
+        k = (sa.KERNEL, sa.KERNEL_BWD) if tuned_width else (sa.KERNEL_ANY, sa.KERNEL_BWD_ANY)
+        assert _moved(before) == {name: int(name in k) for name in before}
+    args, _ = _any_bwd_case(cuda, 12, 1, True, 4)
+    with pytest.raises(ValueError, match="queue 2"):
+        sa.fused_nmp_edge_agg(*args[:6], *args[8:10], precision=BF16)
+    with pytest.raises(ValueError, match="queue 2"):
+        sa.fused_nmp_edge_agg_bwd(*args, precision=BF16)
+    plan = sa.fwd_any_launch_plan(512, 1, 180_180)
+    assert plan["work_floats"] == 2 * 64 * 512 and plan["tiles"] == -(-180_180 // 64)
+    assert 1 <= plan["grid"] <= 132 * plan["blocks_per_sm"]
+    assert sa.fwd_any_launch_plan(100, 1, 1000)["work_floats"] == 0
+    bplan = sa.bwd_any_launch_plan(512, 1, 180_180)
+    assert bplan["work_floats"] == 4 * 64 * 512 and bplan["grid"] >= 1
+    assert sa.bwd_any_launch_plan(4, 7, 100)["work_floats"] == 0
 
 
 @pytest.mark.gpu

@@ -123,3 +123,16 @@ def test_resilience_slice_module_imports_alone_without_jax(mod):
     """The same for the new modules of checkpoint resilience (the driver is
     the port's own copy of the reference's)."""
     _imports_alone_without_jax(mod)
+
+
+GRAPHCAST_SLICE = ["repro_torch.configs", "repro_torch.configs.paper_gnn",
+                   "repro_torch.configs.graphcast", "repro_torch.models.gnn_zoo.graphcast",
+                   "repro_torch.examples.graphcast_weather", "repro_torch.convert"]
+
+
+@pytest.mark.parametrize("mod", GRAPHCAST_SLICE)
+def test_graphcast_slice_module_imports_alone_without_jax(mod):
+    """The same for the modules of GraphCast and the paper's config module
+    (the icosphere and grid builders are the port's own copies of the
+    reference's numpy code)."""
+    _imports_alone_without_jax(mod)
