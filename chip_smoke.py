@@ -56,9 +56,12 @@ Phases (one line each, prefixed ``[n name]``):
                  generic-width entries (csrc/nmp_any.cu) at H 4, 12, 64,
                  100 (a (4, 4, 4) box, p=7), 512 and 1024 (a (2, 2, 2)
                  box) x 1, 2, 7 hidden layers against plain and a float64
-                 forward / VJP (times, launch plan, ptxas), and the
-                 dispatch: H=32 launches only the tuned pair, H=4 only the
-                 generic one (phase_kernels_any)
+                 forward / VJP (times, launch plan with its route, ptxas),
+                 each on ops.any_route's route (held to its bands) and on
+                 the other route where H % 4 == 0 (timed and checked, a
+                 miss only reported: the crossover), and the dispatch:
+                 H=32 launches only the tuned pair, H=4 only the generic
+                 one (phase_kernels_any)
   3 consistency  stacked forward, large config, fused backend: R=1 vs R=4
                  (2x2 grid) under the packed neighbor exchange (blocking and
                  overlap schedules) and the A2A oracle, overlap vs blocking
@@ -184,8 +187,11 @@ Phases (one line each, prefixed ``[n name]``):
                  per forward, busy share, peak memory), one forward fused
                  vs the plain backend (and both vs float64), one loss
                  gradient at 2 layers through kernel 2 at H=512 vs plain,
-                 and kernels 1 and 2 alone at the cell's shapes (their
-                 records in the kernel line)
+                 and kernels 1 and 2 alone at the cell's shapes on the
+                 tensor-core route (their records in the kernel line),
+                 beside the FMA route on the same inputs, and the route's
+                 per-node pass x w0_dst (nmp_dst_any) against its plain
+                 version and torch.mm
   9b paper-gnn   the paper's smoke config (N_H=4, M=2) through the
                  ``paper-gnn`` registry entry as tests/test_arch_smoke.py
                  runs it (box (2, 2, 1) p=2 split (2, 1, 1), a2a, the
@@ -555,6 +561,11 @@ def phase_device():
     for nt in (1, 2, 4, 8):
         kernels[f"nmp_fwd_any_nt{nt}"] = ("nmp_any", f"nmp_any_fwd_kernelILi{nt}E")
         kernels[f"nmp_bwd_any_nt{nt}"] = ("nmp_any", f"nmp_any_bwd_kernelILi{nt}E")
+    # its tensor-core route: the forward and backward edge passes, the rows
+    # kernel (x_dst w0_dst per node, the backward's g_x) and the split-K
+    # weight gradients
+    for key in ("nmp_tc_fwd", "nmp_tc_bwd", "nmp_tc_rows", "nmp_wgrad"):
+        kernels[key] = ("nmp_any", f"{key}_kernel")
     ptxas = {key: ptxas_summary(reports.get(src, ""), needle)
              for key, (src, needle) in kernels.items()}
     say("1 device", f"ptxas at H=32 (NMP pair: fp32 and bf16; embedding bag: fp32, 16-byte loads; flash "
@@ -574,17 +585,40 @@ def double(*trees):
     return [f64(t) for t in trees]
 
 
-def any_spec(kind, H, Lp, n_slots, ptxas):
+def any_spec(kind, H, Lp, n_slots, ptxas, n_nodes=0, route=None):
     """The generic-width entry of kernel 1 or 2 (``kind`` "fwd" / "bwd",
-    ``csrc/nmp_any.cu``) for :func:`nmp_fwd_case` / :func:`nmp_bwd_case`:
-    its counter, source, launch plan and ptxas line (the template instance
-    of H's n-tiles)."""
+    ``csrc/nmp_any.cu``) for :func:`nmp_fwd_case` / :func:`nmp_bwd_case` on
+    ``route`` (``ops.any_route``'s unless given; a given route runs through
+    the wrappers' internal route argument): its counter, the launches a
+    call makes (the tensor-core route's per-node pass too), source, launch
+    plan and ptxas line (the FMA route's template instance of H's n-tiles,
+    or the tensor-core route's kernels)."""
     from repro_torch.kernels.segment_agg import ops as sa
-    nt = 1 if H <= 16 else 2 if H <= 32 else 4 if H <= 64 else 8
-    plan = sa.fwd_any_launch_plan if kind == "fwd" else sa.bwd_any_launch_plan
-    return dict(name=sa.KERNEL_ANY if kind == "fwd" else sa.KERNEL_BWD_ANY,
-                source="src/repro_torch/csrc/nmp_any.cu", plan=plan(H, Lp, n_slots),
-                ptxas=ptxas.get(f"nmp_{kind}_any_nt{nt}", "not built here"))
+    route = sa.any_route(H, Lp) if route is None else route
+    name = sa.KERNEL_ANY if kind == "fwd" else sa.KERNEL_BWD_ANY
+    if route == sa.TC:
+        keys = (("nmp_tc_fwd", "nmp_tc_rows") if kind == "fwd"
+                else ("nmp_tc_bwd", "nmp_tc_rows", "nmp_wgrad"))
+        regs = "; ".join(f"{k} {ptxas.get(k, 'not built here')}" for k in keys)
+        launches = {name: 2, sa.KERNEL_DST: 2}
+    else:
+        nt = 1 if H <= 16 else 2 if H <= 32 else 4 if H <= 64 else 8
+        regs = ptxas.get(f"nmp_{kind}_any_nt{nt}", "not built here")
+        launches = {name: 2}
+    if kind == "fwd":
+        plan = sa.fwd_any_launch_plan(H, Lp, n_slots, route)
+
+        def call(x, e, edge, *rest):
+            *ops, n_h, has_ln = sa._stack_edge_mlp(edge)
+            return sa._fwd(x, e, tuple(ops), n_h, has_ln, *rest, sa.FP32, route=route)
+    else:
+        plan = sa.bwd_any_launch_plan(H, Lp, n_slots, n_nodes, route)
+
+        def call(x, e, edge, *rest):
+            *ops, n_h, has_ln = sa._stack_edge_mlp(edge)
+            return sa._bwd(x, e, tuple(ops), n_h, has_ln, *rest, sa.FP32, route=route)
+    return dict(name=name, source="src/repro_torch/csrc/nmp_any.cu", plan=plan, ptxas=regs,
+                launches=launches, call=call, route=route)
 
 
 def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, spec=None,
@@ -620,6 +654,8 @@ def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, spec=None,
         f"{k} {v}" for k, v in spec["plan"].items())
 
     def fwd():
+        if "call" in spec:
+            return spec["call"](x, e, edge, *lay, *rest)
         return sa.fused_nmp_edge_agg(x, e, edge, *lay, *rest)
 
     def fwd_plain():
@@ -630,7 +666,7 @@ def nmp_fwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, spec=None,
     torch.cuda.synchronize()
     launched = {k: v - before.get(k, 0) for k, v in build.launch_counts.items()
                 if v != before.get(k, 0)}
-    counted = launched == {spec["name"]: 2}
+    counted = launched == spec.get("launches", {spec["name"]: 2})
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     want = fwd_plain()
@@ -715,6 +751,8 @@ def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen, spec=
     rest = (g["edge_mask"], g["edge_inv_mult"], g_enew, g_agg)
 
     def bwd():
+        if "call" in spec:
+            return spec["call"](x, e, edge, *lay, *src_lay, *rest)
         return sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest)
 
     def bwd_plain():
@@ -725,7 +763,7 @@ def nmp_bwd_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas, gen, spec=
     torch.cuda.synchronize()
     launched = {k: v - before.get(k, 0) for k, v in build.launch_counts.items()
                 if v != before.get(k, 0)}
-    counted = launched == {spec["name"]: 2}
+    counted = launched == spec.get("launches", {spec["name"]: 2})
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     want = bwd_plain()
@@ -1138,7 +1176,10 @@ def phase_kernels_any(ptxas, widths=ANY_WIDTHS, depths=ANY_DEPTHS):
     counter per call, CUDA-event times, bound, launch plan, ptxas); then
     the dispatch: at H=4 and H=32 with 2 hidden layers on the same graph,
     one forward and one backward each, H=32 moves only the tuned counters
-    and H=4 only the generic ones.  Returns {(H, Lp): (fwd ms, bwd ms)}."""
+    and H=4 only the generic ones.  Each case runs on ``ops.any_route``'s
+    route (held to its bands) and, where H % 4 == 0, on the other route
+    too (timed and checked, a failure reported only): the crossover.
+    Returns {(H, Lp): {(kind, route): ms}}."""
     import torch
     from repro_torch.core.gnn import GNNConfig, init_gnn
     from repro_torch.kernels import build
@@ -1172,18 +1213,31 @@ def phase_kernels_any(ptxas, widths=ANY_WIDTHS, depths=ANY_DEPTHS):
             flops = n_real * 2 * (2 * H * H + Lp * H * H) + n_dst * 2 * H * H
             weights = [t for l in edge["layers"] for t in l.values()] + list(edge["ln"].values())
             slots = g["seg_perm"].numel()
-            ms = []
+            # the rule's route, held to its bands; then the other route on
+            # the same inputs through the internal route argument (the
+            # crossover's other side: printed, its failures only reported)
+            rule = sa.any_route(H, Lp)
+            routes = (rule,) + tuple(r for r in sa.ROUTES if r != rule and (r == sa.FMA or H % 4 == 0))
+            ms = {}
             for kind, case, fl, extra, iters in (("fwd", nmp_fwd_case, flops, (), (5, 2)),
                                                  ("bwd", nmp_bwd_case, 3 * flops, (gen,), (3, 1))):
-                try:
-                    rec = case(x, e, edge, g, n_real, pg.n_pad, fl, weights, ptxas, *extra,
-                               spec=any_spec(kind, H, Lp, slots, ptxas), detail=False,
-                               iters=iters)
-                    ms.append(rec["ms"])
-                except RuntimeError as err:     # every case runs; the phase fails below
-                    failed.append(f"{kind} H={H} Lp={Lp}: {err}")
-                    ms.append(None)
-            times[H, Lp] = tuple(ms)
+                for route in routes:
+                    try:
+                        rec = case(x, e, edge, g, n_real, pg.n_pad, fl, weights, ptxas, *extra,
+                                   spec=any_spec(kind, H, Lp, slots, ptxas, pg.n_pad, route),
+                                   detail=False, iters=iters)
+                        ms[kind, route] = rec["ms"]
+                    except RuntimeError as err:     # every case runs; the phase fails below
+                        if route == rule:
+                            failed.append(f"{kind} H={H} Lp={Lp}: {err}")
+                        else:
+                            say("2 kernels", f"{kind} H={H} Lp={Lp} on the {route} route, which "
+                                f"the rule does not take here: {err}")
+                        ms[kind, route] = None
+            say("2 kernels", f"routes at H={H} Lp={Lp}: the rule's {rule}; " + ", ".join(
+                f"{k} {r} {'failed' if v is None else f'{v:.3f} ms'}"
+                for (k, r), v in ms.items()))
+            times[H, Lp] = ms
             del x, e, edge
     # the dispatch: the tuned widths keep the tuned kernels
     moved = {}
@@ -3738,8 +3792,11 @@ def phase_graphcast(ptxas, smi):
     wall = time.perf_counter() - t1
     by_path = {"graphcast_serve": dict(build.launch_counts)}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # the tensor-core route adds its per-node pass, once per layer and call
+    tc = sa.any_route(cfg.hidden, cfg.mlp_hidden_layers) == sa.TC
     check_launches(phase, "graphcast_serve", by_path["graphcast_serve"],
-                   {sa.KERNEL_ANY: GC_REQUESTS * cfg.n_layers})
+                   {sa.KERNEL_ANY: GC_REQUESTS * cfg.n_layers}
+                   | ({sa.KERNEL_DST: GC_REQUESTS * cfg.n_layers} if tc else {}))
     say(phase, f"served {GC_REQUESTS} states: forward {', '.join(f'{m:.3f}' for m in ms)} ms "
         f"(CUDA events; median {float(np.median(ms)):.3f}), {GC_REQUESTS / wall:.2f} req/s "
         f"with the host's state build and copy, outputs [{pg.n_pad}, {cfg.out_dim}] finite: "
@@ -3780,7 +3837,8 @@ def phase_graphcast(ptxas, smi):
     grad_s = time.perf_counter() - t2
     by_path["graphcast_grad"] = dict(build.launch_counts)
     check_launches(phase, "graphcast_grad", by_path["graphcast_grad"],
-                   {sa.KERNEL_ANY: GC_GRAD_LAYERS, sa.KERNEL_BWD_ANY: GC_GRAD_LAYERS})
+                   {sa.KERNEL_ANY: GC_GRAD_LAYERS, sa.KERNEL_BWD_ANY: GC_GRAD_LAYERS}
+                   | ({sa.KERNEL_DST: 2 * GC_GRAD_LAYERS} if tc else {}))
     lp, gp = nn.value_and_grad(lambda p: loss(p, plan.replace(backend=XLA)), p2)
     l_err, l_ok = within_band(lf, lp)
     g_err, by_norm, g_ok = grads_close(gf, gp)
@@ -3808,13 +3866,73 @@ def phase_graphcast(ptxas, smi):
         nmp_fwd_case(x, e, edge, g, n_real, pg.n_pad, flops, weights, ptxas,
                      spec=any_spec("fwd", H, Lp, slots, ptxas), iters=(10, 3)),
         nmp_bwd_case(x, e, edge, g, n_real, pg.n_pad, 3 * flops, weights, ptxas, gen,
-                     spec=any_spec("bwd", H, Lp, slots, ptxas), iters=(5, 2))]
+                     spec=any_spec("bwd", H, Lp, slots, ptxas, pg.n_pad), iters=(5, 2))]
+    # the FMA route at this cell, on the same inputs, in the same run: the
+    # generic pair's first design beside the rule's route
+    if tc:
+        fma = [
+            nmp_fwd_case(x, e, edge, g, n_real, pg.n_pad, flops, weights, ptxas,
+                         spec=any_spec("fwd", H, Lp, slots, ptxas, route=sa.FMA), detail=False,
+                         iters=(5, 1)),
+            nmp_bwd_case(x, e, edge, g, n_real, pg.n_pad, 3 * flops, weights, ptxas, gen,
+                         spec=any_spec("bwd", H, Lp, slots, ptxas, pg.n_pad, sa.FMA),
+                         detail=False, iters=(3, 1))]
+        for rec, old in zip(records, fma):
+            rec["fma_route_ms"] = old["ms"]
+        say(phase, f"at this layer, tensor-core route against the FMA route: forward "
+            f"{records[0]['ms']:.3f} / {fma[0]['ms']:.3f} ms, backward {records[1]['ms']:.3f} / "
+            f"{fma[1]['ms']:.3f} ms")
+        records.append(node_dst_case(x, edge["layers"][0]["w"], ptxas))
     for rec in records:
         rec["shape"] = f"GraphCast weather_config({GC_REFINEMENT}) layer: H={H}, Lp={Lp}, " \
                        f"E={n_real}, N={pg.n_pad}"
     del x, e
     torch.cuda.empty_cache()
     return by_path, records
+
+
+def node_dst_case(x, w0, ptxas):
+    """The tensor-core route's per-node pass (x w0_dst, ``csrc/nmp_any.cu``
+    ``nmp_node_dst_f32``) against its plain version: within the forward
+    band of plain or of a float64 product, two launches bitwise equal (one
+    count each), times, the bound (3xTF32 on tensor cores; fp32 CUDA cores
+    beside it) and ``torch.mm``'s time."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as sa
+    N, H = x.shape
+    before = build.launch_counts.get(sa.KERNEL_DST, 0)
+    got, again = sa.node_dst_product(x, w0), sa.node_dst_product(x, w0)
+    torch.cuda.synchronize()
+    counted = build.launch_counts.get(sa.KERNEL_DST, 0) - before == 2
+    repeat = torch.equal(got, again)
+    want = sa.node_dst_plain(x, w0)
+    exact = sa.node_dst_plain(x.double(), w0.double())
+    err, ok = within_band(got, want)
+    ok = ok or within_band(got.double(), exact)[1]
+    w_dst = w0[H:2 * H]
+    ms = cuda_ms(lambda: sa.node_dst_product(x, w0), iters=20)
+    plain = cuda_ms(lambda: sa.node_dst_plain(x, w0), iters=20)
+    library = cuda_ms(lambda: torch.mm(x, w_dst), iters=20)
+    flops = 2 * N * H * H
+    moved = nbytes(x, w_dst, got)
+    fp32_ms, fp32_by = bound_ms(moved, flops)
+    b_ms, b_by = min((fp32_ms, fp32_by), bound_ms(moved, 3 * flops, PEAK_TF32_FLOPS))
+    plan = sa._tc_plan(2, H, 0, 0, N)
+    say("2 kernels", f"{sa.KERNEL_DST} N={N} H={H}: max|err| {err:.3g} (rtol {RTOL} atol {ATOL}, "
+        f"or around a float64 product) | two launches bitwise equal: {repeat}, counted: "
+        f"{counted} | kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.mm {library:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: 3 x {flops / 1e9:.2f} GFLOP in 3xTF32; fp32 on CUDA cores "
+        f"{fp32_ms:.4f}) | grid {plan['grid']}, {plan['smem_bytes']} B shared memory, "
+        f"{plan['blocks_per_sm']} block(s) per SM | ptxas rows kernel "
+        f"{ptxas.get('nmp_tc_rows', 'not built here')}")
+    if not (ok and repeat and counted):
+        raise RuntimeError(f"{sa.KERNEL_DST} disagrees with its plain version, is not "
+                           "repeatable or did not launch once a call")
+    return dict(name=sa.KERNEL_DST, route="cuda", source="src/repro_torch/csrc/nmp_any.cu",
+                replaces="src/repro/kernels/segment_agg/kernel.py:215", max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library,
+                fp32_bound_ms=fp32_ms)
 
 
 def phase_paper_smoke():
@@ -4446,7 +4564,9 @@ def main():
            # the generic-width entries: GraphCast's d512 (phase 9) and the
            # paper's smoke config at H=4 (9b)
            sa.KERNEL_ANY: ("graphcast_serve", "graphcast_grad", "paper_smoke"),
-           sa.KERNEL_BWD_ANY: ("graphcast_grad", "paper_smoke")}
+           sa.KERNEL_BWD_ANY: ("graphcast_grad", "paper_smoke"),
+           # the tensor-core route's per-node pass (GraphCast's d512)
+           sa.KERNEL_DST: ("graphcast_serve", "graphcast_grad")}
     # no path of the fp32 plan ran a bf16 kernel (the bf16 paths' fp32
     # counts are held to 0 where they are checked)
     for path, counts in by_path.items():

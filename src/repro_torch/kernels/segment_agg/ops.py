@@ -17,9 +17,12 @@ Port of ``repro.kernels.segment_agg.ops``.  The NMP pair (Eq. 4a + 4b,
   ``csrc/nmp_bwd.cu`` at the tuned widths H in {8, 16, 32} (the backward
   at most 5 hidden layers), and ``csrc/nmp_any.cu``'s entries at every
   other fp32 shape (any H >= 1, any depth; counted apart as
-  ``nmp_fwd_any`` / ``nmp_bwd_any``), or raise; on CPU tensors both run
-  the plain versions.  There is no other fallback.  ``precision`` is the
-  reference's policy: ``"fp32"``, or ``"bf16"`` (every edge-MLP product on
+  ``nmp_fwd_any`` / ``nmp_bwd_any``; :func:`any_route` sends H >= 64
+  with H % 4 == 0 to their tensor-core route, which launches the per-node
+  pass ``node_dst_product`` first, counted as ``nmp_dst_any``), or raise;
+  on CPU tensors both run the plain versions.  There is no other
+  fallback.  ``precision`` is the reference's policy: ``"fp32"``, or
+  ``"bf16"`` (every edge-MLP product on
   bf16-rounded operands, accumulated in fp32; the tuned kernels' ``*_bf16``
   entries, counted apart as ``nmp_fwd_bf16`` / ``nmp_bwd_bf16``, which
   raise at any other shape: ROADMAP queue 2); anything else raises.
@@ -62,6 +65,14 @@ KERNEL_BWD_BF16 = "nmp_bwd_bf16"
 #: the generic-width entries' launch counters (``csrc/nmp_any.cu``)
 KERNEL_ANY = "nmp_fwd_any"
 KERNEL_BWD_ANY = "nmp_bwd_any"
+#: the tensor-core route's per-node pass x w0_dst (``csrc/nmp_any.cu``
+#: ``nmp_node_dst_f32``), launched once before each of its forwards and
+#: backwards
+KERNEL_DST = "nmp_dst_any"
+#: the generic pair's two routes: exact fp32 FMAs on the CUDA cores, and
+#: 3xTF32 ``wgmma`` on the tensor cores (:func:`any_route` picks one)
+FMA, TC = "fma", "tc"
+ROUTES = (FMA, TC)
 #: the library of the generic-width entries
 LIB_ANY = "nmp_any"
 FP32, BF16, PRECISIONS = nn.FP32, nn.BF16, nn.PRECISIONS
@@ -95,6 +106,16 @@ _SIGNATURES_ANY = {
     # 17 operands, gx, ge, gw, scratch g_z0 / slot_dst / node sums /
     # partials / work; N, slots, H, Lp, has_ln, partial rows, stream
     "nmp_edge_mlp_agg_bwd_any_f32": (_P,) * 25 + (_I, _L) + (_I,) * 4 + (_P,),
+    # the tensor-core route: kind (0 fwd, 1 bwd, 2 dst), H, Lp, slots, N, plan
+    "nmp_any_tc_plan": (_I, _I, _I, _L, _I, _PLAN),
+    # x, w0, out, scratch; N, H, stream
+    "nmp_node_dst_f32": (_P,) * 4 + (_I, _I, _P),
+    # 13 operands, x w0_dst, e_new, agg, scratch; N, slots, edges, H, Lp,
+    # has_ln, stream
+    "nmp_edge_mlp_agg_fwd_tc_f32": (_P,) * 17 + (_I, _L, _L) + (_I,) * 3 + (_P,),
+    # 17 operands, x w0_dst, gx, ge, gw, scratch; N, slots, H, Lp, has_ln,
+    # stream
+    "nmp_edge_mlp_agg_bwd_tc_f32": (_P,) * 22 + (_I, _L) + (_I,) * 3 + (_P,),
 }
 #: the widths of the tuned kernels (``csrc/nmp_fwd.cu``, ``csrc/nmp_bwd.cu``
 #: and their bf16 entries); every other fp32 width runs ``csrc/nmp_any.cu``
@@ -355,10 +376,10 @@ def fused_nmp_edge_agg_bwd_plain(x, e, edge_params, seg_perm, seg_src,
 # ---------------------------------------------------------------------------
 
 def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
-         edge_mask, edge_inv_mult, precision):
+         edge_mask, edge_inv_mult, precision, route=None):
     """Forward on stacked operands: plain on CPU; on CUDA ``nmp_fwd`` (or
     its bf16 entry) at the tuned widths, ``nmp_any``'s forward at every
-    other fp32 shape."""
+    other fp32 shape, on ``route`` (:func:`any_route` unless given)."""
     n, hid = x.shape
     if x.device.type == "cpu":
         return fused_nmp_edge_agg_plain(
@@ -375,12 +396,27 @@ def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     dev, n_edges = x.device, e.shape[0]
     e_new = torch.empty(n_edges, hid, dtype=f32, device=dev)
     agg = torch.empty(n, hid, dtype=f32, device=dev)
+    if counter == KERNEL_ANY and _route(hid, n_hidden, route) == TC:
+        # x_dst w0_dst per node (its own launch), then the edge pass; one
+        # scratch buffer that the entry carves
+        pdst = node_dst_product(x, ops[0])
+        args = (_aligned(x), _aligned(e)) + args[2:]
+        plan = fwd_any_launch_plan(hid, n_hidden, n_slots, TC)
+        scratch = torch.empty(max(1, plan["scratch_floats"]), dtype=f32, device=dev)
+        lib, entry = build.load(LIB_ANY, _SIGNATURES_ANY), "nmp_edge_mlp_agg_fwd_tc_f32"
+        code = getattr(lib, entry)(
+            *(t.data_ptr() for t in args), pdst.data_ptr(), e_new.data_ptr(),
+            agg.data_ptr(), scratch.data_ptr(), n, n_slots, n_edges, hid, n_hidden,
+            int(has_ln), build.stream_of(x))
+        build.check(lib, code, entry)
+        build.count_launch(counter)
+        return e_new, agg
     # scratch: each tile's first owned node and its two partial rows of the
     # nodes its edges cut (128-slot tiles in the tuned kernel, 64 in the
     # generic one); then a byte per edge that the layout holds (tuned), or
     # the activation slabs where shared memory cannot hold them (generic)
     if counter == KERNEL_ANY:
-        plan = fwd_any_launch_plan(hid, n_hidden, n_slots)
+        plan = fwd_any_launch_plan(hid, n_hidden, n_slots, FMA)
         tiles = plan["tiles"]
         last = torch.empty(max(1, plan["grid"] * plan["work_floats"]), dtype=f32, device=dev)
         lib, entry = build.load(LIB_ANY, _SIGNATURES_ANY), "nmp_edge_mlp_agg_fwd_any_f32"
@@ -431,39 +467,125 @@ def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int,
     return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2])
 
 
-def fwd_any_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
+#: the narrowest width the generic pair's tensor-core route takes
+TC_MIN_HIDDEN = 64
+
+
+def any_route(hidden: int, n_hidden: int) -> str:
+    """The generic pair's route at width ``hidden`` with ``n_hidden`` MLP
+    hidden layers: ``"tc"`` (3xTF32 ``wgmma`` on the tensor cores,
+    ``csrc/nmp_any.cu``'s ``*_tc_*`` entries) where H is a multiple of 4
+    and at least :data:`TC_MIN_HIDDEN`, else ``"fma"`` (exact fp32 FMAs on
+    the CUDA cores).  The depth does not move the line: the products of
+    every layer are H x H but the first.  Below it the FMA route is the one
+    that holds plain's band (a LayerNorm over a few features amplifies
+    3xTF32's error in the backward: at H=4 the tensor cores' g_x misses
+    it), as fast forward and faster backward at H = 4 and 12, where the
+    tensor cores' 128-column passes are mostly padding; from H = 64 on the
+    tensor cores are faster forward and backward at every depth.  ``chip_smoke.py``'s
+    generic sweep times and checks both routes at every width."""
+    del n_hidden                       # see the docstring
+    return TC if hidden % 4 == 0 and hidden >= TC_MIN_HIDDEN else FMA
+
+
+def _route(hidden: int, n_hidden: int, route) -> str:
+    route = any_route(hidden, n_hidden) if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; expected one of {ROUTES}")
+    if route == TC and hidden % 4:
+        raise ValueError(f"the tensor-core route takes H % 4 == 0, not H={hidden}")
+    return route
+
+
+def _tc_plan(kind: int, hidden: int, n_hidden: int, n_slots: int, n_nodes: int) -> dict:
+    lib = build.load(LIB_ANY, _SIGNATURES_ANY)
+    plan = (ctypes.c_longlong * 5)()
+    code = lib.nmp_any_tc_plan(kind, hidden, n_hidden, n_slots, n_nodes, plan)
+    build.check(lib, code, "nmp_any_tc_plan")
+    return dict(route=TC, grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
+                tiles=plan[3], scratch_floats=plan[4])
+
+
+def fwd_any_launch_plan(hidden: int, n_hidden: int, n_slots: int, route=None) -> dict:
     """The generic forward's (``csrc/nmp_any.cu``) edge pass on the current
-    card: ``grid``, ``smem_bytes`` of dynamic shared memory per block,
-    ``blocks_per_sm`` resident (occupancy API), ``work_floats`` of global
-    scratch per block for the activation slabs (0: they sit in shared
-    memory) and ``tiles`` (64-slot tiles the scratch holds)."""
+    card: ``route`` (:func:`any_route` unless given), ``grid``,
+    ``smem_bytes`` of dynamic shared memory per block, ``blocks_per_sm``
+    resident (occupancy API) and ``tiles`` (of 64 slots on the FMA route,
+    128 on the tensor-core route); the FMA route's ``work_floats`` of
+    global scratch per block for the activation slabs (0: they sit in
+    shared memory), the tensor-core route's ``scratch_floats`` (the one
+    buffer its entry carves)."""
+    if _route(hidden, n_hidden, route) == TC:
+        return _tc_plan(0, hidden, n_hidden, n_slots, 0)
     lib = build.load(LIB_ANY, _SIGNATURES_ANY)
     plan = (ctypes.c_longlong * 5)()
     code = lib.nmp_edge_mlp_agg_fwd_any_plan(hidden, n_hidden, n_slots, plan)
     build.check(lib, code, "nmp_edge_mlp_agg_fwd_any_plan")
-    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
+    return dict(route=FMA, grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
                 work_floats=plan[3], tiles=plan[4])
 
 
-def bwd_any_launch_plan(hidden: int, n_hidden: int, n_slots: int) -> dict:
-    """The generic backward's edge pass on the current card: ``grid`` (the
-    partial weight-gradient rows), ``smem_bytes`` of dynamic shared memory
-    per block, ``blocks_per_sm`` resident and ``work_floats`` of global
-    scratch per block (0: the slabs sit in shared memory)."""
+def bwd_any_launch_plan(hidden: int, n_hidden: int, n_slots: int, n_nodes: int = 0,
+                        route=None) -> dict:
+    """The generic backward's edge pass on the current card: ``route``,
+    ``grid``, ``smem_bytes`` of dynamic shared memory per block and
+    ``blocks_per_sm`` resident; the FMA route's ``work_floats`` of global
+    scratch per block (0: the slabs sit in shared memory; its grid is the
+    count of partial weight-gradient rows), the tensor-core route's
+    ``tiles`` and ``scratch_floats`` (for ``n_nodes`` nodes)."""
+    if _route(hidden, n_hidden, route) == TC:
+        return _tc_plan(1, hidden, n_hidden, n_slots, n_nodes)
     lib = build.load(LIB_ANY, _SIGNATURES_ANY)
     plan = (ctypes.c_longlong * 4)()
     code = lib.nmp_edge_mlp_agg_bwd_any_plan(hidden, n_hidden, n_slots, plan)
     build.check(lib, code, "nmp_edge_mlp_agg_bwd_any_plan")
-    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
+    return dict(route=FMA, grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
                 work_floats=plan[3])
+
+
+def node_dst_plain(x, w0):
+    """x_dst's share of layer 0 per node: x [N, H] @ w0's rows H .. 2H - 1."""
+    hid = x.shape[1]
+    return x @ w0[hid:2 * hid]
+
+
+def node_dst_product(x, w0):
+    """:func:`node_dst_plain` on CPU tensors; on CUDA tensors the
+    tensor-core route's per-node pass (``csrc/nmp_any.cu``
+    ``nmp_node_dst_f32``: 3xTF32 ``wgmma``), counted as
+    :data:`KERNEL_DST`, or raises."""
+    if x.device.type == "cpu":
+        return node_dst_plain(x, w0)
+    n, hid = x.shape
+    f32 = torch.float32
+    x, w0 = _aligned(x), w0.contiguous()
+    build.require_cuda("node_dst_product", x, w0, dtypes=(f32, f32))
+    if w0.shape != (3 * hid, hid):
+        raise ValueError(f"w0 {tuple(w0.shape)}, expected [3H, H] = [{3 * hid}, {hid}]")
+    plan = _tc_plan(2, hid, 0, 0, n)
+    out = torch.empty(n, hid, dtype=f32, device=x.device)
+    scratch = torch.empty(max(1, plan["scratch_floats"]), dtype=f32, device=x.device)
+    lib = build.load(LIB_ANY, _SIGNATURES_ANY)
+    code = lib.nmp_node_dst_f32(x.data_ptr(), w0.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), n, hid, build.stream_of(x))
+    build.check(lib, code, "nmp_node_dst_f32")
+    build.count_launch(KERNEL_DST)
+    return out
+
+
+def _aligned(t):
+    """``t`` contiguous on a 16-byte boundary (the tensor-core route copies
+    its rows 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
          seg_src_slots, seg_src_rowptr, edge_mask, edge_inv_mult, g_enew,
-         g_agg, precision):
+         g_agg, precision, route=None):
     """Backward on stacked operands: plain on CPU; on CUDA ``nmp_bwd`` (or
     its bf16 entry) at the tuned shapes, ``nmp_any``'s backward at every
-    other fp32 shape."""
+    other fp32 shape, on ``route`` (:func:`any_route` unless given)."""
     n, hid = x.shape
     if x.device.type == "cpu":
         return _bwd_plain_stacked(x, e, ops, n_hidden, has_ln, seg_perm,
@@ -498,6 +620,21 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     gx = torch.empty(n, hid, dtype=f32, device=dev)
     ge = torch.zeros(e.shape[0], hid, dtype=f32, device=dev)
     gw = torch.empty(wsize, dtype=f32, device=dev)
+    if counter == KERNEL_BWD_ANY and _route(hid, n_hidden, route) == TC:
+        # x_dst w0_dst per node (its own launch), then the edge pass, the
+        # split-K weight gradients and the node pass; one scratch buffer
+        pdst = node_dst_product(x, ops[0])
+        args = (_aligned(x), _aligned(e)) + args[2:]
+        plan = bwd_any_launch_plan(hid, n_hidden, n_slots, n, TC)
+        scratch = torch.empty(max(1, plan["scratch_floats"]), dtype=f32, device=dev)
+        lib, entry = build.load(LIB_ANY, _SIGNATURES_ANY), "nmp_edge_mlp_agg_bwd_tc_f32"
+        code = getattr(lib, entry)(
+            *(t.data_ptr() for t in args), pdst.data_ptr(), gx.data_ptr(), ge.data_ptr(),
+            gw.data_ptr(), scratch.data_ptr(), n, n_slots, hid, n_hidden, int(has_ln),
+            build.stream_of(x))
+        build.check(lib, code, entry)
+        build.count_launch(counter)
+        return _split_wgrad(gx, ge, gw, sizes, hid, lp)
     # scratch: each slot's layer-0 pre-activation gradient (slots x H fp32,
     # 552 MB at the serving mesh's 4.3 M slots, H=32; in bf16 the slot's
     # x_src gradient, and as much again for its x_dst gradient), each
@@ -506,7 +643,7 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     gz0 = torch.empty(n_slots, hid, dtype=f32, device=dev)
     slot_dst = torch.empty(n_slots, dtype=i32, device=dev)
     if counter == KERNEL_BWD_ANY:
-        plan = bwd_any_launch_plan(hid, n_hidden, n_slots)
+        plan = bwd_any_launch_plan(hid, n_hidden, n_slots, route=FMA)
         groups = plan["grid"]
         # the per-node sums of g_z0 (dst | src) and the activation slabs
         # where shared memory cannot hold them
@@ -528,6 +665,10 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
         n_hidden, int(has_ln), groups, build.stream_of(x))
     build.check(lib, code, entry)
     build.count_launch(counter)
+    return _split_wgrad(gx, ge, gw, sizes, hid, lp)
+
+
+def _split_wgrad(gx, ge, gw, sizes, hid, lp):
     gw0, gb0, gwr, gbr, glng, glnb = torch.split(gw, sizes)
     return (gx, ge, gw0.view(3 * hid, hid), gb0, gwr.view(lp, hid, hid),
             gbr.view(lp, hid), glng, glnb)

@@ -461,7 +461,12 @@ ANY_DEPTHS = (1, 2, 7)
 
 def _any_counts():
     return {k: build.launch_counts.get(k, 0)
-            for k in (sa.KERNEL, sa.KERNEL_ANY, sa.KERNEL_BWD, sa.KERNEL_BWD_ANY)}
+            for k in (sa.KERNEL, sa.KERNEL_ANY, sa.KERNEL_BWD, sa.KERNEL_BWD_ANY, sa.KERNEL_DST)}
+
+
+def _dst_launches(hidden, n_hidden):
+    """The per-node x_dst pass launches once per call on the tensor-core route."""
+    return int(sa.any_route(hidden, n_hidden) == sa.TC)
 
 
 def _moved(before):
@@ -482,7 +487,7 @@ def test_nmp_any_fwd_matches_plain(cuda, hidden, n_hidden):
     e_new, agg = sa.fused_nmp_edge_agg(*args)
     torch.cuda.synchronize()
     assert _moved(before) == {sa.KERNEL: 0, sa.KERNEL_ANY: 1, sa.KERNEL_BWD: 0,
-                              sa.KERNEL_BWD_ANY: 0}
+                              sa.KERNEL_BWD_ANY: 0, sa.KERNEL_DST: _dst_launches(hidden, n_hidden)}
     pe, pa = sa.fused_nmp_edge_agg_plain(*args)
     torch.testing.assert_close(e_new, pe, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(agg, pa, rtol=RTOL, atol=ATOL)
@@ -535,7 +540,7 @@ def test_nmp_any_bwd_matches_plain(cuda, hidden, n_hidden, has_ln):
     got = sa.fused_nmp_edge_agg_bwd(*args)
     torch.cuda.synchronize()
     assert _moved(before) == {sa.KERNEL: 0, sa.KERNEL_ANY: 0, sa.KERNEL_BWD: 0,
-                              sa.KERNEL_BWD_ANY: 1}
+                              sa.KERNEL_BWD_ANY: 1, sa.KERNEL_DST: _dst_launches(hidden, n_hidden)}
     want = sa.fused_nmp_edge_agg_bwd_plain(*args[:6], *args[8:])
     torch.testing.assert_close(got[0], want[0], rtol=G_RTOL, atol=G_ATOL)
     torch.testing.assert_close(got[1], want[1], rtol=G_RTOL, atol=G_ATOL)
@@ -562,19 +567,172 @@ def test_nmp_any_dispatch_and_plans(cuda):
         sa.fused_nmp_edge_agg_bwd(*args)
         torch.cuda.synchronize()
         k = (sa.KERNEL, sa.KERNEL_BWD) if tuned_width else (sa.KERNEL_ANY, sa.KERNEL_BWD_ANY)
-        assert _moved(before) == {name: int(name in k) for name in before}
+        assert _moved(before) == {name: int(name in k) for name in before}   # H=4: FMA route
     args, _ = _any_bwd_case(cuda, 12, 1, True, 4)
     with pytest.raises(ValueError, match="queue 2"):
         sa.fused_nmp_edge_agg(*args[:6], *args[8:10], precision=BF16)
     with pytest.raises(ValueError, match="queue 2"):
         sa.fused_nmp_edge_agg_bwd(*args, precision=BF16)
-    plan = sa.fwd_any_launch_plan(512, 1, 180_180)
+    # the FMA route at GraphCast's width (its plan through the route
+    # argument): the slabs in global memory
+    plan = sa.fwd_any_launch_plan(512, 1, 180_180, route=sa.FMA)
     assert plan["work_floats"] == 2 * 64 * 512 and plan["tiles"] == -(-180_180 // 64)
-    assert 1 <= plan["grid"] <= 132 * plan["blocks_per_sm"]
-    assert sa.fwd_any_launch_plan(100, 1, 1000)["work_floats"] == 0
-    bplan = sa.bwd_any_launch_plan(512, 1, 180_180)
+    assert 1 <= plan["grid"] <= 132 * plan["blocks_per_sm"] and plan["route"] == sa.FMA
+    assert sa.fwd_any_launch_plan(100, 1, 1000, route=sa.FMA)["work_floats"] == 0
+    bplan = sa.bwd_any_launch_plan(512, 1, 180_180, route=sa.FMA)
     assert bplan["work_floats"] == 4 * 64 * 512 and bplan["grid"] >= 1
     assert sa.bwd_any_launch_plan(4, 7, 100)["work_floats"] == 0
+    # the tensor-core route there by the rule: 128-slot tiles, one block of
+    # 3 warpgroups per SM
+    tplan = sa.fwd_any_launch_plan(512, 1, 180_180)
+    assert tplan["route"] == sa.TC and tplan["tiles"] == -(-180_180 // 128)
+    assert tplan["blocks_per_sm"] == 1 and 1 <= tplan["grid"] <= 132
+    assert sa.bwd_any_launch_plan(512, 1, 180_180, 26_622)["route"] == sa.TC
+
+
+#: the tensor-core route's cases: the sweep's wide widths x 0, 1, 2, 7
+#: hidden layers, with and without LayerNorm
+TC_WIDTHS = (64, 100, 512, 1024)
+TC_DEPTHS = (0, 1, 2, 7)
+
+
+def _double(*trees):
+    def f64(v):
+        if isinstance(v, dict):
+            return {k: f64(u) for k, u in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(f64(u) for u in v)
+        return v.double()
+    return [f64(t) for t in trees]
+
+
+def _within(got, want, rtol, atol):
+    return bool(((got.double() - want.double()).abs()
+                 <= atol + rtol * want.double().abs()).all())
+
+
+def _plain_or_f64(got, want, exact, rtol, atol):
+    """Element by element within the band of plain fp32 or the same band
+    around the float64 version: at high in-degrees and wide rows two fp32
+    paths part by more than the band, and then plain is one of them
+    (chip_smoke.py's generic sweep holds its cases the same way)."""
+    d = got.double()
+    near_plain = (d - want.double()).abs() <= atol + rtol * want.double().abs()
+    near_f64 = (d - exact).abs() <= atol + rtol * exact.abs()
+    return bool((near_plain | near_f64).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("n_hidden", TC_DEPTHS)
+@pytest.mark.parametrize("hidden", TC_WIDTHS)
+def test_nmp_any_tc_fwd_matches_plain(cuda, hidden, n_hidden, has_ln):
+    """The tensor-core forward on the tile-edge graph (its nodes cut by the
+    route's 128-slot tiles): e' and agg within plain's band or the float64
+    forward's, e' outside the layout 0, one launch of the entry and one of
+    the per-node pass, two calls bitwise equal."""
+    assert sa.any_route(hidden, n_hidden) == sa.TC
+    args, outside = _tile_edge_case(cuda, hidden, n_hidden, has_ln, 3 * hidden + n_hidden)
+    before = _any_counts()
+    got = sa.fused_nmp_edge_agg(*args)
+    torch.cuda.synchronize()
+    assert _moved(before) == {sa.KERNEL: 0, sa.KERNEL_ANY: 1, sa.KERNEL_BWD: 0,
+                              sa.KERNEL_BWD_ANY: 0, sa.KERNEL_DST: 1}
+    want = sa.fused_nmp_edge_agg_plain(*args)
+    exact = sa.fused_nmp_edge_agg_plain(*_double(*args[:3]), *args[3:6], *_double(*args[6:]))
+    for a, b, c in zip(got, want, exact):
+        assert _plain_or_f64(a, b, c, RTOL, ATOL)
+    assert not got[0][torch.from_numpy(outside).to(cuda)].any()
+    again = sa.fused_nmp_edge_agg(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("n_hidden", TC_DEPTHS)
+@pytest.mark.parametrize("hidden", TC_WIDTHS)
+def test_nmp_any_tc_bwd_matches_plain(cuda, hidden, n_hidden, has_ln):
+    """The tensor-core backward on the ragged graph (a node's slots across
+    128-slot tiles, an all-masked run, isolated nodes, edges outside the
+    layout): g_x / g_e within plain's gradient band or the float64 VJP's,
+    weight gradients by relative L2, g_e outside the layout 0, absent
+    LayerNorm's gradients 0, one launch of the entry and one of the
+    per-node pass."""
+    args, outside = _any_bwd_case(cuda, hidden, n_hidden, has_ln, 3 * hidden + n_hidden)
+    before = _any_counts()
+    got = sa.fused_nmp_edge_agg_bwd(*args)
+    torch.cuda.synchronize()
+    assert _moved(before) == {sa.KERNEL: 0, sa.KERNEL_ANY: 0, sa.KERNEL_BWD: 0,
+                              sa.KERNEL_BWD_ANY: 1, sa.KERNEL_DST: 1}
+    plain_args = (*args[:6], *args[8:])
+    want = sa.fused_nmp_edge_agg_bwd_plain(*plain_args)
+    exact = sa.fused_nmp_edge_agg_bwd_plain(*_double(*plain_args[:3]), *plain_args[3:6],
+                                            *_double(*plain_args[6:]))
+    for a, b, c in zip(got[:2], want[:2], exact[:2]):
+        assert _plain_or_f64(a, b, c, G_RTOL, G_ATOL)
+    assert not got[1][torch.from_numpy(outside).to(cuda)].any()
+    for i, (a, b) in enumerate(zip(got[2:], want[2:])):
+        if (i in (4, 5) and not has_ln) or (i in (2, 3) and n_hidden == 0):
+            assert not a.any() and not b.any()
+        else:
+            assert _rel_norm(a, b) <= W_REL, i
+
+
+@pytest.mark.gpu
+def test_nmp_any_tc_bitwise_rerun_h512(cuda):
+    """Both tensor-core entries at GraphCast's width twice on the same
+    inputs: bitwise equal (no float atomics, fixed sum orders)."""
+    args, _ = _any_bwd_case(cuda, 512, 1, True, 512)
+    fwd_args = (*args[:6], *args[8:10])
+    first, second = sa.fused_nmp_edge_agg(*fwd_args), sa.fused_nmp_edge_agg(*fwd_args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    first, second = sa.fused_nmp_edge_agg_bwd(*args), sa.fused_nmp_edge_agg_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_nmp_any_tc_tile_edge_graph_cuts_nodes(cuda):
+    """The tile-edge graph cuts nodes at the tensor-core route's 128-slot
+    tiles (a node across 2 tiles, one across 3 or more, a tile ending on a
+    node boundary), and the forward holds agg there at H=64."""
+    rng = np.random.default_rng(64)
+    src, dst, mask, inv, n = tile_edge_graph(rng)
+    rowptr = sa.compact_gather_layout(src, dst, n, 32)["rowptr"]
+    tm = 128
+    first, last = rowptr[:-1] // tm, (rowptr[1:] - 1) // tm
+    real = rowptr[1:] > rowptr[:-1]
+    assert (real & (last - first == 1)).any() and (real & (last - first >= 2)).any()
+    assert np.isin(np.arange(tm, int(rowptr[-1]), tm), rowptr).any()
+    args, _ = _tile_edge_case(cuda, 64, 1, True, 64)
+    got, want = sa.fused_nmp_edge_agg(*args), sa.fused_nmp_edge_agg_plain(*args)
+    torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", ANY_WIDTHS)
+def test_nmp_any_route_in_plan_matches_rule(cuda, hidden):
+    """The route the launch plans report is ops.any_route's at every depth,
+    and a call moves the per-node pass's counter exactly when that route is
+    the tensor cores'; the FMA route runs at every width through the plan's
+    route argument too and holds plain's band."""
+    for n_hidden in (0, 1, 2, 7):
+        rule = sa.any_route(hidden, n_hidden)
+        assert sa.fwd_any_launch_plan(hidden, n_hidden, 1000)["route"] == rule
+        assert sa.bwd_any_launch_plan(hidden, n_hidden, 1000, 300)["route"] == rule
+    args, _ = _tile_edge_case(cuda, hidden, 1, True, hidden)
+    before = _any_counts()
+    got = sa.fused_nmp_edge_agg(*args)
+    torch.cuda.synchronize()
+    assert _moved(before)[sa.KERNEL_DST] == _dst_launches(hidden, 1)
+    x, e, edge, *lay = args
+    *ops, n_h, has_ln = sa._stack_edge_mlp(edge)
+    fma = sa._fwd(x, e, tuple(ops), n_h, has_ln, *lay, sa.FP32, route=sa.FMA)
+    want = sa.fused_nmp_edge_agg_plain(*args)
+    exact = sa.fused_nmp_edge_agg_plain(*_double(*args[:3]), *args[3:6], *_double(*args[6:]))
+    for a, b, c in zip(fma, want, exact):
+        assert _plain_or_f64(a, b, c, RTOL, ATOL)
+    for a, b, c in zip(got, want, exact):
+        assert _plain_or_f64(a, b, c, RTOL, ATOL)
 
 
 @pytest.mark.gpu

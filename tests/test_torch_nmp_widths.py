@@ -80,3 +80,36 @@ def test_plain_versions_match_reference_at_odd_widths(hidden, n_hidden):
     assert len(tree_leaves(grads)) == len(want) == 2 * (n_hidden + 1) + 2
     for a, b in zip(tree_leaves(grads), want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=G_RTOL, atol=G_ATOL)
+
+
+#: which generic width and depth takes which route of kernels 1 and 2
+#: (``ops.any_route``): the tensor cores from H = 64 on where H % 4 == 0
+ROUTE_TABLE = {1: sa.FMA, 4: sa.FMA, 12: sa.FMA, 60: sa.FMA, 64: sa.TC, 66: sa.FMA,
+               100: sa.TC, 102: sa.FMA, 128: sa.TC, 512: sa.TC, 1024: sa.TC}
+
+
+@pytest.mark.parametrize("n_hidden", [0, 1, 2, 7, 48])
+def test_any_route_table(n_hidden):
+    """The route rule's table at every depth, and the route argument's
+    checks: an unknown route and the tensor cores at H % 4 != 0 raise."""
+    assert {h: sa.any_route(h, n_hidden) for h in ROUTE_TABLE} == ROUTE_TABLE
+    assert sa.TC_MIN_HIDDEN == 64 and sa.ROUTES == (sa.FMA, sa.TC)
+    assert sa._route(512, n_hidden, sa.FMA) == sa.FMA
+    assert sa._route(4, n_hidden, sa.TC) == sa.TC
+    with pytest.raises(ValueError, match="H % 4"):
+        sa._route(102, n_hidden, sa.TC)
+    with pytest.raises(ValueError, match="unknown route"):
+        sa._route(512, n_hidden, "wgmma")
+
+
+def test_node_dst_product_plain_on_cpu():
+    """The tensor-core route's per-node pass on CPU tensors is its plain
+    version, x @ w0's rows H .. 2H - 1, and counts no launch."""
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(7, 12)).astype(np.float32))
+    w0 = torch.from_numpy(rng.normal(size=(36, 12)).astype(np.float32))
+    before = build.launch_counts.get(sa.KERNEL_DST, 0)
+    got = sa.node_dst_product(x, w0)
+    assert torch.equal(got, x @ w0[12:24])
+    assert build.launch_counts.get(sa.KERNEL_DST, 0) == before
