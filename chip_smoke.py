@@ -21,11 +21,14 @@ Phases (one line each, prefixed ``[n name]``):
   2 kernels      fused NMP forward and backward on the serving mesh's
                  edges (each also held to a float64 forward or VJP, with
                  its launch plan and ptxas registers), the same in bf16
-                 (precision="bf16": against the plain bf16 version by
+                 (precision="bf16", csrc/nmp_bf16.cu, in the same run as
+                 the fp32 pair: against the plain bf16 version by
                  relative L2, by its ratio to the distance from the fp32
                  kernel's output, max |err| and, for the gradients, the
-                 reference's per-leaf bf16 band; times, bound, launch
-                 plan, ptxas), pack and unpack-add on
+                 reference's per-leaf bf16 band; times, bound and the
+                 fraction of it reached, launch plan with the ring's
+                 stages, ptxas registers and spills, one call's kernels
+                 under torch.profiler), pack and unpack-add on
                  every round and rank of the 2x2 partition and the exchange
                  pack (one launch for every round and rank) against the
                  per-round packs it replaces (each wrapper's host time per
@@ -354,6 +357,7 @@ COT_ROUTE_S_PER_FLOP = min(3 / PEAK_BF16_FLOPS, 2 / PEAK_TF32_FLOPS)
 BF_REL, BF_RATIO, BF_MAX, BF_G, BF_LEAF = 1e-3, 0.2, 5e-2, 1e-2, 1e-2
 BF16 = "bf16"
 BF_REQUESTS = 8                  # phase 4's bf16 engine stream
+SERVE_RATES = {}                 # phase 4's req/s by plan, for the bf16 line
 BF_TRAIN_STEPS = 3               # phase 6's bf16 training run, run twice
 
 
@@ -539,17 +543,17 @@ def phase_device():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd", "embedding_bag",
-                           "flash_attention", "edge_mlp_agg", "nmp_any"])
+                           "flash_attention", "edge_mlp_agg", "nmp_any", "nmp_bf16"])
     regs = {k: sorted({ln.split("Used ")[1].split(",")[0]
                        for ln in v.splitlines() if "Used " in ln})
             for k, v in reports.items()}
     say("1 device", f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a, in parallel); ptxas: {regs}")
     # {key: (source, mangled-name needle)}
-    kernels = {"nmp_fwd": ("nmp_fwd", "nmp_fwd_tile_kernelILi32ELb0E"),
-               "nmp_bwd": ("nmp_bwd", "nmp_bwd_edge_kernelILi32ELb0E"),
-               "nmp_fwd_bf16": ("nmp_fwd", "nmp_fwd_tile_kernelILi32ELb1E"),
-               "nmp_bwd_bf16": ("nmp_bwd", "nmp_bwd_edge_kernelILi32ELb1E"),
+    kernels = {"nmp_fwd": ("nmp_fwd", "nmp_fwd_tile_kernelILi32EE"),
+               "nmp_bwd": ("nmp_bwd", "nmp_bwd_edge_kernelILi32EE"),
+               "nmp_fwd_bf16": ("nmp_bf16", "nmp_bf16_fwd_kernelILi32EE"),
+               "nmp_bwd_bf16": ("nmp_bf16", "nmp_bf16_bwd_kernelILi32EE"),
                "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
                "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
                "edge_mlp_agg": ("edge_mlp_agg", "edge_mlp_agg_kernelIfLi2E"),
@@ -861,16 +865,17 @@ def nmp_fwd_bf16_case(x, e, edge, g, n_real, n_pad, flops, weights, ptxas):
         f"{BF_MAX}) | two launches bitwise equal: {repeat} | kernel {ms:.3f} ms, plain "
         f"bf16 {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {moved / 1e9:.2f} GB; "
         f"{flops / 1e9:.1f} GFLOP bf16 on tensor cores "
-        f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms) | edge pass: grid {plan['grid']}, "
-        f"{plan['smem_bytes']} B shared memory per block, {plan['blocks_per_sm']} "
-        f"block(s) per SM, {plan['smem_layers']} hidden layer(s) in shared memory, "
+        f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms), {b_ms / ms:.1%} of the bound | edge "
+        f"pass: grid {plan['grid']}, {plan['smem_bytes']} B shared memory per block, "
+        f"{plan['blocks_per_sm']} block(s) per SM, a ring of {plan['stages']} staged "
+        f"tiles, {plan['smem_layers']} hidden layer(s) in shared memory, "
         f"{plan['tiles']} tiles | ptxas {ptxas['nmp_fwd_bf16']} | one call's device "
         "kernels under torch.profiler: "
         + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
     if not (ok and repeat):
         raise RuntimeError("bf16 NMP kernel outside the bands of its plain version, or "
                            "not repeatable")
-    return dict(name=sa.KERNEL_BF16, route="cuda", source="src/repro_torch/csrc/nmp_fwd.cu",
+    return dict(name=sa.KERNEL_BF16, route="cuda", source="src/repro_torch/csrc/nmp_bf16.cu",
                 replaces="src/repro/kernels/segment_agg/kernel.py:215",
                 max_abs_err=max(r[2] for r in readings.values()), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -945,16 +950,17 @@ def nmp_bwd_bf16_case(x, e, edge, g, n_real, n_pad, fwd_flops, weights, ptxas, g
         f"bitwise equal: {repeat} | kernel {ms:.3f} ms, plain bf16 {plain:.3f} ms, bound "
         f"{b_ms:.3f} ms ({b_by}: recompute {fwd_flops / 1e9:.1f} GFLOP bf16 + 3 x "
         f"{cot_flops / 1e9:.1f} GFLOP bf16 (the fp32 cotangent in three bf16 parts); "
-        f"{moved / 1e9:.2f} GB) | edge pass: grid "
+        f"{moved / 1e9:.2f} GB), {b_ms / ms:.1%} of the bound | edge pass: grid "
         f"{plan['grid']}, {plan['smem_bytes']} B shared memory per block, "
-        f"{plan['blocks_per_sm']} block(s) per SM | ptxas {ptxas['nmp_bwd_bf16']} | one "
+        f"{plan['blocks_per_sm']} block(s) per SM, a ring of {plan['stages']} staged tiles "
+        f"| ptxas {ptxas['nmp_bwd_bf16']} | one "
         "call's device kernels under torch.profiler: "
         + "; ".join(f"{n[:40]} {t:.3f} ms" for n, t in dev_ops.items()))
     if not (ok and rounded and repeat):
         raise RuntimeError("bf16 NMP backward kernel outside the bands of its plain "
                            "version, or not repeatable")
     return dict(name=sa.KERNEL_BWD_BF16, route="cuda",
-                source="src/repro_torch/csrc/nmp_bwd.cu",
+                source="src/repro_torch/csrc/nmp_bf16.cu",
                 replaces="src/repro/kernels/segment_agg/kernel.py:357",
                 max_abs_err=max(r[2] for r in readings.values()), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -2384,6 +2390,7 @@ def phase_serve(cfg, sem, pg, smi):
             raise RuntimeError(f"request {step}: streamed != offline reference")
     lat = np.array([r.latency_s for r in results.values()]) * 1e3
     st = engine.stats
+    SERVE_RATES["fp32"] = N_REQUESTS / wall
     say("4 serve", f"large config on {SERVE_ELEMS} p={ORDER} ({sem.n_nodes} nodes): "
         f"{N_REQUESTS} requests, K={ROLLOUT_K}, {BATCH_SLOTS} slots, "
         f"{st['batches']} batches: streamed == offline bitwise for all | "
@@ -2401,7 +2408,9 @@ def phase_serve_bf16(cfg, sem, engine, mesh_hash, ckdir, smi):
     BF_REQUESTS streamed requests, each bitwise equal to its offline
     reference; launches exactly batches x slots x K x M of the bf16
     kernel and none of the fp32 one; the first rollout step's distance
-    from the fp32 engine's reported.  Returns the stream's launches."""
+    from the fp32 engine's reported, and the fp32 engine's rate from
+    phase_serve's stream beside the bf16 one's.  Returns the stream's
+    launches."""
     import torch
     from repro_torch.core.graph_state import FUSED, NMPPlan
     from repro_torch.core.mesh_gen import taylor_green_velocity
@@ -2446,8 +2455,10 @@ def phase_serve_bf16(cfg, sem, engine, mesh_hash, ckdir, smi):
         f"requests, K={ROLLOUT_K}, {BATCH_SLOTS} slots, {st['batches']} batches: streamed "
         f"== offline bitwise for all | rollout step 0 vs the fp32 engine: rel L2 "
         f"{rel_norm(got, fp32):.2e}, max|err| {float((got - fp32).abs().max()):.3g} | "
-        f"latency p50 {np.percentile(lat, 50):.1f} ms, {BF_REQUESTS / wall:.2f} req/s | "
-        f"{smi}")
+        f"latency p50 {np.percentile(lat, 50):.1f} ms, {BF_REQUESTS / wall:.2f} req/s "
+        f"(the fp32 engine's stream above: "
+        + (f"{SERVE_RATES['fp32']:.2f} req/s" if "fp32" in SERVE_RATES else "not run here")
+        + f") | {smi}")
     del bf
     torch.cuda.empty_cache()
     return launches

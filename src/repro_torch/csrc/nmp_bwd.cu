@@ -1,6 +1,6 @@
 // Fused NMP backward (VJP of Eq. 4a + 4b) for NVIDIA Hopper (sm_90a), fp32
-// operands, 3xTF32 tensor-core products; and its bf16 entry, the VJP of
-// the reference's precision="bf16" policy.
+// operands, 3xTF32 tensor-core products (precision="bf16" runs
+// csrc/nmp_bf16.cu).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/segment_agg/kernel.py::nmp_edge_mlp_agg_bwd
@@ -77,30 +77,7 @@
 //
 // C entry points return cudaGetLastError(); nmp_edge_mlp_agg_bwd_plan
 // reports how many partial rows the wrapper must allocate.
-//
-// bf16 entry (nmp_edge_mlp_agg_bwd_bf16): the VJP of the reference's
-// precision="bf16" policy as JAX takes it (kernel.py::_dot; autograd
-// through ``t.to(bfloat16).float()`` in the plain version): the forward
-// z_{l+1} = rb(a_l) rb(W_l) + b_l (rb: round to bf16, nearest even) is
-// recomputed on bf16 products (csrc/nmp_bf16.cuh), and each bf16-cast
-// operand's cotangent is the fp32 product rounded to bf16:
-//   g_a_l = rb(g_z_{l+1} rb(W_l)^T) (then times ELU'),
-//   g_W_l = rb(sum over every edge of rb(a_l)^T g_z_{l+1}),
-// the weight gradient rounded once, after (c)'s fixed-order sum of the
-// blocks' partial rows, not per tile; biases and LayerNorm stay fp32.  The
-// products with the fp32 cotangent as an operand have a bf16 value on the
-// other side, exact in TF32, so they run as 2xTF32 (g_hi b + g_lo b): on
-// the serving mesh at H=32, Lp=5, 141 GFLOP of them (input and weight
-// gradients, layer 0's three slices per slot), twice, at 495 TFLOP/s
-// 0.57 ms, beside the recompute's 63.4 GFLOP of bf16 products (0.064 ms):
-// bound by operations, 0.64 ms.  Layer 0's x slices cannot factor through per-node
-// sums of g_z0 as in (d): each slot's rb(g_z0 w0_src^T) and
-// rb(g_z0 w0_dst^T) is rounded before the sum, so the edge pass computes
-// both per slot (two more tile products) and writes them to per-slot
-// scratch rows (g_z0's and one more, slots x H fp32 each), and the node
-// pass sums them in the same fixed orders (rowptr, src_slots).  The weights
-// sit in shared memory rounded to bf16 (fp32 words, the fp32 layout).
-#include "nmp_bf16.cuh"
+#include "nmp_tf32.cuh"
 
 namespace {
 
@@ -154,9 +131,7 @@ __global__ void slot_dst_kernel(const int* __restrict__ rowptr, int* __restrict_
 // from the two cross terms, and added to acc once per tile in fp32: the
 // tensor cores' accumulation does not round to nearest, and a fragment
 // carried through a block's ~33,000 rows lost ~2e-4 of its value that way.
-// With BF the activations are rounded to bf16, exact in TF32, and only
-// their products with G's two parts run (2xTF32).
-template <int CM, bool BIAS, int SA, bool BF, class FA>
+template <int CM, bool BIAS, int SA, class FA>
 __device__ __forceinline__ void wgrad(float (&acc)[CM][4], const int (&mt)[CM], int m_tiles,
                                       int m_lim, FA act, const float* G, int n0, float& bias,
                                       int g, int t) {
@@ -176,15 +151,6 @@ __device__ __forceinline__ void wgrad(float (&acc)[CM][4], const int (&mt)[CM], 
       if (mt[i] >= m_tiles) continue;
       const int m = mt[i] * 16 + g;
       uint32_t ah[4], al[4];
-      if (BF) {
-        ah[0] = __float_as_uint(m < m_lim ? round_bf16(act(ka, m)) : 0.f);
-        ah[1] = __float_as_uint(m + 8 < m_lim ? round_bf16(act(ka, m + 8)) : 0.f);
-        ah[2] = __float_as_uint(m < m_lim ? round_bf16(act(kb, m)) : 0.f);
-        ah[3] = __float_as_uint(m + 8 < m_lim ? round_bf16(act(kb, m + 8)) : 0.f);
-        mma_tf32(small[i], ah, bl0, bl1);
-        mma_tf32(big[i], ah, bh0, bh1);
-        continue;
-      }
       split(m < m_lim ? act(ka, m) : 0.f, ah[0], al[0]);
       split(m + 8 < m_lim ? act(ka, m + 8) : 0.f, ah[1], al[1]);
       split(m < m_lim ? act(kb, m) : 0.f, ah[2], al[2]);
@@ -201,7 +167,7 @@ __device__ __forceinline__ void wgrad(float (&acc)[CM][4], const int (&mt)[CM], 
   if (BIAS) bias += bsum;
 }
 
-template <int H, bool BF>
+template <int H>
 __global__ void __launch_bounds__(kWarps * 32, 8 / kWarps)
 nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
                     const int* __restrict__ perm, const int* __restrict__ src,
@@ -212,8 +178,7 @@ nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
                     const float* __restrict__ lng, const float* __restrict__ lnb,
                     const float* __restrict__ genew, const float* __restrict__ gagg,
                     float* __restrict__ ge, float* __restrict__ gz0,
-                    float* __restrict__ gxd, float* __restrict__ partials, int n_hidden,
-                    int has_ln) {
+                    float* __restrict__ partials, int n_hidden, int has_ln) {
   using C = Cfg<H>;
   constexpr int NT = C::NT, SX = C::SX, SA = C::SA, SW = C::SW;
   const int lp = n_hidden;
@@ -233,11 +198,8 @@ nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
   float* s_m = reinterpret_cast<float*>(s_dst + kRows);
   float* s_inv = s_m + kRows;
 
-  // the weights (rounded to bf16 under BF: every product reads them so)
-  for (int i = threadIdx.x; i < 3 * H * H; i += blockDim.x)
-    s_w0[(i / H) * SW + i % H] = BF ? round_bf16(w0[i]) : w0[i];
-  for (int i = threadIdx.x; i < lp * H * H; i += blockDim.x)
-    s_wr[(i / H) * SW + i % H] = BF ? round_bf16(wrest[i]) : wrest[i];
+  for (int i = threadIdx.x; i < 3 * H * H; i += blockDim.x) s_w0[(i / H) * SW + i % H] = w0[i];
+  for (int i = threadIdx.x; i < lp * H * H; i += blockDim.x) s_wr[(i / H) * SW + i % H] = wrest[i];
   for (int i = threadIdx.x; i < lp * H; i += blockDim.x) s_br[i] = brest[i];
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
     s_b0[i] = b0[i];
@@ -328,10 +290,7 @@ nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
     {
       auto a = [&](int r, int k) { return xw[r * SX + k]; };
       auto b = [&](int k, int n) { return s_w0[k * SW + n]; };
-      if (BF)
-        warp_mm_bf16<NT, 3 * H, true>(z, a, b, g, t);
-      else
-        warp_mm<NT, 3 * H / 8, true>(z, a, b, g, t);
+      warp_mm<NT, 3 * H / 8, true>(z, a, b, g, t);
     }
     for (int l = 0; l < lp; ++l) {
       float* aw = s_a + l * kRows * SA + r0 * SA;
@@ -345,10 +304,7 @@ nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
       init_bias<NT>(z, s_br + l * H, t);
       auto a = [&](int r, int k) { return aw[r * SA + k]; };
       auto b = [&](int k, int n) { return w[k * SW + n]; };
-      if (BF)
-        warp_mm_bf16<NT, H, true>(z, a, b, g, t);
-      else
-        warp_mm<NT, H / 8, true>(z, a, b, g, t);
+      warp_mm<NT, H / 8, true>(z, a, b, g, t);
     }
 
     // --- cotangent of (e + h), LayerNorm backward ---
@@ -420,27 +376,23 @@ nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
       if (mg < C::MHT) {
         auto act = [&](int k, int m) { return a[k * SA + m]; };
         if (mg == 0)
-          wgrad<C::CWH, true, SA, BF>(acch[l], mth, C::MHT, H, act, gc, nt_w * 8, accb[l + 1],
-                                      g, t);
+          wgrad<C::CWH, true, SA>(acch[l], mth, C::MHT, H, act, gc, nt_w * 8, accb[l + 1], g,
+                                  t);
         else
-          wgrad<C::CWH, false, SA, BF>(acch[l], mth, C::MHT, H, act, gc, nt_w * 8,
-                                       accb[l + 1], g, t);
+          wgrad<C::CWH, false, SA>(acch[l], mth, C::MHT, H, act, gc, nt_w * 8, accb[l + 1],
+                                   g, t);
       }
       float ga[NT][4] = {};
       const float* gw = gc + r0 * SA;
       auto ag = [&](int r, int k) { return gw[r * SA + k]; };
       auto wt = [&](int k, int n) { return w[n * SW + k]; };
-      if (BF)
-        warp_mm_2x<NT, H / 8>(ga, ag, wt, g, t);
-      else
-        warp_mm<NT, H / 8, false>(ga, ag, wt, g, t);
+      warp_mm<NT, H / 8, false>(ga, ag, wt, g, t);
       float aw[NT][4];
       load_c<NT>(aw, a + r0 * SA, SA, g, t);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)     // BF: the cotangent of rb(a_l), rounded
-          ga[nt][j] = (BF ? round_bf16(ga[nt][j]) : ga[nt][j]) * elu_grad(aw[nt][j]);
+        for (int j = 0; j < 4; ++j) ga[nt][j] *= elu_grad(aw[nt][j]);
       store_c<NT>(gn + r0 * SA, SA, ga, g, t);
       __syncthreads();
       cur ^= 1;
@@ -452,58 +404,25 @@ nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
       float* gn = s_g + (cur ^ 1) * kRows * SA;
       auto act = [&](int k, int m) { return s_x[k * SX + m]; };
       if (mg == 0)
-        wgrad<C::CW0, true, SA, BF>(acc0, mt0, C::M0T, 3 * H, act, gc, nt_w * 8, accb[0], g,
-                                    t);
+        wgrad<C::CW0, true, SA>(acc0, mt0, C::M0T, 3 * H, act, gc, nt_w * 8, accb[0], g, t);
       else
-        wgrad<C::CW0, false, SA, BF>(acc0, mt0, C::M0T, 3 * H, act, gc, nt_w * 8, accb[0], g,
-                                     t);
+        wgrad<C::CW0, false, SA>(acc0, mt0, C::M0T, 3 * H, act, gc, nt_w * 8, accb[0], g, t);
       const float* gw = gc + r0 * SA;
       constexpr int CH4 = H / 4;
-      if (BF) {
-        // g_e = g_h + rb(g_z0 w0_e^T) to the edge; rb(g_z0 w0_src^T) and
-        // rb(g_z0 w0_dst^T) to the slot's scratch rows, for the node pass
-        auto ag = [&](int r, int k) { return gw[r * SA + k]; };
-        float* out = gn + r0 * SA;
-#pragma unroll 1
-        for (int part = 0; part < 3; ++part) {
-          const int sl = part == 0 ? 2 : part - 1;   // w0's slice: e, src, dst
-          float pz[NT][4] = {};
-          warp_mm_2x<NT, H / 8>(pz, ag, [&](int k, int n) { return s_w0[(sl * H + n) * SW + k]; },
-                                g, t);
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              pz[nt][j] = round_bf16(pz[nt][j]) + (part == 0 ? gh[nt][j] : 0.f);
-          __syncwarp();                     // the slab's last reads are done
-          store_c<NT>(out, SA, pz, g, t);
-          __syncwarp();
-          float* to = part == 0 ? ge : part == 1 ? gz0 : gxd;
-          for (int i = lane; i < 16 * CH4; i += 32) {
-            const int r = i / CH4, c = (i - r * CH4) * 4;
-            const int eid = s_eid[r0 + r];
-            if (eid < 0) continue;
-            const size_t row = part == 0 ? (size_t)eid : (size_t)(base + r0 + r);
-            *reinterpret_cast<float4*>(to + row * H + c) =
-                *reinterpret_cast<const float4*>(out + r * SA + c);
-          }
-        }
-      } else {
-        // g_e = g_h + g_z0 w0_e^T
-        warp_mm<NT, H / 8, false>(
-            gh, [&](int r, int k) { return gw[r * SA + k]; },
-            [&](int k, int n) { return s_w0[(2 * H + n) * SW + k]; }, g, t);
-        store_c<NT>(gn + r0 * SA, SA, gh, g, t);
-        __syncwarp();
-        for (int i = lane; i < 16 * CH4; i += 32) {
-          const int r = i / CH4, c = (i - r * CH4) * 4;
-          const int eid = s_eid[r0 + r];
-          if (eid < 0) continue;
-          *reinterpret_cast<float4*>(ge + (size_t)eid * H + c) =
-              *reinterpret_cast<const float4*>(gn + (r0 + r) * SA + c);
-          *reinterpret_cast<float4*>(gz0 + (size_t)(base + r0 + r) * H + c) =
-              *reinterpret_cast<const float4*>(gw + r * SA + c);
-        }
+      // g_e = g_h + g_z0 w0_e^T
+      warp_mm<NT, H / 8, false>(
+          gh, [&](int r, int k) { return gw[r * SA + k]; },
+          [&](int k, int n) { return s_w0[(2 * H + n) * SW + k]; }, g, t);
+      store_c<NT>(gn + r0 * SA, SA, gh, g, t);
+      __syncwarp();
+      for (int i = lane; i < 16 * CH4; i += 32) {
+        const int r = i / CH4, c = (i - r * CH4) * 4;
+        const int eid = s_eid[r0 + r];
+        if (eid < 0) continue;
+        *reinterpret_cast<float4*>(ge + (size_t)eid * H + c) =
+            *reinterpret_cast<const float4*>(gn + (r0 + r) * SA + c);
+        *reinterpret_cast<float4*>(gz0 + (size_t)(base + r0 + r) * H + c) =
+            *reinterpret_cast<const float4*>(gw + r * SA + c);
       }
     }
     __syncthreads();
@@ -572,42 +491,14 @@ nmp_bwd_edge_kernel(const float* __restrict__ x, const float* __restrict__ e,
   }
 }
 
-// (c) out[i] = sum over blocks, in block order; with BF the weight
-// matrices' sums (w0: the first 3h*h, wrest: lpx*h*h after b0) rounded to
-// bf16, once
-template <bool BF>
+// (c) out[i] = sum over blocks, in block order
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       float* __restrict__ out, int n_groups, int wsize, int h,
-                                       int lpx) {
+                                       float* __restrict__ out, int n_groups, int wsize) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= wsize) return;
   float s = 0.f;
   for (int g = 0; g < n_groups; ++g) s += partials[(size_t)g * wsize + i];
-  if (BF) {
-    const int wr_lo = 3 * h * h + h, wr_hi = wr_lo + lpx * h * h;
-    if (i < 3 * h * h || (i >= wr_lo && i < wr_hi)) s = round_bf16(s);
-  }
   out[i] = s;
-}
-
-// (d), bf16: g_x[n] = (sum of the slots' x_dst gradients over n's dst
-// slots, rowptr order) + (the x_src gradients over its src slots,
-// src_slots order), each slot's row rounded already; H threads per node
-template <int H>
-__global__ void nmp_bwd_node_sum_kernel(const float* __restrict__ gxs,
-                                        const float* __restrict__ gxd,
-                                        const int* __restrict__ rowptr,
-                                        const int* __restrict__ src_slots,
-                                        const int* __restrict__ src_rowptr,
-                                        float* __restrict__ gx, int n_nodes) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = (int)(i / H), j = (int)(i % H);
-  if (n >= n_nodes) return;
-  float gd = 0.f, gs = 0.f;
-  for (int s = rowptr[n]; s < rowptr[n + 1]; ++s) gd += gxd[(size_t)s * H + j];
-  for (int p = src_rowptr[n]; p < src_rowptr[n + 1]; ++p)
-    gs += gxs[(size_t)src_slots[p] * H + j];
-  gx[(size_t)n * H + j] = gd + gs;
 }
 
 // (d) g_x[n] = G_dst[n] w0_dst^T + G_src[n] w0_src^T, G_* the fixed-order
@@ -655,7 +546,7 @@ struct LaunchPlan {
   size_t smem;
 };
 
-template <int H, bool BF>
+template <int H>
 cudaError_t plan_launch(int n_hidden, long long n_slots, LaunchPlan* p) {
   const size_t smem = sizeof(float) * smem_floats(H, n_hidden);
   int dev = 0, optin = 0, sms = 0, per_sm = 0;
@@ -666,7 +557,7 @@ cudaError_t plan_launch(int n_hidden, long long n_slots, LaunchPlan* p) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if ((size_t)optin < smem) return cudaErrorInvalidValue;
-  auto kern = nmp_bwd_edge_kernel<H, BF>;
+  auto kern = nmp_bwd_edge_kernel<H>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kWarps * 32, smem);
@@ -680,23 +571,21 @@ cudaError_t plan_launch(int n_hidden, long long n_slots, LaunchPlan* p) {
   return cudaSuccess;
 }
 
-template <bool BF>
 cudaError_t plan_for(int hidden, int n_hidden, long long n_slots, LaunchPlan* p) {
   if (n_hidden < 0 || n_hidden > kMaxHidden) return cudaErrorInvalidValue;
   switch (hidden) {
-    case 8: return plan_launch<8, BF>(n_hidden, n_slots, p);
-    case 16: return plan_launch<16, BF>(n_hidden, n_slots, p);
-    case 32: return plan_launch<32, BF>(n_hidden, n_slots, p);
+    case 8: return plan_launch<8>(n_hidden, n_slots, p);
+    case 16: return plan_launch<16>(n_hidden, n_slots, p);
+    case 32: return plan_launch<32>(n_hidden, n_slots, p);
     default: return cudaErrorInvalidValue;
   }
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <bool BF>
 int bwd_plan(int hidden, int n_hidden, long long n_slots, int* plan) {
   LaunchPlan p;
-  cudaError_t err = plan_for<BF>(hidden, n_hidden, n_slots, &p);
+  cudaError_t err = plan_for(hidden, n_hidden, n_slots, &p);
   if (err != cudaSuccess) return (int)err;
   plan[0] = p.grid;
   plan[1] = (int)p.smem;
@@ -704,23 +593,20 @@ int bwd_plan(int hidden, int n_hidden, long long n_slots, int* plan) {
   return 0;
 }
 
-// gxd: the bf16 entry's second per-slot scratch (slots x H), unused in fp32
-template <bool BF>
 int bwd_launch(const void* x, const void* e, const void* perm, const void* src,
                const void* rowptr, const void* src_slots, const void* src_rowptr,
                const void* emask, const void* einv, const void* w0, const void* b0,
                const void* wrest, const void* brest, const void* lng, const void* lnb,
                const void* genew, const void* gagg, void* gx, void* ge, void* gw, void* gz0,
-               void* gxd, void* slot_dst, void* partials, int n_nodes, long long n_slots,
+               void* slot_dst, void* partials, int n_nodes, long long n_slots,
                int hidden, int n_hidden, int has_ln, int n_groups, void* stream) {
   LaunchPlan p;
-  cudaError_t err = plan_for<BF>(hidden, n_hidden, n_slots, &p);
+  cudaError_t err = plan_for(hidden, n_hidden, n_slots, &p);
   if (err != cudaSuccess) return (int)err;
   if (p.grid != n_groups) return (int)cudaErrorInvalidValue;
-  // 16-byte row copies (x, e, g_e, g_z0, the x_dst rows) and 8-byte
-  // cotangent loads
+  // 16-byte row copies (x, e, g_e, g_z0) and 8-byte cotangent loads
   if (!aligned16(x) || !aligned16(e) || !aligned16(ge) || !aligned16(gz0) ||
-      (BF && !aligned16(gxd)) || ((uintptr_t)genew & 7) || ((uintptr_t)gagg & 7))
+      ((uintptr_t)genew & 7) || ((uintptr_t)gagg & 7))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
   if (n_nodes > 0)
@@ -734,11 +620,11 @@ int bwd_launch(const void* x, const void* e, const void* perm, const void* src,
       (const int*)slot_dst, n_real, (const float*)emask, (const float*)einv,         \
       (const float*)w0, (const float*)b0, (const float*)wrest, (const float*)brest,  \
       (const float*)lng, (const float*)lnb, (const float*)genew, (const float*)gagg, \
-      (float*)ge, (float*)gz0, (float*)gxd, (float*)partials, n_hidden, has_ln
+      (float*)ge, (float*)gz0, (float*)partials, n_hidden, has_ln
   switch (hidden) {
-    case 8: nmp_bwd_edge_kernel<8, BF><<<p.grid, kWarps * 32, p.smem, st>>>(EDGE_ARGS); break;
-    case 16: nmp_bwd_edge_kernel<16, BF><<<p.grid, kWarps * 32, p.smem, st>>>(EDGE_ARGS); break;
-    case 32: nmp_bwd_edge_kernel<32, BF><<<p.grid, kWarps * 32, p.smem, st>>>(EDGE_ARGS); break;
+    case 8: nmp_bwd_edge_kernel<8><<<p.grid, kWarps * 32, p.smem, st>>>(EDGE_ARGS); break;
+    case 16: nmp_bwd_edge_kernel<16><<<p.grid, kWarps * 32, p.smem, st>>>(EDGE_ARGS); break;
+    case 32: nmp_bwd_edge_kernel<32><<<p.grid, kWarps * 32, p.smem, st>>>(EDGE_ARGS); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef EDGE_ARGS
@@ -746,23 +632,11 @@ int bwd_launch(const void* x, const void* e, const void* perm, const void* src,
   if (err != cudaSuccess) return (int)err;
   const int lpx = n_hidden > 0 ? n_hidden : 1;
   const int wsize = wgrad_size(hidden, lpx);
-  reduce_partials_kernel<BF><<<(wsize + 255) / 256, 256, 0, st>>>(
-      (const float*)partials, (float*)gw, n_groups, wsize, hidden, lpx);
+  reduce_partials_kernel<<<(wsize + 255) / 256, 256, 0, st>>>(
+      (const float*)partials, (float*)gw, n_groups, wsize);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (n_nodes > 0 && BF) {
-    const int grid = (int)(((long long)n_nodes * hidden + 255) / 256);
-#define SUM_ARGS                                                                       \
-  (const float*)gz0, (const float*)gxd, (const int*)rowptr, (const int*)src_slots,    \
-      (const int*)src_rowptr, (float*)gx, n_nodes
-    switch (hidden) {
-      case 8: nmp_bwd_node_sum_kernel<8><<<grid, 256, 0, st>>>(SUM_ARGS); break;
-      case 16: nmp_bwd_node_sum_kernel<16><<<grid, 256, 0, st>>>(SUM_ARGS); break;
-      case 32: nmp_bwd_node_sum_kernel<32><<<grid, 256, 0, st>>>(SUM_ARGS); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef SUM_ARGS
-  } else if (n_nodes > 0) {
+  if (n_nodes > 0) {
     const int warps = 8, per_block = warps * (32 / hidden);
     const int grid = (n_nodes + per_block - 1) / per_block;
 #define NODE_ARGS                                                                    \
@@ -785,12 +659,7 @@ int bwd_launch(const void* x, const void* e, const void* perm, const void* src,
 // memory per block in bytes, and its resident blocks per SM (occupancy API)
 extern "C" int nmp_edge_mlp_agg_bwd_plan(int hidden, int n_hidden, long long n_slots,
                                          int* plan) {
-  return bwd_plan<false>(hidden, n_hidden, n_slots, plan);
-}
-
-extern "C" int nmp_edge_mlp_agg_bwd_bf16_plan(int hidden, int n_hidden, long long n_slots,
-                                              int* plan) {
-  return bwd_plan<true>(hidden, n_hidden, n_slots, plan);
+  return bwd_plan(hidden, n_hidden, n_slots, plan);
 }
 
 extern "C" int nmp_edge_mlp_agg_bwd_f32(
@@ -801,25 +670,9 @@ extern "C" int nmp_edge_mlp_agg_bwd_f32(
     void* gx, void* ge, void* gw, void* gz0, void* slot_dst, void* partials,
     int n_nodes, long long n_slots, int hidden, int n_hidden, int has_ln, int n_groups,
     void* stream) {
-  return bwd_launch<false>(x, e, perm, src, rowptr, src_slots, src_rowptr, emask, einv, w0,
-                           b0, wrest, brest, lng, lnb, genew, gagg, gx, ge, gw, gz0, nullptr,
-                           slot_dst, partials, n_nodes, n_slots, hidden, n_hidden, has_ln,
-                           n_groups, stream);
-}
-
-// as nmp_edge_mlp_agg_bwd_f32, with the second per-slot scratch gxd
-extern "C" int nmp_edge_mlp_agg_bwd_bf16(
-    const void* x, const void* e, const void* perm, const void* src, const void* rowptr,
-    const void* src_slots, const void* src_rowptr, const void* emask, const void* einv,
-    const void* w0, const void* b0, const void* wrest, const void* brest,
-    const void* lng, const void* lnb, const void* genew, const void* gagg,
-    void* gx, void* ge, void* gw, void* gz0, void* gxd, void* slot_dst, void* partials,
-    int n_nodes, long long n_slots, int hidden, int n_hidden, int has_ln, int n_groups,
-    void* stream) {
-  return bwd_launch<true>(x, e, perm, src, rowptr, src_slots, src_rowptr, emask, einv, w0,
-                          b0, wrest, brest, lng, lnb, genew, gagg, gx, ge, gw, gz0, gxd,
-                          slot_dst, partials, n_nodes, n_slots, hidden, n_hidden, has_ln,
-                          n_groups, stream);
+  return bwd_launch(x, e, perm, src, rowptr, src_slots, src_rowptr, emask, einv, w0, b0,
+                    wrest, brest, lng, lnb, genew, gagg, gx, ge, gw, gz0, slot_dst, partials,
+                    n_nodes, n_slots, hidden, n_hidden, has_ln, n_groups, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -1,6 +1,6 @@
 // Fused NMP forward (Eq. 4a + 4b) for NVIDIA Hopper (sm_90a), fp32
-// operands, 3xTF32 tensor-core products; and its bf16 entry, the
-// reference's precision="bf16" policy on bf16 tensor-core products.
+// operands, 3xTF32 tensor-core products (precision="bf16" runs
+// csrc/nmp_bf16.cu).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/segment_agg/kernel.py::nmp_edge_mlp_agg_fwd
@@ -71,22 +71,7 @@
 // rows (tiles x 2 x H fp32), tiles = ceil(slots / 128), and the byte map
 // (one per edge).  C entry points return cudaGetLastError();
 // nmp_edge_mlp_agg_fwd_plan reports the launch.
-//
-// bf16 entry (nmp_edge_mlp_agg_fwd_bf16): the same kernel with the
-// reference's precision="bf16" policy (kernel.py::_dot): both operands of
-// every edge-MLP product rounded to bf16 (to nearest even), products in
-// fp32; biases, ELU, LayerNorm, residual, mask and the aggregate stay fp32,
-// and x, e and the weights stay fp32 in memory, so the kernel moves the
-// bytes of the fp32 one: at H=32, Lp=5 1.36 GB, 0.407 ms at 3.35 TB/s,
-// against 63.4 GFLOP of products at 989 TFLOP/s bf16 (0.064 ms): bound by
-// bytes.  Each block rounds the weights once into bf16 pairs in shared
-// memory (for k-step s, lane t and column n the uint2 of rows 16s + 2t,
-// +1 and 16s + 2t + 8, +9: one 8-byte load per B fragment, a quarter of
-// the pre-split weights' bytes); each staged row is rounded as it enters an
-// A fragment; every product is one mma.sync.m16n8k16.bf16 per k-step of 16
-// (csrc/nmp_bf16.cuh), where 3xTF32 takes three m16n8k8 per 8.  Everything
-// else (tiles, groups, the node walk, fix-up and zero passes) is shared.
-#include "nmp_bf16.cuh"
+#include "nmp_tf32.cuh"
 
 namespace {
 
@@ -115,20 +100,16 @@ __host__ __device__ constexpr int group_words(int h) {
   return kRows * pad8(3 * h) + kMeta * kRows + 2 * kWarps * 32 + kRows * pad8(h);
 }
 
-// 4-byte words of one layer's bf16 pairs (k input rows; pack_bf16_pairs):
-// 4 row quads per k-step of 16, each pad8(2h) words
-__host__ __device__ constexpr int bf_words(int k, int h) { return (k + 15) / 16 * 4 * pad8(2 * h); }
-
-// 4-byte words of the weights of layer 0 and of `lps` hidden layers: fp32
-// pre-split (H/2 row pairs of RS floats per H input rows) or bf16 pairs
-__host__ __device__ inline int weight_words(int h, int lps, bool bf) {
-  return bf ? bf_words(3 * h, h) + lps * bf_words(h, h) : (3 * h + lps * h) / 2 * (4 * h + 8);
+// 4-byte words of the weights of layer 0 and of `lps` hidden layers,
+// pre-split (H/2 row pairs of RS floats per H input rows)
+__host__ __device__ inline int weight_words(int h, int lps) {
+  return (3 * h + lps * h) / 2 * (4 * h + 8);
 }
 
 // floats of shared memory: the weights with their biases, LayerNorm, and
 // the groups
-__host__ __device__ inline int smem_floats(int h, int lps, bool bf) {
-  return weight_words(h, lps, bf) + (1 + lps) * h + 2 * h + kGroups * group_words(h);
+__host__ __device__ inline int smem_floats(int h, int lps) {
+  return weight_words(h, lps) + (1 + lps) * h + 2 * h + kGroups * group_words(h);
 }
 
 // w [rows][H] -> wp [rows / 2][RS]: for the row pair (2p, 2p + 1) and
@@ -144,52 +125,6 @@ __device__ void presplit(float* wp, const float* w, int rows) {
     *reinterpret_cast<float4*>(wp + p * Cfg<H>::RS + n * 4) =
         make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
                     __uint_as_float(l1));
-  }
-}
-
-// w [rows][H] -> wb [ceil(rows / 16) * 4][pad8(2H)] words: for k-step s,
-// lane t and column n the uint2 (bf16x2 of rows 16s + 2t, 16s + 2t + 1;
-// bf16x2 of rows 16s + 2t + 8, + 9), rounded to nearest even, zero past
-// `rows`, so one 8-byte load gives a lane both B registers of a k-step
-// (row quads 8 mod 32 words apart: a half warp's loads hit 32 banks)
-template <int H>
-__device__ void pack_bf16_pairs(uint32_t* wb, const float* w, int rows) {
-  constexpr int RW = pad8(2 * H);
-  const int quads = (rows + 15) / 16 * 4;
-  for (int i = threadIdx.x; i < quads * H; i += blockDim.x) {
-    const int q = i / H, n = i % H;
-    const int k = (q / 4) * 16 + 2 * (q % 4);
-    auto at = [&](int r) { return r < rows ? w[r * H + n] : 0.f; };
-    *reinterpret_cast<uint2*>(wb + q * RW + 2 * n) =
-        make_uint2(bf16x2(at(k), at(k + 1)), bf16x2(at(k + 8), at(k + 9)));
-  }
-}
-
-// warp_mm_bf16 with A read from a row-major slab (8-byte loads of the k
-// pairs 2t, 2t + 1 and 2t + 8, 2t + 9, rounded into the fragment) and B
-// from the bf16 pairs (one 8-byte load per n-tile and k-step)
-template <int NT, int K, int H>
-__device__ __forceinline__ void warp_mm_bp(float (&c)[NT][4], const float* A, int lda,
-                                           const uint32_t* Bp, int g, int t) {
-  constexpr int RW = pad8(2 * H);
-#pragma unroll
-  for (int ks = 0; ks < (K + 15) / 16; ++ks) {
-    const int k0 = ks * 16 + 2 * t;
-    const bool upper = ks * 16 + 8 < K;     // compile-time: a last half k-step
-    const float2 u = *reinterpret_cast<const float2*>(A + g * lda + k0);
-    const float2 v = *reinterpret_cast<const float2*>(A + (g + 8) * lda + k0);
-    uint32_t af[4] = {bf16x2(u.x, u.y), bf16x2(v.x, v.y), 0u, 0u};
-    if (upper) {
-      const float2 u2 = *reinterpret_cast<const float2*>(A + g * lda + k0 + 8);
-      const float2 v2 = *reinterpret_cast<const float2*>(A + (g + 8) * lda + k0 + 8);
-      af[2] = bf16x2(u2.x, u2.y);
-      af[3] = bf16x2(v2.x, v2.y);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint2 b = *reinterpret_cast<const uint2*>(Bp + (ks * 4 + t) * RW + 2 * (nt * 8 + g));
-      mma_bf16(c[nt], af, b.x, b.y);
-    }
   }
 }
 
@@ -246,7 +181,7 @@ __global__ void tile_lo_kernel(const int* __restrict__ rowptr, int* __restrict__
   if (n == n_nodes) tile_lo[n_tiles] = n_nodes;
 }
 
-template <int H, bool BF>
+template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
 nmp_fwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ e,
                     const int* __restrict__ perm, const int* __restrict__ src,
@@ -260,11 +195,10 @@ nmp_fwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ e,
                     int n_nodes, int n_hidden, int lps, int has_ln) {
   using C = Cfg<H>;
   constexpr int NT = C::NT, SX = C::SX, SA = C::SA, RS = C::RS, CH = C::CH;
-  // one hidden layer's weight words: pre-split [H/2][RS], or bf16 pairs
-  constexpr int LW = BF ? bf_words(H, H) : H / 2 * RS;
+  constexpr int LW = H / 2 * RS;            // one hidden layer's pre-split weight words
   extern __shared__ __align__(16) float smem[];
-  float* s_w0 = smem;                       // layer 0: [3H/2][RS], or bf16 pairs
-  float* s_wr = s_w0 + weight_words(H, 0, BF);   // [lps][LW]
+  float* s_w0 = smem;                       // layer 0: [3H/2][RS]
+  float* s_wr = s_w0 + weight_words(H, 0);  // [lps][LW]
   float* s_b0 = s_wr + lps * LW;            // [H]
   float* s_br = s_b0 + H;                   // [lps][H]
   float* s_lg = s_br + lps * H;             // [H]
@@ -280,14 +214,8 @@ nmp_fwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ e,
   float* s_inv = s_m + kRows;
   int* s_run = reinterpret_cast<int*>(s_inv + kRows);     // [kWarps * 32][2]
 
-  if (BF) {
-    pack_bf16_pairs<H>(reinterpret_cast<uint32_t*>(s_w0), w0, 3 * H);
-    for (int l = 0; l < lps; ++l)
-      pack_bf16_pairs<H>(reinterpret_cast<uint32_t*>(s_wr + l * LW), wrest + (size_t)l * H * H, H);
-  } else {
-    presplit<H>(s_w0, w0, 3 * H);
-    for (int l = 0; l < lps; ++l) presplit<H>(s_wr + l * LW, wrest + (size_t)l * H * H, H);
-  }
+  presplit<H>(s_w0, w0, 3 * H);
+  for (int l = 0; l < lps; ++l) presplit<H>(s_wr + l * LW, wrest + (size_t)l * H * H, H);
   for (int i = threadIdx.x; i < lps * H; i += blockDim.x) s_br[i] = brest[i];
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
     s_b0[i] = b0[i];
@@ -386,10 +314,7 @@ nmp_fwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ e,
     float* aw = s_a + r0 * SA;
     float z[NT][4];
     init_bias<NT>(z, s_b0, t);
-    if (BF)
-      warp_mm_bp<NT, 3 * H, H>(z, xw, SX, reinterpret_cast<const uint32_t*>(s_w0), g, t);
-    else
-      warp_mm_ps<NT, 3 * H / 8, H>(z, xw, SX, s_w0, g, t);
+    warp_mm_ps<NT, 3 * H / 8, H>(z, xw, SX, s_w0, g, t);
     for (int l = 0; l < n_hidden; ++l) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
@@ -400,20 +325,13 @@ nmp_fwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ e,
       __syncwarp();
       if (l < lps) {
         init_bias<NT>(z, s_br + l * H, t);
-        if (BF)
-          warp_mm_bp<NT, H, H>(z, aw, SA, reinterpret_cast<const uint32_t*>(s_wr + l * LW), g,
-                               t);
-        else
-          warp_mm_ps<NT, H / 8, H>(z, aw, SA, s_wr + l * LW, g, t);
+        warp_mm_ps<NT, H / 8, H>(z, aw, SA, s_wr + l * LW, g, t);
       } else {                              // weights past shared memory
         auto a = [&](int r, int k) { return aw[r * SA + k]; };
         const float* w = wrest + (size_t)l * H * H;
         auto b = [&](int k, int n) { return __ldg(w + k * H + n); };
         init_bias<NT>(z, brest + (size_t)l * H, t);
-        if (BF)
-          warp_mm_bf16<NT, H, false>(z, a, b, g, t);
-        else
-          warp_mm<NT, H / 8, true>(z, a, b, g, t);
+        warp_mm<NT, H / 8, true>(z, a, b, g, t);
       }
     }
     if (has_ln) {
@@ -535,7 +453,7 @@ struct LaunchPlan {
   size_t smem;
 };
 
-template <int H, bool BF>
+template <int H>
 cudaError_t plan_launch(int n_hidden, long long n_slots, LaunchPlan* p) {
   int dev = 0, optin = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -545,14 +463,13 @@ cudaError_t plan_launch(int n_hidden, long long n_slots, LaunchPlan* p) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   // as many hidden layers' weights in shared memory as fit
-  const size_t fixed = sizeof(float) * smem_floats(H, 0, BF);
-  const size_t per_layer =
-      sizeof(float) * (weight_words(H, 1, BF) - weight_words(H, 0, BF) + H);
+  const size_t fixed = sizeof(float) * smem_floats(H, 0);
+  const size_t per_layer = sizeof(float) * (weight_words(H, 1) - weight_words(H, 0) + H);
   if ((size_t)optin < fixed) return cudaErrorInvalidValue;
   const long long fit = (long long)(((size_t)optin - fixed) / per_layer);
   const int lps = (int)(n_hidden < fit ? n_hidden : fit);
-  const size_t smem = sizeof(float) * smem_floats(H, lps, BF);
-  auto kern = nmp_fwd_tile_kernel<H, BF>;
+  const size_t smem = sizeof(float) * smem_floats(H, lps);
+  auto kern = nmp_fwd_tile_kernel<H>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
@@ -569,24 +486,22 @@ cudaError_t plan_launch(int n_hidden, long long n_slots, LaunchPlan* p) {
   return cudaSuccess;
 }
 
-template <bool BF>
 cudaError_t plan_for(int hidden, int n_hidden, long long n_slots, LaunchPlan* p) {
   if (n_hidden < 0 || n_slots < 0 || n_slots > (1LL << 31) - kRows)
     return cudaErrorInvalidValue;
   switch (hidden) {
-    case 8: return plan_launch<8, BF>(n_hidden, n_slots, p);
-    case 16: return plan_launch<16, BF>(n_hidden, n_slots, p);
-    case 32: return plan_launch<32, BF>(n_hidden, n_slots, p);
+    case 8: return plan_launch<8>(n_hidden, n_slots, p);
+    case 16: return plan_launch<16>(n_hidden, n_slots, p);
+    case 32: return plan_launch<32>(n_hidden, n_slots, p);
     default: return cudaErrorInvalidValue;
   }
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <bool BF>
 int fwd_plan(int hidden, int n_hidden, long long n_slots, int* plan) {
   LaunchPlan p;
-  cudaError_t err = plan_for<BF>(hidden, n_hidden, n_slots, &p);
+  cudaError_t err = plan_for(hidden, n_hidden, n_slots, &p);
   if (err != cudaSuccess) return (int)err;
   plan[0] = p.grid;
   plan[1] = (int)p.smem;
@@ -596,7 +511,6 @@ int fwd_plan(int hidden, int n_hidden, long long n_slots, int* plan) {
   return 0;
 }
 
-template <bool BF>
 int fwd_launch(const void* x, const void* e, const void* perm, const void* src,
                const void* rowptr, const void* emask, const void* einv, const void* w0,
                const void* b0, const void* wrest, const void* brest, const void* lng,
@@ -604,7 +518,7 @@ int fwd_launch(const void* x, const void* e, const void* perm, const void* src,
                void* covered, int n_nodes, long long n_slots, long long n_edges, int hidden,
                int n_hidden, int has_ln, void* stream) {
   LaunchPlan p;
-  cudaError_t err = plan_for<BF>(hidden, n_hidden, n_slots, &p);
+  cudaError_t err = plan_for(hidden, n_hidden, n_slots, &p);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   if (n_nodes <= 0)                         // no node: no edge in the layout
@@ -626,9 +540,9 @@ int fwd_launch(const void* x, const void* e, const void* perm, const void* src,
       (const float*)lng, (const float*)lnb, (float*)e_new, (float*)agg,                \
       (float*)partials, (uint8_t*)covered, n_nodes, n_hidden, p.lps, has_ln
   switch (hidden) {
-    case 8: nmp_fwd_tile_kernel<8, BF><<<p.grid, kThreads, p.smem, st>>>(EDGE_ARGS); break;
-    case 16: nmp_fwd_tile_kernel<16, BF><<<p.grid, kThreads, p.smem, st>>>(EDGE_ARGS); break;
-    case 32: nmp_fwd_tile_kernel<32, BF><<<p.grid, kThreads, p.smem, st>>>(EDGE_ARGS); break;
+    case 8: nmp_fwd_tile_kernel<8><<<p.grid, kThreads, p.smem, st>>>(EDGE_ARGS); break;
+    case 16: nmp_fwd_tile_kernel<16><<<p.grid, kThreads, p.smem, st>>>(EDGE_ARGS); break;
+    case 32: nmp_fwd_tile_kernel<32><<<p.grid, kThreads, p.smem, st>>>(EDGE_ARGS); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef EDGE_ARGS
@@ -670,12 +584,7 @@ int fwd_launch(const void* x, const void* e, const void* perm, const void* src,
 // (tile_lo: tiles + 1 int32, partials: tiles x 2 x H fp32)
 extern "C" int nmp_edge_mlp_agg_fwd_plan(int hidden, int n_hidden, long long n_slots,
                                          int* plan) {
-  return fwd_plan<false>(hidden, n_hidden, n_slots, plan);
-}
-
-extern "C" int nmp_edge_mlp_agg_fwd_bf16_plan(int hidden, int n_hidden, long long n_slots,
-                                              int* plan) {
-  return fwd_plan<true>(hidden, n_hidden, n_slots, plan);
+  return fwd_plan(hidden, n_hidden, n_slots, plan);
 }
 
 #define FWD_PARAMS                                                                         \
@@ -690,9 +599,7 @@ extern "C" int nmp_edge_mlp_agg_fwd_bf16_plan(int hidden, int n_hidden, long lon
       tile_lo, partials, covered, n_nodes, n_slots, n_edges, hidden, n_hidden, has_ln, \
       stream
 
-extern "C" int nmp_edge_mlp_agg_fwd_f32(FWD_PARAMS) { return fwd_launch<false>(FWD_ARGS); }
-
-extern "C" int nmp_edge_mlp_agg_fwd_bf16(FWD_PARAMS) { return fwd_launch<true>(FWD_ARGS); }
+extern "C" int nmp_edge_mlp_agg_fwd_f32(FWD_PARAMS) { return fwd_launch(FWD_ARGS); }
 
 #undef FWD_PARAMS
 #undef FWD_ARGS

@@ -23,9 +23,10 @@ Port of ``repro.kernels.segment_agg.ops``.  The NMP pair (Eq. 4a + 4b,
   on CPU tensors both run the plain versions.  There is no other
   fallback.  ``precision`` is the reference's policy: ``"fp32"``, or
   ``"bf16"`` (every edge-MLP product on
-  bf16-rounded operands, accumulated in fp32; the tuned kernels' ``*_bf16``
-  entries, counted apart as ``nmp_fwd_bf16`` / ``nmp_bwd_bf16``, which
-  raise at any other shape: ROADMAP queue 2); anything else raises.
+  bf16-rounded operands, accumulated in fp32; ``csrc/nmp_bf16.cu``'s
+  entries at the tuned widths, counted apart as ``nmp_fwd_bf16`` /
+  ``nmp_bwd_bf16``, which raise at any other shape: ROADMAP queue 2);
+  anything else raises.
 * ``fused_nmp_edge_agg_plain`` / ``fused_nmp_edge_agg_bwd_plain`` — the
   same functions in plain PyTorch, used by the CPU tests and by
   ``chip_smoke.py`` to check the kernels on the card;
@@ -84,17 +85,24 @@ _SIGNATURES = {
     # 13 operands, e_new, agg, scratch tile_lo / partials / covered; N,
     # slots, edges, H, Lp, has_ln, stream
     "nmp_edge_mlp_agg_fwd_f32": (_P,) * 18 + (_I, _L, _L) + (_I,) * 3 + (_P,),
-    "nmp_edge_mlp_agg_fwd_bf16_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
-    "nmp_edge_mlp_agg_fwd_bf16": (_P,) * 18 + (_I, _L, _L) + (_I,) * 3 + (_P,),
 }
 _SIGNATURES_BWD = {
     "nmp_edge_mlp_agg_bwd_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
     # 17 operands, gx, ge, gw, scratch g_z0 / slot_dst / partials; N, slots,
     # H, Lp, has_ln, partial rows, stream
     "nmp_edge_mlp_agg_bwd_f32": (_P,) * 23 + (_I, _L) + (_I,) * 4 + (_P,),
+}
+#: the library of the bf16 entries (``csrc/nmp_bf16.cu``)
+LIB_BF16 = "nmp_bf16"
+_SIGNATURES_BF16 = {
+    "nmp_edge_mlp_agg_fwd_bf16_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
+    # as nmp_edge_mlp_agg_fwd_f32
+    "nmp_edge_mlp_agg_fwd_bf16": (_P,) * 18 + (_I, _L, _L) + (_I,) * 3 + (_P,),
     "nmp_edge_mlp_agg_bwd_bf16_plan": (_I, _I, _L, ctypes.POINTER(ctypes.c_int)),
-    # as f32, with a second per-slot scratch: the slot's x_dst gradient
-    "nmp_edge_mlp_agg_bwd_bf16": (_P,) * 24 + (_I, _L) + (_I,) * 4 + (_P,),
+    # 17 operands, gx, ge, gw, scratch tile_lo / partials / the slots' x_src
+    # gradients (bf16) / covered / weight-gradient partials; N, slots,
+    # edges, H, Lp, has_ln, partial rows, stream
+    "nmp_edge_mlp_agg_bwd_bf16": (_P,) * 25 + (_I, _L, _L) + (_I,) * 4 + (_P,),
 }
 _PLAN = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES_ANY = {
@@ -118,7 +126,8 @@ _SIGNATURES_ANY = {
     "nmp_edge_mlp_agg_bwd_tc_f32": (_P,) * 22 + (_I, _L) + (_I,) * 3 + (_P,),
 }
 #: the widths of the tuned kernels (``csrc/nmp_fwd.cu``, ``csrc/nmp_bwd.cu``
-#: and their bf16 entries); every other fp32 width runs ``csrc/nmp_any.cu``
+#: and the bf16 pair ``csrc/nmp_bf16.cu``); every other fp32 width runs
+#: ``csrc/nmp_any.cu``
 SUPPORTED_HIDDEN = (8, 16, 32)
 #: hidden layers the tuned backward's register accumulators hold; deeper
 #: fp32 MLPs run ``csrc/nmp_any.cu``
@@ -272,15 +281,23 @@ def _check_precision(precision):
                          f"{PRECISIONS}")
 
 
-#: (C entry, launch counter, C launch-plan entry) of each NMP kernel at
-#: each precision
+#: (C entry, launch counter, C launch-plan entry, library, its signatures)
+#: of each tuned NMP kernel at each precision
 _ENTRIES = {
-    ("fwd", FP32): ("nmp_edge_mlp_agg_fwd_f32", KERNEL, "nmp_edge_mlp_agg_fwd_plan"),
+    ("fwd", FP32): ("nmp_edge_mlp_agg_fwd_f32", KERNEL, "nmp_edge_mlp_agg_fwd_plan",
+                    KERNEL, _SIGNATURES),
     ("fwd", BF16): ("nmp_edge_mlp_agg_fwd_bf16", KERNEL_BF16,
-                    "nmp_edge_mlp_agg_fwd_bf16_plan"),
-    ("bwd", FP32): ("nmp_edge_mlp_agg_bwd_f32", KERNEL_BWD, "nmp_edge_mlp_agg_bwd_plan"),
+                    "nmp_edge_mlp_agg_fwd_bf16_plan", LIB_BF16, _SIGNATURES_BF16),
+    ("bwd", FP32): ("nmp_edge_mlp_agg_bwd_f32", KERNEL_BWD, "nmp_edge_mlp_agg_bwd_plan",
+                    KERNEL_BWD, _SIGNATURES_BWD),
     ("bwd", BF16): ("nmp_edge_mlp_agg_bwd_bf16", KERNEL_BWD_BF16,
-                    "nmp_edge_mlp_agg_bwd_bf16_plan")}
+                    "nmp_edge_mlp_agg_bwd_bf16_plan", LIB_BF16, _SIGNATURES_BF16)}
+
+
+def _entry(kind, precision):
+    """(loaded library, C entry) of the tuned kernel ``kind`` at ``precision``."""
+    entry, _, _, lib, sigs = _ENTRIES[kind, precision]
+    return build.load(lib, sigs), entry
 
 
 def entry_counter(kind: str, hidden: int, n_hidden: int, precision: str = FP32) -> str:
@@ -377,9 +394,10 @@ def fused_nmp_edge_agg_bwd_plain(x, e, edge_params, seg_perm, seg_src,
 
 def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
          edge_mask, edge_inv_mult, precision, route=None):
-    """Forward on stacked operands: plain on CPU; on CUDA ``nmp_fwd`` (or
-    its bf16 entry) at the tuned widths, ``nmp_any``'s forward at every
-    other fp32 shape, on ``route`` (:func:`any_route` unless given)."""
+    """Forward on stacked operands: plain on CPU; on CUDA ``nmp_fwd`` (in
+    bf16 ``nmp_bf16``'s forward) at the tuned widths, ``nmp_any``'s forward
+    at every other fp32 shape, on ``route`` (:func:`any_route` unless
+    given)."""
     n, hid = x.shape
     if x.device.type == "cpu":
         return fused_nmp_edge_agg_plain(
@@ -423,7 +441,7 @@ def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     else:
         tiles = fwd_launch_plan(hid, n_hidden, n_slots, precision)["tiles"]
         last = torch.empty(n_edges, dtype=torch.uint8, device=dev)
-        lib, entry = build.load(KERNEL, _SIGNATURES), _ENTRIES["fwd", precision][0]
+        lib, entry = _entry("fwd", precision)
     scratch = (torch.empty(tiles + 1, dtype=i32, device=dev),
                torch.empty(tiles, 2, hid, dtype=f32, device=dev), last)
     code = getattr(lib, entry)(
@@ -435,21 +453,30 @@ def _fwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     return e_new, agg
 
 
+def _plan(kind, hidden, n_hidden, n_slots, precision):
+    _check_precision(precision)
+    _, _, entry, lib, sigs = _ENTRIES[kind, precision]
+    lib = build.load(lib, sigs)
+    plan = (ctypes.c_int * 6)()
+    code = getattr(lib, entry)(hidden, n_hidden, n_slots, plan)
+    build.check(lib, code, entry)
+    return plan
+
+
 def fwd_launch_plan(hidden: int, n_hidden: int, n_slots: int,
                     precision: str = FP32) -> dict:
     """The forward edge pass's launch on the current card at ``precision``:
     ``grid``, ``smem_bytes`` of dynamic shared memory per block,
     ``blocks_per_sm`` resident (occupancy API), ``smem_layers`` (the hidden
     layers whose weights sit in shared memory; the rest are read from
-    global memory) and ``tiles`` (128-slot tiles the scratch holds)."""
-    _check_precision(precision)
-    lib = build.load(KERNEL, _SIGNATURES)
-    plan = (ctypes.c_int * 5)()
-    entry = _ENTRIES["fwd", precision][2]
-    code = getattr(lib, entry)(hidden, n_hidden, n_slots, plan)
-    build.check(lib, code, entry)
-    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
-                smem_layers=plan[3], tiles=plan[4])
+    global memory) and ``tiles`` (128-slot tiles the scratch holds); in
+    bf16 also ``stages``, the ring's staged tiles."""
+    plan = _plan("fwd", hidden, n_hidden, n_slots, precision)
+    out = dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2],
+               smem_layers=plan[3], tiles=plan[4])
+    if precision == BF16:
+        out["stages"] = plan[5]
+    return out
 
 
 def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int,
@@ -457,14 +484,13 @@ def bwd_launch_plan(hidden: int, n_hidden: int, n_slots: int,
     """The backward edge pass's launch on the current card at
     ``precision``: ``grid`` (the partial weight-gradient rows),
     ``smem_bytes`` of dynamic shared memory per block and ``blocks_per_sm``
-    resident (occupancy API)."""
-    _check_precision(precision)
-    lib = build.load(KERNEL_BWD, _SIGNATURES_BWD)
-    plan = (ctypes.c_int * 3)()
-    entry = _ENTRIES["bwd", precision][2]
-    code = getattr(lib, entry)(hidden, n_hidden, n_slots, plan)
-    build.check(lib, code, entry)
-    return dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2])
+    resident (occupancy API); in bf16 also ``tiles`` (128-slot tiles the
+    scratch holds) and ``stages``, the ring's staged tiles."""
+    plan = _plan("bwd", hidden, n_hidden, n_slots, precision)
+    out = dict(grid=plan[0], smem_bytes=plan[1], blocks_per_sm=plan[2])
+    if precision == BF16:
+        out.update(tiles=plan[4], stages=plan[5])
+    return out
 
 
 #: the narrowest width the generic pair's tensor-core route takes
@@ -583,8 +609,8 @@ def _aligned(t):
 def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
          seg_src_slots, seg_src_rowptr, edge_mask, edge_inv_mult, g_enew,
          g_agg, precision, route=None):
-    """Backward on stacked operands: plain on CPU; on CUDA ``nmp_bwd`` (or
-    its bf16 entry) at the tuned shapes, ``nmp_any``'s backward at every
+    """Backward on stacked operands: plain on CPU; on CUDA ``nmp_bwd`` (in
+    bf16 ``nmp_bf16``'s backward) at the tuned shapes, ``nmp_any``'s backward at every
     other fp32 shape, on ``route`` (:func:`any_route` unless given)."""
     n, hid = x.shape
     if x.device.type == "cpu":
@@ -618,7 +644,9 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
     wsize = sum(sizes)
     dev = x.device
     gx = torch.empty(n, hid, dtype=f32, device=dev)
-    ge = torch.zeros(e.shape[0], hid, dtype=f32, device=dev)
+    # the bf16 kernel writes every row of g_e (zeros outside the layout)
+    ge = (torch.empty if precision == BF16 else torch.zeros)(e.shape[0], hid, dtype=f32,
+                                                             device=dev)
     gw = torch.empty(wsize, dtype=f32, device=dev)
     if counter == KERNEL_BWD_ANY and _route(hid, n_hidden, route) == TC:
         # x_dst w0_dst per node (its own launch), then the edge pass, the
@@ -635,11 +663,31 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
         build.check(lib, code, entry)
         build.count_launch(counter)
         return _split_wgrad(gx, ge, gw, sizes, hid, lp)
+    if precision == BF16:
+        # scratch: each tile's first owned node and its two partial rows of
+        # the x_dst sums of the nodes its edges cut, each slot's x_src
+        # gradient (slots x H bf16, 276 MB at the serving mesh's 4.3 M
+        # slots, H=32), a byte per edge that the layout holds, and one row of
+        # partial weight gradients per block
+        plan = bwd_launch_plan(hid, n_hidden, n_slots, BF16)
+        groups, tiles = plan["grid"], plan["tiles"]
+        scratch = (torch.empty(tiles + 1, dtype=i32, device=dev),
+                   torch.empty(tiles, 2, hid, dtype=f32, device=dev),
+                   torch.empty(n_slots, hid, dtype=torch.bfloat16, device=dev),
+                   torch.empty(e.shape[0], dtype=torch.uint8, device=dev),
+                   torch.empty(groups, wsize, dtype=f32, device=dev))
+        lib, entry = _entry("bwd", BF16)
+        code = getattr(lib, entry)(
+            *(t.data_ptr() for t in args), gx.data_ptr(), ge.data_ptr(),
+            gw.data_ptr(), *(t.data_ptr() for t in scratch), n, n_slots, e.shape[0],
+            hid, n_hidden, int(has_ln), groups, build.stream_of(x))
+        build.check(lib, code, entry)
+        build.count_launch(counter)
+        return _split_wgrad(gx, ge, gw, sizes, hid, lp)
     # scratch: each slot's layer-0 pre-activation gradient (slots x H fp32,
-    # 552 MB at the serving mesh's 4.3 M slots, H=32; in bf16 the slot's
-    # x_src gradient, and as much again for its x_dst gradient), each
-    # slot's destination node, and one row of partial weight gradients per
-    # block (~1.05 M floats a row at H=512, one hidden layer)
+    # 552 MB at the serving mesh's 4.3 M slots, H=32), each slot's
+    # destination node, and one row of partial weight gradients per block
+    # (~1.05 M floats a row at H=512, one hidden layer)
     gz0 = torch.empty(n_slots, hid, dtype=f32, device=dev)
     slot_dst = torch.empty(n_slots, dtype=i32, device=dev)
     if counter == KERNEL_BWD_ANY:
@@ -653,12 +701,9 @@ def _bwd(x, e, ops, n_hidden, has_ln, seg_perm, seg_src, seg_rowptr,
                                device=dev)]
         lib, entry = build.load(LIB_ANY, _SIGNATURES_ANY), "nmp_edge_mlp_agg_bwd_any_f32"
     else:
-        groups = bwd_launch_plan(hid, n_hidden, n_slots, precision)["grid"]
-        scratch = [gz0]
-        if precision == BF16:
-            scratch.append(torch.empty(n_slots, hid, dtype=f32, device=dev))
-        scratch += [slot_dst, torch.empty(groups, wsize, dtype=f32, device=dev)]
-        lib, entry = build.load(KERNEL_BWD, _SIGNATURES_BWD), _ENTRIES["bwd", precision][0]
+        groups = bwd_launch_plan(hid, n_hidden, n_slots)["grid"]
+        scratch = [gz0, slot_dst, torch.empty(groups, wsize, dtype=f32, device=dev)]
+        lib, entry = _entry("bwd", FP32)
     code = getattr(lib, entry)(
         *(t.data_ptr() for t in args), gx.data_ptr(), ge.data_ptr(),
         gw.data_ptr(), *(t.data_ptr() for t in scratch), n, n_slots, hid,
@@ -723,9 +768,9 @@ def fused_nmp_edge_agg(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
     CPU tensors run the plain forward and backward; CUDA tensors launch
     ``csrc/nmp_fwd.cu`` (fp32 operands in memory, H in {8, 16, 32}, any
     number of hidden layers) and, in the backward, ``csrc/nmp_bwd.cu`` (at
-    most 5 hidden layers), each at ``precision``, and ``csrc/nmp_any.cu``
-    at every other fp32 shape (any H >= 1, any depth); bf16 at another
-    shape raises.  Tensors are saved for the backward only when grad is
+    most 5 hidden layers), in bf16 ``csrc/nmp_bf16.cu`` at the same
+    shapes, and ``csrc/nmp_any.cu`` at every other fp32 shape (any H >= 1,
+    any depth); bf16 at another shape raises.  Tensors are saved for the backward only when grad is
     enabled and an input requires it.
 
     Returns (e_new [E_pad, H], agg [N_pad, H]).
@@ -745,8 +790,8 @@ def fused_nmp_edge_agg_bwd(x, e, edge_params, seg_perm, seg_src, seg_rowptr,
     """The backward on its own: VJP of :func:`fused_nmp_edge_agg` for the
     cotangents (g_enew [E_pad, H], g_agg [N_pad, H]).  CPU tensors run
     :func:`fused_nmp_edge_agg_bwd_plain`; CUDA tensors launch
-    ``csrc/nmp_bwd.cu`` at the tuned shapes, ``csrc/nmp_any.cu`` at every
-    other fp32 shape, or raise.  Returns the tuple of
+    ``csrc/nmp_bwd.cu`` (``csrc/nmp_bf16.cu`` in bf16) at the tuned
+    shapes, ``csrc/nmp_any.cu`` at every other fp32 shape, or raise.  Returns the tuple of
     :func:`fused_nmp_edge_agg_bwd_plain`."""
     _check_hidden(edge_params, x.shape[1])
     *ops, n_hidden, has_ln = _stack_edge_mlp(edge_params)

@@ -1487,7 +1487,8 @@ def test_fused_nmp_bf16_kernel_weights_past_shared_memory_and_plans(cuda):
     """bf16 weights take a quarter of the pre-split ones' shared memory:
     more hidden layers fit, the rest are read from global memory and
     rounded per fragment; the serving mesh's launches as the card plans
-    them."""
+    them (csrc/nmp_bf16.cu: a ring of 3 staged tiles forward, 2 backward,
+    one block per SM)."""
     args, _ = _tile_edge_case(cuda, 32, 48, True, 5)
     n_slots = args[3].numel()
     plan = sa.fwd_launch_plan(32, 48, n_slots, BF16)
@@ -1502,8 +1503,10 @@ def test_fused_nmp_bf16_kernel_weights_past_shared_memory_and_plans(cuda):
     full = sa.fwd_launch_plan(32, 5, 4_315_696, BF16)
     assert full["smem_layers"] == 5 and full["tiles"] == -(-4_315_696 // 128)
     assert full["smem_bytes"] < sa.fwd_launch_plan(32, 5, 4_315_696)["smem_bytes"]
+    assert full["stages"] == 3 and full["blocks_per_sm"] == 1
     bwd = sa.bwd_launch_plan(32, 5, 4_315_696, BF16)
-    assert bwd["smem_bytes"] == 220_672 and bwd["blocks_per_sm"] >= 1
+    assert bwd["smem_bytes"] == 232_096 and bwd["blocks_per_sm"] == 1
+    assert bwd["stages"] == 2 and bwd["tiles"] == full["tiles"]
 
 
 def _bwd_bf16_checks(x, e, edge, lay, src_lay, rest, n_hidden, has_ln=True, empty=False):
@@ -1519,10 +1522,11 @@ def _bwd_bf16_checks(x, e, edge, lay, src_lay, rest, n_hidden, has_ln=True, empt
     _bf16_grads_close(got, want)
     # the rounding happened on every side, not on the weight gradients
     # alone: each output nearer plain bf16 than the fp32 kernel's, by the
-    # forward's ratio; but the last layer's bias gradient (ln_b, or b0 with
-    # no hidden layer and no LN), the column sum of the incoming cotangent,
-    # which no product touches, is the same in both
-    untouched = "ln_b" if has_ln else ("b0" if n_hidden == 0 else None)
+    # forward's ratio; but the last layer's bias gradient (ln_b, or without
+    # LN b0 with no hidden layer, brest with one: all of it the last bias),
+    # the column sum of the incoming cotangent, which no product touches,
+    # is the same in both
+    untouched = "ln_b" if has_ln else {0: "b0", 1: "brest"}.get(n_hidden)
     k32 = sa.fused_nmp_edge_agg_bwd(x, e, edge, *lay, *src_lay, *rest)
     for name, a, b, c in zip(("g_x", "g_e", "w0", "b0", "wrest", "brest", "ln_g", "ln_b"),
                              got, want, k32):
@@ -1577,6 +1581,111 @@ def test_fused_nmp_bf16_bwd_kernel_ragged_tiles(cuda, hidden, layers):
     got = _bwd_bf16_checks(x, e, edge, lay, src_lay, (mask, inv, R(n_edges, hidden),
                                                       R(n, hidden)), layers - 1)
     assert not got[1][torch.from_numpy(outside).to(cuda)].any()
+
+
+def _bf16_bwd_layout_case(cuda, src, dst, mask, inv, n, hidden, n_hidden, has_ln, seed,
+                          block_e=32):
+    """The bf16 backward's checks on the graph (src, dst) of n nodes at H =
+    ``hidden`` with ``n_hidden`` hidden layers, random inputs, cotangents
+    and biases; returns the gradients and the layout."""
+    lay = sa.compact_gather_layout(src, dst, n, block_e)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    gen = torch.Generator().manual_seed(seed)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=n_hidden)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    if not has_ln:
+        edge.pop("ln")
+    for lp in edge["layers"]:                  # non-trivial biases
+        lp["b"] = 0.1 * torch.randn(lp["b"].shape, generator=gen).to(cuda)
+    R = lambda *s: torch.randn(*s, generator=gen).to(cuda)  # noqa: E731
+    x, e = R(n, hidden), R(dst.size, hidden)
+    rest = (T(mask), T(inv), R(dst.size, hidden), R(n, hidden))
+    got = _bwd_bf16_checks(x, e, edge, (T(lay["perm"]), T(lay["src"]), T(lay["rowptr"])),
+                           (T(lay["src_slots"]), T(lay["src_rowptr"])), rest, n_hidden,
+                           has_ln)
+    return got, lay
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("n_hidden", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("hidden", [8, 16, 32])
+def test_fused_nmp_bf16_bwd_kernel_tile_edges(cuda, hidden, n_hidden, has_ln):
+    """The bf16 backward's node walk on ``tile_edge_graph``: node 21's 300
+    dst slots span three tiles (its x_dst sum: partial rows of tiles 2, 3
+    and 4 summed by the fix-up), node 18's 129 two, tile 0 ends on a node
+    boundary, nodes of degree 0 (on a tile edge too) get their src side
+    only, padding edges keep g_e = 0; every depth the kernel takes, with
+    and without LayerNorm."""
+    rng = np.random.default_rng(100 + hidden + n_hidden)
+    src, dst, mask, inv, n = tile_edge_graph(rng)
+    got, lay = _bf16_bwd_layout_case(cuda, src, dst, mask, inv, n, hidden, n_hidden, has_ln,
+                                     hidden + n_hidden)
+    rowptr = lay["rowptr"]
+    assert (rowptr[22] - 1) // 128 - rowptr[21] // 128 >= 2    # node 21 across 3 tiles
+    assert not got[1][torch.from_numpy(np.nonzero(dst == n)[0]).to(cuda)].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_edges", [60, 200, 300])
+@pytest.mark.parametrize("hidden", [8, 32])
+def test_fused_nmp_bf16_kernels_fewer_tiles_than_stages(cuda, hidden, n_edges):
+    """One to three real tiles, fewer than or as many as the rings' stages
+    (3 forward, 2 backward), in a layout padded to 512 slots, so the launch
+    plans' grids (one block per 128-slot tile of the layout) exceed the real
+    tiles and blocks find no tile: the bands, launches and repeats of the
+    bf16 pair, a zero partial weight-gradient row from each idle block."""
+    rng = np.random.default_rng(n_edges)
+    n = 40
+    dst = np.concatenate([rng.integers(0, n - 5, n_edges), np.full(3, n)]).astype(np.int32)
+    src = rng.integers(0, n, dst.size).astype(np.int32)
+    mask = np.where(dst < n, 1.0, 0.0).astype(np.float32)
+    counts = np.bincount(np.minimum(dst, n), minlength=n + 1)
+    inv = (1.0 / counts[np.minimum(dst, n)]).astype(np.float32)
+    lay = sa.compact_gather_layout(src, dst, n, 512)
+    n_slots = lay["perm"].size
+    real_tiles = -(-n_edges // 128)
+    for kind in ("fwd", "bwd"):
+        plan = (sa.fwd_launch_plan if kind == "fwd" else sa.bwd_launch_plan)(
+            hidden, 3, n_slots, BF16)
+        assert plan["grid"] == n_slots // 128 > real_tiles
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    gen = torch.Generator().manual_seed(hidden)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=3)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    x = torch.randn(n, hidden, generator=gen).to(cuda)
+    e = torch.randn(dst.size, hidden, generator=gen).to(cuda)
+    _fwd_bf16_checks((x, e, edge, T(lay["perm"]), T(lay["src"]), T(lay["rowptr"]), T(mask),
+                      T(inv)), np.nonzero(dst == n)[0])
+    _bf16_bwd_layout_case(cuda, src, dst, mask, inv, n, hidden, 3, True, hidden, block_e=512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,n_hidden", [(32, 5), (16, 2)])
+def test_fused_nmp_bf16_kernels_ring_wraps(cuda, hidden, n_hidden):
+    """Enough tiles (70,000 edges: 547 tiles) that every block of the card's
+    grid walks four or more, so each ring (3 stages forward, 2 backward)
+    wraps and its barriers change phase: the bands, the launches and two
+    launches bitwise equal, forward and backward."""
+    rng = np.random.default_rng(hidden)
+    n = 9000
+    dst = rng.integers(0, n, 70_000).astype(np.int32)
+    src = rng.integers(0, n, dst.size).astype(np.int32)
+    mask = np.where(rng.random(dst.size) < 0.05, 0.0, 1.0).astype(np.float32)
+    inv = (1.0 / np.bincount(dst, minlength=n)[dst]).astype(np.float32)
+    lay = sa.compact_gather_layout(src, dst, n, 128)
+    plan = sa.bwd_launch_plan(hidden, n_hidden, lay["perm"].size, BF16)
+    assert plan["tiles"] >= 4 * plan["grid"]
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    gen = torch.Generator().manual_seed(hidden)
+    cfg = GNNConfig(hidden=hidden, n_mp_layers=1, mlp_hidden_layers=n_hidden)
+    edge = init_gnn(gen, cfg, device=cuda)["mp"][0]["edge"]
+    x = torch.randn(n, hidden, generator=gen).to(cuda)
+    e = torch.randn(dst.size, hidden, generator=gen).to(cuda)
+    _fwd_bf16_checks((x, e, edge, T(lay["perm"]), T(lay["src"]), T(lay["rowptr"]), T(mask),
+                      T(inv)))
+    _bf16_bwd_layout_case(cuda, src, dst, mask, inv, n, hidden, n_hidden, True, hidden,
+                          block_e=128)
 
 
 @pytest.mark.gpu

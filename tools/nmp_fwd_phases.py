@@ -30,8 +30,8 @@ PHASES = ("stage: node walk", "stage: copies issued", "wait for copies", "MLP an
           "per-node sums")
 # (text of csrc/nmp_fwd.cu, what replaces it), each text found once
 PROBES = [
-    ('#include "nmp_bf16.cuh"\n',
-     '#include "nmp_bf16.cuh"\n'
+    ('#include "nmp_tf32.cuh"\n',
+     '#include "nmp_tf32.cuh"\n'
      "__device__ unsigned long long g_phase[8];\n"
      'extern "C" int nmp_phase_read(unsigned long long* out) {\n'
      "  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));\n}\n"
