@@ -11,7 +11,9 @@ through its cell builder, and serves Granite-34B-code (MQA, 48:1) at full
 width (88 layers for the prefill and the serving loop, 44 for decode and
 the full-width check) through its cell builder and the greedy serving
 loop, serves GraphCast's weather configuration at its published widths
-(d512, 16 layers) through kernel 1's generic-width entry, and runs the
+(d512, 16 layers) through kernel 1's generic-width entry, trains GraphCast
+through the reference's cell functions on one rank and over a (graph x
+model) mesh of processes with edge-parallel sharding, and runs the
 paper's smoke config (N_H=4) through the ``paper-gnn`` registry entry.
 
     python3 chip_smoke.py            # from the repository root, one GPU
@@ -195,6 +197,20 @@ Phases (one line each, prefixed ``[n name]``):
                  beside the FMA route on the same inputs, and the route's
                  per-node pass x w0_dst (nmp_dst_any) against its plain
                  version and torch.mm
+  9c graphcast   GraphCast's training cells (``configs/graphcast.py``'s
+     train       factories through ``configs/gnn_common.py``'s step
+                 builder, fused): graphcast-cora-train, config(full_graph_sm)
+                 (d512, 16 layers, 1,433 in, 7 classes, cross entropy) on
+                 cora_like, R=1, the eval forward, step 0's loss and
+                 gradients against the plain backend, 3 AdamW steps;
+                 graphcast-weather-r5-train, phase 9's graph and weights,
+                 the consistent MSE to a seeded next state, step 0 against
+                 the plain backend (per-layer remat; float64 where the
+                 band is left), 2 steps; graphcast-cora-2x2-ep, 4 gloo
+                 processes sharing the card at (graph 2 x model 2), packed
+                 neighbor and a2a, the eval forward, step 0 and 2 steps
+                 against R=1, every process's losses and parameters equal
+                 (step ms by CUDA events and peak memory for each)
   9b paper-gnn   the paper's smoke config (N_H=4, M=2) through the
                  ``paper-gnn`` registry entry as tests/test_arch_smoke.py
                  runs it (box (2, 2, 1) p=2 split (2, 1, 1), a2a, the
@@ -261,7 +277,10 @@ forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
 step), GraphCast's served states (9; kernel 1's generic entry exactly 16
 times a forward, nothing else) and its gradient (2 + 2 generic launches),
-and the paper's smoke run (9b; 4 + 4 generic launches: M layers x R
+GraphCast's training steps (9c; kernels 1c, 1d, 2c exactly 16, 32, 16 a
+step on cora and on the weather graph; per process of the edge-parallel
+run the same, and 16 / 32 packs and unpack-adds per round received a
+forward / step under the packed exchange), and the paper's smoke run (9b; 4 + 4 generic launches: M layers x R
 ranks).
 Every kernel must have launched on the paths that use it.  The two lines
 before the last are a JSON record of the kernels (``launches`` on the
@@ -3743,7 +3762,9 @@ def phase_graphcast(ptxas, smi):
     launches exact) to the plain backend's in the gradient band; then
     kernels 1 and 2 alone at this cell's shapes against their plain
     versions (the records of the kernel line).  Returns ({path: launch
-    counts}, [kernel records])."""
+    counts}, [kernel records], the cell: its config, plan, partition,
+    rank-local graph, edge features, grid size and parameters, which
+    phase 9c trains)."""
     import torch
     from repro_torch import nn
     from repro_torch.configs import get_arch
@@ -3899,7 +3920,8 @@ def phase_graphcast(ptxas, smi):
                        f"E={n_real}, N={pg.n_pad}"
     del x, e
     torch.cuda.empty_cache()
-    return by_path, records
+    cell = dict(cfg=cfg, plan=plan, pg=pg, g=g, ef=ef, n_grid=n_grid, params=params)
+    return by_path, records, cell
 
 
 def node_dst_case(x, w0, ptxas):
@@ -3944,6 +3966,365 @@ def node_dst_case(x, w0, ptxas):
                 replaces="src/repro/kernels/segment_agg/kernel.py:215", max_abs_err=err,
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library,
                 fp32_bound_ms=fp32_ms)
+
+
+# phase 9c: GraphCast's training cells, repro's configs/graphcast.py
+# (_inputs_factory, _loss_local_factory) through configs/gnn_common.py's
+# step builder, on the fused plan: the published config (d512, 16 layers,
+# cross entropy) on cora_like at R=1, GC_TRAIN_STEPS AdamW steps; phase 9's
+# weather_config(5) cell, GC_WEATHER_STEPS steps with the consistent MSE to
+# a seeded next state; and cora over a (graph 2 x model 2) mesh of 4 gloo
+# processes sharing the card, under each exchange of GC_EP_MODES,
+# GC_EP_STEPS steps and one eval-step forward
+GC_TRAIN_SEED, GC_TRAIN_STEPS, GC_WEATHER_STEPS, GC_EP_STEPS = 0, 3, 2, 2
+GC_EP_MODES = ("packed", "a2a")
+TRAIN_REL = 1e-4                 # a later step's loss against R=1 (phase 6's curve)
+
+
+def _gc_launches(cfg, grad=True, halo=None):
+    """Exact launches of one pass of GraphCast's processor on the
+    tensor-core route: kernel 1c and its per-node pass 1d per layer, with
+    the gradient kernel 2c and 1d once more per layer; ``halo`` (packs,
+    unpack-adds) per exchange of the packed neighbor exchange, twice per
+    layer with the gradient (the reversed exchange)."""
+    from repro_torch.kernels.halo_pack import ops as hp
+    from repro_torch.kernels.segment_agg import ops as sa
+    L = cfg.n_layers
+    want = ({sa.KERNEL_ANY: L, sa.KERNEL_DST: 2 * L, sa.KERNEL_BWD_ANY: L} if grad
+            else {sa.KERNEL_ANY: L, sa.KERNEL_DST: L})
+    if halo is not None:
+        times = 2 * L if grad else L
+        want |= {hp.PACK: halo[0] * times, hp.UNPACK: halo[1] * times}
+    return want
+
+
+def _forward_reading(got, plain, exact):
+    """(max |got - plain|, within the forward band of plain, rel L2 of got
+    and of plain from the float64 forward ``exact``, ok): the band, or,
+    where 16 random layers part two fp32 paths further, got's rel L2 from
+    float64 within F64_FACTOR of plain's (phase 9's rule)."""
+    d = np.abs(got - plain)
+    band = bool(np.all(d <= ATOL + RTOL * np.abs(plain)))
+    rel = lambda a_: float(np.linalg.norm(a_ - exact) / max(np.linalg.norm(exact), 1e-30))  # noqa: E731
+    r_got, r_plain = rel(got), rel(plain)
+    return float(d.max()), band, r_got, r_plain, band or r_got <= F64_FACTOR * r_plain
+
+
+def _step_parts(loss_local, state, inputs, graph, opt):
+    """One more training step in its parts by CUDA events: (forward and
+    loss ms, backward ms, AdamW ms).  Updates ``state`` as a step does."""
+    import torch
+    from repro_torch import nn
+    from repro_torch.train.optimizer import adamw_update_
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    p = nn.tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
+    ev[0].record()
+    with torch.enable_grad():
+        loss = loss_local(p, inputs, graph)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, nn.tree_leaves(p))
+    ev[2].record()
+    adamw_update_(nn.tree_unflatten(p, list(grads)), state["opt"], state["params"], opt)
+    ev[3].record()
+    ev[3].synchronize()
+    return tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+
+
+def _median_after_first(ms):
+    return float(np.median(ms[1:] if len(ms) > 1 else ms))
+
+
+def _sum_into(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_graphcast_train(cell, smi):
+    """GraphCast's training cells on the card (the comment above): (a)
+    cora_like at the published config through ``graphcast_checks.
+    run_case``: the eval-step forward, step 0's loss and gradients fused
+    vs the plain backend (forward band, loss rel 2e-6, gradient band),
+    GC_TRAIN_STEPS steps with kernels 1c / 1d / 2c launched exactly 16 /
+    32 / 16 times a step and nothing else; (b) ``cell``, phase 9's
+    weather_config(5) graph, weights and edge features: step 0's loss and
+    gradients fused vs plain (the plain one with per-layer remat) in the
+    bands, or, where 16 layers of fp32 noise leave them, each leaf's rel
+    L2 from a float64 gradient within F64_FACTOR of plain's, then
+    GC_WEATHER_STEPS steps, launches exact; (c) 4 gloo processes at
+    (graph 2 x model 2), each exchange of GC_EP_MODES: every process's
+    forward rows, loss and gradients against (a)'s R=1 in the bands, the
+    second step's loss within TRAIN_REL, every process's losses and
+    parameters after GC_EP_STEPS steps equal, launches exact per process.
+    Step ms by CUDA events (median after step 0) and peak memory per case.
+    Returns the launches of each path."""
+    import torch
+    from repro_torch import nn
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gnn_common as G
+    from repro_torch.core.distributed import local_graph_of
+    from repro_torch.core.graph_state import FUSED, XLA, NMPPlan, pad_edges
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.graph.datasets import cora_like
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as sa
+    from repro_torch.launch import graphcast_checks as gcx
+    from repro_torch.launch.consistency import grads_close as close
+    from repro_torch.launch.mesh import to_host
+    from repro_torch.models.gnn_zoo.graphcast import graphcast_forward
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    phase = "9c graphcast train"
+    arch, _ = get_arch("graphcast")
+    dev = torch.device("cuda")
+    by_path = {}
+
+    # (a) the published config on cora_like, one rank
+    shape = G.GNN_SHAPES["full_graph_sm"]
+    cfg = arch.config(shape)
+    if sa.any_route(cfg.hidden, cfg.mlp_hidden_layers) != sa.TC:
+        raise RuntimeError("GraphCast's d512 layer is not on the tensor-core route")
+    job = gcx.Job(cases=(), cfg=dataclasses.asdict(cfg),
+                  graph=dict(seed=GC_TRAIN_SEED, n=shape["n_nodes"],
+                             m_und=shape["n_edges"] // 2, d=shape["d_feat"],
+                             n_classes=shape["n_classes"]),
+                  seed=GC_TRAIN_SEED, backend=FUSED, device="cuda", steps=GC_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = to_host(gcx.run_case(job, gcx.Case("r1")))
+    wall = time.perf_counter() - t0
+    plain = to_host(gcx.run_case(dataclasses.replace(job, backend=XLA, steps=0),
+                                 gcx.Case("r1")))
+    torch.cuda.empty_cache()
+    check_launches(phase, "cora eval forward", a["launches_eval"],
+                   _gc_launches(cfg, grad=False))
+    check_launches(phase, "cora step-0 gradient", a["launches_grad"], _gc_launches(cfg))
+    for i, counts in enumerate(a["launches_step"]):
+        check_launches(phase, f"cora training step {i}", counts, _gc_launches(cfg))
+    check_launches(phase, "cora plain backend", _sum_into(
+        dict(plain["launches_eval"]), plain["launches_grad"]), {})
+    by_path["gc_train_cora"] = {}
+    for counts in a["launches_step"]:
+        _sum_into(by_path["gc_train_cora"], counts)
+    # the eval forward in float64 (the plain backend), for phase 9's rule
+    edges, feats, labels = cora_like(**job.graph)
+    pg1 = pad_edges(partition_graph(job.graph["n"], edges, 1))
+    xla = NMPPlan(backend=XLA)
+    stacked = gcx.cell_inputs(pg1, feats, labels)
+    p64 = nn.tree_map(lambda t: t.double(), gcx.params_of(job, cfg, dev))
+    with torch.no_grad():
+        y64 = graphcast_forward(
+            p64, torch.from_numpy(stacked["x"][0]).to(dev).double(),
+            torch.from_numpy(stacked["edge_feats"][0]).to(dev).double(),
+            local_graph_of(pg1, None, xla, device=dev), xla,
+            dataclasses.replace(cfg, act_dtype=torch.float64)).cpu().numpy()
+    del p64
+    pred_err, pred_band, rel_f, rel_p, pred_ok = _forward_reading(a["pred"], plain["pred"], y64)
+    l_rel = abs(a["loss0"] - plain["loss0"]) / abs(plain["loss0"])
+    g_err, by_norm, g_ok = close(a["grads0"], plain["grads0"], G_RTOL, G_ATOL, W_REL)
+    finite = bool(np.all(np.isfinite(a["losses"])) and np.all(np.isfinite(a["pred"])))
+    good = pred_ok and l_rel <= LOSS_REL and g_ok and finite
+    say(phase, f"graphcast-cora-train: {cfg.name} config(full_graph_sm) in {cfg.in_dim}, "
+        f"hidden {cfg.hidden}, {cfg.n_layers} layers of {cfg.mlp_hidden_layers} MLP hidden "
+        f"layer, {cfg.out_dim} classes, cross entropy, on cora_like({GC_TRAIN_SEED}): "
+        f"{shape['n_nodes']} nodes, {int(a['edges_local'])} directed edges, R=1, fused | "
+        f"eval forward vs plain max|err| {pred_err:.3g} (rtol {RTOL} atol {ATOL}: {pred_band}; "
+        f"rel L2 from a float64 forward: fused {rel_f:.3e}, plain {rel_p:.3e}, fused <= "
+        f"{F64_FACTOR:g}x plain: {rel_f <= F64_FACTOR * rel_p}); "
+        f"step-0 loss fused {a['loss0']:.8g} plain {plain['loss0']:.8g} (rel {l_rel:.2e}, "
+        f"band {LOSS_REL}); gradients max|err| {g_err:.3g} (rtol {G_RTOL} atol {G_ATOL}; "
+        f"by rel L2 <= {W_REL}: {by_norm}) | {GC_TRAIN_STEPS} AdamW steps: losses "
+        f"{[round(v, 6) for v in a['losses']]}, step {', '.join(f'{m:.3f}' for m in a['step_ms'])} "
+        f"ms (CUDA events; median after step 0 {_median_after_first(a['step_ms']):.3f} ms), "
+        f"peak memory {a['peak_gib']:.2f} GiB, the case {wall:.1f} s with the first "
+        f"launches | {smi} -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("GraphCast's cora training step disagrees with the plain backend")
+    # where a cora step's time goes: one more step in its parts, and one
+    # under torch.profiler (the same params and inputs as the case's)
+    opt = AdamWConfig()
+    cora_loss = arch._loss_local_factory(shape, xla.halo, cfg=cfg,
+                                         plan=NMPPlan(backend=FUSED))
+    g_cora = local_graph_of(pg1, None, NMPPlan(backend=FUSED), device=dev)
+    _, specs = arch._inputs_factory(shape, 1, pg1.n_pad, pg1.e_pad)
+    in_cora = G.shard_by_specs(stacked, specs, None, dev)
+    params = gcx.params_of(job, cfg, dev)
+    cstate = {"params": params, "opt": init_adamw(params, opt)}
+    cora_parts = _step_parts(cora_loss, cstate, in_cora, g_cora, opt)
+    cstep = G.make_gnn_train_step(cora_loss, opt)
+    cora_prof = profile_line(lambda: cstep(cstate, in_cora, g_cora))
+    say(phase, "graphcast-cora-train, one step in parts (CUDA events): forward and loss "
+        f"{cora_parts[0]:.3f} ms, backward {cora_parts[1]:.3f} ms, AdamW {cora_parts[2]:.3f} "
+        f"ms; one step {cora_prof}")
+    del cstate, params, in_cora, g_cora
+    plain_rows = dict(zip(a["global_ids"][a["node_mask"] > 0].tolist(),
+                          plain["pred"][a["node_mask"] > 0]))
+    f64_rows = dict(zip(a["global_ids"][a["node_mask"] > 0].tolist(), y64[a["node_mask"] > 0]))
+    del plain
+
+    # (b) phase 9's weather_config(5) cell, its 16 layers in training
+    wcfg, plan, pg, g, ef = (cell[k] for k in ("cfg", "plan", "pg", "g", "ef"))
+    params = cell["params"]
+    n_grid, n_vars = cell["n_grid"], wcfg.out_dim
+    rng = np.random.default_rng(GC_SEED + 100)
+    x = np.zeros((1, pg.n_pad, wcfg.in_dim), np.float32)
+    x[0, :n_grid] = rng.normal(size=(n_grid, wcfg.in_dim))
+    nxt = np.zeros((1, pg.n_pad, n_vars), np.float32)
+    nxt[0, :n_grid] = x[0, :n_grid, :n_vars] + 0.1 * rng.normal(size=(n_grid, n_vars))
+    inputs = {"x": torch.from_numpy(x).to(dev), "edge_feats": ef[None],
+              "target": torch.from_numpy(nxt).to(dev)}
+    # the state lives on the grid: the loss weighs grid nodes alone
+    weight = g["node_inv_mult"] * (torch.arange(pg.n_pad, device=dev) < n_grid)
+
+    def weather_loss(c, pl):
+        def loss_local(p, i, gr):
+            out = graphcast_forward(p, i["x"][0], i["edge_feats"][0], gr, pl, c)
+            return G.consistent_mse_loss(out, i["target"][0], weight)
+        return loss_local
+
+    build.reset_launch_counts()
+    lf, gf = G.gnn_loss_and_grads(weather_loss(wcfg, plan), params, inputs, g)
+    torch.cuda.synchronize()
+    check_launches(phase, "weather step-0 gradient", dict(build.launch_counts),
+                   _gc_launches(wcfg))
+    remat = dataclasses.replace(wcfg, remat=True)
+    lp, gp = G.gnn_loss_and_grads(weather_loss(remat, plan.replace(backend=XLA)), params,
+                                  inputs, g)
+    gf_np = [t.cpu().numpy() for t in nn.tree_leaves(gf)]
+    gp_np = [t.cpu().numpy() for t in nn.tree_leaves(gp)]
+    del gf, gp
+    torch.cuda.empty_cache()
+    l_rel = abs(float(lf) - float(lp)) / abs(float(lp))
+    g_err, by_norm, g_ok = close(gf_np, gp_np, G_RTOL, G_ATOL, W_REL)
+    f64_line = ""
+    if not (g_ok and l_rel <= LOSS_REL):
+        # 16 layers of fp32 noise: each leaf against a float64 gradient
+        p64 = nn.tree_map(lambda t: t.double(), params)
+        in64 = {k: v.double() for k, v in inputs.items()}
+        c64 = dataclasses.replace(remat, act_dtype=torch.float64)
+        w64 = weight.double()
+
+        def loss64(p, i, gr):
+            out = graphcast_forward(p, i["x"][0], i["edge_feats"][0], gr,
+                                    plan.replace(backend=XLA), c64)
+            return G.consistent_mse_loss(out, i["target"][0], w64)
+        l64, g64 = G.gnn_loss_and_grads(loss64, p64, in64, g)
+        g64_np = [t.cpu().numpy() for t in nn.tree_leaves(g64)]
+        del p64, in64, g64
+        torch.cuda.empty_cache()
+        rel = lambda a_, b_: float(np.linalg.norm(a_ - b_) / max(np.linalg.norm(b_), 1e-30))  # noqa: E731
+        worst = max(rel(f, e) / max(rel(p_, e), 1e-30)
+                    for f, p_, e in zip(gf_np, gp_np, g64_np))
+        loss64_ok = abs(float(lf) - float(l64)) <= F64_FACTOR * max(
+            abs(float(lp) - float(l64)), 1e-12 * abs(float(l64)))
+        g_ok = worst <= F64_FACTOR and (l_rel <= LOSS_REL or loss64_ok)
+        f64_line = (f"; outside the band, against a float64 gradient: the largest leaf's "
+                    f"rel L2 fused / plain {worst:.3g} (<= {F64_FACTOR:g}), loss float64 "
+                    f"{float(l64):.10g}")
+        l_ok = True
+    else:
+        l_ok = l_rel <= LOSS_REL
+    del gf_np, gp_np
+    step = G.make_gnn_train_step(weather_loss(wcfg, plan), opt)
+    state = {"params": params, "opt": init_adamw(params, opt)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    by_path["gc_train_weather"] = {}
+    for i in range(GC_WEATHER_STEPS):
+        build.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, inputs, g)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        counts = dict(build.launch_counts)
+        check_launches(phase, f"weather training step {i}", counts, _gc_launches(wcfg))
+        _sum_into(by_path["gc_train_weather"], counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts = _step_parts(weather_loss(wcfg, plan), state, inputs, g, opt)
+    prof = profile_line(lambda: step(state, inputs, g))
+    good = g_ok and l_ok and bool(np.all(np.isfinite(losses)))
+    say(phase, f"graphcast-weather-r5-train: {wcfg.name}, {pg.n_pad} padded nodes, "
+        f"{int(pg.edge_mask.sum())} directed edges, {wcfg.n_layers} layers, consistent MSE "
+        f"to a seeded next state on the grid | step-0 loss fused {float(lf):.10g} plain "
+        f"(per-layer remat) {float(lp):.10g} (rel {l_rel:.2e}, band {LOSS_REL}); gradients "
+        f"max|err| {g_err:.3g} (rtol {G_RTOL} atol {G_ATOL}; by rel L2 <= {W_REL}: "
+        f"{by_norm}){f64_line} | {GC_WEATHER_STEPS} AdamW steps: losses {losses}, step "
+        f"{', '.join(f'{m:.3f}' for m in ms)} ms (CUDA events; median after step 0 "
+        f"{_median_after_first(ms):.3f} ms), peak memory {peak:.2f} GiB | one more step in "
+        f"parts (CUDA events): forward and loss {parts[0]:.3f} ms, backward {parts[1]:.3f} "
+        f"ms, AdamW {parts[2]:.3f} ms; one step {prof} | {smi} -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("GraphCast's weather training step disagrees with the plain backend")
+    del state, inputs, weight
+    torch.cuda.empty_cache()
+
+    # (c) cora over (graph 2 x model 2): 4 gloo processes sharing the card
+    edges, _, _ = cora_like(**job.graph)
+    pg2 = pad_edges(partition_graph(job.graph["n"], edges, 2))
+    cases = tuple(gcx.Case(f"g2m2_{mode}", graph=2, model=2, mode=mode)
+                  for mode in GC_EP_MODES)
+    t0 = time.perf_counter()
+    procs = gcx.run_world(dataclasses.replace(job, cases=cases, steps=GC_EP_STEPS), 4)
+    wall = time.perf_counter() - t0
+    want_rows = dict(zip(a["global_ids"][a["node_mask"] > 0].tolist(),
+                         a["pred"][a["node_mask"] > 0]))
+    for case in cases:
+        perms = gcx.plan_of(pg2, case, FUSED).halo.perms
+        recs = [p[case.name] for p in procs]
+        total, lines, good = {}, [], True
+        for w, r in enumerate(recs):
+            recv = sum(any(dst == r["rank"] for _, dst in perm) for perm in perms)
+            halo = (1, recv) if case.mode == "packed" else None
+            check_launches(phase, f"{case.name} process {w} eval forward",
+                           r["launches_eval"], _gc_launches(cfg, grad=False, halo=halo))
+            check_launches(phase, f"{case.name} process {w} step-0 gradient",
+                           r["launches_grad"], _gc_launches(cfg, halo=halo))
+            for i, counts in enumerate(r["launches_step"]):
+                check_launches(phase, f"{case.name} process {w} step {i}", counts,
+                               _gc_launches(cfg, halo=halo))
+            for counts in (r["launches_eval"], r["launches_grad"], *r["launches_step"]):
+                _sum_into(total, counts)
+            m = r["node_mask"] > 0
+            ids = r["global_ids"][m].tolist()
+            rows = np.stack([want_rows[i] for i in ids])
+            d = np.abs(r["pred"][m] - rows)
+            # the band of (a)'s R=1 rows, or phase 9's float64 rule against
+            # the plain backend's rows
+            p_ok = bool(np.all(d <= ATOL + RTOL * np.abs(rows))) or _forward_reading(
+                r["pred"][m], np.stack([plain_rows[i] for i in ids]),
+                np.stack([f64_rows[i] for i in ids]))[4]
+            rel0 = abs(r["loss0"] - a["loss0"]) / abs(a["loss0"])
+            err, nrm, gr_ok = close(r["grads0"], a["grads0"], G_RTOL, G_ATOL, W_REL)
+            rel1 = abs(r["losses"][1] - a["losses"][1]) / abs(a["losses"][1])
+            ok = p_ok and rel0 <= LOSS_REL and gr_ok and rel1 <= TRAIN_REL
+            good &= ok
+            lines.append(f"process {w} (rank {r['rank']}, shard {r['shard']}, "
+                         f"{int(r['edges_local'])} of its rank's edges): forward max|err| "
+                         f"{float(d.max()):.3g} ({p_ok}), loss rel {rel0:.2e}, gradients "
+                         f"max|err| {err:.3g} (by norm {nrm}), step 1 loss rel {rel1:.2e}")
+        same = all(r["losses"] == recs[0]["losses"] for r in recs) and \
+            len({r["params_sum"] for r in recs}) == 1
+        good &= same
+        by_path[f"gc_ep_{case.mode}"] = total
+        r0 = recs[0]
+        say(phase, f"graphcast-cora-2x2-ep {case.mode}: 4 gloo processes on one card, mesh "
+            f"(data 1, graph 2, model 2), config(full_graph_sm), fused, against (a)'s R=1 "
+            f"(forward rtol {RTOL} atol {ATOL}, loss {LOSS_REL}, gradients rtol {G_RTOL} atol "
+            f"{G_ATOL}, step 1 loss {TRAIN_REL}): " + "; ".join(lines)
+            + f" | losses {r0['losses']} and parameters after {GC_EP_STEPS} steps equal on "
+            f"every process: {same} | launches summed over the processes {total} | rank 0 "
+            f"step {', '.join(f'{v:.3f}' for v in r0['step_ms'])} ms (CUDA events; 4 "
+            f"processes share the card and exchange through the host: a check of the path, "
+            f"not a scaling number), peak memory {r0['peak_gib']:.2f} GiB | spawn and both "
+            f"cases {wall:.1f} s -> {'ok' if good else 'FAIL'}")
+        if not good:
+            raise RuntimeError(f"GraphCast's edge-parallel {case.mode} run disagrees with R=1 "
+                               "or across processes")
+    return by_path
 
 
 def phase_paper_smoke():
@@ -4515,11 +4896,15 @@ def main():
     by_path.update(phase_multilevel(cfg, smi))
     torch.cuda.empty_cache()
     lap("6b multilevel")
-    gc_paths, gc_records = phase_graphcast(ptxas, smi)
+    gc_paths, gc_records, gc_cell = phase_graphcast(ptxas, smi)
     by_path.update(gc_paths)
     records.extend(gc_records)
     torch.cuda.empty_cache()
     lap("9 graphcast")
+    by_path.update(phase_graphcast_train(gc_cell, smi))
+    del gc_cell
+    torch.cuda.empty_cache()
+    lap("9c graphcast train")
     by_path.update(phase_paper_smoke())
     lap("9b paper-gnn")
     by_path.update(phase_dlrm(smi))
@@ -4554,6 +4939,9 @@ def main():
     res = ("res_uninterrupted", "res_crash", "res_save_fail", "res_corrupt", "res_kill",
            "res_elastic_r4", "res_elastic_r2")
     res_halo = ("res_elastic_r4", "res_elastic_r2")
+    # phase 9c's GraphCast training paths: kernels 1c, 1d and 2c on each,
+    # kernels 4 and 5 in the edge-parallel run's packed exchange
+    gc_train = ("gc_train_cora", "gc_train_weather", "gc_ep_packed", "gc_ep_a2a")
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
                        "rollout_k2", "dist_r4_packed", "dist_r4_grad") + r4
            + ("ml_fwd", "ml_grad", "ml_serve", "ml_train") + ml_r4 + plan_fwd + res,
@@ -4561,9 +4949,10 @@ def main():
                            "grad_r4_overlap", "dist_r4_overlap_grad", "ml_grad",
                            "ml_train") + ml_grad + ("plan_spectral_r4_grad",) + res,
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                     "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo,
+                     "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo + ("gc_ep_packed",),
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                       "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo,
+                       "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo
+           + ("gc_ep_packed",),
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),
@@ -4574,10 +4963,10 @@ def main():
                                 "grad_r4_bf16_overlap"),
            # the generic-width entries: GraphCast's d512 (phase 9) and the
            # paper's smoke config at H=4 (9b)
-           sa.KERNEL_ANY: ("graphcast_serve", "graphcast_grad", "paper_smoke"),
-           sa.KERNEL_BWD_ANY: ("graphcast_grad", "paper_smoke"),
+           sa.KERNEL_ANY: ("graphcast_serve", "graphcast_grad", "paper_smoke") + gc_train,
+           sa.KERNEL_BWD_ANY: ("graphcast_grad", "paper_smoke") + gc_train,
            # the tensor-core route's per-node pass (GraphCast's d512)
-           sa.KERNEL_DST: ("graphcast_serve", "graphcast_grad")}
+           sa.KERNEL_DST: ("graphcast_serve", "graphcast_grad") + gc_train}
     # no path of the fp32 plan ran a bf16 kernel (the bf16 paths' fp32
     # counts are held to 0 where they are checked)
     for path, counts in by_path.items():

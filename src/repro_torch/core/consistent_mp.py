@@ -76,6 +76,7 @@ import os
 import torch
 
 from repro_torch import nn
+from repro_torch.core.consistent_loss import all_reduce_sum
 from repro_torch.core.graph_state import (
     AUTO, BLOCKING, FUSED, OVERLAP, XLA, NMPPlan, ShardedGraph, as_graph, nmp_impl,
     register_nmp_impl,
@@ -207,10 +208,35 @@ def _no_exchange(halo: HaloSpec):
             "reference (repro_torch.core.reference)")
 
 
+class EdgeParallel:
+    """Second-level edge sharding of one layer (the reference's
+    ``edge_parallel_axes``, resolved): this process holds a slice of its
+    rank's edges and all of its nodes, and the partial aggregate of its
+    slice is summed over ``group`` (the mesh's edge group: the model
+    shards of this rank; None for one shard, which holds every edge) in
+    ``dtype`` (the activations', as the reference sums in ``e``'s dtype:
+    a bf16 carry halves the wire), differentiably (its backward is the
+    same sum, ``core/consistent_loss.py::_AllReduceSum``), before the halo
+    exchange."""
+    __slots__ = ("group", "dtype")
+
+    def __init__(self, group=None, dtype: torch.dtype = torch.float32):
+        self.group, self.dtype = group, dtype
+
+    def __call__(self, agg: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(agg.to(self.dtype), self.group).to(agg.dtype)
+
+
+def _edge_sum(agg: torch.Tensor, edge_parallel) -> torch.Tensor:
+    return edge_parallel(agg) if edge_parallel else agg
+
+
 def _blocking_layer(agg_fn, params, x, e, graph, plan, halo: HaloSpec,
-                    sync_fn):
+                    sync_fn, edge_parallel=None):
     """The paper's serial order: full Eq. 4a+4b, exchange, Eq. 4e."""
     e_new, agg = agg_fn(params, x, e, graph, plan)
+    # the model shards' partial aggregates, summed before the exchange
+    agg = _edge_sum(agg, edge_parallel)
     # --- Eq. 4c + 4d: halo swap + synchronization ---
     if sync_fn is not None:
         agg = sync_fn(agg)
@@ -221,11 +247,14 @@ def _blocking_layer(agg_fn, params, x, e, graph, plan, halo: HaloSpec,
 
 
 def _overlap_layer(agg_part_fn, params, x, e, graph, plan, halo: HaloSpec,
-                   sync_fn):
+                   sync_fn, edge_parallel=None):
     """Interior/boundary split: the exchange takes only the boundary
     partial aggregate; the interior side runs while it is in flight (posted
-    where ``sync_fn`` can post and no gradient is needed)."""
+    where ``sync_fn`` can post and no gradient is needed).  Under edge
+    sharding each side's partial aggregate is summed over the model shards
+    (the boundary side's before the exchange)."""
     e_bnd, agg_bnd = agg_part_fn(params, x, e, graph, "bnd", plan)
+    agg_bnd = _edge_sum(agg_bnd, edge_parallel)
     pending, post = None, getattr(sync_fn, "post", None)
     # --- Eq. 4c + 4d on the boundary rows only ---
     if sync_fn is None:
@@ -237,6 +266,7 @@ def _overlap_layer(agg_part_fn, params, x, e, graph, plan, halo: HaloSpec,
         agg_sync = sync_fn(agg_bnd)
     # the interior side: no data dependence on the exchange
     e_int, agg_int = agg_part_fn(params, x, e, graph, "int", plan)
+    agg_int = _edge_sum(agg_int, edge_parallel)
     if pending is not None:
         agg_sync = pending.finish()
     # disjoint row support: the sum is the blocking schedule's aggregate
@@ -254,17 +284,24 @@ for _backend, _agg_part in _AGGS_PART.items():
 
 def nmp_layer(params: nn.Params, x: torch.Tensor, e: torch.Tensor, graph,
               plan: NMPPlan, halo: HaloSpec | None = None,
-              sync_fn=None) -> tuple[torch.Tensor, torch.Tensor]:
+              sync_fn=None, edge_parallel_axes=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One consistent NMP layer on one rank. Returns (x', e').
 
     The implementation is resolved from the (backend, schedule) registry;
     ``halo`` defaults to ``plan.halo``; ``sync_fn`` performs the exchange
     of the local aggregate (identity when the halo mode is none).
+    ``edge_parallel_axes``: second-level edge parallelism, an
+    :class:`EdgeParallel` (the reference's mesh axes resolved to this
+    process's edge group, ``models/gnn_zoo/graphcast.py``), or None /
+    ``()``: ``graph`` holds a slice of the rank's edges (and every node;
+    ``e`` that slice's rows) and the local aggregate is summed over the
+    group before the halo sync, which splits the aggregation sum one level
+    more and leaves the layer's arithmetic the paper's.
     """
     graph = as_graph(graph)
     impl = nmp_impl(plan)
     halo = plan.halo if halo is None else halo
-    return impl(params, x, e, graph, plan, halo, sync_fn)
+    return impl(params, x, e, graph, plan, halo, sync_fn, edge_parallel_axes or None)
 
 
 # ---------------------------------------------------------------------------

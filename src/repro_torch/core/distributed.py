@@ -18,6 +18,12 @@ training loop uses ``grad_step`` with AdamW).
   (no gradient) posts each exchange and finishes it after queueing the
   interior side (:class:`HaloFn`); the gradient steps finish it at once,
   between the sides.
+* Under a model axis (``make_mesh(..., model=M)``), each process holds
+  a slice of its rank's edges (:func:`local_graph_of`) and sums its
+  partial aggregates over the edge group
+  (``core/consistent_mp.py::EdgeParallel``); the average over every
+  process is still dL / d theta (``configs/gnn_common.py::
+  gnn_loss_and_grads``).
 * Without one, the inputs are ``[B, 1, N_pad, F]`` on a stacked one-rank
   graph: the reference's ``pmean``s are identities, and so is the halo
   exchange (a rank with no peers has nothing to exchange), so any halo
@@ -33,7 +39,7 @@ import torch
 from repro_torch import nn
 from repro_torch.core.consistent_loss import all_reduce_sum, consistent_mse
 from repro_torch.core.gnn import GNNConfig, gnn_forward
-from repro_torch.core.graph_state import NMPPlan, ShardedGraph, as_graph
+from repro_torch.core.graph_state import NMPPlan, ShardedGraph, as_graph, edge_shard
 from repro_torch.core.halo import NONE, HaloSpec, halo_sync, halo_sync_post
 
 
@@ -131,6 +137,33 @@ def halo_fns(plan: NMPPlan, graph, mesh) -> tuple:
 def local_graph(graph, mesh) -> ShardedGraph:
     """This process's rank-local graph: :func:`one_rank` without a mesh."""
     return one_rank(graph) if mesh is None else shard_graph(mesh, graph)
+
+
+def local_partition(pg, mesh=None):
+    """This process's share of a partition ``pg``: under a model axis
+    (``mesh.model > 1``) every rank's nodes whole and its model shard's
+    slice of their edges (``core/graph_state.py::edge_shard``; ``e_pad``
+    must split evenly, ``pad_edges``); ``pg`` itself otherwise."""
+    if mesh is None or mesh.model == 1:
+        return pg
+    return edge_shard(pg, mesh.shard, mesh.model)
+
+
+def local_graph_of(pg, coords, plan: NMPPlan, mesh=None, device=None) -> ShardedGraph:
+    """This process's rank-local graph of partition ``pg``, built with
+    ``plan`` (its layouts, split and wires) on the mesh's device: rank
+    ``mesh.rank``'s arrays over its model shard's edges
+    (:func:`local_partition`), so a fused plan's compact layout and an
+    overlap plan's interior/boundary split are those of the slice.  Without
+    a mesh, the one rank of ``pg`` on ``device``."""
+    if mesh is None:
+        if pg.R != 1:
+            raise ValueError(f"a {pg.R}-rank partition needs a mesh (make_mesh)")
+        return ShardedGraph.build(pg, coords, plan, device=device or "cuda", rank=0)
+    if pg.R != mesh.graph:
+        raise ValueError(f"the partition has {pg.R} ranks, the mesh {mesh.graph}")
+    return ShardedGraph.build(local_partition(pg, mesh), coords, plan, device=mesh.device,
+                              rank=mesh.rank)
 
 
 def make_gnn_step_fns(cfg: GNNConfig, plan: NMPPlan,

@@ -164,7 +164,8 @@ _NMP_IMPLS: Dict[Tuple[str, str], Callable] = {}
 
 def register_nmp_impl(backend: str, schedule: str):
     """Register one layer implementation for a (backend, schedule) cell:
-    ``impl(params, x, e, graph, plan, halo, sync_fn) -> (x', e')``."""
+    ``impl(params, x, e, graph, plan, halo, sync_fn, edge_parallel) ->
+    (x', e')``."""
     def deco(fn):
         _NMP_IMPLS[(backend, schedule)] = fn
         return fn
@@ -392,13 +393,17 @@ def _transfer_arrays(t, n_fine: int, n_coarse: int,
 
 def _level_arrays(pg, coords, seg_layout, split: bool, packed: bool,
                   rank: int | None = None) -> Dict[str, np.ndarray]:
-    """Stacked static arrays: halo/edge metadata + edge geometry (numpy);
-    with ``rank``, that rank's alone (a leading axis of 1)."""
+    """Stacked static arrays: halo/edge metadata + edge geometry (numpy;
+    none where ``coords`` is None); with ``rank``, that rank's alone (a
+    leading axis of 1)."""
     from repro_torch.core.mesh_gen import edge_features
     from repro_torch.core.partition import gather_node_features
 
     arrays = dict(pg.device_arrays(seg_layout=seg_layout, split=split,
                                    packed=packed, rank=rank))
+    if coords is None:
+        # a graph without geometry (Cora, say): no static edge features
+        return arrays
     coords_r = gather_node_features(pg, coords, rank)
     ef = []
     for i, r in enumerate(range(pg.R) if rank is None else (rank,)):
@@ -406,6 +411,55 @@ def _level_arrays(pg, coords, seg_layout, split: bool, packed: bool,
         ef.append(edge_features(coords_r[i], e) * pg.edge_mask[r][:, None])
     arrays["static_edge_feats"] = np.stack(ef).astype(np.float32)
     return arrays
+
+
+#: the multiple the edge axis is padded to so that it splits evenly over
+#: the model axis (the reference's ``configs/gnn_common.py::_round_up``)
+EDGE_MULTIPLE = 128
+#: the arrays with an edge axis that edge sharding slices
+EDGE_KEYS = ("edge_src", "edge_dst", "edge_mask", "edge_inv_mult")
+
+
+def _with_edges(pg, **edges):
+    """``pg`` with new edge arrays, its nodes and halo plan kept and its
+    cached layouts, split and packed arrays dropped (they follow the
+    edges)."""
+    return dataclasses.replace(pg, **edges, _seg_layouts={}, _int_split=None,
+                               _packed_halos={})
+
+
+def pad_edges(pg, multiple: int = EDGE_MULTIPLE):
+    """``pg`` with every rank's edge axis padded to a multiple of
+    ``multiple`` (padding edges 0 -> 0, mask and inverse multiplicity 0),
+    as the reference sizes ``e_pad`` so that it also splits over the model
+    axis; ``pg`` itself when it already is."""
+    e_pad = pg.e_pad
+    grow = -e_pad % int(multiple)
+    if not grow:
+        return pg
+    return _with_edges(pg, **{k: np.pad(getattr(pg, k), ((0, 0), (0, grow)))
+                              for k in EDGE_KEYS})
+
+
+def edge_shard(pg, index: int, count: int):
+    """Model shard ``index`` of ``count`` of a partition (edge-parallel
+    sharding, ``repro/configs/gnn_common.py::meta_specs``): every rank keeps
+    its nodes and halo plan whole and slice ``index`` of ``count`` equal
+    slices of its edges along ``e_pad`` (the ``EDGE_KEYS`` rows).  A graph
+    built from it (``ShardedGraph.build``) carries that slice's static edge
+    features, compact layout and interior/boundary split; a slice may hold
+    no real edge.  ``e_pad`` must split evenly (:func:`pad_edges`)."""
+    if not 0 <= index < count:
+        raise ValueError(f"model shard {index} of {count}")
+    if count == 1:
+        return pg
+    if pg.e_pad % count:
+        raise ValueError(f"e_pad {pg.e_pad} does not split over {count} model shards: "
+                         "pad it first (core.graph_state.pad_edges)")
+    width = pg.e_pad // count
+    cut = slice(index * width, (index + 1) * width)
+    return _with_edges(pg, **{k: np.ascontiguousarray(getattr(pg, k)[:, cut])
+                              for k in EDGE_KEYS})
 
 
 def as_graph(graph) -> ShardedGraph:

@@ -1,9 +1,24 @@
-"""Synthetic recsys data (port of ``criteo_like`` from
+"""Synthetic datasets (port of ``cora_like`` and ``criteo_like`` from
 ``repro.graph.datasets``): numpy, array-equal to the reference for the
-same seed."""
+same seed and sizes."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def cora_like(seed: int = 0, n: int = 2708, m_und: int = 5278, d: int = 1433,
+              n_classes: int = 7):
+    """Random graph with Cora's exact dimensions. Returns (edges[E,2] directed,
+    features [n,d], labels [n])."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, m_und)
+    dst = rng.integers(0, n, m_und)
+    keep = src != dst
+    und = np.stack([src[keep], dst[keep]], -1)
+    edges = np.concatenate([und, und[:, ::-1]], axis=0)
+    feats = (rng.random((n, d)) < 0.012).astype(np.float32)  # sparse bag-of-words
+    labels = rng.integers(0, n_classes, n)
+    return edges, feats, labels.astype(np.int32)
 
 
 def criteo_like(batch: int, cfg, seed: int = 0):

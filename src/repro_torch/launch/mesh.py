@@ -1,14 +1,25 @@
 """Process meshes for the multi-process consistent GNN: the port of the
-``('data', 'graph')`` mesh of ``repro.core.distributed`` and of
-``repro.launch.mesh::make_mesh``.
+``('data', 'graph')`` mesh of ``repro.core.distributed``, of the
+``model`` axis of the GNN cells' meshes (``repro/configs/gnn_common.py``:
+edge-parallel sharding) and of ``repro.launch.mesh::make_mesh``.
 
-One process per (data replica, graph rank), laid out data-major as the
-JAX mesh ``(data, graph)`` is: world rank ``w = replica * R + rank``.
+One process per (data replica, graph rank, model shard), laid out
+data-major as the JAX mesh ``(data, graph, model)`` is: world rank
+``w = (replica * R + rank) * M + shard``.  The ``model`` axis splits one
+rank's edges over M processes that each hold all of its nodes
+(``core/consistent_mp.py::nmp_layer(edge_parallel_axes=)``); with
+``model=1`` (the default) the layout, the groups and their order of
+creation are those of the two-axis mesh, ``w = replica * R + rank``.
 
     def worker(device):
         mesh = make_mesh(data=2, graph=2, backend="gloo", device=device)
         ...                                   # mesh.rank, mesh.graph_group
     results = spawn(worker, 4, "cpu", backend="gloo", device="cpu")
+
+The groups: the graph group (the R ranks of one replica at one model
+shard: the halo exchange and Eq. 6's sums), the data group (the D
+replicas of one rank and shard), the edge group (the M shards of one rank
+of one replica: the sum of the partial aggregates) and the world.
 
 :func:`spawn` starts the processes with the ``spawn`` start method and
 rendezvous through a ``FileStore`` in a temporary directory (no fixed
@@ -255,11 +266,14 @@ class Group:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """This process's place in a ``(data, graph)`` mesh: its graph rank
-    ``rank`` among the ``graph`` sub-graphs of one replica, its data
-    replica ``replica`` among ``data``, the graph group (the R ranks of its
-    replica), the data group (the D replicas of its rank), the world group
-    and its device.  The three groups share one :class:`Transport`."""
+    """This process's place in a ``(data, graph, model)`` mesh: its graph
+    rank ``rank`` among the ``graph`` sub-graphs of one replica, its data
+    replica ``replica`` among ``data``, its model shard ``shard`` among
+    ``model`` (the slices of its rank's edges), the graph group (the R
+    ranks of its replica at its shard), the data group (the D replicas of
+    its rank and shard), the edge group (the M shards of its rank and
+    replica), the world group and its device.  The groups share one
+    :class:`Transport`."""
     data: int
     graph: int
     rank: int
@@ -268,6 +282,9 @@ class Mesh:
     data_group: Group
     world_group: Group
     device: torch.device
+    model: int = 1
+    shard: int = 0
+    edge_group: Group | None = None
 
     @property
     def world_rank(self) -> int:
@@ -295,16 +312,18 @@ def _group(members: Sequence[int]):
 
 
 def make_mesh(data: int, graph: int, backend: str = "gloo",
-              device: str = "cuda") -> Mesh:
-    """The ``(data, graph)`` mesh of the processes of the current default
-    group (started by :func:`spawn`), data-major.  Every process of the
-    world must call it, with the same arguments."""
+              device: str = "cuda", model: int = 1) -> Mesh:
+    """The ``(data, graph, model)`` mesh of the processes of the current
+    default group (started by :func:`spawn`), data-major, the model axis
+    fastest.  Every process of the world must call it, with the same
+    arguments."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the processes' default group: start "
                            "them with repro_torch.launch.mesh.spawn")
     world, me = dist.get_world_size(), dist.get_rank()
-    if world != data * graph:
-        raise ValueError(f"a ({data}, {graph}) mesh needs {data * graph} "
+    if world != data * graph * model:
+        shape = f"({data}, {graph})" if model == 1 else f"({data}, {graph}, {model})"
+        raise ValueError(f"a {shape} mesh needs {data * graph * model} "
                          f"processes, the world has {world}")
     if dist.get_backend() != backend:
         raise ValueError(f"the processes run backend {dist.get_backend()!r}, "
@@ -312,25 +331,38 @@ def make_mesh(data: int, graph: int, backend: str = "gloo",
     check_backend(backend, device, world)
     dev = process_device(backend, device, me)
     transport = Transport(backend, dev)
-    graph_pgs = [_group(range(d * graph, (d + 1) * graph)) for d in range(data)]
-    data_pgs = [_group(range(r, world, graph)) for r in range(graph)]
-    replica, rank = divmod(me, graph)
+
+    def proc(d, r, m):
+        return (d * graph + r) * model + m
+    graph_ranks = {(d, m): tuple(proc(d, r, m) for r in range(graph))
+                   for d in range(data) for m in range(model)}
+    data_ranks = {(r, m): tuple(proc(d, r, m) for d in range(data))
+                  for r in range(graph) for m in range(model)}
+    edge_ranks = {(d, r): tuple(proc(d, r, m) for m in range(model))
+                  for d in range(data) for r in range(graph)}
+    # every process creates every group, in the same order: the graph
+    # groups, the data groups, then the edge groups (all of one process
+    # under model=1, so none is created)
+    graph_pgs = {k: _group(v) for k, v in graph_ranks.items()}
+    data_pgs = {k: _group(v) for k, v in data_ranks.items()}
+    edge_pgs = {k: _group(v) for k, v in edge_ranks.items()}
+    at, shard = divmod(me, model)
+    replica, rank = divmod(at, graph)
+    mine = (graph_pgs[replica, shard], data_pgs[rank, shard], edge_pgs[replica, rank])
     if backend == "nccl":
         # a group's first NCCL call must involve all of its ranks, and a
         # neighbor round leaves some out: open each group with a collective
-        for pg in (graph_pgs[replica], data_pgs[rank], dist.group.WORLD):
+        for pg in mine + (dist.group.WORLD,):
             if pg is not None:
                 dist.all_reduce(torch.zeros(1, device=dev), group=pg)
     return Mesh(
         data=data, graph=graph, rank=rank, replica=replica,
-        graph_group=Group(graph_pgs[replica],
-                          tuple(range(replica * graph, (replica + 1) * graph)),
-                          rank, transport),
-        data_group=Group(data_pgs[rank], tuple(range(rank, world, graph)),
-                         replica, transport),
+        graph_group=Group(mine[0], graph_ranks[replica, shard], rank, transport),
+        data_group=Group(mine[1], data_ranks[rank, shard], replica, transport),
         world_group=Group(dist.group.WORLD if world > 1 else None,
                           tuple(range(world)), me, transport),
-        device=dev)
+        device=dev, model=model, shard=shard,
+        edge_group=Group(mine[2], edge_ranks[replica, rank], shard, transport))
 
 
 def to_host(tree):

@@ -22,7 +22,10 @@ the reference stacks them along a leading axis for its scan
 each layer (``remat_segment > 1``: each segment of that many layers) in the
 backward through ``torch.utils.checkpoint``; ``act_dtype`` is the dtype of
 the carry between layers (the reference's ``astype``), each layer computing
-in fp32 on the carried values as JAX promotes them.
+in fp32 on the carried values as JAX promotes them.  ``edge_parallel_axes
+= ("model",)`` shards each rank's edges over the mesh's model axis
+(:func:`edge_parallel_of`); over R > 1 ranks the caller passes each
+level's halo exchange as ``sync_fns``.
 """
 from __future__ import annotations
 
@@ -34,14 +37,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import nn
-from repro_torch.core.consistent_mp import init_nmp_layer, multilevel_vcycle, nmp_layer
+from repro_torch.core.consistent_mp import (
+    EdgeParallel, init_nmp_layer, multilevel_vcycle, nmp_layer)
 from repro_torch.core.gnn import init_coarse_levels
 from repro_torch.core.graph_state import NMPPlan, as_graph
-
-#: where edge-parallel processing (a second mesh axis) is queued
-EDGE_PARALLEL_ITEM = ("ROADMAP.md queue 1 item 1 (GraphCast past one rank's forward: "
-                      "edge_parallel_axes needs a second mesh axis)")
-
 
 @dataclasses.dataclass(frozen=True)
 class GraphCastConfig:
@@ -55,7 +54,7 @@ class GraphCastConfig:
     # --- perf knobs ---
     remat: bool = False             # recompute processor layers in backward
     act_dtype: torch.dtype = torch.float32   # bf16 halves activation carries
-    edge_parallel_axes: tuple = ()   # 2nd-level edge sharding: not ported (raises)
+    edge_parallel_axes: tuple = ()   # 2nd-level edge sharding (sum over the edge group)
     remat_segment: int = 1           # sqrt(L) checkpointing: layers per segment
     # --- multilevel (coarse-grid) processor (core/coarsen.py) ---
     n_levels: int = 1               # >1 appends a consistent V-cycle after the layers
@@ -82,9 +81,24 @@ def init_graphcast(gen: torch.Generator, cfg: GraphCastConfig, device="cuda") ->
     return params
 
 
+def edge_parallel_of(cfg: GraphCastConfig, mesh=None):
+    """``cfg.edge_parallel_axes`` resolved for this process: None when
+    empty; ``("model",)`` is the mesh's edge group (its model shards, which
+    share one rank's nodes: ``launch/mesh.py``), summed in the activations'
+    dtype (``core/consistent_mp.py::EdgeParallel``).  Without a mesh the
+    process holds every edge (one shard), as a size-1 ``model`` axis is."""
+    axes = tuple(cfg.edge_parallel_axes)
+    if not axes:
+        return None
+    if axes != ("model",):
+        raise ValueError(f"edge_parallel_axes={axes!r}: the port's mesh shards edges "
+                         "over its one 'model' axis")
+    return EdgeParallel(None if mesh is None else mesh.edge_group, cfg.act_dtype)
+
+
 def graphcast_forward(params: nn.Params, x: torch.Tensor, edge_feats: torch.Tensor,
                       graph, plan: NMPPlan, cfg: GraphCastConfig,
-                      sync_fns=None) -> torch.Tensor:
+                      sync_fns=None, mesh=None) -> torch.Tensor:
     """x: [N_pad, in_dim]; edge_feats: [E_pad, edge_in] -> [N_pad, out_dim].
 
     ``graph`` is the rank-local ShardedGraph (built with ``plan``, so a
@@ -94,11 +108,13 @@ def graphcast_forward(params: nn.Params, x: torch.Tensor, edge_feats: torch.Tens
     rank.  With ``cfg.n_levels > 1`` the processor acts as the fine
     pre-smoother and the consistent multilevel V-cycle runs before the
     decoder; ``graph`` must then carry the coarse chain
-    (``ShardedGraph.build(..., hierarchy=...)``).  ``edge_parallel_axes``
-    raises: it needs a second mesh axis (:data:`EDGE_PARALLEL_ITEM`)."""
-    if cfg.edge_parallel_axes:
-        raise ValueError(f"edge_parallel_axes={cfg.edge_parallel_axes!r} is not ported: "
-                         f"{EDGE_PARALLEL_ITEM}")
+    (``ShardedGraph.build(..., hierarchy=...)``).  With
+    ``cfg.edge_parallel_axes = ("model",)`` ``graph`` and ``edge_feats``
+    hold this process's model shard of the rank's edges
+    (``core/distributed.py::local_graph_of``) and every processor layer sums
+    its partial aggregate over ``mesh``'s edge group
+    (:func:`edge_parallel_of`)."""
+    edge_parallel = edge_parallel_of(cfg, mesh)
     graph = as_graph(graph)
     lvl0 = graph.levels[0]
     syncs = sync_fns or (None,) * graph.n_levels
@@ -111,7 +127,8 @@ def graphcast_forward(params: nn.Params, x: torch.Tensor, edge_feats: torch.Tens
     e = (nn.mlp(params["edge_enc"], edge_feats) * lvl0["edge_mask"][:, None]).to(act)
 
     def body(hc, ec, p_l):
-        hn, en = nmp_layer(p_l, hc.to(f32), ec.to(f32), lvl0, plan, sync_fn=syncs[0])
+        hn, en = nmp_layer(p_l, hc.to(f32), ec.to(f32), lvl0, plan, sync_fn=syncs[0],
+                           edge_parallel_axes=edge_parallel)
         return hn.to(act), en.to(act)
 
     def run(hc, ec, layers):

@@ -2099,3 +2099,97 @@ def test_resilient_training_recovers_bitwise_on_card(cuda, tmp_path):
                                                  tree_leaves(ref["params"])))
     assert n_ref == {sa.KERNEL: 8 * 2, sa.KERNEL_BWD: 8 * 2}
     assert n == {sa.KERNEL: 9 * 2, sa.KERNEL_BWD: 9 * 2}
+
+
+# ---------------------------------------------------------------------------
+# GraphCast's training cell and edge-parallel slices on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_graphcast_train_step_launches_on_card(cuda):
+    """GraphCast at d512 (4 layers) on a cora_like graph through
+    ``configs/gnn_common.py``'s step builder (``launch/graphcast_checks.py::
+    run_case``), fused: the forward launches kernel 1c and its per-node
+    pass 1d once per layer, the step-0 gradient and each AdamW step 1c, 2c
+    once and 1d twice per layer, nothing else; forward, loss and gradients
+    within the bands of the plain backend's."""
+    from repro_torch.core.graph_state import XLA as PLAIN
+    from repro_torch.launch import graphcast_checks as gcx
+    from repro_torch.launch.consistency import grads_close
+    from repro_torch.launch.mesh import to_host
+    from repro_torch.models.gnn_zoo.graphcast import GraphCastConfig
+    import dataclasses
+    cfg = GraphCastConfig(in_dim=16, hidden=512, n_layers=4, out_dim=4)
+    job = gcx.Job(cases=(), cfg=dataclasses.asdict(cfg),
+                  graph=dict(seed=2, n=300, m_und=1200, d=16, n_classes=4),
+                  backend=FUSED, device=str(cuda), steps=2)
+    got = to_host(gcx.run_case(job, gcx.Case("r1")))
+    want = to_host(gcx.run_case(dataclasses.replace(job, backend=PLAIN, steps=0),
+                                gcx.Case("r1")))
+    L = cfg.n_layers
+    step = {sa.KERNEL_ANY: L, sa.KERNEL_DST: 2 * L, sa.KERNEL_BWD_ANY: L}
+    assert got["launches_eval"] == {sa.KERNEL_ANY: L, sa.KERNEL_DST: L}
+    assert got["launches_grad"] == step
+    assert got["launches_step"] == [step, step]
+    assert want["launches_eval"] == {} and want["launches_grad"] == {}
+    np.testing.assert_allclose(got["pred"], want["pred"], rtol=RTOL, atol=ATOL)
+    assert abs(got["loss0"] - want["loss0"]) <= 2e-6 * abs(want["loss0"])
+    assert grads_close(got["grads0"], want["grads0"], G_RTOL, G_ATOL, W_REL)[2]
+    assert np.isfinite(got["losses"]).all() and got["losses"][1] != got["losses"][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["blocking", "overlap"])
+def test_empty_edge_slice_on_card(cuda, schedule):
+    """A model shard's edge slice that holds no real edge (a partition
+    padded far past its edges, ``core/graph_state.py::edge_shard``): its
+    layout is one tile of empty slots, and kernels 1c and 2c at H=512 on
+    the tensor-core route run on it (each side's under the overlap
+    schedule) without trapping, every output and gradient zero as the
+    plain backend's, launches counted; the other slice, which holds every
+    edge, within the bands of the plain backend."""
+    from repro_torch.core.consistent_mp import (
+        edge_update_aggregate, edge_update_aggregate_part, init_nmp_layer)
+    from repro_torch.core.graph_state import XLA as PLAIN
+    from repro_torch.core.graph_state import edge_shard, pad_edges
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.graph.datasets import cora_like
+    from repro_torch.nn import value_and_grad
+    H = 512
+    edges, _, _ = cora_like(seed=3, n=70, m_und=200, d=4, n_classes=2)
+    pg = pad_edges(partition_graph(70, edges, 1), 1024)
+    assert pg.edge_mask[0, 512:].sum() == 0 and pg.edge_mask[0, :512].sum() > 0
+    plan = NMPPlan(backend=FUSED, schedule=schedule)
+    params = init_nmp_layer(torch.Generator().manual_seed(0), H, 1, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(pg.n_pad, H, generator=gen).to(cuda)
+    e = torch.randn(pg.e_pad // 2, H, generator=gen).to(cuda)
+    gx = torch.randn(pg.n_pad, H, generator=gen).to(cuda)
+
+    def run(g, pl):
+        def loss(p):
+            if pl.schedule == "overlap":
+                outs = [edge_update_aggregate_part(p, x, e, g, part, pl)
+                        for part in ("bnd", "int")]
+                e_new, agg = outs[0][0] + outs[1][0], outs[0][1] + outs[1][1]
+            else:
+                e_new, agg = edge_update_aggregate(p, x, e, g, pl)
+            return (agg * gx).sum() + e_new.sum()
+        return value_and_grad(loss, params)
+
+    for index in (1, 0):
+        g = ShardedGraph.build(edge_shard(pg, index, 2), None, plan, device=cuda, rank=0)
+        build.reset_launch_counts()
+        val, grads = run(g, plan)
+        torch.cuda.synchronize()
+        sides = 2 if schedule == "overlap" else 1
+        assert {k: v for k, v in build.launch_counts.items() if v} == {
+            sa.KERNEL_ANY: sides, sa.KERNEL_BWD_ANY: sides, sa.KERNEL_DST: 2 * sides}
+        pval, pgrads = run(g, plan.replace(backend=PLAIN))
+        if index == 1:
+            assert bool((g["seg_perm"] == -1).all())
+            assert float(val) == float(pval) == 0.0
+            assert not any(t.any() for t in tree_leaves(grads))
+        else:
+            for a, b in zip(tree_leaves(grads), tree_leaves(pgrads)):
+                assert _within(a, b, G_RTOL, G_ATOL) or _rel_norm(a, b) <= W_REL

@@ -15,7 +15,9 @@ weights drawn by ``repro``'s init and converted (``repro_torch.convert``).
   ``repro``'s within the gradient band (rtol 1e-3 / atol 2e-5); ``remat``
   (per layer and per segment) gives the same values and gradients; a bf16
   carry within 2e-2 (relative L2) of ``repro``'s bf16 carry.
-* ``edge_parallel_axes`` raises, naming its ROADMAP item.
+
+``edge_parallel_axes`` over a model axis is held in
+``tests/test_torch_graphcast_dist.py``.
 """
 import dataclasses
 import functools
@@ -277,12 +279,3 @@ def test_bf16_carry_near_reference():
     f32 = _port_forward(params, x, ef, g, plan, dataclasses.replace(cfg, act_dtype=jnp.float32))
     assert np.linalg.norm(got - want) <= 2e-2 * np.linalg.norm(want)
     assert np.linalg.norm(got - f32) > 0                 # the carry was rounded
-
-
-def test_edge_parallel_axes_raises():
-    x, ef, _, plan, g = _tiny(FUSED)
-    cfg = gc.GraphCastConfig(in_dim=16, hidden=4, n_layers=1, out_dim=4,
-                             edge_parallel_axes=("model",))
-    params = gc.init_graphcast(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 1"):
-        gc.graphcast_forward(params, torch.from_numpy(x), torch.from_numpy(ef), g, plan, cfg)

@@ -136,3 +136,13 @@ def test_graphcast_slice_module_imports_alone_without_jax(mod):
     (the icosphere and grid builders are the port's own copies of the
     reference's numpy code)."""
     _imports_alone_without_jax(mod)
+
+
+GRAPHCAST_TRAIN_SLICE = ["repro_torch.configs.gnn_common", "repro_torch.launch.graphcast_checks"]
+
+
+@pytest.mark.parametrize("mod", GRAPHCAST_TRAIN_SLICE)
+def test_graphcast_train_slice_module_imports_alone_without_jax(mod):
+    """The same for the new modules of GraphCast's training cells (the
+    step builder and dry-run cells, the edge-parallel checks)."""
+    _imports_alone_without_jax(mod)
