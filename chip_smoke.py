@@ -13,8 +13,10 @@ the full-width check) through its cell builder and the greedy serving
 loop, serves GraphCast's weather configuration at its published widths
 (d512, 16 layers) through kernel 1's generic-width entry, trains GraphCast
 through the reference's cell functions on one rank and over a (graph x
-model) mesh of processes with edge-parallel sharding, and runs the
-paper's smoke config (N_H=4) through the ``paper-gnn`` registry entry.
+model) mesh of processes with edge-parallel sharding, trains GAT, NequIP
+and MACE at their published widths in the reference's cells on one rank,
+over 4 processes and on a sampled minibatch block, and runs the paper's
+smoke config (N_H=4) through the ``paper-gnn`` registry entry.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -211,6 +213,26 @@ Phases (one line each, prefixed ``[n name]``):
                  neighbor and a2a, the eval forward, step 0 and 2 steps
                  against R=1, every process's losses and parameters equal
                  (step ms by CUDA events and peak memory for each)
+  9d gnn zoo     the rest of the GNN zoo at its published widths in the
+                 reference's cells (``configs/{gat_cora,nequip,mace}.py``
+                 through ``gnn_common.make_gnn_train_step``, fp32, TF32
+                 off), each held to the same port code on the CPU:
+                 gat-cora-train (config(full_graph_sm): 1,433 in, 8 heads
+                 x 8, 7 classes, on cora_like(0), R=1, 3 AdamW steps);
+                 nequip- and mace-molecule-train (5 x 32 and 2 x 128
+                 channels with correlation 3, l <= 2, 8 RBF, on
+                 molecules(batch=128, n_atoms=30) batched at e_pad_per=64:
+                 3,840 atoms, 8,192 edge slots; 3 steps; energies and
+                 forces -dE/dpos under one rotation in the reference's
+                 bands); zoo-cora-r4 (each arch on cora over 4 gloo
+                 processes sharing the card, packed neighbor and a2a at
+                 graph 4, NequIP and MACE also at graph 2 x model 2 with
+                 edge_parallel: the eval forward and step 0's gradient
+                 against R=1 on the card); gat-minibatch (config
+                 (minibatch_lg): 602 in, 41 classes, one step on a
+                 SampledBlock of 64 seeds, fanouts (15, 10), drawn from
+                 powerlaw_graph(232,965, avg_deg=492), which a host thread
+                 builds meanwhile, its time printed)
   9b paper-gnn   the paper's smoke config (N_H=4, M=2) through the
                  ``paper-gnn`` registry entry as tests/test_arch_smoke.py
                  runs it (box (2, 2, 1) p=2 split (2, 1, 1), a2a, the
@@ -280,8 +302,12 @@ times a forward, nothing else) and its gradient (2 + 2 generic launches),
 GraphCast's training steps (9c; kernels 1c, 1d, 2c exactly 16, 32, 16 a
 step on cora and on the weather graph; per process of the edge-parallel
 run the same, and 16 / 32 packs and unpack-adds per round received a
-forward / step under the packed exchange), and the paper's smoke run (9b; 4 + 4 generic launches: M layers x R
-ranks).
+forward / step under the packed exchange), the zoo's paths (9d; nothing at
+one rank or under a2a; per process of a packed run one pack and one
+unpack-add per round received for each sum exchange, twice with the
+gradient: GAT 4 / 8 packs an eval forward / gradient, its max exchanges
+none, NequIP 5 / 10, MACE 2 / 4), and the paper's smoke run (9b; 4 + 4
+generic launches: M layers x R ranks).
 Every kernel must have launched on the paths that use it.  The two lines
 before the last are a JSON record of the kernels (``launches`` on the
 kernel's own path, ``launches_by_path`` on all) and the card's nvidia-smi
@@ -4327,6 +4353,400 @@ def phase_graphcast_train(cell, smi):
     return by_path
 
 
+# phase 9d: the rest of the GNN zoo (GAT, NequIP, MACE) at their published
+# widths in the reference's cells: gat-cora-train (config(full_graph_sm) on
+# cora_like, ZOO_STEPS AdamW steps), nequip- and mace-molecule-train (the
+# molecule cell: molecules(batch=128, n_atoms=30, n_species=8) batched with
+# e_pad_per=64, ZOO_STEPS steps; forces rotating with the positions),
+# zoo-cora-r4 (4 gloo processes sharing the card, the packed neighbor
+# exchange and a2a at graph 4; NequIP and MACE also at graph 2 x model 2
+# with edge_parallel) and gat-minibatch (config(minibatch_lg), one step on a
+# SampledBlock of MB_SEEDS seeds drawn from powerlaw_graph at the cell's
+# node count and degree)
+ZOO_SEED, ZOO_STEPS = 0, 3
+ZOO_R4_MODES = ("packed", "a2a")
+ZOO_MOLECULES = dict(batch=128, n_atoms=30, n_species=8)
+ZOO_E_PAD_PER = 64
+# the sum exchanges per layer: GAT's denominator and aggregate (its max
+# exchange of the softmax shift launches neither kernel), NequIP's and
+# MACE's aggregate
+ZOO_SUMS = {"gat-cora": 2, "nequip": 1, "mace": 1}
+# the reference's bands for rotated energies and forces (tests/test_gnn_zoo.py)
+ROT_E_BAND, ROT_F_BAND = (5e-4, 1e-5), (2e-3, 1e-5)
+MB_SEEDS, MB_AVG_DEG, MB_HOST_LIMIT_S = 64, 492, 60.0
+
+
+def _zoo_launches(arch, cfg, recv, grad):
+    """Exact launches of one pass of a zoo model over the packed neighbor
+    exchange: one pack and one unpack-add per round received for each sum
+    exchange, twice with the gradient (the reversed exchange); ``recv``
+    None (one rank, a2a): none."""
+    from repro_torch.kernels.halo_pack import ops as hp
+    if recv is None:
+        return {}
+    times = ZOO_SUMS[arch] * cfg.n_layers * (2 if grad else 1)
+    return {hp.PACK: times, hp.UNPACK: times * recv}
+
+
+def _hold_forward(got, plain, exact_fn):
+    """(max |got - plain|, ok, the line's words): the forward band around
+    ``plain``, or, where that misses, phase 9's float64 rule with the
+    float64 result ``exact_fn()``."""
+    d = np.abs(got - plain)
+    if np.all(d <= ATOL + RTOL * np.abs(plain)):
+        return float(d.max()), True, f"max|err| {float(d.max()):.3g} (band)"
+    _, _, r_got, r_plain, ok = _forward_reading(got, plain, exact_fn())
+    return float(d.max()), ok, (f"max|err| {float(d.max()):.3g} outside the band; rel L2 "
+                                f"from float64 {r_got:.3e} vs {r_plain:.3e} (<= "
+                                f"{F64_FACTOR:g}x: {ok})")
+
+
+def _f64_forward(fwd_local, params, inputs, graph, cfg, arch):
+    """The same port code in float64: weights, float inputs and the carry."""
+    import torch
+    from repro_torch import nn
+    p64 = nn.tree_map(lambda t: t.double(), params)
+    i64 = {k: v.double() if v.is_floating_point() else v for k, v in inputs.items()}
+    with torch.no_grad():
+        if arch == "gat-cora":
+            return fwd_local(p64, i64, graph).cpu().numpy()
+        c64 = dataclasses.replace(cfg, act_dtype=torch.float64)
+        return fwd_local(p64, i64, graph, c64).cpu().numpy()
+
+
+def phase_gnn_zoo(smi):
+    """The rest of the GNN zoo on the card (the comment above): every cell
+    held to the same port code on the CPU (forwards in the forward band or
+    by phase 9's float64 rule, losses within 2e-6, gradients in the
+    gradient band or per leaf by rel L2 5e-4); the R>1 runs held to R=1 on
+    the card, every process's launches exact (kernels 4 and 5 in each
+    packed sum exchange, none in a max exchange, a2a or one rank); the
+    molecules' energies and forces under a rotation in the reference's
+    bands.  Step ms by CUDA events, busy share under torch.profiler, peak
+    memory per cell.  Returns the launches of each path."""
+    import torch
+    from repro_torch import nn
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gnn_common as G
+    from repro_torch.core.graph_state import XLA, pad_edges
+    from repro_torch.core.halo import NONE, HaloSpec
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.graph.datasets import (
+        batch_molecules, cora_like, molecules, powerlaw_graph)
+    from repro_torch.graph.sampler import CSRGraph, block_meta, sample_block
+    from repro_torch.kernels import build
+    from repro_torch.launch import graphcast_checks as gcx
+    from repro_torch.launch.consistency import grads_close as close
+    from repro_torch.launch.mesh import to_host
+    from repro_torch.models.gnn_zoo.irreps import _rand_rotations
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    phase = "9d gnn zoo"
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    by_path = {}
+    t_phase = time.perf_counter()
+
+    # the minibatch cell's graph: built on a host thread while the cards run
+    mb_shape = G.GNN_SHAPES["minibatch_lg"]
+    host = {}
+
+    def build_graph():
+        try:
+            t0 = time.perf_counter()
+            edges = powerlaw_graph(mb_shape["n_nodes"], MB_AVG_DEG, seed=ZOO_SEED)
+            t1 = time.perf_counter()
+            host["csr"] = CSRGraph.from_edges(mb_shape["n_nodes"], edges)
+            host.update(n_edges=int(edges.shape[0]), graph_s=t1 - t0,
+                        csr_s=time.perf_counter() - t1)
+        except BaseException as exc:      # re-raised on the main thread
+            host["error"] = exc
+    builder = threading.Thread(target=build_graph, daemon=True)
+    builder.start()
+
+    def step_reading(loss_local, params, inputs, graph, steps):
+        """``steps`` AdamW steps from ``params`` (a copy): their losses, CUDA
+        ms, launches per step, peak memory, and one more under the
+        profiler."""
+        opt = AdamWConfig()
+        p = nn.tree_map(lambda t: t.clone(), params)
+        state = {"params": p, "opt": init_adamw(p, opt)}
+        step = G.make_gnn_train_step(loss_local, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, counts = [], [], []
+        for _ in range(steps):
+            build.reset_launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, loss = step(state, inputs, graph)
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(loss))
+            counts.append({k: v for k, v in build.launch_counts.items() if v})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = profile_line(lambda: step(state, inputs, graph))
+        return losses, ms, counts, peak, prof
+
+    def steps_words(losses, ms, peak, prof):
+        return (f"{len(ms)} AdamW steps: losses {[round(v, 6) for v in losses]}, step "
+                f"{', '.join(f'{m:.3f}' for m in ms)} ms (CUDA events; median after step 0 "
+                f"{_median_after_first(ms):.3f} ms), peak memory {peak:.2f} GiB; one more "
+                f"step {prof}")
+
+    # (a) gat-cora-train: the published config on cora_like(0), one rank
+    shape = G.GNN_SHAPES["full_graph_sm"]
+    cora = dict(seed=ZOO_SEED, n=shape["n_nodes"], m_und=shape["n_edges"] // 2,
+                d=shape["d_feat"], n_classes=shape["n_classes"])
+    gat_mod, _ = get_arch("gat-cora")
+    gcfg = gat_mod.config(shape)
+    gjob = gcx.Job(cases=(), cfg=dataclasses.asdict(gcfg), graph=cora, seed=ZOO_SEED,
+                   device="cuda", steps=0, arch="gat-cora")
+    cell = gcx.build_cell(gjob, gcx.Case("r1"))
+    a = to_host(gcx.run_case(gjob, gcx.Case("r1")))
+    c = to_host(gcx.run_case(dataclasses.replace(gjob, device="cpu"), gcx.Case("r1")))
+    for part in ("launches_eval", "launches_grad"):
+        check_launches(phase, f"gat-cora-train {part}", a[part], {})
+    _, f_ok, f_words = _hold_forward(a["pred"], c["pred"], lambda: _f64_forward(
+        cell.fwd_local, cell.params, cell.inputs, cell.graph, gcfg, "gat-cora"))
+    l_rel = abs(a["loss0"] - c["loss0"]) / abs(c["loss0"])
+    g_err, by_norm, g_ok = close(a["grads0"], c["grads0"], G_RTOL, G_ATOL, W_REL)
+    losses, ms, counts, peak, prof = step_reading(cell.loss_local, cell.params, cell.inputs,
+                                                  cell.graph, ZOO_STEPS)
+    for i, cnt in enumerate(counts):
+        check_launches(phase, f"gat-cora-train step {i}", cnt, {})
+    by_path["zoo_gat_cora_train"] = {}
+    good = f_ok and l_rel <= LOSS_REL and g_ok and bool(np.all(np.isfinite(losses)))
+    say(phase, f"gat-cora-train: config(full_graph_sm) in {gcfg.in_dim}, {gcfg.heads} heads x "
+        f"{gcfg.hidden}, {gcfg.n_classes} classes, {gcfg.n_layers} layers, cross entropy, on "
+        f"cora_like({ZOO_SEED}): {cora['n']} nodes, {int(a['edges_local'])} directed edges, "
+        f"R=1 | card vs the CPU: forward {f_words}; step-0 loss {a['loss0']:.8g} vs "
+        f"{c['loss0']:.8g} (rel {l_rel:.2e}); gradients max|err| {g_err:.3g} (by rel L2: "
+        f"{by_norm}) | {steps_words(losses, ms, peak, prof)} | {smi} -> "
+        f"{'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("GAT's cora cell on the card disagrees with the CPU")
+    gat_r1 = a
+    del cell, c
+    torch.cuda.empty_cache()
+
+    # (b) nequip- and mace-molecule-train: the molecule cell at full width
+    mol_shape = G.GNN_SHAPES["molecule"]
+    species, pos, edge_lists = molecules(seed=ZOO_SEED, **ZOO_MOLECULES)
+    sp, ps, meta = batch_molecules(species, pos, edge_lists, e_pad_per=ZOO_E_PAD_PER)
+    target = np.random.default_rng(ZOO_SEED + 1).normal(size=sp.shape).astype(np.float32)
+    stacked = {"species": sp[None].astype(np.int32), "pos": ps[None], "target": target[None]}
+    rot = _rand_rotations(1, seed=9)[0].astype(np.float32)
+    for arch in ("nequip", "mace"):
+        mod, _ = get_arch(arch)
+        cfg = mod.config(mol_shape)
+        init, forward = gcx.ARCHS[arch][1], gcx.ARCHS[arch][2]
+        on = {}
+        for side, d in (("card", dev), ("cpu", cpu)):
+            params = init(torch.Generator().manual_seed(ZOO_SEED), cfg, device=d)
+            graph = {k: torch.from_numpy(v).to(d) for k, v in meta.items()}
+            inputs = {k: torch.from_numpy(v).to(d) for k, v in stacked.items()}
+            loss_local = mod._loss_local_factory(mol_shape, HaloSpec(mode=NONE), cfg=cfg)
+            build.reset_launch_counts()
+            loss0, grads = G.gnn_loss_and_grads(loss_local, params, inputs, graph)
+            on[side] = dict(loss0=float(loss0), grads=[t.cpu().numpy() for t in
+                                                       nn.tree_leaves(grads)],
+                            counts={k: v for k, v in build.launch_counts.items() if v})
+            del grads
+
+            def energy_forces(x, params=params, graph=graph, d=d):
+                with torch.enable_grad():
+                    xt = torch.from_numpy(np.ascontiguousarray(x)).to(d).requires_grad_(True)
+                    e = forward(params, inputs["species"][0], xt, graph, cfg)
+                    f = -torch.autograd.grad(e.sum(), xt)[0]
+                return e.detach().cpu().numpy(), f.cpu().numpy()
+            on[side]["ef"] = energy_forces(ps)
+            if side == "card":
+                on["rot"] = energy_forces(ps @ rot.T)
+                on["run"] = (loss_local, params, inputs, graph)
+                on["f64"] = lambda params=params, inputs=inputs, graph=graph: \
+                    _f64_forward(lambda p, i, g, c: forward(p, i["species"][0], i["pos"][0],
+                                                            g, c),
+                                 params, inputs, graph, cfg, arch)
+        check_launches(phase, f"{arch}-molecule-train step-0 gradient", on["card"]["counts"],
+                       {})
+        (e_d, f_d), (e_c, f_c), (e_r, f_r) = on["card"]["ef"], on["cpu"]["ef"], on["rot"]
+        _, f_ok, f_words = _hold_forward(e_d, e_c, on["f64"])
+        l_rel = abs(on["card"]["loss0"] - on["cpu"]["loss0"]) / abs(on["cpu"]["loss0"])
+        g_err, by_norm, g_ok = close(on["card"]["grads"], on["cpu"]["grads"], G_RTOL, G_ATOL,
+                                     W_REL)
+        fc_err, _, fc_ok = close([f_d], [f_c], G_RTOL, G_ATOL, W_REL)
+        rot_e = float(np.max(np.abs(e_r - e_d) / (ROT_E_BAND[1] + ROT_E_BAND[0] * np.abs(e_d))))
+        rot_f = float(np.max(np.abs(f_r - f_d @ rot.T)
+                             / (ROT_F_BAND[1] + ROT_F_BAND[0] * np.abs(f_d @ rot.T))))
+        losses, ms, counts, peak, prof = step_reading(*on["run"], ZOO_STEPS)
+        for i, cnt in enumerate(counts):
+            check_launches(phase, f"{arch}-molecule-train step {i}", cnt, {})
+        by_path[f"zoo_{arch}_molecule_train"] = {}
+        good = (f_ok and l_rel <= LOSS_REL and g_ok and fc_ok and rot_e <= 1 and rot_f <= 1
+                and bool(np.all(np.isfinite(losses))))
+        say(phase, f"{arch}-molecule-train: config() {cfg.n_layers} layers x {cfg.hidden_mul} "
+            f"channels, l_max {cfg.l_max}, {cfg.n_rbf} RBF"
+            + (f", correlation {cfg.correlation}" if arch == "mace" else "")
+            + f", on molecules(batch={ZOO_MOLECULES['batch']}, n_atoms="
+            f"{ZOO_MOLECULES['n_atoms']}) batched at e_pad_per={ZOO_E_PAD_PER}: {sp.size} atoms, "
+            f"{meta['edge_mask'].size} edge slots ({int(meta['edge_mask'].sum())} real), "
+            f"consistent MSE to a seeded per-atom target | card vs the CPU: energies "
+            f"{f_words}; step-0 loss {on['card']['loss0']:.8g} vs {on['cpu']['loss0']:.8g} "
+            f"(rel {l_rel:.2e}); gradients max|err| {g_err:.3g} (by rel L2: {by_norm}); "
+            f"forces max|err| {fc_err:.3g} | one rotation: energies at {rot_e:.3f} of the band "
+            f"(rtol {ROT_E_BAND[0]} atol {ROT_E_BAND[1]}), forces at {rot_f:.3f} of theirs "
+            f"(rtol {ROT_F_BAND[0]} atol {ROT_F_BAND[1]}) | "
+            f"{steps_words(losses, ms, peak, prof)} | {smi} -> {'ok' if good else 'FAIL'}")
+        if not good:
+            raise RuntimeError(f"{arch}'s molecule cell on the card disagrees with the CPU or "
+                               "breaks its symmetry")
+        del on
+        torch.cuda.empty_cache()
+
+    # (c) zoo-cora-r4: each arch on cora over 4 gloo processes sharing the card
+    jobs, r1 = [], {"gat-cora": gat_r1}
+    for arch in ("gat-cora", "nequip", "mace"):
+        mod, _ = get_arch(arch)
+        tag = arch.split("-")[0]
+        cases = tuple(gcx.Case(f"zoo_{tag}_{mode}", graph=4, mode=mode)
+                      for mode in ZOO_R4_MODES)
+        if arch != "gat-cora":
+            cases += (gcx.Case(f"zoo_{tag}_g2m2", graph=2, model=2, mode="packed"),)
+        job = gcx.Job(cases=cases, cfg=dataclasses.asdict(mod.config(shape)), graph=cora,
+                      seed=ZOO_SEED, device="cuda", steps=0, arch=arch)
+        jobs.append(job)
+        if arch != "gat-cora":
+            r1[arch] = to_host(gcx.run_case(dataclasses.replace(job, cases=()),
+                                            gcx.Case("r1")))
+            check_launches(phase, f"{arch} R=1 on cora", _sum_into(
+                dict(r1[arch]["launches_eval"]), r1[arch]["launches_grad"]), {})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = gcx.run_world(jobs, 4)
+    wall = time.perf_counter() - t0
+    edges, _, _ = cora_like(**cora)
+    for job in jobs:
+        arch = job.arch
+        base = r1[arch]
+        m1 = base["node_mask"] > 0
+        want = dict(zip(base["global_ids"][m1].tolist(), base["pred"][m1]))
+        f64_rows = {}
+
+        def exact_rows(ids, job=job):
+            if not f64_rows:
+                cell = gcx.build_cell(job, gcx.Case("r1"))
+                if arch == "gat-cora":
+                    y64 = _f64_forward(cell.fwd_local, cell.params, cell.inputs, cell.graph,
+                                       cell.cfg, arch)
+                else:
+                    fwd = gcx.ARCHS[arch][2]
+                    y64 = _f64_forward(lambda p, i, g, c: fwd(p, i["species"][0],
+                                                              i["pos"][0], g, c),
+                                       cell.params, cell.inputs, cell.graph, cell.cfg, arch)
+                f64_rows.update(zip(base["global_ids"][m1].tolist(), y64[m1]))
+            return np.stack([f64_rows[i] for i in ids])
+        cfg = gcx.config_of(job)
+        for case in job.cases:
+            pg = pad_edges(partition_graph(cora["n"], edges, case.graph))
+            perms = gcx.plan_of(pg, case, XLA).halo.perms
+            recs = [p[case.name] for p in procs]
+            total, lines, good = {}, [], True
+            for w, r in enumerate(recs):
+                recv = sum(any(dst == r["rank"] for _, dst in perm) for perm in perms)
+                halo = recv if case.mode == "packed" else None
+                check_launches(phase, f"{case.name} process {w} eval forward",
+                               r["launches_eval"], _zoo_launches(arch, cfg, halo, False))
+                check_launches(phase, f"{case.name} process {w} step-0 gradient",
+                               r["launches_grad"], _zoo_launches(arch, cfg, halo, True))
+                _sum_into(_sum_into(total, r["launches_eval"]), r["launches_grad"])
+                m = r["node_mask"] > 0
+                ids = r["global_ids"][m].tolist()
+                rows = np.stack([want[i] for i in ids])
+                _, p_ok, p_words = _hold_forward(r["pred"][m], rows,
+                                                 lambda ids=ids: exact_rows(ids))
+                rel0 = abs(r["loss0"] - base["loss0"]) / abs(base["loss0"])
+                err, nrm, gr_ok = close(r["grads0"], base["grads0"], G_RTOL, G_ATOL, W_REL)
+                ok = p_ok and rel0 <= LOSS_REL and gr_ok
+                good &= ok
+                lines.append(f"process {w} (rank {r['rank']}, shard {r['shard']}): forward "
+                             f"{p_words}, loss rel {rel0:.2e}, gradients max|err| {err:.3g} "
+                             f"(by rel L2 {nrm})")
+            by_path[case.name] = total
+            r0 = recs[0]
+            say(phase, f"zoo-cora-r4 {case.name}: {arch} config(full_graph_sm) on cora_like"
+                f"({ZOO_SEED}), 4 gloo processes on one card, mesh (graph {case.graph}, model "
+                f"{case.model}), {case.mode}" + (", edge_parallel" if case.model > 1 else "")
+                + f", eval forward and step-0 gradient against the card's R=1 (forward rtol "
+                f"{RTOL} atol {ATOL} or the float64 rule, loss {LOSS_REL}, gradients rtol "
+                f"{G_RTOL} atol {G_ATOL}): " + "; ".join(lines)
+                + f" | launches summed over the processes {total} | rank 0 peak memory "
+                f"{r0['peak_gib']:.2f} GiB | spawn and every case {wall:.1f} s -> "
+                f"{'ok' if good else 'FAIL'}")
+            if not good:
+                raise RuntimeError(f"{case.name} disagrees with R=1")
+    del procs
+    torch.cuda.empty_cache()
+
+    # (d) gat-minibatch: one step on a sampled block of the minibatch_lg cell
+    builder.join()
+    if "error" in host:
+        raise host["error"]
+    csr = host["csr"]
+    rng = np.random.default_rng(ZOO_SEED)
+    seeds = rng.choice(mb_shape["n_nodes"], MB_SEEDS, replace=False)
+    t0 = time.perf_counter()
+    block = sample_block(csr, seeds, mb_shape["fanouts"], rng)
+    sample_s = time.perf_counter() - t0
+    n_pad, e_pad = G._minibatch_pads(mb_shape)
+    bm = block_meta(block)
+    n_real = int(block.node_mask.sum())
+    arrays = {}
+    for k, v in bm.items():
+        size = e_pad if k.startswith("edge") else n_pad
+        arrays[k] = np.concatenate([v, np.zeros(size - v.shape[0], v.dtype)])
+    mcfg = gat_mod.config(mb_shape)
+    x = np.zeros((1, n_pad, mcfg.in_dim), np.float32)
+    x[0, :n_real] = rng.normal(size=(n_real, mcfg.in_dim))
+    labels = np.zeros((1, n_pad), np.int32)
+    labels[0, :n_real] = rng.integers(0, mcfg.n_classes, n_real)
+    on = {}
+    for side, d in (("card", dev), ("cpu", cpu)):
+        params = gcx.ARCHS["gat-cora"][1](torch.Generator().manual_seed(ZOO_SEED), mcfg,
+                                          device=d)
+        graph = {k: torch.from_numpy(v).to(d) for k, v in arrays.items()}
+        inputs = {"x": torch.from_numpy(x).to(d), "labels": torch.from_numpy(labels).to(d)}
+        loss_local = gat_mod._loss_local_factory(mb_shape, HaloSpec(mode=NONE), cfg=mcfg)
+        build.reset_launch_counts()
+        loss0, grads = G.gnn_loss_and_grads(loss_local, params, inputs, graph)
+        on[side] = (float(loss0), [t.cpu().numpy() for t in nn.tree_leaves(grads)],
+                    {k: v for k, v in build.launch_counts.items() if v})
+        if side == "card":
+            run = (loss_local, params, inputs, graph)
+    check_launches(phase, "gat-minibatch step-0 gradient", on["card"][2], {})
+    l_rel = abs(on["card"][0] - on["cpu"][0]) / abs(on["cpu"][0])
+    g_err, by_norm, g_ok = close(on["card"][1], on["cpu"][1], G_RTOL, G_ATOL, W_REL)
+    losses, ms, counts, peak, prof = step_reading(*run, 1)
+    check_launches(phase, "gat-minibatch step", counts[0], {})
+    by_path["zoo_gat_minibatch"] = {}
+    host_s = host["graph_s"] + host["csr_s"]
+    cell_deg = round(mb_shape["n_edges"] / mb_shape["n_nodes"])
+    reduced = "none" if MB_AVG_DEG == cell_deg else f"avg_deg {cell_deg} -> {MB_AVG_DEG}"
+    good = l_rel <= LOSS_REL and g_ok and bool(np.all(np.isfinite(losses)))
+    say(phase, f"gat-minibatch: config(minibatch_lg) in {mcfg.in_dim}, {mcfg.n_classes} "
+        f"classes; powerlaw_graph({mb_shape['n_nodes']}, avg_deg={MB_AVG_DEG}) "
+        f"{host['n_edges']} directed edges, its CSR: host {host['graph_s']:.1f} + "
+        f"{host['csr_s']:.1f} s (on a thread beside (a)-(c); within {MB_HOST_LIMIT_S:g} s: "
+        f"{host_s <= MB_HOST_LIMIT_S}; reduced: {reduced}); a block of {MB_SEEDS} seeds, fanouts {mb_shape['fanouts']}: "
+        f"{n_real} nodes, {int(block.edge_mask.sum())} edges, padded to the cell's "
+        f"({n_pad}, {e_pad}), sampled in {sample_s:.3f} s | card vs the CPU: step-0 loss "
+        f"{on['card'][0]:.8g} vs {on['cpu'][0]:.8g} (rel {l_rel:.2e}); gradients max|err| "
+        f"{g_err:.3g} (by rel L2: {by_norm}) | {steps_words(losses, ms, peak, prof)} | "
+        f"phase {time.perf_counter() - t_phase:.1f} s | {smi} -> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("GAT's minibatch cell on the card disagrees with the CPU")
+    return by_path
+
+
 def phase_paper_smoke():
     """The paper's smoke config (N_H=4, M=2, one MLP hidden layer) through
     the ``paper-gnn`` registry entry, as ``tests/test_arch_smoke.py::
@@ -4905,6 +5325,9 @@ def main():
     del gc_cell
     torch.cuda.empty_cache()
     lap("9c graphcast train")
+    by_path.update(phase_gnn_zoo(smi))
+    torch.cuda.empty_cache()
+    lap("9d gnn zoo")
     by_path.update(phase_paper_smoke())
     lap("9b paper-gnn")
     by_path.update(phase_dlrm(smi))
@@ -4942,6 +5365,11 @@ def main():
     # phase 9c's GraphCast training paths: kernels 1c, 1d and 2c on each,
     # kernels 4 and 5 in the edge-parallel run's packed exchange
     gc_train = ("gc_train_cora", "gc_train_weather", "gc_ep_packed", "gc_ep_a2a")
+    # phase 9d's zoo paths over processes: kernels 4 and 5 in the packed sum
+    # exchanges of GAT, NequIP and MACE (GAT's max exchanges hold them to
+    # the sums' exact counts)
+    zoo_halo = ("zoo_gat_packed", "zoo_nequip_packed", "zoo_mace_packed",
+                "zoo_nequip_g2m2", "zoo_mace_g2m2")
     own = {sa.KERNEL: ("train", "serve", "consistency_r4_packed", "grad_r4_packed",
                        "rollout_k2", "dist_r4_packed", "dist_r4_grad") + r4
            + ("ml_fwd", "ml_grad", "ml_serve", "ml_train") + ml_r4 + plan_fwd + res,
@@ -4949,10 +5377,11 @@ def main():
                            "grad_r4_overlap", "dist_r4_overlap_grad", "ml_grad",
                            "ml_train") + ml_grad + ("plan_spectral_r4_grad",) + res,
            hp.PACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
-                     "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo + ("gc_ep_packed",),
+                     "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo + ("gc_ep_packed",)
+           + zoo_halo,
            hp.UNPACK: ("grad_r4_packed", "consistency_r4_packed", "dist_r4_packed",
                        "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo
-           + ("gc_ep_packed",),
+           + ("gc_ep_packed",) + zoo_halo,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),

@@ -24,8 +24,8 @@ The dry-run cells (:func:`build_gnn_dryrun_cell`) describe a cell at its
 full size without data: the shape-only structures of the reference's
 ``jax.ShapeDtypeStruct`` are ``device="meta"`` tensors here, and the
 metadata is spec-only (``synthetic_partitioned_meta``: shapes and
-XOR-pairing rounds, no host-side partitioning of 61M-edge graphs).  The
-``minibatch`` kind needs ``graph/sampler.py``, which is not ported.
+XOR-pairing rounds, no host-side partitioning of 61M-edge graphs); the
+``minibatch`` kind's block is ``graph/sampler.py``'s padded to 128.
 """
 from __future__ import annotations
 
@@ -36,15 +36,13 @@ import torch
 
 from repro_torch import nn
 from repro_torch.core.consistent_loss import all_reduce_sum
-from repro_torch.core.distributed import average_gradients
+from repro_torch.core.distributed import HaloFn, average_gradients
 from repro_torch.core.graph_state import EDGE_KEYS
 from repro_torch.core.halo import NEIGHBOR, NONE, HaloSpec
 from repro_torch.train.optimizer import AdamWConfig, adamw_update_, init_adamw
 
 #: the port's names of the reference's GNN mesh axes (module docstring)
 GRAPH, MODEL, DATA = "graph", "model", "data"
-#: where the minibatch kind's sampler is queued
-SAMPLER_ITEM = "ROADMAP.md queue 1 item 4 (the rest of repro: graph/sampler.py)"
 
 GNN_SHAPES: Dict[str, dict] = {
     "full_graph_sm": dict(kind="full", n_nodes=2708, n_edges=10556, d_feat=1433,
@@ -193,6 +191,13 @@ def gnn_loss_and_grads(loss_local, params, inputs, graph, mesh=None):
     return world_mean(loss, mesh), grads
 
 
+def sync_fn_of(graph, halo: HaloSpec, mesh=None):
+    """The one-level halo exchange of a zoo model (GAT, NequIP, MACE) on
+    this process's rank-local graph (``core/distributed.py::HaloFn``);
+    None on one rank or under mode none."""
+    return None if mesh is None or halo.mode == NONE else HaloFn(graph, halo, mesh)
+
+
 def make_gnn_train_step(loss_local, opt: AdamWConfig, mesh=None):
     """``loss_local(params, inputs, graph) -> scalar`` (may use the mesh's
     collectives) -> ``step(state, inputs, graph) -> (state', loss)``, with
@@ -311,10 +316,10 @@ def build_gnn_dryrun_cell(shape_id: str, mesh, *, loss_local_factory, inputs_fac
 
 
 def _minibatch_pads(shape):
-    raise NotImplementedError(
-        f"the minibatch kind ({shape.get('batch_nodes')} seeds, fanouts "
-        f"{shape.get('fanouts')}) needs graph/sampler.py's SampledBlock.pad_sizes, "
-        f"which is not ported: {SAMPLER_ITEM}")
+    from repro_torch.graph.sampler import SampledBlock
+    seeds_per_dev = max(shape["batch_nodes"] // 16, 1)
+    n_pad, e_pad = SampledBlock.pad_sizes(seeds_per_dev, shape["fanouts"])
+    return _round_up(n_pad), _round_up(e_pad)
 
 
 def _block_meta_sds(R, n_pad, e_pad):

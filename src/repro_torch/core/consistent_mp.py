@@ -227,6 +227,21 @@ class EdgeParallel:
         return all_reduce_sum(agg.to(self.dtype), self.group).to(agg.dtype)
 
 
+def edge_parallel_of(axes, mesh=None, dtype: torch.dtype = torch.float32):
+    """A model's ``edge_parallel_axes`` resolved for this process: None when
+    empty; ``("model",)`` is the mesh's edge group (its model shards, which
+    share one rank's nodes: ``launch/mesh.py``), summed in ``dtype``
+    (:class:`EdgeParallel`).  Without a mesh the process holds every edge
+    (one shard), as a size-1 ``model`` axis is."""
+    axes = tuple(axes)
+    if not axes:
+        return None
+    if axes != ("model",):
+        raise ValueError(f"edge_parallel_axes={axes!r}: the port's mesh shards edges "
+                         "over its one 'model' axis")
+    return EdgeParallel(None if mesh is None else mesh.edge_group, dtype)
+
+
 def _edge_sum(agg: torch.Tensor, edge_parallel) -> torch.Tensor:
     return edge_parallel(agg) if edge_parallel else agg
 

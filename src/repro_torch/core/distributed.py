@@ -40,7 +40,7 @@ from repro_torch import nn
 from repro_torch.core.consistent_loss import all_reduce_sum, consistent_mse
 from repro_torch.core.gnn import GNNConfig, gnn_forward
 from repro_torch.core.graph_state import NMPPlan, ShardedGraph, as_graph, edge_shard
-from repro_torch.core.halo import NONE, HaloSpec, halo_sync, halo_sync_post
+from repro_torch.core.halo import NONE, SUM, HaloSpec, halo_sync, halo_sync_post
 
 
 def one_rank(graph) -> ShardedGraph:
@@ -109,20 +109,22 @@ def average_gradients(grads, mesh):
 
 class HaloFn:
     """Each layer's halo exchange on this process's rank-local graph:
-    called, the exchange itself (``halo_sync``, differentiable); ``post``,
-    the exchange posted (``halo_sync_post``), which the overlap schedule
-    finishes after queueing the interior side when no gradient is needed."""
+    called, the exchange itself (``halo_sync``, differentiable under
+    ``combine="sum"``); ``post``, the exchange posted (``halo_sync_post``),
+    which the overlap schedule finishes after queueing the interior side
+    when no gradient is needed.  ``combine`` is the exchange's combine of
+    coincident copies (``"max"``: GAT's softmax shift)."""
     __slots__ = ("graph", "spec", "mesh")
 
     def __init__(self, graph, spec: HaloSpec, mesh):
         self.graph, self.spec, self.mesh = graph, spec, mesh
 
-    def __call__(self, agg: torch.Tensor) -> torch.Tensor:
-        return halo_sync(agg, self.graph, self.spec, self.mesh)
+    def __call__(self, agg: torch.Tensor, combine: str = SUM) -> torch.Tensor:
+        return halo_sync(agg, self.graph, self.spec, self.mesh, combine)
 
-    def post(self, agg: torch.Tensor):
+    def post(self, agg: torch.Tensor, combine: str = SUM):
         self.mesh.graph_group.transport.overlapped += 1
-        return halo_sync_post(agg, self.graph, self.spec, self.mesh)
+        return halo_sync_post(agg, self.graph, self.spec, self.mesh, combine)
 
 
 def halo_fns(plan: NMPPlan, graph, mesh) -> tuple:

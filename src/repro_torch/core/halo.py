@@ -28,8 +28,8 @@ a scatter-max (``index_reduce(amax)``: order-independent, so bitwise
 repeatable); the fused pack/unpack kernels implement the sum only, so a
 packed spec under ``max`` gathers and scatters the narrow ``pk{k}_*``
 arrays with plain ops.  The forward of ``max`` runs in every mode; a
-gradient through it is refused (its one caller in the reference, GAT's
-softmax shift, is not ported).
+gradient through it is refused: its one caller, GAT's softmax shift
+(``models/gnn_zoo/gat.py``), exchanges a detached tensor.
 
 ``wire_dtype`` (e.g. ``torch.bfloat16``) compresses what crosses the
 wire: the send side masks padding slots to the combine's neutral, then
@@ -148,10 +148,11 @@ def _check_spec(spec: HaloSpec, combine: str):
 def _refuse_max_grad(a: torch.Tensor, combine: str):
     if combine == MAX and torch.is_grad_enabled() and a.requires_grad:
         raise NotImplementedError(
-            "a gradient through a combine='max' halo exchange is not ported: its "
-            "one caller in the reference is GAT's softmax shift "
-            "(models/gnn_zoo/gat.py), which waits on ROADMAP queue 1's GAT item; "
-            "run the max exchange under torch.no_grad() or on a detached tensor")
+            "a combine='max' halo exchange has no gradient: its one caller, GAT's "
+            "softmax shift (models/gnn_zoo/gat.py), exchanges a detached tensor, "
+            "since the softmax does not change when every score moves by one "
+            "amount; run the max exchange under torch.no_grad() or on a detached "
+            "tensor")
 
 
 def _neutral(rows: torch.Tensor, mask: torch.Tensor, combine: str) -> torch.Tensor:

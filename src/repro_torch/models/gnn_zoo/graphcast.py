@@ -24,8 +24,8 @@ backward through ``torch.utils.checkpoint``; ``act_dtype`` is the dtype of
 the carry between layers (the reference's ``astype``), each layer computing
 in fp32 on the carried values as JAX promotes them.  ``edge_parallel_axes
 = ("model",)`` shards each rank's edges over the mesh's model axis
-(:func:`edge_parallel_of`); over R > 1 ranks the caller passes each
-level's halo exchange as ``sync_fns``.
+(``core/consistent_mp.py::edge_parallel_of``); over R > 1 ranks the
+caller passes each level's halo exchange as ``sync_fns``.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import nn
 from repro_torch.core.consistent_mp import (
-    EdgeParallel, init_nmp_layer, multilevel_vcycle, nmp_layer)
+    edge_parallel_of, init_nmp_layer, multilevel_vcycle, nmp_layer)
 from repro_torch.core.gnn import init_coarse_levels
 from repro_torch.core.graph_state import NMPPlan, as_graph
 
@@ -81,21 +81,6 @@ def init_graphcast(gen: torch.Generator, cfg: GraphCastConfig, device="cuda") ->
     return params
 
 
-def edge_parallel_of(cfg: GraphCastConfig, mesh=None):
-    """``cfg.edge_parallel_axes`` resolved for this process: None when
-    empty; ``("model",)`` is the mesh's edge group (its model shards, which
-    share one rank's nodes: ``launch/mesh.py``), summed in the activations'
-    dtype (``core/consistent_mp.py::EdgeParallel``).  Without a mesh the
-    process holds every edge (one shard), as a size-1 ``model`` axis is."""
-    axes = tuple(cfg.edge_parallel_axes)
-    if not axes:
-        return None
-    if axes != ("model",):
-        raise ValueError(f"edge_parallel_axes={axes!r}: the port's mesh shards edges "
-                         "over its one 'model' axis")
-    return EdgeParallel(None if mesh is None else mesh.edge_group, cfg.act_dtype)
-
-
 def graphcast_forward(params: nn.Params, x: torch.Tensor, edge_feats: torch.Tensor,
                       graph, plan: NMPPlan, cfg: GraphCastConfig,
                       sync_fns=None, mesh=None) -> torch.Tensor:
@@ -113,8 +98,9 @@ def graphcast_forward(params: nn.Params, x: torch.Tensor, edge_feats: torch.Tens
     hold this process's model shard of the rank's edges
     (``core/distributed.py::local_graph_of``) and every processor layer sums
     its partial aggregate over ``mesh``'s edge group
-    (:func:`edge_parallel_of`)."""
-    edge_parallel = edge_parallel_of(cfg, mesh)
+    (``core/consistent_mp.py::edge_parallel_of``, summed in the carry's
+    dtype)."""
+    edge_parallel = edge_parallel_of(cfg.edge_parallel_axes, mesh, cfg.act_dtype)
     graph = as_graph(graph)
     lvl0 = graph.levels[0]
     syncs = sync_fns or (None,) * graph.n_levels

@@ -23,8 +23,8 @@ against ``repro``'s, on the CPU, from the same numpy inputs and weights.
   ``_inputs_factory`` at R=16, ``meta_specs``, ``xor_rounds``,
   ``build_dryrun_cell`` for the ``full`` and ``molecule`` kinds) have the
   reference's shapes, dtypes and split axes (its graph axis ``data`` is
-  the port's ``graph``); the ``minibatch`` kind raises, naming its
-  ROADMAP item.
+  the port's ``graph``); the ``minibatch`` kind's cell, for every GNN
+  arch, is ``tests/test_torch_gnn_zoo.py``'s.
 * Edge sharding's structures: ``pad_edges`` / ``edge_shard`` slices that
   rebuild the padded partition, each slice's graph (fused layout,
   overlap split) equal to one built from its edges, and an empty slice.
@@ -301,11 +301,6 @@ def test_dryrun_cell_matches_reference(shape_id, overrides):
         got = graphcast_params_to_jax(nn.tree_map(lambda t: torch.empty(t.shape), got))
         assert [a.shape for a in jax.tree.leaves(got)] == \
             [tuple(b.shape) for b in jax.tree.leaves(want)]
-
-
-def test_minibatch_kind_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        gcc.build_dryrun_cell("minibatch_lg", {"graph": 16})
 
 
 # ---------------------------------------------------------------------------

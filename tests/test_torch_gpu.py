@@ -33,7 +33,10 @@ padding only, every block_n it is built for).  Kernels 1 and 2's
 generic-width entries (``csrc/nmp_any.cu``: H 4, 12, 64, 100, 512, 1024
 x 1, 2, 7 hidden layers) are held to the same bands on the tile-edge and
 ragged graphs, bitwise on a rerun, each launch on its own counter.  Every kernel, and a training step through them, is
-bitwise repeatable.
+bitwise repeatable.  The rest of the GNN zoo (GAT, NequIP, MACE) runs no
+kernel at one rank: its cells on the card are held to the CPU in the
+reference's bands, and GAT over 4 processes launches kernels 4 and 5 in
+its sum exchanges alone (none in the max exchange of its softmax shift).
 """
 import os
 import subprocess
@@ -2193,3 +2196,100 @@ def test_empty_edge_slice_on_card(cuda, schedule):
         else:
             for a, b in zip(tree_leaves(grads), tree_leaves(pgrads)):
                 assert _within(a, b, G_RTOL, G_ATOL) or _rel_norm(a, b) <= W_REL
+
+
+# ---------------------------------------------------------------------------
+# the rest of the GNN zoo (GAT, NequIP, MACE) on the card
+# ---------------------------------------------------------------------------
+
+ZOO_GRAPH = dict(seed=1, n=120, m_und=400, d=16, n_classes=4)
+
+
+def _zoo_job(arch, device, **kw):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import graphcast_checks as gcx
+    mod, _ = get_arch(arch)
+    cfg = mod.smoke_config()
+    if arch == "gat-cora":
+        cfg = dataclasses.replace(cfg, in_dim=ZOO_GRAPH["d"], n_classes=ZOO_GRAPH["n_classes"])
+    return gcx.Job(cases=(), cfg=dataclasses.asdict(cfg), graph=ZOO_GRAPH, device=device,
+                   arch=arch, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gat-cora", "nequip", "mace"])
+def test_gnn_zoo_forward_on_card_matches_cpu(cuda, arch):
+    """Each zoo model's cell (``launch/graphcast_checks.py::run_case``, one
+    rank) on the card against the same code on the CPU: the eval forward
+    in the forward band, the first loss within 2e-6, the gradients in the
+    gradient band (weight sums by rel L2 5e-4), two AdamW steps finite;
+    no kernel launches at one rank."""
+    import dataclasses
+    from repro_torch.launch import graphcast_checks as gcx
+    from repro_torch.launch.consistency import grads_close
+    from repro_torch.launch.mesh import to_host
+    job = _zoo_job(arch, str(cuda), steps=2)
+    got = to_host(gcx.run_case(job, gcx.Case("r1")))
+    want = to_host(gcx.run_case(dataclasses.replace(job, device="cpu", steps=0),
+                                gcx.Case("r1")))
+    assert got["launches_eval"] == {} and got["launches_grad"] == {}
+    np.testing.assert_allclose(got["pred"], want["pred"], rtol=RTOL, atol=ATOL)
+    assert abs(got["loss0"] - want["loss0"]) <= 2e-6 * abs(want["loss0"])
+    assert grads_close(got["grads0"], want["grads0"], G_RTOL, G_ATOL, W_REL)[2]
+    assert np.isfinite(got["losses"]).all() and got["losses"][1] != got["losses"][0]
+
+
+@pytest.mark.gpu
+def test_segment_max_on_card_matches_cpu(cuda):
+    """The sorted segment max on the card: the CPU's values, ``-inf`` for
+    an empty segment, bitwise on a rerun."""
+    from repro_torch.graph.segment import segment_max
+    gen = torch.Generator().manual_seed(0)
+    data = torch.randn(300, 4, generator=gen)
+    ids = torch.randint(0, 50, (300,), generator=gen)
+    ids[ids == 7] = 8
+    want = segment_max(data, ids, 60)
+    got = segment_max(data.to(cuda), ids.to(cuda), 60)
+    assert torch.equal(got.cpu(), want) and torch.isneginf(got[[7, 55]]).all()
+    assert torch.equal(got, segment_max(data.to(cuda), ids.to(cuda), 60))
+
+
+@pytest.mark.gpu
+def test_gat_exchange_launches_on_card(cuda):
+    """GAT over 4 gloo processes sharing the card, graph 4: under the
+    packed neighbor exchange each of its 2 layers runs 3 exchanges, of
+    which the 2 sums launch one pack (kernel 4) and one unpack-add
+    (kernel 5) per round received, and the max exchange of the softmax
+    shift neither: per process 4 packs and 4 x rounds received unpack-adds
+    an eval forward, twice that with the gradient; all-to-all launches
+    neither kernel; each process's rows within the forward band of the
+    one-rank run on the card."""
+    import dataclasses
+    from repro_torch.core.graph_state import pad_edges
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.graph.datasets import cora_like
+    from repro_torch.launch import graphcast_checks as gcx
+    from repro_torch.launch.mesh import to_host
+    cases = (gcx.Case("gat_packed", graph=4, mode="packed"),
+             gcx.Case("gat_a2a", graph=4, mode="a2a"))
+    job = _zoo_job("gat-cora", "cuda", steps=0)
+    r1 = to_host(gcx.run_case(job, gcx.Case("r1")))
+    procs = gcx.run_world(dataclasses.replace(job, cases=cases), 4)
+    edges, _, _ = cora_like(**ZOO_GRAPH)
+    pg = pad_edges(partition_graph(ZOO_GRAPH["n"], edges, 4))
+    perms = gcx.plan_of(pg, cases[0], XLA).halo.perms
+    m1 = r1["node_mask"] > 0
+    want = dict(zip(r1["global_ids"][m1].tolist(), r1["pred"][m1]))
+    for p in procs:
+        rec = p["gat_packed"]
+        recv = sum(any(d == rec["rank"] for _, d in perm) for perm in perms)
+        assert recv > 0
+        assert rec["launches_eval"] == {hp.PACK: 4, hp.UNPACK: 4 * recv}
+        assert rec["launches_grad"] == {hp.PACK: 8, hp.UNPACK: 8 * recv}
+        assert p["gat_a2a"]["launches_eval"] == {} and p["gat_a2a"]["launches_grad"] == {}
+        for name in ("gat_packed", "gat_a2a"):
+            r = p[name]
+            m = r["node_mask"] > 0
+            for gid, row in zip(r["global_ids"][m].tolist(), r["pred"][m]):
+                np.testing.assert_allclose(row, want[gid], rtol=RTOL, atol=ATOL)

@@ -146,3 +146,18 @@ def test_graphcast_train_slice_module_imports_alone_without_jax(mod):
     """The same for the new modules of GraphCast's training cells (the
     step builder and dry-run cells, the edge-parallel checks)."""
     _imports_alone_without_jax(mod)
+
+
+GNN_ZOO_SLICE = ["repro_torch.configs.gat_cora", "repro_torch.configs.nequip",
+                 "repro_torch.configs.mace", "repro_torch.models.gnn_zoo.gat",
+                 "repro_torch.models.gnn_zoo.irreps", "repro_torch.models.gnn_zoo.nequip",
+                 "repro_torch.models.gnn_zoo.mace", "repro_torch.graph.sampler",
+                 "repro_torch.graph.datasets"]
+
+
+@pytest.mark.parametrize("mod", GNN_ZOO_SLICE)
+def test_gnn_zoo_slice_module_imports_alone_without_jax(mod):
+    """The same for the modules of the rest of the GNN zoo (the irreps'
+    host part, the sampler and the datasets are the port's own copies of
+    the reference's numpy code)."""
+    _imports_alone_without_jax(mod)
