@@ -10,7 +10,9 @@ serves and trains DLRM RM2 at full width (50,003,968 x 64 fp32 table)
 through its cell builder, and serves Granite-34B-code (MQA, 48:1) at full
 width (88 layers for the prefill and the serving loop, 44 for decode and
 the full-width check) through its cell builder and the greedy serving
-loop, serves GraphCast's weather configuration at its published widths
+loop, trains it (11 layers) through the reference's train step with the
+flash attention's hand-written backward and decodes its long_500k cell,
+serves GraphCast's weather configuration at its published widths
 (d512, 16 layers) through kernel 1's generic-width entry, trains GraphCast
 through the reference's cell functions on one rank and over a (graph x
 model) mesh of processes with edge-parallel sharding, trains GAT, NequIP
@@ -47,7 +49,11 @@ Phases (one line each, prefixed ``[n name]``):
                  one Granite prefill layer (B=1, S=32,768, 48:1 heads of 128,
                  bf16, causal): error vs the plain version within that
                  file's TOL, two launches bitwise equal, CUDA-event times,
-                 the bound and F.scaled_dot_product_attention's time;
+                 the bound and F.scaled_dot_product_attention's time,
+                 the kernel's row LSE against the plain one's (LSE_TOL),
+                 and at those cases without a softcap its backward
+                 (kernel 6b, on the kernel's output and LSE) against
+                 attention_plain_bwd on the plain forward's;
                  the dst-aligned edge MLP + aggregate (kernel 3) at full
                  width (Fin 96, Hh = H = 32, blocks 128/256) on the serving
                  mesh's directed edges and at kernel_bench's 8k-edge shape
@@ -265,6 +271,26 @@ Phases (one line each, prefixed ``[n name]``):
                  more with torch's default bf16-reduction flag, reported),
                  and decode_32k (B=32 over a cache
                  filled to 32,767: ms per step, tokens/s, profiler)
+  8b lm train    Granite-34B-code's train_4k through ``build_cell`` (the
+                 reference's train step: fp32 master weights and
+                 accumulators, bf16 AdamW moments, 16 micro-batches of 1
+                 x 4,096, remat "full"; 11 layers): a warm-up step, 3
+                 steps by CUDA events (ms, tokens/s, model TFLOP/s, peak
+                 memory, losses finite), one step under torch.profiler,
+                 step 0 rerun from the seed bitwise equal; one
+                 micro-batch's gradient at 2 layers through kernels 6 and
+                 6b against the plain attention under autograd, each leaf
+                 in the per-leaf bf16 band and within rel L2 LM_GRAD_REL
+                 (its max|plain| printed); kernel
+                 6b alone at that layer (B=1, S=4,096, 48:1, D=128) on
+                 kernel 6's output and LSE (the LSE within LSE_TOL of
+                 plain) against the plain backward on the plain forward's:
+                 the per-leaf bf16 band, every row within ROW_REL_TOL
+                 beside two planted faults that must fail it, bitwise
+                 repeated, beside its bound and SDPA's backward; then
+                 long_500k (72 layers, B=1 over a cache filled to
+                 524,287): ms per decode step against its bytes bound,
+                 peak memory, no kernel launched
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — one full-width call of
 fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
@@ -297,7 +323,9 @@ twice under overlap, 12 exchanges per forward, each level's launches
 counted apart) and each DLRM path (7; the embedding bag must launch exactly once per
 forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
-step), GraphCast's served states (9; kernel 1's generic entry exactly 16
+step; 8b: per training step kernel 6 twice per layer and micro-batch, the
+forward and its recompute, and kernel 6b's four kernels once, none in
+long_500k's decode), GraphCast's served states (9; kernel 1's generic entry exactly 16
 times a forward, nothing else) and its gradient (2 + 2 generic launches),
 GraphCast's training steps (9c; kernels 1c, 1d, 2c exactly 16, 32, 16 a
 step on cora and on the weather graph; per process of the edge-parallel
@@ -374,6 +402,20 @@ GRANITE_LAYER = (1, 32768, 48, 1, 128, True, 0, None)
 # the planted fault that the row check must catch at the Granite layer:
 # from FAULT_ROW on, each row loses the keys of its own diagonal tile
 FAULT_ROW, FAULT_TILE = 2048, 64
+# kernel 6's row log-sum-exp against the plain one's, largest |difference|
+# by dtype: a shift d of a row's LSE scales each of its P by exp(-d), so
+# both are held to fp32 TOL's rtol (the scores are fp32 sums in both
+# dtypes); the backward's reference is computed from the plain LSE, so its
+# checks see a shift too
+LSE_TOL = {"float32": 2e-5, "bfloat16": 2e-5}
+# kernel 6b row by row (dq by query row and head, dk and dv by key row and
+# KV head) within ROW_REL_TOL, each row's norm floored at BWD_ROW_FLOOR x
+# the median row's (query row 0's dq is a sum that cancels to zero)
+BWD_ROW_FLOOR = 1e-2
+# a gradient through kernels 6 and 6b against the plain attention's: each
+# leaf's rel L2 within this (two bf16 backward passes part by about 1% per
+# leaf, tests/test_torch_lm_train.py's BF16_STEP_REL)
+LM_GRAD_REL = 2e-2
 # kernel 3, the dst-aligned edge MLP + aggregate: blocks (block_n, block_e),
 # tests/test_kernels.py's bands for the op (e_new, agg) and its bf16 TOL
 MLP_AGG_BLOCKS = (128, 256)
@@ -476,10 +518,14 @@ def rel_norm(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def row_rel_err(got, want):
-    """Largest relative L2 error of one row (last axis) of ``got``."""
+def row_rel_err(got, want, floor=0.0):
+    """Largest relative L2 error of one row (last axis) of ``got``; with
+    ``floor``, each row's norm is taken as at least ``floor`` x the median
+    row's."""
     g, w = got.float(), want.float()
-    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+    wn = w.norm(dim=-1)
+    low = max(1e-30, floor * float(wn.median())) if floor else 1e-30
+    return float(((g - w).norm(dim=-1) / wn.clamp_min(low)).max())
 
 
 def bf16_reading(got, want, want_fp32):
@@ -588,7 +634,8 @@ def phase_device():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     reports = build.build(["nmp_fwd", "halo_pack", "nmp_bwd", "embedding_bag",
-                           "flash_attention", "edge_mlp_agg", "nmp_any", "nmp_bf16"])
+                           "flash_attention", "flash_attention_bwd", "edge_mlp_agg",
+                           "nmp_any", "nmp_bf16"])
     regs = {k: sorted({ln.split("Used ")[1].split(",")[0]
                        for ln in v.splitlines() if "Used " in ln})
             for k, v in reports.items()}
@@ -601,6 +648,10 @@ def phase_device():
                "nmp_bwd_bf16": ("nmp_bf16", "nmp_bf16_bwd_kernelILi32EE"),
                "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
                "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
+               "flash_attention_bwd_dkdv": ("flash_attention_bwd",
+                                            "flash_bwd_dkdv_bf16_kernelILi128E"),
+               "flash_attention_bwd_dq": ("flash_attention_bwd",
+                                          "flash_bwd_dq_bf16_kernelILi128E"),
                "edge_mlp_agg": ("edge_mlp_agg", "edge_mlp_agg_kernelIfLi2E"),
                "edge_mlp_agg_bf16": ("edge_mlp_agg", "edge_mlp_agg_kernelI13__nv_bfloat16Li2E"),
                "halo_pack": ("halo_pack", "11pack_kernelILi4E"),
@@ -618,7 +669,8 @@ def phase_device():
     ptxas = {key: ptxas_summary(reports.get(src, ""), needle)
              for key, (src, needle) in kernels.items()}
     say("1 device", f"ptxas at H=32 (NMP pair: fp32 and bf16; embedding bag: fp32, 16-byte loads; flash "
-        f"attention: bf16, D=128; edge_mlp_agg: fp32 and bf16 feats, block_n <= 128; "
+        f"attention and its backward's dK/dV and dQ kernels: bf16, D=128; "
+        f"edge_mlp_agg: fp32 and bf16 feats, block_n <= 128; "
         f"halo pack and unpack-add: 16-byte accesses): {ptxas}")
     return smi, ptxas
 
@@ -1591,7 +1643,10 @@ def drop_diagonal_tiles(q, k, v, want, scale):
 
 
 def phase_flash_attention(ptxas, cases=FLASH_CASES):
-    """Flash attention at ``cases`` in fp32 and bf16 and at one Granite
+    """Flash attention at ``cases`` in fp32 and bf16 (where there is no
+    softcap also its backward, kernel 6b, against ``attention_plain_bwd``:
+    fp32 within TOL, bf16 in the per-leaf band, bitwise repeated, and the
+    forward with its LSE bitwise the forward) and at one Granite
     prefill layer: error vs plain within TOL and, row by row, within
     ROW_REL_TOL (at the Granite layer beside the reading of a planted
     fault, which must fail it), repeatability, times, bound and
@@ -1620,11 +1675,18 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
             return fa.attention_plain(q, k, v, chunk=512 if granite else None, **kw)
 
         got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(q, k, v, **kw)
-        want = plain()
+        want, want_lse = fa.attention_plain(q, k, v, chunk=512 if granite else None,
+                                            return_lse=True, **kw)
+        o, lse = fa._launch(q, k, v, D ** -0.5, causal, window, cap, with_lse=True)
         torch.cuda.synchronize()
         same = torch.equal(got, again)
-        diff = (got.float() - want.float()).abs()
         dname = str(dtype).split(".")[1]
+        lse_err = float((lse - want_lse).abs().max())
+        lse_note = (f" | with its LSE: the output bitwise {torch.equal(o, got)}, LSE max|err| "
+                    f"vs plain {lse_err:.3g} (limit {LSE_TOL[dname]})")
+        same = same and torch.equal(o, got) and lse_err <= LSE_TOL[dname]
+        del o
+        diff = (got.float() - want.float()).abs()
         rtol, atol = FLASH_TOL[dname]
         ok = bool((diff <= atol + rtol * want.float().abs()).all())
         err = float(diff.max())
@@ -1642,6 +1704,27 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
                           f"{FAULT_TILE}-key tile: {fault_err:.3g}, must exceed it; within "
                           f"the elementwise TOL: {fault_in_tol})")
             del fault
+        bwd_note = ""
+        if not granite and cap is None:
+            # kernel 6b on kernel 6's output and LSE, as training calls it,
+            # against its plain version on the plain forward's
+            g = torch.randn(q.shape, generator=gen, device=dev, dtype=dtype)
+            kb = dict(scale=D ** -0.5, causal=causal, window=window)
+            grads = fa.flash_attention_bwd(q, k, v, got, lse, g, **kb)
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                grads, fa.flash_attention_bwd(q, k, v, got, lse, g, **kb)))
+            plain_g = fa.attention_plain_bwd(q, k, v, want, want_lse, g, **kb)
+            if dtype == torch.float32:
+                bwd_ok = all(bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+                             for a, b in zip(grads, plain_g))
+            else:
+                bwd_ok = all(bf16_leaf_ok(a.float(), b.float()) for a, b in zip(grads, plain_g))
+            ok = ok and bwd_ok
+            bwd_note = (" | backward (6b): max|err| dq, dk, dv vs plain " + ", ".join(
+                f"{float((a.float() - b.float()).abs().max()):.3g}" for a, b in zip(
+                    grads, plain_g)) + f" -> {'ok' if bwd_ok else 'FAIL'}")
+            del g, grads, plain_g
+        del lse, want_lse
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 5 if granite else 20)
         plain_ms = cuda_ms(plain, 1 if granite else 5, warmup=1)
         lib_ms, lib_note = None, "none (window or softcap)"
@@ -1666,11 +1749,12 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
             f"-> {'ok' if ok else 'FAIL'} | two launches bitwise equal: {same} | kernel "
             f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
             f"SDPA {lib_note}, bound {b_ms:.4f} ms ({b_by}, {flops / 1e12:.3f} TFLOP, "
-            f"{moved / 1e9:.3f} GB)" + (f" | ptxas {ptxas['flash_attention']}" if granite else ""))
+            f"{moved / 1e9:.3f} GB)" + lse_note + bwd_note
+            + (f" | ptxas {ptxas['flash_attention']}" if granite else ""))
         if not (ok and same):
-            raise RuntimeError(f"flash attention kernel disagrees with its plain version, is "
-                               f"not repeatable or its row check let the planted fault pass "
-                               f"at {(B, S, Hq, Hkv, D)} {dtype}")
+            raise RuntimeError(f"flash attention kernel (its LSE or its backward) disagrees "
+                               f"with its plain version, is not repeatable or its row check "
+                               f"let the planted fault pass at {(B, S, Hq, Hkv, D)} {dtype}")
         if granite:
             record = dict(name=fa.KERNEL, route="cuda",
                           source="src/repro_torch/csrc/flash_attention.cu",
@@ -5038,15 +5122,17 @@ def upcast_(params):
     """Every leaf of a parameter tree to fp32 in place of the tree, largest
     leaves first so that one leaf at a time exists in both types."""
     import torch
-    slots = []
-
-    def walk(tree):
+    # a loop, not a recursive closure: that closure's reference cycle kept
+    # ``slots`` (and so the fp32 tree) alive after the caller's ``del``
+    # until the next cyclic GC
+    slots, trees = [], [params]
+    while trees:
+        tree = trees.pop()
         for key, val in tree.items():
             if isinstance(val, dict):
-                walk(val)
+                trees.append(val)
             else:
                 slots.append((val.numel(), tree, key))
-    walk(params)
     for _, tree, key in sorted(slots, key=lambda t: -t[0]):
         tree[key] = tree[key].float()
         torch.cuda.empty_cache()
@@ -5258,6 +5344,321 @@ def phase_lm(smi):
     return by_path
 
 
+# Granite-34B-code's training (phase 8b): timed steps after the warm-up,
+# the depth of the gradient check against the plain attention, one
+# micro-batch's attention layer (B, S, Hq, Hkv, D, causal, window) and the
+# decode steps timed in long_500k
+LM_TRAIN_STEPS, LM_GRAD_LAYERS, LONG_DECODE_STEPS = 3, 2, 10
+LM_TRAIN_LAYER = (1, 4096, 48, 1, 128, True, 0)
+
+
+def state_digest(state):
+    """checksum of every leaf of a train state (2-byte leaves widened)."""
+    import torch
+    from repro_torch.nn import tree_leaves
+    out = []
+    for t in tree_leaves(state):
+        if t.element_size() == 2:
+            t = t.view(torch.int16).to(torch.int32)
+        out.append(checksum(t))
+    return out
+
+
+def bwd_faults(q, k, v, out, lse, g, want, scale, groups):
+    """Kernel 6b's planted faults at a causal layer, from the plain backward
+    ``want`` (on the plain forward's ``out`` and ``lse``): dq whose rows
+    from FAULT_ROW on lose their diagonal FAULT_TILE-key tile, and dk, dv
+    whose keys from FAULT_ROW on lose the partial of the first of ``groups``
+    head groups (the faults of a kernel that skips that tile or that
+    partial)."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain_bwd
+    dq = want[0].float()
+    for t0 in range(FAULT_ROW, q.shape[1], FAULT_TILE):
+        rows = slice(t0, t0 + FAULT_TILE)
+        dq[:, rows] -= attention_plain_bwd(q[:, rows], k[:, rows], v[:, rows], out[:, rows],
+                                           lse[:, :, rows], g[:, rows], scale=scale,
+                                           causal=True)[0].float()
+    per = -(-(q.shape[2] // k.shape[2]) // groups)
+    heads = [h for h in range(q.shape[2]) if h % (q.shape[2] // k.shape[2]) < per]
+    _, dk0, dv0 = attention_plain_bwd(q[:, :, heads], k, v, out[:, :, heads], lse[:, heads],
+                                      g[:, :, heads], scale=scale, causal=True, chunk=512)
+    dk, dv = want[1].float(), want[2].float()
+    dk[:, FAULT_ROW:] -= dk0[:, FAULT_ROW:].float()
+    dv[:, FAULT_ROW:] -= dv0[:, FAULT_ROW:].float()
+    return dq, dk, dv
+
+
+def flash_bwd_record(ptxas):
+    """Kernel 6b alone at one micro-batch's Granite layer, on kernel 6's
+    output and LSE (the LSE first held to the plain forward's), against
+    attention_plain_bwd on the plain forward's: in the per-leaf bf16 band
+    and row by row within ROW_REL_TOL beside the readings of two planted
+    faults (``bwd_faults``), which must fail the row check; two calls
+    bitwise, times beside the bound, the plain version and SDPA's backward
+    (its forward + backward less its forward); kernel 6's forward with its
+    LSE timed at the same layer beside its bound, its plain version and
+    SDPA's forward."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    B, S, Hq, Hkv, D, causal, window = LM_TRAIN_LAYER
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v, g = (torch.randn(B, S, h, D, generator=gen, device=dev, dtype=torch.bfloat16)
+                  for h in (Hq, Hkv, Hkv, Hq))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    out, lse = fa._launch(q, k, v, D ** -0.5, causal, window, None, with_lse=True)
+    out_p, lse_p = fa.attention_plain(q, k, v, chunk=512, return_lse=True, **kw)
+    lse_err = float((lse - lse_p).abs().max())
+    groups = fa.bwd_groups(B, S, Hq, Hkv, torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+
+    def plain():
+        return fa.attention_plain_bwd(q, k, v, out_p, lse_p, g, chunk=512, **kw)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+    tops = [float(b.float().abs().max()) for b in want]
+    band_ok = all(bf16_leaf_ok(a.float(), b.float()) for a, b in zip(got, want))
+    row_tol = ROW_REL_TOL["bfloat16"]
+    rows = [row_rel_err(a, b, BWD_ROW_FLOOR) for a, b in zip(got, want)]
+    faults = bwd_faults(q, k, v, out_p, lse_p, g, want, D ** -0.5, groups)
+    fault_rows = [row_rel_err(f, b, BWD_ROW_FLOOR) for f, b in zip(faults, want)]
+    fault_band = [bf16_leaf_ok(f, b.float()) for f, b in zip(faults, want)]
+    del faults
+    ok = (same and band_ok and lse_err <= LSE_TOL["bfloat16"] and max(rows) <= row_tol
+          and min(fault_rows) > row_tol)
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 1, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  scale=D ** -0.5, enable_gqa=True)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=D ** -0.5,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), gt)
+    try:        # the yardstick only: the port never calls SDPA
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_ms = cuda_ms(lib_fwd_bwd, 10) - cuda_ms(lib_fwd, 10)
+            lib_err = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
+                          for a, b in zip(lib_fwd_bwd(), want))
+        lib_note = (f"{lib_ms:.4f} ms (FLASH_ATTENTION, forward + backward less forward; "
+                    f"max|diff| vs plain {lib_err:.3g})")
+    except RuntimeError as exc:
+        lib_ms, lib_note = None, f"not run ({str(exc)[:80]})"
+    pairs = attention_pairs(S, causal, window)
+    fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, D ** -0.5, causal, window, None,
+                                        with_lse=True), 10)
+    fwd_plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, chunk=512, return_lse=True,
+                                                      **kw), 1, warmup=1)
+    fwd_b_ms, fwd_b_by = bound_ms(nbytes(q, k, v, out, lse), 4 * D * Hq * B * pairs,
+                                  PEAK_BF16_FLOPS)
+    lib_fwd_note = "not run"
+    if lib_ms is not None:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_fwd_note = f"{cuda_ms(lib_fwd, 10):.4f} ms"
+    say("8b lm train", f"flash_attention (kernel 6) with its LSE at that layer: {fwd_ms:.4f} ms "
+        f"(bound {fwd_b_ms:.4f} ms, {fwd_b_by}), plain {fwd_plain_ms:.4f} ms, SDPA forward "
+        f"{lib_fwd_note}")
+    flops = 10 * D * Hq * B * pairs
+    moved = nbytes(q, k, v, out, lse, g, *got)
+    b_ms, b_by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
+    say("8b lm train", f"flash_attention_bwd (kernel 6b) at one micro-batch's layer B={B} S={S} "
+        f"Hq={Hq} Hkv={Hkv} D={D} causal bf16, {groups} head groups, on kernel 6's output "
+        f"and LSE (LSE max|err| vs plain {lse_err:.3g}, limit {LSE_TOL['bfloat16']}), "
+        f"against the plain backward on the plain forward's: dq, dk, dv max|err| "
+        f"{', '.join(f'{e:.3g}' for e in errs)} (max|plain| "
+        f"{', '.join(f'{t:.3g}' for t in tops)}; per-leaf band {BF_G} x max(1, max|plain|): "
+        f"{band_ok}); largest row rel L2 err {', '.join(f'{r:.3g}' for r in rows)} (limit "
+        f"{row_tol}; rows floored at {BWD_ROW_FLOOR} x the median row's norm); planted "
+        f"faults (dq rows >= {FAULT_ROW} without their diagonal {FAULT_TILE}-key tile; dk, "
+        f"dv keys >= {FAULT_ROW} without head group 0's partial) read "
+        f"{', '.join(f'{r:.3g}' for r in fault_rows)}, must exceed it; within the per-leaf "
+        f"band: {', '.join(str(x) for x in fault_band)} -> {'ok' if ok else 'FAIL'} | two "
+        f"calls bitwise equal: {same} | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+        f"of the 5 products), plain {plain_ms:.4f} ms, SDPA backward {lib_note}, bound "
+        f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, {moved / 1e9:.3f} GB) | ptxas "
+        f"dK/dV {ptxas['flash_attention_bwd_dkdv']}, dQ {ptxas['flash_attention_bwd_dq']}")
+    if not ok:
+        raise RuntimeError("flash attention backward (or kernel 6's LSE) disagrees with its "
+                           "plain version, is not repeatable, or the row check let a planted "
+                           "fault pass at the Granite training layer")
+    return dict(name=fa.KERNEL_BWD, route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:75",
+                note="the backward of kernel 6, which has no Pallas twin: the reference "
+                     "differentiates blocked_attention (src/repro/models/transformer/"
+                     "attention.py:45) under jax.checkpoint",
+                max_abs_err=max(errs), max_row_rel_err=max(rows),
+                planted_fault_row_rel_err=min(fault_rows), lse_max_abs_err=lse_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def phase_lm_train(ptxas, smi):
+    """Granite-34B-code's train_4k and long_500k cells at full width."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.nn import tree_leaves, tree_map, value_and_grad
+
+    granite, _ = get_arch("granite-34b")
+    dev = torch.device("cuda")
+    by_path = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- train_4k: the reference's step at 11 layers, 16 micro-batches ---
+    t0 = time.perf_counter()
+    step, (state, tokens, targets), meta = granite.build_cell("train_4k", dev, LM_SEED)
+    torch.cuda.synchronize()
+    cfg, n_micro = meta["cfg"], meta["n_micro"]
+    L, B, S = cfg.n_layers, meta["batch"], meta["seq"]
+    say("8b lm train", f"train_4k: d {cfg.d_model}, {L} layers ({meta['n_params'] / 1e9:.3f} B "
+        f"params), B={B} S={S} as {n_micro} micro-batches of {B // n_micro}, remat "
+        f"{cfg.remat}, fp32 master and accumulators, AdamW moments {meta['opt'].moment_dtype}"
+        f"; state drawn on the card from seed {LM_SEED} in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB | cut (reference, here): "
+        f"{meta['reduced']} | {smi}")
+    t0 = time.perf_counter()
+    state, info = step(state, tokens, targets)
+    losses = [float(info["loss"])]
+    warm_s = time.perf_counter() - t0
+    digest0 = state_digest(state)
+    build.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_TRAIN_STEPS + 1)]
+    ev[0].record()
+    for i in range(LM_TRAIN_STEPS):
+        state, info = step(state, tokens, targets)
+        ev[i + 1].record()
+        losses.append(info["loss"])
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    by_path["lm_train"] = launches
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(LM_TRAIN_STEPS)]
+    t = float(np.median(step_ms)) / 1e3
+    check_launches("8b lm train", "lm_train", launches, {
+        fa.KERNEL: LM_TRAIN_STEPS * 2 * L * n_micro,
+        fa.KERNEL_BWD: LM_TRAIN_STEPS * L * n_micro * len(fa.BWD_ENTRIES)})
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train_4k: losses {losses}")
+    say("8b lm train", f"train_4k: losses {', '.join(f'{x:.6f}' for x in losses)} (step 0 the "
+        f"warm-up, {warm_s:.2f} s; the same batch each step) | "
+        + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f" ms per step by CUDA events (median {1e3 * t:.1f} ms = {B * S / t:.0f} tokens/s, "
+        f"{meta['model_flops'] / t / 1e12:.1f} TFLOP/s of 6 x params x tokens) | grad norm "
+        f"{float(info['grad_norm']):.4g}, lr {float(info['lr']):.3g} | peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) | {smi}")
+    say("8b lm train", "train_4k: one step " + profile_line(
+        lambda: step(state, tokens, targets)))
+    del state, info
+    torch.cuda.empty_cache()
+    step, (state, tokens2, targets2), _ = granite.build_cell("train_4k", dev, LM_SEED)
+    state, info = step(state, tokens2, targets2)
+    rerun_same = (float(info["loss"]) == losses[0] and state_digest(state) == digest0
+                  and torch.equal(tokens, tokens2))
+    say("8b lm train", f"train_4k: step 0 rerun from the seed bitwise equal (loss and every "
+        f"leaf of master, moments and step): {rerun_same}")
+    del state, info, step
+    torch.cuda.empty_cache()
+    if not rerun_same:
+        raise RuntimeError("train_4k: a rerun of step 0 is not bitwise the first")
+
+    # one micro-batch's gradient at LM_GRAD_LAYERS layers, kernel 6 and 6b
+    # against the plain attention under autograd, on the bf16 compute copy,
+    # each leaf in the reference's per-leaf band and by its rel L2 (the band
+    # floors at 1 and every max|plain| here is far below: they are printed)
+    cfg2 = cfg.with_(n_layers=LM_GRAD_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = tree_map(lambda x: x.to(cfg2.param_dtype), lm.init_transformer(gen, cfg2, dev))
+    tk, tg = tokens[:1], targets[:1]
+    build.reset_launch_counts()
+    loss_k, g_k = value_and_grad(lambda p: lm.lm_loss(p, tk, tg, cfg2)[0], params)
+    torch.cuda.synchronize()
+    by_path["lm_train_grad_check"] = dict(build.launch_counts)
+
+    def plain_attention(q, k, v, scale):
+        return attention_plain(q, k, v, scale=scale, causal=True, chunk=512)
+    loss_p, g_p = value_and_grad(
+        lambda p: lm.lm_loss(p, tk, tg, cfg2, attention=plain_attention)[0], params)
+    by_leaf = []          # (name, max|plain|, max|err| / max|plain|, rel L2)
+    for a, b, n in zip(tree_leaves(g_k), tree_leaves(g_p), leaf_names(params)):
+        a, b = a.float(), b.float()
+        top = float(b.abs().max())
+        by_leaf.append((n, top, float((a - b).abs().max()) / top, rel_norm(a, b)))
+    band_ok = all(bf16_leaf_ok(a.float(), b.float())
+                  for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)))
+    grad_ok = band_ok and all(rel <= LM_GRAD_REL for *_, rel in by_leaf)
+    check_launches("8b lm train", "lm_train_grad_check", by_path["lm_train_grad_check"], {
+        fa.KERNEL: 2 * LM_GRAD_LAYERS, fa.KERNEL_BWD: LM_GRAD_LAYERS * len(fa.BWD_ENTRIES)})
+    say("8b lm train", f"one micro-batch's gradient (B=1, S={S}) at {LM_GRAD_LAYERS} layers, "
+        f"bf16: kernels 6 and 6b against the plain attention under autograd: loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f}; per leaf max|plain|, max|err| / "
+        f"max|plain|, rel L2 (limit {LM_GRAD_REL}): " + "; ".join(
+            f"{n} {top:.3g}, {e:.3g}, {rel:.3g}" for n, top, e, rel in by_leaf)
+        + f"; every leaf in the per-leaf band {BF_G} x max(1, max|plain|): {band_ok} -> "
+        f"{'ok' if grad_ok else 'FAIL'}")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    if not grad_ok:
+        raise RuntimeError("train_4k: the kernels' gradient leaves the per-leaf band of "
+                           "the plain attention's, or parts from it past LM_GRAD_REL")
+    record = flash_bwd_record(ptxas)
+    torch.cuda.empty_cache()
+
+    # --- long_500k: B=1 over a cache of 524,287 tokens, 72 layers ---
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, (params, cache, tok, cache_len), meta = granite.build_cell("long_500k", dev, LM_SEED)
+    step(params, cache, tok, cache_len)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = meta["cfg"]
+    build.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(LONG_DECODE_STEPS):
+        logits, cache = step(params, cache, tok, cache_len)
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / LONG_DECODE_STEPS
+    by_path["lm_long_500k"] = launches = dict(build.launch_counts)
+    check_launches("8b lm train", "lm_long_500k", launches, {})
+    if logits.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"long_500k: bad logits {tuple(logits.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = ev[0].elapsed_time(ev[1]) / LONG_DECODE_STEPS
+    moved = nbytes(*tree_leaves(params), cache["k"], cache["v"])
+    b_ms, b_by = bound_ms(moved, meta["model_flops"], PEAK_BF16_FLOPS)
+    say("8b lm train", f"long_500k: B=1, {cfg.n_layers} layers, cache_len {cache_len} of "
+        f"{meta['seq']} (built and one step in {build_s:.1f} s): {dev_ms:.3f} ms per step by "
+        f"CUDA events, {1e3 * wall:.3f} ms by host clock | bound {b_ms:.3f} ms ({b_by}: "
+        f"{moved / 1e9:.2f} GB of weights and cache) | peak device memory {peak / 2**30:.2f} "
+        f"GiB ({peak / 1e9:.2f} GB) | cut (reference, here): {meta['reduced']} | launches "
+        f"{launches} | {smi}")
+    say("8b lm train", "long_500k: one step " + profile_line(
+        lambda: step(params, cache, tok, cache_len)))
+    del step, params, cache, logits
+    torch.cuda.empty_cache()
+    return by_path, record
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5335,6 +5736,10 @@ def main():
     lap("7 dlrm")
     by_path.update(phase_lm(smi))
     lap("8 lm")
+    lm_paths, bwd_record = phase_lm_train(ptxas, smi)
+    by_path.update(lm_paths)
+    records.append(bwd_record)
+    lap("8b lm train")
     # each kernel's own path first, then every other path that must use it:
     # training for the fused NMP pair (its bf16 entries: the bf16 training
     # steps, then the bf16 engine and R=4 runs), the R=4 packed-neighbor gradient run
@@ -5383,7 +5788,9 @@ def main():
                        "dist_r4_grad") + r4 + ml_r4 + plan_halo + res_halo
            + ("gc_ep_packed",) + zoo_halo,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
-           fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32"),
+           fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32",
+                       "lm_train", "lm_train_grad_check"),
+           fa.KERNEL_BWD: ("lm_train", "lm_train_grad_check"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),
            sa.KERNEL_BF16: ("train_bf16", "serve_bf16", "consistency_r4_bf16_blocking",
                             "consistency_r4_bf16_overlap", "grad_r4_bf16_blocking",

@@ -8,6 +8,11 @@ arrays (``jax.tree.map(np.asarray, params)``) and returns tensors on
 leaf as float32; ``params_to_jax`` returns the numpy tree ``repro`` takes
 (``jax.tree.map(jnp.asarray, tree)`` on the caller's side).
 
+``lm_train_state_from_jax`` / ``lm_train_state_to_jax`` carry the LM
+train state of ``repro``'s ``lm_init_train_state`` (``{"params": fp32
+master, "opt": {"m", "v", "step"}}``, moments fp32 or bf16) across, the
+step an int32 scalar on the CPU as the port's AdamW keeps it.
+
 GraphCast's tree differs in one place: ``repro`` stacks the processor's
 layers along a leading axis for its scan (``proc``: one tree whose every
 leaf is ``[n_layers, ...]``), the port keeps a list of ``n_layers`` layer
@@ -37,7 +42,29 @@ def params_to_jax(tree):
         return {k: params_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_jax(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:           # numpy has no bfloat16: JAX's own type
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def lm_train_state_from_jax(np_state, device="cuda"):
+    """``repro``'s LM train state (numpy leaves) -> the port's, on
+    ``device``; bf16 moments bitwise."""
+    opt = np_state["opt"]
+    return {"params": params_from_jax(np_state["params"], device),
+            "opt": {"m": params_from_jax(opt["m"], device),
+                    "v": params_from_jax(opt["v"], device),
+                    "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32)}}
+
+
+def lm_train_state_to_jax(state):
+    """The port's LM train state -> ``repro``'s tree of numpy arrays."""
+    opt = state["opt"]
+    return {"params": params_to_jax(state["params"]),
+            "opt": {"m": params_to_jax(opt["m"]), "v": params_to_jax(opt["v"]),
+                    "step": np.asarray(int(opt["step"]), dtype=np.int32)}}
 
 
 def _unstack(np_tree, i):

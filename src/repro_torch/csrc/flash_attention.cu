@@ -60,6 +60,12 @@
 // TF32; a SIMT loop with eight lanes per query row, 32-key tiles in shared
 // memory.  Head dims 16, 32, 64 and 128 (the wrapper raises on others).
 //
+// The row log-sum-exp: when the entry is given an fp32 `lse` [B, Hq, S]
+// (not null), each row also writes m + log(max(l, 1e-20)) in natural units
+// (the bf16 kernel's m is in base 2 and is converted), the statistic that
+// the backward (csrc/flash_attention_bwd.cu) recomputes P from.  With a
+// null `lse` nothing else changes: the output is bitwise the same.
+//
 // C entry points return cudaGetLastError() (or the error of the tensor map
 // encoding or of the shared memory attribute); they launch on the given
 // stream and do not synchronise.  cuTensorMapEncodeTiled is taken through
@@ -75,12 +81,14 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                // [B, Hq, S] or null
   int64_t q_sb, q_ss, q_sh;  // element strides: batch, sequence, head
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -427,6 +435,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (row1 < p.S)
         *reinterpret_cast<uint32_t*>(O1 + j * 8) = pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
     }
+    if (p.lse != nullptr && tq4 == 0) {
+      float* lse = p.lse + ((int64_t)b * p.Hq + h) * p.S;
+      if (row0 < p.S) lse[row0] = m0 * kLn2 + logf(d0);
+      if (row1 < p.S) lse[row1] = m1 * kLn2 + logf(d1);
+    }
   }
 }
 
@@ -531,6 +544,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < VEC; ++c)
       O[i * kLanes * VEC + ln * VEC + c] = acc[i * VEC + c] / den;
+  if (p.lse != nullptr && ln == 0) p.lse[((int64_t)b * p.Hq + h) * p.S + qpos] = m + logf(den);
 }
 
 // ---------------------------------------------------------------------------
@@ -603,13 +617,13 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 }
 
 template <bool BF16>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int Hq,
              int Hkv, int D, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
              int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
              int causal, int window, float softcap, void* stream) {
   if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+  const Params p{q, k, v, o, lse, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  B, S, Hq, Hkv, scale, softcap, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -624,12 +638,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace
 
 #define FLASH_ARGS                                                                            \
-  const void *q, const void *k, const void *v, void *o, int B, int S, int Hq, int Hkv, int D, \
+  const void *q, const void *k, const void *v, void *o, float *lse, int B, int S, int Hq,     \
+      int Hkv, int D,                                                                         \
       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,     \
       int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale, int causal, int window,          \
       float softcap, void *stream
 #define FLASH_PASS                                                                       \
-  q, k, v, o, B, S, Hq, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, \
+  q, k, v, o, lse, B, S, Hq, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, \
       causal, window, softcap, stream
 
 extern "C" int flash_attention_bf16(FLASH_ARGS) { return dispatch<true>(FLASH_PASS); }

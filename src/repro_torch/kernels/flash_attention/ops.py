@@ -1,5 +1,5 @@
-"""Flash-attention forward: the CUDA kernel's wrapper (port of
-``repro.kernels.flash_attention.ops``).
+"""Flash attention: the CUDA kernels' wrapper (port of
+``repro.kernels.flash_attention.ops``) and its gradient.
 
 ``flash_attention(q, k, v, ...)`` takes ``repro``'s public layout, q
 ``[B, S, Hq, D]`` and k, v ``[B, S, Hkv, D]`` with ``Hq % Hkv == 0``, and
@@ -12,8 +12,16 @@ and q, k, v may be strided views (last dimension contiguous).
 
 Self-attention only (one sequence length S for queries and keys: every
 row then keeps its diagonal key, so the kernel may skip the key tiles that
-the mask leaves empty).  Forward-only, as the TPU kernel is: no
-``autograd.Function``; a call that would need a gradient raises.
+the mask leaves empty).  When a gradient is needed, the call goes through
+an ``autograd.Function``: its forward launches the same kernel, which also
+writes each row's log-sum-exp, and its backward launches
+``csrc/flash_attention_bwd.cu`` (kernel 6b: four kernels, each counted
+under ``KERNEL_BWD``), which recomputes P from that statistic.  On CPU
+tensors the Function runs the plain versions, :func:`attention_plain` and
+:func:`attention_plain_bwd`.  The TPU kernel is forward-only; the reference
+differentiates its ``blocked_attention`` under ``jax.checkpoint``, which
+is the gradient this backward computes.  The backward takes no softcap: no
+ported configuration sets one (Gemma-2 is ROADMAP queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -22,18 +30,30 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.flash_attention.ref import attention_plain, attention_plain_bwd
 
 KERNEL = "flash_attention"
+KERNEL_BWD = "flash_attention_bwd"
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# q, k, v, out, B, S, Hq, Hkv, D, 3 strides (batch, seq, head) for each of
-# q, k, v, scale, causal, window, softcap, stream
-_SIG = (_P, _P, _P, _P, _I, _I, _I, _I, _I, *([_I64] * 9), _F, _I, _I, _F, _P)
+# q, k, v, out, lse, B, S, Hq, Hkv, D, 3 strides (batch, seq, head) for each
+# of q, k, v, scale, causal, window, softcap, stream
+_SIG = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *([_I64] * 9), _F, _I, _I, _F, _P)
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _SIGNATURES = {name: _SIG for name in _ENTRY.values()}
+# q, k, v, out, dout, lse, delta, dq, dk_part, dv_part, dk, dv, B, S, Hq,
+# Hkv, D, groups, scale, causal, window, bf16_io, stream
+_BWD_SIG = (*([_P] * 12), *([_I] * 6), _F, _I, _I, _I, _P)
+#: the backward's kernels, one launch each per call, in order
+BWD_ENTRIES = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq", "flash_attention_bwd_reduce")
+_BWD_SIGNATURES = {name: _BWD_SIG for name in BWD_ENTRIES}
 HEAD_DIMS = (16, 32, 64, 128)
+# the backward's dK / dV kernel: keys per block, and blocks per SM that the
+# head groups aim at
+BWD_KEY_TILE, BWD_BLOCKS_PER_SM = 64, 4
 
-__all__ = ["KERNEL", "HEAD_DIMS", "flash_attention", "attention_plain"]
+__all__ = ["KERNEL", "KERNEL_BWD", "BWD_ENTRIES", "HEAD_DIMS", "flash_attention",
+           "flash_attention_bwd", "attention_plain", "attention_plain_bwd"]
 
 
 def _check(q, k, v):
@@ -48,17 +68,21 @@ def _check(q, k, v):
         raise ValueError(f"{KERNEL}: q on {q.device}, k on {k.device}, v on {v.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{KERNEL}: dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(f"{KERNEL} is forward-only: call it under torch.no_grad()")
 
 
-def _launch(q, k, v, scale, causal, window, softcap):
+def _entry(q):
     entry = _ENTRY.get(q.dtype)
     if entry is None:
         raise TypeError(f"{KERNEL}: dtype {q.dtype} is not float32 or bfloat16")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{KERNEL}: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    return entry
+
+
+def _launch(q, k, v, scale, causal, window, softcap, with_lse=False):
+    """-> out, or (out, lse [B, Hq, S] fp32) if ``with_lse``."""
+    entry = _entry(q)
     (B, S, Hq, D), Hkv = q.shape, k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{KERNEL}: head dim {D} not in {HEAD_DIMS}")
     # TMA tensor maps (bf16) and 16-byte loads (fp32): last dim contiguous,
     # strides and base addresses 16-byte aligned
     vec = 16 // q.element_size()
@@ -67,27 +91,113 @@ def _launch(q, k, v, scale, causal, window, softcap):
             raise ValueError(f"{KERNEL}: {name} strides {t.stride()} are not 16-byte "
                              "rows with a contiguous last dimension")
     out = torch.empty(B, S, Hq, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device) if with_lse else None
     lib = build.load(KERNEL, _SIGNATURES)
     code = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, B, S, Hq, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         scale, int(causal), int(window), float(softcap or 0.0), build.stream_of(q))
     build.check(lib, code, entry)
     build.count_launch(KERNEL)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def bwd_groups(B: int, S: int, Hq: int, Hkv: int, n_sm: int) -> int:
+    """Groups of the query heads that share a KV head, one block of the dK /
+    dV kernel each per key tile: enough blocks for ``BWD_BLOCKS_PER_SM``
+    per SM, no group empty."""
+    G = Hq // Hkv
+    blocks = -(-S // BWD_KEY_TILE) * B * Hkv
+    want = min(G, max(1, -(-BWD_BLOCKS_PER_SM * n_sm // blocks)))
+    per = -(-G // want)
+    return -(-G // per)
+
+
+def _dense(t):
+    """``t`` contiguous with a 16-byte aligned base (a copy if not)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, scale, causal, window):
+    _entry(q)
+    q, k, v, out, dout = (_dense(t) for t in (q, k, v, out, dout.to(q.dtype)))
+    (B, S, Hq, D), Hkv = q.shape, k.shape[2]
+    dev = q.device
+    groups = bwd_groups(B, S, Hq, Hkv, torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    delta = torch.empty(B, Hq, S, dtype=torch.float32, device=dev)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(k)
+    dk_part = torch.empty(groups, B, S, Hkv, D, dtype=torch.float32, device=dev)
+    dv_part = torch.empty_like(dk_part)
+    lib = build.load(KERNEL_BWD, _BWD_SIGNATURES)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, Hq, Hkv, D, groups, scale, int(causal), int(window),
+            int(q.dtype == torch.bfloat16), build.stream_of(q))
+    for entry in BWD_ENTRIES:
+        build.check(lib, getattr(lib, entry)(*args), entry)
+        build.count_launch(KERNEL_BWD)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention` from its inputs, its output,
+    the row log-sum-exp ``lse`` [B, Hq, S] of its forward and the output's
+    cotangent ``dout``: kernel 6b on CUDA tensors, :func:`attention_plain_bwd`
+    on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_plain_bwd(q, k, v, out, lse, dout, scale=scale, causal=causal,
+                                   window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"{KERNEL_BWD}: tensors on {q.device}, expected cpu or cuda")
+    return _launch_bwd(q, k, v, out, lse, dout, scale, causal, max(int(window), 0))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward, saving its row log-sum-exp, and kernel 6b."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        if q.device.type == "cpu":
+            out, lse = attention_plain(q, k, v, scale=scale, causal=causal, window=window,
+                                       return_lse=True)
+        else:
+            out, lse = _launch(q, k, v, scale, causal, window, None, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(scale=scale, causal=causal, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
                     softcap: float | None = None) -> torch.Tensor:
     """Online-softmax attention: scale, tanh ``softcap`` (None: off), the
     causal mask and a sliding ``window`` (``0 <= qpos - kpos < window``
-    when ``window > 0``).  See the module docstring for the layout."""
+    when ``window > 0``).  See the module docstring for the layout and the
+    gradient."""
     _check(q, k, v)
     if softcap is not None and softcap < 0:
         raise ValueError(f"{KERNEL}: softcap {softcap} must be positive (or None)")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{KERNEL}: tensors on {q.device}, expected cpu or cuda")
+    window = max(int(window), 0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if softcap is not None:
+            raise NotImplementedError(f"{KERNEL}: no gradient through a softcap yet; it "
+                                      "comes with ROADMAP queue 1 item 2 (Gemma-2)")
+        return _FlashAttention.apply(q, k, v, scale, causal, window)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, causal=causal, window=window,
                                softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"{KERNEL}: tensors on {q.device}, expected cpu or cuda")
-    return _launch(q, k, v, scale, causal, max(int(window), 0), softcap)
+    return _launch(q, k, v, scale, causal, window, softcap)

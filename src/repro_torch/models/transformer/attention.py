@@ -1,11 +1,13 @@
 """Attention: blocked (flash) prefill/forward and one-device decode (port of
 ``repro.models.transformer.attention``).
 
-``blocked_attention`` is the attention of every prefill and forward; the
-reference computes it with a nested ``lax.scan`` of online-softmax tiles,
-whose TPU twin is the Pallas flash kernel, and the port runs it through
-that kernel's CUDA counterpart (``kernels/flash_attention``): one launch
-per layer.  Decode attends one new token per sequence over the KV cache in
+``blocked_attention`` is the attention of every prefill, forward and
+training step; the reference computes it with a nested ``lax.scan`` of
+online-softmax tiles, whose TPU twin is the Pallas flash kernel, and
+differentiates it under ``jax.checkpoint``.  The port runs it through that
+kernel's CUDA counterpart (``kernels/flash_attention``): one launch per
+layer, and under autograd one backward call (kernel 6b, which recomputes
+the tiles from the saved row log-sum-exp).  Decode attends one new token per sequence over the KV cache in
 plain PyTorch (the reference has no kernel there either).  The
 sequence-sharded decode and its ``psum`` combine come with the multi-card
 slice; on one device the combine reduces to dividing by ``l``.
@@ -19,7 +21,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 
 def blocked_attention(q, k, v, *, scale: float):
     """Causal attention, q [B, S, Hq, D], k, v [B, S, Hkv, D] ->
-    [B, S, Hq, D] in q's dtype."""
+    [B, S, Hq, D] in q's dtype; differentiable (see the module docstring)."""
     return flash_attention(q, k, v, scale=scale, causal=True)
 
 

@@ -1,7 +1,9 @@
 """AdamW with the reference's production features (port of the AdamW part
-of ``repro.train.optimizer``): LR schedules (constant, warmup + cosine),
-global gradient-norm clipping, decoupled weight decay with a parameter
-mask, fp32 moments (the reference's bf16-moment option is not ported).
+of ``repro.train.optimizer``, and its ``accumulate_gradients``): LR
+schedules (constant, warmup + cosine), global gradient-norm clipping,
+decoupled weight decay with a parameter mask, and moments in
+``moment_dtype`` (fp32, or bf16 to halve their memory: upcast, updated in
+fp32 and rounded on store, as the reference's ``upd`` does).
 
 Plain tensor code, not ``torch.optim.AdamW``: the reference's b2 = 0.95,
 its global-norm clip and its decay mask differ from that class.  The
@@ -21,9 +23,10 @@ import torch
 from repro_torch.nn import global_norm, tree_map
 
 F32 = torch.float32
-# rows of a leaf that adamw_update_ updates at a time: its temporaries are
-# a few [CHUNK_ROWS, D] tensors (256 MB each for DLRM RM2's D=64 table)
-CHUNK_ROWS = 1 << 20
+# elements of a leaf that adamw_update_ updates at a time: its temporaries
+# are a few fp32 chunks of this size (256 MB each), whatever the leaf's
+# shape (a stacked [L, 6144, 24576] leaf is 4.8 GB in fp32 at L = 8)
+CHUNK_ELEMS = 1 << 26
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +62,7 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.0
     clip_norm: Optional[float] = 1.0
+    moment_dtype: torch.dtype = F32       # bf16 halves the moments' memory
     # params whose path matches any of these substrings are excluded from
     # weight decay (norms, biases)
     no_decay_substrings: tuple = ("ln", "norm", "bias", "b",)
@@ -66,7 +70,7 @@ class AdamWConfig:
 
 def init_adamw(params, cfg: AdamWConfig) -> dict:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=F32, device=p.device)
+        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32)}
 
@@ -100,37 +104,45 @@ def _step_scalars(state, cfg: AdamWConfig):
 
 
 def _leaf_update_(p, g, m, v, dmask, lr, bc1, bc2, cfg: AdamWConfig):
-    """AdamW for one fp32 leaf (or rows of one), written into p, m and v,
-    in the reference's expression order."""
-    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-    v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-    step_vec = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
+    """AdamW for one fp32 leaf (or a chunk of one) and its fp32 gradient,
+    written into p, m and v, in the reference's expression order: moments
+    of another dtype are upcast, updated in fp32 and rounded on store."""
+    m32, v32 = m.float(), v.float()         # m and v themselves when fp32
+    m32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v32.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+    step_vec = (m32 / bc1).div_(torch.sqrt(v32 / bc2).add_(cfg.eps))
     p.sub_(lr * step_vec.add_(cfg.weight_decay * dmask * p))
+    if m32.data_ptr() != m.data_ptr():
+        m.copy_(m32)
+        v.copy_(v32)
 
 
 @torch.no_grad()
 def adamw_update_(grads, state, params, cfg: AdamWConfig):
     """One AdamW step in place: writes the new params and moments into
     ``params``, ``state["m"]`` and ``state["v"]`` and the new step into
-    ``state``; returns (params, state, {"lr", "grad_norm"}).  Params, grads
-    and moments are fp32.
+    ``state``; returns (params, state, {"lr", "grad_norm"}).  Params are
+    fp32 and contiguous, moments fp32 or ``cfg.moment_dtype``; grads of any
+    floating dtype (clipped in their own dtype, then upcast, as the
+    reference clips them).
 
     The counterpart of the reference's donated train state: a functional
     update holds a clipped copy of the grads and new params, m and v beside
     the old ones, which at DLRM RM2's 3.2 B parameters (12.8 GB per copy)
     does not fit an 80 GB card.  The norm and the clip scale are computed
-    once; the update runs over ``CHUNK_ROWS`` rows of a leaf at a time, so
+    once; the update runs over ``CHUNK_ELEMS`` elements of a leaf's flat
+    view at a time (it is elementwise, so the chunking changes no bit), so
     its temporaries stay chunk-sized."""
     step, lr, bc1, bc2 = _step_scalars(state, cfg)
     gnorm = global_norm(grads)
     scale = None if cfg.clip_norm is None else _clip_scale(gnorm, cfg.clip_norm)
 
     def upd_(p, g, m, v, dmask):
-        p, g, m, v = (t if t.dim() else t.view(1) for t in (p, g, m, v))
-        for lo in range(0, p.shape[0], CHUNK_ROWS):
-            rows = slice(lo, lo + CHUNK_ROWS)
-            gc = g[rows] if scale is None else g[rows] * scale
-            _leaf_update_(p[rows], gc, m[rows], v[rows], dmask, lr, bc1, bc2, cfg)
+        p, g, m, v = (t.view(-1) for t in (p, g.contiguous(), m, v))
+        for lo in range(0, p.numel(), CHUNK_ELEMS):
+            part = slice(lo, lo + CHUNK_ELEMS)
+            gc = g[part] if scale is None else g[part] * scale.to(g.dtype)
+            _leaf_update_(p[part], gc.float(), m[part], v[part], dmask, lr, bc1, bc2, cfg)
 
     tree_map(upd_, params, grads, state["m"], state["v"], _decay_mask(params, cfg))
     state["step"] = step
@@ -145,5 +157,38 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
                                  "step": state["step"]}, copy(params), cfg)
 
 
-__all__ = ["AdamWConfig", "adamw_update", "adamw_update_", "constant_lr",
-           "init_adamw", "warmup_cosine"]
+# ---------------------------------------------------------------------------
+# gradient accumulation
+# ---------------------------------------------------------------------------
+
+def add_gradient_(acc, g):
+    """``acc += g`` in place as the reference adds ``g.astype(acc.dtype)``:
+    g is rounded to a narrower accumulator first (an fp32 accumulator holds
+    a bf16 g exactly, so it is added as it is)."""
+    acc.add_(g if g.dtype == acc.dtype or acc.dtype == F32 else g.to(acc.dtype))
+
+
+def accumulate_gradients(grad_fn, n_micro: int, into: Optional[Callable] = None):
+    """Wrap ``grad_fn(params, batch) -> (loss, grads)`` to average over
+    micro-batches: ``batch`` leaves have a leading [n_micro, ...] axis; the
+    loop keeps peak activation memory at one micro-batch.  Each
+    micro-batch's grads are added in place, in micro-batch order, into the
+    accumulators ``into(params)`` (a tree congruent with the grads; its
+    leaves may be views of larger tensors, and a narrower dtype rounds each
+    gradient first, :func:`add_gradient_`) or into zeros like ``params``.
+    Returns (mean loss, the accumulators divided by n_micro in place), as
+    the reference's scan."""
+    def wrapped(params, batch):
+        acc = (into or (lambda p: tree_map(torch.zeros_like, p)))(params)
+        loss = 0.0
+        for i in range(n_micro):
+            l_i, g = grad_fn(params, tree_map(lambda t: t[i], batch))
+            tree_map(add_gradient_, acc, g)
+            del g
+            loss = loss + l_i
+        return loss / n_micro, tree_map(lambda a: a.div_(n_micro), acc)
+    return wrapped
+
+
+__all__ = ["AdamWConfig", "accumulate_gradients", "add_gradient_", "adamw_update",
+           "adamw_update_", "constant_lr", "init_adamw", "warmup_cosine"]

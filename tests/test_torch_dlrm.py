@@ -187,10 +187,11 @@ def test_inplace_adamw_chunks_bitwise_and_functional_copies(opt, monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(
             nn.tree_leaves([params, state["m"], state["v"]]), nn.tree_leaves(before)))
         params, state = new_params, new_state
-        # chunks of 100 rows: smaller than the 960-row table, larger than
-        # the MLP leaves (above, every leaf fit in one chunk)
+        # chunks of 1000 elements: smaller than the table, larger than some
+        # MLP leaves, and not a multiple of every leaf's row width (above,
+        # every leaf fit in one chunk)
         with monkeypatch.context() as m:
-            m.setattr(optimizer, "CHUNK_ROWS", 100)
+            m.setattr(optimizer, "CHUNK_ELEMS", 1000)
             out = adamw_update_(grads, ip_state, ip_params, opt)
         assert out[0] is ip_params and out[1] is ip_state
         assert torch.equal(out[2]["grad_norm"], info["grad_norm"])

@@ -972,6 +972,138 @@ def test_granite_smoke_cells_on_card(cuda):
     torch.testing.assert_close(torch.stack(steps, 1), full[:, 129:140], rtol=1e-4, atol=1e-5)
 
 
+FLASH_BWD_CASES = [
+    # B, S, Hq, Hkv, D, causal, window: G = Hq / Hkv of 1, 2, 3, 4, 48;
+    # S of 1, around the 64-row tiles of the backward and at Granite's 4,096;
+    # every head dim; windows whose edge crosses a tile; non-causal rows
+    (1, 1, 2, 1, 64, True, 0), (1, 127, 3, 1, 128, True, 0), (1, 129, 4, 4, 16, True, 0),
+    (2, 96, 4, 2, 32, True, 0), (1, 257, 48, 1, 128, True, 0), (1, 300, 4, 1, 64, True, 130),
+    (1, 257, 2, 2, 32, False, 0), (1, 160, 8, 2, 16, False, 48),
+    (1, 4096, 48, 1, 128, True, 0)]
+
+
+def _flash_bwd_inputs(case, dtype, device):
+    B, S, Hq, Hkv, D, causal, window = case
+    gen = torch.Generator().manual_seed(S + 7 * Hq)
+    q, k, v, g = (torch.randn(B, S, h, D, generator=gen).to(dtype).to(device)
+                  for h in (Hq, Hkv, Hkv, Hq))
+    return q, k, v, g, dict(scale=D ** -0.5, causal=causal, window=window)
+
+
+def _bf16_leaf_ok(got, want):
+    """The reference's per-leaf bf16 band: 1e-2 x max(1, max |want|)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) <= 1e-2 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, case):
+    """Kernel 6b (four launches a call) on the forward kernel's output and
+    row log-sum-exp against ``attention_plain_bwd`` on the plain forward's
+    (so a wrong LSE shows): fp32 within TOL, or,
+    where the plain fp32 version itself parts from a float64 one past it
+    (dK and dV sum S x G = 196,608 terms at Granite's layer), no further
+    from float64 than 10x plain (the kernels' fp32 rule, F64_FACTOR in
+    chip_smoke.py); bf16 within the per-leaf band; a second call bitwise
+    the first."""
+    q, k, v, g, kw = _flash_bwd_inputs(case, dtype, cuda)
+    out, lse = fa._launch(q, k, v, kw["scale"], kw["causal"], kw["window"], None,
+                          with_lse=True)
+    n0 = build.launch_counts.get(fa.KERNEL_BWD, 0)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[fa.KERNEL_BWD] == n0 + len(fa.BWD_ENTRIES)
+    out_p, lse_p = fa.attention_plain(q, k, v, chunk=512, return_lse=True, **kw)
+    want = fa.attention_plain_bwd(q, k, v, out_p, lse_p, g, chunk=512, **kw)
+    exact = None
+    for i, (name, a, b) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        if dtype == torch.bfloat16:
+            assert _bf16_leaf_ok(a, b), name
+        elif not torch.allclose(a, b, **FLASH_TOL[dtype]):
+            exact = exact or fa.attention_plain_bwd(
+                *(t.double() for t in (q, k, v, out_p, lse_p, g)), chunk=512, **kw)
+            e = exact[i]
+            rel = float((a.double() - e).norm() / e.norm())
+            rel_plain = float((b.double() - e).norm() / e.norm())
+            assert rel <= 10 * rel_plain, (name, rel, rel_plain)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_kernel_rows_at_granite_layer(cuda):
+    """Kernel 6b at one Granite training micro-batch's layer (S=4,096, 48:1,
+    D=128, bf16), where late rows' gradients are about as small as the
+    per-leaf band's atol: each row of dq (a query of a head) and of dk, dv
+    (a key) within rel L2 1e-2 of the plain backward on the plain forward's
+    output and LSE, each row's norm floored at 1e-2 x the median row's
+    (query row 0's dq cancels to zero)."""
+    q, k, v, g, kw = _flash_bwd_inputs((1, 4096, 48, 1, 128, True, 0), torch.bfloat16, cuda)
+    out, lse = fa._launch(q, k, v, kw["scale"], True, 0, None, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    out_p, lse_p = fa.attention_plain(q, k, v, chunk=512, return_lse=True, **kw)
+    want = fa.attention_plain_bwd(q, k, v, out_p, lse_p, g, chunk=512, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        wn = b.norm(dim=-1)
+        rel = (a - b).norm(dim=-1) / wn.clamp_min(1e-2 * float(wn.median()))
+        assert float(rel.max()) <= 1e-2, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_lse_leaves_the_output_bitwise(cuda, dtype, d):
+    """Kernel 6 with and without its row log-sum-exp: the same output bit
+    for bit; the statistic against the plain version's."""
+    q, k, v, _, kw = _flash_bwd_inputs((2, 200, 6, 2, d, True, 0), dtype, cuda)
+    plain_out = fa.flash_attention(q, k, v, **kw)
+    out, lse = fa._launch(q, k, v, kw["scale"], kw["causal"], kw["window"], None,
+                          with_lse=True)
+    assert torch.equal(out, plain_out)
+    _, want = fa.attention_plain(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (2, 6, 200) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_granite_smoke_train_step_on_card(cuda):
+    """Two steps of the train cell at the smoke config in fp32 (16
+    micro-batches, remat "full"), its state built on the CPU and copied to
+    the card, against the same steps on the CPU: losses within the forward
+    band, the master weights within the gradient band; kernel 6 twice per
+    layer and micro-batch (forward and recompute), kernel 6b once (four
+    launches)."""
+    from repro_torch.configs.lm_common import LM_SHAPES
+    from repro_torch.nn import tree_map
+    cfg = granite_34b.smoke_config().with_(param_dtype=torch.float32,
+                                           train_microbatches=16, remat="full")
+    shape = dict(LM_SHAPES["train_4k"])
+    LM_SHAPES["train_4k"] = dict(shape, seq_len=140)
+    try:
+        step, (state, tok, tgt), meta = granite_34b.build_cell("train_4k", device="cpu",
+                                                               seed=0, cfg=cfg)
+    finally:
+        LM_SHAPES["train_4k"] = shape
+    on_card = {"params": tree_map(lambda t: t.to(cuda), state["params"]),
+               "opt": {"m": tree_map(lambda t: t.to(cuda), state["opt"]["m"]),
+                       "v": tree_map(lambda t: t.to(cuda), state["opt"]["v"]),
+                       "step": state["opt"]["step"].clone()}}
+    n0 = {k: build.launch_counts.get(k, 0) for k in (fa.KERNEL, fa.KERNEL_BWD)}
+    got = [float(step(on_card, tok.to(cuda), tgt.to(cuda))[1]["loss"]) for _ in range(2)]
+    L, n = cfg.n_layers, meta["n_micro"]
+    assert build.launch_counts[fa.KERNEL] - n0[fa.KERNEL] == 2 * 2 * L * n
+    assert build.launch_counts[fa.KERNEL_BWD] - n0[fa.KERNEL_BWD] == \
+        2 * L * n * len(fa.BWD_ENTRIES)
+    want = [float(step(state, tok, tgt)[1]["loss"]) for _ in range(2)]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    for a, b in zip(tree_leaves(on_card["params"]), tree_leaves(state["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=2e-5)
+
+
 MLP_AGG_E_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
                  torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 MLP_AGG_TOL = dict(rtol=1e-4, atol=1e-4)
