@@ -394,6 +394,12 @@ FLASH_CASES = [(1, 128, 2, 2, 64, True, 0, None), (2, 96, 4, 2, 32, True, 0, Non
                (1, 160, 2, 1, 64, True, 48, None), (1, 64, 2, 2, 128, False, 0, 30.0),
                (1, 72, 1, 1, 16, True, 0, None)]
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+# kernel 6b's own edge cases in bf16 (B, S, Hq, Hkv, D, causal, window): S one
+# below, at and one above its 64-row stages and 128-key / 128-row blocks, a
+# window ending inside a tile, Hq = Hkv
+FLASH_BWD_CASES = [(1, 63, 3, 1, 16, True, 0), (1, 65, 3, 1, 32, True, 0),
+                   (1, 127, 3, 1, 64, True, 0), (1, 129, 3, 1, 128, True, 0),
+                   (2, 320, 6, 3, 128, True, 100), (1, 128, 4, 4, 128, True, 0)]
 # the kernel's largest relative L2 error of one output row (one query of
 # one head) against the plain version, by dtype: TOL's atol is as large as
 # the outputs of late rows at S=32k, so each row is held to its own size.
@@ -649,9 +655,9 @@ def phase_device():
                "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
                "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
                "flash_attention_bwd_dkdv": ("flash_attention_bwd",
-                                            "flash_bwd_dkdv_bf16_kernelILi128E"),
+                                            "flash_bwd_dkdv_kernelILi128E"),
                "flash_attention_bwd_dq": ("flash_attention_bwd",
-                                          "flash_bwd_dq_bf16_kernelILi128E"),
+                                          "flash_bwd_dq_kernelILi128E"),
                "edge_mlp_agg": ("edge_mlp_agg", "edge_mlp_agg_kernelIfLi2E"),
                "edge_mlp_agg_bf16": ("edge_mlp_agg", "edge_mlp_agg_kernelI13__nv_bfloat16Li2E"),
                "halo_pack": ("halo_pack", "11pack_kernelILi4E"),
@@ -1651,8 +1657,10 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
     ROW_REL_TOL (at the Granite layer beside the reading of a planted
     fault, which must fail it), repeatability, times, bound and
     F.scaled_dot_product_attention's time where it computes the same
-    function (no window, no softcap).  ``cases=()`` runs the Granite layer
-    alone, the way two source trees are compared on one card:
+    function (no window, no softcap).  Then kernel 6b at FLASH_BWD_CASES
+    (bf16: the per-leaf band, bitwise repeated) and its time at one Granite
+    training layer (``flash_bwd_times``).  ``cases=()`` runs the Granite
+    layers alone, the way two source trees are compared on one card:
     ``python3 -c 'import chip_smoke as c; c.phase_flash_attention(
     c.phase_device()[1], cases=())'`` from the root of each tree."""
     import torch
@@ -1662,6 +1670,7 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
+    bwd_cases = FLASH_BWD_CASES if cases else ()
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in cases]
     cases.append((GRANITE_LAYER, torch.bfloat16))
     record = None
@@ -1763,6 +1772,39 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
                           planted_fault_row_rel_err=fault_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v, got, want
+    # kernel 6b at the edges of its tiles (bf16, the model's path), then its
+    # time at one Granite train_4k micro-batch's layer
+    for B, S, Hq, Hkv, D, causal, window in bwd_cases:
+        q, k, v, g = (torch.randn(B, S, h, D, generator=gen, device=dev, dtype=torch.bfloat16)
+                      for h in (Hq, Hkv, Hkv, Hq))
+        kb = dict(scale=D ** -0.5, causal=causal, window=window)
+        out, lse = fa._launch(q, k, v, D ** -0.5, causal, window, None, with_lse=True)
+        out_p, lse_p = fa.attention_plain(q, k, v, return_lse=True, **kb)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, g, **kb)
+        same = all(torch.equal(a, b) for a, b in zip(
+            grads, fa.flash_attention_bwd(q, k, v, out, lse, g, **kb)))
+        plain_g = fa.attention_plain_bwd(q, k, v, out_p, lse_p, g, **kb)
+        ok = same and all(bf16_leaf_ok(a.float(), b.float()) for a, b in zip(grads, plain_g))
+        say("2 kernels", f"flash_attention_bwd (kernel 6b) B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"causal={causal} window={window} bf16, {fa.bwd_groups(B, S, Hq, Hkv, 132, causal, window)} "
+            f"head groups on 132 SMs: max|err| dq, dk, dv vs plain " + ", ".join(
+                f"{float((a.float() - b.float()).abs().max()):.3g}"
+                for a, b in zip(grads, plain_g))
+            + f" (per-leaf band {BF_G} x max(1, max|plain|)), two calls bitwise {same} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"kernel 6b disagrees with its plain version or is not "
+                               f"repeatable at {(B, S, Hq, Hkv, D, causal, window)}")
+    B, S, Hq, Hkv, D, causal, window = LM_TRAIN_LAYER
+    q, k, v, g = (torch.randn(B, S, h, D, generator=gen, device=dev, dtype=torch.bfloat16)
+                  for h in (Hq, Hkv, Hkv, Hq))
+    out, lse = fa._launch(q, k, v, D ** -0.5, causal, window, None, with_lse=True)
+    say("2 kernels", f"flash_attention_bwd (kernel 6b) at one Granite train_4k micro-batch's "
+        f"layer B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16 (checked in phase 8b): "
+        + flash_bwd_times(q, k, v, out, lse, g, causal, window)[4]
+        + f" | ptxas dK/dV {ptxas['flash_attention_bwd_dkdv']}, dQ "
+        f"{ptxas['flash_attention_bwd_dq']}")
+    del q, k, v, g, out, lse
     torch.cuda.empty_cache()
     return record
 
@@ -5350,6 +5392,10 @@ def phase_lm(smi):
 # decode steps timed in long_500k
 LM_TRAIN_STEPS, LM_GRAD_LAYERS, LONG_DECODE_STEPS = 3, 2, 10
 LM_TRAIN_LAYER = (1, 4096, 48, 1, 128, True, 0)
+# kernel 6b's first design (mma.sync, synchronous loads) at LM_TRAIN_LAYER,
+# ms in PR 32's final run on an H100 80GB HBM3 at 700 W: printed beside
+# this run's time, never compared with it as a measurement of this run
+BWD_FIRST_DESIGN_MS = 4.612
 
 
 def state_digest(state):
@@ -5362,6 +5408,54 @@ def state_digest(state):
             t = t.view(torch.int16).to(torch.int32)
         out.append(checksum(t))
     return out
+
+
+def flash_bwd_times(q, k, v, out, lse, g, causal, window):
+    """Kernel 6b's time at a layer (CUDA events, mean of 10 calls) beside its
+    bound (5 products), the rates of the 5 products and of the 7 it runs
+    (dK/dV and dQ each recompute S and dP) and SDPA's backward (its
+    forward + backward less its forward, FlashAttention backend; None where
+    it does not run).  -> (ms, bound ms, bound by, library ms, text)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa
+    B, S, Hq, D = q.shape
+    scale = D ** -0.5
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, scale=scale,
+                                                causal=causal, window=window), 10)
+    pairs = attention_pairs(S, causal, window)
+    flops5, flops7 = 10 * D * Hq * B * pairs, 14 * D * Hq * B * pairs
+    moved = nbytes(q, k, v, out, lse, g, q, k, v)     # inputs, and dq, dk, dv
+    b_ms, b_by = bound_ms(moved, flops5, PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
+                                                  enable_gqa=True)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), gt)
+    lib_ms, lib_note = None, "not run (a window)"
+    if window == 0:
+        try:        # the yardstick only: the port never calls SDPA
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                lib_ms = cuda_ms(lib_fwd_bwd, 10) - cuda_ms(lib_fwd, 10)
+            lib_note = (f"{lib_ms:.4f} ms (FLASH_ATTENTION, forward + backward less forward; "
+                        f"6b {lib_ms / ms:.2f}x as fast)")
+        except RuntimeError as exc:
+            lib_note = f"not run ({str(exc)[:80]})"
+    text = (f"kernel {ms:.4f} ms = {b_ms / ms:.1%} of its bound {b_ms:.4f} ms ({b_by}, 5 "
+            f"products {flops5 / 1e9:.1f} GFLOP, {moved / 1e9:.3f} GB): {flops5 / ms / 1e9:.1f} "
+            f"TFLOP/s of the 5 products, {flops7 / ms / 1e9:.1f} TFLOP/s of the 7 it runs "
+            f"({flops7 / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1%} of the dense bf16 rate) | "
+            f"SDPA backward {lib_note} | the first design (mma.sync, PR 32's run) "
+            f"{BWD_FIRST_DESIGN_MS} ms")
+    return ms, b_ms, b_by, lib_ms, text
 
 
 def bwd_faults(q, k, v, out, lse, g, want, scale, groups):
@@ -5435,29 +5529,8 @@ def flash_bwd_record(ptxas):
     del faults
     ok = (same and band_ok and lse_err <= LSE_TOL["bfloat16"] and max(rows) <= row_tol
           and min(fault_rows) > row_tol)
-    ms = cuda_ms(kernel, 10)
+    ms, b_ms, b_by, lib_ms, times = flash_bwd_times(q, k, v, out, lse, g, causal, window)
     plain_ms = cuda_ms(plain, 1, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    gt = g.transpose(1, 2)
-
-    def lib_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                  scale=D ** -0.5, enable_gqa=True)
-
-    def lib_fwd_bwd():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=D ** -0.5,
-                                           enable_gqa=True)
-        return torch.autograd.grad(o, (qt, kt, vt), gt)
-    try:        # the yardstick only: the port never calls SDPA
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            lib_ms = cuda_ms(lib_fwd_bwd, 10) - cuda_ms(lib_fwd, 10)
-            lib_err = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
-                          for a, b in zip(lib_fwd_bwd(), want))
-        lib_note = (f"{lib_ms:.4f} ms (FLASH_ATTENTION, forward + backward less forward; "
-                    f"max|diff| vs plain {lib_err:.3g})")
-    except RuntimeError as exc:
-        lib_ms, lib_note = None, f"not run ({str(exc)[:80]})"
     pairs = attention_pairs(S, causal, window)
     fwd_ms = cuda_ms(lambda: fa._launch(q, k, v, D ** -0.5, causal, window, None,
                                         with_lse=True), 10)
@@ -5467,14 +5540,14 @@ def flash_bwd_record(ptxas):
                                   PEAK_BF16_FLOPS)
     lib_fwd_note = "not run"
     if lib_ms is not None:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            lib_fwd_note = f"{cuda_ms(lib_fwd, 10):.4f} ms"
+            lib_fwd_note = "{:.4f} ms".format(cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                       scale=D ** -0.5, enable_gqa=True), 10))
     say("8b lm train", f"flash_attention (kernel 6) with its LSE at that layer: {fwd_ms:.4f} ms "
         f"(bound {fwd_b_ms:.4f} ms, {fwd_b_by}), plain {fwd_plain_ms:.4f} ms, SDPA forward "
         f"{lib_fwd_note}")
-    flops = 10 * D * Hq * B * pairs
-    moved = nbytes(q, k, v, out, lse, g, *got)
-    b_ms, b_by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
     say("8b lm train", f"flash_attention_bwd (kernel 6b) at one micro-batch's layer B={B} S={S} "
         f"Hq={Hq} Hkv={Hkv} D={D} causal bf16, {groups} head groups, on kernel 6's output "
         f"and LSE (LSE max|err| vs plain {lse_err:.3g}, limit {LSE_TOL['bfloat16']}), "
@@ -5487,9 +5560,7 @@ def flash_bwd_record(ptxas):
         f"dv keys >= {FAULT_ROW} without head group 0's partial) read "
         f"{', '.join(f'{r:.3g}' for r in fault_rows)}, must exceed it; within the per-leaf "
         f"band: {', '.join(str(x) for x in fault_band)} -> {'ok' if ok else 'FAIL'} | two "
-        f"calls bitwise equal: {same} | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
-        f"of the 5 products), plain {plain_ms:.4f} ms, SDPA backward {lib_note}, bound "
-        f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, {moved / 1e9:.3f} GB) | ptxas "
+        f"calls bitwise equal: {same} | {times} | plain {plain_ms:.4f} ms | ptxas "
         f"dK/dV {ptxas['flash_attention_bwd_dkdv']}, dQ {ptxas['flash_attention_bwd_dq']}")
     if not ok:
         raise RuntimeError("flash attention backward (or kernel 6's LSE) disagrees with its "

@@ -14,49 +14,87 @@
 // precision of the model's bf16 einsums), every sum is fp32.
 //
 // Four kernels, launched by four entries (the wrapper counts each):
-//   (a) flash_bwd_delta: D per row (one warp a row).
-//   (b) flash_bwd_dkdv: one block per 64-key tile of one KV head and one
+//   (a) flash_bwd_delta: D per row (one warp a row); for bf16 also the
+//       row's lse * log2(e), both fp32 in rows padded to kRowPad, so (b)
+//       fetches a stage's 64 of each by one bulk copy.
+//   (b) flash_bwd_dkdv: one block per 128-key tile of one KV head and one
 //       group of the query heads that share it; it walks the group's heads
-//       and the query tiles that the causal mask / window leave non-empty
+//       and the query rows that the causal mask / window leave non-empty
 //       for its keys and writes fp32 partial dK, dV for its group.
-//   (c) flash_bwd_dq: one block per 64-row query tile of one head over its
+//   (c) flash_bwd_dq: one block per 128 query rows of one head over its
 //       non-empty key tiles (dQ has one writer).
 //   (d) flash_bwd_reduce: dK, dV = the groups' partials summed in group
 //       order, times scale for dK, rounded to the input's type.
 // No float atomics: every sum has a fixed order, so two launches are
 // bitwise equal (repeated training steps must be).
 //
-// Granite-34B-code's MQA (48 query heads over one KV head) is why (b)
-// splits the heads into groups: at B = 1, S = 4096 there are only 64 key
-// tiles of one KV head for 132 SMs; the wrapper picks the group count so
-// that (b) has about four blocks per SM (ops.BWD_BLOCKS_PER_SM).
+// What bounds it on the H100 SXM: operations.  One Granite-34B-code
+// training layer (B = 1, S = 4096, Hq = 48 over Hkv = 1, D = 128, causal)
+// needs 5 products of 2 * D * S^2 / 2 flops per head, 515.5 GFLOP -> 0.52
+// ms at 989 TFLOP/s bf16, against 0.21 GB of inputs and outputs.  (b) and
+// (c) both recompute S and dP, so 7 products run (0.73 ms at the dense
+// rate): in exchange dQ has one writer and needs no ordered cross-block
+// sum (a single pass with ordered dQ accumulation is ROADMAP's next lead).
 //
-// What bounds it on the H100 SXM: operations.  One Granite layer (B = 1,
-// S = 4096, Hq = 48, D = 128, causal) needs 5 products of 2 * D * S^2 / 2
-// flops per head, 515 GFLOP -> 0.52 ms at 989 TFLOP/s bf16, against 0.2 GB
-// of inputs and outputs.  This first design recomputes S and dP in both (b)
-// and (c), 7 products instead of 5, on mma.sync.m16n8k16 (bf16 in, fp32
-// sums) from padded shared-memory tiles loaded synchronously: simple and
-// exact before it is fast (ROADMAP: a wgmma / TMA redesign is a speed lead).
+// bf16 design (the model's path), kernel 6's machinery (csrc/flash_attention.cuh):
+// - (b): 384 threads, one producer warpgroup and two consumer warpgroups
+//   of 64 keys each (wgmma M = 64).  K and V (128 keys) arrive once by TMA
+//   and stay in shared memory; the producer's one thread keeps a ring of
+//   kStagesB (Q, dO) stages of 64 query rows in flight by TMA, each with
+//   its 64 lse and D values by bulk copy, on full / empty mbarriers.  Per
+//   stage a consumer warpgroup runs S^T = K Q^T and dP^T = V dO^T on
+//   wgmma m64n64k16 from shared memory (both K-major), forms P^T =
+//   exp2(S^T scale log2(e) - lse log2(e)) and dS^T = P^T o (dP^T - D) in
+//   fp32 registers, and runs dV += P^T dO and dK += dS^T Q with P^T and
+//   dS^T rounded to bf16 as register A operands (the m64n64 accumulator is
+//   the A fragment of four k16 slices) and dO, Q read MN-major through the
+//   descriptor's transpose bit, m64nDk16.  dK and dV stay in registers
+//   (128 fp32 a thread at D = 128): setmaxnreg gives the consumers 240
+//   registers and the producer 24.  A stage whose pairs are all masked
+//   for a warpgroup's keys is skipped; the mask is evaluated only on
+//   stages that cross the diagonal, the window edge or S.  Grid (group,
+//   key tile, batch x KV head): the key tiles ascend, so under the causal
+//   mask the heaviest blocks (the early keys see every later query) are
+//   dispatched first; ops.bwd_groups picks the group count that balances
+//   the blocks over the SMs at one block per SM.  Shared memory at D = 128:
+//   K, V 64 KB + 3 stages x 33 KB.
+// - (c): the same three warpgroups, 64 query rows per consumer
+//   warpgroup; Q and dO (128 rows) arrive once by TMA, a ring of kStagesC
+//   (K, V) stages of 128 keys by TMA, as in kernel 6's forward.  Per stage:
+//   S = Q K^T and dP = dO V^T on wgmma m64n128k16 from shared memory, dS
+//   in fp32 registers, dQ += dS K with dS in registers as the A operand
+//   and K read MN-major.  Shared memory at D = 128: Q, dO 64 KB + 2
+//   stages x 64 KB.  Grid (head, query tile, batch) with the tiles in
+//   reverse order: the longest rows first, and the heads of one tile,
+//   which read the same K / V rows, side by side in L2.
+// - What the design does about the first design's limits (mma.sync
+//   products, synchronous loads into padded tiles behind __syncthreads,
+//   4-warp blocks of 64 keys x 32 rows a step, 242 registers at the cap):
+//   every product is a wgmma; every tile arrives by TMA (or bulk copy)
+//   while the consumers compute on the stage before; a Q / dO byte read
+//   by (b) serves 128 keys (was 64) and a K / V byte read by (c) 128 rows
+//   (was 64); the 7-product structure stays (see above).
 //
 // fp32 (the tests' sweep; the model never runs it): SIMT, eight lanes per
 // row as the forward's fp32 kernel.  Head dims 16, 32, 64, 128.  Softcap
 // has no backward here (no ported configuration sets one).
 //
 // Layouts: q, o, dO, dQ contiguous [B, S, Hq, D]; k, v, dK, dV contiguous
-// [B, S, Hkv, D]; lse, D fp32 [B, Hq, S]; partials fp32 [G, B, S, Hkv, D].
-// C entry points launch on the given stream, do not synchronise, and
-// return cudaGetLastError().
+// [B, S, Hkv, D]; lse fp32 [B, Hq, S]; `delta` fp32, [B, Hq, S] (fp32) or
+// [2][B, Hq, Sp] (bf16: D, then lse * log2(e); Sp = S rounded up to
+// kRowPad = ops.BWD_ROW_TILE); partials fp32 [G, B, S, Hkv, D].  C entry
+// points launch on the given stream, do not synchronise, and return
+// cudaGetLastError() (or the error of a tensor map encoding or of the
+// shared memory attribute).
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_attention.cuh"  // Tile, wgmma products, tensor maps (shared with the forward)
+
 namespace {
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-using bf16 = __nv_bfloat16;
 
 struct Bwd {
   const void* q;
@@ -107,26 +145,43 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
 
+// bf16: the rows of D and lse * log2(e) are padded to a multiple of this
+// (the query rows of one (b) stage)
+constexpr int kRowPad = 64;
+
+__host__ __device__ __forceinline__ int padded_rows(int S) {
+  return (S + kRowPad - 1) / kRowPad * kRowPad;
+}
+
 // ---------------------------------------------------------------------------
 // (a) D = rowsum(dO o O), (d) the partials' reduction
 // ---------------------------------------------------------------------------
 
+// Rows (b, s, h) for s < Sp, one warp each, into delta [B, Hq, Sp]; with
+// `lse2` (bf16) also lse * log2(e) into lse2 [B, Hq, Sp]; rows past S zero.
 template <typename T>
-__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const Bwd p, int D) {
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const Bwd p, int D, int Sp,
+                                                              float* lse2) {
   const int64_t row = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;  // (b, s, h)
   const int lane = threadIdx.x % 32;
-  if (row >= (int64_t)p.B * p.S * p.Hq) return;
-  const T* o = static_cast<const T*>(p.o) + row * D;
-  const T* g = static_cast<const T*>(p.dout) + row * D;
+  if (row >= (int64_t)p.B * Sp * p.Hq) return;
+  const int h = (int)(row % p.Hq);
+  const int64_t bs = row / p.Hq;
+  const int s = (int)(bs % Sp), b = (int)(bs / Sp);
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum = fmaf(to_f(o[d]), to_f(g[d]), sum);
+  if (s < p.S) {
+    const int64_t at = (((int64_t)b * p.S + s) * p.Hq + h) * D;
+    const T* o = static_cast<const T*>(p.o) + at;
+    const T* g = static_cast<const T*>(p.dout) + at;
+    for (int d = lane; d < D; d += 32) sum = fmaf(to_f(o[d]), to_f(g[d]), sum);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) {
-    const int h = (int)(row % p.Hq);
-    const int64_t bs = row / p.Hq;
-    const int s = (int)(bs % p.S), b = (int)(bs / p.S);
-    p.delta[((int64_t)b * p.Hq + h) * p.S + s] = sum;
+    const int64_t at = ((int64_t)b * p.Hq + h) * Sp + s;
+    p.delta[at] = sum;
+    if (lse2 != nullptr)
+      lse2[at] = s < p.S ? p.lse[((int64_t)b * p.Hq + h) * p.S + s] * kLog2e : 0.f;
   }
 }
 
@@ -145,304 +200,353 @@ __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const Bwd p, int6
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync.m16n8k16 on padded shared-memory tiles
+// bf16: TMA rings on mbarriers, a producer and two wgmma consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kTileKB = 64;  // (b): keys per block, 16 per warp
-constexpr int kTileQB = 32;  // (b): query rows per step
-constexpr int kTileQC = 64;  // (c): query rows per block, 16 per warp
-constexpr int kTileKC = 64;  // (c): keys per step
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows (keys or queries) each
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kKeysB = 128;    // (b): keys per block
+constexpr int kRowsB = 64;     // (b): query rows per ring stage
+constexpr int kStagesB = 3;    // (b): (Q, dO) ring depth
+constexpr int kRowsC = 128;    // (c): query rows per block
+constexpr int kKeysC = 128;    // (c): keys per ring stage
+constexpr int kStagesC = 2;    // (c): (K, V) ring depth
+constexpr int kRegsProducer = 24, kRegsConsumer = 240;  // 128 x 24 + 256 x 240 = 65,536 - 1,024
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (16 x 8, fp32) += a (16 x 16, row) * b (16 x 8, col).  Fragments (lane =
-// 4 g + c): a[0] (g, 2c..2c+1), a[1] (g + 8, 2c..), a[2] (g, 2c + 8..),
-// a[3] (g + 8, 2c + 8..); b[0] (k 2c..2c+1, n g), b[1] (k 2c + 8.., n g);
-// d[0..1] (g, 2c..2c+1), d[2..3] (g + 8, 2c..2c+1).  So the d fragments of
-// two neighbouring n-tiles are the a fragment of one k16 step.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8 x 8 matrices: lanes 8 m .. 8 m + 7 give the rows of
-// matrix m; lane (g, c) receives rows 2c, 2c + 1 of column g of each.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + n) of head h of a contiguous [B, S, H, D] bf16 tensor into
-// a [n][D + 8] shared tile, zeros past S; 16-byte copies by every thread
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int b, int r0, int n,
-                                          int h, int S, int H) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < n * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (((int64_t)b * S + r0 + r) * H + h) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-  }
-}
-
-// A fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of a padded tile
-template <int D>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int r0, int k0, int g,
-                                       int c) {
-  constexpr int P = D + 8;
-  a[0] = ld32(t + (r0 + g) * P + k0 + 2 * c);
-  a[1] = ld32(t + (r0 + g + 8) * P + k0 + 2 * c);
-  a[2] = ld32(t + (r0 + g) * P + k0 + 2 * c + 8);
-  a[3] = ld32(t + (r0 + g + 8) * P + k0 + 2 * c + 8);
-}
-
-// acc[j] (16 x 8 n-tile j over D) += a (16 x 16 over rows [k0, k0 + 16) of
-// the padded tile t) * t[k0 .. k0 + 16][:]: t is row-major [k][n], read
-// transposed by ldmatrix, two n-tiles per load
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                         const bf16* t, int k0, int lane) {
-  constexpr int P = D + 8;
-  const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    uint32_t r[4];
-    ldsm_x4_trans(r, smem_addr(t + row * P + 16 * j + col));
-    mma(acc[2 * j], a, r[0], r[1]);
-    mma(acc[2 * j + 1], a, r[2], r[3]);
-  }
-}
-
+// K, V, the Q ring, the dO ring (each tile 1024-byte aligned, as the
+// 128-byte swizzle needs), the lse and D rings, then the mbarriers; 1 KB
+// of slack aligns the base.
 template <int D>
 constexpr int smem_dkdv() {
-  return (2 * kTileKB + 2 * kTileQB) * (D + 8) * 2 + 2 * kTileQB * 4;
+  return 2 * Tile<D>::kBytes + kStagesB * (2 * Tile<D, kRowsB>::kBytes + 2 * kRowsB * 4) +
+         8 * (1 + 2 * kStagesB) + 1024;
 }
+// Q, dO, the K ring, the V ring, the mbarriers
 template <int D>
 constexpr int smem_dq() {
-  return (2 * kTileQC + 2 * kTileKC) * (D + 8) * 2;
+  return 2 * Tile<D>::kBytes + 2 * kStagesC * Tile<D, kKeysC>::kBytes + 8 * (1 + 2 * kStagesC) +
+         1024;
 }
 
-// (b) partial dK, dV of one 64-key tile for one group of query heads
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkdv_bf16_kernel(const Bwd p) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kTileKB * P;
-  bf16* sQ = sV + kTileKB * P;
-  bf16* sG = sQ + kTileQB * P;  // dO
-  float* sL = reinterpret_cast<float*>(sG + kTileQB * P);  // lse * log2(e)
-  float* sD = sL + kTileQB;                               // D
+__device__ __forceinline__ void init_ring(uint32_t once, uint32_t full, uint32_t empty,
+                                          int stages) {
+  mbar_init(once, 1);
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(full + 8 * s, 1);
+    mbar_init(empty + 8 * s, kConsumers * 4);  // one arrival per consumer warp
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  const int k0 = blockIdx.x * kTileKB;
-  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv, grp = blockIdx.z;
+// (b) partial dK, dV of one 128-key tile for one group of query heads
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Bwd p) {
+  using TK = Tile<D>;          // K, V: 128 key rows
+  using TQ = Tile<D, kRowsB>;  // one stage's Q, dO: 64 query rows
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sK = (base + 1023u) & ~1023u;
+  const uint32_t sV = sK + TK::kBytes;
+  const uint32_t sQ = sV + TK::kBytes;              // stage s at sQ + s * TQ::kBytes
+  const uint32_t sG = sQ + kStagesB * TQ::kBytes;   // dO, likewise
+  const uint32_t sL = sG + kStagesB * TQ::kBytes;   // lse * log2(e): kRowsB floats a stage
+  const uint32_t sD = sL + kStagesB * kRowsB * 4;   // D, likewise
+  const uint32_t kv_full = sD + kStagesB * kRowsB * 4;
+  const uint32_t full = kv_full + 8;                // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kStagesB;       // empty[s] at empty + 8 s
+
+  const int grp = blockIdx.x, k0 = blockIdx.y * kKeysB;
+  const int b = blockIdx.z / p.Hkv, hk = blockIdx.z % p.Hkv;
   const int G = p.Hq / p.Hkv, per = (G + p.groups - 1) / p.groups;
   const int h_lo = hk * G + min(G, grp * per), h_hi = hk * G + min(G, (grp + 1) * per);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
-  const float sl = p.scale * kLog2e;
-
-  load_rows<D>(sK, static_cast<const bf16*>(p.k), b, k0, kTileKB, hk, p.S, p.Hkv);
-  load_rows<D>(sV, static_cast<const bf16*>(p.v), b, k0, kTileKB, hk, p.S, p.Hkv);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
   int q_lo, q_hi;
-  query_range(p, k0, kTileKB, q_lo, q_hi);
-  const int kr = 16 * warp;  // this warp's first key row in the tile
-  for (int h = h_lo; h < h_hi; ++h) {
-    for (int q0 = q_lo / kTileQB * kTileQB; q0 < q_hi; q0 += kTileQB) {
-      __syncthreads();  // the previous step's tiles are read
-      load_rows<D>(sQ, static_cast<const bf16*>(p.q), b, q0, kTileQB, h, p.S, p.Hq);
-      load_rows<D>(sG, static_cast<const bf16*>(p.dout), b, q0, kTileQB, h, p.S, p.Hq);
-      if (threadIdx.x < kTileQB) {
-        const int q = q0 + threadIdx.x;
-        const int64_t at = ((int64_t)b * p.Hq + h) * p.S + q;
-        sL[threadIdx.x] = q < p.S ? p.lse[at] * kLog2e : 0.f;
-        sD[threadIdx.x] = q < p.S ? p.delta[at] : 0.f;
-      }
-      __syncthreads();
+  query_range(p, k0, kKeysB, q_lo, q_hi);
+  const int t_first = q_lo / kRowsB, t_end = (q_hi + kRowsB - 1) / kRowsB;
+  const int Sp = padded_rows(p.S);
 
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 query rows a warp
-      float st[kTileQB / 8][4], dpt[kTileQB / 8][4];
-#pragma unroll
-      for (int n = 0; n < kTileQB / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a<D>(ak, sK, kr, 16 * kk, g, c);
-        frag_a<D>(av, sV, kr, 16 * kk, g, c);
-#pragma unroll
-        for (int n = 0; n < kTileQB / 8; ++n) {
-          const bf16* qr = sQ + (8 * n + g) * P + 16 * kk + 2 * c;
-          const bf16* gr = sG + (8 * n + g) * P + 16 * kk + 2 * c;
-          mma(st[n], ak, ld32(qr), ld32(qr + 8));
-          mma(dpt[n], av, ld32(gr), ld32(gr + 8));
-        }
+  if (threadIdx.x == 0) init_ring(kv_full, full, empty, kStagesB);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every copy ----
+    setmaxnreg_dec<kRegsProducer>();
+    if (threadIdx.x == kConsumers * 128) {
+      const float* lse2 = p.delta + (int64_t)p.B * p.Hq * Sp;
+      mbar_expect_tx(kv_full, 2 * TK::kBytes);
+      for (int c = 0; c < TK::kBoxes; ++c) {
+        tma_load(sK + c * TK::kBoxBytes, &tk, kv_full, c * TK::C, k0, hk, b);
+        tma_load(sV + c * TK::kBoxBytes, &tv, kv_full, c * TK::C, k0, hk, b);
       }
-      // P^T = exp(s - lse) and dS^T = P^T (dP^T - D), masked to 0
-#pragma unroll
-      for (int n = 0; n < kTileQB / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + kr + g + 8 * (e >> 1), qi = 8 * n + 2 * c + (e & 1);
-          const float pr = key_ok(p, q0 + qi, kpos) ? ex2(st[n][e] * sl - sL[qi]) : 0.f;
-          st[n][e] = pr;
-          dpt[n][e] = pr * (dpt[n][e] - sD[qi]);
+      int i = 0;
+      for (int h = h_lo; h < h_hi; ++h)
+        for (int t = t_first; t < t_end; ++t, ++i) {
+          const int s = i % kStagesB;
+          const uint32_t f = full + 8 * s;
+          mbar_wait(empty + 8 * s, ((i / kStagesB) & 1) ^ 1);
+          mbar_expect_tx(f, 2 * TQ::kBytes + 2 * kRowsB * 4);
+          for (int c = 0; c < TQ::kBoxes; ++c) {
+            tma_load(sQ + s * TQ::kBytes + c * TQ::kBoxBytes, &tq, f, c * TQ::C, t * kRowsB, h, b);
+            tma_load(sG + s * TQ::kBytes + c * TQ::kBoxBytes, &tg, f, c * TQ::C, t * kRowsB, h, b);
+          }
+          const int64_t row = ((int64_t)b * p.Hq + h) * Sp + t * kRowsB;
+          bulk_load(sL + s * kRowsB * 4, lse2 + row, kRowsB * 4, f);
+          bulk_load(sD + s * kRowsB * 4, p.delta + row, kRowsB * 4, f);
         }
-      // dV += P^T dO, dK += dS^T Q: k16 step s over query rows 16 s ..
-#pragma unroll
-      for (int s = 0; s < kTileQB / 16; ++s) {
-        const uint32_t ap[4] = {pack2(st[2 * s][0], st[2 * s][1]),
-                                pack2(st[2 * s][2], st[2 * s][3]),
-                                pack2(st[2 * s + 1][0], st[2 * s + 1][1]),
-                                pack2(st[2 * s + 1][2], st[2 * s + 1][3])};
-        const uint32_t as[4] = {pack2(dpt[2 * s][0], dpt[2 * s][1]),
-                                pack2(dpt[2 * s][2], dpt[2 * s][3]),
-                                pack2(dpt[2 * s + 1][0], dpt[2 * s + 1][1]),
-                                pack2(dpt[2 * s + 1][2], dpt[2 * s + 1][3])};
-        mma_rows<D>(dv, ap, sG, 16 * s, lane);
-        mma_rows<D>(dk, as, sQ, 16 * s, lane);
-      }
     }
-  }
+  } else {
+    // ---- consumers: 64 keys per warpgroup ----
+    setmaxnreg_inc<kRegsConsumer>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int kw = k0 + 64 * wg;             // this warpgroup's first key
+    const int key0 = kw + 16 * warp + g;     // this thread's keys: key0, key0 + 8
+    const float sl = p.scale * kLog2e;
+    const float* Ls = reinterpret_cast<const float*>(smem_raw + (sL - base));
+    const float* Ds = reinterpret_cast<const float*>(smem_raw + (sD - base));
 
-  // this group's partials for keys k0 + kr + g (+ 8)
-  const int64_t n_all = (int64_t)p.B * p.S * p.Hkv * D;
+    float dk[D / 2], dv[D / 2], st[32], dpt[32];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int kpos = k0 + kr + g + 8 * half;
-    if (kpos >= p.S) continue;
-    const int64_t at = grp * n_all + (((int64_t)b * p.S + kpos) * p.Hkv + hk) * D + 2 * c;
+    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(p.dk_part + at + 8 * j) =
-          make_float2(dk[j][2 * half], dk[j][2 * half + 1]);
-      *reinterpret_cast<float2*>(p.dv_part + at + 8 * j) =
-          make_float2(dv[j][2 * half], dv[j][2 * half + 1]);
+    for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    __syncwarp();
+    int i = 0;
+    for (int h = h_lo; h < h_hi; ++h)
+      for (int t = t_first; t < t_end; ++t, ++i) {
+        const int s = i % kStagesB, q0 = t * kRowsB;
+        // every pair of this stage and this warpgroup's keys masked: skip
+        const bool none = kw >= p.S || (p.causal && q0 + kRowsB - 1 < kw) ||
+                          (p.window > 0 && q0 - (kw + 63) >= p.window);
+        mbar_wait(full + 8 * s, (i / kStagesB) & 1);
+        __syncwarp();  // wgmma is .aligned: the warp converges after the spin
+        if (!none) {
+          const uint32_t tQ = sQ + s * TQ::kBytes, tG = sG + s * TQ::kBytes;
+          // S^T = K Q^T, dP^T = V dO^T: 64 keys x 64 query rows, over D in k16 steps
+          fence_regs(st);
+          fence_regs(dpt);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            wgmma_qk(st, TK::k_desc(sK, 64 * wg, kk), TQ::k_desc(tQ, 0, kk), kk > 0);
+            wgmma_qk(dpt, TK::k_desc(sV, 64 * wg, kk), TQ::k_desc(tG, 0, kk), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(st);
+          fence_regs(dpt);
+
+          // P^T = exp2(s scale log2 e - lse log2 e), dS^T = P^T (dP^T - D); masked
+          // pairs 0 (the mask only where the stage is not wholly inside)
+          const bool inside = kw + 63 < p.S && q0 + kRowsB <= p.S &&
+                              (!p.causal || kw + 63 <= q0) &&
+                              (p.window <= 0 || q0 + kRowsB - 1 - kw < p.window);
+          const float* L = Ls + s * kRowsB;
+          const float* Dl = Ds + s * kRowsB;
+          uint32_t pa[4][4], da[4][4];  // A fragments of the four k16 slices
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l = *reinterpret_cast<const float2*>(L + 8 * j + 2 * c);
+            const float2 dd = *reinterpret_cast<const float2*>(Dl + 8 * j + 2 * c);
+            float pr[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float x = ex2(st[4 * j + e] * sl - ((e & 1) ? l.y : l.x));
+              if (!inside && !key_ok(p, q0 + 8 * j + 2 * c + (e & 1), key0 + 8 * (e >> 1)))
+                x = 0.f;
+              pr[e] = x;
+              ds[e] = x * (dpt[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+            }
+            // accumulator chunk j is half j % 2 of k16 slice j / 2
+            pa[j / 2][2 * (j % 2)] = pack_bf16(pr[0], pr[1]);
+            pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pr[2], pr[3]);
+            da[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+            da[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+          }
+
+          // dV += P^T dO, dK += dS^T Q: dO and Q [query rows, D] read MN-major
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pa);
+          fence_regs(da);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kRowsB / 16; ++kk) {
+            wgmma_pv(dv, pa[kk], TQ::mn_desc(tG, kk));
+            wgmma_pv(dk, da[kk], TQ::mn_desc(tQ, kk));
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pa);
+          fence_regs(da);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+
+    // this group's partials for keys key0 and key0 + 8
+    const int64_t n_all = (int64_t)p.B * p.S * p.Hkv * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kpos = key0 + 8 * half;
+      if (kpos >= p.S) continue;
+      const int64_t at = grp * n_all + (((int64_t)b * p.S + kpos) * p.Hkv + hk) * D + 2 * c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(p.dk_part + at + 8 * j) =
+            make_float2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+        *reinterpret_cast<float2*>(p.dv_part + at + 8 * j) =
+            make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      }
     }
   }
 }
 
-// (c) dQ of one 64-row query tile of one head
+// (c) dQ of 128 query rows of one head
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_bf16_kernel(const Bwd p) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sG = sQ + kTileQC * P;
-  bf16* sK = sG + kTileQC * P;
-  bf16* sV = sK + kTileKC * P;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Bwd p) {
+  using T = Tile<D>;            // Q, dO: 128 query rows
+  using TK = Tile<D, kKeysC>;   // one stage's K, V
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sG = sQ + T::kBytes;
+  const uint32_t sK = sG + T::kBytes;              // stage s at sK + s * TK::kBytes
+  const uint32_t sV = sK + kStagesC * TK::kBytes;  // stage s at sV + s * TK::kBytes
+  const uint32_t qg_full = sV + kStagesC * TK::kBytes;
+  const uint32_t full = qg_full + 8;
+  const uint32_t empty = full + 8 * kStagesC;
 
-  const int q0 = (int)(gridDim.x - 1 - blockIdx.x) * kTileQC;  // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (p.Hq / p.Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
-  const int qr = 16 * warp;
-  const float sl = p.scale * kLog2e;
-
-  load_rows<D>(sQ, static_cast<const bf16*>(p.q), b, q0, kTileQC, h, p.S, p.Hq);
-  load_rows<D>(sG, static_cast<const bf16*>(p.dout), b, q0, kTileQC, h, p.S, p.Hq);
-  float L[2], Dl[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int q = q0 + qr + g + 8 * half;
-    const int64_t at = ((int64_t)b * p.Hq + h) * p.S + q;
-    L[half] = q < p.S ? p.lse[at] * kLog2e : 0.f;
-    Dl[half] = q < p.S ? p.delta[at] : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kRowsC;  // longest rows first
+  const int hk = h / (p.Hq / p.Hkv);
   int k_lo, k_hi;
-  key_range(p, q0, kTileQC, k_lo, k_hi);
-  for (int k0 = k_lo / kTileKC * kTileKC; k0 < k_hi; k0 += kTileKC) {
-    __syncthreads();
-    load_rows<D>(sK, static_cast<const bf16*>(p.k), b, k0, kTileKC, hk, p.S, p.Hkv);
-    load_rows<D>(sV, static_cast<const bf16*>(p.v), b, k0, kTileKC, hk, p.S, p.Hkv);
-    __syncthreads();
+  key_range(p, q0, kRowsC, k_lo, k_hi);
+  const int t_begin = k_lo / kKeysC, t_end = (k_hi + kKeysC - 1) / kKeysC;
 
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
-    float s[kTileKC / 8][4], dp[kTileKC / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTileKC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      frag_a<D>(aq, sQ, qr, 16 * kk, g, c);
-      frag_a<D>(ag, sG, qr, 16 * kk, g, c);
-#pragma unroll
-      for (int n = 0; n < kTileKC / 8; ++n) {
-        const bf16* kr = sK + (8 * n + g) * P + 16 * kk + 2 * c;
-        const bf16* vr = sV + (8 * n + g) * P + 16 * kk + 2 * c;
-        mma(s[n], aq, ld32(kr), ld32(kr + 8));
-        mma(dp[n], ag, ld32(vr), ld32(vr + 8));
+  if (threadIdx.x == 0) init_ring(qg_full, full, empty, kStagesC);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    setmaxnreg_dec<kRegsProducer>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(qg_full, 2 * T::kBytes);
+      for (int c = 0; c < T::kBoxes; ++c) {
+        tma_load(sQ + c * T::kBoxBytes, &tq, qg_full, c * T::C, q0, h, b);
+        tma_load(sG + c * T::kBoxBytes, &tg, qg_full, c * T::C, q0, h, b);
+      }
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int s = i % kStagesC;
+        const uint32_t f = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((i / kStagesC) & 1) ^ 1);
+        mbar_expect_tx(f, 2 * TK::kBytes);
+        for (int c = 0; c < TK::kBoxes; ++c) {
+          tma_load(sK + s * TK::kBytes + c * TK::kBoxBytes, &tk, f, c * TK::C, t * kKeysC, hk, b);
+          tma_load(sV + s * TK::kBytes + c * TK::kBoxBytes, &tv, f, c * TK::C, t * kKeysC, hk, b);
+        }
       }
     }
-#pragma unroll
-    for (int n = 0; n < kTileKC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int qpos = q0 + qr + g + 8 * half, kpos = k0 + 8 * n + 2 * c + (e & 1);
-        const float pr = key_ok(p, qpos, kpos) ? ex2(s[n][e] * sl - L[half]) : 0.f;
-        dp[n][e] = pr * (dp[n][e] - Dl[half]);
-      }
-    // dQ += dS K: k16 step t over keys 16 t ..
-#pragma unroll
-    for (int t = 0; t < kTileKC / 16; ++t) {
-      const uint32_t as[4] = {pack2(dp[2 * t][0], dp[2 * t][1]),
-                              pack2(dp[2 * t][2], dp[2 * t][3]),
-                              pack2(dp[2 * t + 1][0], dp[2 * t + 1][1]),
-                              pack2(dp[2 * t + 1][2], dp[2 * t + 1][3])};
-      mma_rows<D>(dq, as, sK, 16 * t, lane);
-    }
-  }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    setmaxnreg_inc<kRegsConsumer>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int qa = q0 + 64 * wg;  // this warpgroup's first row
+    const int row0 = qa + 16 * warp + g, row1 = row0 + 8;
+    const float sl = p.scale * kLog2e;
+    const int Sp = padded_rows(p.S);
+    const int64_t rows = ((int64_t)b * p.Hq + h) * Sp;
+    const float* lse2 = p.delta + (int64_t)p.B * p.Hq * Sp;
+    const float L0 = row0 < p.S ? lse2[rows + row0] : 0.f, L1 = row1 < p.S ? lse2[rows + row1] : 0.f;
+    const float D0 = row0 < p.S ? p.delta[rows + row0] : 0.f;
+    const float D1 = row1 < p.S ? p.delta[rows + row1] : 0.f;
 
+    float dq[D / 2], sc[kKeysC / 2], dp[kKeysC / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int q = q0 + qr + g + 8 * half;
-    if (q >= p.S) continue;
-    bf16* out = static_cast<bf16*>(p.dq) + (((int64_t)b * p.S + q) * p.Hq + h) * D + 2 * c;
+    for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          pack2(dq[j][2 * half] * p.scale, dq[j][2 * half + 1] * p.scale);
+    for (int e = 0; e < kKeysC / 2; ++e) sc[e] = dp[e] = 0.f;
+
+    mbar_wait(qg_full, 0);
+    __syncwarp();
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int s = i % kStagesC, k0 = t * kKeysC;
+      // every pair of this warpgroup's rows and this stage masked: skip
+      const bool none = qa >= p.S || (p.causal && k0 > qa + 63) ||
+                        (p.window > 0 && qa - (k0 + kKeysC - 1) >= p.window);
+      mbar_wait(full + 8 * s, (i / kStagesC) & 1);
+      __syncwarp();
+      if (!none) {
+        const uint32_t tK = sK + s * TK::kBytes, tV = sV + s * TK::kBytes;
+        // S = Q K^T, dP = dO V^T: 64 rows x kKeysC keys, over D in k16 steps
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_qk(sc, T::k_desc(sQ, 64 * wg, kk), TK::k_desc(tK, 0, kk), kk > 0);
+          wgmma_qk(dp, T::k_desc(sG, 64 * wg, kk), TK::k_desc(tV, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        const bool inside = k0 + kKeysC <= p.S && qa + 63 < p.S &&
+                            (!p.causal || k0 + kKeysC - 1 <= qa) &&
+                            (p.window <= 0 || qa + 63 - k0 < p.window);
+        uint32_t da[kKeysC / 16][4];  // dS as the A fragments of its k16 slices
+#pragma unroll
+        for (int j = 0; j < kKeysC / 8; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1;
+            float x = ex2(sc[4 * j + e] * sl - (half ? L1 : L0));
+            if (!inside && !key_ok(p, half ? row1 : row0, k0 + 8 * j + 2 * c + (e & 1))) x = 0.f;
+            ds[e] = x * (dp[4 * j + e] - (half ? D1 : D0));
+          }
+          da[j / 2][2 * (j % 2)] = pack_bf16(ds[0], ds[1]);
+          da[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+        }
+
+        // dQ += dS K: K [keys, D] read MN-major
+        fence_regs(dq);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKeysC / 16; ++kk) wgmma_pv(dq, da[kk], TK::mn_desc(tK, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq);
+        fence_regs(da);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    const int64_t q_ss = (int64_t)p.Hq * D;
+    bf16* out = static_cast<bf16*>(p.dq) + ((int64_t)b * p.S + row0) * q_ss + (int64_t)h * D + 2 * c;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (row0 + 8 * half >= p.S) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + 8 * half * q_ss + 8 * j) =
+            pack_bf16(dq[4 * j + 2 * half] * p.scale, dq[4 * j + 2 * half + 1] * p.scale);
+    }
   }
 }
 
@@ -643,25 +747,48 @@ bool bad_shape(int B, int S, int Hq, int Hkv, int D, int groups) {
          groups > 65535 || !(D == 16 || D == 32 || D == 64 || D == 128);
 }
 
+// q and dO in boxes of RQ query rows, k and v in boxes of RK keys (dense
+// [B, S, H, D] tensors)
+template <int D, int RQ, int RK>
+int encode_all(const Bwd& p, CUtensorMap* tq, CUtensorMap* tg, CUtensorMap* tk,
+               CUtensorMap* tv) {
+  const int64_t qs = (int64_t)p.Hq * D, ks = (int64_t)p.Hkv * D;
+  int e = encode<D, RQ>(tq, p.q, p.B, p.S, p.Hq, p.S * qs, qs, D);
+  if (!e) e = encode<D, RQ>(tg, p.dout, p.B, p.S, p.Hq, p.S * qs, qs, D);
+  if (!e) e = encode<D, RK>(tk, p.k, p.B, p.S, p.Hkv, p.S * ks, ks, D);
+  if (!e) e = encode<D, RK>(tv, p.v, p.B, p.S, p.Hkv, p.S * ks, ks, D);
+  return e;
+}
+
 template <int D>
 int dkdv_bf16(const Bwd& p, cudaStream_t s) {
   constexpr int smem = smem_dkdv<D>();
-  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D>,
+  const int n_kt = (p.S + kKeysB - 1) / kKeysB;
+  if (n_kt > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tg, tk, tv;
+  const int e = encode_all<D, kRowsB, kKeysB>(p, &tq, &tg, &tk, &tv);
+  if (e) return e;
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + kTileKB - 1) / kTileKB, p.B * p.Hkv, p.groups);
-  flash_bwd_dkdv_bf16_kernel<D><<<grid, kWarps * 32, smem, s>>>(p);
+  const dim3 grid(p.groups, n_kt, p.B * p.Hkv);
+  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, s>>>(tq, tg, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dq_bf16(const Bwd& p, cudaStream_t s) {
   constexpr int smem = smem_dq<D>();
-  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+  const int n_qt = (p.S + kRowsC - 1) / kRowsC;
+  if (n_qt > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tg, tk, tv;
+  const int e = encode_all<D, kRowsC, kKeysC>(p, &tq, &tg, &tk, &tv);
+  if (e) return e;
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + kTileQC - 1) / kTileQC, p.Hq, p.B);
-  flash_bwd_dq_bf16_kernel<D><<<grid, kWarps * 32, smem, s>>>(p);
+  const dim3 grid(p.Hq, n_qt, p.B);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, s>>>(tq, tg, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -701,15 +828,16 @@ int dq_f32(const Bwd& p, cudaStream_t s) {
                      groups, scale, causal, window);                                          \
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-// (a) D = rowsum(dO o O) into `delta`
+// (a) D = rowsum(dO o O) into `delta` (bf16: and lse * log2(e) after it)
 extern "C" int flash_attention_bwd_delta(BWD_ARGS) {
   BWD_MAKE
-  const int64_t rows = (int64_t)B * S * Hq;
+  const int Sp = bf16_io ? padded_rows(S) : S;
+  const int64_t rows = (int64_t)B * Sp * Hq;
   const unsigned blocks = (unsigned)((rows + 7) / 8);
   if (bf16_io)
-    flash_bwd_delta_kernel<bf16><<<blocks, 256, 0, s>>>(p, D);
+    flash_bwd_delta_kernel<bf16><<<blocks, 256, 0, s>>>(p, D, Sp, delta + (int64_t)B * Hq * Sp);
   else
-    flash_bwd_delta_kernel<float><<<blocks, 256, 0, s>>>(p, D);
+    flash_bwd_delta_kernel<float><<<blocks, 256, 0, s>>>(p, D, Sp, nullptr);
   return (int)cudaGetLastError();
 }
 

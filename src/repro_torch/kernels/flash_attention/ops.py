@@ -26,6 +26,8 @@ ported configuration sets one (Gemma-2 is ROADMAP queue 1 item 2).
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 
 import torch
 
@@ -48,9 +50,11 @@ BWD_ENTRIES = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                "flash_attention_bwd_dq", "flash_attention_bwd_reduce")
 _BWD_SIGNATURES = {name: _BWD_SIG for name in BWD_ENTRIES}
 HEAD_DIMS = (16, 32, 64, 128)
-# the backward's dK / dV kernel: keys per block, and blocks per SM that the
-# head groups aim at
-BWD_KEY_TILE, BWD_BLOCKS_PER_SM = 64, 4
+# the backward's dK / dV kernel: keys per block and query rows per ring
+# stage (its bf16 rows of D and lse are padded to the stage), and what a
+# block costs beside its stages (loading K / V, writing its partials), in
+# stages of one head
+BWD_KEY_TILE, BWD_ROW_TILE, BWD_BLOCK_COST = 128, 64, 3
 
 __all__ = ["KERNEL", "KERNEL_BWD", "BWD_ENTRIES", "HEAD_DIMS", "flash_attention",
            "flash_attention_bwd", "attention_plain", "attention_plain_bwd"]
@@ -103,15 +107,51 @@ def _launch(q, k, v, scale, causal, window, softcap, with_lse=False):
     return (out, lse) if with_lse else out
 
 
-def bwd_groups(B: int, S: int, Hq: int, Hkv: int, n_sm: int) -> int:
-    """Groups of the query heads that share a KV head, one block of the dK /
-    dV kernel each per key tile: enough blocks for ``BWD_BLOCKS_PER_SM``
-    per SM, no group empty."""
+def _dkdv_stages(S: int, causal: bool, window: int) -> list:
+    """Query-row stages that each key tile of the dK / dV kernel walks per
+    head: the rows that the causal mask / window leave non-empty for its
+    keys, as the kernel enumerates them."""
+    out = []
+    for k0 in range(0, S, BWD_KEY_TILE):
+        lo = k0 if causal else 0
+        hi = min(S, k0 + BWD_KEY_TILE - 1 + window) if window > 0 else S
+        out.append(-(-hi // BWD_ROW_TILE) - lo // BWD_ROW_TILE)
+    return out
+
+
+def dkdv_schedule(B: int, S: int, Hq: int, Hkv: int, n_sm: int, causal: bool, window: int,
+                  groups: int) -> tuple:
+    """(end, work) of the dK / dV kernel's blocks at ``groups`` head groups
+    in the cost model of :func:`bwd_groups`: when the greedy schedule over
+    ``n_sm`` SMs (one block each, in grid order) ends, and the blocks' summed
+    cost, both in stages of one head."""
     G = Hq // Hkv
-    blocks = -(-S // BWD_KEY_TILE) * B * Hkv
-    want = min(G, max(1, -(-BWD_BLOCKS_PER_SM * n_sm // blocks)))
-    per = -(-G // want)
-    return -(-G // per)
+    per = -(-G // groups)
+    heads = [min(G, (j + 1) * per) - j * per for j in range(-(-G // per))]
+    sms, work = [0] * n_sm, 0
+    for n in _dkdv_stages(S, causal, window) * (B * Hkv):
+        for h in heads:
+            heapq.heapreplace(sms, sms[0] + h * n + BWD_BLOCK_COST)
+            work += h * n + BWD_BLOCK_COST
+    return max(sms), work
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_groups(B: int, S: int, Hq: int, Hkv: int, n_sm: int, causal: bool = True,
+               window: int = 0) -> int:
+    """Groups of the query heads that share a KV head, one block of the dK /
+    dV kernel each per key tile.  The blocks run one per SM and are
+    dispatched in grid order (every group of key tile 0, then of tile 1,
+    ...: the heaviest first under the causal mask); a block costs its heads
+    times its query stages plus ``BWD_BLOCK_COST``.  Returns the group count
+    whose greedy schedule of the blocks over ``n_sm`` SMs ends first
+    (:func:`dkdv_schedule`; the fewest groups among equals); no group is
+    empty."""
+    if -(-S // BWD_KEY_TILE) * B * Hkv >= 8 * n_sm:     # eight waves unsplit: no split pays
+        return 1
+    G = Hq // Hkv
+    return min(sorted({-(-G // per) for per in range(1, G + 1)}),
+               key=lambda groups: dkdv_schedule(B, S, Hq, Hkv, n_sm, causal, window, groups)[0])
 
 
 def _dense(t):
@@ -127,8 +167,11 @@ def _launch_bwd(q, k, v, out, lse, dout, scale, causal, window):
     (B, S, Hq, D), Hkv = q.shape, k.shape[2]
     dev = q.device
     groups = bwd_groups(B, S, Hq, Hkv, torch.cuda.get_device_properties(dev)
-                        .multi_processor_count)
-    delta = torch.empty(B, Hq, S, dtype=torch.float32, device=dev)
+                        .multi_processor_count, causal, window)
+    # D per row [B, Hq, S]; bf16: D and lse * log2(e), [2, B, Hq, Sp] with
+    # the rows padded to whole stages of the dK / dV kernel
+    Sp = -(-S // BWD_ROW_TILE) * BWD_ROW_TILE
+    delta = torch.empty(2, B, Hq, Sp, dtype=torch.float32, device=dev)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(k)
     dk_part = torch.empty(groups, B, S, Hkv, D, dtype=torch.float32, device=dev)

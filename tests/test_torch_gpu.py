@@ -979,7 +979,13 @@ FLASH_BWD_CASES = [
     (1, 1, 2, 1, 64, True, 0), (1, 127, 3, 1, 128, True, 0), (1, 129, 4, 4, 16, True, 0),
     (2, 96, 4, 2, 32, True, 0), (1, 257, 48, 1, 128, True, 0), (1, 300, 4, 1, 64, True, 130),
     (1, 257, 2, 2, 32, False, 0), (1, 160, 8, 2, 16, False, 48),
-    (1, 4096, 48, 1, 128, True, 0)]
+    (1, 4096, 48, 1, 128, True, 0)] + [
+    # S one below, at and one above the dK / dV kernel's 64-row stages and
+    # 128-key blocks and the dQ kernel's 128-row blocks, at every head dim
+    (1, S, 3, 1, D, True, 0) for D in (16, 32, 64, 128) for S in (63, 64, 65, 127, 128, 129)] + [
+    # a window that ends inside a tile; 9 heads in 5 groups (ops.bwd_groups
+    # on 132 SMs: 2, 2, 2, 2, 1); Hq = Hkv at the 128-key block
+    (2, 320, 6, 3, 128, True, 100), (1, 2048, 9, 1, 64, False, 0), (1, 128, 4, 4, 128, True, 0)]
 
 
 def _flash_bwd_inputs(case, dtype, device):

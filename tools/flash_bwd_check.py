@@ -7,7 +7,8 @@ the backward on the kernel's output and LSE to ``attention_plain_bwd`` on
 the plain forward's (fp32 within rtol / atol 2e-5; bf16 within 1e-2 x
 max(1, max |plain|) per gradient), two calls bitwise; at Granite's
 training layer (B=1, S=4,096, 48:1, D=128, bf16) it also times the
-backward (CUDA events, mean of 10 calls).  From the repository root:
+backward (CUDA events, mean of 10 calls) and each of its four kernels
+(torch.profiler, mean of 5 calls).  From the repository root:
 
     python3 tools/flash_bwd_check.py
 
@@ -24,7 +25,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 CASES = [(1, 128, 2, 2, 64, True, 0), (2, 96, 4, 2, 32, True, 0), (1, 160, 2, 1, 64, True, 48),
          (1, 64, 2, 2, 128, False, 0), (1, 72, 1, 1, 16, True, 0), (1, 1, 2, 1, 64, True, 0),
          (1, 127, 3, 1, 128, True, 0), (1, 129, 4, 4, 16, True, 0), (1, 257, 48, 1, 128, True, 0),
-         (1, 300, 4, 1, 64, True, 130), (1, 257, 2, 2, 32, False, 0)]
+         (1, 300, 4, 1, 64, True, 130), (1, 257, 2, 2, 32, False, 0),
+         # around the 64-row stages and 128-key / 128-row blocks, every head dim;
+         # a window ending inside a tile; 9 heads in 5 groups (2, 2, 2, 2, 1)
+         (1, 63, 2, 1, 16, True, 0), (1, 65, 2, 2, 32, True, 0), (1, 191, 3, 1, 64, True, 0),
+         (1, 255, 2, 2, 128, True, 0), (1, 256, 4, 1, 128, False, 0), (1, 384, 7, 1, 64, True, 0),
+         (2, 320, 6, 3, 128, True, 100), (1, 2048, 9, 1, 64, False, 0)]
 GRANITE_TRAIN_LAYER = (1, 4096, 48, 1, 128, True, 0)
 
 
@@ -42,7 +48,7 @@ def main():
     print("build s", time.perf_counter() - t0)
     for name, log in reports.items():
         for ln in log.splitlines():
-            if "Used" in ln or "Compiling entry" in ln:
+            if "Used" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(name, ln.strip()[:200])
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,8 +98,18 @@ def main():
                     kernel()
                 e1.record()
                 e1.synchronize()
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    for _ in range(5):
+                        kernel()
+                    torch.cuda.synchronize()
+                parts = sorted(((getattr(e, "device_time_total", 0.0)
+                                 or getattr(e, "cuda_time_total", 0.0)) / 5e3, e.key)
+                               for e in prof.key_averages() if "flash_bwd" in e.key)
                 msg += (f" | backward {e0.elapsed_time(e1) / 10:.3f} ms, "
-                        f"{fa.bwd_groups(B, S, Hq, Hkv, 132)} head groups")
+                        f"{fa.bwd_groups(B, S, Hq, Hkv, 132)} head groups; per kernel "
+                        + ", ".join(f"{k[:40]} {t:.3f} ms" for t, k in parts))
             print(msg, flush=True)
     print("ALL OK" if ok_all else "SOME FAILED")
     return 0 if ok_all else 1
