@@ -12,7 +12,10 @@ width (88 layers for the prefill and the serving loop, 44 for decode and
 the full-width check) through its cell builder and the greedy serving
 loop, trains it (11 layers) through the reference's train step with the
 flash attention's hand-written backward and decodes its long_500k cell,
-serves GraphCast's weather configuration at its published widths
+serves Llama-3.2-3B (GQA 24:8, SwiGLU) at full width and depth on one card
+and as a model group of 4 gloo processes sharing the card (context-parallel
+prefill through kernel 6 at Sq != Skv, sequence-sharded decode), serves
+GraphCast's weather configuration at its published widths
 (d512, 16 layers) through kernel 1's generic-width entry, trains GraphCast
 through the reference's cell functions on one rank and over a (graph x
 model) mesh of processes with edge-parallel sharding, trains GAT, NequIP
@@ -53,7 +56,14 @@ Phases (one line each, prefixed ``[n name]``):
                  the kernel's row LSE against the plain one's (LSE_TOL),
                  and at those cases without a softcap its backward
                  (kernel 6b, on the kernel's output and LSE) against
-                 attention_plain_bwd on the plain forward's;
+                 attention_plain_bwd on the plain forward's; kernel 6 at
+                 Sq != Skv with a query offset (FLASH_CP_CASES in fp32 and
+                 bf16, Llama-3.2-3B's R=1 prefill layer and its
+                 context-parallel layer on the last of 4 shards, Sq=8,192
+                 at 24,576 against 32,768 keys): the same checks against
+                 attention_plain(q_offset=), a planted fault beside the row
+                 check at both Llama layers, the bound over the kept pairs
+                 and SDPA's lower-right causal time (phase_flash_cp);
                  the dst-aligned edge MLP + aggregate (kernel 3) at full
                  width (Fin 96, Hh = H = 32, blocks 128/256) on the serving
                  mesh's directed edges and at kernel_bench's 8k-edge shape
@@ -291,6 +301,21 @@ Phases (one line each, prefixed ``[n name]``):
                  long_500k (72 layers, B=1 over a cache filled to
                  524,287): ms per decode step against its bytes bound,
                  peak memory, no kernel launched
+  8c llama       Llama-3.2-3B through ``llama3_2_3b.build_cell`` at 28
+                 layers: prefill_32k (B=8; ms per prefill and prompt,
+                 tokens/s, peak memory, busy share), prefill + decode vs
+                 the plain forward (phase 8's bands, bf16 drift and fp32
+                 on the weights upcast), decode_32k (B=16 over a 32,767
+                 cache); then a model group of 4 gloo processes sharing
+                 the card (``launch/lm_checks.py``): the 32,768-token
+                 prompt prefilled context-parallel (each process 8,192
+                 rows, K/V all-gathered, kernel 6 at Sq != Skv) and 8
+                 greedy decode steps over the sequence-sharded cache
+                 (partials merged in shard order): logits and tokens
+                 bitwise equal on every process, held against the one-card
+                 path fed the same tokens (bf16 by the drift rule against
+                 its fp32 run, fp32 at 2 layers in RTOL / ATOL), each
+                 process's gather and combine host times
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — one full-width call of
 fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
@@ -325,7 +350,9 @@ forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
 step; 8b: per training step kernel 6 twice per layer and micro-batch, the
 forward and its recompute, and kernel 6b's four kernels once, none in
-long_500k's decode), GraphCast's served states (9; kernel 1's generic entry exactly 16
+long_500k's decode; 8c: kernel 6 once per layer per prefill on one card
+and on every process of the model group, at Sq != Skv there, never in a
+decode step), GraphCast's served states (9; kernel 1's generic entry exactly 16
 times a forward, nothing else) and its gradient (2 + 2 generic launches),
 GraphCast's training steps (9c; kernels 1c, 1d, 2c exactly 16, 32, 16 a
 step on cora and on the weather graph; per process of the edge-parallel
@@ -405,6 +432,19 @@ FLASH_BWD_CASES = [(1, 63, 3, 1, 16, True, 0), (1, 65, 3, 1, 32, True, 0),
 # the outputs of late rows at S=32k, so each row is held to its own size.
 ROW_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 GRANITE_LAYER = (1, 32768, 48, 1, 128, True, 0, None)
+# kernel 6 at Sq != Skv (B, Sq, Skv, q_off, Hq, Hkv, D, causal, window), in
+# fp32 and bf16: context-parallel shards (query row r at position q_off + r),
+# one with a window crossing its first key tiles, one non-causal; the TPU
+# kernel's own q_off = 0 shapes with Sq < Skv and Sq > Skv (the rows past
+# Skv keep every key); odd sizes at D = 128.  Then, in bf16, Llama-3.2-3B's
+# prefill layer on one card (R=1, 24 query heads over 8 KV heads) and its
+# context-parallel layer on the last of 4 shards (Sq = 8,192 rows at
+# 24,576 against all 32,768 keys)
+FLASH_CP_CASES = [(2, 96, 320, 200, 4, 2, 64, True, 0), (1, 128, 384, 256, 4, 2, 64, True, 100),
+                  (1, 100, 260, 160, 2, 2, 16, False, 0), (1, 64, 200, 0, 2, 1, 64, True, 0),
+                  (1, 200, 64, 0, 2, 2, 32, True, 0), (1, 72, 300, 228, 3, 1, 128, True, 0)]
+LLAMA_LAYER = (1, 32768, 32768, 0, 24, 8, 128, True, 0)
+LLAMA_CP_LAYER = (1, 8192, 32768, 24576, 24, 8, 128, True, 0)
 # the planted fault that the row check must catch at the Granite layer:
 # from FAULT_ROW on, each row loses the keys of its own diagonal tile
 FAULT_ROW, FAULT_TILE = 2048, 64
@@ -1628,23 +1668,27 @@ def phase_embedding_bag(ptxas):
     return record
 
 
-def attention_pairs(S, causal, window):
-    """(query, key) pairs that the mask keeps, one S for both."""
-    q = np.arange(S, dtype=np.int64)
+def attention_pairs(S, causal, window, Skv=None, q_offset=0):
+    """(query, key) pairs that the mask keeps: S query rows at positions
+    ``q_offset`` on against ``Skv`` keys (default S)."""
+    Skv = S if Skv is None else Skv
+    q = q_offset + np.arange(S, dtype=np.int64)
     lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S, np.int64)
-    hi = q + 1 if causal else np.full(S, S, np.int64)
-    return int((hi - lo).sum())
+    hi = np.minimum(q + 1, Skv) if causal else np.full(S, Skv, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
-def drop_diagonal_tiles(q, k, v, want, scale):
+def drop_diagonal_tiles(q, k, v, want, scale, q_offset=0):
     """The plain causal output ``want`` with a planted fault: every row
     from FAULT_ROW on attends only to the keys before its own FAULT_TILE-key
-    diagonal tile (the fault of a kernel that skips that tile)."""
+    diagonal tile (the fault of a kernel that skips that tile); row r sits
+    at position ``q_offset + r``."""
     from repro_torch.kernels.flash_attention.ref import attention_plain
     out = want.clone()
     for t0 in range(FAULT_ROW, q.shape[1], FAULT_TILE):
+        end = q_offset + t0
         out[:, t0:t0 + FAULT_TILE] = attention_plain(
-            q[:, t0:t0 + FAULT_TILE], k[:, :t0], v[:, :t0], scale=scale, causal=False)
+            q[:, t0:t0 + FAULT_TILE], k[:, :end], v[:, :end], scale=scale, causal=False)
     return out
 
 
@@ -1805,6 +1849,141 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
         + f" | ptxas dK/dV {ptxas['flash_attention_bwd_dkdv']}, dQ "
         f"{ptxas['flash_attention_bwd_dq']}")
     del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+    return record
+
+
+def sdpa_same_function(q, k, v, causal, window, q_offset, dtype):
+    """(call, note) of ``F.scaled_dot_product_attention`` computing the
+    kernel's function on the same inputs ([B, S, H, D] views transposed in
+    place), or (None, reason): causal rows at ``q_offset`` are the
+    lower-right causal mask over keys ``[:q_offset + Sq]``; at ``q_offset``
+    0 with Sq > Skv the upper-left one (which FlashAttention's backend does
+    not take: then (None, reason)).  FlashAttention's backend in bf16, the
+    math backend in fp32."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+    Sq, Skv = q.shape[1], k.shape[1]
+    if window:
+        return None, "none (window)"
+    kw, keys = dict(scale=q.shape[-1] ** -0.5, enable_gqa=True), Skv
+    if causal and q_offset + Sq <= Skv:
+        keys = q_offset + Sq
+        kw["attn_mask"] = causal_lower_right(Sq, keys)
+    elif causal and q_offset == 0:
+        kw["is_causal"] = True
+    elif causal:
+        return None, "none (rows past the keys at an offset)"
+    backend = SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16 else SDPBackend.MATH
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :keys], v[:, :keys]))
+
+    def lib():
+        with sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    try:
+        lib()
+    except RuntimeError as e:
+        return None, f"none ({backend.name} takes no such mask: {str(e)[:60]})"
+    return lib, backend.name
+
+
+def phase_flash_cp(ptxas, cases=FLASH_CP_CASES):
+    """Kernel 6 at Sq != Skv with a query offset: ``cases`` in fp32 and bf16,
+    then LLAMA_LAYER and LLAMA_CP_LAYER in bf16, each against
+    ``attention_plain(q_offset=)`` element by element (TOL), row by row
+    (ROW_REL_TOL; at the two Llama layers beside a planted fault that must
+    fail it) and by its row LSE (LSE_TOL), two launches bitwise equal, the
+    output with its LSE bitwise the output; times against the bound
+    (operations over the unmasked region, 4 B Hq D x the kept pairs) and
+    SDPA on the same function.  Returns the record of the context-parallel
+    layer (row 6c of PERF.md's table).  ``cases=()`` runs the two Llama
+    layers alone: ``python3 -c 'import chip_smoke as c;
+    c.phase_flash_cp(c.phase_device()[1], cases=())'``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    runs = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in cases]
+    runs += [(LLAMA_LAYER, torch.bfloat16), (LLAMA_CP_LAYER, torch.bfloat16)]
+    record = None
+    for case, dtype in runs:
+        B, Sq, Skv, off, Hq, Hkv, D, causal, window = case
+        big = Skv >= 8192
+        q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev, dtype=dtype)
+        k, v = (torch.randn(B, Skv, Hkv, D, generator=gen, device=dev, dtype=dtype)
+                for _ in range(2))
+        kw = dict(scale=D ** -0.5, causal=causal, window=window, q_offset=off)
+        chunk = 512 if big else None
+
+        def plain():
+            return fa.attention_plain(q, k, v, chunk=chunk, **kw)
+
+        got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(q, k, v, **kw)
+        want, want_lse = fa.attention_plain(q, k, v, chunk=chunk, return_lse=True, **kw)
+        o, lse = fa._launch(q, k, v, D ** -0.5, causal, window, None, with_lse=True,
+                            q_offset=off)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[1]
+        lse_err = float((lse - want_lse).abs().max())
+        same = torch.equal(got, again) and torch.equal(o, got)
+        del o, lse, want_lse, again
+        diff = (got.float() - want.float()).abs()
+        rtol, atol = FLASH_TOL[dname]
+        err = float(diff.max())
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        del diff
+        row_err, row_tol = row_rel_err(got, want), ROW_REL_TOL[dname]
+        ok = ok and row_err <= row_tol and lse_err <= LSE_TOL[dname]
+        fault_note, fault_err = "", None
+        if big:
+            fault = drop_diagonal_tiles(q, k, v, want, D ** -0.5, q_offset=off)
+            fault_err = row_rel_err(fault, want)
+            ok = ok and fault_err > row_tol
+            fault_note = (f" (planted fault, rows >= {FAULT_ROW} without their diagonal "
+                          f"{FAULT_TILE}-key tile: {fault_err:.3g}, must exceed it)")
+            del fault
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 5 if big else 20)
+        plain_ms = cuda_ms(plain, 1 if big else 5, warmup=1)
+        lib, lib_note = sdpa_same_function(q, k, v, causal, window, off, dtype)
+        lib_ms = None
+        if lib is not None:
+            lib_err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+            lib_ms = cuda_ms(lib, 5 if big else 20)
+            lib_note = f"{lib_ms:.4f} ms ({lib_note}, max|diff| vs plain {lib_err:.3g})"
+        pairs = attention_pairs(Sq, causal, window, Skv, off)
+        flops = 4 * D * Hq * B * pairs
+        moved = nbytes(q, k, v, got)
+        b_ms, b_by = bound_ms(moved, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                              else PEAK_FP32_FLOPS)
+        name = {LLAMA_LAYER: "Llama prefill layer (R=1) ",
+                LLAMA_CP_LAYER: "Llama context-parallel layer (shard 3 of 4) "}.get(case, "")
+        say("2 kernels", f"flash_attention Sq != Skv {name}B={B} Sq={Sq} Skv={Skv} "
+            f"q_offset={off} Hq={Hq} Hkv={Hkv} D={D} causal={causal} window={window} {dtype}: "
+            f"max|err| vs plain {err:.3g} (rtol {rtol} atol {atol}), largest row rel L2 err "
+            f"{row_err:.3g} (limit {row_tol}){fault_note}, LSE max|err| {lse_err:.3g} (limit "
+            f"{LSE_TOL[dname]}) -> {'ok' if ok else 'FAIL'} | two launches bitwise equal and "
+            f"the output with its LSE the same: {same} | kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA {lib_note}, "
+            f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e12:.4f} TFLOP over {pairs} kept pairs, "
+            f"{moved / 1e9:.4f} GB)" + (f" | ptxas {ptxas['flash_attention']}" if big else ""))
+        if not (ok and same):
+            raise RuntimeError(f"flash attention at Sq != Skv disagrees with its plain version, "
+                               f"is not repeatable or its row check let the planted fault pass "
+                               f"at {case} {dtype}")
+        if case == LLAMA_CP_LAYER:
+            record = dict(name="flash_attention_cp", counter=fa.KERNEL, route="cuda",
+                          source="src/repro_torch/csrc/flash_attention.cu",
+                          replaces="src/repro/kernels/flash_attention/kernel.py:75",
+                          case="Sq != Skv: Llama-3.2-3B's context-parallel prefill layer, "
+                               "shard 3 of 4 (B=1, Sq=8192 at 24576, Skv=32768, 24:8 heads, "
+                               "D=128, bf16, causal)",
+                          max_abs_err=err, max_row_rel_err=row_err,
+                          planted_fault_row_rel_err=fault_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, got, want
     torch.cuda.empty_cache()
     return record
 
@@ -2195,6 +2374,9 @@ def phase_distributed(cfg, stacked, r1, smi):
 # the bf16 wire, rounds2d, combine="max" and the measured tuner
 WIRE_BAND = 2e-2                 # tests/test_extras.py:49, the bf16 wire's band
 PLAN_TRAIN_STEPS = 3
+# the training CLI's mesh: the (2, 2, 1) spectral split of a quarter of the
+# consistency mesh (its bisections and tune on the whole one cost ~40 s more)
+PLAN_CLI_ELEMS = (4, 4, 2)
 
 
 def _pairs_into(perms, rank):
@@ -2220,7 +2402,7 @@ def phase_plan(cfg, r1, smi):
     launch), the 12-candidate tuner table at hidden 32 over the 4
     processes (one triple everywhere, its argmin, a second call launching
     nothing), and 3 training steps of the CLI with ``--mp-schedule auto
-    --partitioner spectral --ranks 2 2 1 --model large``.  Returns the
+    --partitioner spectral --ranks 2 2 1 --model large`` on PLAN_CLI_ELEMS.  Returns the
     launches of each path."""
     import torch
     from repro_torch.core.gnn import init_gnn
@@ -2486,7 +2668,7 @@ def phase_plan(cfg, r1, smi):
 
     # (f) the training CLI: auto schedule, spectral split, 4 processes
     t0 = time.perf_counter()
-    argv = ["--elements", *map(str, CONS_ELEMS), "--order", str(ORDER), "--ranks", "2",
+    argv = ["--elements", *map(str, PLAN_CLI_ELEMS), "--order", str(ORDER), "--ranks", "2",
             "2", "1", "--model", "large", "--mp-schedule", "auto", "--partitioner",
             "spectral", "--halo", "neighbor", "--steps", str(PLAN_TRAIN_STEPS),
             "--batch", "1", "--device", "cuda"]
@@ -2494,7 +2676,9 @@ def phase_plan(cfg, r1, smi):
     cli_s = time.perf_counter() - t0
     tcfg = TrainConfig(n_steps=1, batch=1, lr=2e-3, halo_mode="neighbor",
                        plan=NMPPlan(backend=FUSED))
-    one = train_consistent_gnn(pg_1, sem, cfg, tcfg, device="cuda")["losses"][0]
+    sem_c = box_mesh(PLAN_CLI_ELEMS, p=ORDER)
+    one = train_consistent_gnn(partition_mesh(sem_c, (1, 1, 1)), sem_c, cfg, tcfg,
+                               device="cuda")["losses"][0]
     rel = abs(hist["losses"][0] - one) / abs(one)
     good = (rel <= LOSS_REL and np.all(np.isfinite(hist["losses"]))
             and hist["schedule"] in ("blocking", "overlap"))
@@ -5730,6 +5914,260 @@ def phase_lm_train(ptxas, smi):
     return by_path, record
 
 
+# Llama-3.2-3B (phase 8c): one timed prefill (and one profiled) and
+# LLAMA_DECODE_STEPS decode steps on one card; the model group of CP_SHARDS
+# gloo processes sharing the card (B = 1 at the cell's 32,768 tokens):
+# CP_STEPS greedy decode steps, and the same in fp32 at CP_FP32_LAYERS
+# layers of weights drawn in bf16 and upcast
+LLAMA_DECODE_STEPS = 4
+CP_SHARDS, CP_STEPS, CP_FP32_LAYERS = 4, 8, 2
+
+
+def _cp_reading(recs, path, n_layers, by_path):
+    """Every process of the model group: logits and tokens bitwise the
+    first's, exactly ``n_layers`` kernel-6 launches in its prefill and none
+    in its decode steps; the processes' launches summed into
+    ``by_path[path]``.  -> (the first's logits, its tokens, the per-process
+    lines, ok)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    ok, lines, total = True, [], {}
+    for w, rec in enumerate(recs):
+        same = (np.array_equal(rec["logits"], recs[0]["logits"])
+                and np.array_equal(rec["tokens"], recs[0]["tokens"]))
+        fine = (rec["launches_prefill"].get(fa.KERNEL, 0) == n_layers
+                and not rec["launches_decode"])
+        ok = ok and same and fine and bool(np.isfinite(rec["logits"]).all())
+        for part in ("launches_prefill", "launches_decode"):
+            for k, n in rec[part].items():
+                total[k] = total.get(k, 0) + n
+        tr, hs = rec["transport"], rec["host_s"]
+        lines.append(
+            f"process {w} (shard {rec['shard']}): logits and tokens bitwise process 0's "
+            f"{same}, launches prefill {rec['launches_prefill']} decode "
+            f"{rec['launches_decode']}, prefill {sum(rec['prefill_ms']):.1f} ms, decode "
+            f"{float(np.median(rec['step_ms'] or [0.0])):.2f} ms a step (CUDA events), host s in the "
+            f"all-gathers {hs.get('all_gather', 0.0):.4f} and the decode combines "
+            f"{hs.get('combine', 0.0):.4f} (stream sync {tr['sync_s']:.4f}, staging "
+            f"{tr['stage_s']:.4f}, gloo {tr['wire_s']:.4f}; {tr['staged_bytes'] / 1e6:.1f} MB "
+            f"staged), peak {rec.get('peak_gib', 0.0):.2f} GiB")
+    by_path[path] = total
+    return recs[0]["logits"], recs[0]["tokens"], lines, ok
+
+
+def phase_llama(smi):
+    """Llama-3.2-3B at its published widths through its cell builder and the
+    context-parallel serving path: (a) on one card, prefill_32k at 28 layers
+    (B=8: ms per prefill and per prompt, tokens/s, peak memory, busy share,
+    exactly 28 kernel-6 launches per prefill), prefill + decode at
+    CHECK_PROMPT against the full forward through the plain attention in
+    phase 8's bands (bf16 reported, its drift at most DRIFT_FACTOR x the
+    plain bf16 forward's, fp32 on the weights upcast within LM_BAND), and
+    decode_32k (28 layers, B=16 over a cache filled to 32,767: ms per step,
+    no kernel); (b) the same weights served by a model group of CP_SHARDS
+    gloo processes sharing the card (``launch/lm_checks.py``): the prompt of
+    32,768 tokens prefilled context-parallel (kernel 6 at Sq = 8,192 against
+    Skv = 32,768), CP_STEPS greedy decode steps over the sequence-sharded
+    cache, every process's logits and tokens bitwise equal, 28 launches per
+    process per prefill; the logits against the one-card path fed the same
+    tokens: bf16 by the drift rule against the one-card fp32 path on the
+    weights upcast, and fp32 at CP_FP32_LAYERS layers in the forward band
+    (RTOL / ATOL).  4 processes share one card: a check of the path, not
+    scaling."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import lm_checks as lmx
+
+    llama, family = get_arch("llama3.2-3b")
+    phase = "8c llama"
+    dev = torch.device("cuda")
+    by_path = {}
+
+    def expect_launches(path, n):
+        launches = dict(build.launch_counts)
+        by_path[path] = launches
+        if launches.get(fa.KERNEL, 0) != n:
+            raise RuntimeError(f"{path}: flash_attention launched "
+                               f"{launches.get(fa.KERNEL, 0)} times, expected {n}")
+        return launches
+
+    t_phase = time.perf_counter()
+
+    def part_s():
+        """Seconds since the phase started, for the parts' lines."""
+        return f"{time.perf_counter() - t_phase:.1f} s into the phase"
+
+    # --- (a) prefill_32k: 28 layers, B=8 ---
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, (params, tokens), meta = llama.build_cell("prefill_32k", dev, LM_SEED)
+    torch.cuda.synchronize()
+    cfg = meta["cfg"]
+    L, B, S = cfg.n_layers, meta["batch"], meta["seq"]
+    say(phase, f"{llama.ARCH_ID} ({family}): d {cfg.d_model}, {cfg.n_q} query heads over "
+        f"{cfg.n_kv} KV heads of dim {cfg.head_dim}, SwiGLU {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"rope theta {cfg.rope_theta:g}, tied, layout {cfg.attn_parallel!r}; prefill_32k at "
+        f"{L} layers ({meta['n_params'] / 1e9:.3f} B params, {cfg.param_dtype}), drawn on the "
+        f"card from seed {LM_SEED} in {time.perf_counter() - t0:.1f} s | cut (reference, "
+        f"here): {meta['reduced']} | {smi}")
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = step(params, tokens)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    del cache
+    launches = expect_launches("llama_prefill", L)
+    if logits.shape != (B, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"llama prefill_32k: bad logits {tuple(logits.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    say(phase, f"prefill_32k: B={B} S={S}, {L} layers: {1e3 * t:.1f} ms a prefill (host "
+        f"clock, synchronized; {1e3 * t / B:.1f} ms per prompt, "
+        f"{B * S / t:.0f} tokens/s, {meta['model_flops'] / t / 1e12:.1f} TFLOP/s of dense "
+        f"model FLOPs) | peak device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) | "
+        f"launches {launches} ({L} per prefill) | {part_s()} | {smi}")
+    say(phase, "prefill_32k: one prefill " + profile_line(lambda: step(params, tokens)))
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
+    ck = torch.randint(0, cfg.vocab, (1, CHECK_PROMPT + CHECK_STEPS), generator=gen, device=dev)
+    del step, tokens, logits
+    torch.cuda.empty_cache()
+
+    # --- (a) the check at 28 layers on the prefill's weights: bf16, then fp32
+    # on the same weights upcast ---
+    served_b, launches = served_logits(params, ck, cfg)
+    by_path["llama_check_bf16"] = launches
+    if launches.get(fa.KERNEL, 0) != L:
+        raise RuntimeError(f"Llama check: flash_attention launched {launches}, expected {L}")
+    plain_b = forward_logits(params, ck, cfg, plain=True)
+    cfg32 = cfg.with_(param_dtype=torch.float32, cache_dtype=torch.float32)
+    params = upcast_(params)
+    torch.cuda.empty_cache()
+    want = forward_logits(params, ck, cfg32, plain=True)
+    served_32, launches = served_logits(params, ck, cfg32)
+    by_path["llama_check_fp32"] = launches
+    del params
+    torch.cuda.empty_cache()
+    err, viol = band_reading(served_b, plain_b)
+    drift = {name: per_position_rel(got, want) for name, got in
+             (("served", served_b), ("plain forward", plain_b))}
+    ratio = max(a / b for a, b in zip(drift["served"], drift["plain forward"]))
+    err32, viol32 = band_reading(served_32, want)
+    ok = ratio <= DRIFT_FACTOR and viol32 <= 1.0 and launches.get(fa.KERNEL, 0) == L
+    say(phase, f"check, {L} layers: prompt {CHECK_PROMPT} prefilled + {CHECK_STEPS} decode "
+        f"steps vs the forward over {CHECK_PROMPT + CHECK_STEPS} tokens through the plain "
+        f"attention: bf16 max|err| {err:.4g} = {viol:.2f} x the {LM_BAND} band (reported); "
+        "rel L2 per position against the fp32 forward: " + "; ".join(
+            f"{name} " + ", ".join(f"{r:.2e}" for r in rels) for name, rels in drift.items())
+        + f" | served / plain forward at most {ratio:.3f} (limit {DRIFT_FACTOR}); fp32 "
+        f"(the weights upcast) max|err| {err32:.4g} = {viol32:.3f} x the band -> "
+        f"{'ok' if ok else 'FAIL'} | launches bf16 {by_path['llama_check_bf16']}, fp32 "
+        f"{launches} | {part_s()}")
+    if not ok:
+        raise RuntimeError("Llama: prefill + decode disagree with the full forward, or the "
+                           "served bf16 path drifts further than the plain one")
+
+    # --- (a) decode_32k: 28 layers, B=16 over a cache filled to 32,767 ---
+    torch.cuda.reset_peak_memory_stats()
+    step, (params, cache, tokens, cache_len), meta = llama.build_cell("decode_32k", dev,
+                                                                       LM_SEED)
+    B = meta["batch"]
+    step(params, cache, tokens, cache_len)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(LLAMA_DECODE_STEPS):
+        logits, cache = step(params, cache, tokens, cache_len)
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / LLAMA_DECODE_STEPS
+    launches = expect_launches("llama_decode", 0)
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"llama decode_32k: bad logits {tuple(logits.shape)}")
+    dev_ms = ev[0].elapsed_time(ev[1]) / LLAMA_DECODE_STEPS
+    moved = sum(nbytes(x) for x in (params["embed"], *params["layers"]["attn"].values(),
+                                    *params["layers"]["ffn"].values(), cache["k"], cache["v"]))
+    b_ms, b_by = bound_ms(moved, meta["model_flops"], PEAK_BF16_FLOPS)
+    say(phase, f"decode_32k: B={B}, {L} layers, cache_len {cache_len} of {meta['seq']}: "
+        f"{dev_ms:.3f} ms per step by CUDA events, {1e3 * wall:.3f} ms by host clock "
+        f"({B / wall:.1f} tokens/s) | bound {b_ms:.3f} ms ({b_by}: {moved / 1e9:.2f} GB of "
+        f"weights and cache) | peak device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) "
+        f"| cut (reference, here): {meta['reduced']} | launches {launches} | {part_s()} "
+        f"| {smi}")
+    say(phase, "decode_32k: one step " + profile_line(lambda: step(params, cache, tokens,
+                                                                    cache_len)))
+    del step, params, cache, tokens, logits
+    torch.cuda.empty_cache()
+
+    # --- (b) a model group of CP_SHARDS processes sharing the card ---
+    full = llama.config()
+    job = lmx.Job(cases=(lmx.Case("cp4", model=CP_SHARDS),), cfg=lmx.cfg_dict(full),
+                  steps=CP_STEPS, seed=LM_SEED, batch=1, device="cuda")
+    fp32 = full.with_(n_layers=CP_FP32_LAYERS, param_dtype=torch.float32,
+                      cache_dtype=torch.float32)
+    job32 = dataclasses.replace(job, cases=(lmx.Case("cp4_fp32", model=CP_SHARDS),),
+                                cfg=lmx.cfg_dict(fp32), upcast=True)
+    t0 = time.perf_counter()
+    procs = lmx.run_world((job, job32), CP_SHARDS)
+    wall = time.perf_counter() - t0
+    cp_b, tok_b, lines_b, ok_b = _cp_reading([p["cp4"] for p in procs], "llama_cp4",
+                                             full.n_layers, by_path)
+    cp_32, tok_32, lines_32, ok_32 = _cp_reading([p["cp4_fp32"] for p in procs],
+                                                 "llama_cp4_fp32", CP_FP32_LAYERS, by_path)
+    say(phase, f"model group of {CP_SHARDS} gloo processes sharing cuda:0 (4 processes share "
+        f"one card: a check of the path, not scaling), {full.n_layers} layers bf16, B=1, "
+        f"prompt {S} tokens ({S // CP_SHARDS} rows a process, kernel 6 "
+        f"at Sq != Skv), {CP_STEPS} greedy decode steps over the sequence-sharded cache, "
+        f"in {wall:.1f} s with the start-up ({part_s()}): greedy tokens "
+        f"{tok_b[0].tolist()} | "
+        + " | ".join(lines_b) + f" -> {'ok' if ok_b else 'FAIL'}")
+    say(phase, f"the same in fp32 at {CP_FP32_LAYERS} layers (weights drawn in bf16, upcast): "
+        f"tokens {tok_32[0].tolist()} | " + " | ".join(lines_32)
+        + f" -> {'ok' if ok_32 else 'FAIL'}")
+    if not (ok_b and ok_32):
+        raise RuntimeError("Llama model group: processes disagree, or the launches are off")
+    del procs
+
+    # the one-card path on the same weights, fed the group's greedy tokens
+    one_b = lmx.run_case(dataclasses.replace(job, feed=tok_b[:, :CP_STEPS]), lmx.Case("one"))
+    one_32 = lmx.run_case(dataclasses.replace(job, feed=tok_b[:, :CP_STEPS], upcast=True,
+                                              cfg=lmx.cfg_dict(full.with_(
+                                                  param_dtype=torch.float32,
+                                                  cache_dtype=torch.float32))),
+                          lmx.Case("one"))
+    one_f = lmx.run_case(dataclasses.replace(job32, feed=tok_32[:, :CP_STEPS]), lmx.Case("one"))
+    by_path["llama_cp_one_card"] = {k: one_b["launches_prefill"].get(k, 0)
+                                    for k in one_b["launches_prefill"]}
+    ref32, logits_b, logits_f = (r["logits"].cpu() for r in (one_32, one_b, one_f))
+    cp_b, cp_32 = torch.as_tensor(cp_b), torch.as_tensor(cp_32)
+    rel = {name: per_position_rel(got, ref32) for name, got in
+           (("model group", cp_b), ("one card", logits_b))}
+    ratio = max(a / b for a, b in zip(rel["model group"], rel["one card"]))
+    err_b, viol_b = band_reading(cp_b, logits_b)
+    diff = (cp_32 - logits_f).abs()
+    err_f = float(diff.max())
+    ok_f = bool((diff <= ATOL + RTOL * logits_f.abs()).all())
+    same_tokens = bool(np.array_equal(one_b["tokens"].cpu().numpy(), tok_b))
+    ok = ratio <= DRIFT_FACTOR and ok_f
+    say(phase, f"model group against one card fed the same tokens: bf16 rel L2 per position "
+        "against the one-card fp32 path (weights upcast): " + "; ".join(
+            f"{name} " + ", ".join(f"{r:.2e}" for r in rels) for name, rels in rel.items())
+        + f" | model group / one card at most {ratio:.3f} (limit {DRIFT_FACTOR}); bf16 "
+        f"max|diff| from one card {err_b:.4g} = {viol_b:.2f} x the {LM_BAND} band (reported); "
+        f"one card's greedy tokens the group's: {same_tokens} (reported) | fp32 at "
+        f"{CP_FP32_LAYERS} layers max|diff| {err_f:.3g} (rtol {RTOL} atol {ATOL}) -> "
+        f"{'ok' if ok else 'FAIL'} | one card: prefill {sum(one_b['prefill_ms']):.1f} ms, "
+        f"decode {float(np.median(one_b['step_ms'] or [0.0])):.2f} ms a step, launches "
+        f"{one_b['launches_prefill']} | {part_s()}")
+    if not ok:
+        raise RuntimeError("Llama model group: logits off the one-card path's")
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5756,6 +6194,7 @@ def main():
     records.append(seg_record)
     records.append(phase_embedding_bag(ptxas))
     records.append(phase_flash_attention(ptxas))
+    records.append(phase_flash_cp(ptxas))
     lap("2 kernels")
     by_path = {"segment_agg_op": seg_counts}
     (by_path["consistency_r4_packed"], by_path["consistency_r4_overlap"],
@@ -5811,6 +6250,8 @@ def main():
     by_path.update(lm_paths)
     records.append(bwd_record)
     lap("8b lm train")
+    by_path.update(phase_llama(smi))
+    lap("8c llama")
     # each kernel's own path first, then every other path that must use it:
     # training for the fused NMP pair (its bf16 entries: the bf16 training
     # steps, then the bf16 engine and R=4 runs), the R=4 packed-neighbor gradient run
@@ -5860,7 +6301,11 @@ def main():
            + ("gc_ep_packed",) + zoo_halo,
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32",
-                       "lm_train", "lm_train_grad_check"),
+                       "lm_train", "lm_train_grad_check", "llama_prefill", "llama_check_bf16",
+                       "llama_check_fp32", "llama_cp_one_card"),
+           # kernel 6 at Sq != Skv: the model group's prefills (launches
+           # summed over its processes)
+           "flash_attention_cp": ("llama_cp4", "llama_cp4_fp32"),
            fa.KERNEL_BWD: ("lm_train", "lm_train_grad_check"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),
            sa.KERNEL_BF16: ("train_bf16", "serve_bf16", "consistency_r4_bf16_blocking",
@@ -5884,7 +6329,8 @@ def main():
         if by_path["plan_dist_forms_max"].get(k):
             raise RuntimeError(f"a combine='max' exchange launched {k}")
     for rec in records:
-        counts = {path: int(by_path[path].get(rec["name"], 0)) for path in by_path}
+        counter = rec.pop("counter", rec["name"])
+        counts = {path: int(by_path[path].get(counter, 0)) for path in by_path}
         rec["launches"] = counts[own[rec["name"]][0]]
         rec["launches_by_path"] = counts
         for path in own[rec["name"]]:

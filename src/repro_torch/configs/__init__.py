@@ -9,6 +9,7 @@ from typing import Dict
 
 # arch id -> (module path, family)
 ARCHS: Dict[str, tuple] = {
+    "llama3.2-3b": ("repro_torch.configs.llama3_2_3b", "lm"),
     "granite-34b": ("repro_torch.configs.granite_34b", "lm"),
     "mace": ("repro_torch.configs.mace", "gnn"),
     "graphcast": ("repro_torch.configs.graphcast", "gnn"),

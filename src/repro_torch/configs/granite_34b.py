@@ -58,7 +58,7 @@ def config() -> TransformerConfig:
         name=ARCH_ID,
         vocab=49152, d_model=6144, n_layers=88,
         n_q=48, n_kv=1, head_dim=128,
-        d_ff=24576, rope_theta=10000.0,
+        d_ff=24576, mlp_variant="gelu_mlp", rope_theta=10000.0,
         train_microbatches=16, remat="full")
 
 
@@ -66,7 +66,7 @@ def smoke_config() -> TransformerConfig:
     return TransformerConfig(
         name=ARCH_ID + "-smoke",
         vocab=256, d_model=32, n_layers=2,
-        n_q=4, n_kv=1, head_dim=16, d_ff=96)
+        n_q=4, n_kv=1, head_dim=16, d_ff=96, mlp_variant="gelu_mlp")
 
 
 def build_cell(shape_id: str, device="cuda", seed: int = 0, cfg: TransformerConfig = None):

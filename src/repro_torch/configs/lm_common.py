@@ -1,7 +1,8 @@
 """LM input-shape cells; a copy of ``repro.configs.lm_common.LM_SHAPES``.
 
-``lm_rules`` and ``batch_axes_for`` are sharding rules and come with the
-sequence-sharded decode across cards."""
+``lm_rules`` and ``batch_axes_for`` are the reference's sharding rules for
+``jax.sharding`` meshes; the port's processes hold their shards themselves
+(``models/transformer/model.py::ParallelCtx``), so it has no copy of them."""
 from __future__ import annotations
 
 LM_SHAPES = {

@@ -7,19 +7,28 @@
 // attention with a running max m, a running sum l and an unnormalised
 // accumulator, normalised once at the end by max(l, 1e-20):
 //   s = (q . k) * scale;  s = cap * tanh(s / cap) if softcap;
-//   s = -1e30 where masked (kpos >= S, causal kpos > qpos, window
+//   s = -1e30 where masked (kpos >= Skv, causal kpos > qpos, window
 //   qpos - kpos >= window);  out = softmax(s) @ v  in the input's type,
 //   with p = exp(s - m) rounded to bf16 before the PV product (the
 //   precision of the model's bf16 einsums, p.astype(v.dtype)).
+// Queries and keys may differ in length (q [B, Sq, Hq, D], k, v [B, Skv,
+// Hkv, D]), and query row r sits at global position qpos = q_off + r: the
+// context-parallel prefill gives each of n shards Sq = S / n rows at
+// q_off = shard * S / n against all Skv = S keys.  The caller guarantees
+// that every query row keeps at least one key (the entry points refuse a
+// window that leaves the last row none).
 //
 // What bounds it on the H100 SXM (published peaks at its 700 W limit):
 // operations.  Granite-34B-code's prefill layer (B=1, S=32,768, 48 query
 // heads over one KV head of dim 128, causal) needs
 //   4 * D * Hq * S * (S + 1) / 2 = 13.19 TFLOP  -> 13.3 ms at 989 TFLOP/s bf16
-// against 0.82 GB of q, k, v and out (0.25 ms at 3.35 TB/s).  Only wgmma
-// reaches the tensor cores' dense rate, and only if the products are fed
-// without stalls: the tiles arrive by TMA while the math runs, and each K/V
-// byte brought from L2 serves enough query rows.
+// against 0.82 GB of q, k, v and out (0.25 ms at 3.35 TB/s); Llama-3.2-3B's
+// context-parallel layer on the last of 4 shards (Sq = 8,192 rows at
+// 24,576 against Skv = 32,768 keys, 24 query heads over 8 KV heads) needs
+// 2.886 TFLOP over its kept pairs -> 2.92 ms, every block walking 192 to
+// 256 key tiles.  Only wgmma reaches the tensor cores' dense rate, and only
+// if the products are fed without stalls: the tiles arrive by TMA while the
+// math runs, and each K/V byte brought from L2 serves enough query rows.
 //
 // bf16 design (the model's path), one kernel for D = 16, 32, 64, 128:
 // - Block: 128 query rows of one head (one query tile) against the key
@@ -30,16 +39,17 @@
 //   K/V rows of the one KV head, run side by side and share them in L2.
 // - Producer warpgroup (registers lowered to 40 by setmaxnreg): one thread
 //   loads the Q tile once and keeps a ring of kStages K/V tiles in flight
-//   with TMA (4-D tensor maps over the [B, S, H, D] strides, built on the
-//   host for each call); full / empty mbarrier pairs hand each stage to the
-//   consumers and back.  TMA writes zeros past S (the kpos < S mask stays).
+//   with TMA (4-D tensor maps over the [B, Sq or Skv, H, D] strides, built
+//   on the host for each call); full / empty mbarrier pairs hand each stage
+//   to the consumers and back.  TMA writes zeros past Sq and Skv (the
+//   kpos < Skv mask stays).
 // - Two consumer warpgroups (registers raised to 232), 64 query rows each
 //   (wgmma M = 64), both on the same K/V stage: 128 query rows per K/V byte
 //   read, twice the mma.sync design's 64.
 //   S = Q K^T: wgmma m64n128k16, both operands in shared memory, K-major.
 //   Softmax in fp32 registers on the accumulator fragment, in base 2
 //   (scale * log2(e) folded into the scores, ex2.approx); the mask is
-//   evaluated only on tiles that cross the diagonal, the window edge or S.
+//   evaluated only on tiles that cross the diagonal, the window edge or Skv.
 //   O += P V: P rounded to bf16 in registers is wgmma's A operand (the
 //   accumulator fragment of m64n128 is the A fragment of eight k16
 //   slices); V is read in place as an MN-major B operand through the
@@ -60,7 +70,7 @@
 // TF32; a SIMT loop with eight lanes per query row, 32-key tiles in shared
 // memory.  Head dims 16, 32, 64 and 128 (the wrapper raises on others).
 //
-// The row log-sum-exp: when the entry is given an fp32 `lse` [B, Hq, S]
+// The row log-sum-exp: when the entry is given an fp32 `lse` [B, Hq, Sq]
 // (not null), each row also writes m + log(max(l, 1e-20)) in natural units
 // (the bf16 kernel's m is in base 2 and is converted), the statistic that
 // the backward (csrc/flash_attention_bwd.cu) recomputes P from.  With a
@@ -88,28 +98,29 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  float* lse;                // [B, Hq, S] or null
+  float* lse;                // [B, Hq, Sq] or null
   int64_t q_sb, q_ss, q_sh;  // element strides: batch, sequence, head
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
-  int B, S, Hq, Hkv;
+  int B, Sq, Skv, q_off, Hq, Hkv;  // query row r is at position q_off + r
   float scale, softcap;  // softcap <= 0: off
   int causal, window;    // window <= 0: global
 };
 
 // Key tiles [t_begin, t_end) of width bn that can hold an unmasked key for
-// query rows [q0, q0 + bm).
+// query rows [q0, q0 + bm) (positions q_off + q0 on).
 __device__ __forceinline__ void key_tiles(const Params& p, int q0, int bm, int bn,
                                           int& t_begin, int& t_end) {
-  int hi = p.S;
-  if (p.causal) hi = min(hi, q0 + bm);
-  const int lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  int hi = p.Skv;
+  if (p.causal) hi = min(hi, p.q_off + q0 + bm);
+  const int lo = p.window > 0 ? max(0, p.q_off + q0 - p.window + 1) : 0;
   t_begin = lo / bn;
   t_end = (hi + bn - 1) / bn;
 }
 
+// qpos: the query's global position (q_off + its row)
 __device__ __forceinline__ bool key_ok(const Params& p, int qpos, int kpos) {
-  return kpos < p.S && (!p.causal || kpos <= qpos) &&
+  return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
          (p.window <= 0 || qpos - kpos < p.window);
 }
 
@@ -232,8 +243,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // scale (base 2), softcap, mask (only where the tile is not wholly inside)
       const int k0 = t * kBN;
-      const bool inside = k0 + kBN <= p.S && (!p.causal || k0 + kBN - 1 <= qa) &&
-                          (p.window <= 0 || qa + 63 - k0 < p.window);
+      const int qa_pos = p.q_off + qa;
+      const bool inside = k0 + kBN <= p.Skv && (!p.causal || k0 + kBN - 1 <= qa_pos) &&
+                          (p.window <= 0 || qa_pos + 63 - k0 < p.window);
       if (softcap) {
 #pragma unroll
         for (int e = 0; e < 64; ++e) sc[e] = cap_score(sc[e] * p.scale, p.softcap) * kLog2e;
@@ -244,7 +256,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!inside) {
 #pragma unroll
         for (int e = 0; e < 64; ++e)
-          if (!key_ok(p, (e & 2) ? row1 : row0, k0 + 8 * (e / 4) + 2 * tq4 + (e & 1))) sc[e] = kNeg;
+          if (!key_ok(p, p.q_off + ((e & 2) ? row1 : row0), k0 + 8 * (e / 4) + 2 * tq4 + (e & 1)))
+            sc[e] = kNeg;
       }
       float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
@@ -309,19 +322,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
     const int64_t o_ss = (int64_t)p.Hq * D;
-    bf16* O0 = static_cast<bf16*>(p.o) + ((int64_t)b * p.S + row0) * o_ss + (int64_t)h * D + 2 * tq4;
+    bf16* O0 = static_cast<bf16*>(p.o) + ((int64_t)b * p.Sq + row0) * o_ss + (int64_t)h * D + 2 * tq4;
     bf16* O1 = O0 + 8 * o_ss;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      if (row0 < p.S)
+      if (row0 < p.Sq)
         *reinterpret_cast<uint32_t*>(O0 + j * 8) = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
-      if (row1 < p.S)
+      if (row1 < p.Sq)
         *reinterpret_cast<uint32_t*>(O1 + j * 8) = pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
     }
     if (p.lse != nullptr && tq4 == 0) {
-      float* lse = p.lse + ((int64_t)b * p.Hq + h) * p.S;
-      if (row0 < p.S) lse[row0] = m0 * kLn2 + logf(d0);
-      if (row1 < p.S) lse[row1] = m1 * kLn2 + logf(d1);
+      float* lse = p.lse + ((int64_t)b * p.Hq + h) * p.Sq;
+      if (row0 < p.Sq) lse[row0] = m0 * kLn2 + logf(d0);
+      if (row1 < p.Sq) lse[row1] = m1 * kLn2 + logf(d1);
     }
   }
 }
@@ -342,19 +355,20 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
   __shared__ __align__(16) float sK[kBNF][D];
   __shared__ __align__(16) float sV[kBNF][D];
 
-  const int n_qt = (p.S + kRowsF - 1) / kRowsF;
+  const int n_qt = (p.Sq + kRowsF - 1) / kRowsF;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * kRowsF;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int ln = threadIdx.x % kLanes;
-  const int qpos = q0 + threadIdx.x / kLanes;
-  const bool live = qpos < p.S;
+  const int row = q0 + threadIdx.x / kLanes;
+  const int qpos = p.q_off + row;
+  const bool live = row < p.Sq;
   const float* K = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* V = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   // this lane's columns: i * kLanes * VEC + ln * VEC + c (the eight lanes of
   // a row read 8 * VEC contiguous floats per step: no bank conflicts)
   float q[E], acc[E];
-  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + qpos * p.q_ss;
+  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + row * p.q_ss;
 #pragma unroll
   for (int i = 0; i < NV; ++i)
 #pragma unroll
@@ -372,7 +386,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
     for (int i = threadIdx.x; i < kBNF * D / 4; i += 128) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < p.S) {
+      if (k0 + r < p.Skv) {
         kv = *reinterpret_cast<const float4*>(K + (int64_t)(k0 + r) * p.k_ss + c);
         vv = *reinterpret_cast<const float4*>(V + (int64_t)(k0 + r) * p.v_ss + c);
       }
@@ -421,13 +435,13 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
   }
   if (!live) return;
   const float den = fmaxf(l, 1e-20f);
-  float* O = static_cast<float*>(p.o) + (((int64_t)b * p.S + qpos) * p.Hq + h) * D;
+  float* O = static_cast<float*>(p.o) + (((int64_t)b * p.Sq + row) * p.Hq + h) * D;
 #pragma unroll
   for (int i = 0; i < NV; ++i)
 #pragma unroll
     for (int c = 0; c < VEC; ++c)
       O[i * kLanes * VEC + ln * VEC + c] = acc[i * VEC + c] / den;
-  if (p.lse != nullptr && ln == 0) p.lse[((int64_t)b * p.Hq + h) * p.S + qpos] = m + logf(den);
+  if (p.lse != nullptr && ln == 0) p.lse[((int64_t)b * p.Hq + h) * p.Sq + row] = m + logf(den);
 }
 
 // ---------------------------------------------------------------------------
@@ -438,12 +452,12 @@ template <int D>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   static_assert(kBM == kBN, "one box height serves Q, K and V");
   constexpr int smem = smem_bytes_bf16<D>();
-  const int n_qt = (p.S + kBM - 1) / kBM;
+  const int n_qt = (p.Sq + kBM - 1) / kBM;
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  int e = encode<D>(&tq, p.q, p.B, p.S, p.Hq, p.q_sb, p.q_ss, p.q_sh);
-  if (!e) e = encode<D>(&tk, p.k, p.B, p.S, p.Hkv, p.k_sb, p.k_ss, p.k_sh);
-  if (!e) e = encode<D>(&tv, p.v, p.B, p.S, p.Hkv, p.v_sb, p.v_ss, p.v_sh);
+  int e = encode<D>(&tq, p.q, p.B, p.Sq, p.Hq, p.q_sb, p.q_ss, p.q_sh);
+  if (!e) e = encode<D>(&tk, p.k, p.B, p.Skv, p.Hkv, p.k_sb, p.k_ss, p.k_sh);
+  if (!e) e = encode<D>(&tv, p.v, p.B, p.Skv, p.Hkv, p.v_sb, p.v_ss, p.v_sh);
   if (e) return e;
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -455,20 +469,23 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 
 template <int D>
 int launch_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.S + kRowsF - 1) / kRowsF, p.Hq, p.B);
+  const dim3 grid((p.Sq + kRowsF - 1) / kRowsF, p.Hq, p.B);
   flash_fwd_f32_kernel<D><<<grid, 128, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <bool BF16>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int Hq,
-             int Hkv, int D, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-             int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
-             int causal, int window, float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || B > 65535 || Hq > 65535)
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+             int Skv, int q_off, int Hq, int Hkv, int D, int64_t q_sb, int64_t q_ss,
+             int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+             int64_t v_sh, float scale, int causal, int window, float softcap, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || q_off < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
+      B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
+  // every query row keeps a key: the last row's window must reach below Skv
+  if (window > 0 && (int64_t)q_off + Sq - window >= Skv) return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, o, lse, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                 B, S, Hq, Hkv, scale, softcap, causal, window};
+                 B, Sq, Skv, q_off, Hq, Hkv, scale, softcap, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return BF16 ? launch_bf16<16>(p, s) : launch_f32<16>(p, s);
@@ -482,14 +499,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 }  // namespace
 
 #define FLASH_ARGS                                                                            \
-  const void *q, const void *k, const void *v, void *o, float *lse, int B, int S, int Hq,     \
-      int Hkv, int D,                                                                         \
+  const void *q, const void *k, const void *v, void *o, float *lse, int B, int Sq, int Skv,   \
+      int q_off, int Hq, int Hkv, int D,                                                      \
       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,     \
       int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale, int causal, int window,          \
       float softcap, void *stream
-#define FLASH_PASS                                                                       \
-  q, k, v, o, lse, B, S, Hq, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, \
-      causal, window, softcap, stream
+#define FLASH_PASS                                                                            \
+  q, k, v, o, lse, B, Sq, Skv, q_off, Hq, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   \
+      v_ss, v_sh, scale, causal, window, softcap, stream
 
 extern "C" int flash_attention_bf16(FLASH_ARGS) { return dispatch<true>(FLASH_PASS); }
 

@@ -2,18 +2,28 @@
 ``repro.kernels.flash_attention.ops``) and its gradient.
 
 ``flash_attention(q, k, v, ...)`` takes ``repro``'s public layout, q
-``[B, S, Hq, D]`` and k, v ``[B, S, Hkv, D]`` with ``Hq % Hkv == 0``, and
-returns ``[B, S, Hq, D]`` in q's dtype.  On a CUDA tensor it launches
+``[B, Sq, Hq, D]`` and k, v ``[B, Skv, Hkv, D]`` with ``Hq % Hkv == 0``, and
+returns ``[B, Sq, Hq, D]`` in q's dtype.  On a CUDA tensor it launches
 ``csrc/flash_attention.cu`` (or raises); on a CPU tensor it runs
 :func:`attention_plain`.  The reference wrapper repeats K and V head-wise
 for GQA; the kernel reads KV head ``h // (Hq // Hkv)`` by index through
 the tensors' strides, so neither a repeat nor a transposed copy is made
 and q, k, v may be strided views (last dimension contiguous).
 
-Self-attention only (one sequence length S for queries and keys: every
-row then keeps its diagonal key, so the kernel may skip the key tiles that
-the mask leaves empty).  When a gradient is needed, the call goes through
-an ``autograd.Function``: its forward launches the same kernel, which also
+Queries and keys may differ in length, and ``q_offset`` places query row
+``r`` at position ``q_offset + r`` against keys at ``0 .. Skv - 1``: the
+shape of the TPU kernel's ``seq_kv`` and of the reference's
+``blocked_attention(q_offset=)`` under context parallelism
+(``models/transformer/attention.py::attention_seq_parallel``: a shard's
+``S / n`` rows at ``shard * S / n`` against all ``S`` keys).  Every query row
+must keep a key (the kernel skips the key tiles the mask leaves empty, so
+it never sees a row without one): a window that leaves the last row none
+raises ``ValueError``.  No caller reaches that shape, and there the
+reference's own two versions disagree (the Pallas kernel also averages its
+zero padding).
+
+When a gradient is needed, the call goes through an
+``autograd.Function``: its forward launches the same kernel, which also
 writes each row's log-sum-exp, and its backward launches
 ``csrc/flash_attention_bwd.cu`` (kernel 6b: four kernels, each counted
 under ``KERNEL_BWD``), which recomputes P from that statistic.  On CPU
@@ -21,7 +31,9 @@ tensors the Function runs the plain versions, :func:`attention_plain` and
 :func:`attention_plain_bwd`.  The TPU kernel is forward-only; the reference
 differentiates its ``blocked_attention`` under ``jax.checkpoint``, which
 is the gradient this backward computes.  The backward takes no softcap: no
-ported configuration sets one (Gemma-2 is ROADMAP queue 1 item 2).
+ported configuration sets one (Gemma-2 is ROADMAP queue 1 item 2); and it
+is self-attention only (``Sq == Skv``, ``q_offset == 0``): context-parallel
+training, which would need it at a shard's rows, is ROADMAP queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -37,9 +49,9 @@ from repro_torch.kernels.flash_attention.ref import attention_plain, attention_p
 KERNEL = "flash_attention"
 KERNEL_BWD = "flash_attention_bwd"
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# q, k, v, out, lse, B, S, Hq, Hkv, D, 3 strides (batch, seq, head) for each
-# of q, k, v, scale, causal, window, softcap, stream
-_SIG = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *([_I64] * 9), _F, _I, _I, _F, _P)
+# q, k, v, out, lse, B, Sq, Skv, q_off, Hq, Hkv, D, 3 strides (batch, seq,
+# head) for each of q, k, v, scale, causal, window, softcap, stream
+_SIG = (_P, _P, _P, _P, _P, *([_I] * 7), *([_I64] * 9), _F, _I, _I, _F, _P)
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _SIGNATURES = {name: _SIG for name in _ENTRY.values()}
 # q, k, v, out, dout, lse, delta, dq, dk_part, dv_part, dk, dv, B, S, Hq,
@@ -56,18 +68,27 @@ HEAD_DIMS = (16, 32, 64, 128)
 # stages of one head
 BWD_KEY_TILE, BWD_ROW_TILE, BWD_BLOCK_COST = 128, 64, 3
 
+_SELF_ONLY = (f"{KERNEL}: the gradient is self-attention only (Sq == Skv, q_offset 0); "
+              "context-parallel training, which needs it at a shard's rows, is ROADMAP "
+              "queue 1 item 2")
+
 __all__ = ["KERNEL", "KERNEL_BWD", "BWD_ENTRIES", "HEAD_DIMS", "flash_attention",
            "flash_attention_bwd", "attention_plain", "attention_plain_bwd"]
 
 
-def _check(q, k, v):
+def _check(q, k, v, window: int = 0, q_offset: int = 0):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"{KERNEL}: expected q [B, S, Hq, D] and k, v [B, S, Hkv, D]; "
+        raise ValueError(f"{KERNEL}: expected q [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D]; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    (B, S, Hq, D), Hkv = q.shape, k.shape[2]
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D or Hq % Hkv:
+    (B, Sq, Hq, D), (Skv, Hkv) = q.shape, k.shape[1:3]
+    if k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
         raise ValueError(f"{KERNEL}: q {tuple(q.shape)} and k/v {tuple(k.shape)} need "
-                         "the same B, S and D, and Hq a multiple of Hkv")
+                         "the same B and D, and Hq a multiple of Hkv")
+    if q_offset < 0:
+        raise ValueError(f"{KERNEL}: q_offset {q_offset} is negative")
+    if window > 0 and q_offset + Sq - window >= Skv:
+        raise ValueError(f"{KERNEL}: window {window} leaves query rows without a key "
+                         f"(rows at {q_offset} .. {q_offset + Sq - 1}, keys 0 .. {Skv - 1})")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{KERNEL}: q on {q.device}, k on {k.device}, v on {v.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -83,10 +104,10 @@ def _entry(q):
     return entry
 
 
-def _launch(q, k, v, scale, causal, window, softcap, with_lse=False):
-    """-> out, or (out, lse [B, Hq, S] fp32) if ``with_lse``."""
+def _launch(q, k, v, scale, causal, window, softcap, with_lse=False, q_offset=0):
+    """-> out, or (out, lse [B, Hq, Sq] fp32) if ``with_lse``."""
     entry = _entry(q)
-    (B, S, Hq, D), Hkv = q.shape, k.shape[2]
+    (B, Sq, Hq, D), (Skv, Hkv) = q.shape, k.shape[1:3]
     # TMA tensor maps (bf16) and 16-byte loads (fp32): last dim contiguous,
     # strides and base addresses 16-byte aligned
     vec = 16 // q.element_size()
@@ -94,12 +115,12 @@ def _launch(q, k, v, scale, causal, window, softcap, with_lse=False):
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{KERNEL}: {name} strides {t.stride()} are not 16-byte "
                              "rows with a contiguous last dimension")
-    out = torch.empty(B, S, Hq, D, dtype=q.dtype, device=q.device)
-    lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device) if with_lse else None
+    out = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device) if with_lse else None
     lib = build.load(KERNEL, _SIGNATURES)
     code = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, B, S, Hq, Hkv, D,
+        lse.data_ptr() if with_lse else None, B, Sq, Skv, int(q_offset), Hq, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         scale, int(causal), int(window), float(softcap or 0.0), build.stream_of(q))
     build.check(lib, code, entry)
@@ -193,7 +214,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float, causal: bool =
     """(dq, dk, dv) of :func:`flash_attention` from its inputs, its output,
     the row log-sum-exp ``lse`` [B, Hq, S] of its forward and the output's
     cotangent ``dout``: kernel 6b on CUDA tensors, :func:`attention_plain_bwd`
-    on CPU tensors."""
+    on CPU tensors.  Self-attention only (module docstring)."""
+    if k.shape[1] != q.shape[1]:
+        raise NotImplementedError(_SELF_ONLY)
     if q.device.type == "cpu":
         return attention_plain_bwd(q, k, v, out, lse, dout, scale=scale, causal=causal,
                                    window=window)
@@ -224,23 +247,25 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
-                    softcap: float | None = None) -> torch.Tensor:
+                    softcap: float | None = None, q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention: scale, tanh ``softcap`` (None: off), the
     causal mask and a sliding ``window`` (``0 <= qpos - kpos < window``
-    when ``window > 0``).  See the module docstring for the layout and the
-    gradient."""
-    _check(q, k, v)
+    when ``window > 0``), query row ``r`` at ``qpos = q_offset + r``.  See
+    the module docstring for the layout and the gradient."""
+    window, q_offset = max(int(window), 0), int(q_offset)
+    _check(q, k, v, window, q_offset)
     if softcap is not None and softcap < 0:
         raise ValueError(f"{KERNEL}: softcap {softcap} must be positive (or None)")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{KERNEL}: tensors on {q.device}, expected cpu or cuda")
-    window = max(int(window), 0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if softcap is not None:
             raise NotImplementedError(f"{KERNEL}: no gradient through a softcap yet; it "
                                       "comes with ROADMAP queue 1 item 2 (Gemma-2)")
+        if k.shape[1] != q.shape[1] or q_offset:
+            raise NotImplementedError(_SELF_ONLY)
         return _FlashAttention.apply(q, k, v, scale, causal, window)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, causal=causal, window=window,
-                               softcap=softcap)
-    return _launch(q, k, v, scale, causal, window, softcap)
+                               softcap=softcap, q_offset=q_offset)
+    return _launch(q, k, v, scale, causal, window, softcap, q_offset=q_offset)

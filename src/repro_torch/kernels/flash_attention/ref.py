@@ -8,9 +8,10 @@ import torch
 NEG = -1e30
 
 
-def _mask(r0, n, Skv, causal, window, device):
-    """[n, Skv] keys that query rows [r0, r0 + n) keep."""
-    qpos = torch.arange(r0, r0 + n, device=device)[:, None]
+def _mask(r0, n, Skv, causal, window, device, q_offset=0):
+    """[n, Skv] keys that query rows [r0, r0 + n), at positions
+    ``q_offset + r0`` on, keep."""
+    qpos = torch.arange(q_offset + r0, q_offset + r0 + n, device=device)[:, None]
     kpos = torch.arange(Skv, device=device)
     mask = torch.ones(n, Skv, dtype=torch.bool, device=device)
     if causal:
@@ -31,9 +32,11 @@ def _heads(x, r0, n, Hkv, dtype=torch.float32):
 
 def attention_plain(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
                     softcap: float | None = None, chunk: int | None = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, q_offset: int = 0):
     """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] with Hq % Hkv == 0 ->
-    [B, Sq, Hq, D] in ``v.dtype``.
+    [B, Sq, Hq, D] in ``v.dtype``; query row ``r`` sits at position
+    ``q_offset + r`` and key ``j`` at ``j`` (the reference's
+    ``blocked_attention(q_offset=)``, as a context-parallel shard calls it).
 
     ``attention_ref``'s semantics on ``repro``'s public layout, in the
     kernel's arithmetic: scores, max and sum of exps in fp32; scale, then
@@ -62,7 +65,7 @@ def attention_plain(q, k, v, *, scale: float, causal: bool = True, window: int =
         s = (_heads(q, r0, n, Hkv) @ kt).mul_(scale).view(B, Hkv, G, n, Skv)
         if softcap:
             s = softcap * torch.tanh(s / softcap)
-        s = s.masked_fill(~_mask(r0, n, Skv, causal, window, q.device), NEG)
+        s = s.masked_fill(~_mask(r0, n, Skv, causal, window, q.device, q_offset), NEG)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         den = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)

@@ -19,7 +19,9 @@ creation are those of the two-axis mesh, ``w = replica * R + rank``.
 The groups: the graph group (the R ranks of one replica at one model
 shard: the halo exchange and Eq. 6's sums), the data group (the D
 replicas of one rank and shard), the edge group (the M shards of one rank
-of one replica: the sum of the partial aggregates) and the world.
+of one replica: the sum of the partial aggregates; the LM's ``model`` group,
+``models/transformer/model.py::ParallelCtx``, with graph = 1) and the
+world.
 
 :func:`spawn` starts the processes with the ``spawn`` start method and
 rendezvous through a ``FileStore`` in a temporary directory (no fixed
@@ -38,6 +40,10 @@ tensor), and a worker that raises makes :func:`spawn` raise.
   ``stage_s`` / ``wire_s`` split the host time between the copies and the
   gloo calls).  No CUDA tensor is ever handed to gloo, and no backend is
   ever switched silently.
+
+Besides the exchanges, a group sums (``all_reduce``) and gathers
+(``all_gather``, tiled along one dimension, as the context-parallel
+attention gathers K and V).
 
 Every halo exchange is posted (``post_all_to_all``; ``post_permute``, one
 one-way permutation per round: a neighbor round's pair swaps, or one hop
@@ -209,6 +215,20 @@ class Transport:
         self._wire(lambda: dist.all_reduce(buf, group=group.pg))
         return self._back(buf)
 
+    def all_gather(self, t: torch.Tensor, group: "Group", dim: int = 0) -> torch.Tensor:
+        """Every group member's ``t`` (all of one shape), concatenated along
+        ``dim`` in group order: the tiled all-gather of ``jax.lax.all_gather
+        (tiled=True)``.  A new tensor on this process's device."""
+        if group.size == 1:
+            return t.clone()
+        bits, shape = self._bits(t.dtype, t.shape)
+        send = self._out(t.contiguous().view(bits))
+        self.sent_bytes += send.numel() * send.element_size()
+        got = self._empty((group.size,) + shape, bits)
+        self._wire(lambda: dist.all_gather(list(got.unbind(0)), send, group=group.pg))
+        out = self._back(got).view(t.dtype)
+        return out.movedim(0, dim).flatten(dim, dim + 1)
+
 
 class Posted:
     """A posted exchange of one process: the backend's works per round, the
@@ -256,6 +276,9 @@ class Group:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         return self.transport.all_reduce(t, self)
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return self.transport.all_gather(t, self, dim)
 
     def post_all_to_all(self, buf: torch.Tensor) -> Posted:
         return self.transport.post_all_to_all(buf, self)

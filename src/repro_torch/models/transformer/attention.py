@@ -1,5 +1,5 @@
-"""Attention: blocked (flash) prefill/forward and one-device decode (port of
-``repro.models.transformer.attention``).
+"""Attention: blocked (flash) prefill/forward, its context-parallel form, and
+the sequence-sharded decode (port of ``repro.models.transformer.attention``).
 
 ``blocked_attention`` is the attention of every prefill, forward and
 training step; the reference computes it with a nested ``lax.scan`` of
@@ -7,22 +7,68 @@ online-softmax tiles, whose TPU twin is the Pallas flash kernel, and
 differentiates it under ``jax.checkpoint``.  The port runs it through that
 kernel's CUDA counterpart (``kernels/flash_attention``): one launch per
 layer, and under autograd one backward call (kernel 6b, which recomputes
-the tiles from the saved row log-sum-exp).  Decode attends one new token per sequence over the KV cache in
-plain PyTorch (the reference has no kernel there either).  The
-sequence-sharded decode and its ``psum`` combine come with the multi-card
-slice; on one device the combine reduces to dividing by ``l``.
+the tiles from the saved row log-sum-exp).
+
+Context parallelism (``attn_parallel="seq"`` over a ``model`` group of
+processes, ``ctx.model > 1``): each process holds its own ``S / n`` query
+rows; ``attention_seq_parallel`` all-gathers the shard's K and V over the
+group (one tiled gather of both a layer, ``launch/mesh.py::Group.all_gather``)
+and calls ``blocked_attention`` on its rows at ``q_offset = shard * S / n``
+against all ``S`` keys: kernel 6 at ``Sq != Skv``.
+
+Decode attends one new token per sequence over a KV cache whose sequence
+is split over the group (``seq_shard_decode``): each process scores its
+slice of the cache in plain PyTorch (the reference has no kernel there
+either) and the partial softmaxes ``(o, m, l)`` are merged by
+``_combine_partials``.  The reference merges them with a ``pmax`` and two
+``psum``s; the port gathers every shard's partials and merges them in shard
+order on each process, so every process ends with bitwise the same output
+(and so the same greedy token).  On one device the merge reduces to
+dividing by ``l``.  ``ctx`` is a ``model.ParallelCtx`` (None: one device);
+its ``host_s`` collects the host seconds spent in the gathers.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
+NEG = -1e30
 
-def blocked_attention(q, k, v, *, scale: float):
-    """Causal attention, q [B, S, Hq, D], k, v [B, S, Hkv, D] ->
-    [B, S, Hq, D] in q's dtype; differentiable (see the module docstring)."""
-    return flash_attention(q, k, v, scale=scale, causal=True)
+
+def blocked_attention(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
+                      softcap: float | None = None, q_offset: int = 0):
+    """q [B, Sq, Hq, D], k, v [B, Skv, Hkv, D] -> [B, Sq, Hq, D] in q's
+    dtype, query row ``r`` at position ``q_offset + r``; differentiable at
+    ``Sq == Skv`` (see the module docstring)."""
+    return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
+                           softcap=softcap, q_offset=q_offset)
+
+
+def host_timed(ctx, key, fn):
+    """``fn()``, its host seconds added to ``ctx.host_s[key]``."""
+    t0 = time.perf_counter()
+    out = fn()
+    ctx.host_s[key] = ctx.host_s.get(key, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def attention_seq_parallel(q, k, v, ctx, *, scale: float, return_kv: bool = False):
+    """Context-parallel causal blocked attention: q, k, v [B, S_loc, H, D]
+    are this shard's rows (positions ``shard * S_loc`` on); K and V are
+    all-gathered over the model group, in shard order, and the shard's rows
+    attend to all of them -> [B, S_loc, Hq, D] (with ``return_kv`` also the gathered K and
+    V, [B, n * S_loc, Hkv, D], from which the prefill fills its cache
+    shard).  One tiled gather of K and V side by side; kernel 6 reads the
+    two halves of the gathered buffer in place, as strided views."""
+    Hkv = k.shape[2]
+    kv = host_timed(ctx, "all_gather",
+                    lambda: ctx.group.all_gather(torch.cat((k, v), dim=2), dim=1))
+    k_all, v_all = kv[:, :, :Hkv], kv[:, :, Hkv:]
+    out = blocked_attention(q, k_all, v_all, scale=scale, q_offset=ctx.shard * q.shape[1])
+    return (out, k_all, v_all) if return_kv else out
 
 
 def _bmm_f32(a, b):
@@ -36,35 +82,83 @@ def _bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-def _local_decode_scores(q, kc, vc, *, scale: float):
-    """q [B, Hq, D]; kc, vc [B, n, Hkv, D], every position valid ->
-    (unnormalised out [B, Hkv, G, D] fp32, sum of exps l [B, Hkv, G]).
+def _local_decode_scores(q, kc, vc, start: int, cache_len: int, *, scale: float):
+    """q [B, Hq, D]; kc, vc [B, S_loc, Hkv, D], this shard's slice of the
+    cache, at global positions ``kpos = start + j`` -> the shard's partial
+    softmax (unnormalised out o [B, Hkv, G, D], row max m [B, Hkv, G],
+    sum of exps l [B, Hkv, G], fp32).
 
-    fp32 scores of the cache's values (the reference's
+    The reference's validity mask, ``kpos < cache_len`` (its sliding
+    window and softcap come with the configurations that set them, ROADMAP
+    queue 1 item 2), keeps the shard's first positions: only those are
+    scored (a masked key's ``exp(-1e30 - m)`` adds exact zeros).  A shard
+    with no valid position gives ``o = 0, m = -1e30, l = 0``, which the
+    merge weighs by ``exp(-1e30 - m_max) = 0``, as the reference's masked
+    shard.  fp32 scores of the cache's values (the reference's
     ``preferred_element_type=float32``), p rounded to the cache's type for
-    the PV product, as the reference rounds it.  One batched product per KV
-    head reads that head's [B, n, D] slice of the cache through its
-    strides."""
-    B, n, Hkv, D = kc.shape
-    qg = q.reshape(B, Hkv, q.shape[1] // Hkv, D)
-    outs, sums = [], []
+    the PV product, as the reference rounds it.  One batched product per KV head reads that head's [B, n, D] slice
+    of the cache through its strides."""
+    B, S_loc, Hkv, D = kc.shape
+    G = q.shape[1] // Hkv
+    b = min(cache_len - start, S_loc)
+    if b <= 0:
+        zeros = torch.zeros(B, Hkv, G, dtype=torch.float32, device=q.device)
+        return (torch.zeros(B, Hkv, G, vc.shape[-1], dtype=torch.float32, device=q.device),
+                zeros.fill_(NEG), torch.zeros_like(zeros))
+    qg = q.reshape(B, Hkv, G, D)
+    outs, maxes, sums = [], [], []
     for h in range(Hkv):
-        s = _bmm_f32(qg[:, h], kc[:, :, h].transpose(1, 2)).mul_(scale)    # [B, G, n]
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        outs.append(_bmm_f32(p.to(vc.dtype), vc[:, :, h]))
+        s = _bmm_f32(qg[:, h], kc[:, :b, h].transpose(1, 2)).mul_(scale)    # [B, G, n]
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        outs.append(_bmm_f32(p.to(vc.dtype), vc[:, :b, h]))
+        maxes.append(m[..., 0])
         sums.append(p.sum(dim=-1))
-    return torch.stack(outs, 1), torch.stack(sums, 1)
+    return torch.stack(outs, 1), torch.stack(maxes, 1), torch.stack(sums, 1)
+
+
+def _combine_partials(o, m, l, ctx):
+    """Merge the model group's partial softmaxes: ``exp(m - max m)``-weighted
+    sums of ``l`` and ``o`` over the shards -> o_tot / max(l_tot, 1e-20).
+    The reference's ``pmax`` and ``psum``s; here one all-gather of the
+    packed partials and the merge in shard order on every process, so the
+    result is bitwise the same on each.  One device (``ctx`` None):
+    ``o / max(l, 1e-20)``."""
+    if ctx is None:
+        return o / l.clamp_min(1e-20)[..., None]
+    packed = torch.cat((o, m[..., None], l[..., None]), dim=-1)[None]
+    parts = host_timed(ctx, "combine", lambda: ctx.group.all_gather(packed, dim=0))
+    D = o.shape[-1]
+    m_max = parts[..., D].amax(dim=0)
+    o_tot = l_tot = None
+    for part in parts:
+        corr = torch.exp(part[..., D] - m_max)
+        lw, ow = part[..., D + 1] * corr, part[..., :D] * corr[..., None]
+        l_tot, o_tot = (lw, ow) if o_tot is None else (l_tot + lw, o_tot + ow)
+    return o_tot / l_tot.clamp_min(1e-20)[..., None]
+
+
+def decode_attention_sharded(q, k_cache, v_cache, k_new, v_new, cache_len: int, ctx, *,
+                             scale: float):
+    """One new token per sequence over a sequence-sharded cache: this
+    process's slice ``k_cache``, ``v_cache`` [B, S_loc, Hkv, D] holds
+    positions ``[shard * S_loc, (shard + 1) * S_loc)``.  The shard that owns
+    position ``cache_len`` writes ``k_new`` / ``v_new`` [B, Hkv, D] there in
+    place (the reference donates its cache); every shard scores its slice
+    over the ``cache_len + 1`` filled positions, and the partials are merged
+    over the group.  q [B, Hq, D] -> [B, Hq, D] in the cache's dtype."""
+    S_loc = k_cache.shape[1]
+    start = 0 if ctx is None else ctx.shard * S_loc
+    if start <= cache_len < start + S_loc:
+        k_cache[:, cache_len - start] = k_new
+        v_cache[:, cache_len - start] = v_new
+    o, m, l = _local_decode_scores(q, k_cache, v_cache, start, cache_len + 1, scale=scale)
+    out = _combine_partials(o, m, l, ctx)
+    return out.reshape(q.shape[0], q.shape[1], -1).to(v_cache.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len: int, *, scale: float):
-    """One new token per sequence: writes ``k_new``/``v_new`` [B, Hkv, D]
-    at position ``cache_len`` of the caches [B, capacity, Hkv, D] in place
-    (the reference donates its cache), then attends q [B, Hq, D] over the
-    ``cache_len + 1`` filled positions.  Returns [B, Hq, D] in the cache's
-    dtype."""
-    k_cache[:, cache_len] = k_new
-    v_cache[:, cache_len] = v_new
-    n = cache_len + 1
-    o, l = _local_decode_scores(q, k_cache[:, :n], v_cache[:, :n], scale=scale)
-    out = o / l.clamp_min(1e-20)[..., None]
-    return out.reshape(q.shape[0], q.shape[1], -1).to(v_cache.dtype)
+    """:func:`decode_attention_sharded` on one device: the caches [B,
+    capacity, Hkv, D] whole."""
+    return decode_attention_sharded(q, k_cache, v_cache, k_new, v_new, cache_len, None,
+                                    scale=scale)

@@ -1,24 +1,33 @@
 """Transformer configuration (port of ``repro.models.transformer.config``).
 
-The port holds the fields its ported model reads: a dense decoder with
+The port holds the fields its ported models read: a dense decoder with
 grouped-query attention (MQA when ``n_kv == 1``), RoPE, pre-norm RMSNorm,
-a tanh-GELU MLP (``gelu_mlp``) and tied embeddings, as Granite-34B-code
-sets them, and the two training knobs Granite sets: ``train_microbatches``
+tied embeddings and an MLP variant, ``gelu_mlp`` (tanh GELU, Granite-34B-code)
+or ``swiglu`` (Llama-3.2-3B); the training knobs ``train_microbatches``
 (the train cell's micro-batch count) and ``remat`` ("full": every layer
-recomputed in the backward, "none": activations kept; the reference's
-"dots" policy has no caller in the port and is refused).  The reference's
-other knobs (MoE, MLA, sliding windows, softcaps, post-norms, the other
-MLP variants, untied embeddings and the parallel layouts) each have one
-value on this path; they come with the configurations and the sharding
-that use them.
+recomputed in the backward, "none": activations kept, "dots": the
+reference's policy, which Llama's config sets and which only a train step
+refuses: the port has no gradient through it yet); and the parallel
+layout: ``attn_parallel`` ("heads", or "seq": context parallelism over the
+``model`` axis of a ``ParallelCtx``) and ``seq_shard_decode`` (the axes the
+decode cache's sequence is split over, ``("model",)``).  The reference's
+other knobs (MoE, MLA, sliding windows, softcaps, post-norms, the other MLP
+variants, untied embeddings, ring attention) come with the configurations
+and the sharding that use them; a value the port does not run raises
+here, naming ROADMAP queue 1 item 2.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
-REMAT_POLICIES = ("none", "full")
+from repro_torch.models.transformer.layers import MLP_VARIANTS
+
+REMAT_POLICIES = ("none", "full", "dots")
+ATTN_PARALLEL = ("heads", "seq")
+ITEM = "ROADMAP queue 1 item 2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,18 +40,31 @@ class TransformerConfig:
     n_kv: int
     head_dim: int
     d_ff: int
+    mlp_variant: str = "swiglu"
     rope_theta: float = 10000.0
+    tied_embeddings: bool = True
     norm_eps: float = 1e-6
     param_dtype: torch.dtype = torch.bfloat16
     cache_dtype: torch.dtype = torch.bfloat16
     train_microbatches: int = 1
+    attn_parallel: str = "heads"
     remat: str = "none"
+    seq_shard_decode: Tuple[str, ...] = ("model",)
 
     def __post_init__(self):
-        if self.remat not in REMAT_POLICIES:
-            raise ValueError(f"{self.name}: remat {self.remat!r} is not ported (the port "
-                             f"has {REMAT_POLICIES}; the reference's 'dots' policy comes "
-                             "with a configuration that uses it, ROADMAP queue 1 item 2)")
+        for field, value, ported in (("remat", self.remat, REMAT_POLICIES),
+                                     ("mlp_variant", self.mlp_variant, MLP_VARIANTS),
+                                     ("attn_parallel", self.attn_parallel, ATTN_PARALLEL)):
+            if value not in ported:
+                raise ValueError(f"{self.name}: {field} {value!r} is not ported (the port "
+                                 f"has {ported}; the rest come with the configurations "
+                                 f"that use them, {ITEM})")
+        if not self.tied_embeddings:
+            raise ValueError(f"{self.name}: untied embeddings are not ported ({ITEM})")
+        if tuple(self.seq_shard_decode) != ("model",):
+            raise ValueError(f"{self.name}: seq_shard_decode {self.seq_shard_decode!r} is "
+                             f"not ported (the port shards the decode cache over "
+                             f"('model',); the wider split of long_500k is {ITEM})")
 
     def with_(self, **kw) -> "TransformerConfig":
         return dataclasses.replace(self, **kw)
@@ -52,4 +74,5 @@ class TransformerConfig:
         embedding, attention and MLP matrices; the norms left out)."""
         d = self.d_model
         attn = d * self.n_q * self.head_dim * 2 + d * self.n_kv * self.head_dim * 2
-        return self.vocab * d + self.n_layers * (attn + 2 * d * self.d_ff)
+        mats = 3 if self.mlp_variant == "swiglu" else 2
+        return self.vocab * d + self.n_layers * (attn + mats * d * self.d_ff)

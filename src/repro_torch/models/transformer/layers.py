@@ -1,4 +1,5 @@
-"""Transformer building blocks: RMSNorm, RoPE and the GELU MLP (port of
+"""Transformer building blocks: RMSNorm, RoPE and the dense MLPs, the
+tanh-GELU ``gelu_mlp`` and ``swiglu`` (port of
 ``repro.models.transformer.layers``).
 
 Parameters are stacked over layers (leading axis ``L``), as the reference
@@ -56,12 +57,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# MLP (the reference's ``gelu_mlp`` variant)
+# MLPs (the reference's ``gelu_mlp`` and ``swiglu`` variants)
 # ---------------------------------------------------------------------------
 
-def init_ffn(gen: torch.Generator, n_layers: int, d: int, ff: int, dtype, device):
-    return {"wi": init_stacked(gen, (n_layers, d, ff), d ** -0.5, dtype, device),
-            "wo": init_stacked(gen, (n_layers, ff, d), ff ** -0.5, dtype, device)}
+MLP_VARIANTS = ("gelu_mlp", "swiglu")
+
+
+def init_ffn(gen: torch.Generator, n_layers: int, d: int, ff: int, dtype, device,
+             variant: str = "gelu_mlp"):
+    """The reference's leaves: ``wi`` [L, d, ff] and ``wo`` [L, ff, d], and
+    for ``swiglu`` the gate ``wg`` [L, d, ff] (drawn between them)."""
+    p = {"wi": init_stacked(gen, (n_layers, d, ff), d ** -0.5, dtype, device)}
+    if variant == "swiglu":
+        p["wg"] = init_stacked(gen, (n_layers, d, ff), d ** -0.5, dtype, device)
+    p["wo"] = init_stacked(gen, (n_layers, ff, d), ff ** -0.5, dtype, device)
+    return p
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -77,5 +87,15 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * ((torch.tanh(inner) + 1.0) * 0.5)
 
 
-def ffn(p, x: torch.Tensor) -> torch.Tensor:
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu(x)`` as the reference evaluates it: ``x * (1 / (1 +
+    exp(-x)))`` op by op in ``x.dtype``.  ``F.silu`` rounds once: in bf16
+    its result differs from the reference's by an ulp in about a third of
+    the elements."""
+    return x * (1.0 / (torch.exp(-x) + 1.0))
+
+
+def ffn(p, x: torch.Tensor, variant: str = "gelu_mlp") -> torch.Tensor:
+    if variant == "swiglu":
+        return (silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
     return gelu_tanh(x @ p["wi"]) @ p["wo"]

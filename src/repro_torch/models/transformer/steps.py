@@ -4,9 +4,12 @@ prefill and decode steps, and the greedy serving loop of
 ``examples/serve_lm.py``.
 
 The serving steps run under ``torch.no_grad()``; the decode step writes its
-cache in place.  The train step updates its state in place (the
-reference's cell donates it): at Granite's width a second copy of the
-master weights and moments does not fit one card.
+cache in place.  They take a ``model.ParallelCtx`` (``ctx``, None: one
+device): over a model group each process calls them with the same prompts
+and tokens, holds its shard of the cache and gets the same logits.  The
+train step updates its state in place (the reference's cell donates it):
+at Granite's width a second copy of the master weights and moments does
+not fit one card.
 
 Precision on the card: the reference's bf16 products accumulate in fp32.
 The attention's do here too (the flash kernel and the decode attention's
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer.config import TransformerConfig
+from repro_torch.models.transformer.config import ITEM, TransformerConfig
 from repro_torch.models.transformer.model import (
     decode_step, init_transformer, layer_list, lm_loss, prefill_step)
 from repro_torch.nn import tree_leaves, tree_map, tree_unflatten
@@ -59,7 +62,14 @@ def make_train_step(cfg: TransformerConfig, opt: AdamWConfig, n_micro: int = 1,
     and ``accumulate_gradients`` adds it into the stacked accumulators'
     per-layer views: ``.backward()`` into bf16 leaves would sum the
     micro-batches in bf16, which the reference does not.  Then AdamW
-    (``adamw_update_``) on the master weights."""
+    (``adamw_update_``) on the master weights.  Raises on ``cfg.remat ==
+    "dots"``, which the port's gradient does not have (a configuration that
+    sets it is served, never trained)."""
+    if cfg.remat == "dots":
+        raise ValueError(f"{cfg.name}: remat 'dots' is not ported to the gradient (the port "
+                         f"recomputes 'full' layers or 'none'; the reference's policy comes "
+                         f"with training a configuration that sets it, {ITEM})")
+
     def cast(tree):
         return tree_map(lambda t: t.to(cfg.param_dtype), tree)
 
@@ -97,30 +107,31 @@ def make_train_step(cfg: TransformerConfig, opt: AdamWConfig, n_micro: int = 1,
     return step
 
 
-def make_prefill_step(cfg: TransformerConfig, capacity: int):
+def make_prefill_step(cfg: TransformerConfig, capacity: int, ctx=None):
     """step(params, tokens [B, S]) -> (last logits [B, V], cache)."""
     @torch.no_grad()
     def step(params, tokens):
-        return prefill_step(params, tokens, cfg, capacity)
+        return prefill_step(params, tokens, cfg, capacity, ctx)
     return step
 
 
-def make_decode_step(cfg: TransformerConfig):
+def make_decode_step(cfg: TransformerConfig, ctx=None):
     """step(params, cache, tokens [B, 1], cache_len) -> (logits [B, 1, V],
     cache)."""
     @torch.no_grad()
     def step(params, cache, tokens, cache_len: int):
-        return decode_step(params, cache, tokens, cache_len, cfg)
+        return decode_step(params, cache, tokens, cache_len, cfg, ctx)
     return step
 
 
-def greedy_generate(params, prompts, cfg: TransformerConfig, gen_len: int):
+def greedy_generate(params, prompts, cfg: TransformerConfig, gen_len: int, ctx=None):
     """Serve a batch: prefill ``prompts`` [B, S] into a cache of capacity
     S + gen_len, then decode greedily.  Returns the ``gen_len`` tokens of
-    each sequence, [B, gen_len]."""
+    each sequence, [B, gen_len] (over a model group the same on every
+    process; S and S + gen_len must split over it)."""
     S = prompts.shape[1]
-    prefill = make_prefill_step(cfg, capacity=S + gen_len)
-    decode = make_decode_step(cfg)
+    prefill = make_prefill_step(cfg, capacity=S + gen_len, ctx=ctx)
+    decode = make_decode_step(cfg, ctx)
     logits, cache = prefill(params, prompts)
     tok = logits.argmax(dim=-1, keepdim=True)
     out = [tok]

@@ -22,8 +22,11 @@ embedding bag sums in the plain version's order and type: bitwise.  Flash
 attention runs its online softmax over key tiles where the plain version
 takes one softmax: ``tests/test_kernels.py``'s ``TOL`` (fp32 rtol / atol
 2e-5, bf16 2e-2), and at a long sequence, whose late rows are smaller than
-that atol, each row's relative L2 error within 1e-2; Granite's smoke cells hold prefill + decode to the full
-forward in fp32 at the reference's forward band.  The dst-aligned
+that atol, each row's relative L2 error within 1e-2; at Sq != Skv with a
+query offset the same bands against ``attention_plain(q_offset=)``, and a
+context-parallel shard's rows bitwise the whole sequence's; Granite's smoke cells hold prefill + decode to the full
+forward in fp32 at the reference's forward band, and Llama's model group of
+2 processes sharing the card its one-card run.  The dst-aligned
 edge-MLP kernel sums its aggregate in another order than the plain
 version's sorted segment sum: e_new rtol / atol 3e-5 in fp32 and 2e-2 in
 bf16 (``tests/test_kernels.py``'s bands for the op and its ``TOL``), agg
@@ -970,6 +973,102 @@ def test_granite_smoke_cells_on_card(cuda):
                           attention=lambda q, k, v, scale: fa.attention_plain(
                               q, k, v, scale=scale, causal=True))
     torch.testing.assert_close(torch.stack(steps, 1), full[:, 129:140], rtol=1e-4, atol=1e-5)
+
+
+FLASH_CP_CASES = [
+    # B, Sq, Skv, q_offset, Hq, Hkv, D, causal, window: context-parallel
+    # shards (the last of 4 and an inner one of Llama's 24:8 heads), rows and
+    # keys off the 128-row / 128-key tiles, a window crossing the shard's
+    # first key tiles, non-causal rows, and the TPU kernel's q_offset 0
+    # shapes with Sq < Skv and Sq > Skv (rows past Skv keep every key)
+    (1, 256, 1024, 768, 24, 8, 128, True, 0), (2, 200, 800, 400, 6, 2, 64, True, 0),
+    (1, 130, 390, 260, 4, 1, 32, True, 0), (1, 128, 384, 256, 4, 2, 64, True, 100),
+    (1, 100, 260, 160, 2, 2, 16, False, 0), (1, 64, 200, 0, 2, 1, 64, True, 0),
+    (1, 200, 64, 0, 2, 2, 32, True, 0), (1, 1, 129, 128, 3, 1, 128, True, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_kernel_at_sq_ne_skv_matches_plain(cuda, dtype, case):
+    """Kernel 6 with keys of their own length and query rows at
+    ``q_offset``: one launch, within TOL of ``attention_plain(q_offset=)``,
+    each row within rel L2 1e-2 (bf16) / 1e-5 (fp32), its row LSE within
+    2e-5, a second call bitwise the first."""
+    B, Sq, Skv, off, Hq, Hkv, D, causal, window = case
+    gen = torch.Generator().manual_seed(Sq + Skv)
+    q = torch.randn(B, Sq, Hq, D, generator=gen).to(dtype).to(cuda)
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=gen).to(dtype).to(cuda) for _ in range(2))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, q_offset=off)
+    n0 = build.launch_counts.get(fa.KERNEL, 0)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[fa.KERNEL] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want, want_lse = fa.attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    rel = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)
+    assert float(rel.max()) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    out, lse = fa._launch(q, k, v, D ** -0.5, causal, window, None, with_lse=True,
+                          q_offset=off)
+    assert torch.equal(out, got) and lse.shape == (B, Hq, Sq)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_kernel_shard_rows_bitwise_self_attention(cuda, dtype, n):
+    """A context-parallel shard's rows (q_offset a multiple of the 128-row
+    query tile) are bitwise the same rows of the whole sequence's
+    self-attention, with their LSE: each row walks the same key tiles in
+    the same order, so context parallelism changes no bit of the
+    attention, and the self-attention call is the kernel it was."""
+    S, Hq, Hkv, D = 1024, 6, 2, 128
+    gen = torch.Generator().manual_seed(n)
+    q = torch.randn(1, S, Hq, D, generator=gen).to(dtype).to(cuda)
+    k, v = (torch.randn(1, S, Hkv, D, generator=gen).to(dtype).to(cuda) for _ in range(2))
+    whole, whole_lse = fa._launch(q, k, v, D ** -0.5, True, 0, None, with_lse=True)
+    rows = S // n
+    for shard in range(n):
+        sl = slice(shard * rows, (shard + 1) * rows)
+        out, lse = fa._launch(q[:, sl], k, v, D ** -0.5, True, 0, None, with_lse=True,
+                              q_offset=shard * rows)
+        assert torch.equal(out, whole[:, sl]) and torch.equal(lse, whole_lse[:, :, sl])
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_rows_without_keys(cuda):
+    q, kv = torch.randn(1, 8, 4, 64, device=cuda), torch.randn(1, 24, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="without a key"):
+        fa.flash_attention(q, kv, kv, scale=1.0, window=4, q_offset=24)
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        fa.flash_attention(q.requires_grad_(), kv, kv, scale=1.0)
+
+
+@pytest.mark.gpu
+def test_llama_smoke_model_group_on_card(cuda):
+    """Llama's smoke config (fp32) served by a model group of 2 gloo
+    processes sharing the card against the same on one card: each process
+    launches kernel 6 once per layer in its prefill (at Sq != Skv) and none
+    in its decode steps; the processes' logits bitwise equal and within the
+    forward band of the one-card run's."""
+    from repro_torch.configs import llama3_2_3b
+    from repro_torch.launch import lm_checks as lmx
+    cfg = llama3_2_3b.smoke_config().with_(param_dtype=torch.float32,
+                                           cache_dtype=torch.float32)
+    job = lmx.Job(cases=(lmx.Case("m2", model=2),), cfg=lmx.cfg_dict(cfg), steps=4,
+                  device="cuda", prompt_len=256)
+    procs = [p["m2"] for p in lmx.run_world(job, 2)]
+    one = lmx.run_case(job, lmx.Case("one"))
+    assert one["launches_prefill"] == {fa.KERNEL: cfg.n_layers} and not one["launches_decode"]
+    for rec in procs:
+        assert rec["launches_prefill"] == {fa.KERNEL: cfg.n_layers}
+        assert not rec["launches_decode"]
+        assert np.array_equal(rec["logits"], procs[0]["logits"])
+        torch.testing.assert_close(torch.from_numpy(rec["logits"]), one["logits"].cpu(),
+                                   rtol=RTOL, atol=ATOL)
 
 
 FLASH_BWD_CASES = [

@@ -295,8 +295,11 @@ def test_flash_attention_validates_inputs():
     q, kv = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         fa.flash_attention(q, torch.randn(1, 8, 3, 16), torch.randn(1, 8, 3, 16), scale=1.0)
-    with pytest.raises(ValueError, match="same B, S and D"):
-        fa.flash_attention(q, kv[:, :7], kv[:, :7], scale=1.0)
+    with pytest.raises(ValueError, match="same B and D"):
+        fa.flash_attention(q, kv[..., :8], kv[..., :8], scale=1.0)
+    # keys of their own length are taken (the context-parallel shape)
+    assert torch.equal(fa.flash_attention(q, kv[:, :7], kv[:, :7], scale=1.0),
+                       fa.attention_plain(q, kv[:, :7], kv[:, :7], scale=1.0))
     with pytest.raises(ValueError, match="expected q"):
         fa.flash_attention(q, kv, kv[..., :8], scale=1.0)
     with pytest.raises(TypeError, match="differ"):

@@ -199,8 +199,11 @@ def test_remat_full_is_bitwise_remat_none():
 
 
 def test_remat_dots_is_refused():
+    """A configuration takes the reference's "dots" policy (Llama-3.2-3B's
+    sets it and is served); the train step refuses it."""
+    cfg = granite_34b.smoke_config().with_(remat="dots")
     with pytest.raises(ValueError, match="not ported"):
-        granite_34b.smoke_config().with_(remat="dots")
+        make_train_step(cfg, optimizer.AdamWConfig())
 
 
 # ---------------------------------------------------------------------------
