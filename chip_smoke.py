@@ -15,6 +15,9 @@ flash attention's hand-written backward and decodes its long_500k cell,
 serves Llama-3.2-3B (GQA 24:8, SwiGLU) at full width and depth on one card
 and as a model group of 4 gloo processes sharing the card (context-parallel
 prefill through kernel 6 at Sq != Skv, sequence-sharded decode), serves
+Gemma-2-2B (GQA 8:4 of head dim 256, GeGLU, alternating 4,096-token
+windows, softcaps, post-norms) the same way through kernel 6 at D = 256,
+serves
 GraphCast's weather configuration at its published widths
 (d512, 16 layers) through kernel 1's generic-width entry, trains GraphCast
 through the reference's cell functions on one rank and over a (graph x
@@ -316,6 +319,21 @@ Phases (one line each, prefixed ``[n name]``):
                  path fed the same tokens (bf16 by the drift rule against
                  its fp32 run, fp32 at 2 layers in RTOL / ATOL), each
                  process's gather and combine host times
+  8d gemma       Gemma-2-2B through ``gemma2_2b.build_cell`` at 26
+                 layers, as 8c: prefill_32k (B=8; exactly 26 kernel-6
+                 launches at D = 256 a prefill), prefill + decode of a
+                 6,144-token prompt (longer than the local layers'
+                 4,096-key window) vs the plain forward, decode_32k
+                 (B=16); the model group of 4 gloo processes (26 launches
+                 a process a prefill, logits and tokens bitwise equal).
+                 Phase 2 times kernel 6 at Gemma's global and local
+                 layers (B=1, S=32,768, 8:4 heads of 256, causal, window
+                 4,096 on the local one), with softcap 50 and without,
+                 beside FlexAttention (torch.compile of flex_attention
+                 with the tanh score_mod and a causal or windowed block
+                 mask) on both layers with the softcap, and SDPA's
+                 FlashAttention backend on the global one without it
+                 (phase_flash_gemma)
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — one full-width call of
 fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
@@ -350,9 +368,9 @@ forward on serve_p99, serve_bulk and train_batch) and each LM path (8;
 flash attention exactly once per layer per prefill, never in a decode
 step; 8b: per training step kernel 6 twice per layer and micro-batch, the
 forward and its recompute, and kernel 6b's four kernels once, none in
-long_500k's decode; 8c: kernel 6 once per layer per prefill on one card
-and on every process of the model group, at Sq != Skv there, never in a
-decode step), GraphCast's served states (9; kernel 1's generic entry exactly 16
+long_500k's decode; 8c and 8d: kernel 6 once per layer per prefill on one
+card and on every process of the model group, at Sq != Skv there, never in
+a decode step), GraphCast's served states (9; kernel 1's generic entry exactly 16
 times a forward, nothing else) and its gradient (2 + 2 generic launches),
 GraphCast's training steps (9c; kernels 1c, 1d, 2c exactly 16, 32, 16 a
 step on cora and on the weather graph; per process of the edge-parallel
@@ -416,10 +434,15 @@ DRIFT_FACTOR = 2.0
 # witness is also reported, beside the check's own depth
 WITNESS_DEPTHS = (2, 11)
 # tests/test_kernels.py:23-30's FLASH_CASES (B, S, Hq, Hkv, D, causal, window,
-# softcap; one S for queries and keys) and its TOL (:15) by dtype name
+# softcap; one S for queries and keys), then head dim 256 (Gemma-2: 64-key
+# tiles; a window crossing them under softcap 50, S one above the 64- and
+# 128-row tiles, non-causal rows: kernel 6b does not take D = 256, so
+# these have no backward), and its TOL (:15) by dtype name
 FLASH_CASES = [(1, 128, 2, 2, 64, True, 0, None), (2, 96, 4, 2, 32, True, 0, None),
                (1, 160, 2, 1, 64, True, 48, None), (1, 64, 2, 2, 128, False, 0, 30.0),
-               (1, 72, 1, 1, 16, True, 0, None)]
+               (1, 72, 1, 1, 16, True, 0, None),
+               (1, 200, 8, 4, 256, True, 100, 50.0), (2, 129, 2, 1, 256, False, 0, None),
+               (1, 65, 4, 2, 256, True, 0, None)]
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 # kernel 6b's own edge cases in bf16 (B, S, Hq, Hkv, D, causal, window): S one
 # below, at and one above its 64-row stages and 128-key / 128-row blocks, a
@@ -442,9 +465,16 @@ GRANITE_LAYER = (1, 32768, 48, 1, 128, True, 0, None)
 # 24,576 against all 32,768 keys)
 FLASH_CP_CASES = [(2, 96, 320, 200, 4, 2, 64, True, 0), (1, 128, 384, 256, 4, 2, 64, True, 100),
                   (1, 100, 260, 160, 2, 2, 16, False, 0), (1, 64, 200, 0, 2, 1, 64, True, 0),
-                  (1, 200, 64, 0, 2, 2, 32, True, 0), (1, 72, 300, 228, 3, 1, 128, True, 0)]
+                  (1, 200, 64, 0, 2, 2, 32, True, 0), (1, 72, 300, 228, 3, 1, 128, True, 0),
+                  (1, 96, 384, 288, 8, 4, 256, True, 100), (1, 130, 520, 390, 8, 4, 256, True, 0)]
 LLAMA_LAYER = (1, 32768, 32768, 0, 24, 8, 128, True, 0)
 LLAMA_CP_LAYER = (1, 8192, 32768, 24576, 24, 8, 128, True, 0)
+# Gemma-2-2B's prefill layers (B, S, Hq, Hkv, D, window; causal, bf16): the
+# global (odd) and the local (even) layers, each timed with the softcap of
+# 50 and without it
+GEMMA_GLOBAL = (1, 32768, 8, 4, 256, 0)
+GEMMA_LOCAL = (1, 32768, 8, 4, 256, 4096)
+GEMMA_SOFTCAP = 50.0
 # the planted fault that the row check must catch at the Granite layer:
 # from FAULT_ROW on, each row loses the keys of its own diagonal tile
 FAULT_ROW, FAULT_TILE = 2048, 64
@@ -694,6 +724,8 @@ def phase_device():
                "nmp_bwd_bf16": ("nmp_bf16", "nmp_bf16_bwd_kernelILi32EE"),
                "embedding_bag": ("embedding_bag", "embedding_bag_kernelIfLi4E"),
                "flash_attention": ("flash_attention", "flash_fwd_bf16_kernelILi128E"),
+               "flash_attention_d256": ("flash_attention", "flash_fwd_bf16_kernelILi256E"),
+               "flash_attention_f32_d256": ("flash_attention", "flash_fwd_f32_kernelILi256E"),
                "flash_attention_bwd_dkdv": ("flash_attention_bwd",
                                             "flash_bwd_dkdv_kernelILi128E"),
                "flash_attention_bwd_dq": ("flash_attention_bwd",
@@ -1678,17 +1710,18 @@ def attention_pairs(S, causal, window, Skv=None, q_offset=0):
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def drop_diagonal_tiles(q, k, v, want, scale, q_offset=0):
+def drop_diagonal_tiles(q, k, v, want, scale, q_offset=0, softcap=None):
     """The plain causal output ``want`` with a planted fault: every row
     from FAULT_ROW on attends only to the keys before its own FAULT_TILE-key
     diagonal tile (the fault of a kernel that skips that tile); row r sits
-    at position ``q_offset + r``."""
+    at position ``q_offset + r``; the scores under ``softcap``."""
     from repro_torch.kernels.flash_attention.ref import attention_plain
     out = want.clone()
     for t0 in range(FAULT_ROW, q.shape[1], FAULT_TILE):
         end = q_offset + t0
         out[:, t0:t0 + FAULT_TILE] = attention_plain(
-            q[:, t0:t0 + FAULT_TILE], k[:, :end], v[:, :end], scale=scale, causal=False)
+            q[:, t0:t0 + FAULT_TILE], k[:, :end], v[:, :end], scale=scale, causal=False,
+            softcap=softcap)
     return out
 
 
@@ -1758,7 +1791,7 @@ def phase_flash_attention(ptxas, cases=FLASH_CASES):
                           f"the elementwise TOL: {fault_in_tol})")
             del fault
         bwd_note = ""
-        if not granite and cap is None:
+        if not granite and cap is None and D in fa.BWD_HEAD_DIMS:
             # kernel 6b on kernel 6's output and LSE, as training calls it,
             # against its plain version on the plain forward's
             g = torch.randn(q.shape, generator=gen, device=dev, dtype=dtype)
@@ -1889,6 +1922,40 @@ def sdpa_same_function(q, k, v, causal, window, q_offset, dtype):
     return lib, backend.name
 
 
+def flex_same_function(q, k, v, window, softcap):
+    """(call, note) of ``flex_attention`` under ``torch.compile`` computing
+    kernel 6's causal function on the same inputs ([B, S, H, D] copied once
+    to [B, H, S, D]): the score_mod ``softcap * tanh(s / softcap)`` on the
+    scaled score, the block mask ``0 <= q - k`` (and ``< window`` where
+    ``window > 0``), GQA by ``enable_gqa``.  (None, the error) where it
+    does not build or run at these shapes.  The one library call that
+    computes the softcapped or windowed function; the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    B, S, Hq, D = q.shape
+    t0 = time.perf_counter()
+
+    def mask(b, h, qi, ki):
+        keep = qi >= ki
+        return keep & (qi - ki < window) if window > 0 else keep
+
+    def cap(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    try:
+        blocks = create_block_mask(mask, None, None, S, S, device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+
+        def lib():
+            return flex(qt, kt, vt, score_mod=cap, block_mask=blocks,
+                        scale=D ** -0.5, enable_gqa=True)
+        lib()
+    except Exception as e:      # a yardstick: its failure is the reading
+        return None, f"none (flex_attention failed: {type(e).__name__}: {str(e)[:160]})"
+    return lib, f"FlexAttention, torch.compile, built in {time.perf_counter() - t0:.1f} s"
+
+
 def phase_flash_cp(ptxas, cases=FLASH_CP_CASES):
     """Kernel 6 at Sq != Skv with a query offset: ``cases`` in fp32 and bf16,
     then LLAMA_LAYER and LLAMA_CP_LAYER in bf16, each against
@@ -1984,6 +2051,116 @@ def phase_flash_cp(ptxas, cases=FLASH_CP_CASES):
                           planted_fault_row_rel_err=fault_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_flash_gemma(ptxas):
+    """Kernel 6 at head dim 256 at Gemma-2-2B's two prefill layers (B=1,
+    S=32,768, 8 query heads over 4 KV heads, causal, bf16): the global
+    layer and the local one (a 4,096-key window), each with the softcap of
+    50 (the model's path) and without it.  Each against ``attention_plain``
+    element by element (TOL), row by row (ROW_REL_TOL; at the global layer
+    with the softcap beside a planted fault that must fail it) and by its
+    row LSE (LSE_TOL), two launches bitwise equal; times against the bound
+    over the kept pairs; the library beside each layer with the softcap is
+    FlexAttention (``flex_same_function``), beside the global layer without
+    it SDPA's FlashAttention backend.  Returns the record of the global
+    layer with the softcap (row 6d of PERF.md's table), the other three
+    timings in it.  Alone:
+    ``python3 -c 'import chip_smoke as c; c.phase_flash_gemma(
+    c.phase_device()[1])'``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    times = {}
+    record = None
+    for layer in (GEMMA_GLOBAL, GEMMA_LOCAL):
+        B, S, Hq, Hkv, D, window = layer
+        kind = "global" if window == 0 else "local"
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev, dtype=torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        for cap in (GEMMA_SOFTCAP, None):
+            kw = dict(scale=D ** -0.5, causal=True, window=window, softcap=cap)
+
+            def plain():
+                return fa.attention_plain(q, k, v, chunk=512, **kw)
+
+            got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(q, k, v, **kw)
+            want, want_lse = fa.attention_plain(q, k, v, chunk=512, return_lse=True, **kw)
+            o, lse = fa._launch(q, k, v, D ** -0.5, True, window, cap, with_lse=True)
+            torch.cuda.synchronize()
+            lse_err = float((lse - want_lse).abs().max())
+            same = torch.equal(got, again) and torch.equal(o, got)
+            del o, lse, want_lse, again
+            diff = (got.float() - want.float()).abs()
+            rtol, atol = FLASH_TOL["bfloat16"]
+            err = float(diff.max())
+            ok = bool((diff <= atol + rtol * want.float().abs()).all())
+            del diff
+            row_err, row_tol = row_rel_err(got, want), ROW_REL_TOL["bfloat16"]
+            ok = ok and row_err <= row_tol and lse_err <= LSE_TOL["bfloat16"]
+            fault_note, fault_err = "", None
+            if window == 0 and cap is not None:
+                fault = drop_diagonal_tiles(q, k, v, want, D ** -0.5, softcap=cap)
+                fault_err = row_rel_err(fault, want)
+                ok = ok and fault_err > row_tol
+                fault_note = (f" (planted fault, rows >= {FAULT_ROW} without their diagonal "
+                              f"{FAULT_TILE}-key tile: {fault_err:.3g}, must exceed it)")
+                del fault
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 5)
+            plain_ms = cuda_ms(plain, 1, warmup=1)
+            lib, lib_note = None, "none (window without the softcap: not timed)"
+            if cap is not None:
+                lib, lib_note = flex_same_function(q, k, v, window, cap)
+            elif window == 0:
+                lib, lib_note = sdpa_same_function(q, k, v, True, 0, 0, torch.bfloat16)
+            lib_ms = None
+            if lib is not None:
+                lib_err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+                lib_ms = cuda_ms(lib, 5)
+                lib_note = f"{lib_ms:.4f} ms ({lib_note}, max|diff| vs plain {lib_err:.3g})"
+                del lib
+            pairs = attention_pairs(S, True, window)
+            flops = 4 * D * Hq * B * pairs
+            moved = nbytes(q, k, v, got)
+            b_ms, b_by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
+            times[(kind, cap)] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, lib_note=lib_note,
+                                      bound_ms=b_ms)
+            say("2 kernels", f"flash_attention D=256 Gemma {kind} layer B={B} S={S} Hq={Hq} "
+                f"Hkv={Hkv} causal window={window} softcap={cap} bf16: max|err| vs plain "
+                f"{err:.3g} (rtol {rtol} atol {atol}), largest row rel L2 err {row_err:.3g} "
+                f"(limit {row_tol}){fault_note}, LSE max|err| {lse_err:.3g} (limit "
+                f"{LSE_TOL['bfloat16']}) -> {'ok' if ok else 'FAIL'} | two launches bitwise "
+                f"equal and the output with its LSE the same: {same} | kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.0%} of the bound), plain "
+                f"{plain_ms:.4f} ms, library {lib_note}, bound {b_ms:.4f} ms ({b_by}, "
+                f"{flops / 1e12:.4f} TFLOP over {pairs} kept pairs, {moved / 1e9:.4f} GB) | "
+                f"ptxas bf16 {ptxas['flash_attention_d256']}, fp32 "
+                f"{ptxas['flash_attention_f32_d256']}")
+            if not (ok and same):
+                raise RuntimeError(f"flash attention at D=256 disagrees with its plain version, "
+                                   f"is not repeatable or its row check let the planted fault "
+                                   f"pass at Gemma's {kind} layer, softcap {cap}")
+            if window == 0 and cap is not None:
+                record = dict(name="flash_attention_d256", counter=fa.KERNEL, route="cuda",
+                              source="src/repro_torch/csrc/flash_attention.cu",
+                              replaces="src/repro/kernels/flash_attention/kernel.py:75",
+                              case="D = 256: Gemma-2-2B's global prefill layer (B=1, S=32768, "
+                                   "8:4 heads, D=256, bf16, causal, softcap 50)",
+                              max_abs_err=err, max_row_rel_err=row_err,
+                              planted_fault_row_rel_err=fault_err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                              library=lib_note)
+            del got, want
+        del q, k, v
+    g0, l0 = times[("global", None)], times[("local", GEMMA_SOFTCAP)]
+    record.update(ms_no_softcap=g0["ms"], library_ms_no_softcap=g0["lib_ms"],
+                  local_ms=l0["ms"], local_bound_ms=l0["bound_ms"], local_plain_ms=l0["plain_ms"],
+                  local_library_ms=l0["lib_ms"], local_library=l0["lib_note"],
+                  local_ms_no_softcap=times[("local", None)]["ms"])
     torch.cuda.empty_cache()
     return record
 
@@ -5293,15 +5470,15 @@ def phase_dlrm(smi):
     return by_path
 
 
-def served_logits(params, tokens, cfg):
-    """Logits of the serving path: tokens[:, :CHECK_PROMPT] prefilled
-    through the cell's entry points, then CHECK_STEPS decode steps ->
-    ([1, CHECK_STEPS + 1, V] fp32, launches of the prefill and decode)."""
+def served_logits(params, tokens, cfg, prompt=CHECK_PROMPT):
+    """Logits of the serving path: tokens[:, :prompt] prefilled through the
+    cell's entry points, then CHECK_STEPS decode steps -> ([1, CHECK_STEPS
+    + 1, V] fp32, launches of the prefill and decode)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.models.transformer.steps import make_decode_step, make_prefill_step
 
-    P = CHECK_PROMPT
+    P = prompt
     build.reset_launch_counts()
     last, cache = make_prefill_step(cfg, capacity=P + CHECK_STEPS)(params, tokens[:, :P])
     decode = make_decode_step(cfg)
@@ -5317,20 +5494,22 @@ def served_logits(params, tokens, cfg):
     return got, launches
 
 
-def forward_logits(params, tokens, cfg, plain):
+def forward_logits(params, tokens, cfg, plain, prompt=CHECK_PROMPT):
     """Logits of one forward over all the tokens at the served positions
-    [CHECK_PROMPT - 1, ...), [1, CHECK_STEPS + 1, V] fp32; through the
-    plain attention in row chunks if ``plain``, else through the kernel."""
+    [prompt - 1, ...), [1, CHECK_STEPS + 1, V] fp32; through the plain
+    attention in row chunks (with the layer's window and softcap where the
+    configuration sets them) if ``plain``, else through the kernel."""
     import torch
     from repro_torch.kernels.flash_attention.ref import attention_plain
     from repro_torch.models.transformer import model as lm
     kw = {}
     if plain:
-        kw["attention"] = lambda q, k, v, scale: attention_plain(
-            q, k, v, scale=scale, causal=True, chunk=512)
+        kw["attention"] = lambda q, k, v, scale, **masks: attention_plain(
+            q, k, v, scale=scale, causal=True, chunk=512, **masks)
     with torch.no_grad():
         full = lm.forward(params, tokens, cfg, **kw)
-    return full[:, CHECK_PROMPT - 1:].float()
+    # a copy of the served rows: the whole [1, S, V] fp32 forward is freed
+    return full[:, prompt - 1:].float().clone()
 
 
 def per_position_rel(got, want):
@@ -5847,8 +6026,8 @@ def phase_lm_train(ptxas, smi):
     torch.cuda.synchronize()
     by_path["lm_train_grad_check"] = dict(build.launch_counts)
 
-    def plain_attention(q, k, v, scale):
-        return attention_plain(q, k, v, scale=scale, causal=True, chunk=512)
+    def plain_attention(q, k, v, scale, **masks):
+        return attention_plain(q, k, v, scale=scale, causal=True, chunk=512, **masks)
     loss_p, g_p = value_and_grad(
         lambda p: lm.lm_loss(p, tk, tg, cfg2, attention=plain_attention)[0], params)
     by_leaf = []          # (name, max|plain|, max|err| / max|plain|, rel L2)
@@ -5914,13 +6093,15 @@ def phase_lm_train(ptxas, smi):
     return by_path, record
 
 
-# Llama-3.2-3B (phase 8c): one timed prefill (and one profiled) and
-# LLAMA_DECODE_STEPS decode steps on one card; the model group of CP_SHARDS
+# Llama-3.2-3B and Gemma-2-2B (phases 8c, 8d): one timed prefill (and one profiled) and
+# SERVED_DECODE_STEPS decode steps on one card; the model group of CP_SHARDS
 # gloo processes sharing the card (B = 1 at the cell's 32,768 tokens):
 # CP_STEPS greedy decode steps, and the same in fp32 at CP_FP32_LAYERS
 # layers of weights drawn in bf16 and upcast
-LLAMA_DECODE_STEPS = 4
+SERVED_DECODE_STEPS = 4
 CP_SHARDS, CP_STEPS, CP_FP32_LAYERS = 4, 8, 2
+# Gemma's check prompt: longer than its local layers' 4,096-token window
+GEMMA_CHECK_PROMPT = 6144
 
 
 def _cp_reading(recs, path, n_layers, by_path):
@@ -5973,14 +6154,35 @@ def phase_llama(smi):
     weights upcast, and fp32 at CP_FP32_LAYERS layers in the forward band
     (RTOL / ATOL).  4 processes share one card: a check of the path, not
     scaling."""
+    return served_lm_phase(smi, "llama3.2-3b", "8c llama", "llama", CHECK_PROMPT)
+
+
+def phase_gemma(smi):
+    """Gemma-2-2B at its published widths (8 query heads over 4 KV heads of
+    dim 256, GeGLU 9,216, vocab 256,000; alternating 4,096-token windows,
+    softcaps 50 / 30, post-norms) through its cell builder and the
+    context-parallel serving path, as :func:`phase_llama`: prefill_32k at
+    26 layers (B=8, exactly 26 kernel-6 launches at D = 256 a prefill), the
+    check with a prompt of GEMMA_CHECK_PROMPT tokens, longer than the local
+    layers' window (so both the prefill and every decode step truncate
+    there), decode_32k (26 layers, B=16), and the model group of
+    CP_SHARDS gloo processes (26 launches a process a prefill, at Sq !=
+    Skv and D = 256)."""
+    return served_lm_phase(smi, "gemma2-2b", "8d gemma", "gemma", GEMMA_CHECK_PROMPT)
+
+
+def served_lm_phase(smi, arch_id, phase, tag, check_prompt):
+    """A served LM's phase (:func:`phase_llama`): ``arch_id``'s cells,
+    lines prefixed ``phase``, paths named ``tag``_..., the check on a
+    prompt of ``check_prompt`` tokens."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import lm_checks as lmx
 
-    llama, family = get_arch("llama3.2-3b")
-    phase = "8c llama"
+    arch, family = get_arch(arch_id)
+    name = arch.ARCH_ID
     dev = torch.device("cuda")
     by_path = {}
 
@@ -6002,13 +6204,17 @@ def phase_llama(smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    step, (params, tokens), meta = llama.build_cell("prefill_32k", dev, LM_SEED)
+    step, (params, tokens), meta = arch.build_cell("prefill_32k", dev, LM_SEED)
     torch.cuda.synchronize()
     cfg = meta["cfg"]
     L, B, S = cfg.n_layers, meta["batch"], meta["seq"]
-    say(phase, f"{llama.ARCH_ID} ({family}): d {cfg.d_model}, {cfg.n_q} query heads over "
-        f"{cfg.n_kv} KV heads of dim {cfg.head_dim}, SwiGLU {cfg.d_ff}, vocab {cfg.vocab}, "
-        f"rope theta {cfg.rope_theta:g}, tied, layout {cfg.attn_parallel!r}; prefill_32k at "
+    gemma = (f", windows {cfg.layer_windows[:2]} alternating, softcaps "
+             f"{cfg.attn_softcap} / {cfg.final_softcap}, post-norms {cfg.post_norms}, "
+             f"embedding x sqrt(d) {cfg.gemma_norm}" if cfg.window else "")
+    say(phase, f"{name} ({family}): d {cfg.d_model}, {cfg.n_q} query heads over "
+        f"{cfg.n_kv} KV heads of dim {cfg.head_dim}, {cfg.mlp_variant} {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, rope theta {cfg.rope_theta:g}, tied{gemma}, layout "
+        f"{cfg.attn_parallel!r}; prefill_32k at "
         f"{L} layers ({meta['n_params'] / 1e9:.3f} B params, {cfg.param_dtype}), drawn on the "
         f"card from seed {LM_SEED} in {time.perf_counter() - t0:.1f} s | cut (reference, "
         f"here): {meta['reduced']} | {smi}")
@@ -6018,9 +6224,9 @@ def phase_llama(smi):
     torch.cuda.synchronize()
     t = time.perf_counter() - t0
     del cache
-    launches = expect_launches("llama_prefill", L)
+    launches = expect_launches(f"{tag}_prefill", L)
     if logits.shape != (B, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        raise RuntimeError(f"llama prefill_32k: bad logits {tuple(logits.shape)}")
+        raise RuntimeError(f"{name} prefill_32k: bad logits {tuple(logits.shape)}")
     peak = torch.cuda.max_memory_allocated()
     say(phase, f"prefill_32k: B={B} S={S}, {L} layers: {1e3 * t:.1f} ms a prefill (host "
         f"clock, synchronized; {1e3 * t / B:.1f} ms per prompt, "
@@ -6029,23 +6235,23 @@ def phase_llama(smi):
         f"launches {launches} ({L} per prefill) | {part_s()} | {smi}")
     say(phase, "prefill_32k: one prefill " + profile_line(lambda: step(params, tokens)))
     gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
-    ck = torch.randint(0, cfg.vocab, (1, CHECK_PROMPT + CHECK_STEPS), generator=gen, device=dev)
+    ck = torch.randint(0, cfg.vocab, (1, check_prompt + CHECK_STEPS), generator=gen, device=dev)
     del step, tokens, logits
     torch.cuda.empty_cache()
 
     # --- (a) the check at 28 layers on the prefill's weights: bf16, then fp32
     # on the same weights upcast ---
-    served_b, launches = served_logits(params, ck, cfg)
-    by_path["llama_check_bf16"] = launches
+    served_b, launches = served_logits(params, ck, cfg, check_prompt)
+    by_path[f"{tag}_check_bf16"] = launches
     if launches.get(fa.KERNEL, 0) != L:
-        raise RuntimeError(f"Llama check: flash_attention launched {launches}, expected {L}")
-    plain_b = forward_logits(params, ck, cfg, plain=True)
+        raise RuntimeError(f"{name} check: flash_attention launched {launches}, expected {L}")
+    plain_b = forward_logits(params, ck, cfg, plain=True, prompt=check_prompt)
     cfg32 = cfg.with_(param_dtype=torch.float32, cache_dtype=torch.float32)
     params = upcast_(params)
     torch.cuda.empty_cache()
-    want = forward_logits(params, ck, cfg32, plain=True)
-    served_32, launches = served_logits(params, ck, cfg32)
-    by_path["llama_check_fp32"] = launches
+    want = forward_logits(params, ck, cfg32, plain=True, prompt=check_prompt)
+    served_32, launches = served_logits(params, ck, cfg32, check_prompt)
+    by_path[f"{tag}_check_fp32"] = launches
     del params
     torch.cuda.empty_cache()
     err, viol = band_reading(served_b, plain_b)
@@ -6054,22 +6260,22 @@ def phase_llama(smi):
     ratio = max(a / b for a, b in zip(drift["served"], drift["plain forward"]))
     err32, viol32 = band_reading(served_32, want)
     ok = ratio <= DRIFT_FACTOR and viol32 <= 1.0 and launches.get(fa.KERNEL, 0) == L
-    say(phase, f"check, {L} layers: prompt {CHECK_PROMPT} prefilled + {CHECK_STEPS} decode "
-        f"steps vs the forward over {CHECK_PROMPT + CHECK_STEPS} tokens through the plain "
+    say(phase, f"check, {L} layers: prompt {check_prompt} prefilled + {CHECK_STEPS} decode "
+        f"steps vs the forward over {check_prompt + CHECK_STEPS} tokens through the plain "
         f"attention: bf16 max|err| {err:.4g} = {viol:.2f} x the {LM_BAND} band (reported); "
         "rel L2 per position against the fp32 forward: " + "; ".join(
             f"{name} " + ", ".join(f"{r:.2e}" for r in rels) for name, rels in drift.items())
         + f" | served / plain forward at most {ratio:.3f} (limit {DRIFT_FACTOR}); fp32 "
         f"(the weights upcast) max|err| {err32:.4g} = {viol32:.3f} x the band -> "
-        f"{'ok' if ok else 'FAIL'} | launches bf16 {by_path['llama_check_bf16']}, fp32 "
+        f"{'ok' if ok else 'FAIL'} | launches bf16 {by_path[f'{tag}_check_bf16']}, fp32 "
         f"{launches} | {part_s()}")
     if not ok:
-        raise RuntimeError("Llama: prefill + decode disagree with the full forward, or the "
+        raise RuntimeError(f"{name}: prefill + decode disagree with the full forward, or the "
                            "served bf16 path drifts further than the plain one")
 
     # --- (a) decode_32k: 28 layers, B=16 over a cache filled to 32,767 ---
     torch.cuda.reset_peak_memory_stats()
-    step, (params, cache, tokens, cache_len), meta = llama.build_cell("decode_32k", dev,
+    step, (params, cache, tokens, cache_len), meta = arch.build_cell("decode_32k", dev,
                                                                        LM_SEED)
     B = meta["batch"]
     step(params, cache, tokens, cache_len)
@@ -6078,16 +6284,16 @@ def phase_llama(smi):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     t0 = time.perf_counter()
     ev[0].record()
-    for _ in range(LLAMA_DECODE_STEPS):
+    for _ in range(SERVED_DECODE_STEPS):
         logits, cache = step(params, cache, tokens, cache_len)
     ev[1].record()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / LLAMA_DECODE_STEPS
-    launches = expect_launches("llama_decode", 0)
+    wall = (time.perf_counter() - t0) / SERVED_DECODE_STEPS
+    launches = expect_launches(f"{tag}_decode", 0)
     peak = torch.cuda.max_memory_allocated()
     if logits.shape != (B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        raise RuntimeError(f"llama decode_32k: bad logits {tuple(logits.shape)}")
-    dev_ms = ev[0].elapsed_time(ev[1]) / LLAMA_DECODE_STEPS
+        raise RuntimeError(f"{name} decode_32k: bad logits {tuple(logits.shape)}")
+    dev_ms = ev[0].elapsed_time(ev[1]) / SERVED_DECODE_STEPS
     moved = sum(nbytes(x) for x in (params["embed"], *params["layers"]["attn"].values(),
                                     *params["layers"]["ffn"].values(), cache["k"], cache["v"]))
     b_ms, b_by = bound_ms(moved, meta["model_flops"], PEAK_BF16_FLOPS)
@@ -6103,9 +6309,9 @@ def phase_llama(smi):
     torch.cuda.empty_cache()
 
     # --- (b) a model group of CP_SHARDS processes sharing the card ---
-    full = llama.config()
+    full = arch.config()
     job = lmx.Job(cases=(lmx.Case("cp4", model=CP_SHARDS),), cfg=lmx.cfg_dict(full),
-                  steps=CP_STEPS, seed=LM_SEED, batch=1, device="cuda")
+                  arch=arch_id, steps=CP_STEPS, seed=LM_SEED, batch=1, device="cuda")
     fp32 = full.with_(n_layers=CP_FP32_LAYERS, param_dtype=torch.float32,
                       cache_dtype=torch.float32)
     job32 = dataclasses.replace(job, cases=(lmx.Case("cp4_fp32", model=CP_SHARDS),),
@@ -6113,10 +6319,10 @@ def phase_llama(smi):
     t0 = time.perf_counter()
     procs = lmx.run_world((job, job32), CP_SHARDS)
     wall = time.perf_counter() - t0
-    cp_b, tok_b, lines_b, ok_b = _cp_reading([p["cp4"] for p in procs], "llama_cp4",
+    cp_b, tok_b, lines_b, ok_b = _cp_reading([p["cp4"] for p in procs], f"{tag}_cp4",
                                              full.n_layers, by_path)
     cp_32, tok_32, lines_32, ok_32 = _cp_reading([p["cp4_fp32"] for p in procs],
-                                                 "llama_cp4_fp32", CP_FP32_LAYERS, by_path)
+                                                 f"{tag}_cp4_fp32", CP_FP32_LAYERS, by_path)
     say(phase, f"model group of {CP_SHARDS} gloo processes sharing cuda:0 (4 processes share "
         f"one card: a check of the path, not scaling), {full.n_layers} layers bf16, B=1, "
         f"prompt {S} tokens ({S // CP_SHARDS} rows a process, kernel 6 "
@@ -6128,7 +6334,7 @@ def phase_llama(smi):
         f"tokens {tok_32[0].tolist()} | " + " | ".join(lines_32)
         + f" -> {'ok' if ok_32 else 'FAIL'}")
     if not (ok_b and ok_32):
-        raise RuntimeError("Llama model group: processes disagree, or the launches are off")
+        raise RuntimeError(f"{name} model group: processes disagree, or the launches are off")
     del procs
 
     # the one-card path on the same weights, fed the group's greedy tokens
@@ -6139,7 +6345,7 @@ def phase_llama(smi):
                                                   cache_dtype=torch.float32))),
                           lmx.Case("one"))
     one_f = lmx.run_case(dataclasses.replace(job32, feed=tok_32[:, :CP_STEPS]), lmx.Case("one"))
-    by_path["llama_cp_one_card"] = {k: one_b["launches_prefill"].get(k, 0)
+    by_path[f"{tag}_cp_one_card"] = {k: one_b["launches_prefill"].get(k, 0)
                                     for k in one_b["launches_prefill"]}
     ref32, logits_b, logits_f = (r["logits"].cpu() for r in (one_32, one_b, one_f))
     cp_b, cp_32 = torch.as_tensor(cp_b), torch.as_tensor(cp_32)
@@ -6163,7 +6369,7 @@ def phase_llama(smi):
         f"decode {float(np.median(one_b['step_ms'] or [0.0])):.2f} ms a step, launches "
         f"{one_b['launches_prefill']} | {part_s()}")
     if not ok:
-        raise RuntimeError("Llama model group: logits off the one-card path's")
+        raise RuntimeError(f"{name} model group: logits off the one-card path's")
     torch.cuda.empty_cache()
     return by_path
 
@@ -6195,6 +6401,7 @@ def main():
     records.append(phase_embedding_bag(ptxas))
     records.append(phase_flash_attention(ptxas))
     records.append(phase_flash_cp(ptxas))
+    records.append(phase_flash_gemma(ptxas))
     lap("2 kernels")
     by_path = {"segment_agg_op": seg_counts}
     (by_path["consistency_r4_packed"], by_path["consistency_r4_overlap"],
@@ -6252,6 +6459,8 @@ def main():
     lap("8b lm train")
     by_path.update(phase_llama(smi))
     lap("8c llama")
+    by_path.update(phase_gemma(smi))
+    lap("8d gemma")
     # each kernel's own path first, then every other path that must use it:
     # training for the fused NMP pair (its bf16 entries: the bf16 training
     # steps, then the bf16 engine and R=4 runs), the R=4 packed-neighbor gradient run
@@ -6302,10 +6511,15 @@ def main():
            eb.KERNEL: ("dlrm_serve_bulk", "dlrm_serve_p99", "dlrm_train"),
            fa.KERNEL: ("lm_prefill", "lm_serve", "lm_check_bf16", "lm_check_fp32",
                        "lm_train", "lm_train_grad_check", "llama_prefill", "llama_check_bf16",
-                       "llama_check_fp32", "llama_cp_one_card"),
+                       "llama_check_fp32", "llama_cp_one_card", "gemma_prefill",
+                       "gemma_check_bf16", "gemma_check_fp32", "gemma_cp_one_card"),
            # kernel 6 at Sq != Skv: the model group's prefills (launches
            # summed over its processes)
-           "flash_attention_cp": ("llama_cp4", "llama_cp4_fp32"),
+           "flash_attention_cp": ("llama_cp4", "llama_cp4_fp32", "gemma_cp4", "gemma_cp4_fp32"),
+           # kernel 6 at D = 256: Gemma's prefills, on one card and over
+           # the model group
+           "flash_attention_d256": ("gemma_prefill", "gemma_check_bf16", "gemma_check_fp32",
+                                    "gemma_cp_one_card", "gemma_cp4", "gemma_cp4_fp32"),
            fa.KERNEL_BWD: ("lm_train", "lm_train_grad_check"),
            sa.KERNEL_MLP_AGG: ("segment_agg_op",),
            sa.KERNEL_BF16: ("train_bf16", "serve_bf16", "consistency_r4_bf16_blocking",

@@ -11,6 +11,7 @@ from typing import Dict
 ARCHS: Dict[str, tuple] = {
     "llama3.2-3b": ("repro_torch.configs.llama3_2_3b", "lm"),
     "granite-34b": ("repro_torch.configs.granite_34b", "lm"),
+    "gemma2-2b": ("repro_torch.configs.gemma2_2b", "lm"),
     "mace": ("repro_torch.configs.mace", "gnn"),
     "graphcast": ("repro_torch.configs.graphcast", "gnn"),
     "gat-cora": ("repro_torch.configs.gat_cora", "gnn"),

@@ -28,12 +28,8 @@ decode cell's cache is the process's shard of the one-device cell's.
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.configs.lm_common import LM_SHAPES
+from repro_torch.configs.lm_common import serve_cell
 from repro_torch.models.transformer.config import TransformerConfig
-from repro_torch.models.transformer.model import init_cache, init_transformer
-from repro_torch.models.transformer.steps import make_decode_step, make_prefill_step
 
 ARCH_ID = "llama3.2-3b"
 N_LAYERS_ONE_CARD = {"prefill_32k": 28, "decode_32k": 28}
@@ -69,48 +65,6 @@ def build_cell(shape_id: str, device="cuda", seed: int = 0, cfg: TransformerConf
     """(step, args, meta) for prefill_32k or decode_32k at Llama's full width
     and the cell's depth in ``N_LAYERS_ONE_CARD`` unless ``cfg`` is given,
     ``batch`` sequences (default ``BATCH_ONE_CARD``), over ``ctx``'s model
-    group if given.
-
-    prefill: args (params, tokens [B, S]); decode: args (params, cache,
-    tokens [B, 1], S - 1) with the cache of capacity S filled to S - 1 by
-    random K/V from the generator, drawn a layer at a time; over a model
-    group each process draws the whole cache and keeps its shard's slice,
-    positions ``[shard * S / n, (shard + 1) * S / n)``, so the shards are
-    slices of one cache.  ``meta["cfg"]`` is the configuration the step runs, ``meta["reduced"]``
-    each cut as (reference, here), ``meta["model_flops"]`` the reference's
-    2 * params * tokens."""
-    if shape_id not in BATCH_ONE_CARD:
-        raise ValueError(f"{ARCH_ID}: cells {sorted(BATCH_ONE_CARD)} are ported; "
-                         f"{shape_id!r} is not ported (ROADMAP queue 1 item 2)")
-    cfg = cfg or config().with_(n_layers=N_LAYERS_ONE_CARD[shape_id])
-    shape = LM_SHAPES[shape_id]
-    B, S = batch or BATCH_ONE_CARD[shape_id], shape["seq_len"]
-    device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    reduced = {}
-    if cfg.n_layers < config().n_layers:
-        reduced["n_layers"] = (config().n_layers, cfg.n_layers)
-    if B < shape["global_batch"]:
-        reduced["batch"] = (shape["global_batch"], B)
-    meta = dict(kind=shape["kind"], seq=S, batch=B, n_layers=cfg.n_layers, cfg=cfg,
-                n_params=cfg.n_params(), reduced=reduced)
-    params = init_transformer(gen, cfg, device)
-    if shape["kind"] == "prefill":
-        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
-        meta["model_flops"] = 2 * cfg.n_params() * B * S
-        return make_prefill_step(cfg, capacity=S, ctx=ctx), (params, tokens), meta
-
-    n, shard = (1, 0) if ctx is None else (ctx.model, ctx.shard)
-    if S % n:
-        raise ValueError(f"{shape_id}: {S} positions do not split over {n} shards")
-    loc = S // n
-    lo, hi = shard * loc, min((shard + 1) * loc, S - 1)     # this shard's filled positions
-    cache = init_cache(cfg, B, loc, device)
-    for leaf in cache.values():
-        for layer in leaf:          # a layer of the whole cache, then this shard's slice
-            layer[:, :hi - lo] = torch.empty(
-                B, S - 1, *leaf.shape[3:], dtype=leaf.dtype,
-                device=device).normal_(generator=gen)[:, lo:hi]
-    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=device)
-    meta["model_flops"] = 2 * cfg.n_params() * B
-    return make_decode_step(cfg, ctx), (params, cache, tokens, S - 1), meta
+    group if given: ``lm_common.serve_cell``."""
+    return serve_cell(ARCH_ID, config(), N_LAYERS_ONE_CARD, BATCH_ONE_CARD, shape_id, device,
+                      seed, cfg, ctx, batch)

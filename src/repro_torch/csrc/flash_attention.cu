@@ -26,13 +26,17 @@
 // context-parallel layer on the last of 4 shards (Sq = 8,192 rows at
 // 24,576 against Skv = 32,768 keys, 24 query heads over 8 KV heads) needs
 // 2.886 TFLOP over its kept pairs -> 2.92 ms, every block walking 192 to
-// 256 key tiles.  Only wgmma reaches the tensor cores' dense rate, and only
+// 256 key tiles.  Gemma-2-2B's layers (B=1, S=32,768, 8 query heads over 4
+// KV heads of dim 256, causal) need 4.40 TFLOP (4.45 ms) on a global layer
+// and 1.03 TFLOP (1.04 ms) on a local one, whose 4,096-key window keeps
+// 125.8 M pairs a head.  Only wgmma reaches the tensor cores' dense rate, and only
 // if the products are fed without stalls: the tiles arrive by TMA while the
 // math runs, and each K/V byte brought from L2 serves enough query rows.
 //
-// bf16 design (the model's path), one kernel for D = 16, 32, 64, 128:
+// bf16 design (the model's path), one kernel for D = 16, 32, 64, 128, 256:
 // - Block: 128 query rows of one head (one query tile) against the key
-//   tiles that the mask leaves non-empty, 128 keys each; 384 threads in
+//   tiles that the mask leaves non-empty, kBN = 128 keys each (64 at
+//   D = 256, below); 384 threads in
 //   three warpgroups.  The grid is (query head, query tile, batch) with the
 //   tiles in reverse order, so under the causal mask the longest blocks are
 //   dispatched first, and the 48 heads of one tile, which read the same
@@ -46,12 +50,12 @@
 // - Two consumer warpgroups (registers raised to 232), 64 query rows each
 //   (wgmma M = 64), both on the same K/V stage: 128 query rows per K/V byte
 //   read, twice the mma.sync design's 64.
-//   S = Q K^T: wgmma m64n128k16, both operands in shared memory, K-major.
+//   S = Q K^T: wgmma m64n(kBN)k16, both operands in shared memory, K-major.
 //   Softmax in fp32 registers on the accumulator fragment, in base 2
 //   (scale * log2(e) folded into the scores, ex2.approx); the mask is
 //   evaluated only on tiles that cross the diagonal, the window edge or Skv.
 //   O += P V: P rounded to bf16 in registers is wgmma's A operand (the
-//   accumulator fragment of m64n128 is the A fragment of eight k16
+//   accumulator fragment of m64n(kBN) is the A fragment of kBN / 16 k16
 //   slices); V is read in place as an MN-major B operand through the
 //   descriptor's transpose bit, m64nDk16.  A warpgroup waits for its PV
 //   product only after the next tile's QK^T is queued behind it, so the
@@ -62,13 +66,29 @@
 //   2 x (K 32 KB + V 32 KB) = 160 KB at D = 128, with the mbarriers and
 //   the alignment slack 164,904 B requested (smem_bytes_bf16): one block
 //   per SM.
+// - D = 256 (Gemma-2): at 128 keys a tile every tile doubles, Q 64 KB +
+//   2 x (K 64 KB + V 64 KB) = 320 KB, over the 227 KB a block can have.
+//   A single-stage ring at 128 keys (192 KB) would leave the consumers
+//   waiting on every tile's load; so the K/V tiles hold 64 keys and the
+//   ring keeps its two stages: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB,
+//   197,672 B requested.  Q stays 128 rows (two consumer warpgroups of
+//   64), so each K/V byte still serves 128 query rows.  A row is four
+//   TMA boxes of 64 columns; the QK^T product walks them in sixteen k16
+//   slices.  Registers of a consumer thread: O of m64n256 is 128 fp32, S
+//   of m64n64 32, P of the tile in flight 16 (four k16 slices of bf16
+//   pairs), beside the row statistics, within setmaxnreg's 232.  The PV
+//   product is wgmma m64n256k16, four of them a tile.  Every other
+//   dimension keeps its 128-key tiles, so its output is bitwise what it
+//   was before D = 256 came in.
 // - No split over keys and no atomics: every output row has one writer and
 //   every sum a fixed order, so two launches are bitwise equal.  One launch
 //   per call.
 //
 // fp32 (the TPU kernel's sweep; the model never runs it): fp32 operands, no
-// TF32; a SIMT loop with eight lanes per query row, 32-key tiles in shared
-// memory.  Head dims 16, 32, 64 and 128 (the wrapper raises on others).
+// TF32; a SIMT loop with eight lanes per query row, 32-key tiles in static
+// shared memory (16-key tiles at D = 256: 2 x 16 x 256 x 4 B = 32 KB, where
+// 32 keys would need 64 KB, over the 48 KB static limit).  Head dims 16,
+// 32, 64, 128 and 256 (the wrapper raises on others).
 //
 // The row log-sum-exp: when the entry is given an fp32 `lse` [B, Hq, Sq]
 // (not null), each row also writes m + log(max(l, 1e-20)) in natural units
@@ -107,6 +127,41 @@ struct Params {
   int causal, window;    // window <= 0: global
 };
 
+// d[0:128] += A (64x16, registers) * B (16x256, MN-major, shared): the PV
+// product at D = 256 (N = 256, the instruction's largest)
+__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // Key tiles [t_begin, t_end) of width bn that can hold an unmasked key for
 // query rows [q0, q0 + bm) (positions q_off + q0 on).
 __device__ __forceinline__ void key_tiles(const Params& p, int q0, int bm, int bn,
@@ -133,16 +188,21 @@ __device__ __forceinline__ float cap_score(float s, float cap) {
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 128;        // query rows per block: kConsumers warpgroups x 64
-constexpr int kBN = 128;        // keys per K/V tile
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kConsumers = 2;   // consumer warpgroups
 constexpr int kThreads = (kConsumers + 1) * 128;
+
+// keys per K/V tile: 128, and 64 at D = 256, where a 128-key ring of two
+// stages would need 320 KB of shared memory (the file's header)
+template <int D>
+constexpr int kKeyTile = D == 256 ? 64 : 128;
 
 // Q, the K ring, the V ring (each tile 1024-byte aligned, as the 128-byte
 // swizzle needs), then the mbarriers; 1 KB of slack aligns the base.
 template <int D>
 constexpr int smem_bytes_bf16() {
-  return (1 + 2 * kStages) * Tile<D>::kBytes + 8 * (1 + 2 * kStages) + 1024;
+  return Tile<D, kBM>::kBytes + 2 * kStages * Tile<D, kKeyTile<D>>::kBytes +
+         8 * (1 + 2 * kStages) + 1024;
 }
 
 template <int D>
@@ -150,11 +210,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, const Params p) {
-  using T = Tile<D>;
+  constexpr int kBN = kKeyTile<D>;
+  using TQ = Tile<D, kBM>;  // the Q tile
+  using T = Tile<D, kBN>;   // a K or V tile
   constexpr int RB = T::kRowBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + T::kBytes;            // stage s at sK + s * T::kBytes
+  const uint32_t sK = sQ + TQ::kBytes;           // stage s at sK + s * T::kBytes
   const uint32_t sV = sK + kStages * T::kBytes;  // stage s at sV + s * T::kBytes
   const uint32_t q_full = sV + kStages * T::kBytes;
   const uint32_t full = q_full + 8;              // full[s] at full + 8 s
@@ -181,9 +243,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- producer: one thread issues every TMA load ----
     setmaxnreg_dec<40>();
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(q_full, T::kBytes);
-      for (int c = 0; c < T::kBoxes; ++c)
-        tma_load(sQ + c * T::kBoxBytes, &tq, q_full, c * T::C, q0, h, b);
+      mbar_expect_tx(q_full, TQ::kBytes);
+      for (int c = 0; c < TQ::kBoxes; ++c)
+        tma_load(sQ + c * TQ::kBoxBytes, &tq, q_full, c * TQ::C, q0, h, b);
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int s = i % kStages;
         const uint32_t f = full + 8 * s;
@@ -206,14 +268,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float sl = p.scale * kLog2e;
     const uint32_t qrows = sQ + 64 * wg * RB;
 
-    float o[D / 2], sc[64];
+    float o[D / 2], sc[kBN / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
     float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // m in base 2; l: this thread's partial sums
 
-    uint32_t pa[8][4] = {};  // P of the tile whose PV product is in flight
+    uint32_t pa[kBN / 16][4] = {};  // P of the tile whose PV product is in flight
     mbar_wait(q_full, 0);
     __syncwarp();
     for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
@@ -226,11 +288,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (16 * kk / T::C) * T::kBoxBytes + (16 * kk % T::C) * 2;
-        wgmma_qk(sc, make_desc(qrows + off, 16, 8 * RB, T::kDescLayout),
-                 make_desc(tK + off, 16, 8 * RB, T::kDescLayout), kk > 0);
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_qk(sc, make_desc(qrows + TQ::k_slice(kk), 16, 8 * RB, T::kDescLayout),
+                 make_desc(tK + T::k_slice(kk), 16, 8 * RB, T::kDescLayout), kk > 0);
       wgmma_commit();
       wgmma_wait_all();  // S of tile i, and PV of tile i - 1
       fence_regs(sc);
@@ -248,24 +308,24 @@ __global__ void __launch_bounds__(kThreads, 1)
                           (p.window <= 0 || qa_pos + 63 - k0 < p.window);
       if (softcap) {
 #pragma unroll
-        for (int e = 0; e < 64; ++e) sc[e] = cap_score(sc[e] * p.scale, p.softcap) * kLog2e;
+        for (int e = 0; e < kBN / 2; ++e) sc[e] = cap_score(sc[e] * p.scale, p.softcap) * kLog2e;
       } else {
 #pragma unroll
-        for (int e = 0; e < 64; ++e) sc[e] *= sl;
+        for (int e = 0; e < kBN / 2; ++e) sc[e] *= sl;
       }
       if (!inside) {
 #pragma unroll
-        for (int e = 0; e < 64; ++e)
+        for (int e = 0; e < kBN / 2; ++e)
           if (!key_ok(p, p.q_off + ((e & 2) ? row1 : row0), k0 + 8 * (e / 4) + 2 * tq4 + (e & 1)))
             sc[e] = kNeg;
       }
       float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
         mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
         mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
-      // the four threads of a row group hold one row's 128 keys
+      // the four threads of a row group hold one row's kBN keys
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
@@ -279,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // fragments: k16 slice kk is accumulator chunks 2 kk and 2 kk + 1
       float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kBN / 16; ++kk) {
         float e[8];
 #pragma unroll
         for (int x = 0; x < 8; ++x) e[x] = ex2(sc[8 * kk + x] - ((x & 2) ? mn1 : mn0));
@@ -306,8 +366,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(pa);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_pv(o, pa[kk], make_desc(tV + 16 * kk * RB, T::kBoxBytes, 8 * RB, T::kDescLayout));
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_pv(o, pa[kk], T::mn_desc(tV, kk));
       wgmma_commit();  // waited for after the next tile's QK^T is queued
     }
     wgmma_wait_all();
@@ -345,10 +405,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 constexpr int kLanes = 8;
 constexpr int kRowsF = 128 / kLanes;  // query rows per block
-constexpr int kBNF = 32;              // keys per tile
+
+// keys per tile: 32, and 16 at D = 256 (K and V tiles 32 KB, within the
+// 48 KB of static shared memory)
+template <int D>
+constexpr int kKeyTileF32 = D == 256 ? 16 : 32;
 
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
+  constexpr int kBNF = kKeyTileF32<D>;
   constexpr int E = D / kLanes;               // elements per lane
   constexpr int VEC = E >= 4 ? 4 : E;         // contiguous elements per load
   constexpr int NV = E / VEC;
@@ -450,14 +515,14 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
 
 template <int D>
 int launch_bf16(const Params& p, cudaStream_t stream) {
-  static_assert(kBM == kBN, "one box height serves Q, K and V");
-  constexpr int smem = smem_bytes_bf16<D>();
+  constexpr int smem = smem_bytes_bf16<D>(), kBN = kKeyTile<D>;
+  static_assert(smem <= 232448, "over the 227 KB of shared memory a block can have");
   const int n_qt = (p.Sq + kBM - 1) / kBM;
   if (n_qt > 65535) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  int e = encode<D>(&tq, p.q, p.B, p.Sq, p.Hq, p.q_sb, p.q_ss, p.q_sh);
-  if (!e) e = encode<D>(&tk, p.k, p.B, p.Skv, p.Hkv, p.k_sb, p.k_ss, p.k_sh);
-  if (!e) e = encode<D>(&tv, p.v, p.B, p.Skv, p.Hkv, p.v_sb, p.v_ss, p.v_sh);
+  CUtensorMap tq, tk, tv;  // boxes of kBM query rows, of kBN keys
+  int e = encode<D, kBM>(&tq, p.q, p.B, p.Sq, p.Hq, p.q_sb, p.q_ss, p.q_sh);
+  if (!e) e = encode<D, kBN>(&tk, p.k, p.B, p.Skv, p.Hkv, p.k_sb, p.k_ss, p.k_sh);
+  if (!e) e = encode<D, kBN>(&tv, p.v, p.B, p.Skv, p.Hkv, p.v_sb, p.v_ss, p.v_sh);
   if (e) return e;
   const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -492,6 +557,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
     case 32: return BF16 ? launch_bf16<32>(p, s) : launch_f32<32>(p, s);
     case 64: return BF16 ? launch_bf16<64>(p, s) : launch_f32<64>(p, s);
     case 128: return BF16 ? launch_bf16<128>(p, s) : launch_f32<128>(p, s);
+    case 256: return BF16 ? launch_bf16<256>(p, s) : launch_f32<256>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

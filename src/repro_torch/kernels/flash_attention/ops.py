@@ -30,10 +30,12 @@ under ``KERNEL_BWD``), which recomputes P from that statistic.  On CPU
 tensors the Function runs the plain versions, :func:`attention_plain` and
 :func:`attention_plain_bwd`.  The TPU kernel is forward-only; the reference
 differentiates its ``blocked_attention`` under ``jax.checkpoint``, which
-is the gradient this backward computes.  The backward takes no softcap: no
-ported configuration sets one (Gemma-2 is ROADMAP queue 1 item 2); and it
-is self-attention only (``Sq == Skv``, ``q_offset == 0``): context-parallel
-training, which would need it at a shard's rows, is ROADMAP queue 1 item 2.
+is the gradient this backward computes.  The forward takes the head dims
+``HEAD_DIMS``, 256 (Gemma-2-2B) among them; the backward takes
+``BWD_HEAD_DIMS``, which lack 256, and no softcap: both are what training
+Gemma-2 needs (``GEMMA_TRAIN``).  It is self-attention only (``Sq == Skv``,
+``q_offset == 0``): context-parallel training, which would need it at a
+shard's rows, is ROADMAP queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -61,7 +63,10 @@ _BWD_SIG = (*([_P] * 12), *([_I] * 6), _F, _I, _I, _I, _P)
 BWD_ENTRIES = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                "flash_attention_bwd_dq", "flash_attention_bwd_reduce")
 _BWD_SIGNATURES = {name: _BWD_SIG for name in BWD_ENTRIES}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+#: what the gradient lacks for Gemma-2's training (head dim 256, a softcap)
+GEMMA_TRAIN = "ROADMAP queue 1 item 2 (Gemma-2's training)"
 # the backward's dK / dV kernel: keys per block and query rows per ring
 # stage (its bf16 rows of D and lse are padded to the stage), and what a
 # block costs beside its stages (loading K / V, writing its partials), in
@@ -72,7 +77,7 @@ _SELF_ONLY = (f"{KERNEL}: the gradient is self-attention only (Sq == Skv, q_offs
               "context-parallel training, which needs it at a shard's rows, is ROADMAP "
               "queue 1 item 2")
 
-__all__ = ["KERNEL", "KERNEL_BWD", "BWD_ENTRIES", "HEAD_DIMS", "flash_attention",
+__all__ = ["KERNEL", "KERNEL_BWD", "BWD_ENTRIES", "HEAD_DIMS", "BWD_HEAD_DIMS", "flash_attention",
            "flash_attention_bwd", "attention_plain", "attention_plain_bwd"]
 
 
@@ -182,8 +187,15 @@ def _dense(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _check_bwd_head_dim(D: int):
+    if D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(f"{KERNEL_BWD}: head dim {D} not in {BWD_HEAD_DIMS}; kernel "
+                                  f"6b at head dim 256 comes with {GEMMA_TRAIN}")
+
+
 def _launch_bwd(q, k, v, out, lse, dout, scale, causal, window):
     _entry(q)
+    _check_bwd_head_dim(q.shape[3])
     q, k, v, out, dout = (_dense(t) for t in (q, k, v, out, dout.to(q.dtype)))
     (B, S, Hq, D), Hkv = q.shape, k.shape[2]
     dev = q.device
@@ -261,9 +273,11 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True, window: int =
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if softcap is not None:
             raise NotImplementedError(f"{KERNEL}: no gradient through a softcap yet; it "
-                                      "comes with ROADMAP queue 1 item 2 (Gemma-2)")
+                                      f"comes with {GEMMA_TRAIN}")
         if k.shape[1] != q.shape[1] or q_offset:
             raise NotImplementedError(_SELF_ONLY)
+        if q.device.type == "cuda":
+            _check_bwd_head_dim(q.shape[3])
         return _FlashAttention.apply(q, k, v, scale, causal, window)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale, causal=causal, window=window,

@@ -14,13 +14,15 @@ processes, ``ctx.model > 1``): each process holds its own ``S / n`` query
 rows; ``attention_seq_parallel`` all-gathers the shard's K and V over the
 group (one tiled gather of both a layer, ``launch/mesh.py::Group.all_gather``)
 and calls ``blocked_attention`` on its rows at ``q_offset = shard * S / n``
-against all ``S`` keys: kernel 6 at ``Sq != Skv``.
+against all ``S`` keys: kernel 6 at ``Sq != Skv``.  A sliding ``window``
+and a tanh ``softcap`` (Gemma-2) pass through to the kernel, which masks by
+the rows' global positions.
 
 Decode attends one new token per sequence over a KV cache whose sequence
 is split over the group (``seq_shard_decode``): each process scores its
 slice of the cache in plain PyTorch (the reference has no kernel there
-either) and the partial softmaxes ``(o, m, l)`` are merged by
-``_combine_partials``.  The reference merges them with a ``pmax`` and two
+either), with the layer's window and softcap, and the partial softmaxes
+``(o, m, l)`` are merged by ``_combine_partials``.  The reference merges them with a ``pmax`` and two
 ``psum``s; the port gathers every shard's partials and merges them in shard
 order on each process, so every process ends with bitwise the same output
 (and so the same greedy token).  On one device the merge reduces to
@@ -34,6 +36,7 @@ import time
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.transformer.layers import softcap as cap_scores
 
 NEG = -1e30
 
@@ -55,11 +58,13 @@ def host_timed(ctx, key, fn):
     return out
 
 
-def attention_seq_parallel(q, k, v, ctx, *, scale: float, return_kv: bool = False):
+def attention_seq_parallel(q, k, v, ctx, *, scale: float, window: int = 0,
+                           softcap: float | None = None, return_kv: bool = False):
     """Context-parallel causal blocked attention: q, k, v [B, S_loc, H, D]
     are this shard's rows (positions ``shard * S_loc`` on); K and V are
     all-gathered over the model group, in shard order, and the shard's rows
-    attend to all of them -> [B, S_loc, Hq, D] (with ``return_kv`` also the gathered K and
+    attend to all of them, within ``window`` of their global positions and
+    under ``softcap`` -> [B, S_loc, Hq, D] (with ``return_kv`` also the gathered K and
     V, [B, n * S_loc, Hkv, D], from which the prefill fills its cache
     shard).  One tiled gather of K and V side by side; kernel 6 reads the
     two halves of the gathered buffer in place, as strided views."""
@@ -67,7 +72,8 @@ def attention_seq_parallel(q, k, v, ctx, *, scale: float, return_kv: bool = Fals
     kv = host_timed(ctx, "all_gather",
                     lambda: ctx.group.all_gather(torch.cat((k, v), dim=2), dim=1))
     k_all, v_all = kv[:, :, :Hkv], kv[:, :, Hkv:]
-    out = blocked_attention(q, k_all, v_all, scale=scale, q_offset=ctx.shard * q.shape[1])
+    out = blocked_attention(q, k_all, v_all, scale=scale, window=window, softcap=softcap,
+                            q_offset=ctx.shard * q.shape[1])
     return (out, k_all, v_all) if return_kv else out
 
 
@@ -82,36 +88,41 @@ def _bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-def _local_decode_scores(q, kc, vc, start: int, cache_len: int, *, scale: float):
+def _local_decode_scores(q, kc, vc, start: int, cache_len: int, *, scale: float,
+                         window: int = 0, softcap: float | None = None):
     """q [B, Hq, D]; kc, vc [B, S_loc, Hkv, D], this shard's slice of the
     cache, at global positions ``kpos = start + j`` -> the shard's partial
     softmax (unnormalised out o [B, Hkv, G, D], row max m [B, Hkv, G],
     sum of exps l [B, Hkv, G], fp32).
 
-    The reference's validity mask, ``kpos < cache_len`` (its sliding
-    window and softcap come with the configurations that set them, ROADMAP
-    queue 1 item 2), keeps the shard's first positions: only those are
-    scored (a masked key's ``exp(-1e30 - m)`` adds exact zeros).  A shard
-    with no valid position gives ``o = 0, m = -1e30, l = 0``, which the
-    merge weighs by ``exp(-1e30 - m_max) = 0``, as the reference's masked
-    shard.  fp32 scores of the cache's values (the reference's
-    ``preferred_element_type=float32``), p rounded to the cache's type for
-    the PV product, as the reference rounds it.  One batched product per KV head reads that head's [B, n, D] slice
-    of the cache through its strides."""
+    The reference's validity mask, ``kpos < cache_len`` and, with a
+    ``window`` > 0, ``kpos >= cache_len - window`` (the query sits at
+    ``cache_len - 1``), keeps one run of the shard's positions: only those
+    are scored (a masked key's ``exp(-1e30 - m)`` adds exact zeros).  A
+    shard with no valid position gives ``o = 0, m = -1e30, l = 0``, which
+    the merge weighs by ``exp(-1e30 - m_max) = 0``, as the reference's
+    masked shard.  fp32 scores of the cache's values (the reference's
+    ``preferred_element_type=float32``), scaled, then capped by
+    ``softcap`` (``cap * tanh(s / cap)``), p rounded to the cache's type
+    for the PV product, as the reference rounds it.  One batched product
+    per KV head reads that head's [B, n, D] slice of the cache through its
+    strides."""
     B, S_loc, Hkv, D = kc.shape
     G = q.shape[1] // Hkv
+    a = max(cache_len - window - start, 0) if window > 0 else 0
     b = min(cache_len - start, S_loc)
-    if b <= 0:
+    if b <= a:
         zeros = torch.zeros(B, Hkv, G, dtype=torch.float32, device=q.device)
         return (torch.zeros(B, Hkv, G, vc.shape[-1], dtype=torch.float32, device=q.device),
                 zeros.fill_(NEG), torch.zeros_like(zeros))
     qg = q.reshape(B, Hkv, G, D)
     outs, maxes, sums = [], [], []
     for h in range(Hkv):
-        s = _bmm_f32(qg[:, h], kc[:, :b, h].transpose(1, 2)).mul_(scale)    # [B, G, n]
+        s = _bmm_f32(qg[:, h], kc[:, a:b, h].transpose(1, 2)).mul_(scale)    # [B, G, n]
+        s = cap_scores(s, softcap)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
-        outs.append(_bmm_f32(p.to(vc.dtype), vc[:, :b, h]))
+        outs.append(_bmm_f32(p.to(vc.dtype), vc[:, a:b, h]))
         maxes.append(m[..., 0])
         sums.append(p.sum(dim=-1))
     return torch.stack(outs, 1), torch.stack(maxes, 1), torch.stack(sums, 1)
@@ -139,26 +150,29 @@ def _combine_partials(o, m, l, ctx):
 
 
 def decode_attention_sharded(q, k_cache, v_cache, k_new, v_new, cache_len: int, ctx, *,
-                             scale: float):
+                             scale: float, window: int = 0, softcap: float | None = None):
     """One new token per sequence over a sequence-sharded cache: this
     process's slice ``k_cache``, ``v_cache`` [B, S_loc, Hkv, D] holds
     positions ``[shard * S_loc, (shard + 1) * S_loc)``.  The shard that owns
     position ``cache_len`` writes ``k_new`` / ``v_new`` [B, Hkv, D] there in
     place (the reference donates its cache); every shard scores its slice
-    over the ``cache_len + 1`` filled positions, and the partials are merged
+    over the ``cache_len + 1`` filled positions, the last ``window`` of
+    them if ``window`` > 0, under ``softcap``, and the partials are merged
     over the group.  q [B, Hq, D] -> [B, Hq, D] in the cache's dtype."""
     S_loc = k_cache.shape[1]
     start = 0 if ctx is None else ctx.shard * S_loc
     if start <= cache_len < start + S_loc:
         k_cache[:, cache_len - start] = k_new
         v_cache[:, cache_len - start] = v_new
-    o, m, l = _local_decode_scores(q, k_cache, v_cache, start, cache_len + 1, scale=scale)
+    o, m, l = _local_decode_scores(q, k_cache, v_cache, start, cache_len + 1, scale=scale,
+                                   window=window, softcap=softcap)
     out = _combine_partials(o, m, l, ctx)
     return out.reshape(q.shape[0], q.shape[1], -1).to(v_cache.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len: int, *, scale: float):
+def decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len: int, *, scale: float,
+                     window: int = 0, softcap: float | None = None):
     """:func:`decode_attention_sharded` on one device: the caches [B,
     capacity, Hkv, D] whole."""
     return decode_attention_sharded(q, k_cache, v_cache, k_new, v_new, cache_len, None,
-                                    scale=scale)
+                                    scale=scale, window=window, softcap=softcap)

@@ -1,6 +1,6 @@
-"""Transformer building blocks: RMSNorm, RoPE and the dense MLPs, the
-tanh-GELU ``gelu_mlp`` and ``swiglu`` (port of
-``repro.models.transformer.layers``).
+"""Transformer building blocks: RMSNorm, RoPE, the dense MLPs (the
+tanh-GELU ``gelu_mlp``, ``swiglu`` and ``geglu``) and the tanh softcap
+(port of ``repro.models.transformer.layers``).
 
 Parameters are stacked over layers (leading axis ``L``), as the reference
 stacks them for ``lax.scan``; the model indexes layer ``i`` of each leaf.
@@ -57,18 +57,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# MLPs (the reference's ``gelu_mlp`` and ``swiglu`` variants)
+# MLPs (the reference's ``gelu_mlp``, ``swiglu`` and ``geglu`` variants)
 # ---------------------------------------------------------------------------
 
-MLP_VARIANTS = ("gelu_mlp", "swiglu")
+MLP_VARIANTS = ("gelu_mlp", "swiglu", "geglu")
 
 
 def init_ffn(gen: torch.Generator, n_layers: int, d: int, ff: int, dtype, device,
              variant: str = "gelu_mlp"):
     """The reference's leaves: ``wi`` [L, d, ff] and ``wo`` [L, ff, d], and
-    for ``swiglu`` the gate ``wg`` [L, d, ff] (drawn between them)."""
+    for ``swiglu`` and ``geglu`` the gate ``wg`` [L, d, ff] (drawn between
+    them)."""
     p = {"wi": init_stacked(gen, (n_layers, d, ff), d ** -0.5, dtype, device)}
-    if variant == "swiglu":
+    if variant in ("swiglu", "geglu"):
         p["wg"] = init_stacked(gen, (n_layers, d, ff), d ** -0.5, dtype, device)
     p["wo"] = init_stacked(gen, (n_layers, ff, d), ff ** -0.5, dtype, device)
     return p
@@ -98,4 +99,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def ffn(p, x: torch.Tensor, variant: str = "gelu_mlp") -> torch.Tensor:
     if variant == "swiglu":
         return (silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    if variant == "geglu":
+        return (gelu_tanh(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
     return gelu_tanh(x @ p["wi"]) @ p["wo"]
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """``cap * tanh(x / cap)`` computed in fp32 and cast back to
+    ``x.dtype`` (None: ``x``), as the reference's."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)

@@ -1,6 +1,12 @@
 """Transformer LM: init, forward, the training loss, prefill and decode
 (port of ``repro.models.transformer.model`` for the dense GQA/MQA decoder),
 on one device or, for serving, over a ``model`` group of processes.
+Gemma-2's pieces are the reference's too: each layer's own window
+(``cfg.layer_windows``) and the score softcap in its attention, the
+post-norms ``ln_attn_post`` / ``ln_mlp_post`` on the attention's and the
+MLP's outputs, the embedding scaled by sqrt(d_model) (rounded to the
+activations' dtype first) under ``gemma_norm``, and the final logits'
+softcap.
 
 Parameters keep the reference's tree and its stacked ``[L, ...]`` layer
 leaves, so ``repro_torch.convert`` maps one to the other; ``lax.scan`` over
@@ -41,7 +47,7 @@ from repro_torch.models.transformer.attention import (
     attention_seq_parallel, blocked_attention, decode_attention_sharded, host_timed)
 from repro_torch.models.transformer.config import ITEM, TransformerConfig
 from repro_torch.models.transformer.layers import (
-    apply_rope, ffn, init_ffn, init_rmsnorm, init_stacked, rmsnorm)
+    apply_rope, ffn, init_ffn, init_rmsnorm, init_stacked, rmsnorm, softcap)
 from repro_torch.nn import tree_leaves, tree_unflatten
 
 
@@ -87,7 +93,8 @@ def _sharded(cfg: TransformerConfig, ctx) -> bool:
 
 def init_transformer(gen: torch.Generator, cfg: TransformerConfig, device="cuda"):
     """Parameter tree drawn on ``device`` (the generator's), ``param_dtype``
-    weights with the reference's scales, fp32 norm gains at 0."""
+    weights with the reference's scales, fp32 norm gains at 0 (the
+    post-norms' too, under ``post_norms``)."""
     L, d, hq, hkv, hd = cfg.n_layers, cfg.d_model, cfg.n_q, cfg.n_kv, cfg.head_dim
     dt = cfg.param_dtype
     s = d ** -0.5
@@ -102,6 +109,9 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig, device="cuda"
         "ln_mlp_pre": init_rmsnorm((L, d), device),
         "ffn": init_ffn(gen, L, d, cfg.d_ff, dt, device, cfg.mlp_variant),
     }
+    if cfg.post_norms:
+        layers["ln_attn_post"] = init_rmsnorm((L, d), device)
+        layers["ln_mlp_post"] = init_rmsnorm((L, d), device)
     embed = torch.empty(cfg.vocab, d, dtype=dt, device=device)
     embed.normal_(generator=gen).mul_(s)
     return {"embed": embed, "layers": layers, "final_norm": init_rmsnorm((d,), device)}
@@ -118,10 +128,13 @@ def layer_list(params) -> list:
     return [tree_unflatten(layers, [u[i] for u in parts]) for i in range(len(parts[0]))]
 
 
-def _embed(params, tokens):
+def _embed(params, tokens, cfg: TransformerConfig):
     # F.embedding: a gather whose backward on the card sums rows in a fixed
     # order (a repeated training step is bitwise the same)
-    return F.embedding(tokens, params["embed"])
+    x = F.embedding(tokens, params["embed"])
+    if cfg.gemma_norm:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    return x
 
 
 def _qkv_gqa(p, x, cfg: TransformerConfig, positions):
@@ -131,33 +144,43 @@ def _qkv_gqa(p, x, cfg: TransformerConfig, positions):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def attn_block(p, x, cfg: TransformerConfig, attention, ctx=None, start: int = 0):
-    """x [B, S, d], rows at positions ``start`` on -> (attention output
+def attn_block(p, x, cfg: TransformerConfig, attention, ctx=None, start: int = 0,
+               window: int = 0):
+    """x [B, S, d], rows at positions ``start`` on, under this layer's
+    ``window`` (0: global) and ``cfg.attn_softcap`` -> (attention output
     [B, S, d], k, v for the cache: [B, S, Hkv, D] of these rows under the
     "heads" layout; every shard's, [B, n * S, Hkv, D], under "seq" over a
-    model group, where ``attention`` is not used)."""
+    model group, where ``attention`` is not used).  ``attention(q, k, v,
+    scale=, window=, softcap=)`` computes the attention on one device."""
     positions = torch.arange(start, start + x.shape[1], device=x.device)[None]
     q, k, v = _qkv_gqa(p, x, cfg, positions)
     scale = cfg.head_dim ** -0.5
+    masks = dict(window=window, softcap=cfg.attn_softcap)
     if _sharded(cfg, ctx):
-        out, k, v = attention_seq_parallel(q, k, v, ctx, scale=scale, return_kv=True)
+        out, k, v = attention_seq_parallel(q, k, v, ctx, scale=scale, return_kv=True, **masks)
     else:
-        out = attention(q, k, v, scale=scale)
+        out = attention(q, k, v, scale=scale, **masks)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
 
 
-def layer_fn(p_l, x, cfg: TransformerConfig, attention, ctx=None, start: int = 0):
-    """One pre-norm block -> (x', k, v) (:func:`attn_block`)."""
+def _post_norm(p_l, name, x, cfg: TransformerConfig):
+    return rmsnorm(p_l[name], x, cfg.norm_eps) if cfg.post_norms else x
+
+
+def layer_fn(p_l, x, cfg: TransformerConfig, attention, ctx=None, start: int = 0,
+             window: int = 0):
+    """One pre-norm block (and post-norm, under ``post_norms``) -> (x', k,
+    v) (:func:`attn_block`)."""
     h = rmsnorm(p_l["ln_attn_pre"], x, cfg.norm_eps)
-    a, k, v = attn_block(p_l["attn"], h, cfg, attention, ctx, start)
-    x = x + a
+    a, k, v = attn_block(p_l["attn"], h, cfg, attention, ctx, start, window)
+    x = x + _post_norm(p_l, "ln_attn_post", a, cfg)
     h = rmsnorm(p_l["ln_mlp_pre"], x, cfg.norm_eps)
-    return x + ffn(p_l["ffn"], h, cfg.mlp_variant), k, v
+    return x + _post_norm(p_l, "ln_mlp_post", ffn(p_l["ffn"], h, cfg.mlp_variant), cfg), k, v
 
 
 def _logits(params, x, cfg: TransformerConfig):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x @ params["embed"].T                    # tied embeddings
+    return softcap(x @ params["embed"].T, cfg.final_softcap)      # tied embeddings
 
 
 def _remat(fn, cfg: TransformerConfig):
@@ -169,10 +192,11 @@ def _remat(fn, cfg: TransformerConfig):
 def forward(params, tokens, cfg: TransformerConfig, attention=blocked_attention):
     """tokens [B, S] -> logits [B, S, V].  ``attention(q, k, v, scale=)`` is
     the flash kernel's path unless the caller gives another (a check at
-    full width runs the plain attention through it)."""
-    body = _remat(lambda x, p_l: layer_fn(p_l, x, cfg, attention)[0], cfg)
-    x = _embed(params, tokens)
-    for p_l in layer_list(params)[:cfg.n_layers]:
+    full width runs the plain attention through it; see :func:`attn_block`
+    for a window and a softcap)."""
+    x = _embed(params, tokens, cfg)
+    for p_l, w in zip(layer_list(params)[:cfg.n_layers], cfg.layer_windows):
+        body = _remat(lambda x, p_l, w=w: layer_fn(p_l, x, cfg, attention, window=w)[0], cfg)
         x = body(x, p_l)
     return _logits(params, x, cfg)
 
@@ -214,9 +238,9 @@ def prefill_step(params, tokens, cfg: TransformerConfig, capacity: int, ctx=None
     start, c0 = (ctx.shard * S_loc, ctx.shard * cap_loc) if n > 1 else (0, 0)
     cache = init_cache(cfg, B, cap_loc, tokens.device)
     filled = min(cap_loc, S - c0)           # this shard's cached prompt positions
-    x = _embed(params, tokens[:, start:start + S_loc])
-    for i, p_l in enumerate(layer_list(params)[:cfg.n_layers]):
-        x, k, v = layer_fn(p_l, x, cfg, blocked_attention, ctx, start)
+    x = _embed(params, tokens[:, start:start + S_loc], cfg)
+    for i, (p_l, w) in enumerate(zip(layer_list(params)[:cfg.n_layers], cfg.layer_windows)):
+        x, k, v = layer_fn(p_l, x, cfg, blocked_attention, ctx, start, w)
         if filled > 0:
             cache["k"][i, :, :filled] = k[:, c0:c0 + filled]
             cache["v"][i, :, :filled] = v[:, c0:c0 + filled]
@@ -226,20 +250,23 @@ def prefill_step(params, tokens, cfg: TransformerConfig, capacity: int, ctx=None
     return _logits(params, x, cfg)[:, 0], cache
 
 
-def _decode_layer(p_l, x, cache_l, cache_len: int, cfg: TransformerConfig, ctx):
+def _decode_layer(p_l, x, cache_l, cache_len: int, cfg: TransformerConfig, ctx,
+                  window: int = 0):
     """x [B, 1, d]; cache_l = (k, v) [B, capacity / n, Hkv, D] of this
     layer (this process's shard), written in place at ``cache_len`` by the
-    shard that holds it."""
+    shard that holds it; the layer's ``window`` (0: global)."""
     h = rmsnorm(p_l["ln_attn_pre"], x, cfg.norm_eps)
     positions = torch.full((x.shape[0], 1), cache_len, device=x.device)
     q, k, v = _qkv_gqa(p_l["attn"], h, cfg, positions)
     k_cache, v_cache = cache_l
     out = decode_attention_sharded(q[:, 0], k_cache, v_cache, k[:, 0].to(k_cache.dtype),
                                    v[:, 0].to(v_cache.dtype), cache_len, ctx,
-                                   scale=cfg.head_dim ** -0.5)
-    x = x + torch.einsum("bhk,hkd->bd", out, p_l["attn"]["wo"])[:, None]
+                                   scale=cfg.head_dim ** -0.5, window=window,
+                                   softcap=cfg.attn_softcap)
+    a = torch.einsum("bhk,hkd->bd", out, p_l["attn"]["wo"])[:, None]
+    x = x + _post_norm(p_l, "ln_attn_post", a, cfg)
     h = rmsnorm(p_l["ln_mlp_pre"], x, cfg.norm_eps)
-    return x + ffn(p_l["ffn"], h, cfg.mlp_variant)
+    return x + _post_norm(p_l, "ln_mlp_post", ffn(p_l["ffn"], h, cfg.mlp_variant), cfg)
 
 
 def decode_step(params, cache, tokens, cache_len: int, cfg: TransformerConfig, ctx=None):
@@ -251,7 +278,7 @@ def decode_step(params, cache, tokens, cache_len: int, cfg: TransformerConfig, c
     if not 0 <= cache_len < n * cache["k"].shape[2]:
         raise ValueError(f"cache_len {cache_len} outside the cache's capacity "
                          f"{n * cache['k'].shape[2]}")
-    x = _embed(params, tokens)
-    for i, p_l in enumerate(layer_list(params)[:cfg.n_layers]):
-        x = _decode_layer(p_l, x, (cache["k"][i], cache["v"][i]), cache_len, cfg, ctx)
+    x = _embed(params, tokens, cfg)
+    for i, (p_l, w) in enumerate(zip(layer_list(params)[:cfg.n_layers], cfg.layer_windows)):
+        x = _decode_layer(p_l, x, (cache["k"][i], cache["v"][i]), cache_len, cfg, ctx, w)
     return _logits(params, x, cfg), cache

@@ -24,7 +24,9 @@ takes one softmax: ``tests/test_kernels.py``'s ``TOL`` (fp32 rtol / atol
 2e-5, bf16 2e-2), and at a long sequence, whose late rows are smaller than
 that atol, each row's relative L2 error within 1e-2; at Sq != Skv with a
 query offset the same bands against ``attention_plain(q_offset=)``, and a
-context-parallel shard's rows bitwise the whole sequence's; Granite's smoke cells hold prefill + decode to the full
+context-parallel shard's rows bitwise the whole sequence's; at head dim 256
+(Gemma-2) the same bands at every shape kind, windows and softcaps
+included, with kernel 6b refusing that head dim; Granite's smoke cells hold prefill + decode to the full
 forward in fp32 at the reference's forward band, and Llama's model group of
 2 processes sharing the card its one-card run.  The dst-aligned
 edge-MLP kernel sums its aggregate in another order than the plain
@@ -970,7 +972,7 @@ def test_granite_smoke_cells_on_card(cuda):
             steps.append(logits[:, 0])
         assert build.launch_counts[fa.KERNEL] == n0 + cfg.n_layers
         full = lm.forward(params, tok, cfg,
-                          attention=lambda q, k, v, scale: fa.attention_plain(
+                          attention=lambda q, k, v, scale, **kw: fa.attention_plain(
                               q, k, v, scale=scale, causal=True))
     torch.testing.assert_close(torch.stack(steps, 1), full[:, 129:140], rtol=1e-4, atol=1e-5)
 
@@ -1060,6 +1062,128 @@ def test_llama_smoke_model_group_on_card(cuda):
                                            cache_dtype=torch.float32)
     job = lmx.Job(cases=(lmx.Case("m2", model=2),), cfg=lmx.cfg_dict(cfg), steps=4,
                   device="cuda", prompt_len=256)
+    procs = [p["m2"] for p in lmx.run_world(job, 2)]
+    one = lmx.run_case(job, lmx.Case("one"))
+    assert one["launches_prefill"] == {fa.KERNEL: cfg.n_layers} and not one["launches_decode"]
+    for rec in procs:
+        assert rec["launches_prefill"] == {fa.KERNEL: cfg.n_layers}
+        assert not rec["launches_decode"]
+        assert np.array_equal(rec["logits"], procs[0]["logits"])
+        torch.testing.assert_close(torch.from_numpy(rec["logits"]), one["logits"].cpu(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+FLASH_D256_CASES = [
+    # B, Sq, Skv, q_offset, Hq, Hkv, causal, window, softcap at head dim 256
+    # (Gemma-2-2B: 64-key tiles in bf16, 16-key tiles in fp32): S one below,
+    # at and one above the 64-key and the 128-row tiles; Gemma's 8:4 heads;
+    # a window whose edge crosses a key tile, alone and under softcap 50;
+    # the softcap on global rows; non-causal rows; context-parallel shards
+    # (Sq != Skv at a query offset, a window crossing the shard's first key
+    # tiles); the TPU kernel's q_offset 0 shapes with Sq < Skv and Sq > Skv
+    (1, 63, 63, 0, 2, 1, True, 0, None), (1, 64, 64, 0, 2, 2, True, 0, None),
+    (1, 65, 65, 0, 4, 2, True, 0, None), (1, 127, 127, 0, 8, 4, True, 0, None),
+    (1, 128, 128, 0, 3, 1, True, 0, None), (2, 129, 129, 0, 8, 4, True, 0, 50.0),
+    (1, 300, 300, 0, 8, 4, True, 100, None), (1, 300, 300, 0, 8, 4, True, 100, 50.0),
+    (1, 257, 257, 0, 2, 1, False, 0, 50.0), (1, 1, 1, 0, 2, 1, True, 0, None),
+    (1, 96, 384, 288, 8, 4, True, 0, 50.0), (1, 128, 512, 256, 8, 4, True, 100, 50.0),
+    (1, 100, 260, 160, 2, 2, False, 0, None), (1, 64, 200, 0, 2, 1, True, 0, None),
+    (1, 200, 64, 0, 2, 2, True, 0, 50.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_D256_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_kernel_at_d256_matches_plain(cuda, dtype, case):
+    """Kernel 6 at head dim 256: one launch, within TOL of the plain
+    version, each row within rel L2 1e-2 (bf16) / 1e-5 (fp32), its row LSE
+    within 2e-5, the output with its LSE bitwise the output, and a second
+    call bitwise the first."""
+    B, Sq, Skv, off, Hq, Hkv, causal, window, cap = case
+    gen = torch.Generator().manual_seed(Sq + 3 * Skv)
+    q = torch.randn(B, Sq, Hq, 256, generator=gen).to(dtype).to(cuda)
+    k, v = (torch.randn(B, Skv, Hkv, 256, generator=gen).to(dtype).to(cuda) for _ in range(2))
+    kw = dict(scale=256 ** -0.5, causal=causal, window=window, softcap=cap, q_offset=off)
+    n0 = build.launch_counts.get(fa.KERNEL, 0)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts[fa.KERNEL] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want, want_lse = fa.attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    rel = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)
+    assert float(rel.max()) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    out, lse = fa._launch(q, k, v, 256 ** -0.5, causal, window, cap, with_lse=True,
+                          q_offset=off)
+    assert torch.equal(out, got) and lse.shape == (B, Hq, Sq)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 4096], ids=["global", "local"])
+def test_flash_attention_kernel_at_d256_rows_at_long_sequence(cuda, window):
+    """Gemma's layer kinds at S=8,192 in bf16 (8 query heads over 4 KV heads
+    of dim 256, softcap 50; the local one with its 4,096-key window), where
+    late rows' outputs are far smaller than TOL's atol: each row within a
+    relative L2 error of 1e-2 of the plain version's."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(1, 8192, h, 256, generator=gen).to(torch.bfloat16).to(cuda)
+               for h in (8, 4, 4))
+    kw = dict(scale=256 ** -0.5, window=window, softcap=50.0)
+    got = fa.flash_attention(q, k, v, **kw).float()
+    want = fa.attention_plain(q, k, v, chunk=1024, **kw).float()
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_refuses_d256_on_card(cuda):
+    """Kernel 6b does not take head dim 256: a gradient through kernel 6 at
+    D = 256 raises before it launches, and so does a direct backward call,
+    each naming Gemma-2's training item; the forward still launches."""
+    q = torch.randn(1, 64, 2, 256, device=cuda)
+    kv = torch.randn(1, 64, 1, 256, device=cuda)
+    n0 = {k: build.launch_counts.get(k, 0) for k in (fa.KERNEL, fa.KERNEL_BWD)}
+    with pytest.raises(NotImplementedError, match="Gemma-2's training"):
+        fa.flash_attention(q.clone().requires_grad_(), kv, kv, scale=1.0)
+    with pytest.raises(NotImplementedError, match="Gemma-2's training"):
+        fa.flash_attention_bwd(q, kv, kv, q, torch.zeros(1, 2, 64, device=cuda), q, scale=1.0)
+    assert {k: build.launch_counts.get(k, 0) for k in n0} == n0
+    fa.flash_attention(q, kv, kv, scale=1.0)
+    assert build.launch_counts[fa.KERNEL] == n0[fa.KERNEL] + 1
+
+
+@pytest.mark.gpu
+def test_gemma_smoke_head_dim_256_on_card(cuda):
+    """Gemma's smoke config at head dim 256 (fp32): the prefill through the
+    kernel (one launch per layer, the local layer's window crossed by a
+    prompt of 130 tokens) and decode steps (none) agree with the full
+    forward through the plain attention at the reference's forward band;
+    the same served by a model group of 2 gloo processes sharing the card
+    agrees bitwise across the processes and with the one-card run in that
+    band."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.launch import lm_checks as lmx
+    cfg = gemma2_2b.smoke_config().with_(d_model=64, head_dim=256, d_ff=128, window=40,
+                                         param_dtype=torch.float32, cache_dtype=torch.float32)
+    params = lm.init_transformer(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    tok = torch.randint(0, cfg.vocab, (2, 140), device=cuda)
+    with torch.no_grad():
+        n0 = build.launch_counts.get(fa.KERNEL, 0)
+        last, cache = lm.prefill_step(params, tok[:, :130], cfg, capacity=140)
+        assert build.launch_counts[fa.KERNEL] == n0 + cfg.n_layers
+        steps = [last]
+        for i in range(130, 140):
+            logits, cache = lm.decode_step(params, cache, tok[:, i:i + 1], i, cfg)
+            steps.append(logits[:, 0])
+        assert build.launch_counts[fa.KERNEL] == n0 + cfg.n_layers
+        full = lm.forward(params, tok, cfg,
+                          attention=lambda q, k, v, scale, **kw: fa.attention_plain(
+                              q, k, v, scale=scale, causal=True, **kw))
+    torch.testing.assert_close(torch.stack(steps, 1), full[:, 129:140], rtol=RTOL, atol=ATOL)
+    job = lmx.Job(cases=(lmx.Case("m2", model=2),), cfg=lmx.cfg_dict(cfg),
+                  arch=gemma2_2b.ARCH_ID, steps=4, device="cuda", prompt_len=256)
     procs = [p["m2"] for p in lmx.run_world(job, 2)]
     one = lmx.run_case(job, lmx.Case("one"))
     assert one["launches_prefill"] == {fa.KERNEL: cfg.n_layers} and not one["launches_decode"]

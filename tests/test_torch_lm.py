@@ -156,7 +156,7 @@ def test_forward_takes_another_attention():
     tok = torch.randint(0, cfg.vocab, (1, 20), generator=torch.Generator().manual_seed(1))
     want = model.forward(params, tok, cfg)
     got = model.forward(params, tok, cfg,
-                        attention=lambda q, k, v, scale: attention_plain(
+                        attention=lambda q, k, v, scale, **kw: attention_plain(
                             q, k, v, scale=scale, causal=True, chunk=7))
     torch.testing.assert_close(got, want, **BANDS["fp32"])
 

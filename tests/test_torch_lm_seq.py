@@ -203,8 +203,9 @@ def test_attention_plain_matches_pallas_at_sq_ne_skv(case):
 def test_refusals():
     """What the port does not take raises: a gradient at Sq != Skv or with a
     query offset (context-parallel training), query rows that keep no key,
-    the ring layout, untied embeddings, and the heads layout over a model
-    group."""
+    the ring layout, untied embeddings, an MLP variant the reference does
+    not have, kernel 6b at head dim 256 (Gemma-2's training), and the heads
+    layout over a model group."""
     q, kv = torch.randn(1, 8, 4, 16, requires_grad=True), torch.randn(1, 24, 2, 16)
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         fa.flash_attention(q, kv, kv, scale=1.0)
@@ -223,7 +224,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="not ported"):
         llama3_2_3b.smoke_config().with_(tied_embeddings=False)
     with pytest.raises(ValueError, match="not ported"):
-        llama3_2_3b.smoke_config().with_(mlp_variant="geglu")
+        llama3_2_3b.smoke_config().with_(mlp_variant="relu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):   # kernel 6b at D = 256
+        fa._check_bwd_head_dim(256)
     with pytest.raises(ValueError, match="not ported"):
         make_train_step(llama3_2_3b.smoke_config(), AdamWConfig())
     cfg = llama3_2_3b.smoke_config().with_(attn_parallel="heads")

@@ -5,7 +5,9 @@ time, so that a change to the kernel can be shown to leave a shape's
 output bitwise as it was.  Cases: Granite-34B-code's prefill layer (B=1,
 S=32,768, 48:1 heads of 128, bf16, causal), one train_4k micro-batch's
 layer with its LSE (S=4,096), Llama-3.2-3B's prefill layer (24:8 heads),
-and the fp32 kernel at a windowed and a softcapped case.  Each tree runs in
+the fp32 kernel at a windowed and a softcapped case, and every other head
+dim (16, 32, 64 and 128) in both dtypes with windows, softcaps and the
+row LSE.  Each tree runs in
 a process of its own (it imports that tree's ``src``); the trees are run in
 the order given, so ``--trees A B B A`` interleaves them.  From the
 repository root:
@@ -30,6 +32,14 @@ CASES = {
     "llama_prefill": (1, 32768, 24, 8, 128, True, 0, None, "bfloat16", False),
     "fp32_window": (1, 300, 4, 1, 64, True, 130, None, "float32", True),
     "fp32_softcap": (1, 257, 6, 2, 128, False, 0, 30.0, "float32", False),
+    # every other head dim the kernels take beside 256, in both dtypes,
+    # windowed, softcapped and with the row LSE
+    "bf16_d16_window": (2, 1000, 4, 2, 16, True, 300, None, "bfloat16", True),
+    "bf16_d32_softcap": (1, 777, 6, 3, 32, True, 0, 50.0, "bfloat16", False),
+    "bf16_d64_window_softcap": (1, 1500, 8, 4, 64, True, 400, 30.0, "bfloat16", True),
+    "bf16_d128_window_softcap": (1, 2000, 8, 2, 128, True, 500, 50.0, "bfloat16", True),
+    "fp32_d16": (2, 300, 4, 4, 16, True, 0, None, "float32", True),
+    "fp32_d32_window": (1, 400, 4, 2, 32, True, 90, 50.0, "float32", True),
 }
 
 
