@@ -332,8 +332,12 @@ Phases (one line each, prefixed ``[n name]``):
                  beside FlexAttention (torch.compile of flex_attention
                  with the tanh score_mod and a causal or windowed block
                  mask) on both layers with the softcap, and SDPA's
-                 FlashAttention backend on the global one without it
-                 (phase_flash_gemma)
+                 FlashAttention backend on the global one without it,
+                 then a line with the softcapped layers' distance from
+                 plain (the kernel's softcap on the special-function
+                 unit against cap * tanh(s / cap)) and the D = 256
+                 kernel's ptxas registers, spills and wgmma
+                 serialization (phase_flash_gemma)
 The script reads each main path's launch counters on its own: zeroed just
 before the path and read right after it — one full-width call of
 fused_edge_mlp_agg (phase 2; exactly one launch), the R=4 packed-neighbor
@@ -746,6 +750,11 @@ def phase_device():
         kernels[key] = ("nmp_any", f"{key}_kernel")
     ptxas = {key: ptxas_summary(reports.get(src, ""), needle)
              for key, (src, needle) in kernels.items()}
+    # ptxas's warnings that it serialized a kernel's wgmma products (their
+    # overlap lost), in kernel 6's build
+    ptxas["flash_attention_serialized"] = "; ".join(sorted(
+        {ln.strip() for ln in reports.get("flash_attention", "").splitlines()
+         if "serialized" in ln})) or "none"
     say("1 device", f"ptxas at H=32 (NMP pair: fp32 and bf16; embedding bag: fp32, 16-byte loads; flash "
         f"attention and its backward's dK/dV and dQ kernels: bf16, D=128; "
         f"edge_mlp_agg: fp32 and bf16 feats, block_n <= 128; "
@@ -2128,7 +2137,7 @@ def phase_flash_gemma(ptxas):
             moved = nbytes(q, k, v, got)
             b_ms, b_by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
             times[(kind, cap)] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, lib_note=lib_note,
-                                      bound_ms=b_ms)
+                                      bound_ms=b_ms, err=err, lse_err=lse_err)
             say("2 kernels", f"flash_attention D=256 Gemma {kind} layer B={B} S={S} Hq={Hq} "
                 f"Hkv={Hkv} causal window={window} softcap={cap} bf16: max|err| vs plain "
                 f"{err:.3g} (rtol {rtol} atol {atol}), largest row rel L2 err {row_err:.3g} "
@@ -2157,6 +2166,15 @@ def phase_flash_gemma(ptxas):
             del got, want
         del q, k, v
     g0, l0 = times[("global", None)], times[("local", GEMMA_SOFTCAP)]
+    g1 = times[("global", GEMMA_SOFTCAP)]
+    say("2 kernels", f"flash_attention D=256 softcap on the special-function unit "
+        f"((e - 1) rcp(e + 1) cap, e = ex2(2 x log2 e)): max|diff| of the capped layers' "
+        f"output from plain's cap * tanh(s / cap) {g1['err']:.3g} global, {l0['err']:.3g} "
+        f"local (unsoftcapped {g0['err']:.3g} / {times[('local', None)]['err']:.3g}); LSE "
+        f"max|diff| {g1['lse_err']:.3g} / {l0['lse_err']:.3g} (limit "
+        f"{LSE_TOL['bfloat16']}) | ptxas flash_fwd_bf16_kernel<256>: "
+        f"{ptxas['flash_attention_d256']}; wgmma serialized: "
+        f"{ptxas['flash_attention_serialized']}")
     record.update(ms_no_softcap=g0["ms"], library_ms_no_softcap=g0["lib_ms"],
                   local_ms=l0["ms"], local_bound_ms=l0["bound_ms"], local_plain_ms=l0["plain_ms"],
                   local_library_ms=l0["lib_ms"], local_library=l0["lib_note"],

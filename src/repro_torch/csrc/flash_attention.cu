@@ -71,15 +71,26 @@
 //   A single-stage ring at 128 keys (192 KB) would leave the consumers
 //   waiting on every tile's load; so the K/V tiles hold 64 keys and the
 //   ring keeps its two stages: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB,
-//   197,672 B requested.  Q stays 128 rows (two consumer warpgroups of
-//   64), so each K/V byte still serves 128 query rows.  A row is four
-//   TMA boxes of 64 columns; the QK^T product walks them in sixteen k16
-//   slices.  Registers of a consumer thread: O of m64n256 is 128 fp32, S
+//   197,704 B requested (with the V ring's barriers).  Q stays 128 rows
+//   (two consumer warpgroups of 64), so each K/V byte still serves 128
+//   query rows.  A row is four TMA boxes of 64 columns; the QK^T product
+//   walks them in sixteen k16 slices.  Registers of a consumer thread: O of m64n256 is 128 fp32, S
 //   of m64n64 32, P of the tile in flight 16 (four k16 slices of bf16
 //   pairs), beside the row statistics, within setmaxnreg's 232.  The PV
 //   product is wgmma m64n256k16, four of them a tile.  Every other
 //   dimension keeps its 128-key tiles, so its output is bitwise what it
 //   was before D = 256 came in.
+//   At 64 keys a tile the softmax's share of the work doubles against the
+//   products', and Gemma-2 caps every score (cap 50 or 30), so D = 256 has
+//   a schedule of its own (consume_pingpong, FlashAttention-3's
+//   inter-warpgroup one): K and V on two rings, each warpgroup issuing
+//   QK^T of tile i with PV of tile i - 1, and the two warpgroups taking
+//   turns at the tensor cores by named barriers, so that one's softmax
+//   runs under the other's products.  The softcap runs on the
+//   special-function unit (cap_score_ex2: ex2.approx and rcp.approx, about
+//   10 instructions a score where IEEE division and libm's tanhf took some
+//   45 on the FMA pipe).  The order of every row's sums is the other
+//   loop's, so without the softcap the output is bitwise what it was.
 // - No split over keys and no atomics: every output row has one writer and
 //   every sum a fixed order, so two launches are bitwise equal.  One launch
 //   per call.
@@ -183,6 +194,27 @@ __device__ __forceinline__ float cap_score(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The softcap of the bf16 kernel at D = 256 (Gemma-2's layers), on the
+// special-function unit: cap tanh(scale s / cap) log2(e) of the raw score
+// s, with tanh(x) = (e - 1) / (e + 1), e = 2^(2 x log2(e)) by ex2.approx and
+// the division by rcp.approx.  kin = 2 log2(e) scale / cap folds the scale
+// and the base change into one multiply, kout = cap log2(e) leaves the
+// capped score in the base-2 units of the softmax.  e - 1 is exact for e
+// near 1, so a small x keeps its relative precision; y is clamped at 64,
+// where tanh is 1 in fp32, so that e stays finite (inf * 0 otherwise).
+// Largest error of the capped score against float64:
+// tools/softcap_forms.py; its plain mirror: ref.py::softcap_ex2.
+__device__ __forceinline__ float cap_score_ex2(float s, float kin, float kout) {
+  const float e = ex2(fminf(s * kin, 64.f));
+  return (e - 1.f) * rcp_approx(e + 1.f) * kout;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: TMA, mbarriers, warp specialisation, wgmma
 // ---------------------------------------------------------------------------
@@ -198,11 +230,228 @@ template <int D>
 constexpr int kKeyTile = D == 256 ? 64 : 128;
 
 // Q, the K ring, the V ring (each tile 1024-byte aligned, as the 128-byte
-// swizzle needs), then the mbarriers; 1 KB of slack aligns the base.
+// swizzle needs), then the mbarriers (Q's, then a full / empty pair per
+// stage, and at D = 256 a second pair, the V ring's); 1 KB of slack aligns
+// the base.
 template <int D>
 constexpr int smem_bytes_bf16() {
   return Tile<D, kBM>::kBytes + 2 * kStages * Tile<D, kKeyTile<D>>::kBytes +
-         8 * (1 + 2 * kStages) + 1024;
+         8 * (1 + (D == 256 ? 4 : 2) * kStages) + 1024;
+}
+
+// The output rows row0 and row0 + 8 of a consumer thread (four threads a
+// row, each with its partial sums l0, l1 and the rows' base-2 maxima m0, m1)
+// and, with p.lse, their log-sum-exps.  The LSE's multiply and add are
+// explicitly unfused: where the compiler would fuse them depends on the
+// code around the inlined call, and the LSE must stay bitwise across the
+// schedules (tools/flash_fwd_hash.py).
+template <int D>
+__device__ __forceinline__ void write_rows(const Params& p, const float (&o)[D / 2], float l0,
+                                           float l1, float m0, float m1, int b, int h, int row0,
+                                           int tq4) {
+  const int row1 = row0 + 8;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+  const int64_t o_ss = (int64_t)p.Hq * D;
+  bf16* O0 = static_cast<bf16*>(p.o) + ((int64_t)b * p.Sq + row0) * o_ss + (int64_t)h * D + 2 * tq4;
+  bf16* O1 = O0 + 8 * o_ss;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (row0 < p.Sq)
+      *reinterpret_cast<uint32_t*>(O0 + j * 8) = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (row1 < p.Sq)
+      *reinterpret_cast<uint32_t*>(O1 + j * 8) = pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+  if (p.lse != nullptr && tq4 == 0) {
+    float* lse = p.lse + ((int64_t)b * p.Hq + h) * p.Sq;
+    if (row0 < p.Sq) lse[row0] = __fadd_rn(__fmul_rn(m0, kLn2), logf(d0));
+    if (row1 < p.Sq) lse[row1] = __fadd_rn(__fmul_rn(m1, kLn2), logf(d1));
+  }
+}
+
+// Named barriers of the D = 256 consumers' turns at the tensor cores:
+// warpgroup w issues its products after a sync on kTurn + w.
+constexpr int kTurn = 1;
+constexpr int kConsumerThreads = 256;
+
+// The D = 256 consumers (64 query rows a warpgroup; 64-key tiles).  Tile
+// i's products, S_i = Q K_i^T and O += P_{i-1} V_{i-1}, are issued in one
+// turn; the warpgroup waits for both, then runs the mask, the softcap and
+// the softmax of tile i, rescales O and rounds P_i to bf16 for the next
+// turn.  The two warpgroups take turns (named barriers), so that one's
+// softmax runs under the other's products.  K and V have rings of their
+// own: tile i's turn frees K_i's stage and V_{i-1}'s, into which the
+// producer loads K_{i+2} and V_{i+1}, a whole tile before their turn.  Every
+// row's sums are taken in the same order as the other head dims' loop, so
+// without the softcap the output is bitwise the single-ring schedule's.
+// (Waiting for S_i alone and running the softmax while PV_{i-1} finishes
+// was 2% slower on an H100 at Gemma's softcapped global layer: PERF.md.)
+template <int D>
+__device__ __forceinline__ void consume_pingpong(const Params& p, uint32_t sQ, uint32_t sK,
+                                                 uint32_t sV, uint32_t q_full, uint32_t full_k,
+                                                 uint32_t empty_k, uint32_t full_v,
+                                                 uint32_t empty_v, int q0, int t_begin,
+                                                 int t_end, int wg, int h, int b) {
+  constexpr int kBN = kKeyTile<D>;
+  using TQ = Tile<D, kBM>;
+  using T = Tile<D, kBN>;
+  constexpr int RB = T::kRowBytes;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq4 = lane % 4;
+  const int qa = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = qa + 16 * warp + g, row1 = row0 + 8;
+  const bool softcap = p.softcap > 0.f;
+  const float sl = p.scale * kLog2e;
+  const float kin = 2.f * kLog2e * p.scale / p.softcap, kout = p.softcap * kLog2e;
+  const uint32_t qrows = sQ + 64 * wg * RB;
+  const int n = t_end - t_begin;
+
+  float o[D / 2], sc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // m in base 2; l: this thread's partial sums
+  uint32_t pa[kBN / 16][4] = {};  // P of the tile whose PV product is queued next
+  // tile t's scores in sc -> its P in fp32 (in sc), after the scale, the
+  // softcap and the mask; m and l move on, c0 / c1 rescale O
+  auto softmax = [&](int t, float& c0, float& c1) {
+    const int k0 = t * kBN;
+    const int qa_pos = p.q_off + qa;
+    const bool inside = k0 + kBN <= p.Skv && (!p.causal || k0 + kBN - 1 <= qa_pos) &&
+                        (p.window <= 0 || qa_pos + 63 - k0 < p.window);
+    if (softcap) {
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) sc[e] = cap_score_ex2(sc[e], kin, kout);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) sc[e] *= sl;
+    }
+    if (!inside) {
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e)
+        if (!key_ok(p, p.q_off + ((e & 2) ? row1 : row0), k0 + 8 * (e / 4) + 2 * tq4 + (e & 1)))
+          sc[e] = kNeg;
+    }
+    float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    c0 = ex2(m0 - mn0);
+    c1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      float* e = sc + 8 * kk;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) e[x] = ex2(e[x] - ((x & 2) ? mn1 : mn0));
+      ps0 += (e[0] + e[1]) + (e[4] + e[5]);
+      ps1 += (e[2] + e[3]) + (e[6] + e[7]);
+    }
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+  };
+  // O rescaled, P rounded to bf16 as the A fragments of the next PV (k16
+  // slice kk is accumulator chunks 2 kk and 2 kk + 1)
+  auto rescale_pack = [&](float c0, float c1) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= c0;
+      o[4 * j + 1] *= c0;
+      o[4 * j + 2] *= c1;
+      o[4 * j + 3] *= c1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
+  // S = Q K^T of the tile in K stage s over D in k16 steps: box (16 kk) / C,
+  // byte column 32 kk within it
+  auto issue_qk = [&](int s) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_qk(sc, make_desc(qrows + TQ::k_slice(kk), 16, 8 * RB, T::kDescLayout),
+               make_desc(sK + s * T::kBytes + T::k_slice(kk), 16, 8 * RB, T::kDescLayout),
+               kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of the tile in V stage s: V [keys, D] MN-major, as the other loop's
+  auto issue_pv = [&](int s) {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) wgmma_pv(o, pa[kk], T::mn_desc(sV + s * T::kBytes, kk));
+    wgmma_commit();
+  };
+
+  mbar_wait(q_full, 0);
+  // tile 0 (peeled: no PV before it, and a wgmma under a branch would be
+  // serialized by ptxas)
+  mbar_wait(full_k, 0);
+  __syncwarp();  // wgmma is .aligned: the warp converges after the spin
+  if (wg == 1) named_bar_arrive(kTurn, kConsumerThreads);  // warpgroup 0 goes first
+  named_bar_sync(kTurn + wg, kConsumerThreads);
+  fence_regs(sc);
+  wgmma_fence();
+  issue_qk(0);
+  if (wg == 0 || n > 1) named_bar_arrive(kTurn + 1 - wg, kConsumerThreads);
+  wgmma_wait_all();
+  fence_regs(sc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty_k);
+  float c0, c1;
+  softmax(t_begin, c0, c1);
+  rescale_pack(c0, c1);
+  for (int t = t_begin + 1, i = 1; t < t_end; ++t, ++i) {
+    const int s = i % kStages, sp = (i - 1) % kStages;  // tile i's stage, tile i - 1's
+    mbar_wait(full_k + 8 * s, (i / kStages) & 1);
+    mbar_wait(full_v + 8 * sp, ((i - 1) / kStages) & 1);
+    __syncwarp();
+    named_bar_sync(kTurn + wg, kConsumerThreads);
+    fence_regs(sc);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_qk(s);
+    issue_pv(sp);
+    // the other warpgroup's turn (its last sync is warpgroup 1's last turn)
+    if (wg == 0 || i + 1 < n) named_bar_arrive(kTurn + 1 - wg, kConsumerThreads);
+    wgmma_wait_all();  // S of tile i and PV of tile i - 1
+    fence_regs(sc);
+    fence_regs(o);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(empty_k + 8 * s);
+      mbar_arrive(empty_v + 8 * sp);
+    }
+    softmax(t, c0, c1);
+    rescale_pack(c0, c1);
+  }
+  // O += P V of the last tile (no turn: nothing is left to stagger)
+  mbar_wait(full_v + 8 * ((n - 1) % kStages), ((n - 1) / kStages) & 1);
+  __syncwarp();
+  fence_regs(o);
+  fence_regs(pa);
+  wgmma_fence();
+  issue_pv((n - 1) % kStages);
+  wgmma_wait_all();
+  fence_regs(o);
+  write_rows<D>(p, o, l0, l1, m0, m1, b, h, row0, tq4);
 }
 
 template <int D>
@@ -221,6 +470,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t q_full = sV + kStages * T::kBytes;
   const uint32_t full = q_full + 8;              // full[s] at full + 8 s
   const uint32_t empty = full + 8 * kStages;     // empty[s] at empty + 8 s
+  // D = 256: full / empty hand the K ring's stages over, full_v / empty_v
+  // the V ring's (consume_pingpong)
+  const uint32_t full_v = empty + 8 * kStages, empty_v = full_v + 8 * kStages;
 
   const int h = blockIdx.x, b = blockIdx.z;
   const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kBM;
@@ -233,6 +485,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumers * 4);  // one arrival per consumer warp
+      if constexpr (D == 256) {
+        mbar_init(full_v + 8 * s, 1);
+        mbar_init(empty_v + 8 * s, kConsumers * 4);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -250,13 +506,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = i % kStages;
         const uint32_t f = full + 8 * s;
         mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(f, 2 * T::kBytes);
-        for (int c = 0; c < T::kBoxes; ++c) {
-          tma_load(sK + s * T::kBytes + c * T::kBoxBytes, &tk, f, c * T::C, t * kBN, hk, b);
-          tma_load(sV + s * T::kBytes + c * T::kBoxBytes, &tv, f, c * T::C, t * kBN, hk, b);
+        if constexpr (D == 256) {  // K and V each on its own ring
+          const uint32_t fv = full_v + 8 * s;
+          mbar_expect_tx(f, T::kBytes);
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load(sK + s * T::kBytes + c * T::kBoxBytes, &tk, f, c * T::C, t * kBN, hk, b);
+          mbar_wait(empty_v + 8 * s, ((i / kStages) & 1) ^ 1);
+          mbar_expect_tx(fv, T::kBytes);
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load(sV + s * T::kBytes + c * T::kBoxBytes, &tv, fv, c * T::C, t * kBN, hk, b);
+        } else {
+          mbar_expect_tx(f, 2 * T::kBytes);
+          for (int c = 0; c < T::kBoxes; ++c) {
+            tma_load(sK + s * T::kBytes + c * T::kBoxBytes, &tk, f, c * T::C, t * kBN, hk, b);
+            tma_load(sV + s * T::kBytes + c * T::kBoxBytes, &tv, f, c * T::C, t * kBN, hk, b);
+          }
         }
       }
     }
+  } else if constexpr (D == 256) {
+    setmaxnreg_inc<232>();
+    consume_pingpong<D>(p, sQ, sK, sV, q_full, full, empty, full_v, empty_v, q0, t_begin, t_end,
+                        wg, h, b);
   } else {
     // ---- consumers: 64 query rows per warpgroup ----
     setmaxnreg_inc<232>();
@@ -376,26 +647,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * ((t_end - t_begin - 1) % kStages));
 
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
-    const int64_t o_ss = (int64_t)p.Hq * D;
-    bf16* O0 = static_cast<bf16*>(p.o) + ((int64_t)b * p.Sq + row0) * o_ss + (int64_t)h * D + 2 * tq4;
-    bf16* O1 = O0 + 8 * o_ss;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      if (row0 < p.Sq)
-        *reinterpret_cast<uint32_t*>(O0 + j * 8) = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
-      if (row1 < p.Sq)
-        *reinterpret_cast<uint32_t*>(O1 + j * 8) = pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
-    }
-    if (p.lse != nullptr && tq4 == 0) {
-      float* lse = p.lse + ((int64_t)b * p.Hq + h) * p.Sq;
-      if (row0 < p.Sq) lse[row0] = m0 * kLn2 + logf(d0);
-      if (row1 < p.Sq) lse[row1] = m1 * kLn2 + logf(d1);
-    }
+    write_rows<D>(p, o, l0, l1, m0, m1, b, h, row0, tq4);
   }
 }
 

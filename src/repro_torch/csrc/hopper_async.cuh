@@ -2,7 +2,7 @@
 // feed warpgroup products from a ring of shared-memory stages
 // (csrc/flash_attention.cu, csrc/nmp_any.cu): mbarriers, TMA and bulk
 // copies, cp.async with zero fill counted on an mbarrier, setmaxnreg, the
-// wgmma fences and its shared-memory matrix descriptor.
+// wgmma fences, named barriers and wgmma's shared-memory matrix descriptor.
 #pragma once
 
 #include <cstdint>
@@ -102,6 +102,16 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
+// Named barriers (ids 1..15; 0 is __syncthreads): `sync` arrives and waits
+// until `threads` threads have arrived, `arrive` only arrives.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Keep the compiler from moving reads or writes of wgmma's registers across
 // the asynchronous product.
 template <int N>

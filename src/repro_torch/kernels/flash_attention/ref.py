@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the flash-attention kernels: the forward (the
 counterpart of ``repro.kernels.flash_attention.ref.attention_ref``) and its
-gradient (kernel 6b's, which has no TPU twin)."""
+gradient (kernel 6b's, which has no TPU twin); and the mirror of the bf16
+kernel's softcap at head dim 256, for the tests."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG = -1e30
+LOG2E = 1.4426950408889634
 
 
 def _mask(r0, n, Skv, causal, window, device, q_offset=0):
@@ -28,6 +31,22 @@ def _heads(x, r0, n, Hkv, dtype=torch.float32):
     G = Hq // Hkv
     xc = x[:, r0:r0 + n].to(dtype).reshape(B, n, Hkv, G, D).permute(0, 2, 3, 1, 4)
     return xc.reshape(B, Hkv, G * n, D)
+
+
+def softcap_ex2(s, cap: float, scale: float = 1.0):
+    """``cap * tanh(scale * s / cap)`` of raw fp32 scores ``s`` in the steps
+    of the bf16 kernel's softcap at head dim 256
+    (``csrc/flash_attention.cu::cap_score_ex2``), used by the tests:
+    ``kin = 2 log2(e) scale / cap`` once in fp32, ``e = 2^min(s kin, 64)``,
+    then ``(e - 1) * (1 / (e + 1)) * cap``.  The kernel takes the power and
+    the reciprocal by ``ex2.approx`` and ``rcp.approx`` (within 2 and 1 ulp)
+    and multiplies by ``cap log2(e)`` in place of ``cap`` (its softmax is in
+    base 2), so this is its arithmetic with correctly rounded steps, not
+    its bits."""
+    f32 = np.float32
+    kin = f32(f32(f32(2.0) * f32(LOG2E)) * f32(scale)) / f32(cap)
+    e = torch.exp2(torch.clamp(s.float() * float(kin), max=64.0))
+    return (e - 1) * (1 / (e + 1)) * float(f32(cap))
 
 
 def attention_plain(q, k, v, *, scale: float, causal: bool = True, window: int = 0,

@@ -80,12 +80,19 @@ def attention_seq_parallel(q, k, v, ctx, *, scale: float, window: int = 0,
 def _bmm_f32(a, b):
     """``a @ b`` for 3-d operands with an fp32 result accumulated in fp32.
     On the card bf16 operands go to cuBLAS as they are (``out_dtype``), so
-    the cache is never copied to fp32; aten has ``out_dtype`` only on CUDA,
-    so elsewhere the operands are upcast (a bf16 product is exact in fp32:
-    the same result up to the order of the sums)."""
-    if a.is_cuda and a.dtype == b.dtype != torch.float32:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+    the cache is never copied to fp32.  On the CPU the operands are upcast
+    (a bf16 product is exact in fp32: the same result up to the order of
+    the sums) and multiplied elementwise, then summed over the contraction,
+    without the CPU BLAS: on an H100 host's Xeon (MKL 2024.2 under torch
+    2.11) its batched product returned some batch items about 5e-5 off in
+    a few percent of fresh processes, on a process's first products, in
+    fp32 and float64 alike (``tools/decode_fp32_check.py --first``), and
+    this plain decode is what the card's is held to."""
+    if a.is_cuda:
+        if a.dtype == b.dtype != torch.float32:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+    return (a.float()[:, :, None, :] * b.float().transpose(1, 2)[:, None]).sum(-1)
 
 
 def _local_decode_scores(q, kc, vc, start: int, cache_len: int, *, scale: float,

@@ -919,6 +919,78 @@ def test_decode_attention_on_card_matches_cpu(cuda, dtype, heads):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(8, 2), (48, 1)], ids=["gqa", "mqa"])
+def test_decode_attention_fp32_on_card_repeats(cuda, heads):
+    """The fp32 decode of ``test_decode_attention_on_card_matches_cpu``
+    repeated on the card, the cache copied to the card afresh each time:
+    every result within that test's band (1e-5) of the CPU's and bitwise
+    the first.  A failure names the rows and each side's distance from a
+    float64 decode, so that it shows which side moved."""
+    (Hq, Hkv), B, cap, n = heads, 3, 320, 300
+    gen = torch.Generator().manual_seed(Hq)
+    q = torch.randn(B, Hq, 128, generator=gen)
+    kc, vc = (torch.randn(B, cap, Hkv, 128, generator=gen) for _ in range(2))
+    kn, vn = (torch.randn(B, Hkv, 128, generator=gen) for _ in range(2))
+    want = lm_attention.decode_attention(q, kc.clone(), vc.clone(), kn, vn, n,
+                                         scale=128 ** -0.5)
+    k64, v64 = kc.double(), vc.double()
+    k64[:, n], v64[:, n] = kn.double(), vn.double()
+    s64 = torch.einsum("bhgd,bjhd->bhgj", q.double().reshape(B, Hkv, -1, 128),
+                       k64[:, :n + 1]) * 128 ** -0.5
+    exact = torch.einsum("bhgj,bjhd->bhgd", torch.softmax(s64, -1),
+                         v64[:, :n + 1]).reshape(B, Hq, 128)
+
+    def rel(a, b):
+        return (a.double() - b).norm(dim=-1) / b.norm(dim=-1)
+    first = None
+    for i in range(64):
+        got = lm_attention.decode_attention(q.to(cuda), kc.to(cuda), vc.to(cuda), kn.to(cuda),
+                                            vn.to(cuda), n, scale=128 ** -0.5).cpu()
+        bad = torch.nonzero(rel(got, want.double()) > 1e-5).tolist()
+        assert not bad, (f"repeat {i}: rows (b, head) {bad}: card vs CPU "
+                         f"{rel(got, want.double()).max():.3g}; from float64 the card "
+                         f"{rel(got, exact).max():.3g}, the CPU {rel(want, exact).max():.3g}")
+        first = got if first is None else first
+        assert torch.equal(got, first), f"repeat {i} differs from the first"
+
+
+_FIRST_DECODE = """
+import sys, torch
+from repro_torch.models.transformer import attention as lm_attention
+gen = torch.Generator().manual_seed(8)
+q = torch.randn(3, 8, 128, generator=gen)
+kc, vc = (torch.randn(3, 320, 2, 128, generator=gen) for _ in range(2))
+kn, vn = (torch.randn(3, 2, 128, generator=gen) for _ in range(2))
+out = lm_attention.decode_attention(q, kc.clone(), vc.clone(), kn, vn, 300, scale=128 ** -0.5)
+k, v = kc.double(), vc.double()
+k[:, 300], v[:, 300] = kn.double(), vn.double()
+s = torch.einsum("bhgd,bjhd->bhgj", q.double().reshape(3, 2, 4, 128), k[:, :301]) * 128 ** -0.5
+exact = torch.einsum("bhgj,bjhd->bhgd", torch.softmax(s, -1), v[:, :301]).reshape(3, 8, 128)
+print(float(((out.double() - exact).norm(dim=-1) / exact.norm(dim=-1)).max()))
+"""
+
+
+@pytest.mark.gpu
+def test_decode_attention_first_cpu_products_of_a_process(cuda):
+    """The CPU side of ``test_decode_attention_on_card_matches_cpu[gqa-fp32]``
+    as the first products of fresh processes (as that test, run first,
+    takes them): each within the test's band (1e-5) of a float64 decode.
+    On an H100 host's Xeon the CPU BLAS's batched product, which the
+    decode's CPU products went through before, moved batch items by about
+    5e-5 in a few percent of fresh processes
+    (``tools/decode_fp32_check.py --first`` / ``--cpu-first``); 48
+    processes catch a 3% rate in about 3 runs of 4."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}
+    errs = []
+    for _ in range(48):
+        res = subprocess.run([sys.executable, "-c", _FIRST_DECODE], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, res.stderr[-2000:]
+        errs.append(float(res.stdout.strip().splitlines()[-1]))
+    assert max(errs) <= 1e-5, f"first products' rel L2 from float64 by process: {errs}"
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_flash_attention_kernel_reads_strided_views(cuda, dtype, d):
